@@ -1,0 +1,210 @@
+"""Per-region state of the port's engine, and NumPy copies of the host
+helpers whose JAX-package modules import jax.
+
+RegionContext is the single-device counterpart of
+quilt_tpu/engine/sample.py:RegionContext (:40-216); detect_boundaries is
+quilt_tpu/oracle/block_gibbs.py:36, sample_allele_count
+quilt_tpu/engine/sample.py:716, and the validators
+quilt_tpu/engine/validators.py:15,79.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from quilt_tpu.config import ImputeConfig
+from quilt_tpu.io.reads import SampleReads, bq_to_probs
+from quilt_tpu.panel.prepare import PreparedReference, make_smoothed_rate
+from quilt_tpu.utils import print_message
+from quilt_tpu.utils.log import SectionTimers
+
+from ..inputs import FBInputs, region_tensors
+from ..kernels.emissions import expand_panel
+
+
+@dataclass
+class RegionContext:
+    """Per-region constants and device tensors shared across sample
+    batches (diploid, one device)."""
+
+    prep: PreparedReference
+    device: torch.device
+    trans: np.ndarray              # [2, nGrids-1] (stay, jump) per gap
+    fb_inputs: FBInputs
+    thinned_grids: np.ndarray
+    Ksub: int
+    Knew: int
+    n_seek_its: int
+    n_burn_in_seek_its: int
+    tensors: Dict                  # inputs.region_tensors: rhb_t, words, ...
+    smooth_w: Optional[tuple]      # on-the-fly boundary band (band, idx0) tensors
+    block_quantile: float
+    block_nb_cap: int
+    timers: SectionTimers
+    n_latent: int = 2
+    _e_full: Optional[torch.Tensor] = None
+
+    def rhb_dev(self) -> torch.Tensor:
+        """Packed panel [K, nGrids] i32 on the device."""
+        return self.tensors["rhb_t"]
+
+    def e_full_dev(self) -> torch.Tensor:
+        """{0,1} float32 expansion of the whole panel [K, nGrids*32],
+        built on first use (operand of the per-batch eMatRead products)."""
+        if self._e_full is None:
+            self._e_full = expand_panel(self.rhb_dev())
+        return self._e_full
+
+    @classmethod
+    def build(cls, prep: PreparedReference, cfg: ImputeConfig, device) -> "RegionContext":
+        K = prep.K
+        Ksub = min(cfg.Ksubset, K)
+        Knew = min(cfg.Knew, Ksub)
+        n_seek = cfg.n_seek_its
+        n_burn = cfg.resolved_n_burn_in_seek_its()
+        if cfg.override_default_params_for_small_ref_panel and K <= cfg.Ksubset:
+            # small-panel override (reference: quilt.R:451-465)
+            n_seek, n_burn, Ksub, Knew = 1, 0, K, K
+        t = region_tensors(prep, cfg, device)
+        smooth = make_smoothed_rate(prep.sigma, prep.L_grid, cfg.shuffle_bin_radius)
+        if t["smooth_w"] is None and prep.nGrids > 4 and len(detect_boundaries(smooth, 0.9)):
+            raise NotImplementedError(
+                "block Gibbs at static map boundaries (block_gibbs_boundary_"
+                "detection='map' or max_block_gibbs_boundaries=0) is not "
+                "ported; the port runs the on-the-fly 'gamma' detection"
+            )
+        nb_cap = cfg.max_block_gibbs_boundaries
+        if t["smooth_w"] is not None and len(smooth) > 1:
+            # the reference's detector is uncapped; raise the slot count to
+            # the static map's run estimate (2 boundaries per run)
+            above = smooth >= np.quantile(smooth, cfg.block_gibbs_quantile_prob)
+            n_runs = int((above & ~np.concatenate([[False], above[:-1]])).sum())
+            raised = max(nb_cap, min(2 * n_runs, 128))
+            if raised > nb_cap:
+                print_message(
+                    f"Raising max_block_gibbs_boundaries {nb_cap} -> {raised} "
+                    f"(static map suggests ~{2 * n_runs} above-quantile boundaries)"
+                )
+                nb_cap = raised
+        smooth_w = None
+        if t["smooth_band"] is not None:
+            smooth_w = (t["smooth_band"], t["smooth_idx0"])
+        return cls(
+            prep=prep, device=torch.device(device), trans=t["trans"],
+            fb_inputs=t["fb"], thinned_grids=t["thinned_grids"], Ksub=Ksub,
+            Knew=Knew, n_seek_its=n_seek, n_burn_in_seek_its=n_burn, tensors=t,
+            smooth_w=smooth_w, block_quantile=cfg.block_gibbs_quantile_prob,
+            block_nb_cap=nb_cap,
+            timers=SectionTimers(cfg.print_extra_timing_information),
+        )
+
+
+class _FieldRecorder:
+    """Stands in for a config while RegionContext.build runs and records
+    every field it reads, including the fields its methods read."""
+
+    def __init__(self, cfg):
+        self._cfg = cfg
+        self.read = set()
+
+    def __getattr__(self, name):
+        attr = getattr(type(self._cfg), name, None)
+        if callable(attr):
+            return functools.partial(attr, self)
+        self.read.add(name)
+        return getattr(self._cfg, name)
+
+
+def context_fields(prep: PreparedReference, cfg: ImputeConfig, device):
+    """(context, names of the config fields its build read)."""
+    rec = _FieldRecorder(cfg)
+    ctx = RegionContext.build(prep, rec, device)
+    return ctx, frozenset(rec.read)
+
+
+def detect_boundaries(smooth_rate: np.ndarray, quantile_prob: float = 0.9,
+                      max_boundaries: int = 64) -> np.ndarray:
+    """Static map boundaries: grids whose incoming smoothed recombination
+    rate is above the quantile (suffix starts, b >= 1), the top
+    max_boundaries by rate."""
+    if len(smooth_rate) == 0:
+        return np.zeros(0, dtype=np.int64)
+    thresh = np.quantile(smooth_rate, quantile_prob)
+    b = np.flatnonzero(smooth_rate >= thresh) + 1
+    if len(b) > max_boundaries:
+        order = np.argsort(-smooth_rate[b - 1], kind="stable")[:max_boundaries]
+        b = np.sort(b[order])
+    return b.astype(np.int64)
+
+
+def sample_allele_count(reads: SampleReads, nSNPs: int) -> np.ndarray:
+    """Per-site expected (alt, total) allele counts from the pileup
+    (reference: increment2N use at functions.R:1383-1401)."""
+    probs = bq_to_probs(reads.bq)
+    alt = np.zeros(nSNPs)
+    ref = np.zeros(nSNPs)
+    np.add.at(alt, reads.u, probs[:, 1])
+    np.add.at(ref, reads.u, probs[:, 0])
+    return np.stack([alt, ref + alt], axis=1)
+
+
+class QuiltValidationError(ValueError):
+    pass
+
+
+def validate_impute_config(cfg: ImputeConfig) -> None:
+    """Parameter checks of validators.R:1-115 that apply to this path."""
+    if cfg.regionStart is not None or cfg.regionEnd is not None:
+        if cfg.regionStart is None or cfg.regionEnd is None:
+            raise QuiltValidationError("regionStart and regionEnd must be given together")
+        if cfg.regionStart >= cfg.regionEnd:
+            raise QuiltValidationError(
+                f"regionStart ({cfg.regionStart}) must be < regionEnd ({cfg.regionEnd})")
+        if cfg.buffer < 0:
+            raise QuiltValidationError("buffer must be >= 0")
+    if cfg.nGibbsSamples < 1:
+        raise QuiltValidationError("nGibbsSamples must be >= 1")
+    if cfg.n_seek_its < 1:
+        raise QuiltValidationError("n_seek_its must be >= 1")
+    n_burn = cfg.resolved_n_burn_in_seek_its()
+    if n_burn >= cfg.n_seek_its:
+        raise QuiltValidationError(
+            f"n_burn_in_seek_its ({n_burn}) must be < n_seek_its ({cfg.n_seek_its})")
+    for bit in cfg.small_ref_panel_block_gibbs_iterations:
+        if bit < 1:
+            raise QuiltValidationError(f"block gibbs iterations must be >= 1 (got {bit})")
+    if cfg.Knew > cfg.Ksubset:
+        raise QuiltValidationError(f"Knew ({cfg.Knew}) must be <= Ksubset ({cfg.Ksubset})")
+    if cfg.method not in ("diploid", "nipt"):
+        raise QuiltValidationError(f"unknown method {cfg.method!r}")
+    if cfg.maxDifferenceBetweenReads < 1:
+        raise QuiltValidationError("maxDifferenceBetweenReads must be >= 1")
+    if cfg.heuristic_approach not in ("A", "B"):
+        raise QuiltValidationError(
+            f"heuristic_approach must be 'A' or 'B' (got {cfg.heuristic_approach!r})")
+    if cfg.estimate_bq_using_truth_read_labels:
+        raise QuiltValidationError(
+            "estimate_bq_using_truth_read_labels is not supported by quilt_tpu")
+
+
+def validate_region_consistency(prep: PreparedReference, cfg: ImputeConfig) -> None:
+    """Prepare/impute region agreement (validators.R:56-80)."""
+    if cfg.use_mspbwt and getattr(prep, "ms_indices", None) is None:
+        raise QuiltValidationError(
+            "use_mspbwt=True but the prepared reference has no mspbwt indices")
+    if cfg.regionStart is None:
+        return
+    if prep.regionStart is None:
+        raise QuiltValidationError(
+            "prepared reference was built without a region but impute "
+            "specifies one; re-run prepare with regionStart/regionEnd")
+    if (prep.regionStart != cfg.regionStart or prep.regionEnd != cfg.regionEnd
+            or prep.buffer != cfg.buffer):
+        raise QuiltValidationError(
+            f"region mismatch between prepare ({prep.regionStart}-{prep.regionEnd} "
+            f"buffer {prep.buffer}) and impute ({cfg.regionStart}-{cfg.regionEnd} "
+            f"buffer {cfg.buffer})")

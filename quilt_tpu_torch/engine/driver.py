@@ -1,0 +1,204 @@
+"""Multi-sample imputation driver of the port: the batched dispatch of
+quilt_tpu/engine/driver.py:quilt_impute (:44-223), the INFO / allele
+frequency / HWE aggregation after it, and the VCF write through
+quilt_tpu.out.vcf_writer."""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from quilt_tpu.config import ImputeConfig
+from quilt_tpu.io.reads import SampleReads
+from quilt_tpu.out.metrics import calculate_pse, r2_simple
+from quilt_tpu.out.vcf_writer import (
+    MISSING_DIPLOID_COL, diploid_sample_column, hwe_from_counts, info_score,
+    write_quilt_vcf,
+)
+from quilt_tpu.panel.prepare import PreparedReference
+from quilt_tpu.utils import print_message, set_verbosity
+from quilt_tpu.utils.log import SectionTimers
+
+from ..inputs import pad_to_multiple
+from .batch import SampleResult, impute_samples_batched
+from .context import (
+    RegionContext, context_fields, validate_impute_config,
+    validate_region_consistency,
+)
+
+# diagnostic options served by the JAX package's per-sample engine
+_PER_SAMPLE_FLAGS = (
+    "make_heuristic_plot", "record_read_label_usage", "record_interim_dosages",
+    "output_read_label_prob", "RData_objects_to_save", "output_RData_filename",
+    "make_plots", "plot_per_sample_likelihoods", "addOptimalHapsToVCF",
+)
+# fraction of the card's free memory one Gibbs chain batch may take, and the
+# budget used when the device is the CPU (the JAX package's 10 GiB)
+_GIBBS_MEM_FRACTION = 0.5
+_CPU_GIBBS_BYTES = 10 << 30
+
+
+@dataclass
+class ImputeOutput:
+    results: List[Optional[SampleResult]]
+    vcf_path: Optional[str]
+    eaf: np.ndarray
+    info: np.ndarray
+    r2_per_sample: Optional[List[float]] = None
+    timing: Optional[Dict] = None
+
+
+def check_slice(cfg: ImputeConfig) -> None:
+    """Refuse what this port does not run yet, naming the slice it belongs
+    to (see ROADMAP.md)."""
+    later = []
+    if cfg.method != "diploid":
+        later.append(f"method={cfg.method} (NIPT slice)")
+    if cfg.use_mspbwt or cfg.impute_rare_common:
+        later.append("use_mspbwt / impute_rare_common (QUILT2 slice)")
+    if cfg.hla_run or cfg.gamma_physically_closest_to is not None:
+        later.append("hla_run / gamma capture (HLA slice)")
+    flags = [f for f in _PER_SAMPLE_FLAGS if getattr(cfg, f)]
+    if flags:
+        later.append(f"{', '.join(flags)} (per-sample engine slice)")
+    if (cfg.mesh_data > 1 or cfg.mesh_panel > 1 or cfg.distributed_nproc > 1):
+        later.append("mesh_data / mesh_panel / distributed_nproc (multi-GPU slice)")
+    if later:
+        raise NotImplementedError(
+            "not ported to quilt_tpu_torch yet: " + "; ".join(later)
+        )
+
+
+def max_chains(K_pad: int, W: int, G: int, device: torch.device) -> int:
+    """Largest Gibbs chain batch whose working set fits: per chain, the
+    lemg/beta/alpha [G, 2, K_pad] planes (twice: inputs and outputs of a
+    sweep), the [G, W, K_pad] float32 slot emissions (and the gather that
+    builds them) and the [K_pad, R ~ 4G] read emissions."""
+    per_row = 4 * (2 * 3 * 2 * G * K_pad + 2 * G * max(W, 1) * K_pad + 4 * G * K_pad)
+    if device.type == "cuda":
+        budget = int(torch.cuda.mem_get_info(device)[0] * _GIBBS_MEM_FRACTION)
+    else:
+        budget = _CPU_GIBBS_BYTES
+    return max(budget // per_row, 1)
+
+
+def _region_context(prep: PreparedReference, cfg: ImputeConfig, device) -> RegionContext:
+    """The region's context, cached on `prep`: reused while every config
+    field that building it read keeps its value."""
+    cached = getattr(prep, "_torch_ctx_cache", None)
+    if cached is not None:
+        fields, key, ctx = cached
+        if ctx.device == torch.device(device) and key == _key(cfg, fields):
+            ctx.timers = SectionTimers(cfg.print_extra_timing_information)
+            return ctx
+    ctx, fields = context_fields(prep, cfg, device)
+    ctx.timers = SectionTimers(cfg.print_extra_timing_information)
+    prep._torch_ctx_cache = (fields, _key(cfg, fields), ctx)
+    return ctx
+
+
+def _key(cfg: ImputeConfig, fields) -> tuple:
+    return tuple((f, repr(getattr(cfg, f))) for f in sorted(fields))
+
+
+def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
+                 sample_names: Sequence[str], cfg: ImputeConfig, device,
+                 output_filename: Optional[str] = None,
+                 truth_gen: Optional[np.ndarray] = None,
+                 truth_haps: Optional[np.ndarray] = None) -> ImputeOutput:
+    """QUILT1 diploid imputation of `samples` on `device` (a torch device:
+    "cuda" on the GPU, "cpu" for the tests). truth_gen [nSNPs, N] and
+    truth_haps [nSNPs, N, 2] give per-sample r2 / PSE reports."""
+    t0 = time.time()
+    set_verbosity(cfg.verbose)
+    validate_impute_config(cfg)
+    validate_region_consistency(prep, cfg)
+    check_slice(cfg)
+    device = torch.device(device)
+    ctx = _region_context(prep, cfg, device)
+    N = len(samples)
+    nSNPs = prep.nSNPs
+
+    # sample batches of the batched engine; the batch is clamped so one
+    # Gibbs call's working set fits the device
+    W_max = 1
+    for r in samples:
+        if r is not None and r.nReads:
+            W_max = max(W_max, int(np.bincount(np.clip(r.wif0, 0, prep.nGrids - 1),
+                                               minlength=prep.nGrids).max()))
+    cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids, device)
+    sample_batch = max(1, min(cfg.sample_batch, cap // max(cfg.nGibbsSamples, 1)))
+    if sample_batch < cfg.sample_batch:
+        print_message(f"Clamping sample_batch {cfg.sample_batch} -> {sample_batch} "
+                      f"(Gibbs working set at Ksubset={cfg.Ksubset})")
+    results: List[Optional[SampleResult]] = [None] * N
+    for s0 in range(0, N, sample_batch):
+        group = list(range(s0, min(s0 + sample_batch, N)))
+        print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
+        for i, res in zip(group, impute_samples_batched(
+                ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0])):
+            results[i] = res
+
+    eij_sum = np.zeros(nSNPs)
+    var_sum = np.zeros(nSNPs)
+    af_sum = np.zeros(nSNPs)
+    hwe_counts = np.zeros((nSNPs, 3), dtype=np.int64)
+    allele_count = np.zeros((nSNPs, 2))
+    columns: List[List[str]] = []
+    r2s: List[float] = []
+    n_imputed = 0
+    for i, res in enumerate(results):
+        if not res.imputed:
+            print_message(f"Sample {sample_names[i]} has fewer than "
+                          f"{cfg.minimum_number_of_sample_reads} reads; output missing")
+            columns.append([MISSING_DIPLOID_COL] * nSNPs)
+            continue
+        n_imputed += 1
+        gp = res.gp
+        eij = np.round(gp[1] + 2 * gp[2], 3)
+        fij = np.round(gp[1] + 4 * gp[2], 3)
+        eij_sum += eij
+        var_sum += fij - eij ** 2
+        af_sum += eij / 2
+        hwe_counts[np.arange(nSNPs), gp.argmax(axis=0)] += 1
+        allele_count += res.allele_count
+        with ctx.timers.section("vcf:columns"):
+            columns.append(diploid_sample_column(
+                res.gp, res.phased_haps, res.dosage,
+                output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
+            ))
+        if truth_gen is not None:
+            r2 = r2_simple(truth_gen[:, i], res.dosage)
+            r2s.append(r2)
+            msg = f"  r2 vs truth: {r2:.4f}"
+            if truth_haps is not None:
+                pse = calculate_pse(res.phased_haps.T, truth_haps[:, i])
+                msg += f", PSE: {pse['pse']:.4f} ({pse.get('phase_sites', 0)} het sites)"
+            print_message(msg)
+
+    denom = max(n_imputed, 1)
+    eaf = af_sum / denom
+    info = info_score(eij_sum, var_sum, denom)
+    if output_filename:
+        with ctx.timers.section("vcf:write"):
+            write_quilt_vcf(
+                output_filename, chrom=prep.chrom, pos=prep.pos,
+                ref_allele=prep.ref_allele, alt_allele=prep.alt_allele,
+                sample_names=sample_names, sample_columns=columns, eaf=eaf,
+                info=info, hwe=hwe_from_counts(hwe_counts),
+                allele_count=allele_count, in_region=prep.in_region(),
+                method="diploid",
+                output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
+                with_ohd=False,
+            )
+        print_message(f"Wrote {output_filename}")
+    ctx.timers.report()
+    timing = ctx.timers.as_dict() if ctx.timers.enabled else None
+    print_message(f"Done QUILT ({time.time() - t0:.1f}s)")
+    return ImputeOutput(
+        results=results, vcf_path=output_filename, eaf=eaf, info=info,
+        r2_per_sample=r2s if truth_gen is not None else None, timing=timing,
+    )

@@ -1,0 +1,137 @@
+"""Haplotype re-selection between seek iterations, read confidence, and
+the host-side consensus and recast helpers.
+
+select_new_haps_device and read_confidence_device are torch versions of
+quilt_tpu/engine/selection.py:63-150 (a torch.Generator replaces the jax
+key); consensus_read_labels and recast_haps are NumPy copies of :153-258
+(their module imports nothing of jax, but its package does).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def select_new_haps_device(tv, ti, which, gen: torch.Generator, n_keep: int,
+                           Knew: int, K: int, nl: int, K_top_matches: int):
+    """Batched everything_select_good_haps (reference:
+    QUILT/R/functions.R:2262-2310) on the device.
+
+    tv/ti [nThin, B*nl, K_top] top gammas and haplotype indices at the
+    thinned grids; which [B, Ksub] current subsets. Every panel haplotype
+    gets a priority key: ranked candidates depth + intra-depth noise
+    (depths past K_top_matches demoted behind all primary depths), untouched
+    haplotypes a large random key (the random pool fill), the n_keep
+    randomly retained haplotypes +inf; the Knew smallest keys win, the
+    lowest index first among equal keys (the JAX top_k's order). Returns
+    the new sorted subsets [B, Ksub]."""
+    nThin, BN, K_top = tv.shape
+    B = BN // nl
+    Ksub = which.shape[1]
+    dev = which.device
+    perm_keys = torch.rand((B, Ksub), generator=gen, device=dev)
+    order = torch.argsort(perm_keys, dim=1)[:, :n_keep]
+    prev = which.gather(1, order)                                  # [B, n_keep]
+    ti_b = ti.reshape(nThin, B, nl, K_top).permute(1, 2, 0, 3).reshape(B, nl * nThin, K_top)
+    tv_b = tv.reshape(nThin, B, nl, K_top).permute(1, 2, 0, 3).reshape(B, nl * nThin, K_top)
+    depth = torch.arange(K_top, dtype=torch.float32, device=dev)[None, None, :]
+    demote = torch.where(depth < K_top_matches, 0.0, 1e4)
+    noise = torch.rand(ti_b.shape, generator=gen, device=dev)
+    cand_key = torch.where(tv_b > 0, depth + demote + noise, torch.inf).reshape(B, -1)
+    cand = torch.clamp(ti_b, 0, K - 1).reshape(B, -1).long()
+    pool = 1e6 + torch.rand((B, K), generator=gen, device=dev)
+    keymat = pool.scatter_reduce(1, cand, cand_key, "amin")
+    keymat = keymat.scatter(1, prev.long(), torch.inf)
+    new = torch.sort(keymat, dim=1, stable=True).indices[:, :Knew]
+    return torch.sort(torch.cat([prev, new.to(which.dtype)], 1), dim=1).values
+
+
+def read_confidence_device(hap_dos, u_pad, lpr, lpa, nl: int, minrp: float = 0.95):
+    """Which reads confidently belong to one latent haplotype, from the final
+    per-chain haplotype dosages hap_dos [B, nl, S] and per-row reads
+    u_pad/lpr/lpa [B, R, J] (reference:
+    assess_ability_of_reads_to_be_confident, functions.R:1615-1660).
+    Returns [B, R] bool."""
+    B, R, J = u_pad.shape
+    idx = u_pad.reshape(B, 1, R * J).long().expand(B, nl, R * J)
+    e = hap_dos.gather(2, idx).reshape(B, nl, R, J)
+    pR = torch.exp(lpr)[:, None]
+    pA = torch.exp(lpa)[:, None]
+    logp = torch.log(torch.clamp(e * pA + (1.0 - e) * pR, min=1e-30)).sum(3)
+    em = torch.exp(logp - logp.amax(1, keepdim=True))
+    p = em / torch.clamp(em.sum(1, keepdim=True), min=1e-30)
+    return p.amax(1) > minrp
+
+
+def consensus_read_labels(labels_all: np.ndarray, conf_all: np.ndarray) -> np.ndarray:
+    """Cross-chain read-label consensus via confident-read flip detection
+    (port of determine_best_read_label_so_far, reference:
+    QUILT/R/functions.R:1680-1784): align chains at confident reads; where
+    a minority of chains flips relative to the canonical chain, flip their
+    suffix back; where a majority flips, flip the canonical chain's suffix.
+    labels_all / conf_all [R, C]; labels are 0/1."""
+    R, C = labels_all.shape
+    can_hap = C - 1
+    out = labels_all[:, can_hap].astype(np.int64).copy()
+    idx = np.flatnonzero(conf_all.all(axis=1))
+    if len(idx) < 10:
+        return out
+    a = labels_all[idx].astype(np.int64)
+    can = a[:, can_hap].copy()
+    d = a - can[:, None]
+    rows_change = np.flatnonzero(np.diff(np.abs(d).sum(axis=1)) != 0)
+    if len(rows_change) == 0:
+        return out
+    labels_work = labels_all.astype(np.int64).copy()
+    starts = np.concatenate([[0], rows_change + 1])
+    flip_cols_per_seg = []
+    for i in range(1, len(starts)):
+        s = starts[i]
+        cur = d[s]
+        changed = np.flatnonzero(cur != 0)
+        w = slice(s, len(idx))
+        if len(changed) == 0:
+            flip_cols_per_seg.append((s, []))
+            continue
+        if len(changed) <= C / 2:
+            # trust canonical: revert changed chains' suffixes
+            for c1 in changed:
+                reverted = 1 - (d[w, c1] + can[w])
+                d[w, c1] = reverted - can[w]
+            flip_cols_per_seg.append((s, changed.tolist()))
+        else:
+            changed = np.flatnonzero(cur == 0)
+            for c1 in changed:
+                reverted = 1 - (d[w, c1] + can[w])
+                d[w, c1] = reverted - can[w]
+            reverted_all = d[w] + can[w, None]
+            can[w] = 1 - can[w]
+            d[w] = reverted_all - can[w, None]
+            flip_cols_per_seg.append((s, changed.tolist()))
+    # apply flips to the full label matrix from each segment start onwards
+    for s, cols in flip_cols_per_seg:
+        full_start = idx[s]
+        for c1 in cols:
+            labels_work[full_start:, c1] = 1 - labels_work[full_start:, c1]
+    return labels_work[:, can_hap]
+
+
+def recast_haps(hd1: np.ndarray, hd2: np.ndarray, gp: np.ndarray):
+    """Force phased haplotype dosages to agree with the genotype posterior
+    argmax (reference: recast_haps, functions.R:3180-3209); gp [3, nSNPs]."""
+    hd1 = hd1.copy()
+    hd2 = hd2.copy()
+    gt1 = np.round(hd1) + np.round(hd2)
+    gt3 = gp.argmax(axis=0)
+    ch = gt3 != gt1
+    w0 = ch & (gt3 == 0)
+    hd1[w0] = 0.0
+    hd2[w0] = 0.0
+    w2 = ch & (gt3 == 2)
+    hd1[w2] = 1.0
+    hd2[w2] = 1.0
+    w1 = ch & (gt3 == 1)
+    gtr = hd1[w1] > hd2[w1]
+    hd1[w1] = np.where(gtr, 1.0, 0.0)
+    hd2[w1] = np.where(gtr, 0.0, 1.0)
+    return hd1, hd2

@@ -1,0 +1,231 @@
+"""Gibbs forward and backward sweeps: CUDA kernels and their plain versions.
+
+Counterparts of quilt_tpu/kernels/gibbs_pallas.py:_fwd_sweep (Pallas kernel
+_make_fwd_kernel) and :_bwd_sweep (_make_bwd_kernel), with the JAX
+functions' signatures and nl-major [G, nl*B, K] layouts (state row h*B + b).
+The CUDA kernels are csrc/gibbs_sweep.cu; the plain PyTorch versions below
+compute the same function and serve the CPU (and the kernel checks).
+
+Only the diploid sampler (nl = 2, prior (0.5, 0.5)) is in this slice; the
+NIPT sampler (nl = 3) comes with the NIPT slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import Kernel, check_tensor as _check
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FWD_KERNEL = Kernel("gibbs_sweep", "gibbs_fwd", [_P] * 14 + [_I] * 7 + [_F])
+BWD_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", [_P] * 3 + [_I] * 4 + [_F])
+_NEG = -1e30
+
+
+def _require_diploid(nl: int, prior=None) -> None:
+    if nl != 2 or (prior is not None and tuple(prior) != (0.5, 0.5)):
+        raise NotImplementedError(
+            "the Gibbs sweep kernels support the diploid sampler only "
+            "(nl=2); the NIPT sampler (nl=3) belongs to the NIPT slice"
+        )
+
+
+def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
+              cnt_max, nl, K_real, it_mode, prior, want_alpha=True):
+    """One forward Gibbs sweep.
+
+    lemg/beta [G, BN, K] f32; lem_pad [G, W, B, K] f32 (the kernel keeps
+    the per-read log emissions in float32); slots [G, 4, W, B] i32 (planes:
+    uniform bits / label / skip / read id); first_read [B, 1] i32; lab_init
+    [B, nl] f32; trans [2, G] f32; cnt_max [1, G] i32. Returns
+    (lemg', alphas, H_pad', logc [BN, 1], uf [B, 1], lab [B, nl]); with
+    want_alpha=False alphas is a [1, BN, K] placeholder.
+
+    Inputs on the CPU run the plain version; CUDA tensors launch the
+    kernel."""
+    _require_diploid(nl, prior)
+    G, BN, K = lemg.shape
+    B = BN // 2
+    W = lem_pad.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    dev = lemg.device
+    _check(lemg, "lemg", f32, (G, BN, K), dev)
+    _check(beta, "beta", f32, (G, BN, K), dev)
+    _check(lem_pad, "lem_pad", f32, (G, W, B, K), dev)
+    _check(slots, "slots", i32, (G, 4, W, B), dev)
+    _check(first_read, "first_read", i32, (B, 1), dev)
+    _check(lab_init, "lab_init", f32, (B, 2), dev)
+    _check(trans, "trans", f32, (2, G), dev)
+    _check(cnt_max, "cnt_max", i32, (1, G), dev)
+    if not 0 < K_real <= K or it_mode not in (0, 1, 2):
+        raise ValueError(f"bad K_real={K_real} / it_mode={it_mode}")
+    if dev.type == "cpu":
+        return fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read,
+                               lab_init, trans, cnt_max, K_real, it_mode,
+                               want_alpha)
+    lemg_out = torch.empty_like(lemg)
+    alphas = torch.empty((G if want_alpha else 1, BN, K), dtype=f32, device=dev)
+    h_out = torch.empty((G, W, B), dtype=i32, device=dev)
+    logc = torch.empty((BN, 1), dtype=f32, device=dev)
+    uf = torch.empty((B, 1), dtype=f32, device=dev)
+    lab = torch.empty((B, 2), dtype=f32, device=dev)
+    FWD_KERNEL.launch(
+        lemg.data_ptr(), beta.data_ptr(), lem_pad.data_ptr(),
+        slots.data_ptr(), first_read.data_ptr(), lab_init.data_ptr(),
+        trans.data_ptr(), cnt_max.data_ptr(), lemg_out.data_ptr(),
+        alphas.data_ptr(), h_out.data_ptr(), logc.data_ptr(), uf.data_ptr(),
+        lab.data_ptr(), G, B, W, K, K_real, it_mode, int(want_alpha),
+        1.0 / K_real,
+    )
+    return lemg_out, alphas, h_out, logc, uf, lab
+
+
+def bwd_sweep(lemg, trans, nl, K_real):
+    """Reverse-grid beta recursion from lemg [G, BN, K]: a max-shifted
+    emission, then t0*e*beta + t1*sum(e*beta)/K, max-normalised per row.
+    Returns beta [G, BN, K]."""
+    _require_diploid(nl)
+    G, BN, K = lemg.shape
+    dev = lemg.device
+    _check(lemg, "lemg", torch.float32, (G, BN, K), dev)
+    _check(trans, "trans", torch.float32, (2, G), dev)
+    if not 0 < K_real <= K:
+        raise ValueError(f"bad K_real={K_real}")
+    if dev.type == "cpu":
+        return bwd_sweep_plain(lemg, trans, K_real)
+    beta = torch.empty_like(lemg)
+    BWD_KERNEL.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
+                      G, BN, K, K_real, 1.0 / K_real)
+    return beta
+
+
+def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
+                    cnt_max, K_real, it_mode, want_alpha=True):
+    """Plain PyTorch version of the forward sweep (same semantics as the
+    Pallas kernel _make_fwd_kernel, diploid)."""
+    G, BN, K = lemg.shape
+    B = BN // 2
+    f32 = torch.float32
+    dev = lemg.device
+    km = (torch.arange(K, device=dev) < K_real).to(f32)
+    invK = 1.0 / K_real
+    lemg_out = lemg.clone()
+    alphas = torch.zeros((G if want_alpha else 1, BN, K), dtype=f32, device=dev)
+    h_out = slots[:, 1].clone()
+    u_all = slots[:, 0].contiguous().view(f32)
+    skip_all = slots[:, 2] > 0
+    rg_all = slots[:, 3]
+    first = first_read.reshape(B, 1)
+    alpha = torch.zeros((BN, K), dtype=f32, device=dev)
+    logc = torch.zeros((BN, 1), dtype=f32, device=dev)
+    uf = torch.zeros((B, 1), dtype=f32, device=dev)
+    lab = lab_init.clone()
+    counts = cnt_max.reshape(-1).tolist()
+    for g in range(G):
+        lg = lemg[g]
+        mx = torch.where(km > 0, lg, _NEG).amax(1, keepdim=True)
+        e_g = torch.exp(lg - mx) * km
+        isf = 1.0 if g == 0 else 0.0
+        a_raw = e_g * (trans[0, g] * alpha + (trans[1, g] + isf) * invK)
+        s = a_raw.sum(1, keepdim=True)
+        bad = ((~torch.isfinite(s)) | (s <= 0)).to(f32)
+        uf = torch.maximum(uf, torch.maximum(bad[:B], bad[B:]))
+        s_safe = torch.where(s > 0, s, torch.ones_like(s))
+        alpha = a_raw * (1.0 / s_safe)
+        logc = logc + torch.log(s_safe) + mx
+        bg = beta[g]
+        pc = (alpha * bg).sum(1, keepdim=True)
+        for i in range(counts[g]):
+            lem_i = lem_pad[g, i]                           # [B, K]
+            emk = torch.exp(lem_i)
+            inv = torch.exp(-lem_i)
+            u = u_all[g, i][:, None]
+            hC = h_out[g, i][:, None]
+            skip = skip_all[g, i][:, None]
+            rg = rg_all[g, i][:, None]
+            ab = (alpha[:B] * bg[:B], alpha[B:] * bg[B:])
+            gain = [(x * emk).sum(1, keepdim=True) for x in ab]
+            lose = [(x * inv).sum(1, keepdim=True) for x in ab]
+            pcs = [pc[:B], pc[B:]]
+            no = torch.zeros_like(skip)
+            if it_mode == 0:
+                doing_pass, doing_init = rg < first, rg >= first
+            elif it_mode == 1:
+                doing_pass, doing_init = no, rg < first
+            else:
+                doing_pass, doing_init = no, no
+            normal = ~doing_init
+            oh_C = [hC == 0, hC == 1]
+            lose_C = torch.where(oh_C[1], lose[1], lose[0])
+            # candidate weights w[n] = prior[n] * prod_m term(n, m)
+            # (reference: sample_reads_in_grid, gibbs-nipt.cpp:733-1341)
+            w = []
+            for n in range(2):
+                prod = None
+                for m in range(2):
+                    if m == n:
+                        t_norm = torch.where(oh_C[n], pcs[m], gain[n])
+                        t_init = gain[n]
+                    else:
+                        t_norm = torch.where(
+                            oh_C[n], pcs[m],
+                            torch.where(oh_C[m], lose_C, pcs[m]),
+                        )
+                        t_init = pcs[m]
+                    term = torch.where(doing_init, t_init, t_norm)
+                    prod = term if prod is None else prod * term
+                w.append(prod * 0.5)
+            wsum = w[0] + w[1]
+            badv = (~torch.isfinite(wsum)) | (wsum <= 0)
+            uf = torch.maximum(uf, (badv & ~skip).to(f32))
+            wsum_safe = torch.where(wsum > 0, wsum, torch.ones_like(wsum))
+            cum = torch.where(badv, torch.full_like(wsum, 0.5), w[0] / wsum_safe)
+            h_new = (cum <= u).to(torch.int32)
+            active = (~skip) & (~doing_pass) & (~badv)
+            oh_N = [h_new == 0, h_new == 1]
+            flip = active & ((h_new != hC) | doing_init)
+            flip_f = flip.to(f32)
+            rows = []
+            for h in range(2):
+                fac = torch.where(oh_N[h], emk, 1.0) * torch.where(
+                    oh_C[h] & normal, inv, 1.0
+                )
+                a_h = alpha[h * B:(h + 1) * B] * torch.where(flip, fac, 1.0)
+                d_h = (oh_N[h].to(f32) - oh_C[h].to(f32) * normal.to(f32)) * flip_f
+                lemg_out[g, h * B:(h + 1) * B] += d_h * lem_i
+                lab[:, h:h + 1] += (oh_N[h].to(f32) - oh_C[h].to(f32)) * flip_f
+                pc_new = torch.where(
+                    oh_N[h], gain[h], torch.where(oh_C[h] & normal, lose_C, pcs[h])
+                )
+                pc_h = torch.where(flip, pc_new, pcs[h])
+                sh = (a_h * km).sum(1, keepdim=True)
+                sh_safe = torch.where(sh > 0, sh, torch.ones_like(sh))
+                rs = 1.0 / sh_safe
+                rows.append((a_h * rs, torch.log(sh_safe), pc_h * rs))
+            h_out[g, i] = torch.where(flip, h_new, hC)[:, 0]
+            alpha = torch.cat([rows[0][0], rows[1][0]])
+            logc = logc + torch.cat([rows[0][1], rows[1][1]])
+            pc = torch.cat([rows[0][2], rows[1][2]])
+        if want_alpha:
+            alphas[g] = alpha
+    return lemg_out, alphas, h_out, logc, uf, lab
+
+
+def bwd_sweep_plain(lemg, trans, K_real):
+    """Plain PyTorch version of the backward sweep (_make_bwd_kernel)."""
+    G, BN, K = lemg.shape
+    km = (torch.arange(K, device=lemg.device) < K_real).to(torch.float32)
+    beta = torch.empty_like(lemg)
+    b = torch.ones((BN, K), dtype=torch.float32, device=lemg.device)
+    beta[G - 1] = b
+    for g in range(G - 2, -1, -1):
+        lg = lemg[g + 1]
+        mx = torch.where(km > 0, lg, _NEG).amax(1, keepdim=True)
+        etb = torch.exp(lg - mx) * km * b
+        sm = etb.sum(1, keepdim=True)
+        bn = trans[0, g + 1] * etb + trans[1, g + 1] * sm * (1.0 / K_real)
+        mxb = bn.amax(1, keepdim=True)
+        b = bn / torch.where(mxb > 0, mxb, torch.ones_like(mxb))
+        beta[g] = b
+    return beta

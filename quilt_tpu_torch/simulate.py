@@ -1,0 +1,101 @@
+"""Synthetic worlds for the port's smoke run and tests, made from a seed
+with the JAX package's jax-free simulators (quilt_tpu.io.simulate) and
+reference preparation (quilt_tpu.panel.prepare)."""
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+
+from quilt_tpu.io import simulate_panel, simulate_sample_reads
+from quilt_tpu.io.bam_writer import BamWriter, write_panel_vcf
+from quilt_tpu.io.simulate import simulate_truth_mosaic
+from quilt_tpu.panel import prepare_panel
+
+
+def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
+               coverage: float = 1.0, read_length_bp: int = 600) -> Dict:
+    """A prepared panel of K haplotypes over nSNPs SNPs spaced ~60 bp, and
+    n_samples samples' reads (phred 25) from truth mosaics of the panel.
+    Returns {"prep", "samples", "truths" ([2, nSNPs] each)}."""
+    haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs, region_span=nSNPs * 60)
+    prep = prepare_panel(chrom="chr20", pos=pos, ref_allele=np.array(["A"] * nSNPs),
+                         alt_allele=np.array(["G"] * nSNPs), haps=haps)
+    samples, truths = [], []
+    for _ in range(n_samples):
+        truth = simulate_truth_mosaic(rng, haps, n_latent=2)
+        reads, _ = simulate_sample_reads(rng, truth, pos, prep.grid, coverage=coverage,
+                                         read_length_bp=read_length_bp, phred=25)
+        samples.append(reads)
+        truths.append(truth)
+    return dict(prep=prep, samples=samples, truths=truths)
+
+
+def write_bam_world(out_dir: str, rng: np.random.Generator, K: int = 80,
+                    nSNPs: int = 384, n_samples: int = 2):
+    """A panel VCF, a genetic map and one BAM per sample (300 bp reads at
+    ~2x from truth mosaics of the panel) under out_dir. Returns (vcf path,
+    map path, bamlist path, truths [n_samples] of [2, nSNPs], nSNPs)."""
+    haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs, region_span=200_000)
+    vcf = os.path.join(out_dir, "panel.vcf.gz")
+    write_panel_vcf(vcf, "chr20", pos, np.array(["A"] * nSNPs), np.array(["G"] * nSNPs), haps)
+    gmap = os.path.join(out_dir, "map.txt")
+    with open(gmap, "w") as fh:
+        fh.write("position COMBINED_rate.cM.Mb. Genetic_Map.cM.\n"
+                 f"{pos[0]} 1.0 0.0\n{pos[-1]} 1.0 {(pos[-1] - pos[0]) / 1e6:.6f}\n")
+    truths, bams = [], []
+    for i in range(n_samples):
+        truth = simulate_truth_mosaic(rng, haps, n_latent=2)
+        truths.append(truth)
+        bam = os.path.join(out_dir, f"s{i}.bam")
+        with BamWriter(bam, "chr20", int(pos[-1]) + 1000, sample_name=f"SAMP{i}") as w:
+            for r in range(int(2.0 * (pos[-1] - pos[0]) / 300)):
+                start0 = int(rng.integers(pos[0] - 100, pos[-1]))
+                h = int(rng.integers(0, 2))
+                seq = []
+                for off in range(300):
+                    si = np.searchsorted(pos, start0 + 1 + off)
+                    if si < nSNPs and pos[si] == start0 + 1 + off:
+                        a = truth[h, si] ^ int(rng.random() < 0.003)
+                        seq.append("G" if a else "A")
+                    else:
+                        seq.append("C")
+                w.write_read(f"r{r}", start0, "".join(seq), [25] * 300)
+        bams.append(bam)
+    bamlist = os.path.join(out_dir, "bamlist.txt")
+    with open(bamlist, "w") as fh:
+        fh.write("\n".join(bams) + "\n")
+    return vcf, gmap, bamlist, truths, nSNPs
+
+
+def random_sweep_state(rng: np.random.Generator, G: int, B: int, W: int, K: int,
+                       K_real: int, max_reads: int):
+    """A random diploid Gibbs sweep state in the sweep kernels' layouts
+    (numpy arrays, in the argument order of kernels.gibbs_sweep.fwd_sweep):
+    up to max_reads reads per (grid, chain) in W slots, log emissions in
+    [-6, 0] with the pad haplotypes (>= K_real) copying haplotype 0, 5% of
+    the reads uninformative, lemg consistent with the random labels, and
+    first_read uniform over each chain's reads."""
+    BN = 2 * B
+    counts = rng.integers(0, max_reads + 1, size=(G, B))
+    valid = np.arange(W)[None, :, None] < counts[:, None, :]
+    lem_pad = rng.uniform(-6.0, 0.0, size=(G, W, B, K)).astype(np.float32)
+    lem_pad[..., K_real:] = lem_pad[..., :1]
+    lem_pad = np.where(valid[..., None], lem_pad, np.float32(0.0))
+    labels = rng.integers(0, 2, size=(G, W, B)).astype(np.int32)
+    starts = np.cumsum(counts, axis=0) - counts
+    r_pad = np.where(valid, starts[:, None, :] + np.arange(W)[None, :, None], -1)
+    skip = (~valid | (rng.random((G, W, B)) < 0.05)).astype(np.int32)
+    u = rng.random((G, W, B)).astype(np.float32)
+    slots = np.stack([u.view(np.int32), labels, skip, r_pad.astype(np.int32)], axis=1)
+    oh = (np.stack([labels == 0, labels == 1], -1) & valid[..., None]).astype(np.float32)
+    lemg = np.einsum("gwbn,gwbk->gnbk", oh, lem_pad).reshape(G, BN, K).astype(np.float32)
+    lab = oh.sum(axis=(0, 1))
+    beta = rng.uniform(0.2, 1.0, size=(G, BN, K)).astype(np.float32)
+    first = (rng.random(B) * counts.sum(axis=0)).astype(np.int32)[:, None]
+    trans = np.stack([np.full(G, 0.98), np.full(G, 0.02)]).astype(np.float32)
+    trans[:, 0] = (1.0, 0.0)
+    cnt_max = counts.max(axis=1).astype(np.int32)[None, :]
+    return tuple(np.ascontiguousarray(x) for x in (
+        lemg, beta, lem_pad, slots, first, lab, trans, cnt_max))

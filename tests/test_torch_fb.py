@@ -1,0 +1,114 @@
+"""Plain PyTorch full-panel FB (quilt_tpu_torch.kernels.fb) vs the JAX
+package's fused Pallas FB (fb_pallas_core, interpreted on the CPU) and vs
+the float64 oracle haploid_dosage_versus_refs.
+
+Tolerances: dosage atol 1e-4; log-likelihood within 1e-2 (a sum of ~10
+float32 logs per grid); top-K values atol 1e-4, with indices equal wherever
+neighbouring values differ by more than 1e-3 (near-ties may swap)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from quilt_tpu.io import simulate_panel, simulate_sample_reads
+from quilt_tpu.io.simulate import simulate_truth_mosaic
+from quilt_tpu.kernels import FBInputs as JaxFBInputs
+from quilt_tpu.kernels.fb_pallas import fb_pallas_core
+from quilt_tpu.oracle import haploid_dosage_versus_refs, make_gl_from_reads
+from quilt_tpu.panel import assign_positions_to_grid, compress_panel, trans_rates
+from quilt_tpu.utils import pack_bits_32
+
+from quilt_tpu_torch.inputs import FB_FIELDS, FBInputs, fb_inputs_from_reference
+from quilt_tpu_torch.kernels.fb import fb_core, fb_full_batched
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def world():
+    rng = np.random.default_rng(7)
+    K, nSNPs, nMaxDH = 90, 333, 8
+    haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs)
+    grid, L_grid, nGrids = assign_positions_to_grid(pos)
+    panel = compress_panel(pack_bits_32(haps), nSNPs, ref_error=0.001, nMaxDH=nMaxDH)
+    trans = trans_rates(rng.uniform(0.95, 0.999, nGrids - 1))
+    truth = simulate_truth_mosaic(rng, haps, n_latent=2)
+    reads, sim = simulate_sample_reads(
+        rng, truth, pos, grid, coverage=2.0, read_length_bp=1500, phred=25
+    )
+    gls = [make_gl_from_reads(reads, np.flatnonzero(sim.labels == h), nSNPs)
+           for h in (0, 1)]
+    thinned = np.array([1, 4, 8])
+    ref = JaxFBInputs.build(panel, trans, thinned_grids=thinned)
+    return panel, trans, np.stack(gls).astype(np.float32), ref, thinned
+
+
+def test_fb_inputs_match_reference(world):
+    panel, trans, _, ref, thinned = world
+    got = FBInputs.build(panel, trans, thinned_grids=thinned)
+    bridged = fb_inputs_from_reference({k: getattr(ref, k) for k in FB_FIELDS})
+    for k in FB_FIELDS:
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
+        np.testing.assert_array_equal(getattr(bridged, k), getattr(ref, k))
+
+
+def test_fb_matches_pallas(world):
+    _, _, gl, ref, thinned = world
+    fb = fb_inputs_from_reference({k: getattr(ref, k) for k in FB_FIELDS})
+    B = gl.shape[0]
+    gl_pad = np.ones((B, 2, ref.S), dtype=np.float32)
+    gl_pad[:, :, :gl.shape[2]] = gl
+    dev = ref.device()
+    d_ref, l_ref, tv_ref, ti_ref, _ = (np.asarray(x) for x in fb_pallas_core(
+        jnp.asarray(gl_pad), dev["words"], dev["trans2"], dev["thin_flag"],
+        dev["capture_flag"], K=ref.K, K_pad=ref.K_pad, K_top=8,
+        ref_error=0.001, CG=16, interpret=True,
+    ))
+    d, ll, tv, ti = (x.numpy() for x in fb_full_batched(
+        torch.from_numpy(gl), fb, K_top=8, ref_error=0.001))
+    np.testing.assert_allclose(d, d_ref, atol=1e-4)
+    np.testing.assert_allclose(ll, l_ref, atol=1e-2)
+    g = np.flatnonzero(ref.thin_flag >= 0)
+    np.testing.assert_allclose(tv[g], tv_ref[g], atol=1e-4)
+    firm = (tv_ref[g, :, :-1] - tv_ref[g, :, 1:]) > 1e-3
+    assert firm.any()
+    np.testing.assert_array_equal(ti[g, :, :-1][firm], ti_ref[g, :, :-1][firm])
+    others = ref.thin_flag < 0
+    assert not tv[others].any() and not ti[others].any()
+
+
+def test_fb_matches_oracle(world):
+    panel, trans, gl, ref, _ = world
+    fb = FBInputs.build(panel, trans)
+    d, ll, _, _ = fb_full_batched(torch.from_numpy(gl), fb, K_top=8,
+                                  ref_error=0.001)
+    for h in range(2):
+        orc = haploid_dosage_versus_refs(
+            gl[h].astype(np.float64), panel, trans, ref_error=0.001
+        )
+        np.testing.assert_allclose(d[h, :panel.nSNPs].numpy(), orc.dosage, atol=1e-4)
+        assert abs(float(ll[h]) - orc.log_like) < 1e-2
+
+
+def test_fb_row_chunks_are_exact(world, monkeypatch):
+    """The H100 plan splits rows across calls; rows are independent."""
+    import quilt_tpu_torch.kernels.fb as fbm
+
+    panel, trans, gl, ref, thinned = world
+    fb = FBInputs.build(panel, trans, thinned_grids=thinned)
+    gl3 = torch.from_numpy(np.concatenate([gl, gl[:1]]))
+    whole = fb_full_batched(gl3, fb, K_top=8)
+    monkeypatch.setattr(fbm, "_CALL_BYTES", 1)
+    assert fbm.rows_per_call(3, fb) == 1
+    split = fb_full_batched(gl3, fb, K_top=8)
+    # the CPU matmul may block a 3-row and a 1-row product differently,
+    # so allow one float32 rounding step
+    for a, b in zip(whole, split):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_fb_refuses_gamma_capture(world):
+    panel, trans, gl, _, _ = world
+    fb = FBInputs.build(panel, trans)
+    with pytest.raises(NotImplementedError, match="HLA"):
+        fb_full_batched(torch.from_numpy(gl), fb, capture_grid=3)

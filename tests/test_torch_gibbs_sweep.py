@@ -1,0 +1,86 @@
+"""Plain PyTorch Gibbs sweeps (quilt_tpu_torch.kernels.gibbs_sweep) vs the
+JAX package's Pallas sweeps (_fwd_sweep / _bwd_sweep, interpreted on the
+CPU) on identical numpy-made inputs.
+
+Tolerances: read labels agree on > 99.5% of slots (a uniform that lands
+within float rounding of a candidate boundary may draw the other label);
+logc and lemg rtol 1e-4 / atol 1e-3 (float32 sums taken in another order);
+beta rtol 1e-5."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from quilt_tpu.kernels.gibbs_pallas import _bwd_sweep, _fwd_sweep
+
+from quilt_tpu_torch.kernels.gibbs_sweep import bwd_sweep, fwd_sweep
+from quilt_tpu_torch.simulate import random_sweep_state
+
+torch.set_num_threads(2)
+
+_NAMES = ("lemg", "beta", "lem_pad", "slots", "first_read", "lab_init", "trans", "cnt_max")
+
+
+def _inputs(seed, G, B, W, K, K_real, max_reads):
+    state = random_sweep_state(np.random.default_rng(seed), G, B, W, K, K_real, max_reads)
+    return dict(zip(_NAMES, state))
+
+
+def _compare_fwd(arrs, K_real, it_mode, want_alpha=True):
+    kw = dict(nl=2, K_real=K_real, it_mode=it_mode, prior=(0.5, 0.5),
+              want_alpha=want_alpha)
+    ref = _fwd_sweep(*(jnp.asarray(arrs[k]) for k in _NAMES), **kw)
+    got = fwd_sweep(*(torch.from_numpy(arrs[k]) for k in _NAMES), **kw)
+    ref = [np.asarray(x) for x in ref]
+    got = [x.numpy() for x in got]
+    slots = arrs["slots"]
+    live = slots[:, 2] == 0
+    agree = (ref[2][live] == got[2][live]).mean()
+    assert agree > 0.995, f"label agreement {agree}"
+    np.testing.assert_array_equal(ref[2][~live], got[2][~live])
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got[5], ref[5], rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(got[4], ref[4])
+    if want_alpha:
+        np.testing.assert_allclose(got[1], ref[1], rtol=1e-4, atol=1e-6)
+    return ref, got
+
+
+@pytest.mark.parametrize("it_mode", [0, 1, 2])
+def test_fwd_sweep_matches_pallas(it_mode):
+    arrs = _inputs(seed=3 + it_mode, G=7, B=3, W=6, K=40, K_real=36,
+                   max_reads=6)
+    _compare_fwd(arrs, K_real=36, it_mode=it_mode)
+
+
+def test_fwd_sweep_wide_slot_axis():
+    """More than 64 reads in a grid: the Pallas kernel tiles the slot axis
+    in 64-wide chunks, the port runs one read loop; same draws."""
+    arrs = _inputs(seed=11, G=3, B=2, W=128, K=24, K_real=24, max_reads=90)
+    assert arrs["cnt_max"].max() > 64
+    _compare_fwd(arrs, K_real=24, it_mode=2, want_alpha=False)
+
+
+def test_bwd_sweep_matches_pallas():
+    rng = np.random.default_rng(5)
+    G, BN, K, K_real = 9, 6, 40, 33
+    lemg = rng.uniform(-30.0, 0.0, size=(G, BN, K)).astype(np.float32)
+    trans = np.stack([rng.uniform(0.9, 0.999, G),
+                      rng.uniform(0.001, 0.1, G)]).astype(np.float32)
+    ref = np.asarray(_bwd_sweep(jnp.asarray(lemg), jnp.asarray(trans),
+                                nl=2, K_real=K_real))
+    got = bwd_sweep(torch.from_numpy(lemg), torch.from_numpy(trans),
+                    nl=2, K_real=K_real).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
+
+
+def test_sweeps_refuse_nipt():
+    arrs = _inputs(seed=1, G=2, B=1, W=2, K=8, K_real=8, max_reads=2)
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    with pytest.raises(NotImplementedError, match="NIPT"):
+        fwd_sweep(t["lemg"], t["beta"], t["lem_pad"], t["slots"],
+                  t["first_read"], t["lab_init"], t["trans"], t["cnt_max"],
+                  nl=3, K_real=8, it_mode=2, prior=(0.5, 0.4, 0.1))
+    with pytest.raises(NotImplementedError, match="NIPT"):
+        bwd_sweep(t["lemg"], t["trans"], nl=3, K_real=8)
