@@ -7,16 +7,22 @@ Phases, each fatal on failure:
   1. build   - compile every CUDA source of the port with nvcc (sm_90a),
                one process per source, and print the build time;
   2. kernels - run each ported kernel at the full-width shapes of the main
-               path against its plain PyTorch version, print the error and
+               paths against its plain PyTorch version, print the error and
                the median times of both (CUDA events);
   3. e2e     - QUILT1 diploid imputation through the batched engine at
                full width (K=5,120 panel haplotypes, 16,384 SNPs, Ksubset
                600, 7 chains x 3 seek iterations x 21 sweeps, 8 samples at
                ~1x coverage, simulated from a seed); prints seconds,
                samples/s, r2 against truth, the per-stage timers and each
-               kernel's launch count, which must be > 0;
-  4. cli     - a small file-based `prepare` + `impute` through the port's
-               CLI; checks the VCF.
+               kernel's launch count; the four kernels of the path must
+               launch;
+  4. quilt2  - QUILT2 diploid imputation (msPBWT selection + rare/common
+               all-SNP Gibbs) of the same shape, with 10% of the sites
+               rewritten to 1-4 carriers (rare); prints samples/s, r2 over
+               all / common / rare sites and the per-stage timers; the Gibbs
+               forward, backward and dosage kernels must launch;
+  5. cli     - small file-based `prepare` + `impute` and `prepare2` +
+               `impute2` runs through the port's CLI; checks the VCFs.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -62,6 +68,7 @@ def check_kernels(world):
     import numpy as np
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
+    from quilt_tpu_torch.kernels import gibbs_dosage as gd
     from quilt_tpu_torch.kernels import gibbs_sweep as gs
     from quilt_tpu_torch.simulate import random_sweep_state
 
@@ -115,13 +122,31 @@ def check_kernels(world):
                      ms=_median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real), 5),
                      plain_ms=_median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2)))
 
+    # Gibbs dosages at the same shape: the sweep's alphas and beta, and
+    # random packed subset words [G, B, K] (pad columns >= K_real masked)
+    alphas, beta_d = got[1], got_b
+    words_T = torch.randint(-2**31, 2**31 - 1, (G, B, K), generator=gen, device="cuda",
+                            dtype=torch.int64).to(torch.int32)
+    eps = 0.001
+    hd = gd.dosage_sweep(alphas, beta_d, words_T, 2, K_real, eps)
+    hd_r = gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps)
+    err = (hd - hd_r).abs().max().item()
+    print(f"gibbs_dos: max |dosage err| {err:.3e} (tolerance atol 1e-5)", flush=True)
+    if not err <= 1e-5:
+        _fail("gibbs_dos disagrees with its plain version")
+    rows.append(dict(name="gibbs_dos", route="cuda",
+                     source="quilt_tpu_torch/csrc/gibbs_dosage.cu",
+                     replaces="quilt_tpu/kernels/gibbs_pallas.py:420",
+                     max_abs_err=err,
+                     ms=_median_ms(lambda: gd.dosage_sweep(alphas, beta_d, words_T, 2, K_real, eps), 5),
+                     plain_ms=_median_ms(lambda: gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps), 2)))
+
     # full-panel FB at the e2e shape: B = 56 chains x 2 latent haps
     fb = world["fb"]
     dev = fb.device_tensors("cuda")
     words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
     Bf = 112
     gl = 0.05 + 0.95 * torch.rand((Bf, 2, fb.S), generator=gen, device="cuda")
-    eps = 0.001
     t0 = gl[:, 0] * (1 - eps) + gl[:, 1] * eps
     t1 = gl[:, 0] * eps + gl[:, 1] * (1 - eps)
     dl = (torch.log(t1) - torch.log(t0)).contiguous()
@@ -165,9 +190,10 @@ def check_kernels(world):
 # the full-width world (phase 3 imputes it; phase 2 takes its shapes)
 # ---------------------------------------------------------------------------
 
-def e2e_config(n_samples):
+def e2e_config(n_samples, quilt2=False):
     """QUILT1 defaults at the quick-start scale: 7 chains x 3 seek
-    iterations x 21 sweeps, Ksubset 600, all samples in one batch."""
+    iterations x 21 sweeps, Ksubset 600, all samples in one batch; quilt2
+    adds the QUILT2 defaults use_mspbwt and impute_rare_common."""
     from quilt_tpu_torch.engine.driver import ImputeConfig
 
     return ImputeConfig(
@@ -175,31 +201,43 @@ def e2e_config(n_samples):
         small_ref_panel_gibbs_iterations=20, seed=1, sample_batch=n_samples,
         override_default_params_for_small_ref_panel=False,
         print_extra_timing_information=True, verbose=False,
+        use_mspbwt=quilt2, impute_rare_common=quilt2,
     )
 
 
-def make_world(n_samples=8, K=5120, nSNPs=16384):
+def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False):
+    """The full-width world; quilt2 rewrites 10% of the sites to 1-4
+    carriers and prepares the panel as `prepare2` does."""
     import numpy as np
     from quilt_tpu_torch.inputs import region_tensors
     from quilt_tpu_torch.simulate import make_world as simulate
 
     t = time.time()
-    world = simulate(np.random.default_rng(SEED), K=K, nSNPs=nSNPs, n_samples=n_samples)
+    world = simulate(np.random.default_rng(SEED), K=K, nSNPs=nSNPs, n_samples=n_samples,
+                     rare_frac=0.1 if quilt2 else 0.0, quilt2=quilt2)
     prep = world["prep"]
-    W = max(int(np.bincount(r.wif0, minlength=prep.nGrids).max()) for r in world["samples"])
-    world.update(nGrids=prep.nGrids, max_reads_per_grid=W,
-                 fb=region_tensors(prep, e2e_config(n_samples), "cuda")["fb"])
-    print(f"world: K={K}, nSNPs={nSNPs}, nGrids={prep.nGrids}, {n_samples} samples, "
+    W = max(int(np.bincount(r.wif0, minlength=r.wif0.max() + 1).max())
+            for r in world["samples"])
+    world.update(nGrids=prep.nGrids, max_reads_per_grid=W)
+    if not quilt2:
+        world["fb"] = region_tensors(prep, e2e_config(n_samples), "cuda")["fb"]
+    rare = "" if not quilt2 else (
+        f", {int((~prep.snp_is_common).sum())} rare sites held out of "
+        f"{prep.nGrids} common grids, {len(prep.ms_indices)} msPBWT indices")
+    print(f"world: K={K}, nSNPs={nSNPs}, nGrids={prep.nGrids}{rare}, {n_samples} samples, "
           f"{sum(r.nReads for r in world['samples'])} reads, max reads/grid {W} "
           f"({time.time() - t:.1f} s to simulate and prepare)", flush=True)
     return world
 
 
 # ---------------------------------------------------------------------------
-# phase 3: full-width end-to-end imputation through the port's engine
+# phases 3 and 4: full-width end-to-end imputation through the port's engine
 # ---------------------------------------------------------------------------
 
-def run_e2e(world, kernels):
+def run_e2e(world, kernels, cfg, label):
+    """A warm-up call (it builds the region context, cached on the prepared
+    reference), then a timed call with every launch count set to 0 just
+    before it. Returns (output, seconds, {kernel entry: launches})."""
     import numpy as np
     import torch
     from quilt_tpu_torch.engine.driver import quilt_impute
@@ -207,9 +245,6 @@ def run_e2e(world, kernels):
     samples = world["samples"]
     names = [f"S{i}" for i in range(len(samples))]
     truth_gen = np.stack([t.sum(axis=0) for t in world["truths"]], axis=1).astype(float)
-    cfg = e2e_config(len(samples))
-    # a first run builds the region context (cached on the prepared
-    # reference) and warms the allocator; the second is timed and counted
     quilt_impute(world["prep"], samples, names, cfg, "cuda")
     for k in kernels:
         k.launches = 0
@@ -220,25 +255,42 @@ def run_e2e(world, kernels):
     dt = time.time() - t
     launches = {k.entry: k.launches for k in kernels}
     r2 = out.r2_per_sample
-    finite = all(np.isfinite(res.dosage).all() and res.dosage.shape == (world["prep"].nSNPs,)
+    n_out = truth_gen.shape[0]
+    finite = all(np.isfinite(res.dosage).all() and res.dosage.shape == (n_out,)
                  and np.isfinite(res.gp).all() for res in out.results)
-    print(f"e2e: {len(samples)} samples in {dt:.2f} s = {len(samples) / dt:.3f} samples/s; "
+    print(f"{label}: {len(samples)} samples in {dt:.2f} s = {len(samples) / dt:.3f} samples/s; "
           f"r2 vs truth min {min(r2):.4f} mean {np.mean(r2):.4f} "
           f"({', '.join(f'{x:.4f}' for x in r2)})", flush=True)
     for name, v in out.timing.items():
         print(f"  {name:<20} {v['seconds'] * 1000:10.1f} ms ({v['calls']} calls)")
     print(f"  launches: {launches}", flush=True)
     if not finite:
-        _fail("e2e produced non-finite or misshapen dosages")
-    if min(r2) < 0.9:
-        _fail(f"e2e r2 against truth below 0.9: {r2}")
-    if not all(launches.values()):
-        _fail(f"a kernel of the main path never launched: {launches}")
-    return launches, dt
+        _fail(f"{label} produced non-finite or misshapen dosages")
+    return out, truth_gen, launches
+
+
+def check_launched(label, launches, needed):
+    missing = [k.entry for k in needed if not launches[k.entry]]
+    if missing:
+        _fail(f"{label}: a kernel of the path never launched: {missing} ({launches})")
+
+
+def quilt2_report(world, out, truth_gen):
+    """r2 over common and over rare sites (all samples pooled: a sample
+    carries few rare alleles) and the mean dosage error at rare sites."""
+    import numpy as np
+
+    common = world["prep"].snp_is_common
+    dos = np.stack([res.dosage for res in out.results], axis=1)
+    r2 = lambda m: float(np.corrcoef(dos[m].ravel(), truth_gen[m].ravel())[0, 1] ** 2)
+    err_rare = float(np.abs(dos[~common] - truth_gen[~common]).mean())
+    print(f"quilt2: r2 over common sites {r2(common):.4f}, over rare sites {r2(~common):.4f} "
+          f"({int(truth_gen[~common].sum())} rare alt alleles in truth); "
+          f"mean |dosage err| at rare sites {err_rare:.5f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
-# phase 4: file-based prepare + impute through the port's CLI
+# phase 5: file-based prepare + impute (QUILT1, QUILT2) through the port's CLI
 # ---------------------------------------------------------------------------
 
 def run_cli():
@@ -248,31 +300,37 @@ def run_cli():
     import numpy as np
     from quilt_tpu_torch.simulate import write_bam_world
 
-    with tempfile.TemporaryDirectory() as d:
-        vcf, gmap, bamlist, truths, nSNPs = write_bam_world(d, np.random.default_rng(SEED))
-        out = os.path.join(d, "out")
-        base = [sys.executable, "-m", "quilt_tpu_torch"]
-        for args in (
-            ["prepare", "--outputdir", out, "--chr", "chr20", "--reference_vcf_file", vcf,
-             "--genetic_map_file", gmap, "--nGen", "100"],
-            ["impute", "--outputdir", out, "--chr", "chr20", "--bamlist", bamlist,
-             "--nGibbsSamples", "3", "--n_seek_its", "2", "--Ksubset", "48", "--Knew", "48",
-             "--small_ref_panel_gibbs_iterations", "8", "--verbose", "FALSE"],
-        ):
-            res = subprocess.run(base + args, cwd=HERE, capture_output=True, text=True,
-                                 timeout=600)
-            if res.returncode != 0:
-                _fail(f"CLI {args[0]} exited {res.returncode}:\n{res.stderr[-3000:]}")
-        with gzip.open(os.path.join(out, "quilt.chr20.vcf.gz"), "rt") as fh:
-            lines = fh.readlines()
+    small = ["--nGibbsSamples", "3", "--n_seek_its", "2", "--Ksubset", "48", "--Knew", "48",
+             "--small_ref_panel_gibbs_iterations", "8", "--verbose", "FALSE"]
+    for prepare, impute, extra, n_rare in (
+        ("prepare", "impute", [], 0),
+        ("prepare2", "impute2", ["--rare_af_threshold", "0.03"], 24),
+    ):
+        with tempfile.TemporaryDirectory() as d:
+            vcf, gmap, bamlist, truths, nSNPs = write_bam_world(
+                d, np.random.default_rng(SEED), n_rare=n_rare)
+            out = os.path.join(d, "out")
+            base = [sys.executable, "-m", "quilt_tpu_torch"]
+            for args in (
+                [prepare, "--outputdir", out, "--chr", "chr20", "--reference_vcf_file", vcf,
+                 "--genetic_map_file", gmap, "--nGen", "100"] + extra,
+                [impute, "--outputdir", out, "--chr", "chr20", "--bamlist", bamlist] + small,
+            ):
+                res = subprocess.run(base + args, cwd=HERE, capture_output=True, text=True,
+                                     timeout=600)
+                if res.returncode != 0:
+                    _fail(f"CLI {args[0]} exited {res.returncode}:\n{res.stderr[-3000:]}")
+            with gzip.open(os.path.join(out, "quilt.chr20.vcf.gz"), "rt") as fh:
+                lines = fh.readlines()
         body = [l for l in lines if not l.startswith("#")]
         r2 = []
         for i, truth in enumerate(truths):
             ds = np.array([float(l.split("\t")[9 + i].split(":")[2]) for l in body])
             r2.append(float(np.corrcoef(ds, truth.sum(axis=0))[0, 1] ** 2))
-        print(f"cli: prepare + impute wrote {len(body)} of {nSNPs} sites; r2 {r2}", flush=True)
+        print(f"cli: {prepare} + {impute} wrote {len(body)} of {nSNPs} sites; r2 {r2}",
+              flush=True)
         if len(body) != nSNPs or min(r2) < 0.85:
-            _fail("CLI VCF is incomplete or inaccurate")
+            _fail(f"CLI {impute} VCF is incomplete or inaccurate")
 
 
 def main():
@@ -305,12 +363,26 @@ def main():
 
     world = make_world()
     rows = check_kernels(world)
-    from quilt_tpu_torch.kernels import fb, gibbs_sweep
+    from quilt_tpu_torch.kernels import fb, gibbs_dosage, gibbs_sweep
 
-    kernels = [gibbs_sweep.FWD_KERNEL, gibbs_sweep.BWD_KERNEL, fb.FWD_KERNEL, fb.BWD_KERNEL]
-    launches, _ = run_e2e(world, kernels)
+    gfwd, gbwd, gdos = gibbs_sweep.FWD_KERNEL, gibbs_sweep.BWD_KERNEL, gibbs_dosage.DOS_KERNEL
+    kernels = [gfwd, gbwd, gdos, fb.FWD_KERNEL, fb.BWD_KERNEL]   # the order of rows
+    out, _, l1 = run_e2e(world, kernels, e2e_config(8), "e2e")
+    if min(out.r2_per_sample) < 0.9:
+        _fail(f"e2e r2 against truth below 0.9: {out.r2_per_sample}")
+    check_launched("e2e", l1, [gfwd, gbwd, fb.FWD_KERNEL, fb.BWD_KERNEL])
+    del world
+
+    world2 = make_world(quilt2=True)
+    out, truth_gen, l2 = run_e2e(world2, kernels, e2e_config(8, quilt2=True), "quilt2")
+    quilt2_report(world2, out, truth_gen)
+    if min(out.r2_per_sample) < 0.85:
+        _fail(f"quilt2 r2 over all sites below 0.85: {out.r2_per_sample}")
+    check_launched("quilt2", l2, [gfwd, gbwd, gdos])
+    del world2
     for row, k in zip(rows, kernels):
-        row["launches"] = launches[k.entry]
+        row["launches"] = l1[k.entry] + l2[k.entry]
+        row["launches_by_path"] = {"quilt1": l1[k.entry], "quilt2": l2[k.entry]}
     run_cli()
 
     print(smi)

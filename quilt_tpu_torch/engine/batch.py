@@ -1,12 +1,17 @@
-"""Multi-sample batched QUILT1 diploid imputation on one device.
+"""Multi-sample batched diploid imputation on one device, QUILT1 and
+QUILT2.
 
-The diploid, non-msPBWT branch of quilt_tpu/engine/batch.py:
-impute_samples_batched (:67-709). Batch rows are {sample x chain}; per
-seek iteration a 21-sweep Gibbs call labels every read, the labels give
-haploid GLs, the full-panel FB gives dosages and top-K matches, and the
-haplotype subsets are re-selected on the device. Dosages and genotype
-posteriors accumulate past the seek burn-in; a read-label consensus
-across chains seeds a final phasing pass.
+The diploid branches of quilt_tpu/engine/batch.py:impute_samples_batched
+(:67-709). Batch rows are {sample x chain}; per seek iteration a 21-sweep
+Gibbs call labels every read. QUILT1: the labels give haploid GLs, the
+full-panel FB gives dosages and top-K matches, and the haplotype subsets
+are re-selected on the device. msPBWT (QUILT2): the Gibbs call's own
+haplotype dosages are the dosages, and their distinct-haplotype symbols
+drive the host msPBWT match search that re-selects the subsets. Dosages
+and genotype posteriors accumulate past the seek burn-in; a read-label
+consensus across chains seeds a final phasing pass. Rare/common (QUILT2):
+the seek loop runs on common SNPs, then one all-SNP Gibbs call after the
+seek loop and one after the phasing pass give the all-SNP outputs.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 
 from quilt_tpu.config import ImputeConfig
 from quilt_tpu.io.reads import SampleReads
+from quilt_tpu.panel.mspbwt import select_new_haps_mspbwt_batch
 from quilt_tpu.utils import print_message
 
 from ..inputs import GibbsInputs, PaddedReads, pad_to_multiple
@@ -28,7 +34,9 @@ from ..kernels.emissions import (
 )
 from ..kernels.fb import fb_full_batched
 from ..kernels.gibbs import SlotLayout, run_gibbs_chains
+from ..panel.mspbwt import symbols_device
 from .context import RegionContext, sample_allele_count
+from .rare_common import initial_all_snp_labels
 from .selection import (
     consensus_read_labels, read_confidence_device, recast_haps,
     select_new_haps_device,
@@ -59,14 +67,19 @@ def lem_full_budget(device: torch.device) -> int:
 
 
 def impute_samples_batched(ctx: RegionContext, reads_list: Sequence[SampleReads],
-                           cfg: ImputeConfig, seed: int) -> List[SampleResult]:
+                           cfg: ImputeConfig, seed: int,
+                           reads_all_list: Optional[Sequence[SampleReads]] = None,
+                           ) -> List[SampleResult]:
     """Whole-batch underflow retry (reference: the per-call /10 retry of
     functions.R:2704-2714): the underflow flag is checked once at the end
     of a batch, and on underflow the whole batch reruns with seed+attempt
-    and a tenth of maxDifferenceBetweenReads."""
+    and a tenth of maxDifferenceBetweenReads. Under rare/common,
+    reads_list holds the common-SNP reads and reads_all_list the same
+    samples' all-SNP reads."""
     max_diff = cfg.maxDifferenceBetweenReads
     for attempt in range(11):
-        results, uf_seen = _impute_once(ctx, reads_list, cfg, seed + attempt, max_diff)
+        results, uf_seen = _impute_once(ctx, reads_list, cfg, seed + attempt, max_diff,
+                                        reads_all_list)
         if not uf_seen:
             return results
         max_diff = max(1.0, max_diff / 10.0)
@@ -75,10 +88,12 @@ def impute_samples_batched(ctx: RegionContext, reads_list: Sequence[SampleReads]
 
 
 def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
-                 max_diff: float):
+                 max_diff: float, reads_all_list=None):
     prep = ctx.prep
     dev = ctx.device
     nSNPs, nGrids, K, nl = prep.nSNPs, prep.nGrids, prep.K, 2
+    use_ms = cfg.use_mspbwt
+    rare_common = reads_all_list is not None
     rng = np.random.default_rng(seed)
     timers = ctx.timers
 
@@ -138,15 +153,28 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     sp_of_row = torch.repeat_interleave(torch.arange(S, device=dev), C)
     uf_any = torch.zeros((), dtype=torch.bool, device=dev)
 
+    def read_lem(words, r, md, R_out):
+        """Log read emissions [B, Kp, R_out] from the subset words, and the
+        uninformative-read flags (max - min <= 1e-9)."""
+        em = emat_read_from_bits(words, r["u"], r["lr"], r["la"], md, R_out=R_out)
+        return torch.log(em), (em.amax(1) - em.amin(1)) <= 1e-9
+
+    def pad_subsets(which_b):
+        # pad the subsets by repeating their first haplotype: pad rows
+        # carry zero weight in every kernel sum
+        return torch.cat([which_b, which_b[:, :1].expand(-1, Kp_sub - which_b.shape[1])], 1)
+
     def run_chains(which_b, H0_b, iterative, first_b):
         """One n_its-sweep Gibbs call; the underflow flag accumulates on the
-        device and is read once at the end of the batch."""
+        device and is read once at the end of the batch. Returns the labels
+        and, under msPBWT, the Gibbs haplotype dosages [B, 2, nSNPs]."""
         nonlocal uf_any
         Ksub_b = which_b.shape[1]
+        words = None
         with sec("gibbs:bits_gather"):
-            # pad the subsets by repeating their first haplotype: pad rows
-            # carry zero weight in every kernel sum
-            which_p = torch.cat([which_b, which_b[:, :1].expand(-1, Kp_sub - Ksub_b)], 1)
+            which_p = pad_subsets(which_b)
+            if use_ms or lem_full is None:
+                words = gather_words(ctx.rhb_dev(), which_p)
         with sec("gibbs:rng"):
             uniforms = torch.rand((n_its, B, R), generator=gen, device=dev)
             block_u = torch.rand((n_its, max(nb_slots, 1), 3, B), generator=gen,
@@ -156,24 +184,20 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
                 lem, skip = lem_subset(lem_full, sp_of_row[:, None] * K + which_p, max_diff, R)
         with sec("gibbs:sweep_kernel"):
             if lem_full is None:
-                em = emat_read_from_bits(gather_words(ctx.rhb_dev(), which_p), rows["u"],
-                                         rows["lr"], rows["la"], max_diff, R_out=R)
-                lem, skip = torch.log(em), (em.amax(1) - em.amin(1)) <= 1e-9
-            Hn, _, uf = run_gibbs_chains(
+                lem, skip = read_lem(words, rows, max_diff, R)
+            Hn, _, uf, hap_dos, _ = run_gibbs_chains(
                 layout, ctx.tensors["gibbs_trans"], lem, skip, uniforms, H0_b,
                 first_b, iterative, Ksub_b,
                 block_u=block_u if nb_slots else None, do_block=do_block,
                 smooth_w=ctx.smooth_w, quantile_prob=ctx.block_quantile,
+                words=words if use_ms else None, ref_error=prep.ref_error, timed=sec,
             )
         uf_any = uf_any | uf.any()
-        return Hn
-
-    S_pad = ctx.fb_inputs.S
-    thin = torch.as_tensor(ctx.thinned_grids, device=dev)
+        return Hn, None if hap_dos is None else hap_dos[:, :, :nSNPs]
 
     def run_fb_and_select(H_b, which_b):
         with sec("fb:gl_build"):
-            gls = gls_from_labels_windowed(gl_cache, H_b, nl, C, S_pad,
+            gls = gls_from_labels_windowed(gl_cache, H_b, nl, C, ctx.fb_inputs.S,
                                            minGLValue=cfg.minGLValue)
         with sec("fb:kernel"):
             dosage, _, tv, ti = fb_full_batched(
@@ -181,11 +205,83 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
                 ref_error=prep.ref_error,
             )
         with sec("fb:select"):
+            thin = torch.as_tensor(ctx.thinned_grids, device=dev)
             new_sets = select_new_haps_device(
                 tv[thin], ti[thin], which_b, gen, ctx.Ksub - ctx.Knew, ctx.Knew,
                 K, nl, cfg.K_top_matches,
             )
         return dosage[:, :nSNPs].reshape(B, nl, nSNPs), new_sets
+
+    def select_mspbwt(hap_dos, which_b):
+        """msPBWT re-selection (reference: select_new_haps_mspbwt_v3,
+        mspbwt.R:230-474): symbols of the rounded dosages on the device, then
+        the host match scan, ranking and interleave for the whole batch."""
+        with sec("select:mspbwt"):
+            z_all = symbols_device(hap_dos, ctx.tensors["dh_bits"], nSNPs).cpu().numpy()
+            which_np = which_b.cpu().numpy()
+            n_keep = ctx.Ksub - ctx.Knew
+            prev_list = [rng.choice(which_np[b], size=n_keep, replace=False)
+                         for b in range(B)]
+            news = select_new_haps_mspbwt_batch(
+                prep.ms_indices, prep.panel, z_all, ctx.Knew, K, prev_list, rng,
+                mspbwtL=cfg.mspbwtL, mspbwtM=cfg.mspbwtM,
+                heuristic_approach=cfg.heuristic_approach,
+            )
+            new_sets = np.stack([np.sort(np.concatenate([p, n])) for p, n in zip(prev_list, news)])
+        return as_t(new_sets.astype(np.int64))
+
+    def seek_step(which_b, H0_b, iterative, first_b):
+        """One seek iteration: (labels, hap dosages [B, 2, nSNPs], new subsets)."""
+        Hn, hap_dos = run_chains(which_b, H0_b, iterative, first_b)
+        if use_ms:
+            return Hn, hap_dos, select_mspbwt(hap_dos, which_b)
+        hap_dos, new_sets = run_fb_and_select(Hn, which_b)
+        return Hn, hap_dos, new_sets
+
+    if rare_common:
+        reads_all_sorted = [r.sorted_by_grid() for r in reads_all_list]
+        nSNPs_all = len(prep.snp_is_common)
+        with sec("inputs_build"):
+            gin_all = GibbsInputs.build_batched(
+                reads_all_sorted, ctx.trans_all, ctx.nGrids_all).repeat_rows(C)
+            R_all = gin_all.R
+            pr_all = PaddedReads.build_batched(reads_all_sorted, ref_error=prep.ref_error)
+            layout_all = SlotLayout.build(gin_all, B, dev)
+        rows_all = {k: torch.repeat_interleave(as_t(getattr(pr_all, a)), C, dim=0)
+                    for k, a in (("u", "u_pad"), ("lr", "lr"), ("la", "la"))}
+
+    def run_all_snp_gibbs(which_b, hap_dos_common):
+        """The final all-SNP Gibbs call of rare/common imputation for the
+        whole batch (reference: rare_common.R:109-470, per sample there):
+        labels start from the common-SNP dosages, the subset words come from
+        the region's all-SNP panel, no block moves, and an underflow retries
+        the call with a tenth of maxDifferenceBetweenReads (11 attempts).
+        Returns the hap dosages [B, 2, nSNPs_all]."""
+        Ksub_b = which_b.shape[1]
+        with sec("rare:bits_build"):
+            words = gather_words(ctx.tensors["rhb_all"], pad_subsets(which_b))
+        hd_common = hap_dos_common.cpu().numpy()
+        H0 = np.zeros((B, R_all), dtype=np.int32)
+        for b in range(B):
+            ra = reads_all_sorted[b // C]
+            H0[b, :ra.nReads] = initial_all_snp_labels(ra, hd_common[b], prep.snp_is_common,
+                                                       nl, 0.0, rng)
+        uniforms = as_t(rng.random((n_its, B, R_all)).astype(np.float32))
+        H0, zero = as_t(H0), torch.zeros(B, dtype=torch.int32, device=dev)
+        md = max_diff
+        for _ in range(11):
+            with sec("rare:sweep_kernel"):
+                lem, skip = read_lem(words, rows_all, md, R_all)
+                _, _, uf, hd, _ = run_gibbs_chains(
+                    layout_all, ctx.tensors["gibbs_trans_all"], lem, skip, uniforms, H0, zero,
+                    False, Ksub_b, words=words, ref_error=prep.ref_error, timed=sec,
+                )
+            if not bool(uf.any()):
+                break
+            md = max(1.0, md / 10.0)
+            print_message(f"Underflow in all-SNP Gibbs; retrying batch with "
+                          f"maxDifferenceBetweenReads={md}")
+        return hd[:, :, :nSNPs_all]
 
     dosage_acc = torch.zeros((S, nSNPs), dtype=torch.float32, device=dev)
     gp_acc = torch.zeros((S, 3, nSNPs), dtype=torch.float32, device=dev)
@@ -195,21 +291,23 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     first = as_t(first_read)
     hap_dos = None
     for i_it in range(1, ctx.n_seek_its + 1):
-        H_dev = run_chains(which, H_dev, i_it == 1, first)
-        hap_dos, which = run_fb_and_select(H_dev, which)
+        H_dev, hap_dos, which = seek_step(which, H_dev, i_it == 1, first)
         if i_it > ctx.n_burn_in_seek_its:
             with sec("accumulate"):
-                h1 = hap_dos[:, 0].reshape(S, C, nSNPs)
-                h2 = hap_dos[:, 1].reshape(S, C, nSNPs)
                 # in place: the accumulators stay device-resident
-                dosage_acc += (h1 + h2).sum(1)
-                gp_acc[:, 0] += ((1 - h1) * (1 - h2)).sum(1)
-                gp_acc[:, 1] += (h1 * (1 - h2) + (1 - h1) * h2).sum(1)
-                gp_acc[:, 2] += (h1 * h2).sum(1)
+                _accumulate(dosage_acc, gp_acc, hap_dos, S, C)
             n_acc += C
     with sec("final_fetch"):
-        dosage_np = dosage_acc.double().cpu().numpy()
-        gp_np = gp_acc.double().cpu().numpy()
+        dosage_np = dosage_acc.double().cpu().numpy() / max(n_acc, 1)
+        gp_np = gp_acc.double().cpu().numpy() / max(n_acc, 1)
+    if rare_common:
+        # all-SNP outputs: one final all-SNP call on the last seek state
+        hd_a = run_all_snp_gibbs(which, hap_dos)
+        dosage_all = torch.zeros((S, nSNPs_all), dtype=torch.float32, device=dev)
+        gp_all = torch.zeros((S, 3, nSNPs_all), dtype=torch.float32, device=dev)
+        _accumulate(dosage_all, gp_all, hd_a, S, C)
+        dosage_np = dosage_all.double().cpu().numpy() / C
+        gp_np = gp_all.double().cpu().numpy() / C
 
     # per-sample consensus: read confidence on the device from the final
     # per-chain dosages; the flip-detection walk is sequential, on the host
@@ -233,21 +331,36 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     H_p = as_t(H_p)
     first_zero = torch.zeros(B, dtype=torch.int32, device=dev)
     for _ in range(ctx.n_seek_its):
-        H_p = run_chains(wh_p, H_p, False, first_zero)
-        hap_dos_ph, wh_p = run_fb_and_select(H_p, wh_p)
-    hap_dos_ph = hap_dos_ph[torch.as_tensor(np.arange(S) * C, device=dev)].double().cpu().numpy()
+        H_p, hap_dos_ph, wh_p = seek_step(wh_p, H_p, False, first_zero)
+    if rare_common:
+        hap_dos_ph = run_all_snp_gibbs(wh_p, hap_dos_ph)
+    rows0 = torch.as_tensor(np.arange(S) * C, device=dev)
+    hap_dos_ph = hap_dos_ph[rows0].double().cpu().numpy()
 
     results: List[SampleResult] = []
     for s in range(S):
         if not ok[s]:
             results.append(SampleResult(imputed=False))
             continue
-        gp = gp_np[s] / max(n_acc, 1)
+        gp = gp_np[s]
         hd1, hd2 = recast_haps(hap_dos_ph[s, 0], hap_dos_ph[s, 1], gp)
         results.append(SampleResult(
-            imputed=True, dosage=dosage_np[s] / max(n_acc, 1), gp=gp,
+            imputed=True, dosage=dosage_np[s], gp=gp,
             phased_haps=np.stack([np.round(hd1), np.round(hd2)]),
             read_labels=cons_list[s],
-            allele_count=sample_allele_count(reads_sorted[s], nSNPs),
+            allele_count=(sample_allele_count(reads_all_sorted[s], nSNPs_all) if rare_common
+                          else sample_allele_count(reads_sorted[s], nSNPs)),
         ))
     return results, bool(uf_any.item())
+
+
+def _accumulate(dosage_acc, gp_acc, hap_dos, S, C):
+    """Add the chains' diploid dosages and genotype posteriors of hap_dos
+    [S*C, 2, n] to the per-sample accumulators [S, n] / [S, 3, n]."""
+    n = hap_dos.shape[2]
+    h1 = hap_dos[:, 0].reshape(S, C, n)
+    h2 = hap_dos[:, 1].reshape(S, C, n)
+    dosage_acc += (h1 + h2).sum(1)
+    gp_acc[:, 0] += ((1 - h1) * (1 - h2)).sum(1)
+    gp_acc[:, 1] += (h1 * (1 - h2) + (1 - h1) * h2).sum(1)
+    gp_acc[:, 2] += (h1 * h2).sum(1)

@@ -2,7 +2,9 @@
 helpers whose JAX-package modules import jax.
 
 RegionContext is the single-device counterpart of
-quilt_tpu/engine/sample.py:RegionContext (:40-216); detect_boundaries is
+quilt_tpu/engine/sample.py:RegionContext (:40-216), with the QUILT2 state
+of :100-151 (the distinct-haplotype bits of msPBWT selection, the all-SNP
+transitions and panel of rare/common imputation); detect_boundaries is
 quilt_tpu/oracle/block_gibbs.py:36, sample_allele_count
 quilt_tpu/engine/sample.py:716, and the validators
 quilt_tpu/engine/validators.py:15,79.
@@ -18,24 +20,31 @@ import torch
 
 from quilt_tpu.config import ImputeConfig
 from quilt_tpu.io.reads import SampleReads, bq_to_probs
-from quilt_tpu.panel.prepare import PreparedReference, make_smoothed_rate
+from quilt_tpu.panel.prepare import PreparedReference, make_smoothed_rate, trans_rates
 from quilt_tpu.utils import print_message
 from quilt_tpu.utils.log import SectionTimers
 
-from ..inputs import FBInputs, region_tensors
+from ..inputs import FBInputs, gibbs_trans, region_tensors
 from ..kernels.emissions import expand_panel
+from ..panel.mspbwt import distinct_hap_bits
+from .rare_common import all_snp_panel
 
 
 @dataclass
 class RegionContext:
     """Per-region constants and device tensors shared across sample
-    batches (diploid, one device)."""
+    batches (diploid, one device). Under msPBWT selection there are no FB
+    inputs (fb_inputs and thinned_grids are None) and tensors["dh_bits"]
+    holds the distinct haplotypes [nMaxDH, nGrids*32]; under rare/common,
+    trans_all / nGrids_all are the all-SNP grid's and tensors["rhb_all"]
+    [K, nGrids_all] i32 / tensors["gibbs_trans_all"] [2, nGrids_all] its
+    packed panel and Gibbs transitions."""
 
     prep: PreparedReference
     device: torch.device
     trans: np.ndarray              # [2, nGrids-1] (stay, jump) per gap
-    fb_inputs: FBInputs
-    thinned_grids: np.ndarray
+    fb_inputs: Optional[FBInputs]
+    thinned_grids: Optional[np.ndarray]
     Ksub: int
     Knew: int
     n_seek_its: int
@@ -45,6 +54,8 @@ class RegionContext:
     block_quantile: float
     block_nb_cap: int
     timers: SectionTimers
+    trans_all: Optional[np.ndarray] = None   # [2, nGrids_all-1] all-SNP gap rates
+    nGrids_all: int = 0
     n_latent: int = 2
     _e_full: Optional[torch.Tensor] = None
 
@@ -93,6 +104,17 @@ class RegionContext:
         smooth_w = None
         if t["smooth_band"] is not None:
             smooth_w = (t["smooth_band"], t["smooth_idx0"])
+        if cfg.use_mspbwt:
+            t["dh_bits"] = distinct_hap_bits(prep.panel, device)
+        trans_all, nGrids_all = None, 0
+        if cfg.impute_rare_common and prep.snp_is_common is not None:
+            trans_all = trans_rates(prep.sigma_all)
+            nGrids_all = len(prep.L_grid_all)
+            t["rhb_all"] = torch.as_tensor(all_snp_panel(
+                prep.rhb_t, prep.snp_is_common, prep.rare_per_hap_info, nGrids_all,
+            ), device=device)
+            t["gibbs_trans_all"] = torch.as_tensor(
+                np.ascontiguousarray(gibbs_trans(trans_all, nGrids_all).T), device=device)
         return cls(
             prep=prep, device=torch.device(device), trans=t["trans"],
             fb_inputs=t["fb"], thinned_grids=t["thinned_grids"], Ksub=Ksub,
@@ -100,6 +122,7 @@ class RegionContext:
             smooth_w=smooth_w, block_quantile=cfg.block_gibbs_quantile_prob,
             block_nb_cap=nb_cap,
             timers=SectionTimers(cfg.print_extra_timing_information),
+            trans_all=trans_all, nGrids_all=nGrids_all,
         )
 
 

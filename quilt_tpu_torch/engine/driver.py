@@ -1,5 +1,6 @@
 """Multi-sample imputation driver of the port: the batched dispatch of
-quilt_tpu/engine/driver.py:quilt_impute (:44-223), the INFO / allele
+quilt_tpu/engine/driver.py:quilt_impute (:44-223), with the rare/common
+read split and all-SNP output axis of :94-114, the INFO / allele
 frequency / HWE aggregation after it, and the VCF write through
 quilt_tpu.out.vcf_writer."""
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .context import (
     RegionContext, context_fields, validate_impute_config,
     validate_region_consistency,
 )
+from .rare_common import restrict_reads_to_common
 
 # diagnostic options served by the JAX package's per-sample engine
 _PER_SAMPLE_FLAGS = (
@@ -57,8 +59,6 @@ def check_slice(cfg: ImputeConfig) -> None:
     later = []
     if cfg.method != "diploid":
         later.append(f"method={cfg.method} (NIPT slice)")
-    if cfg.use_mspbwt or cfg.impute_rare_common:
-        later.append("use_mspbwt / impute_rare_common (QUILT2 slice)")
     if cfg.hla_run or cfg.gamma_physically_closest_to is not None:
         later.append("hla_run / gamma capture (HLA slice)")
     flags = [f for f in _PER_SAMPLE_FLAGS if getattr(cfg, f)]
@@ -109,9 +109,12 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                  output_filename: Optional[str] = None,
                  truth_gen: Optional[np.ndarray] = None,
                  truth_haps: Optional[np.ndarray] = None) -> ImputeOutput:
-    """QUILT1 diploid imputation of `samples` on `device` (a torch device:
-    "cuda" on the GPU, "cpu" for the tests). truth_gen [nSNPs, N] and
-    truth_haps [nSNPs, N, 2] give per-sample r2 / PSE reports."""
+    """Diploid imputation of `samples` on `device` (a torch device: "cuda"
+    on the GPU, "cpu" for the tests): QUILT1, or QUILT2 with use_mspbwt
+    and / or impute_rare_common. Under rare/common the samples hold
+    all-SNP reads and every output (VCF sites, dosages, truth_gen) is on
+    the all-SNP axis. truth_gen [nSNPs, N] and truth_haps [nSNPs, N, 2]
+    give per-sample r2 / PSE reports."""
     t0 = time.time()
     set_verbosity(cfg.verbose)
     validate_impute_config(cfg)
@@ -120,7 +123,21 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     device = torch.device(device)
     ctx = _region_context(prep, cfg, device)
     N = len(samples)
-    nSNPs = prep.nSNPs
+    rare_common = cfg.impute_rare_common and prep.snp_is_common is not None
+    samples_all = None
+    if rare_common:
+        # the seek loop runs on common SNPs (reference: quilt.R:664-684,
+        # functions.R:130-174)
+        samples_all = list(samples)
+        samples = [restrict_reads_to_common(r, prep.snp_is_common, prep.grid)
+                   for r in samples_all]
+        nSNPs = len(prep.snp_is_common)
+        out_pos, out_ref, out_alt = prep.pos_all, prep.ref_allele_all, prep.alt_allele_all
+        in_region = prep.in_region_all()
+    else:
+        nSNPs = prep.nSNPs
+        out_pos, out_ref, out_alt = prep.pos, prep.ref_allele, prep.alt_allele
+        in_region = prep.in_region()
 
     # sample batches of the batched engine; the batch is clamped so one
     # Gibbs call's working set fits the device
@@ -139,7 +156,8 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         group = list(range(s0, min(s0 + sample_batch, N)))
         print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
         for i, res in zip(group, impute_samples_batched(
-                ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0])):
+                ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0],
+                reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
             results[i] = res
 
     eij_sum = np.zeros(nSNPs)
@@ -174,6 +192,12 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
             r2 = r2_simple(truth_gen[:, i], res.dosage)
             r2s.append(r2)
             msg = f"  r2 vs truth: {r2:.4f}"
+            # common / rare split by panel MAF, as the JAX driver prints it
+            af = prep.af_all if rare_common else prep.af
+            com = np.minimum(af, 1 - af) >= 0.05
+            if com.any() and (~com).any():
+                msg += (f" (common {r2_simple(truth_gen[com, i], res.dosage[com]):.4f}, "
+                        f"rare {r2_simple(truth_gen[~com, i], res.dosage[~com]):.4f})")
             if truth_haps is not None:
                 pse = calculate_pse(res.phased_haps.T, truth_haps[:, i])
                 msg += f", PSE: {pse['pse']:.4f} ({pse.get('phase_sites', 0)} het sites)"
@@ -185,11 +209,11 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     if output_filename:
         with ctx.timers.section("vcf:write"):
             write_quilt_vcf(
-                output_filename, chrom=prep.chrom, pos=prep.pos,
-                ref_allele=prep.ref_allele, alt_allele=prep.alt_allele,
+                output_filename, chrom=prep.chrom, pos=out_pos,
+                ref_allele=out_ref, alt_allele=out_alt,
                 sample_names=sample_names, sample_columns=columns, eaf=eaf,
                 info=info, hwe=hwe_from_counts(hwe_counts),
-                allele_count=allele_count, in_region=prep.in_region(),
+                allele_count=allele_count, in_region=in_region,
                 method="diploid",
                 output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
                 with_ohd=False,

@@ -259,17 +259,19 @@ def region_tensors(prep: PreparedReference, cfg, device) -> Dict:
     of on-the-fly block boundaries, or None), and the tensors on `device`:
     "rhb_t" [K, nGrids] i32 packed panel, "words" / "trans2" / "thin_flag"
     of the FB, "gibbs_trans" [2, nGrids] f32 of the Gibbs sweeps, and
-    "smooth_band" / "smooth_idx0" (None without block boundaries)."""
+    "smooth_band" / "smooth_idx0" (None without block boundaries). Under
+    msPBWT selection nothing runs the full-panel FB: "fb" and
+    "thinned_grids" are None and the FB tensors are not uploaded."""
     trans = trans_rates(prep.sigma)
-    thinned = thinned_grids(prep.nGrids, cfg.heuristic_match_thin)
-    fb = FBInputs.build(prep.panel, trans, thinned_grids=thinned)
     smooth_w = None
     if (cfg.block_gibbs_boundary_detection == "gamma" and prep.nGrids > 4
             and cfg.max_block_gibbs_boundaries > 0):
         smooth_w = smoothing_band(prep.L_grid, cfg.shuffle_bin_radius)
-    out = {"trans": trans, "thinned_grids": thinned, "fb": fb,
-           "smooth_w": smooth_w}
-    out.update(fb.device_tensors(device))
+    out = {"trans": trans, "thinned_grids": None, "fb": None, "smooth_w": smooth_w}
+    if not cfg.use_mspbwt:
+        out["thinned_grids"] = thinned_grids(prep.nGrids, cfg.heuristic_match_thin)
+        out["fb"] = FBInputs.build(prep.panel, trans, thinned_grids=out["thinned_grids"])
+        out.update(out["fb"].device_tensors(device))
     out["rhb_t"] = torch.as_tensor(
         np.ascontiguousarray(prep.rhb_t).view(np.int32), device=device
     )

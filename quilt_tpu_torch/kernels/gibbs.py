@@ -8,21 +8,25 @@ run_gibbs_chains_pallas (:1212-1257), the sweep loop of _gibbs_core_pallas
 (:772-1088) with its per-iteration likelihood row, and the block moves
 _live_jump_rate_padded (:644), _suffix_pair_composed_padded (:670), plus
 quilt_tpu/kernels/gibbs.py:_run_peaks / _boundaries_from_rate (:108-202,
-the 4-pass boundary cascade) and _pair_swap_parity (:262). The Gibbs-side
-haplotype dosages and genotype posteriors are not computed here: the
-diploid engine consumes only the read labels (its dosages come from the
-full-panel FB), so the dosage kernel waits for the QUILT2 slice.
+the 4-pass boundary cascade) and _pair_swap_parity (:262). Given the packed
+subset words, the call also returns the Gibbs haplotype dosages and
+genotype posteriors (gibbs_pallas.py:1037-1088, the dosage kernel): the
+QUILT2 paths (msPBWT selection, the rare/common all-SNP call) consume them;
+the QUILT1 diploid engine takes its dosages from the full-panel FB and
+does not ask for them.
 
 Layouts are nl-major: state rows h*B + b of [G, 2B, K] planes.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..inputs import GibbsInputs
+from .gibbs_dosage import dosage_sweep
 from .gibbs_sweep import bwd_sweep, fwd_sweep
 
 PER_IT_COLS = (
@@ -213,7 +217,8 @@ def suffix_pair_composed(lemg, beta, alphas, H_pad, bnd_rb, block_u_j0, B, K_rea
 
 def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_read,
                      iterative_init, K_real, block_u=None, do_block=None,
-                     smooth_w=None, quantile_prob=0.95):
+                     smooth_w=None, quantile_prob=0.95, words=None,
+                     ref_error=0.001, timed=None):
     """One diploid Gibbs call over B chains.
 
     trans [2, G] f32 (stay, jump) into each grid (grid 0: (1, 0));
@@ -221,8 +226,12 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
     uninformative reads (lem_subset, or log of emat_read_from_bits);
     uniforms [n_its, B, R]; H0 [B, R] i32; first_read [B] i32; block_u
     [n_its, NBu, 3, B] and do_block [n_its] bool with smooth_w the
-    on-the-fly boundary smoothing band. Returns (labels [B, R] i32,
-    per-iteration likelihoods [n_its, B, 8], underflow [B] bool)."""
+    on-the-fly boundary smoothing band; words [B, Kp, G] i32 the packed
+    subset words (gather_words) when the call is to return dosages;
+    timed(name) a context manager timing the dosage pass. Returns (labels
+    [B, R] i32, per-iteration likelihoods [n_its, B, 8], underflow [B]
+    bool, hap_dos [B, 2, G*32] f32, gp [B, 3, G*32] f32); the last two are
+    None without words."""
     B, K, R = lem.shape
     G, W = layout.G, layout.W
     n_its = uniforms.shape[0]
@@ -277,4 +286,13 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
         ], 1)
     H_flat = H_pad.reshape(G * W, B).T                              # [B, G*W]
     H_out = torch.where(layout.mask, H_flat.gather(1, layout.idx_back), 0).to(torch.int32)
-    return H_out, per_it, uf[:, 0] > 0
+    hap_dos = gp = None
+    if words is not None:
+        timed = timed or (lambda name: contextlib.nullcontext())
+        with timed("gibbs:dosage_kernel"):
+            hd = dosage_sweep(alphas.contiguous(), beta, words.permute(2, 0, 1).contiguous(),
+                              2, K_real, ref_error)                 # [G, 2B, 32]
+            hap_dos = hd.reshape(G, 2, B, 32).permute(2, 1, 0, 3).reshape(B, 2, G * 32)
+            h1, h2 = hap_dos[:, 0], hap_dos[:, 1]
+            gp = torch.stack([(1 - h1) * (1 - h2), h1 * (1 - h2) + (1 - h1) * h2, h1 * h2], 1)
+    return H_out, per_it, uf[:, 0] > 0, hap_dos, gp

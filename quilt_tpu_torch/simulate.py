@@ -15,29 +15,56 @@ from quilt_tpu.panel import prepare_panel
 
 
 def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
-               coverage: float = 1.0, read_length_bp: int = 600) -> Dict:
+               coverage: float = 1.0, read_length_bp: int = 600, rare_frac: float = 0.0,
+               quilt2: bool = False) -> Dict:
     """A prepared panel of K haplotypes over nSNPs SNPs spaced ~60 bp, and
     n_samples samples' reads (phred 25) from truth mosaics of the panel.
-    Returns {"prep", "samples", "truths" ([2, nSNPs] each)}."""
+    rare_frac of the sites are rewritten to 1-4 carriers (rare_sites).
+    quilt2 prepares the panel as `prepare2` does (rare/common split at the
+    default rare_af_threshold, msPBWT indices) and simulates the reads on
+    the all-SNP axis. Returns {"prep", "samples", "truths" ([2, nSNPs]
+    each, all SNPs)}."""
     haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs, region_span=nSNPs * 60)
+    if rare_frac:
+        rare_sites(rng, haps, int(round(rare_frac * nSNPs)), max_carriers=4)
+    quilt2_opts = dict(impute_rare_common=True, use_mspbwt=True, mspbwt_nindices=4)
     prep = prepare_panel(chrom="chr20", pos=pos, ref_allele=np.array(["A"] * nSNPs),
-                         alt_allele=np.array(["G"] * nSNPs), haps=haps)
+                         alt_allele=np.array(["G"] * nSNPs), haps=haps,
+                         **(quilt2_opts if quilt2 else {}))
+    grid = prep.grid_all if quilt2 else prep.grid
     samples, truths = [], []
     for _ in range(n_samples):
         truth = simulate_truth_mosaic(rng, haps, n_latent=2)
-        reads, _ = simulate_sample_reads(rng, truth, pos, prep.grid, coverage=coverage,
+        reads, _ = simulate_sample_reads(rng, truth, pos, grid, coverage=coverage,
                                          read_length_bp=read_length_bp, phred=25)
         samples.append(reads)
         truths.append(truth)
     return dict(prep=prep, samples=samples, truths=truths)
 
 
+def rare_sites(rng: np.random.Generator, haps: np.ndarray, n_sites: int,
+               max_carriers: int = 1) -> np.ndarray:
+    """Rewrite n_sites random sites of the panel haps [K, nSNPs] in place
+    to 1..max_carriers carrier haplotypes each (as
+    tests/test_engine_batched.py makes rare sites). Returns the sites."""
+    K, nSNPs = haps.shape
+    sites = rng.choice(nSNPs, n_sites, replace=False)
+    for s in sites:
+        haps[:, s] = 0
+        haps[rng.choice(K, int(rng.integers(1, max_carriers + 1)), replace=False), s] = 1
+    return sites
+
+
 def write_bam_world(out_dir: str, rng: np.random.Generator, K: int = 80,
-                    nSNPs: int = 384, n_samples: int = 2):
+                    nSNPs: int = 384, n_samples: int = 2, n_rare: int = 0):
     """A panel VCF, a genetic map and one BAM per sample (300 bp reads at
-    ~2x from truth mosaics of the panel) under out_dir. Returns (vcf path,
-    map path, bamlist path, truths [n_samples] of [2, nSNPs], nSNPs)."""
+    ~2x from truth mosaics of the panel) under out_dir; n_rare sites carry a
+    single carrier haplotype (rare at `prepare2 --rare_af_threshold 0.03`
+    for K = 80). Returns (vcf path, map path, bamlist path, truths
+    [n_samples] of [2, nSNPs], nSNPs)."""
     haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs, region_span=200_000)
+    if n_rare:
+        rare_sites(rng, haps, n_rare)
     vcf = os.path.join(out_dir, "panel.vcf.gz")
     write_panel_vcf(vcf, "chr20", pos, np.array(["A"] * nSNPs), np.array(["G"] * nSNPs), haps)
     gmap = os.path.join(out_dir, "map.txt")

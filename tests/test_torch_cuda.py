@@ -1,19 +1,21 @@
 """The port's CUDA kernels against their plain versions, and the engine on
-the GPU, at small shapes that reach the kernels' edge cases (fewer
-haplotypes than threads, padded haplotypes, more than 64 reads in a grid,
-the iterative-init modes). They need an NVIDIA GPU and nvcc and skip
-elsewhere; on the GPU machine, which has no jax, run them with
+the GPU (QUILT1 and QUILT2), at small shapes that reach the kernels' edge
+cases (fewer haplotypes than threads, padded haplotypes, more than 64
+reads in a grid, the iterative-init modes). They need an NVIDIA GPU and
+nvcc and skip elsewhere; on the GPU machine, which has no jax, run them
+with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: as chip_smoke.py states them (labels > 0.995 with the state
 compared on chains whose labels all agree at rtol 1e-4 / atol 1e-3; beta
-rtol 1e-5; FB dosage and top-K atol 1e-4)."""
+rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5)."""
 import numpy as np
 import pytest
 import torch
 
 from quilt_tpu_torch.kernels import fb as fbk
+from quilt_tpu_torch.kernels import gibbs_dosage as gd
 from quilt_tpu_torch.kernels import gibbs_sweep as gs
 from quilt_tpu_torch.simulate import make_world, random_sweep_state
 
@@ -88,6 +90,37 @@ def test_fb_kernels_match_plain(cuda, K, B):
     firm = (tv[g][:, :, :-1] - tv[g][:, :, 1:]) > 1e-3
     assert torch.equal(got[3][g][:, :, :-1][firm], ti[g][:, :, :-1][firm])
     assert not got[2][~g].any()
+
+
+@pytest.mark.parametrize("G,B,K,K_real", [(5, 3, 40, 33), (9, 4, 700, 700)])
+def test_dosage_kernel_matches_plain(cuda, G, B, K, K_real):
+    rng = np.random.default_rng(G + K)
+    alphas = torch.from_numpy(rng.uniform(0, 1, (G, 2 * B, K)).astype(np.float32)).to(cuda)
+    beta = torch.from_numpy(rng.uniform(0.1, 1, (G, 2 * B, K)).astype(np.float32)).to(cuda)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (G, B, K)).astype(np.int32)).to(cuda)
+    launches = gd.DOS_KERNEL.launches
+    got = gd.dosage_sweep(alphas, beta, words, 2, K_real, 0.001)
+    assert gd.DOS_KERNEL.launches == launches + 1
+    torch.testing.assert_close(got, gd.dosage_sweep_plain(alphas, beta, words, K_real, 0.001),
+                               rtol=0, atol=1e-5)
+
+
+def test_quilt2_engine_on_gpu(cuda):
+    from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
+
+    world = make_world(np.random.default_rng(6), K=120, nSNPs=640, n_samples=3,
+                       coverage=1.5, rare_frac=0.1, quilt2=True)
+    kernels = [gs.FWD_KERNEL, gs.BWD_KERNEL, gd.DOS_KERNEL]
+    for k in kernels:
+        k.launches = 0
+    truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
+    out = quilt_impute(world["prep"], world["samples"], ["a", "b", "c"],
+                       ImputeConfig(nGibbsSamples=3, n_seek_its=2, Ksubset=48, Knew=48,
+                                    small_ref_panel_gibbs_iterations=8, seed=3,
+                                    use_mspbwt=True, impute_rare_common=True),
+                       "cuda", truth_gen=truth_gen)
+    assert min(out.r2_per_sample) > 0.85, out.r2_per_sample
+    assert all(k.launches > 0 for k in kernels), [k.launches for k in kernels]
 
 
 def test_engine_on_gpu(cuda):

@@ -98,7 +98,7 @@ def test_region_context_key_is_derived(world):
 
 
 @pytest.mark.parametrize("override", [
-    {"method": "nipt"}, {"use_mspbwt": True}, {"impute_rare_common": True},
+    {"method": "nipt"}, {"distributed_nproc": 2}, {"addOptimalHapsToVCF": True},
     {"hla_run": True}, {"gamma_physically_closest_to": 1000},
     {"record_interim_dosages": True}, {"make_plots": True}, {"mesh_panel": 2},
 ])

@@ -50,6 +50,27 @@ def test_no_jax_import_statements():
     assert not offenders, offenders
 
 
+def test_mspbwt_reuse_stops_at_the_host_search():
+    """quilt_tpu.panel.mspbwt imports without jax and the port reuses its
+    host index and match scan; its symbols_device imports jax inside the
+    function, so the port calls its own."""
+    names = set()
+    for p in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(p.read_text(), str(p))):
+            if isinstance(node, ast.ImportFrom) and node.module == "quilt_tpu.panel.mspbwt":
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module == "quilt_tpu.panel":
+                assert "mspbwt" not in {a.name for a in node.names}, p
+            elif isinstance(node, ast.Import):
+                assert "quilt_tpu.panel.mspbwt" not in {a.name for a in node.names}, p
+    # only named imports, and never its symbols_device
+    assert names and "symbols_device" not in names, names
+    code = "import sys; sys.modules['jax'] = None; import quilt_tpu.panel.mspbwt"
+    res = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
 def test_smoke_script_imports_only_the_port():
     """chip_smoke.py imports nothing of jax nor of the JAX package."""
     mods = set(_imports(PKG.parent / "chip_smoke.py"))
