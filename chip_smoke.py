@@ -8,7 +8,11 @@ Phases, each fatal on failure:
                one process per source, and print the build time;
   2. kernels - run each ported kernel at the full-width shapes of the main
                paths against its plain PyTorch version, print the error and
-               the median times of both (CUDA events);
+               the median times of both (CUDA events); the four K-split FB
+               kernels are checked at 28 rows x K=40,960 once the large
+               world exists, together with fb_tiled_core against the fused
+               fb_core, and both FB families are timed at 28 and 112 rows x
+               K=5,120 and 40,960 (the measurements behind kernels.fb.fb_plan);
   3. e2e     - QUILT1 diploid imputation through the batched engine at
                full width (K=5,120 panel haplotypes, 16,384 SNPs, Ksubset
                600, 7 chains x 3 seek iterations x 21 sweeps, 8 samples at
@@ -21,8 +25,15 @@ Phases, each fatal on failure:
                rewritten to 1-4 carriers (rare); prints samples/s, r2 over
                all / common / rare sites and the per-stage timers; the Gibbs
                forward, backward and dosage kernels must launch;
-  5. cli     - small file-based `prepare` + `impute` and `prepare2` +
+  5. largek  - QUILT1 diploid imputation against a large panel (K=40,960
+               haplotypes, 16,384 SNPs, 2 samples = 28 FB rows), where the
+               FB plan takes the K-split kernels; the four of them and the
+               two Gibbs sweeps must launch and the fused FB must not; one
+               more call under torch.profiler gives the device-time shares;
+  6. cli     - small file-based `prepare` + `impute` and `prepare2` +
                `impute2` runs through the port's CLI; checks the VCFs.
+The port must run without the JAX package: the script fails if `jax` or
+`quilt_tpu` is loaded after the port's modules are imported.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -36,6 +47,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20240611
+# published H100 SXM peaks: HBM3 bytes/s and float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def _fail(msg):
@@ -56,6 +70,25 @@ def _median_ms(fn, n):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops):
+    """One row of the kernels line. bound_ms is the least time the card could
+    take: the larger of the bytes the function must move (each input read
+    once, each output written once) over the HBM rate and its float32
+    operations over the float32 peak. No single PyTorch call computes any of
+    these functions, so library_ms is null."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOP_PER_S * 1e3
+    return dict(name=name, route="cuda", source=f"quilt_tpu_torch/csrc/{source}",
+                replaces=f"quilt_tpu/kernels/{replaces}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -102,10 +135,12 @@ def check_kernels(world):
         _fail("gibbs_fwd disagrees with its plain version")
     ms = _median_ms(lambda: gs.fwd_sweep(*args, **kw), 5)
     plain_ms = _median_ms(lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2), 2)
-    rows.append(dict(name="gibbs_fwd", route="cuda",
-                     source="quilt_tpu_torch/csrc/gibbs_sweep.cu",
-                     replaces="quilt_tpu/kernels/gibbs_pallas.py:56",
-                     max_abs_err=max(err_lemg, err_logc), ms=ms, plain_ms=plain_ms))
+    # operations: per (grid, state row, haplotype) ~8 for the emission and
+    # alpha step, and per live read slot and haplotype ~12 for the relabelling
+    n_reads = int(live.sum())
+    rows.append(_row("gibbs_fwd", "gibbs_sweep.cu", "gibbs_pallas.py:56",
+                     max(err_lemg, err_logc), ms, plain_ms, _nbytes(*args, *got),
+                     8 * G * 2 * B * K + 12 * n_reads * K))
 
     lemg = got[0]
     trans = args[6]
@@ -115,12 +150,10 @@ def check_kernels(world):
     print(f"gibbs_bwd: max |beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
     if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
         _fail("gibbs_bwd disagrees with its plain version")
-    rows.append(dict(name="gibbs_bwd", route="cuda",
-                     source="quilt_tpu_torch/csrc/gibbs_sweep.cu",
-                     replaces="quilt_tpu/kernels/gibbs_pallas.py:351",
-                     max_abs_err=err,
-                     ms=_median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real), 5),
-                     plain_ms=_median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2)))
+    rows.append(_row("gibbs_bwd", "gibbs_sweep.cu", "gibbs_pallas.py:351", err,
+                     _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real), 5),
+                     _median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2),
+                     _nbytes(lemg, trans, got_b), 8 * G * 2 * B * K))
 
     # Gibbs dosages at the same shape: the sweep's alphas and beta, and
     # random packed subset words [G, B, K] (pad columns >= K_real masked)
@@ -134,12 +167,10 @@ def check_kernels(world):
     print(f"gibbs_dos: max |dosage err| {err:.3e} (tolerance atol 1e-5)", flush=True)
     if not err <= 1e-5:
         _fail("gibbs_dos disagrees with its plain version")
-    rows.append(dict(name="gibbs_dos", route="cuda",
-                     source="quilt_tpu_torch/csrc/gibbs_dosage.cu",
-                     replaces="quilt_tpu/kernels/gibbs_pallas.py:420",
-                     max_abs_err=err,
-                     ms=_median_ms(lambda: gd.dosage_sweep(alphas, beta_d, words_T, 2, K_real, eps), 5),
-                     plain_ms=_median_ms(lambda: gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps), 2)))
+    rows.append(_row("gibbs_dos", "gibbs_dosage.cu", "gibbs_pallas.py:420", err,
+                     _median_ms(lambda: gd.dosage_sweep(alphas, beta_d, words_T, 2, K_real, eps), 5),
+                     _median_ms(lambda: gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps), 2),
+                     _nbytes(alphas, beta_d, words_T, hd), (32 + 2) * G * 2 * B * K))
 
     # full-panel FB at the e2e shape: B = 56 chains x 2 latent haps
     fb = world["fb"]
@@ -159,10 +190,14 @@ def check_kernels(world):
           f"loglik rtol 1e-5 + atol 1e-2)", flush=True)
     if err_ck > 1e-5 or not torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2):
         _fail("fb_fwd disagrees with its plain version")
-    rows.append(dict(name="fb_fwd", route="cuda", source="quilt_tpu_torch/csrc/fb.cu",
-                     replaces="quilt_tpu/kernels/fb_pallas.py:106", max_abs_err=err_ck,
-                     ms=_median_ms(lambda: fbk.fb_forward(dl, words, trans2, fb.K), 5),
-                     plain_ms=_median_ms(lambda: fbk.fb_forward_plain(dl, words, trans2, fb.K), 2)))
+    # operations per (row, grid, haplotype): 32 for the emission sum, ~8 for
+    # the alpha step and its normalisation; the backward adds 32 for the
+    # dosage and ~12 for beta and gamma to the remat's 40
+    cells = Bf * fb.nGrids * fb.K
+    rows.append(_row("fb_fwd", "fb.cu", "fb_pallas.py:106", err_ck,
+                     _median_ms(lambda: fbk.fb_forward(dl, words, trans2, fb.K), 5),
+                     _median_ms(lambda: fbk.fb_forward_plain(dl, words, trans2, fb.K), 2),
+                     _nbytes(dl, words, trans2, ck, lg), 40 * cells))
 
     K_top = 8
     d, tv, ti = fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps)
@@ -177,13 +212,181 @@ def check_kernels(world):
           f"(tolerance dosage / top-K atol 1e-4)", flush=True)
     if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok:
         _fail("fb_bwd disagrees with its plain version")
-    rows.append(dict(name="fb_bwd", route="cuda", source="quilt_tpu_torch/csrc/fb.cu",
-                     replaces="quilt_tpu/kernels/fb_pallas.py:151", max_abs_err=err_d,
-                     ms=_median_ms(lambda: fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps), 5),
-                     plain_ms=_median_ms(lambda: fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps), 2)))
-    for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+    rows.append(_row("fb_bwd", "fb.cu", "fb_pallas.py:151", err_d,
+                     _median_ms(lambda: fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps), 5),
+                     _median_ms(lambda: fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps), 2),
+                     _nbytes(dl, words, ck, trans2, thin, d, tv, ti), 84 * cells))
+    _print_rows(rows)
     return rows
+
+
+def _print_rows(rows):
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+
+def _random_dl(fb, B, gen, eps=0.001):
+    import torch
+
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device="cuda")
+    t0 = gl[:, 0] * (1 - eps) + gl[:, 1] * eps
+    t1 = gl[:, 0] * eps + gl[:, 1] * (1 - eps)
+    return gl, (torch.log(t1) - torch.log(t0)).contiguous()
+
+
+def _topk_agree(tv, ti, tv_r, ti_r, thin):
+    """Max top-K value error, and whether the indices agree wherever the
+    plain version's neighbouring values differ by more than 1e-3."""
+    g = thin >= 0
+    firm = (tv_r[g][:, :, :-1] - tv_r[g][:, :, 1:]) > 1e-3
+    return ((tv - tv_r).abs().max().item(),
+            bool((ti[g][:, :, :-1][firm] == ti_r[g][:, :, :-1][firm]).all()), int(firm.sum()))
+
+
+def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
+    """The four K-split FB kernels against their plain versions at the large
+    world's shape, then fb_tiled_core against the fused fb_core. The remat
+    and backward kernels are launched per chunk of 16 grids: they are checked
+    on every chunk (through fb_tiled_core) and timed on the middle one."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    dev = fb.device_tensors("cuda")
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    CG, Gp = fbk.GRID_CHUNK, fb.nGrids
+    splits = fbk.fb_plan(B, fb)[2]
+    kt = fb.K_pad // splits
+    gl, dl = _random_dl(fb, B, gen, eps)
+    cells = B * Gp * fb.K
+    print(f"tiled FB kernels at {B} rows x K={fb.K} (K_pad {fb.K_pad}) x {Gp} grids, "
+          f"{splits} blocks per row, plain versions on all {Gp} grids", flush=True)
+    rows = []
+
+    mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
+    mx_r = fbk.fb_max_tiled_plain(dl, words, fb.K, kt)
+    # a maximum is order-free, and the plain version adds a haplotype's
+    # set-bit log-ratios in the kernel's order: the two agree exactly
+    err = (mx - mx_r).abs().max().item()
+    print(f"fb_max_tiled: max |mx err| {err:.3e} (tolerance: exact; logits up to "
+          f"{mx_r.abs().max().item():.1f})", flush=True)
+    if not torch.equal(mx, mx_r):
+        _fail("fb_max_tiled disagrees with its plain version")
+    rows.append(_row("fb_max_tiled", "fb_tiled.cu", "fb_pallas.py:420", err,
+                     _median_ms(lambda: fbk.fb_max_tiled(dl, words, fb.K, kt), 5),
+                     _median_ms(lambda: fbk.fb_max_tiled_plain(dl, words, fb.K, kt), 1),
+                     _nbytes(dl, words, mx), 33 * cells))
+
+    ck, S, lg = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt)
+    ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt)
+    ok = (torch.allclose(ck, ck_r, rtol=1e-5, atol=1e-30) and torch.allclose(S, S_r, rtol=1e-5, atol=0)
+          and torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2))
+    rel_ck = ((ck - ck_r).abs() / ck_r.abs().clamp(min=1e-30)).max().item()
+    rel_S = ((S - S_r).abs() / S_r).max().item()
+    err_lg = (lg - lg_r).abs().max().item()
+    print(f"fb_fwd_tiled: max rel ckpt err {rel_ck:.3e}, max rel S err {rel_S:.3e}, max |loglik err| "
+          f"{err_lg:.3e} (|loglik| up to {lg_r.abs().max().item():.1f}; tolerance ckpt / S rtol "
+          f"1e-5, loglik rtol 1e-5 + atol 1e-2)", flush=True)
+    if not ok:
+        _fail("fb_fwd_tiled disagrees with its plain version")
+    rows.append(_row("fb_fwd_tiled", "fb_tiled.cu", "fb_pallas.py:439", (ck - ck_r).abs().max().item(),
+                     _median_ms(lambda: fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt), 5),
+                     _median_ms(lambda: fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt), 1),
+                     _nbytes(dl, words, trans2, mx, ck, S, lg), 40 * cells))
+
+    ci = Gp // CG // 2
+    al = fbk.fb_remat_tiled(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt)
+    al_r = fbk.fb_remat_tiled_plain(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt)
+    err = (al - al_r).abs().max().item()
+    print(f"fb_remat_tiled (chunk {ci}): max |alpha err| {err:.3e} (tolerance atol 1e-6)", flush=True)
+    if not err <= 1e-6:
+        _fail("fb_remat_tiled disagrees with its plain version")
+    cs = slice(ci * CG, (ci + 1) * CG)
+    chunk_in = (dl[:, ci * CG * 32:(ci + 1) * CG * 32], words[cs], mx[cs], S[cs])
+    rows.append(_row("fb_remat_tiled", "fb_tiled.cu", "fb_pallas.py:494", err,
+                     _median_ms(lambda: fbk.fb_remat_tiled(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt), 5),
+                     _median_ms(lambda: fbk.fb_remat_tiled_plain(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt), 2),
+                     _nbytes(*chunk_in, ck[ci], al), 40 * cells * CG // Gp))
+
+    # carries of the middle chunk: run the chunks above it with the kernels
+    eb = torch.ones((B, fb.K_pad), device="cuda")
+    E = torch.full((B,), float(fb.K), device="cuda")
+    for c in range(Gp // CG - 1, ci, -1):
+        a_c = fbk.fb_remat_tiled(dl, words, ck[c], trans2, mx, S, c, fb.K, kt)
+        eb, E = fbk.fb_backward_tiled(dl, words, a_c, trans2, thin, mx, eb, E, c, fb.K, K_top, eps, kt)[3:]
+    bargs = (dl, words, al, trans2, thin, mx, eb, E, ci, fb.K, K_top, eps, kt)
+    got = fbk.fb_backward_tiled(*bargs)
+    ref = fbk.fb_backward_tiled_plain(*bargs)
+    err_d = (got[0] - ref[0]).abs().max().item()
+    thin_c = thin[cs]
+    err_tv, idx_ok, n_firm = _topk_agree(got[1], got[2], ref[1], ref[2], thin_c)
+    rel_eb = ((got[3] - ref[3]).abs().max() / ref[3].abs().max()).item()
+    rel_E = ((got[4] - ref[4]).abs() / ref[4]).max().item()
+    print(f"fb_bwd_tiled (chunk {ci}, {int((thin_c >= 0).sum())} thinned grids): max |dosage err| "
+          f"{err_d:.3e}, max |top-K value err| {err_tv:.3e}, indices equal where gap > 1e-3: "
+          f"{idx_ok} ({n_firm} places), carries rel err e*beta {rel_eb:.3e} / E {rel_E:.3e} "
+          f"(tolerance dosage / top-K atol 1e-4, carries rtol 1e-4)", flush=True)
+    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok or rel_eb > 1e-4 or rel_E > 1e-4:
+        _fail("fb_bwd_tiled disagrees with its plain version")
+    rows.append(_row("fb_bwd_tiled", "fb_tiled.cu", "fb_pallas.py:539", err_d,
+                     _median_ms(lambda: fbk.fb_backward_tiled(*bargs), 5),
+                     _median_ms(lambda: fbk.fb_backward_tiled_plain(*bargs), 2),
+                     _nbytes(*chunk_in[:3], al, eb, E, *got), 76 * cells * CG // Gp))
+
+    # the whole tiled FB against the fused CUDA FB and its own plain path
+    args = (gl, words, trans2, thin, fb.K, K_top, eps)
+    d_t, l_t, tv_t, ti_t = fbk.fb_tiled_core(*args, k_tile=kt)
+    d_f, l_f, tv_f, ti_f = fbk.fb_core(*args)
+    torch.cuda.synchronize()
+    err_d, err_l = (d_t - d_f).abs().max().item(), (l_t - l_f).abs().max().item()
+    err_tv, idx_ok, n_firm = _topk_agree(tv_t, ti_t, tv_f, ti_f, thin)
+    print(f"fb_tiled_core vs fused fb_core: max |dosage err| {err_d:.3e}, max |loglik err| {err_l:.3e}, "
+          f"max |top-K value err| {err_tv:.3e}, indices equal where gap > 1e-3: {idx_ok} "
+          f"({n_firm} places) (tolerance dosage / top-K atol 1e-4, loglik 1e-2)", flush=True)
+    if err_d > 1e-4 or err_l > 1e-2 or err_tv > 1e-4 or not idx_ok:
+        _fail("fb_tiled_core disagrees with the fused fb_core")
+    _print_rows(rows)
+    return rows
+
+
+def synthetic_fb(K, nGrids=512):
+    """FB inputs of a random panel (random words, 2% jump rate, every tenth
+    grid thinned): enough to time the FB families at a K between the two
+    worlds' without preparing a third world."""
+    import numpy as np
+    from quilt_tpu_torch.inputs import FBInputs
+
+    rng = np.random.default_rng(SEED + K)
+    words = rng.integers(-2**31, 2**31, (nGrids, K), dtype=np.int64).astype(np.int32)
+    trans = np.tile(np.float32([0.98, 0.02]), (nGrids, 1))
+    trans[0] = (1.0, 1.0)
+    thin = np.full(nGrids, -1, dtype=np.int32)
+    thin[::10] = np.arange(len(thin[::10]))
+    return FBInputs(words=words, trans=trans, thin_flag=thin, K=K, K_pad=K, nGrids=nGrids,
+                    S=nGrids * 32, nSNPs=nGrids * 32)
+
+
+def time_fb_plan(fb, rows_list=(28, 112)):
+    """Both FB families at the plan's decision points: median ms of three
+    whole-FB calls (fused fb_core; fb_tiled_core at 2, 4 and 8 blocks per
+    row) on random GLs, and what fb_plan chooses there."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    dev = fb.device_tensors("cuda")
+    args = (dev["words"], dev["trans2"], dev["thin_flag"], fb.K, 8, 0.001)
+    for B in rows_list:
+        gl, _ = _random_dl(fb, B, gen)
+        t = {"fused": _median_ms(lambda: fbk.fb_core(gl, *args), 3)}
+        for s in (2, 4, 8):
+            t[f"tiled/{s}"] = _median_ms(lambda: fbk.fb_tiled_core(gl, *args, k_tile=fb.K_pad // s), 3)
+        plan = fbk.fb_plan(B, fb)
+        print(f"fb_plan timing, {B} rows x K={fb.K}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
+              + f"; fb_plan -> {plan[0]}, {plan[1]} rows per call, {plan[2]} blocks per row", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +409,8 @@ def e2e_config(n_samples, quilt2=False):
 
 
 def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False):
-    """The full-width world; quilt2 rewrites 10% of the sites to 1-4
+    """A full-width world (K = 5,120 for the QUILT1 / QUILT2 phases, 40,960
+    for the large-panel phase); quilt2 rewrites 10% of the sites to 1-4
     carriers and prepares the panel as `prepare2` does."""
     import numpy as np
     from quilt_tpu_torch.inputs import region_tensors
@@ -234,10 +438,11 @@ def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False):
 # phases 3 and 4: full-width end-to-end imputation through the port's engine
 # ---------------------------------------------------------------------------
 
-def run_e2e(world, kernels, cfg, label):
+def run_e2e(world, kernels, cfg, label, profile=False):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
-    before it. Returns (output, seconds, {kernel entry: launches})."""
+    before it; with profile, one more call under torch.profiler after the
+    counts are read. Returns (output, truth, {kernel entry: launches})."""
     import numpy as np
     import torch
     from quilt_tpu_torch.engine.driver import quilt_impute
@@ -266,7 +471,38 @@ def run_e2e(world, kernels, cfg, label):
     print(f"  launches: {launches}", flush=True)
     if not finite:
         _fail(f"{label} produced non-finite or misshapen dosages")
+    if profile:
+        profile_call(label, lambda: quilt_impute(world["prep"], samples, names, cfg, "cuda"), dt)
     return out, truth_gen, launches
+
+
+def profile_call(label, fn, untraced_s):
+    """Device busy time, idle share and the largest kernels of one call.
+    The tracer slows the host side, so the idle share is given against the
+    traced wall time and against the untraced call's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda")          # the tracer's one-time start-up, kept out of the window
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    events = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages() if dev_us(e) > 0),
+                    reverse=True)
+    busy = sum(us for us, _, _ in events) / 1e6
+    if not busy:
+        print(f"{label} profile: no device time recorded (not measured)", flush=True)
+        return
+    print(f"{label} profile: traced wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+          f"{100 * (1 - busy / wall):.1f}% of the traced wall, {100 * (1 - busy / untraced_s):.1f}% "
+          f"of the untraced call's {untraced_s:.3f} s", flush=True)
+    for us, count, key in events[:10]:
+        print(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% {count:6d} x {key[:70]}", flush=True)
 
 
 def check_launched(label, launches, needed):
@@ -333,7 +569,19 @@ def run_cli():
             _fail(f"CLI {impute} VCF is incomplete or inaccurate")
 
 
+PHASES = ("kernels", "e2e", "quilt2", "largek", "cli")
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases to run while developing "
+                         "(the build always runs); only a full run prints the result lines")
+    phases = set(ap.parse_args().phases.split(","))
+    if not phases <= set(PHASES):
+        _fail(f"unknown phase in {sorted(phases)}; the phases are {PHASES}")
     try:
         import torch
     except ImportError:
@@ -361,31 +609,64 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    world = make_world()
-    rows = check_kernels(world)
     from quilt_tpu_torch.kernels import fb, gibbs_dosage, gibbs_sweep
 
     gfwd, gbwd, gdos = gibbs_sweep.FWD_KERNEL, gibbs_sweep.BWD_KERNEL, gibbs_dosage.DOS_KERNEL
-    kernels = [gfwd, gbwd, gdos, fb.FWD_KERNEL, fb.BWD_KERNEL]   # the order of rows
-    out, _, l1 = run_e2e(world, kernels, e2e_config(8), "e2e")
-    if min(out.r2_per_sample) < 0.9:
-        _fail(f"e2e r2 against truth below 0.9: {out.r2_per_sample}")
-    check_launched("e2e", l1, [gfwd, gbwd, fb.FWD_KERNEL, fb.BWD_KERNEL])
-    del world
+    fused = [fb.FWD_KERNEL, fb.BWD_KERNEL]
+    tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.REMAT_TILED_KERNEL, fb.BWD_TILED_KERNEL]
+    kernels = [gfwd, gbwd, gdos] + fused + tiled                  # the order of rows
+    rows, launches = [], {}
 
-    world2 = make_world(quilt2=True)
-    out, truth_gen, l2 = run_e2e(world2, kernels, e2e_config(8, quilt2=True), "quilt2")
-    quilt2_report(world2, out, truth_gen)
-    if min(out.r2_per_sample) < 0.85:
-        _fail(f"quilt2 r2 over all sites below 0.85: {out.r2_per_sample}")
-    check_launched("quilt2", l2, [gfwd, gbwd, gdos])
-    del world2
-    for row, k in zip(rows, kernels):
-        row["launches"] = l1[k.entry] + l2[k.entry]
-        row["launches_by_path"] = {"quilt1": l1[k.entry], "quilt2": l2[k.entry]}
-    run_cli()
+    if phases & {"kernels", "e2e"}:
+        world = make_world()
+        gone = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "quilt_tpu"))
+        if gone:
+            _fail(f"the port pulled in the JAX package or jax: {gone[:5]}")
+        if "kernels" in phases:
+            rows += check_kernels(world)
+            time_fb_plan(world["fb"], (28, 56, 112))
+            for K in (10240, 20480):
+                time_fb_plan(synthetic_fb(K), (28, 56, 112))
+        if "e2e" in phases:
+            out, _, launches["quilt1"] = run_e2e(world, kernels, e2e_config(8), "e2e")
+            if min(out.r2_per_sample) < 0.9:
+                _fail(f"e2e r2 against truth below 0.9: {out.r2_per_sample}")
+            check_launched("e2e", launches["quilt1"], [gfwd, gbwd] + fused)
+        del world
+
+    if "quilt2" in phases:
+        world2 = make_world(quilt2=True)
+        out, truth_gen, launches["quilt2"] = run_e2e(world2, kernels, e2e_config(8, quilt2=True),
+                                                     "quilt2")
+        quilt2_report(world2, out, truth_gen)
+        if min(out.r2_per_sample) < 0.85:
+            _fail(f"quilt2 r2 over all sites below 0.85: {out.r2_per_sample}")
+        check_launched("quilt2", launches["quilt2"], [gfwd, gbwd, gdos])
+        del world2
+
+    if "largek" in phases:
+        # large panel: K = 40,960; 2 samples x 7 chains x 2 haplotypes = 28 FB rows
+        world3 = make_world(n_samples=2, K=40960)
+        rows += check_tiled_kernels(world3["fb"])
+        time_fb_plan(world3["fb"], (28, 56, 112))
+        out, _, l3 = run_e2e(world3, kernels, e2e_config(2), "largek", profile=True)
+        launches["largek"] = l3
+        if min(out.r2_per_sample) < 0.9:
+            _fail(f"largek r2 against truth below 0.9: {out.r2_per_sample}")
+        check_launched("largek", l3, [gfwd, gbwd] + tiled)
+        if any(l3[k.entry] for k in fused):
+            _fail(f"largek launched a fused FB kernel: {l3}")
+        del world3
+    if "cli" in phases:
+        run_cli()
 
     print(smi)
+    if phases != set(PHASES):
+        print(f"partial run (phases {sorted(phases)}): no result line")
+        return 0
+    for row, k in zip(rows, kernels):
+        row["launches_by_path"] = {path: l[k.entry] for path, l in launches.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """PyTorch + CUDA port of quilt_tpu for one NVIDIA H100.
 
-The JAX package (quilt_tpu) is the reference; this package imports torch
-and never jax, directly or through a quilt_tpu module whose imports reach
-jax. The slice ported so far is QUILT1 diploid imputation through the
-batched engine (`python -m quilt_tpu_torch impute ...`).
+The JAX package (quilt_tpu) is the reference; this package imports torch,
+never jax, and nothing of quilt_tpu: the host modules it needs (config,
+io, out, utils, panel, native) are its own copies under the same names.
+Ported so far: QUILT1 and QUILT2 diploid imputation through the batched
+engine (`python -m quilt_tpu_torch impute|impute2 ...`), for small panels
+(fused FB kernels) and large ones (K-split FB kernels).
 """

@@ -3,7 +3,7 @@ with a plain C interface and loads them with ``ctypes``.
 
 Each source builds into its own ``lib<name>-<hash>.so`` under
 ``build/quilt_tpu_torch/`` at the repository root; the hash covers the
-source text and the compiler flags, so an edited kernel rebuilds and an
+source text, the shared ``csrc/*.cuh`` headers and the compiler flags, so an edited kernel rebuilds and an
 unchanged one is reused. Nothing here runs at import time: ``nvcc`` and
 ``ctypes`` are touched only on the first launch of a CUDA kernel (or by
 ``build_all``), so the package imports on machines without a CUDA toolkit.
@@ -44,6 +44,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

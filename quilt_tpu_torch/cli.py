@@ -1,37 +1,278 @@
 """Command line of the port:
 
-    python -m quilt_tpu_torch prepare ...   (the JAX package's prepare)
+    python -m quilt_tpu_torch prepare ...   (reference preparation, on the host)
     python -m quilt_tpu_torch impute ...    (QUILT1 diploid, on the GPU)
     python -m quilt_tpu_torch prepare2 ...  (prepare with the QUILT2 defaults)
     python -m quilt_tpu_torch impute2 ...   (QUILT2 diploid, on the GPU)
 
-The flags are the JAX package's (generated from quilt_tpu.config); the
-QUILT2 verbs default use_mspbwt and impute_rare_common to TRUE, as the JAX
-package's do. The readers and the reference preparation are reused from
-it, as they import nothing of jax. `impute` and `impute2` run on the CUDA
+The flags are the JAX package's, generated from the config dataclasses
+(config.py, a copy of quilt_tpu/config.py); the QUILT2 verbs default
+use_mspbwt and impute_rare_common to TRUE, as the JAX package's do.
+`prepare` is a copy of quilt_tpu/cli.py:cmd_prepare over the port's own
+readers and reference preparation. `impute` and `impute2` run on the CUDA
 device and refuse options outside the ported slice; without a GPU they
 exit non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 from typing import List, Optional
 
 import numpy as np
 
-from quilt_tpu.cli import _add_dataclass_args, _config_from_args, cmd_prepare
-from quilt_tpu.config import ImputeConfig, PrepareConfig
-from quilt_tpu.utils import print_message
+from .config import ImputeConfig, PrepareConfig
+from .utils import print_message
+
+
+def _add_dataclass_args(
+    parser: argparse.ArgumentParser, cls, overrides: Optional[dict] = None
+) -> None:
+    overrides = overrides or {}
+    for f in dataclasses.fields(cls):
+        name = f"--{f.name}"
+        default = (
+            f.default
+            if f.default is not dataclasses.MISSING
+            else (f.default_factory() if f.default_factory is not dataclasses.MISSING else None)
+        )
+        if f.name in overrides:
+            default = overrides[f.name]
+        if f.type in ("bool", bool):
+            parser.add_argument(
+                name, type=lambda x: x.upper() in ("TRUE", "1", "YES"),
+                default=default, metavar="TRUE/FALSE",
+            )
+        elif f.type in ("int", int, "Optional[int]"):
+            parser.add_argument(name, type=int, default=default)
+        elif f.type in ("float", float):
+            parser.add_argument(name, type=float, default=default)
+        elif "List[int]" in str(f.type):
+            parser.add_argument(
+                name, type=lambda s: [int(x) for x in s.split(",")],
+                default=default,
+            )
+        elif "List[str]" in str(f.type) or "Optional[List[str]]" in str(f.type):
+            parser.add_argument(
+                name, type=lambda s: s.split(","), default=default
+            )
+        else:
+            parser.add_argument(name, type=str, default=default)
+
+
+def _config_from_args(cls, args) -> object:
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if hasattr(args, f.name):
+            kw[f.name] = getattr(args, f.name)
+    return cls(**kw)
+
+
+def _read_region_exclude(path: str, chrom: str):
+    """Regions to exclude, from a space-separated file with header
+    Name Chr Start End (reference: remove_sites_from_pos_to_use,
+    prepare_reference_functions.R:39-56)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"Cannot find region_exclude_file: {path}")
+    out = []
+    with open(path) as fh:
+        header = fh.readline().split()
+        cols = {c.lower(): i for i, c in enumerate(header)}
+        for line in fh:
+            p = line.split()
+            if not p:
+                continue
+            if p[cols.get("chr", 1)] != chrom:
+                continue
+            out.append((int(p[cols.get("start", 2)]),
+                        int(p[cols.get("end", 3)])))
+    if not out:
+        print_message(
+            "Warning: no regions to exclude from region_exclude_file "
+            "(is the chr the same?)"
+        )
+    return out
+
+
+def _write_sites_vcf(path: str, chrom, pos, ref_allele, alt_allele) -> None:
+    """Minimal sites-only VCF, bgzipped + tabixed (reference:
+    make_face_vcf_with_sites_list, prepare_reference_functions.R:1-33)."""
+    from .out.bgzf import BgzfWriter
+    from .out.tabix import TabixIndexer
+
+    idx = TabixIndexer()
+    with BgzfWriter(path) as w:
+        w.write("##fileformat=VCFv4.2\n")
+        w.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for i in range(len(pos)):
+            vbeg = w.tell_virtual()
+            w.write(
+                f"{chrom}\t{pos[i]}\t.\t{ref_allele[i]}\t{alt_allele[i]}"
+                f"\t.\tPASS\t.\n"
+            )
+            idx.add(str(chrom), int(pos[i]), vbeg, w.tell_virtual())
+    idx.write(path + ".tbi")
+
+
+def cmd_prepare(args) -> int:
+    from .io.vcf import read_panel_vcf, read_genetic_map
+    from .panel.prepare import prepare_panel
+
+    cfg: PrepareConfig = _config_from_args(PrepareConfig, args)
+    if not cfg.reference_vcf_file and not cfg.reference_haplotype_file:
+        print(
+            "--reference_vcf_file or --reference_haplotype_file is required",
+            file=sys.stderr,
+        )
+        return 1
+    # confidence in reference alleles (reference:
+    # quilt-prepare-reference.R:127 ref_error <- 10^(-reference_phred/10))
+    cfg.ref_error = 10.0 ** (-cfg.reference_phred / 10.0)
+    region_start = (
+        None if cfg.regionStart is None else cfg.regionStart - cfg.buffer
+    )
+    region_end = None if cfg.regionEnd is None else cfg.regionEnd + cfg.buffer
+    keep = None
+    exclude = None
+    if cfg.reference_sample_file:
+        import csv
+        rows = list(csv.reader(open(cfg.reference_sample_file), delimiter=" "))
+        header, rows = rows[0], rows[1:]
+        if cfg.reference_populations:
+            keep = [r[0] for r in rows if r[1] in cfg.reference_populations]
+    if cfg.reference_exclude_samplelist_file:
+        exclude = [
+            l.split()[0] for l in open(cfg.reference_exclude_samplelist_file)
+        ]
+    presplit = None
+    if (cfg.reference_vcf_file and cfg.chr and keep is None
+            and exclude is None and not cfg.region_exclude_file):
+        # streaming packed ingest (tabix/CSI region seek, native rare/common
+        # split): the [K, nSNPs] allele matrix is never inflated on host
+        try:
+            from .io.native import native_available, read_panel_vcf_packed
+            if native_available():
+                presplit = read_panel_vcf_packed(
+                    cfg.reference_vcf_file,
+                    region_chrom=cfg.chr or None,
+                    region_start=region_start,
+                    region_end=region_end,
+                    rare_af_threshold=(
+                        cfg.rare_af_threshold
+                        if cfg.impute_rare_common else None
+                    ),
+                )
+        except Exception as e:
+            print_message(f"Streaming panel ingest failed ({e}); "
+                          f"using row-matrix path")
+            presplit = None
+    if presplit is not None:
+        p_chrom = cfg.chr
+        p_pos = presplit["pos"]
+        p_ref, p_alt = presplit["ref_allele"], presplit["alt_allele"]
+        p_haps = None
+        p_names = presplit["sample_names"]
+        print_message(
+            f"Read panel VCF (streaming): {presplit['K']} haplotypes x "
+            f"{len(p_pos)} SNPs ({presplit['n_skipped']} skipped"
+            f"{', indexed' if presplit['used_index'] else ''})"
+        )
+    elif cfg.reference_vcf_file:
+        panel = read_panel_vcf(
+            cfg.reference_vcf_file,
+            region_chrom=cfg.chr or None,
+            region_start=region_start,
+            region_end=region_end,
+            keep_samples=keep,
+            exclude_samples=exclude,
+        )
+        p_chrom, p_pos = panel.chrom, panel.pos
+        p_ref, p_alt, p_haps = panel.ref_allele, panel.alt_allele, panel.haps
+        p_names = panel.sample_names
+    else:
+        from .io.vcf import read_hap_legend
+        p_pos, p_ref, p_alt, p_haps, p_names = read_hap_legend(
+            cfg.reference_haplotype_file, cfg.reference_legend_file,
+            cfg.reference_sample_file,
+            region_start=region_start, region_end=region_end,
+        )
+        p_chrom = cfg.chr
+    if cfg.region_exclude_file:
+        # drop panel sites inside excluded regions (reference:
+        # remove_sites_from_pos_to_use, prepare_reference_functions.R:39-56)
+        excl = _read_region_exclude(cfg.region_exclude_file, p_chrom)
+        keep_mask = np.ones(len(p_pos), dtype=bool)
+        for start, end in excl:
+            keep_mask &= ~((p_pos >= start) & (p_pos <= end))
+        n_drop = int((~keep_mask).sum())
+        if n_drop:
+            print_message(
+                f"Excluding {n_drop} sites in {len(excl)} regions from "
+                f"region_exclude_file"
+            )
+            p_pos = p_pos[keep_mask]
+            p_ref = np.asarray(p_ref)[keep_mask]
+            p_alt = np.asarray(p_alt)[keep_mask]
+            p_haps = p_haps[:, keep_mask]      # haps is [K, nSNPs]
+    gmap_pos = gmap_cm = None
+    if cfg.genetic_map_file:
+        gmap_pos, gmap_cm = read_genetic_map(cfg.genetic_map_file)
+    prep = prepare_panel(
+        chrom=p_chrom,
+        pos=p_pos,
+        ref_allele=p_ref,
+        alt_allele=p_alt,
+        haps=p_haps,
+        gmap_pos=gmap_pos,
+        gmap_cm=gmap_cm,
+        nGen=cfg.nGen,
+        expRate=cfg.expRate,
+        minRate=cfg.minRate,
+        maxRate=cfg.maxRate,
+        ref_error=cfg.ref_error,
+        nMaxDH=cfg.nMaxDH,
+        regionStart=cfg.regionStart,
+        regionEnd=cfg.regionEnd,
+        buffer=cfg.buffer,
+        impute_rare_common=cfg.impute_rare_common,
+        rare_af_threshold=cfg.rare_af_threshold,
+        use_mspbwt=cfg.use_mspbwt,
+        mspbwt_nindices=cfg.mspbwt_nindices,
+        sample_names=p_names if p_names is not None and len(p_names) else None,
+        presplit=presplit,
+    )
+    out = cfg.output_file
+    if not out:
+        region_name = cfg.chr or p_chrom
+        if cfg.regionStart is not None:
+            region_name += f".{cfg.regionStart}.{cfg.regionEnd}"
+        out = os.path.join(
+            cfg.outputdir, "RData",
+            f"QUILT_prepared_reference.{region_name}.npz",
+        )
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    prep.save(out)
+    print_message(f"Saved prepared reference to {out}")
+    if cfg.make_fake_vcf_with_sites_list:
+        region_name = cfg.chr or p_chrom
+        if cfg.regionStart is not None:
+            region_name += f".{cfg.regionStart}.{cfg.regionEnd}"
+        sites = cfg.output_sites_filename or os.path.join(
+            cfg.outputdir, f"quilt.sites.{region_name}.vcf.gz"
+        )
+        _write_sites_vcf(sites, p_chrom, p_pos, p_ref, p_alt)
+        print_message(f"Wrote sites VCF to {sites}")
+    return 0
+
 
 
 def cmd_impute(args, device, quilt2: bool = False) -> int:
-    from quilt_tpu.io.bam import bam_chromosome_length, bam_sample_name, load_bam_reads
-    from quilt_tpu.io.vcf import read_genfile, read_phasefile, read_posfile
-    from quilt_tpu.panel.prepare import PreparedReference, truncate_panel
-
     from .engine.driver import check_slice, quilt_impute
+    from .io.bam import bam_chromosome_length, bam_sample_name, load_bam_reads
+    from .io.vcf import read_genfile, read_phasefile, read_posfile
+    from .panel.prepare import PreparedReference, truncate_panel
 
     cfg: ImputeConfig = _config_from_args(ImputeConfig, args)
     try:

@@ -22,10 +22,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from quilt_tpu.config import ImputeConfig
-from quilt_tpu.io.reads import SampleReads
-from quilt_tpu.panel.mspbwt import select_new_haps_mspbwt_batch
-from quilt_tpu.utils import print_message
+from ..config import ImputeConfig
+from ..io.reads import SampleReads
+from ..utils import print_message
 
 from ..inputs import GibbsInputs, PaddedReads, pad_to_multiple
 from ..kernels.emissions import (
@@ -34,7 +33,7 @@ from ..kernels.emissions import (
 )
 from ..kernels.fb import fb_full_batched
 from ..kernels.gibbs import SlotLayout, run_gibbs_chains
-from ..panel.mspbwt import symbols_device
+from ..panel.mspbwt import select_new_haps_mspbwt_batch, symbols_device
 from .context import RegionContext, sample_allele_count
 from .rare_common import initial_all_snp_labels
 from .selection import (
@@ -202,7 +201,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         with sec("fb:kernel"):
             dosage, _, tv, ti = fb_full_batched(
                 gls, ctx.fb_inputs, K_top=max(8, cfg.K_top_matches),
-                ref_error=prep.ref_error,
+                ref_error=prep.ref_error, **ctx.fb_plan_args,
             )
         with sec("fb:select"):
             thin = torch.as_tensor(ctx.thinned_grids, device=dev)

@@ -1,5 +1,5 @@
 """Per-region state of the port's engine, and NumPy copies of the host
-helpers whose JAX-package modules import jax.
+helpers of the JAX package's engine.
 
 RegionContext is the single-device counterpart of
 quilt_tpu/engine/sample.py:RegionContext (:40-216), with the QUILT2 state
@@ -12,17 +12,17 @@ quilt_tpu/engine/validators.py:15,79.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from quilt_tpu.config import ImputeConfig
-from quilt_tpu.io.reads import SampleReads, bq_to_probs
-from quilt_tpu.panel.prepare import PreparedReference, make_smoothed_rate, trans_rates
-from quilt_tpu.utils import print_message
-from quilt_tpu.utils.log import SectionTimers
+from ..config import ImputeConfig
+from ..io.reads import SampleReads, bq_to_probs
+from ..panel.prepare import PreparedReference, make_smoothed_rate, trans_rates
+from ..utils import print_message
+from ..utils.log import SectionTimers
 
 from ..inputs import FBInputs, gibbs_trans, region_tensors
 from ..kernels.emissions import expand_panel
@@ -57,6 +57,8 @@ class RegionContext:
     trans_all: Optional[np.ndarray] = None   # [2, nGrids_all-1] all-SNP gap rates
     nGrids_all: int = 0
     n_latent: int = 2
+    # family / splits forced on kernels.fb.fb_plan (empty: its own rule)
+    fb_plan_args: Dict = field(default_factory=dict)
     _e_full: Optional[torch.Tensor] = None
 
     def rhb_dev(self) -> torch.Tensor:

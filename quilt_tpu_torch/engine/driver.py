@@ -2,7 +2,7 @@
 quilt_tpu/engine/driver.py:quilt_impute (:44-223), with the rare/common
 read split and all-SNP output axis of :94-114, the INFO / allele
 frequency / HWE aggregation after it, and the VCF write through
-quilt_tpu.out.vcf_writer."""
+out.vcf_writer."""
 from __future__ import annotations
 
 import time
@@ -12,16 +12,16 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from quilt_tpu.config import ImputeConfig
-from quilt_tpu.io.reads import SampleReads
-from quilt_tpu.out.metrics import calculate_pse, r2_simple
-from quilt_tpu.out.vcf_writer import (
+from ..config import ImputeConfig
+from ..io.reads import SampleReads
+from ..out.metrics import calculate_pse, r2_simple
+from ..out.vcf_writer import (
     MISSING_DIPLOID_COL, diploid_sample_column, hwe_from_counts, info_score,
     write_quilt_vcf,
 )
-from quilt_tpu.panel.prepare import PreparedReference
-from quilt_tpu.utils import print_message, set_verbosity
-from quilt_tpu.utils.log import SectionTimers
+from ..panel.prepare import PreparedReference
+from ..utils import print_message, set_verbosity
+from ..utils.log import SectionTimers
 
 from ..inputs import pad_to_multiple
 from .batch import SampleResult, impute_samples_batched

@@ -3,11 +3,11 @@ loop runs on common SNPs; one final all-SNP Gibbs call per chain batch
 adds the rare sites.
 
 restrict_reads_to_common and initial_all_snp_labels are copies of
-quilt_tpu/engine/rare_common.py:20-41 and :73-105 (its package imports
-jax). all_snp_panel takes the place of its per-call build_subset_bits_all
-(:44-70): the all-SNP panel is packed once per region, so each all-SNP
-Gibbs call gathers its subset words on the device (gather_words) instead
-of inflating a [B, Ksub, nSNPs_all] byte tensor on the host.
+quilt_tpu/engine/rare_common.py:20-41 and :73-105. all_snp_panel takes the
+place of its per-call build_subset_bits_all (:44-70): the all-SNP panel is
+packed once per region, so each all-SNP Gibbs call gathers its subset
+words on the device (gather_words) instead of inflating a
+[B, Ksub, nSNPs_all] byte tensor on the host.
 """
 from __future__ import annotations
 
@@ -15,8 +15,8 @@ from typing import List
 
 import numpy as np
 
-from quilt_tpu.io.reads import SampleReads, bq_to_probs
-from quilt_tpu.utils import pack_bits_32, unpack_bits_32
+from ..io.reads import SampleReads, bq_to_probs
+from ..utils import pack_bits_32, unpack_bits_32
 
 
 def restrict_reads_to_common(reads_all: SampleReads, snp_is_common: np.ndarray,

@@ -1,8 +1,7 @@
 """Host-side inputs of the port (NumPy constructors), and the bridge from
 a prepared reference to device tensors.
 
-The NumPy constructors are copies of the JAX package's (whose modules import
-jax and so cannot be imported here): pad_to_multiple
+The NumPy constructors are copies of the JAX package's: pad_to_multiple
 (quilt_tpu/kernels/common.py), PaddedReads (kernels/emissions.py:25-115),
 GibbsInputs (kernels/gibbs.py:331-397) and FBInputs.build
 (kernels/fb_full.py:82-137). FBInputs keeps only what the bit-matmul FB
@@ -18,8 +17,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from quilt_tpu.io.reads import SampleReads, bq_to_probs
-from quilt_tpu.panel.prepare import (
+from .io.reads import SampleReads, bq_to_probs
+from .panel.prepare import (
     CompressedPanel, PreparedReference, smoothing_band, trans_rates,
 )
 
@@ -194,6 +193,9 @@ class FBInputs:
     def build(cls, panel: CompressedPanel, trans: np.ndarray,
               thinned_grids: Optional[np.ndarray] = None) -> "FBInputs":
         K, nGrids = panel.K, panel.nGrids
+        # a multiple of 128 is also a multiple of every K split the tiled FB
+        # takes (1, 2, 4 or 8 blocks per row), so the split needs no padding
+        # of its own (the JAX package's K_TILE = 4096 was a VMEM size)
         K_pad = pad_to_multiple(K, 128)
         # grid axis padded with NEUTRAL grids (stay=1/jump=0, all-zero
         # words): the recursion passes through them unchanged

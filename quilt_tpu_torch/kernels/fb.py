@@ -1,22 +1,31 @@
 """Full-panel haploid forward-backward: CUDA kernels, plain versions and the
 batched driver.
 
-Counterparts of quilt_tpu/kernels/fb_pallas.py:fb_pallas_core (Pallas
-kernels _fwd_kernel and _bwd_kernel) and quilt_tpu/kernels/fb_full.py:
+Two kernel families, chosen per call by fb_plan:
+- fused (csrc/fb.cu): one thread block per row. Counterpart of
+  quilt_tpu/kernels/fb_pallas.py:fb_pallas_core (Pallas _fwd_kernel and
+  _bwd_kernel). For many rows against a small panel.
+- tiled (csrc/fb_tiled.cu): one row's haplotypes split over a cluster of
+  blocks. Counterpart of fb_pallas_tiled_core (Pallas _max_kernel_tiled,
+  _fwd_kernel_tiled, _remat_kernel_tiled, _bwd_kernel_tiled). For few rows
+  against a large panel.
+fb_full_batched is the counterpart of quilt_tpu/kernels/fb_full.py:
 fb_full_batched. The emission factorisation is the Pallas one: with
 t0/t1 the GL terms of hap allele 0/1 and dl = log t1 - log t0, the log
 emission of haplotype k in grid g is sum_s log t0[s] + sum_s bit_k,s dl[s];
 the first term is a per-row constant added to the log-likelihood outside
 the kernels, the second is a 32-term dot with the grid's panel bits.
 
-Sizing: K_pad (multiple of 128) and the grid padding to GRID_CHUNK = 16
-come from the prepared inputs (inputs.FBInputs) and are kept; CG = 16 is
-also the checkpoint interval of the forward. Gamma capture (the HLA run's
-`cap` input) is not in this slice.
+Sizing: K_pad (multiple of 128, hence of every split count 1, 2, 4, 8) and
+the grid padding to GRID_CHUNK = 16 come from the prepared inputs
+(inputs.FBInputs) and are kept; CG = 16 is also the checkpoint interval of
+both forwards. Gamma capture (the HLA run's `cap` input) is in neither
+family yet, and the JAX tiled path refuses it too.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,10 +35,22 @@ from ..inputs import GRID_CHUNK, FBInputs
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD_KERNEL = Kernel("fb", "fb_forward", [_P] * 6 + [_I] * 5 + [_F])
 BWD_KERNEL = Kernel("fb", "fb_backward", [_P] * 9 + [_I] * 6 + [_F, _F])
+MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 5)
+FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F])
+REMAT_TILED_KERNEL = Kernel("fb_tiled", "fb_remat_tiled", [_P] * 7 + [_I] * 7 + [_F])
+BWD_TILED_KERNEL = Kernel("fb_tiled", "fb_backward_tiled", [_P] * 14 + [_I] * 8 + [_F, _F])
 _NEG = -1e30
-# device-memory budget of one kernel call's checkpoints + scratch (the
-# H100 plan: rows per call = budget / per-row bytes)
+# device-memory budget of one core call's checkpoints + scratch: fb_plan
+# takes rows per call = budget / per-row bytes of the chosen family
 _CALL_BYTES = 4 << 30
+# the split rule of fb_plan, set from chip_smoke.py's timings on an H100
+# (PERF.md section 6): its SMs, the fewest haplotypes worth a block of their
+# own (1,280 a block still won at K = 5,120), and the panel size from which
+# a split pays even with two blocks per SM
+_N_SM = 132
+_MIN_K_PER_SPLIT = 1024
+_OVERSUBSCRIBE_K = 16384
+_SPLITS = (8, 4, 2)
 
 
 def fb_forward(dl, words, trans2, K, CG=GRID_CHUNK):
@@ -175,30 +196,362 @@ def fb_core(gl, words, trans2, thin, K, K_top, ref_error, CG=GRID_CHUNK):
     the gamma capture: gl [B, 2, S] f32 (padded SNPs = 1). Returns
     (dosage [B, S], log_like [B], top_vals, top_idx [Gp, B, K_top])."""
     eps = float(ref_error)
-    t0 = gl[:, 0] * (1.0 - eps) + gl[:, 1] * eps
-    t1 = gl[:, 0] * eps + gl[:, 1] * (1.0 - eps)
-    lt0 = torch.log(torch.clamp(t0, min=1e-30))
-    lt1 = torch.log(torch.clamp(t1, min=1e-30))
-    dl = (lt1 - lt0).contiguous()
-    csum = lt0.sum(-1)
+    dl, csum = _gl_log_ratios(gl, eps)
     ckpt, logs = fb_forward(dl, words, trans2, K, CG)
     dos, tv, ti = fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG)
     return dos, logs + csum, tv, ti
 
 
-def rows_per_call(B: int, fb: FBInputs, CG: int = GRID_CHUNK) -> int:
-    """The H100 plan of fb_full_batched: rows are independent, and one call
-    holds per row Gp/CG checkpoints plus 2*CG+3 scratch planes of K_pad
-    floats; take as many rows as fit _CALL_BYTES."""
-    per_row = (fb.nGrids // CG + 2 * CG + 3) * fb.K_pad * 4
-    return max(1, min(B, _CALL_BYTES // per_row))
+def _gl_log_ratios(gl, eps):
+    """dl [B, S] = log t1 - log t0 and the per-row constant sum_s log t0."""
+    t0 = gl[:, 0] * (1.0 - eps) + gl[:, 1] * eps
+    t1 = gl[:, 0] * eps + gl[:, 1] * (1.0 - eps)
+    lt0 = torch.log(torch.clamp(t0, min=1e-30))
+    lt1 = torch.log(torch.clamp(t1, min=1e-30))
+    return (lt1 - lt0).contiguous(), lt0.sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# K-split ("tiled") family: one row's haplotypes over `splits` blocks
+# ---------------------------------------------------------------------------
+#
+# Each wrapper takes k_tile, the haplotypes per block: on a CUDA tensor the
+# kernel runs K_pad / k_tile concurrent blocks per row (1, 2, 4 or 8, one
+# thread-block cluster); on a CPU tensor the plain version walks the tiles
+# in order, with any k_tile (the last tile may be ragged). Sums over K are
+# taken tile by tile, so they depend on k_tile at rounding level and are
+# reproducible for a given k_tile.
+
+def _splits(K_pad, k_tile):
+    splits = K_pad // k_tile
+    if splits * k_tile != K_pad or splits not in (1, 2, 4, 8):
+        raise ValueError(f"on the GPU k_tile must cut K_pad={K_pad} into 1, 2, 4 or 8 "
+                         f"blocks, got k_tile={k_tile}")
+    return splits
+
+
+def _check_tiled(dl, words, K, k_tile, CG):
+    Gp, K_pad = words.shape
+    _check(dl, "dl", torch.float32, (dl.shape[0], Gp * 32), dl.device)
+    _check(words, "words", torch.int32, (Gp, K_pad), dl.device)
+    if Gp % CG or not 0 < K <= K_pad or k_tile < 1:
+        raise ValueError(f"bad Gp={Gp} / CG={CG} / K={K} / k_tile={k_tile}")
+
+
+def fb_max_tiled(dl, words, K, k_tile):
+    """mx [Gp, B]: per (grid, row) the maximum over the K haplotypes of
+    the emission logit dl[b, g*32:(g+1)*32] . bits[k]."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    _check_tiled(dl, words, K, k_tile, 1)
+    if dl.device.type == "cpu":
+        return fb_max_tiled_plain(dl, words, K, k_tile)
+    mx = torch.full((Gp, B), float("-inf"), dtype=torch.float32, device=dl.device)
+    MAX_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), mx.data_ptr(),
+                            Gp, K, K_pad, B, _splits(K_pad, k_tile))
+    return mx
+
+
+def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=GRID_CHUNK):
+    """Forward pass against the pre-computed emission maxima mx [Gp, B].
+    Returns (ckpt [Gp/CG, B, K_pad], S [Gp, B], logs [B]): checkpoint c is
+    the UNNORMALISED alpha entering chunk c (zeros for c = 0; the Pallas
+    kernel's block c held the alpha entering chunk c+1), S[g] = sum_k of
+    the unnormalised alpha of grid g, which normalises it, and logs the
+    log-likelihood sum_g (log S[g] + mx[g]) without the per-row constant."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    _check_tiled(dl, words, K, k_tile, CG)
+    _check(trans2, "trans2", torch.float32, (2, Gp), dev)
+    _check(mx, "mx", torch.float32, (Gp, B), dev)
+    if dev.type == "cpu":
+        return fb_forward_tiled_plain(dl, words, trans2, mx, K, k_tile, CG)
+    ckpt = torch.empty((Gp // CG, B, K_pad), dtype=torch.float32, device=dev)
+    S = torch.empty((Gp, B), dtype=torch.float32, device=dev)
+    logs = torch.empty((B,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B, K_pad), dtype=torch.float32, device=dev)
+    FWD_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), trans2.data_ptr(),
+                            mx.data_ptr(), ckpt.data_ptr(), S.data_ptr(),
+                            logs.data_ptr(), scratch.data_ptr(), Gp, K, K_pad, B, CG,
+                            _splits(K_pad, k_tile), 1.0 / K)
+    return ckpt, S, logs
+
+
+def fb_remat_tiled(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG=GRID_CHUNK):
+    """The normalised alphas [CG, B, K_pad] of chunk ci from its checkpoint
+    ckpt_c [B, K_pad] and the forward's stored S and mx [Gp, B]."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    _check_tiled(dl, words, K, k_tile, CG)
+    _check(ckpt_c, "ckpt_c", torch.float32, (B, K_pad), dev)
+    _check(trans2, "trans2", torch.float32, (2, Gp), dev)
+    _check(mx, "mx", torch.float32, (Gp, B), dev)
+    _check(S, "S", torch.float32, (Gp, B), dev)
+    if not 0 <= ci < Gp // CG:
+        raise ValueError(f"chunk {ci} outside 0..{Gp // CG - 1}")
+    if dev.type == "cpu":
+        return fb_remat_tiled_plain(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG)
+    alphas = torch.empty((CG, B, K_pad), dtype=torch.float32, device=dev)
+    REMAT_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), ckpt_c.data_ptr(),
+                              trans2.data_ptr(), mx.data_ptr(), S.data_ptr(),
+                              alphas.data_ptr(), Gp, K, K_pad, B, CG, ci,
+                              _splits(K_pad, k_tile), 1.0 / K)
+    return alphas
+
+
+def fb_backward_tiled(dl, words, alphas, trans2, thin, mx, eb, E, ci, K, K_top, eps,
+                      k_tile, CG=GRID_CHUNK):
+    """Backward pass over chunk ci, grids descending, from the chunk's
+    normalised alphas [CG, B, K_pad]. eb [B, K_pad] and E [B] carry e*beta
+    and its sum over K of the grid after the chunk (ones and K above the
+    last chunk, whose last grid has beta = 1). Returns (dos [B, CG*32]
+    per-SNP dosages, tv / ti [CG, B, K_top] top gammas and their haplotype
+    indices, zero away from thinned grids, and the carries eb', E' of the
+    chunk's first grid)."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    _check_tiled(dl, words, K, k_tile, CG)
+    _check(alphas, "alphas", torch.float32, (CG, B, K_pad), dev)
+    _check(trans2, "trans2", torch.float32, (2, Gp), dev)
+    _check(thin, "thin", torch.int32, (Gp,), dev)
+    _check(mx, "mx", torch.float32, (Gp, B), dev)
+    _check(eb, "eb", torch.float32, (B, K_pad), dev)
+    _check(E, "E", torch.float32, (B,), dev)
+    if not 0 <= ci < Gp // CG or not 0 < K_top <= min(K, k_tile):
+        raise ValueError(f"bad chunk {ci} / K_top={K_top} / k_tile={k_tile}")
+    if dev.type == "cpu":
+        return fb_backward_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E, ci, K,
+                                       K_top, eps, k_tile, CG)
+    dos = torch.empty((B, CG * 32), dtype=torch.float32, device=dev)
+    tv = torch.empty((CG, B, K_top), dtype=torch.float32, device=dev)
+    ti = torch.empty((CG, B, K_top), dtype=torch.int32, device=dev)
+    eb_out = torch.empty_like(eb)
+    E_out = torch.empty_like(E)
+    work = torch.empty((B, K_pad), dtype=torch.float32, device=dev)
+    BWD_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), alphas.data_ptr(),
+                            trans2.data_ptr(), thin.data_ptr(), mx.data_ptr(),
+                            eb.data_ptr(), E.data_ptr(), dos.data_ptr(), tv.data_ptr(),
+                            ti.data_ptr(), eb_out.data_ptr(), E_out.data_ptr(),
+                            work.data_ptr(), Gp, K, K_pad, B, CG, ci, K_top,
+                            _splits(K_pad, k_tile), 1.0 / K, float(eps))
+    return dos, tv, ti, eb_out, E_out
+
+
+def _tile_logits(dl, words, g, K, k0, k1):
+    """Emission logits [B, k1-k0] of grid g for haplotypes k0..k1-1 (pads
+    -1e30), the set bits' log-ratios added one SNP at a time in the CUDA
+    kernels' order (bit x log-ratio is exact), so the tiled kernels and
+    their plain versions start from identical emissions."""
+    sh = torch.arange(32, device=words.device, dtype=torch.int32)
+    hT = ((words[g, k0:k1][None, :] >> sh[:, None]) & 1).to(torch.float32)
+    d = dl[:, g * 32:(g + 1) * 32]
+    logm = torch.zeros((dl.shape[0], k1 - k0), dtype=torch.float32, device=dl.device)
+    for s in range(32):
+        logm.addcmul_(d[:, s:s + 1], hT[s][None, :])
+    lane = torch.arange(k0, k1, device=words.device)
+    return torch.where(lane[None, :] < K, logm, _NEG)
+
+
+def _tiles(K_pad, k_tile):
+    return [(k0, min(k0 + k_tile, K_pad)) for k0 in range(0, K_pad, k_tile)]
+
+
+def fb_max_tiled_plain(dl, words, K, k_tile):
+    """Plain PyTorch version of fb_max_tiled (Pallas _max_kernel_tiled)."""
+    Gp, K_pad = words.shape
+    mx = torch.empty((Gp, dl.shape[0]), dtype=torch.float32, device=dl.device)
+    for g in range(Gp):
+        mx[g] = torch.stack([_tile_logits(dl, words, g, K, k0, k1).amax(1)
+                             for k0, k1 in _tiles(K_pad, k_tile)]).amax(0)
+    return mx
+
+
+def fb_forward_tiled_plain(dl, words, trans2, mx, K, k_tile, CG=GRID_CHUNK):
+    """Plain PyTorch version of fb_forward_tiled (Pallas _fwd_kernel_tiled)."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    alpha = torch.zeros((B, K_pad), dtype=torch.float32, device=dev)
+    inv_sprev = torch.ones((B, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B,), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((Gp // CG, B, K_pad), dtype=torch.float32, device=dev)
+    S = torch.empty((Gp, B), dtype=torch.float32, device=dev)
+    for g in range(Gp):
+        if g % CG == 0:
+            ckpt[g // CG] = alpha
+        a_new = torch.empty_like(alpha)
+        tot = torch.zeros((B,), dtype=torch.float32, device=dev)
+        for k0, k1 in _tiles(K_pad, k_tile):
+            e = torch.exp(_tile_logits(dl, words, g, K, k0, k1) - mx[g][:, None])
+            a = (trans2[0, g] * (alpha[:, k0:k1] * inv_sprev) + trans2[1, g] * (1.0 / K)) * e
+            a_new[:, k0:k1] = a
+            tot = tot + a.sum(1)
+        alpha = a_new
+        S[g] = tot
+        inv_sprev = (1.0 / tot)[:, None]
+        acc = acc + torch.log(tot) + mx[g]
+    return ckpt, S, acc
+
+
+def fb_remat_tiled_plain(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG=GRID_CHUNK):
+    """Plain PyTorch version of fb_remat_tiled (Pallas _remat_kernel_tiled)."""
+    B = dl.shape[0]
+    K_pad = words.shape[1]
+    alphas = torch.empty((CG, B, K_pad), dtype=torch.float32, device=dl.device)
+    for k0, k1 in _tiles(K_pad, k_tile):
+        a = ckpt_c[:, k0:k1]
+        for j in range(CG):
+            g = ci * CG + j
+            inv_sprev = 1.0 / S[g - 1][:, None] if g > 0 else 1.0
+            e = torch.exp(_tile_logits(dl, words, g, K, k0, k1) - mx[g][:, None])
+            a = (trans2[0, g] * (a * inv_sprev) + trans2[1, g] * (1.0 / K)) * e
+            alphas[j, :, k0:k1] = a * (1.0 / S[g][:, None])
+    return alphas
+
+
+def _top_lists(vals, idx, K_top):
+    """K_top rounds of first-maximum extraction over vals [B, n] (candidates
+    in ascending haplotype order, so the first maximum has the lowest
+    index): (values, idx gathered) [B, K_top]."""
+    work = vals.clone()
+    tv, ti = [], []
+    for _ in range(K_top):
+        pos = work.argmax(1, keepdim=True)
+        tv.append(work.gather(1, pos))
+        ti.append(idx.gather(1, pos))
+        work = work.scatter(1, pos, -3.0)
+    return torch.cat(tv, 1), torch.cat(ti, 1)
+
+
+def fb_backward_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E, ci, K, K_top, eps,
+                            k_tile, CG=GRID_CHUNK):
+    """Plain PyTorch version of fb_backward_tiled (Pallas _bwd_kernel_tiled
+    and _merge_topk): per tile the partial AB, E, dosage sums and the
+    tile's own top K_top; the tiles' lists merge by value descending,
+    lowest haplotype index on ties."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    sh = torch.arange(32, device=dev, dtype=torch.int32)
+    dos = torch.empty((B, CG * 32), dtype=torch.float32, device=dev)
+    tv = torch.zeros((CG, B, K_top), dtype=torch.float32, device=dev)
+    ti = torch.zeros((CG, B, K_top), dtype=torch.int32, device=dev)
+    thin_h = thin[ci * CG:(ci + 1) * CG].tolist()
+    tiles = _tiles(K_pad, k_tile)
+    for j in range(CG - 1, -1, -1):
+        g = ci * CG + j
+        last = g == Gp - 1
+        inv_e = 1.0 / torch.clamp(E, min=1e-30)[:, None]
+        eb_new = torch.empty_like(eb)
+        ab = torch.zeros((B,), dtype=torch.float32, device=dev)
+        e_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
+        part = torch.zeros((B, 32), dtype=torch.float32, device=dev)
+        cand_v, cand_i = [], []
+        for k0, k1 in tiles:
+            if last:
+                beta = torch.ones((B, k1 - k0), dtype=torch.float32, device=dev)
+            else:
+                beta = (trans2[0, g + 1] * (eb[:, k0:k1] * inv_e)
+                        + trans2[1, g + 1] * (1.0 / K))
+            gu = alphas[j, :, k0:k1] * beta
+            ab = ab + gu.sum(1)
+            hN = ((words[g, k0:k1][:, None] >> sh[None, :]) & 1).to(torch.float32)
+            part = part + gu @ hN
+            if thin_h[j] >= 0:
+                lane = torch.arange(k0, k1, device=dev)
+                v, i = _top_lists(torch.where(lane[None, :] < K, gu, -1.0),
+                                  lane[None, :].expand(B, -1), K_top)
+                cand_v.append(v)
+                cand_i.append(i)
+            e = torch.exp(_tile_logits(dl, words, g, K, k0, k1) - mx[g][:, None])
+            eb_new[:, k0:k1] = e * beta
+            e_sum = e_sum + eb_new[:, k0:k1].sum(1)
+        inv_ab = 1.0 / torch.clamp(ab, min=1e-30)[:, None]
+        dos[:, j * 32:(j + 1) * 32] = eps + (1.0 - 2.0 * eps) * part * inv_ab
+        if thin_h[j] >= 0:
+            # within a tile equal values are listed lowest index first and the
+            # tiles ascend, so the first maximum has the lowest index
+            v, i = _top_lists(torch.cat(cand_v, 1), torch.cat(cand_i, 1), K_top)
+            tv[j] = v * inv_ab
+            ti[j] = i.to(torch.int32)
+        eb, E = eb_new, e_sum
+    return dos, tv, ti, eb, E
+
+
+def fb_tiled_core(gl, words, trans2, thin, K, K_top, ref_error, k_tile, CG=GRID_CHUNK):
+    """The K-split FB of one row batch, with the contract of fb_core
+    (quilt_tpu's fb_pallas_tiled_core without its all-zero capture output):
+    the emission-maximum pre-pass, the forward, then per chunk from the last
+    to the first {remat -> backward}, carrying e*beta and its sum between
+    chunks. Returns (dosage [B, S], log_like [B], top_vals, top_idx
+    [Gp, B, K_top])."""
+    eps = float(ref_error)
+    B = gl.shape[0]
+    Gp, K_pad = words.shape
+    dl, csum = _gl_log_ratios(gl, eps)
+    mx = fb_max_tiled(dl, words, K, k_tile)
+    ckpt, S, logs = fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG)
+    eb = torch.ones((B, K_pad), dtype=torch.float32, device=gl.device)
+    E = torch.full((B,), float(K), dtype=torch.float32, device=gl.device)
+    chunks = []
+    for ci in range(Gp // CG - 1, -1, -1):
+        alphas = fb_remat_tiled(dl, words, ckpt[ci], trans2, mx, S, ci, K, k_tile, CG)
+        dos, tv, ti, eb, E = fb_backward_tiled(dl, words, alphas, trans2, thin, mx, eb, E,
+                                               ci, K, K_top, eps, k_tile, CG)
+        chunks.append((dos, tv, ti))
+    chunks.reverse()
+    return (torch.cat([c[0] for c in chunks], dim=1), logs + csum,
+            torch.cat([c[1] for c in chunks]), torch.cat([c[2] for c in chunks]))
+
+
+def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
+            splits: Optional[int] = None, CG: int = GRID_CHUNK) -> Tuple[str, int, int]:
+    """("fused" | "tiled", rows per core call, K splits) for B rows: the
+    counterpart of quilt_tpu/kernels/fb_full.py:_pallas_plan on this card.
+
+    Rows are independent, so a call takes as many as fit _CALL_BYTES (per
+    row, fused: Gp/CG checkpoints + 2*CG+3 scratch planes of K_pad floats;
+    tiled: Gp/CG checkpoints + CG alphas + 5 carry / scratch planes). The
+    fused kernels run one block per row. Measured on the H100 (512 grids,
+    28 / 56 / 112 rows x K = 5,120 .. 40,960): while rows x splits fits the
+    132 SMs, splitting a row over the largest such cluster (8, 4 or 2
+    blocks, each keeping >= _MIN_K_PER_SPLIT haplotypes) wins by 1.3-3.7x;
+    from K_pad = _OVERSUBSCRIBE_K up a block's per-grid work outweighs the
+    barriers, and 4 or 2 blocks per row still win (1.2-2.6x) with two
+    blocks sharing an SM (rows x splits <= 264); otherwise (many rows,
+    small panel) the fused family is faster and the call stays fused.
+    `family` / `splits` force the choice (tests, timings)."""
+    if family not in (None, "fused", "tiled"):
+        raise ValueError(f"unknown FB family {family!r}")
+    planes = {"fused": fb.nGrids // CG + 2 * CG + 3, "tiled": fb.nGrids // CG + CG + 5}
+
+    def rows(fam):
+        return max(1, min(B, _CALL_BYTES // (planes[fam] * fb.K_pad * 4)))
+
+    if splits is None:
+        n = rows("tiled")
+        splits = next((s for s in _SPLITS
+                       if n * s <= _N_SM and fb.K_pad // s >= _MIN_K_PER_SPLIT), 1)
+        if fb.K_pad >= _OVERSUBSCRIBE_K:
+            splits = max(splits, next((s for s in (4, 2) if n * s <= 2 * _N_SM), 1))
+    elif splits not in (1, 2, 4, 8):
+        raise ValueError(f"splits must be 1, 2, 4 or 8, got {splits}")
+    if family is None:
+        family = "tiled" if splits > 1 else "fused"
+    if family == "fused":
+        splits = 1
+    return family, rows(family), splits
 
 
 def fb_full_batched(gl, fb: FBInputs, K_top=16, ref_error=0.001,
-                    capture_grid=-1):
+                    capture_grid=-1, family=None, splits=None):
     """Batched FB over the whole panel. gl [B, 2, S] tensor (padded to
-    fb.S, or shorter and padded here with 1). Returns device tensors
-    (dosage [B, S], log_like [B], top_vals [Gp, B, K_top], top_idx)."""
+    fb.S, or shorter and padded here with 1). family / splits go to
+    fb_plan. Returns device tensors (dosage [B, S], log_like [B],
+    top_vals [Gp, B, K_top], top_idx)."""
     if capture_grid >= 0:
         raise NotImplementedError(
             "FB gamma capture is part of the HLA slice, not this port"
@@ -209,12 +562,13 @@ def fb_full_batched(gl, fb: FBInputs, K_top=16, ref_error=0.001,
         pad = torch.ones((B, 2, fb.S), dtype=torch.float32, device=gl.device)
         pad[:, :, :gl.shape[2]] = gl
         gl = pad
-    step = rows_per_call(B, fb)
-    parts = [
-        fb_core(gl[b0:b0 + step], dev["words"], dev["trans2"],
-                dev["thin_flag"], fb.K, K_top, ref_error)
-        for b0 in range(0, B, step)
-    ]
+    family, step, splits = fb_plan(B, fb, family, splits)
+    args = (dev["words"], dev["trans2"], dev["thin_flag"], fb.K, K_top, ref_error)
+    if family == "tiled":
+        core = lambda rows: fb_tiled_core(rows, *args, k_tile=fb.K_pad // splits)
+    else:
+        core = lambda rows: fb_core(rows, *args)
+    parts = [core(gl[b0:b0 + step]) for b0 in range(0, B, step)]
     if len(parts) == 1:
         return parts[0]
     return (

@@ -1,6 +1,6 @@
 """Synthetic worlds for the port's smoke run and tests, made from a seed
-with the JAX package's jax-free simulators (quilt_tpu.io.simulate) and
-reference preparation (quilt_tpu.panel.prepare)."""
+with the port's simulators (io.simulate) and reference preparation
+(panel.prepare)."""
 from __future__ import annotations
 
 import os
@@ -8,10 +8,10 @@ from typing import Dict
 
 import numpy as np
 
-from quilt_tpu.io import simulate_panel, simulate_sample_reads
-from quilt_tpu.io.bam_writer import BamWriter, write_panel_vcf
-from quilt_tpu.io.simulate import simulate_truth_mosaic
-from quilt_tpu.panel import prepare_panel
+from .io import simulate_panel, simulate_sample_reads
+from .io.bam_writer import BamWriter, write_panel_vcf
+from .io.simulate import simulate_truth_mosaic
+from .panel import prepare_panel
 
 
 def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,

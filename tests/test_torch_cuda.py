@@ -9,7 +9,9 @@ with
 
 Tolerances: as chip_smoke.py states them (labels > 0.995 with the state
 compared on chains whose labels all agree at rtol 1e-4 / atol 1e-3; beta
-rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5)."""
+rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5; the
+K-split FB: emission maxima exact, checkpoints and S rtol 1e-5, remat
+alphas atol 1e-6, dosage and top-K atol 1e-4)."""
 import numpy as np
 import pytest
 import torch
@@ -66,7 +68,7 @@ def test_sweep_kernels_match_plain(cuda, it_mode, G, B, W, K, K_real, max_reads)
 @pytest.mark.parametrize("K,B", [(90, 5), (700, 3)])
 def test_fb_kernels_match_plain(cuda, K, B):
     from quilt_tpu_torch.inputs import FBInputs, thinned_grids
-    from quilt_tpu.panel.prepare import trans_rates
+    from quilt_tpu_torch.panel.prepare import trans_rates
 
     world = make_world(np.random.default_rng(K), K=K, nSNPs=1100, n_samples=1)
     prep = world["prep"]
@@ -90,6 +92,79 @@ def test_fb_kernels_match_plain(cuda, K, B):
     firm = (tv[g][:, :, :-1] - tv[g][:, :, 1:]) > 1e-3
     assert torch.equal(got[3][g][:, :, :-1][firm], ti[g][:, :, :-1][firm])
     assert not got[2][~g].any()
+
+
+@pytest.mark.parametrize("K,B,splits", [(90, 5, 2), (700, 3, 8), (700, 3, 1), (3000, 2, 4)])
+def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
+    """Each K-split kernel against its plain version, the whole tiled FB
+    against the fused CUDA FB, launch counts, and run-to-run equality."""
+    from quilt_tpu_torch.inputs import FBInputs, thinned_grids
+    from quilt_tpu_torch.panel.prepare import trans_rates
+
+    world = make_world(np.random.default_rng(K), K=K, nSNPs=1100, n_samples=1)
+    prep = world["prep"]
+    fb = FBInputs.build(prep.panel, trans_rates(prep.sigma),
+                        thinned_grids=thinned_grids(prep.nGrids, 0.3))
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // splits
+    CG, NSC = fbk.GRID_CHUNK, fb.nGrids // fbk.GRID_CHUNK
+    kernels = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.REMAT_TILED_KERNEL,
+               fbk.BWD_TILED_KERNEL]
+    for k in kernels:
+        k.launches = 0
+    mx = fbk.fb_max_tiled(dl, words, K, kt)
+    assert torch.equal(mx, fbk.fb_max_tiled_plain(dl, words, K, kt))
+    ck, S, lg = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+    ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt)
+    torch.testing.assert_close(ck, ck_r, rtol=1e-5, atol=1e-30)
+    torch.testing.assert_close(S, S_r, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lg, lg_r, rtol=1e-5, atol=1e-2)
+    eb = torch.ones((B, fb.K_pad), device=cuda)
+    E = torch.full((B,), float(K), device=cuda)
+    for ci in range(NSC - 1, -1, -1):
+        al = fbk.fb_remat_tiled(dl, words, ck[ci], trans2, mx, S, ci, K, kt)
+        torch.testing.assert_close(
+            al, fbk.fb_remat_tiled_plain(dl, words, ck[ci], trans2, mx, S, ci, K, kt),
+            rtol=0, atol=1e-6)
+        bargs = (dl, words, al, trans2, thin, mx, eb, E, ci, K, 8, 0.001, kt)
+        got = fbk.fb_backward_tiled(*bargs)
+        ref = fbk.fb_backward_tiled_plain(*bargs)
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
+        g = thin[ci * CG:(ci + 1) * CG] >= 0
+        firm = (ref[1][g][:, :, :-1] - ref[1][g][:, :, 1:]) > 1e-3
+        assert torch.equal(got[2][g][:, :, :-1][firm], ref[2][g][:, :, :-1][firm])
+        assert not got[1][~g].any() and not got[2][~g].any()
+        torch.testing.assert_close(got[3], ref[3], rtol=1e-4, atol=1e-30)
+        torch.testing.assert_close(got[4], ref[4], rtol=1e-4, atol=0)
+        eb, E = got[3], got[4]
+    assert [k.launches for k in kernels] == [1, 1, NSC, NSC]
+    args = (gl, words, trans2, thin, K, 8, 0.001)
+    tiled = fbk.fb_tiled_core(*args, k_tile=kt)
+    fused = fbk.fb_core(*args)
+    torch.testing.assert_close(tiled[0], fused[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(tiled[1], fused[1], rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(tiled[2], fused[2], rtol=0, atol=1e-4)
+    g = thin >= 0
+    firm = (fused[2][g][:, :, :-1] - fused[2][g][:, :, 1:]) > 1e-3
+    assert torch.equal(tiled[3][g][:, :, :-1][firm], fused[3][g][:, :, :-1][firm])
+    again = fbk.fb_tiled_core(*args, k_tile=kt)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, again))
+    forced = fbk.fb_full_batched(gl, fb, K_top=8, family="tiled", splits=splits)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, forced))
+
+
+def test_fb_tiled_refuses_bad_tiles(cuda):
+    words = torch.zeros((16, 384), dtype=torch.int32, device=cuda)
+    dl = torch.zeros((2, 16 * 32), device=cuda)
+    with pytest.raises(ValueError, match="k_tile"):
+        fbk.fb_max_tiled(dl, words, 300, 128)            # 3 blocks per row
+    with pytest.raises(ValueError, match="k_tile"):
+        fbk.fb_max_tiled(dl, words, 300, 100)            # does not cut K_pad
 
 
 @pytest.mark.parametrize("G,B,K,K_real", [(5, 3, 40, 33), (9, 4, 700, 700)])
@@ -138,3 +213,24 @@ def test_engine_on_gpu(cuda):
                        "cuda", truth_gen=truth_gen)
     assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
     assert all(k.launches > 0 for k in kernels), [k.launches for k in kernels]
+
+
+def test_engine_on_gpu_with_the_tiled_fb(cuda):
+    """The large-panel path at a small size: the FB plan forced to the
+    K-split family launches its four kernels and no fused one."""
+    from quilt_tpu_torch.engine.driver import ImputeConfig, _region_context, quilt_impute
+
+    world = make_world(np.random.default_rng(5), K=300, nSNPs=640, n_samples=2, coverage=1.5)
+    cfg = ImputeConfig(nGibbsSamples=3, n_seek_its=2, Ksubset=48, Knew=48,
+                       small_ref_panel_gibbs_iterations=8, seed=3)
+    _region_context(world["prep"], cfg, "cuda").fb_plan_args = dict(family="tiled", splits=2)
+    tiled = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.REMAT_TILED_KERNEL,
+             fbk.BWD_TILED_KERNEL]
+    for k in tiled + [fbk.FWD_KERNEL, fbk.BWD_KERNEL]:
+        k.launches = 0
+    truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
+    out = quilt_impute(world["prep"], world["samples"], ["a", "b"], cfg, "cuda",
+                       truth_gen=truth_gen)
+    assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
+    assert all(k.launches > 0 for k in tiled), [k.launches for k in tiled]
+    assert fbk.FWD_KERNEL.launches == 0 and fbk.BWD_KERNEL.launches == 0

@@ -99,7 +99,7 @@ def test_fb_row_chunks_are_exact(world, monkeypatch):
     gl3 = torch.from_numpy(np.concatenate([gl, gl[:1]]))
     whole = fb_full_batched(gl3, fb, K_top=8)
     monkeypatch.setattr(fbm, "_CALL_BYTES", 1)
-    assert fbm.rows_per_call(3, fb) == 1
+    assert fbm.fb_plan(3, fb) == ("fused", 1, 1)
     split = fb_full_batched(gl3, fb, K_top=8)
     # the CPU matmul may block a 3-row and a 1-row product differently,
     # so allow one float32 rounding step

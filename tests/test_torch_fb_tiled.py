@@ -1,0 +1,223 @@
+"""The K-split ("tiled") full-panel FB of the port on the CPU (plain
+versions, several tiles at K = 90 through a small k_tile) against the JAX
+package's K-tiled Pallas FB (fb_pallas_tiled_core, interpreted on the CPU
+with K_TILE patched to 64), the float64 oracle, and the port's fused FB.
+
+Tolerances: dosage atol 1e-4 against JAX and the oracle (the Pallas path's
+bf16 hi/lo emission split is itself ~2e-6 from float64) and 1e-5 against
+the port's fused path (same float32 arithmetic, sums over K taken in
+another order); log-likelihood rtol 1e-4 + atol 1e-2 (a sum of ~10 float32
+logs per grid); sorted top-K values atol 5e-4."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from quilt_tpu.config import ImputeConfig
+from quilt_tpu.engine import quilt_impute as jax_quilt_impute
+from quilt_tpu.io import simulate_panel, simulate_sample_reads
+from quilt_tpu.io.simulate import simulate_truth_mosaic
+from quilt_tpu.kernels import FBInputs as JaxFBInputs
+from quilt_tpu.oracle import haploid_dosage_versus_refs, make_gl_from_reads
+from quilt_tpu.panel import assign_positions_to_grid, compress_panel, prepare_panel, trans_rates
+from quilt_tpu.utils import pack_bits_32
+
+from quilt_tpu_torch.engine.driver import _region_context, quilt_impute
+from quilt_tpu_torch.inputs import FB_FIELDS, fb_inputs_from_reference
+from quilt_tpu_torch.kernels import fb as fbk
+
+torch.set_num_threads(2)
+EPS = 0.001
+
+
+@pytest.fixture(scope="module")
+def world():
+    """The world of tests/test_fb_pallas.py: K = 90, 333 SNPs, every third
+    grid thinned, 3 rows."""
+    rng = np.random.default_rng(7)
+    K, nSNPs, nMaxDH = 90, 333, 8
+    haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs)
+    grid, L_grid, nGrids = assign_positions_to_grid(pos)
+    panel = compress_panel(pack_bits_32(haps), nSNPs, ref_error=EPS, nMaxDH=nMaxDH)
+    trans = trans_rates(rng.uniform(0.95, 0.999, nGrids - 1))
+    truth = simulate_truth_mosaic(rng, haps, n_latent=2)
+    reads, sim = simulate_sample_reads(
+        rng, truth, pos, grid, coverage=2.0, read_length_bp=1500, phred=25
+    )
+    gls = np.stack([make_gl_from_reads(reads, np.flatnonzero(sim.labels == h), nSNPs)
+                    for h in (0, 1)]).astype(np.float32)
+    ref = JaxFBInputs.build(panel, trans, thinned_grids=np.arange(0, nGrids, 3))
+    gl_b = np.stack([gls[i % 2] for i in range(3)])
+    gl_pad = np.ones((3, 2, ref.S), dtype=np.float32)
+    gl_pad[:, :, :nSNPs] = gl_b
+    fb = fb_inputs_from_reference({k: getattr(ref, k) for k in FB_FIELDS})
+    return panel, trans, ref, fb, gl_pad
+
+
+def _tensors(fb):
+    dev = fb.device_tensors("cpu")
+    return dev["words"], dev["trans2"], dev["thin_flag"]
+
+
+def _tiled(fb, gl_pad, k_tile, K_top=8):
+    return [x.numpy() for x in fbk.fb_tiled_core(
+        torch.from_numpy(gl_pad), *_tensors(fb), fb.K, K_top, EPS, k_tile=k_tile)]
+
+
+def test_tiled_matches_pallas_tiled(world, monkeypatch):
+    import quilt_tpu.kernels.fb_pallas as fbp
+
+    monkeypatch.setattr(fbp, "K_TILE", 64)
+    _, _, ref, fb, gl_pad = world
+    dev = ref.device()
+    d_ref, l_ref, tv_ref, _, _ = (np.asarray(x) for x in fbp.fb_pallas_tiled_core(
+        jnp.asarray(gl_pad), dev["words"], dev["trans2"], dev["thin_flag"],
+        dev["capture_flag"], K=ref.K, K_pad=ref.K_pad, K_top=8, ref_error=EPS,
+        interpret=True,
+    ))
+    d, ll, tv, ti = _tiled(fb, gl_pad, 64)
+    np.testing.assert_allclose(d, d_ref, atol=1e-4)
+    np.testing.assert_allclose(ll, l_ref, rtol=1e-4, atol=1e-2)
+    thin = np.flatnonzero(ref.thin_flag >= 0)
+    assert len(thin) > 3
+    for g in thin:
+        np.testing.assert_allclose(np.sort(tv[g], axis=1), np.sort(tv_ref[g], axis=1),
+                                   atol=5e-4)
+    others = ref.thin_flag < 0
+    assert not tv[others].any() and not ti[others].any()
+
+
+def test_tiled_matches_oracle(world):
+    panel, trans, _, fb, gl_pad = world
+    d, ll, _, _ = _tiled(fb, gl_pad, 64)
+    for row in range(2):
+        orc = haploid_dosage_versus_refs(
+            gl_pad[row, :, :panel.nSNPs].astype(np.float64), panel, trans, ref_error=EPS)
+        np.testing.assert_allclose(d[row, :panel.nSNPs], orc.dosage, atol=1e-4)
+        assert abs(float(ll[row]) - orc.log_like) < 1e-2
+
+
+@pytest.mark.parametrize("k_tile", [32, 64, 128, 48])
+def test_tiled_matches_fused(world, k_tile):
+    """One tile (128), two, four, and a ragged last tile (48 into 128)."""
+    _, _, _, fb, gl_pad = world
+    d_f, l_f, tv_f, ti_f = (x.numpy() for x in fbk.fb_core(
+        torch.from_numpy(gl_pad), *_tensors(fb), fb.K, 8, EPS))
+    d, ll, tv, ti = _tiled(fb, gl_pad, k_tile)
+    np.testing.assert_allclose(d, d_f, atol=1e-5)
+    np.testing.assert_allclose(ll, l_f, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(tv, tv_f, atol=1e-5)
+    g = fb.thin_flag >= 0
+    firm = (tv_f[g][:, :, :-1] - tv_f[g][:, :, 1:]) > 1e-5
+    assert firm.any()
+    np.testing.assert_array_equal(ti[g][:, :, :-1][firm], ti_f[g][:, :, :-1][firm])
+
+
+@pytest.mark.parametrize("k_tile", [32, 64, 128])
+def test_tiled_stages(world, k_tile):
+    """Stage by stage: the max pre-pass equals the max of the fused
+    emissions; the forward's S, checkpoints and log-likelihood agree with
+    the fused forward's; the remat reproduces the forward's normalised
+    alphas."""
+    _, _, _, fb, gl_pad = world
+    words, trans2, _ = _tensors(fb)
+    dl, _ = fbk._gl_log_ratios(torch.from_numpy(gl_pad), EPS)
+    mx = fbk.fb_max_tiled(dl, words, fb.K, k_tile)
+    for g in (0, 3, fb.nGrids - 1):
+        torch.testing.assert_close(mx[g], fbk._emissions(dl, words, g, fb.K)[1][:, 0],
+                                   rtol=0, atol=1e-6)
+    ckpt, S, logs = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, k_tile)
+    ckpt_f, logs_f = fbk.fb_forward(dl, words, trans2, fb.K)
+    torch.testing.assert_close(logs, logs_f, rtol=1e-5, atol=1e-3)
+    CG = fbk.GRID_CHUNK
+    for ci in range(fb.nGrids // CG):
+        # checkpoint ci: unnormalised alpha entering the chunk, over S before it
+        norm = S[ci * CG - 1][:, None] if ci else 1.0
+        torch.testing.assert_close(ckpt[ci] / norm, ckpt_f[ci], rtol=1e-4, atol=1e-7)
+        alphas = fbk.fb_remat_tiled(dl, words, ckpt[ci], trans2, mx, S, ci, fb.K, k_tile)
+        torch.testing.assert_close(alphas.sum(-1), torch.ones_like(alphas.sum(-1)),
+                                   rtol=1e-5, atol=0)
+        if ci + 1 < fb.nGrids // CG:
+            # the chunk's last alpha is the next checkpoint, normalised
+            torch.testing.assert_close(alphas[-1], ckpt_f[ci + 1], rtol=1e-4, atol=1e-7)
+        # the plain fused forward, restarted at the chunk, gives every alpha
+        a = ckpt_f[ci]
+        for j in range(CG):
+            e, _ = fbk._emissions(dl, words, ci * CG + j, fb.K)
+            a = (trans2[0, ci * CG + j] * a + trans2[1, ci * CG + j] / fb.K) * e
+            a = a / a.sum(1, keepdim=True)
+            torch.testing.assert_close(alphas[j], a, rtol=1e-4, atol=1e-7)
+
+
+class _Shape:
+    def __init__(self, K, nGrids=512):
+        self.K, self.K_pad, self.nGrids = K, K, nGrids
+
+
+@pytest.mark.parametrize("rows, K, family, splits", [
+    (112, 5120, "fused", 1), (28, 40960, "tiled", 4), (28, 5120, "tiled", 4),
+    (56, 10240, "tiled", 2), (112, 10240, "fused", 1), (112, 20480, "tiled", 2),
+    (56, 20480, "tiled", 4), (56, 40960, "tiled", 4), (112, 40960, "tiled", 2),
+    (200, 40960, "fused", 1), (2, 256, "fused", 1), (14, 40960, "tiled", 8),
+])
+def test_fb_plan(rows, K, family, splits):
+    """The measured decision points (PERF.md): the QUILT1 quick-start shape
+    stays fused, the large-panel shape is split."""
+    assert fbk.fb_plan(rows, _Shape(K)) == (family, rows, splits)
+
+
+def test_fb_plan_forced_and_capture(world):
+    _, _, _, fb, gl_pad = world
+    assert fbk.fb_plan(3, fb)[0] == "fused"
+    assert fbk.fb_plan(3, fb, family="tiled", splits=2) == ("tiled", 3, 2)
+    assert fbk.fb_plan(3, fb, family="fused", splits=4) == ("fused", 3, 1)
+    with pytest.raises(ValueError):
+        fbk.fb_plan(3, fb, family="xla")
+    with pytest.raises(ValueError):
+        fbk.fb_plan(3, fb, splits=3)
+    gl = torch.from_numpy(gl_pad)
+    with pytest.raises(NotImplementedError, match="HLA"):
+        fbk.fb_full_batched(gl, fb, capture_grid=3, family="tiled", splits=2)
+    forced = fbk.fb_full_batched(gl, fb, K_top=8, ref_error=EPS, family="tiled", splits=2)
+    direct = fbk.fb_tiled_core(gl, *_tensors(fb), fb.K, 8, EPS, k_tile=fb.K_pad // 2)
+    for a, b in zip(forced, direct):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_engine_tiled_matches_fused_and_jax():
+    """The slice as a whole: quilt_impute with the FB plan forced to the
+    tiled family gives r2 within 0.01 of the fused run's and of the JAX
+    engine's on the same world."""
+    rng = np.random.default_rng(11)
+    K, nSNPs, N = 100, 448, 2
+    haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs)
+    prep = prepare_panel(chrom="chr20", pos=pos, ref_allele=np.array(["A"] * nSNPs),
+                         alt_allele=np.array(["G"] * nSNPs), haps=haps, nMaxDH=64)
+    samples, truths = [], []
+    for _ in range(N):
+        truth = simulate_truth_mosaic(rng, haps, n_latent=2)
+        reads, _ = simulate_sample_reads(rng, truth, pos, prep.grid, coverage=1.5,
+                                         read_length_bp=500, phred=25)
+        samples.append(reads)
+        truths.append(truth)
+    truth_gen = np.stack([t.sum(axis=0) for t in truths], axis=1).astype(float)
+    cfg = ImputeConfig(nGibbsSamples=3, n_seek_its=2, Ksubset=48, Knew=48,
+                       small_ref_panel_gibbs_iterations=8, seed=21, sample_batch=N)
+    names = ["a", "b"]
+    fused = quilt_impute(prep, samples, names, cfg, "cpu", truth_gen=truth_gen)
+    ctx = _region_context(prep, cfg, "cpu")
+    calls = []
+    core = fbk.fb_tiled_core
+    ctx.fb_plan_args = dict(family="tiled", splits=2)
+    try:
+        fbk.fb_tiled_core = lambda *a, **k: calls.append(k["k_tile"]) or core(*a, **k)
+        tiled = quilt_impute(prep, samples, names, cfg, "cpu", truth_gen=truth_gen)
+    finally:
+        fbk.fb_tiled_core = core
+        ctx.fb_plan_args = {}
+    assert calls and set(calls) == {ctx.fb_inputs.K_pad // 2}
+    ref = jax_quilt_impute(prep, samples, names, cfg, truth_gen=truth_gen)
+    for a, b, c in zip(tiled.r2_per_sample, fused.r2_per_sample, ref.r2_per_sample):
+        assert a > 0.9
+        assert abs(a - b) < 0.01, (a, b)
+        assert abs(a - c) < 0.01, (a, c)

@@ -1,0 +1,248 @@
+"""The port's own copies of the JAX package's jax-free host modules
+(config, utils, io, out, panel, native): the same seeded numpy inputs
+through a copy and through its quilt_tpu original give equal results, and
+files written by one package are read by the other."""
+import dataclasses
+import filecmp
+
+import numpy as np
+import pytest
+import torch
+
+import quilt_tpu.config as cfg_j
+import quilt_tpu.io.bam as bam_j
+import quilt_tpu.io.bam_writer as bamw_j
+import quilt_tpu.io.native as native_j
+import quilt_tpu.io.simulate as sim_j
+import quilt_tpu.io.vcf as vcf_j
+import quilt_tpu.out.metrics as metrics_j
+import quilt_tpu.out.vcf_writer as vcfw_j
+import quilt_tpu.panel.mspbwt as ms_j
+import quilt_tpu.panel.prepare as prep_j
+import quilt_tpu.utils as utils_j
+
+import quilt_tpu_torch.config as cfg_t
+import quilt_tpu_torch.io.bam as bam_t
+import quilt_tpu_torch.io.bam_writer as bamw_t
+import quilt_tpu_torch.io.native as native_t
+import quilt_tpu_torch.io.simulate as sim_t
+import quilt_tpu_torch.io.vcf as vcf_t
+import quilt_tpu_torch.out.metrics as metrics_t
+import quilt_tpu_torch.out.vcf_writer as vcfw_t
+import quilt_tpu_torch.panel.mspbwt as ms_t
+import quilt_tpu_torch.panel.prepare as prep_t
+import quilt_tpu_torch.utils as utils_t
+
+torch.set_num_threads(2)
+
+
+def _same(a, b, path=""):
+    """Deep equality of arrays, dataclasses, lists, dicts and scalars."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b or (a != a and b != b), (path, a, b)
+
+
+@pytest.mark.parametrize("name", ["ImputeConfig", "PrepareConfig"])
+def test_config_fields_and_defaults(name):
+    fj = dataclasses.fields(getattr(cfg_j, name))
+    ft = dataclasses.fields(getattr(cfg_t, name))
+    assert [(f.name, str(f.type)) for f in fj] == [(f.name, str(f.type)) for f in ft]
+    _same(dataclasses.asdict(getattr(cfg_j, name)()), dataclasses.asdict(getattr(cfg_t, name)()))
+    if name == "ImputeConfig":
+        assert (cfg_j.ImputeConfig(n_seek_its=5).resolved_n_burn_in_seek_its()
+                == cfg_t.ImputeConfig(n_seek_its=5).resolved_n_burn_in_seek_its())
+
+
+@pytest.mark.parametrize("nSNPs", [64, 77])
+def test_bit_packing(nSNPs):
+    haps = np.random.default_rng(3).integers(0, 2, (9, nSNPs)).astype(np.uint8)
+    packed = utils_t.pack_bits_32(haps)
+    np.testing.assert_array_equal(packed, utils_j.pack_bits_32(haps))
+    np.testing.assert_array_equal(utils_t.unpack_bits_32(packed, nSNPs),
+                                  utils_j.unpack_bits_32(packed, nSNPs))
+    np.testing.assert_array_equal(utils_t.unpack_bits_32(packed, nSNPs), haps)
+
+
+def _simulate(mod, seed=5, K=60, nSNPs=200):
+    rng = np.random.default_rng(seed)
+    haps, pos = mod.simulate_panel(rng, K=K, nSNPs=nSNPs)
+    grid = (np.arange(nSNPs) // 32).astype(np.int32)
+    truth = mod.simulate_truth_mosaic(rng, haps, n_latent=2)
+    reads, sim = mod.simulate_sample_reads(rng, truth, pos, grid, coverage=1.5,
+                                           read_length_bp=400, phred=25)
+    return haps, pos, truth, reads, sim
+
+
+def test_simulators_from_one_seed():
+    a, b = _simulate(sim_j), _simulate(sim_t)
+    for x, y in zip(a[:3], b[:3]):
+        np.testing.assert_array_equal(x, y)
+    _same(a[3], b[3], "reads")
+    _same(a[4], b[4], "sim")
+
+
+def _prepare(mod, quilt2):
+    haps, pos = sim_j.simulate_panel(np.random.default_rng(9), K=80, nSNPs=300)
+    if quilt2:
+        haps[:, ::7] = 0
+        haps[3, ::7] = 1
+    opts = dict(impute_rare_common=True, use_mspbwt=True, mspbwt_nindices=3,
+                rare_af_threshold=0.03) if quilt2 else {}
+    n = len(pos)
+    return mod.prepare_panel(chrom="chr20", pos=pos, ref_allele=np.array(["A"] * n),
+                             alt_allele=np.array(["G"] * n), haps=haps, nMaxDH=16, **opts)
+
+
+@pytest.mark.parametrize("quilt2", [False, True], ids=["prepare", "prepare2"])
+def test_prepare_panel_field_by_field(quilt2):
+    a, b = _prepare(prep_j, quilt2), _prepare(prep_t, quilt2)
+    assert a.panel.nMaxDH == b.panel.nMaxDH and len(a.panel.esc_k) > 0
+    _same(a, b, "prep")
+    if quilt2:
+        assert len(a.ms_indices) == 3 and (~a.snp_is_common).sum() > 10
+
+
+@pytest.mark.parametrize("quilt2", [False, True], ids=["prepare", "prepare2"])
+@pytest.mark.parametrize("saver, loader", [(prep_j, prep_t), (prep_t, prep_j)],
+                         ids=["jax-to-port", "port-to-jax"])
+def test_prepared_reference_moves_between_packages(tmp_path, quilt2, saver, loader):
+    prep = _prepare(saver, quilt2)
+    path = str(tmp_path / "ref.npz")
+    prep.save(path)
+    _same(saver.PreparedReference.load(path), loader.PreparedReference.load(path), "prep")
+    _same(prep.panel, loader.PreparedReference.load(path).panel, "panel")
+
+
+def test_mspbwt_build_and_batch_selection():
+    a, b = _prepare(prep_j, True), _prepare(prep_t, True)
+    ia = ms_j.build_mspbwt_indices(a.panel.hapMatcher, n_indices=3)
+    ib = ms_t.build_mspbwt_indices(b.panel.hapMatcher, n_indices=3)
+    _same(ia, ib, "indices")
+    rng = np.random.default_rng(4)
+    hd = rng.random((3, 2, a.nSNPs))
+    z = np.stack([[ms_j.symbols_from_hap_dosage(hd[r, h], a.panel.distinctHapsB, a.nSNPs)
+                   for h in range(2)] for r in range(3)])
+    z_t = np.stack([[ms_t.symbols_from_hap_dosage(hd[r, h], b.panel.distinctHapsB, b.nSNPs)
+                     for h in range(2)] for r in range(3)])
+    np.testing.assert_array_equal(z, z_t)
+    prev = [rng.choice(a.K, 10, replace=False) for _ in range(3)]
+    sel = [mod.select_new_haps_mspbwt_batch(idx, p.panel, z, 20, p.K, prev,
+                                            np.random.default_rng(8))
+           for mod, idx, p in ((ms_j, ia, a), (ms_t, ib, b))]
+    _same(sel[0], sel[1], "selection")
+    # the port's device symbols agree with the host symbols of both
+    dev = ms_t.symbols_device(torch.from_numpy(hd).float(),
+                              ms_t.distinct_hap_bits(b.panel, "cpu"), b.nSNPs).numpy()
+    firm = np.abs(hd - 0.5).reshape(3, 2, -1) > 1e-6
+    assert firm.all()
+    np.testing.assert_array_equal(dev, z)
+
+
+def _vcf_bytes(mod, path):
+    rng = np.random.default_rng(2)
+    n = 50
+    gp = rng.dirichlet(np.ones(3), size=n).T
+    haps = rng.integers(0, 2, (2, n)).astype(float)
+    col = mod.diploid_sample_column(gp, haps, gp[1] + 2 * gp[2])
+    counts = rng.integers(0, 5, (n, 3))
+    mod.write_quilt_vcf(
+        path, chrom="chr20", pos=np.arange(100, 100 + n), ref_allele=np.array(["A"] * n),
+        alt_allele=np.array(["G"] * n), sample_names=["s1", "s2"], sample_columns=[col, col],
+        eaf=rng.random(n), info=mod.info_score(rng.random(n), rng.random(n), 2),
+        hwe=mod.hwe_from_counts(counts), allele_count=rng.random((n, 2)),
+    )
+
+
+def test_vcf_writer_bytes(tmp_path):
+    pj, pt = str(tmp_path / "j.vcf.gz"), str(tmp_path / "t.vcf.gz")
+    _vcf_bytes(vcfw_j, pj)
+    _vcf_bytes(vcfw_t, pt)
+    assert filecmp.cmp(pj, pt, shallow=False)
+    assert filecmp.cmp(pj + ".tbi", pt + ".tbi", shallow=False)
+
+
+def _write_bam(mod, path, pos, hap):
+    rng = np.random.default_rng(6)
+    with mod.BamWriter(path, "chrX", 5000, sample_name="NA1") as w:
+        for r in range(40):
+            start0 = int(rng.integers(400, 900))
+            seq = []
+            for off in range(100):
+                si = np.searchsorted(pos, start0 + 1 + off)
+                hit = si < len(pos) and pos[si] == start0 + 1 + off
+                seq.append(("G" if hap[si] else "A") if hit else "C")
+            w.write_read(f"r{r}", start0, "".join(seq), [28] * 100)
+
+
+@pytest.mark.parametrize("writer, reader", [(bamw_j, bam_t), (bamw_t, bam_j)],
+                         ids=["jax-writes", "port-writes"])
+def test_bam_crosses_packages(tmp_path, writer, reader):
+    pos = np.arange(500, 500 + 40 * 13, 13, dtype=np.int64)
+    hap = np.random.default_rng(1).integers(0, 2, 40)
+    grid = (np.arange(40) // 32).astype(np.int32)
+    ref, alt = np.array(["A"] * 40), np.array(["G"] * 40)
+    pj, pt = str(tmp_path / "j.bam"), str(tmp_path / "t.bam")
+    _write_bam(bamw_j, pj, pos, hap)
+    _write_bam(bamw_t, pt, pos, hap)
+    assert filecmp.cmp(pj, pt, shallow=False)
+    path = pj if writer is bamw_j else pt
+    other = bam_j if reader is bam_t else bam_t
+    kw = dict(downsampleToCov=10000, use_bx_tag=False, use_native=False)
+    got = reader.load_bam_reads(path, "chrX", pos, ref, alt, grid, **kw)
+    own = other.load_bam_reads(path, "chrX", pos, ref, alt, grid, **kw)
+    assert got.nReads > 10
+    _same(got, own, "reads")
+    assert reader.bam_sample_name(path) == "NA1"
+    assert reader.bam_chromosome_length(path, "chrX") == 5000
+
+
+def test_metrics():
+    rng = np.random.default_rng(0)
+    truth = rng.integers(0, 2, (300, 2)).astype(float)
+    test = np.clip(truth + rng.normal(0, 0.3, truth.shape), 0, 1)
+    test[100:] = test[100:, ::-1]
+    assert metrics_t.r2_simple(truth.sum(1), test.sum(1)) == metrics_j.r2_simple(
+        truth.sum(1), test.sum(1))
+    _same(metrics_t.calculate_pse(test, truth), metrics_j.calculate_pse(test, truth))
+    af = rng.random(300)
+    np.testing.assert_array_equal(
+        metrics_t.r2_by_freq(np.array([0.0, 0.3, 1.0]), af, truth.sum(1), test.sum(1)),
+        metrics_j.r2_by_freq(np.array([0.0, 0.3, 1.0]), af, truth.sum(1), test.sum(1)))
+
+
+def test_native_and_python_io_agree(tmp_path):
+    if not native_t.native_available():
+        pytest.skip("no C++ toolchain")
+    haps, pos = sim_t.simulate_panel(np.random.default_rng(12), K=30, nSNPs=77)
+    ref = np.array(list("ACGT" * 20))[:77]
+    alt = np.array(list("TACG" * 20))[:77]
+    p = str(tmp_path / "p.vcf.gz")
+    bamw_t.write_panel_vcf(p, "chr2", pos, ref, alt, haps)
+    py = vcf_t.read_panel_vcf(p, use_native=False)
+    n_pos, n_ref, n_alt, rhb_t, names, _ = native_t.read_panel_vcf_native(p)
+    np.testing.assert_array_equal(n_pos, py.pos)
+    np.testing.assert_array_equal(n_ref, py.ref_allele)
+    np.testing.assert_array_equal(utils_t.unpack_bits_32(rhb_t, 77), py.haps)
+    assert names == py.sample_names
+    _same(py, vcf_j.read_panel_vcf(p, use_native=False), "panel")
+    if native_j.native_available():
+        for x, y in zip(native_j.read_panel_vcf_native(p), (n_pos, n_ref, n_alt, rhb_t, names)):
+            _same(x, y, "native")
+    # the native panel compression and msPBWT build equal the NumPy ones
+    rhb = utils_t.pack_bits_32(haps)
+    _same(prep_t.compress_panel(rhb, 77, ref_error=0.001, nMaxDH=8),
+          prep_j.compress_panel(rhb, 77, ref_error=0.001, nMaxDH=8), "panel")

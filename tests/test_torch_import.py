@@ -1,6 +1,6 @@
-"""The import boundary of the port: quilt_tpu_torch never imports jax,
-directly or through a quilt_tpu module whose imports reach jax (the
-machine with the GPU has no jax)."""
+"""The import boundary of the port: quilt_tpu_torch imports torch, never jax
+and nothing of the JAX package (quilt_tpu), not even its jax-free modules:
+it keeps its own copies (the machine with the GPU needs neither)."""
 import ast
 import pathlib
 import subprocess
@@ -21,11 +21,13 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_blocked():
+    """... and with the JAX package blocked as well."""
     mods = list(_modules())
     assert "quilt_tpu_torch.engine.batch" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['quilt_tpu'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "print('ok', len(sys.modules))\n"
@@ -51,21 +53,24 @@ def test_no_jax_import_statements():
 
 
 def test_mspbwt_reuse_stops_at_the_host_search():
-    """quilt_tpu.panel.mspbwt imports without jax and the port reuses its
-    host index and match scan; its symbols_device imports jax inside the
-    function, so the port calls its own."""
-    names = set()
-    for p in sorted(PKG.rglob("*.py")):
-        for node in ast.walk(ast.parse(p.read_text(), str(p))):
-            if isinstance(node, ast.ImportFrom) and node.module == "quilt_tpu.panel.mspbwt":
-                names.update(a.name for a in node.names)
-            elif isinstance(node, ast.ImportFrom) and node.module == "quilt_tpu.panel":
-                assert "mspbwt" not in {a.name for a in node.names}, p
-            elif isinstance(node, ast.Import):
-                assert "quilt_tpu.panel.mspbwt" not in {a.name for a in node.names}, p
-    # only named imports, and never its symbols_device
-    assert names and "symbols_device" not in names, names
-    code = "import sys; sys.modules['jax'] = None; import quilt_tpu.panel.mspbwt"
+    """No reuse at all any more: no port module has an `import quilt_tpu` /
+    `from quilt_tpu` statement (the msPBWT host index and match scan are
+    the port's own copy), and chip_smoke.py's imports load with both jax
+    and the JAX package blocked."""
+    offenders = [f"{p.relative_to(PKG.parent)}: {n}" for p in sorted(PKG.rglob("*.py"))
+                 for n in _imports(p) if n.split(".")[0] == "quilt_tpu"]
+    assert not offenders, offenders
+    assert (PKG / "panel" / "mspbwt.py").exists() and (PKG / "panel" / "prepare.py").exists()
+    smoke = sorted({m for m in _imports(PKG.parent / "chip_smoke.py")})
+    assert any(m.startswith("quilt_tpu_torch") for m in smoke)
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['quilt_tpu'] = None\n"
+        f"for m in {smoke!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from quilt_tpu_torch.panel.mspbwt import select_new_haps_mspbwt_batch, symbols_device\n"
+    )
     res = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
