@@ -8,7 +8,11 @@ Phases, each fatal on failure:
                one process per source, and print the build time;
   2. kernels - run each ported kernel at the full-width shapes of the main
                paths against its plain PyTorch version, print the error and
-               the median times of both (CUDA events); the four K-split FB
+               the median times of both (CUDA events); the Gibbs sweeps also
+               in their general variant, by chain thread count (64 / 128 /
+               256) beside the time of the bare dependent reduction, and the
+               forward sweep at a second state with the slot occupancy of
+               the world's own samples; the four K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
                world exists, together with fb_tiled_core against the fused
                fb_core, and both FB families are timed at 28 and 112 rows x
@@ -17,9 +21,11 @@ Phases, each fatal on failure:
                full width (K=5,120 panel haplotypes, 16,384 SNPs, Ksubset
                600, 7 chains x 3 seek iterations x 21 sweeps, 8 samples at
                ~1x coverage, simulated from a seed); prints seconds,
-               samples/s, r2 against truth, the per-stage timers and each
-               kernel's launch count; the four kernels of the path must
-               launch;
+               samples/s, r2 against truth, the share of live read slots,
+               the per-stage timers and each kernel's launch count; the
+               four kernels of the path must launch; one more call under
+               torch.profiler gives the device-time shares (here and in
+               phases 4 and 5);
   4. quilt2  - QUILT2 diploid imputation (msPBWT selection + rare/common
                all-SNP Gibbs) of the same shape, with 10% of the sites
                rewritten to 1-4 carriers (rare); prints samples/s, r2 over
@@ -28,8 +34,7 @@ Phases, each fatal on failure:
   5. largek  - QUILT1 diploid imputation against a large panel (K=40,960
                haplotypes, 16,384 SNPs, 2 samples = 28 FB rows), where the
                FB plan takes the K-split kernels; the four of them and the
-               two Gibbs sweeps must launch and the fused FB must not; one
-               more call under torch.profiler gives the device-time shares;
+               two Gibbs sweeps must launch and the fused FB must not;
   6. cli     - small file-based `prepare` + `impute` and `prepare2` +
                `impute2` runs through the port's CLI; checks the VCFs.
 The port must run without the JAX package: the script fails if `jax` or
@@ -95,6 +100,34 @@ def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops):
 # phase 2: kernels against their plain versions at full-width shapes
 # ---------------------------------------------------------------------------
 
+def _check_fwd(label, got, ref, args):
+    """A forward sweep's outputs against the plain version's; returns
+    (got, the larger of the lemg and logc errors)."""
+    import torch
+
+    torch.cuda.synchronize()
+    live = args[3][:, 2] == 0
+    B = live.shape[2]
+    agree = (got[2][live] == ref[2][live]).float().mean().item()
+    # a uniform within rounding of a candidate boundary may draw the other
+    # label and fork that chain; compare state only on rows that agree
+    same = ((got[2] == ref[2]) | ~live).all(dim=0).all(dim=0)          # [B]
+    rows2 = torch.cat([same, same])
+    err_lemg = (got[0] - ref[0]).abs()[:, rows2].max().item()
+    err_logc = (got[3] - ref[3]).abs()[rows2].max().item()
+    ok = (agree > 0.995 and torch.equal(got[2][~live], ref[2][~live])
+          and torch.allclose(got[0][:, rows2], ref[0][:, rows2], rtol=1e-4, atol=1e-3)
+          and torch.allclose(got[1][:, rows2], ref[1][:, rows2], rtol=1e-4, atol=1e-6)
+          and torch.allclose(got[3][rows2], ref[3][rows2], rtol=1e-4, atol=1e-3)
+          and torch.equal(got[4], ref[4]) and torch.equal(got[5][same], ref[5][same]))
+    print(f"{label}: labels agree {agree:.6f}, {int(same.sum())}/{B} rows identical, "
+          f"max |lemg err| {err_lemg:.3e}, max |logc err| {err_logc:.3e} "
+          f"(tolerance: labels > 0.995, rtol 1e-4 / atol 1e-3)", flush=True)
+    if not ok:
+        _fail(f"{label} disagrees with its plain version")
+    return got, max(err_lemg, err_logc)
+
+
 def check_kernels(world):
     """Each ported kernel vs its plain version on the card; returns the
     rows of the kernels line (launch counts filled in after the e2e)."""
@@ -115,45 +148,68 @@ def check_kernels(world):
     args = [torch.from_numpy(x).cuda() for x in random_sweep_state(
         np.random.default_rng(SEED), G, B, W, K, K_real, W)]
     kw = dict(nl=2, K_real=K_real, it_mode=2, prior=(0.5, 0.5))
-    got = gs.fwd_sweep(*args, **kw)
     ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2)
-    torch.cuda.synchronize()
-    live = args[3][:, 2] == 0
-    agree = (got[2][live] == ref[2][live]).float().mean().item()
-    # a uniform within rounding of a candidate boundary may draw the other
-    # label and fork that chain; compare state only on rows that agree
-    same = ((got[2] == ref[2]) | ~live).all(dim=0).all(dim=0)          # [B]
-    rows2 = torch.cat([same, same])
-    err_lemg = (got[0] - ref[0]).abs()[:, rows2].max().item()
-    err_logc = (got[3] - ref[3]).abs()[rows2].max().item()
-    ok = (agree > 0.995 and torch.allclose(got[0][:, rows2], ref[0][:, rows2], rtol=1e-4, atol=1e-3)
-          and torch.allclose(got[3][rows2], ref[3][rows2], rtol=1e-4, atol=1e-3))
-    print(f"gibbs_fwd: labels agree {agree:.6f}, {int(same.sum())}/{B} rows identical, "
-          f"max |lemg err| {err_lemg:.3e}, max |logc err| {err_logc:.3e} "
-          f"(tolerance: labels > 0.995, rtol 1e-4 / atol 1e-3)", flush=True)
-    if not ok:
-        _fail("gibbs_fwd disagrees with its plain version")
+    got, err = _check_fwd("gibbs_fwd", gs.fwd_sweep(*args, **kw), ref, args)
+    # the general variant (state in local arrays) takes any K; same check
+    _check_fwd("gibbs_fwd, general variant", gs.fwd_sweep(*args, threads=-1, **kw), ref, args)
     ms = _median_ms(lambda: gs.fwd_sweep(*args, **kw), 5)
     plain_ms = _median_ms(lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2), 2)
     # operations: per (grid, state row, haplotype) ~8 for the emission and
     # alpha step, and per live read slot and haplotype ~12 for the relabelling
-    n_reads = int(live.sum())
+    live = args[3][:, 2] == 0
     rows.append(_row("gibbs_fwd", "gibbs_sweep.cu", "gibbs_pallas.py:56",
-                     max(err_lemg, err_logc), ms, plain_ms, _nbytes(*args, *got),
-                     8 * G * 2 * B * K + 12 * n_reads * K))
+                     err, ms, plain_ms, _nbytes(*args, *got),
+                     8 * G * 2 * B * K + 12 * int(live.sum()) * K))
 
     lemg = got[0]
     trans = args[6]
-    got_b = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real)
     ref_b = gs.bwd_sweep_plain(lemg, trans, K_real)
-    err = (got_b - ref_b).abs().max().item()
-    print(f"gibbs_bwd: max |beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
-    if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
-        _fail("gibbs_bwd disagrees with its plain version")
+    for label, threads in (("gibbs_bwd, general variant", -1), ("gibbs_bwd", None)):
+        got_b = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, threads=threads)
+        err = (got_b - ref_b).abs().max().item()
+        print(f"{label}: max |beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
+        if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
+            _fail(f"{label} disagrees with its plain version")
     rows.append(_row("gibbs_bwd", "gibbs_sweep.cu", "gibbs_pallas.py:351", err,
                      _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real), 5),
                      _median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2),
                      _nbytes(lemg, trans, got_b), 8 * G * 2 * B * K))
+
+    # the chain variants (64 / 128 / 256 chain threads with the state in
+    # registers, and the general one) and the least a dependent step can take
+    variants = (("64", 64), ("128", 128), ("256", 256), ("general", -1))
+    t_fwd = {n: _median_ms(lambda: gs.fwd_sweep(*args, threads=t, **kw), 5) for n, t in variants}
+    t_bwd = {n: _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, threads=t), 5)
+             for n, t in variants}
+    fmt = lambda d: ", ".join(f"{k} {v:.3f} ms" for k, v in d.items())
+    print(f"gibbs_fwd by chain threads (K={K}): {fmt(t_fwd)}; default {ms:.3f} ms", flush=True)
+    print(f"gibbs_bwd by chain threads (K={K}): {fmt(t_bwd)}", flush=True)
+    steps = 20000
+    floor_ns = {t: _median_ms(lambda: gs.chain_floor(steps, t, B, "cuda"), 3) * 1e6 / steps
+                for t in (64, 128, 256)}
+    live_b = live.sum(dim=(0, 1))                                        # [B]
+    fwd_steps = G + int(live_b.max())
+    print("chain floor (one 8-value reduction: butterfly, shared-memory slot per warp, named "
+          "barrier): " + ", ".join(f"{t} threads {v:.1f} ns" for t, v in floor_ns.items())
+          + f"; gibbs_fwd walks {fwd_steps} dependent steps on its longest chain (mean "
+          f"{G + live_b.float().mean().item():.0f}) = {fwd_steps * floor_ns[128] / 1e6:.3f} ms at "
+          f"128 threads, gibbs_bwd {G - 1} = {(G - 1) * floor_ns[128] / 1e6:.3f} ms", flush=True)
+
+    # gibbs_fwd again with the slot occupancy of the world's own samples:
+    # chain b carries the reads per grid of sample b // 7 (7 chains a sample)
+    per_sample = np.stack([np.bincount(r.wif0, minlength=G)[:G] for r in world["samples"]], 1)
+    counts = np.repeat(per_sample, B // per_sample.shape[1], axis=1)     # [G, B]
+    args_w = [torch.from_numpy(x).cuda() for x in random_sweep_state(
+        np.random.default_rng(SEED + 3), G, B, W, K, K_real, W, counts=counts)]
+    ref_w = gs.fwd_sweep_plain(*args_w, K_real=K_real, it_mode=2)
+    _check_fwd("gibbs_fwd, world occupancy", gs.fwd_sweep(*args_w, **kw), ref_w, args_w)
+    live_w = args_w[3][:, 2] == 0
+    walked = int(args_w[7].sum()) * B
+    ms_w = _median_ms(lambda: gs.fwd_sweep(*args_w, **kw), 5)
+    print(f"gibbs_fwd, world occupancy: {ms_w:.3f} ms; {int(live_w.sum())} live of {walked} slots "
+          f"under the per-grid maximum ({100 * int(live_w.sum()) / max(walked, 1):.1f}% live; "
+          f"{G + int(live_w.sum(dim=(0, 1)).max())} steps on the longest chain); table shape: "
+          f"{100 * int(live.sum()) / (int(args[7].sum()) * B):.1f}% live", flush=True)
 
     # Gibbs dosages at the same shape: the sweep's alphas and beta, and
     # random packed subset words [G, B, K] (pad columns >= K_real masked)
@@ -438,19 +494,25 @@ def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False):
 # phases 3 and 4: full-width end-to-end imputation through the port's engine
 # ---------------------------------------------------------------------------
 
-def run_e2e(world, kernels, cfg, label, profile=False):
+def run_e2e(world, kernels, cfg, label):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
-    before it; with profile, one more call under torch.profiler after the
-    counts are read. Returns (output, truth, {kernel entry: launches})."""
+    before it, then one more call under torch.profiler after the counts
+    are read. Returns (output, truth, {kernel entry: launches})."""
     import numpy as np
     import torch
     from quilt_tpu_torch.engine.driver import quilt_impute
+    from quilt_tpu_torch.kernels import gibbs
 
     samples = world["samples"]
     names = [f"S{i}" for i in range(len(samples))]
     truth_gen = np.stack([t.sum(axis=0) for t in world["truths"]], axis=1).astype(float)
+    gibbs.SLOT_STATS = {"walked": 0, "live": 0}
     quilt_impute(world["prep"], samples, names, cfg, "cuda")
+    stats, gibbs.SLOT_STATS = gibbs.SLOT_STATS, None
+    print(f"{label}: {stats['live']} live read slots of the {stats['walked']} under the per-grid "
+          f"maximum that a chain's block used to walk ({100 * stats['live'] / max(stats['walked'], 1):.1f}% "
+          f"live; the rest are empty or uninformative and are no longer a step)", flush=True)
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
@@ -471,8 +533,7 @@ def run_e2e(world, kernels, cfg, label, profile=False):
     print(f"  launches: {launches}", flush=True)
     if not finite:
         _fail(f"{label} produced non-finite or misshapen dosages")
-    if profile:
-        profile_call(label, lambda: quilt_impute(world["prep"], samples, names, cfg, "cuda"), dt)
+    profile_call(label, lambda: quilt_impute(world["prep"], samples, names, cfg, "cuda"), dt)
     return out, truth_gen, launches
 
 
@@ -492,8 +553,11 @@ def profile_call(label, fn, untraced_s):
         torch.cuda.synchronize()
     wall = time.time() - t
     dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    events = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages() if dev_us(e) > 0),
-                    reverse=True)
+    # device-side events only: a host operator's entry repeats the device
+    # time of the kernels it launched, and summing both counts them twice
+    from torch.autograd import DeviceType
+    events = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                     if dev_us(e) > 0 and e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(us for us, _, _ in events) / 1e6
     if not busy:
         print(f"{label} profile: no device time recorded (not measured)", flush=True)
@@ -649,7 +713,7 @@ def main():
         world3 = make_world(n_samples=2, K=40960)
         rows += check_tiled_kernels(world3["fb"])
         time_fb_plan(world3["fb"], (28, 56, 112))
-        out, _, l3 = run_e2e(world3, kernels, e2e_config(2), "largek", profile=True)
+        out, _, l3 = run_e2e(world3, kernels, e2e_config(2), "largek")
         launches["largek"] = l3
         if min(out.r2_per_sample) < 0.9:
             _fail(f"largek r2 against truth below 0.9: {out.r2_per_sample}")

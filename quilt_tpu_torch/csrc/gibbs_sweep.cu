@@ -7,296 +7,813 @@
 //                 lemg / label-count updates of every flip;
 //   gibbs_bwd  <- _make_bwd_kernel (launched by _bwd_sweep): the reverse
 //                 max-normalised beta recursion over grids.
-// Layouts are the JAX functions' nl-major ones (state row h*B + b).
+// Layouts are the JAX functions' nl-major ones (state row h*B + b). All
+// arithmetic, including the per-read emissions (lem_pad), is float32.
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. Every read is a
-// sequential step whose candidate weights need sums over all K haplotypes
-// of both latent rows, and each flip changes the state the next read sees;
-// a sweep at the full-width shape (G=512 grids, ~3 reads per grid, K=640)
-// moves only ~0.6 GB but is ~10^4 dependent block-wide reductions long.
+// What bounds them on the H100: neither bytes nor operations but the
+// dependent chain. A chain's sweep is one step per grid (the alpha or beta
+// advance) plus one per live read slot, each step needs sums over all K
+// haplotypes before the next can start, and a flip changes the state the
+// next read sees. The time of a sweep is (steps) x (latency of one step);
+// the batch only decides how many SMs run such a chain side by side.
 //
-// Simple design: one thread block per chain b holds both latent rows
-// (the candidate weights couple them), K across the block's threads, the
-// grid loop and the in-grid read loop inside the block (alpha carries
-// across grids). Each thread owns the same haplotype columns throughout,
-// so the per-row planes in shared memory need no barriers; the only
-// barriers are those of the block reductions, each of which reduces all
-// the sums one step needs at once (4 for the candidate weights, 2 for the
-// renormalisation). All arithmetic, including the per-read emissions
-// (lem_pad), is float32.
+// What the design does about it: nothing but registers, shared memory and
+// one reduction sits between two dependent steps.
+//   * Warp specialisation. In gibbs_fwd a producer warp walks the grids
+//     ahead of the chain: it copies lemg[g+1], beta[g] and the emission row
+//     of every live read slot into shared-memory rings with cp.async (whose
+//     completion arrives on an mbarrier), hands the slot's words (uniform,
+//     label, read id) over beside the row, and writes the unchanged label of
+//     every skipped slot. In gibbs_bwd eight preparation warps compute the
+//     row maximum and e = exp(lemg - max) of the coming grids, which depend
+//     on the input alone, into a ring. The chain's (consumer) warps never
+//     wait for device memory unless the producers fall behind, and they
+//     take the next read's row (and its exponentials) or the next grid's e
+//     row out of the ring one step ahead of its use.
+//   * State in registers. Each consumer thread owns the same haplotype
+//     columns (tid, tid + NT, ...) of all latent rows for the whole sweep:
+//     alpha, beta, lemg and the read's exp(+-lem) live in registers when
+//     K <= NT * CPT for an instantiated (NT, CPT), else (general variant,
+//     same code, loops not unrolled) in per-thread local arrays.
+//   * One reduction per step. Forward, per live slot: the gain / lose sums
+//     of the candidate weights and the sums that alpha will have after a
+//     flip (sum(alpha*em) for the row that gains the read, sum(alpha*iv) for
+//     the row that loses it) travel through one reduction, so the flip, the
+//     renormalisation and the lemg update are one elementwise pass with no
+//     reduction behind it; a row that the slot does not change keeps its
+//     alpha untouched (its sum is 1 within rounding). Forward, per grid:
+//     sum(a_raw) and sum(a_raw*beta) together with the row maxima of the
+//     NEXT grid's lemg (an input, already prefetched), so pC = sum(a_raw *
+//     beta) / sum(a_raw) and no separate max reduction exists. Backward,
+//     per grid: sum(e*beta) and max(e*beta) together; since t0 >= 0 and a
+//     float fma is monotone, max(t0*etb + c) = fma(t0, max(etb), c).
+//   * One barrier per reduction: a reduce-scatter over the warp's lanes (9
+//     shuffles for 8 values), one shared-memory slot per warp, double-
+//     buffered by parity, and one named barrier over the chain's warps
+//     only. Every thread adds the warps' partials in the same order, so all
+//     threads take the same label decision unbroadcast.
+//   * No division and no logarithm on a read's step: the label is drawn by
+//     comparing the cumulative weight with u * (sum of weights), the
+//     renormalisers are fast reciprocals taken ahead of the decision, and
+//     logc carries the product of the reads' normalisers, whose log is
+//     taken only when it nears the float range.
+//   * Skipped slots (empty, or uninformative reads) cost nothing: the
+//     producer never queues them. They cannot flip and touch no state; the
+//     renormalisation the TPU kernel still performs there (by a sum that is
+//     1 within rounding) is dropped, in the plain version too.
+// The latent row count NL is a compile-time constant that every loop runs
+// over; only NL = 2 (diploid) is instantiated.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int NWARP = NT / 32;
+constexpr int NL = 2;            // latent rows of a chain (diploid)
 constexpr float NEG = -1e30f;
+constexpr int MAX_DS = 4;        // ring depth: grid stages (lemg[g+1] + beta[g])
+constexpr int MAX_DR = 16;       // ring depth: read-slot emission rows
+constexpr int MAX_DE = 16;       // ring depth: backward e rows
+constexpr int BWD_PREP = 8;      // preparation warps of the backward kernel
+constexpr int GENERAL_NT = 256;  // general variant: threads and column capacity
+constexpr int GENERAL_CPT = 40;
+constexpr int SMEM_LIMIT = 227 * 1024 - 4096;   // dynamic part; statics fit the rest
 
-struct SumOp {
-  __device__ float operator()(float a, float b) const { return a + b; }
-};
-struct MaxOp {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
+// ---------------------------------------------------------------------------
+// mbarrier, cp.async and the chain's reduction
+// ---------------------------------------------------------------------------
 
-// Reduces N values over the block; every thread receives the same result
-// (the xor butterfly and the shared-memory pass use one order for all).
-template <int N, class Op>
-__device__ __forceinline__ void block_reduce(float (&v)[N], float* red, Op op) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      v[j] = op(v[j], __shfl_xor_sync(0xffffffffu, v[j], o));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) red[warp * N + j] = v[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float r = red[j];
-    for (int w = 1; w < NWARP; ++w) r = op(r, red[w * N + j]);
-    v[j] = r;
-  }
-  __syncthreads();
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(NT) gibbs_fwd_kernel(
-    const float* __restrict__ lemg, const float* __restrict__ beta,
-    const float* __restrict__ lem_pad, const int* __restrict__ slots,
-    const int* __restrict__ first_read, const float* __restrict__ lab_init,
-    const float* __restrict__ trans, const int* __restrict__ cnt_max,
-    float* __restrict__ lemg_out, float* __restrict__ alpha_out,
-    int* __restrict__ h_out, float* __restrict__ logc_out,
-    float* __restrict__ uf_out, float* __restrict__ lab_out,
-    int G, int B, int W, int K, int K_real, int it_mode, int want_alpha,
-    float invK) {
-  extern __shared__ float smem[];
-  float* alpha = smem;          // [2][K] running alpha of both latent rows
-  float* bet = smem + 2 * K;    // [2][K] beta of the current grid
-  float* lg = smem + 4 * K;     // [2][K] lemg of the current grid (updated)
-  __shared__ float red[NWARP * 4];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  const int b = blockIdx.x;
-  const int BN = 2 * B;
-  const size_t WB = (size_t)W * B;
-  const int first = first_read[b];
-  float logc0 = 0.f, logc1 = 0.f;
-  float lab0 = lab_init[2 * b], lab1 = lab_init[2 * b + 1];
-  float pc0 = 0.f, pc1 = 0.f;
-  bool uf = false;
-  for (int k = threadIdx.x; k < K; k += NT) {
-    alpha[k] = 0.f;
-    alpha[K + k] = 0.f;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// One probe of the barrier's phase (the hardware may suspend the thread for
+// a while before it answers).
+__device__ __forceinline__ bool mbar_try(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the barrier's phase differs from `parity`. A wait that never
+// ends (a broken pipeline) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try(addr, parity)) return;   // the producers run ahead: the usual case
+  const long long t_start = clock64();
+  while (!mbar_try(addr, parity))
+    if (clock64() - t_start > 40000000000LL) __trap();   // ~20 s, not a sweep's ms
+}
+
+// The executing thread's earlier cp.async copies arrive on the barrier when
+// they complete (the barrier's count includes this arrival).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One row of K floats, global -> shared, by one warp; 16-byte copies when
+// K and the pointers allow (vec), else 4-byte ones.
+__device__ __forceinline__ void copy_row(float* dst, const float* src, int K,
+                                         bool vec, int lane) {
+  if (vec) {
+    for (int k = lane * 4; k < K; k += 128)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       smem_addr(dst + k)),
+                   "l"(src + k)
+                   : "memory");
+  } else {
+    for (int k = lane; k < K; k += 32)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                       smem_addr(dst + k)),
+                   "l"(src + k)
+                   : "memory");
+  }
+}
+
+// Position in a ring of `depth` stages; `phase` flips at every wrap. A
+// consumer waits full[stage] on `phase`, a producer empty[stage] on
+// `phase ^ 1` (the first pass over a fresh ring does not block).
+struct Ring {
+  int depth, stage;
+  uint32_t phase;
+  __device__ Ring(int d) : depth(d), stage(0), phase(0) {}
+  __device__ void next() {
+    if (++stage == depth) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// A warp releases a ring stage once all its lanes have read it.
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// Reduces NS sums followed by NM maxima over the chain's NT threads (warps
+// 0 .. NT/32-1 of the block). Within a warp the values are reduced and
+// scattered at once: each round halves the values a lane still carries (it
+// keeps one half and sends the other to its partner), so 8 values take 9
+// shuffles, not 40, and end as one total in each group of 4 lanes. One lane
+// per group writes it to the warp's shared-memory slot in the buffer of
+// this call's parity; after one named barrier every thread adds the warps'
+// slots in the same order, so all threads hold the same values. `red` holds
+// 2 x (NT/32) x 8 floats; a buffer is written again two calls later, after
+// a barrier that every reader of this call has passed.
+template <int NT, int NS, int NM>
+__device__ __forceinline__ void chain_reduce(float (&v)[NS + NM], float* red,
+                                             int& par) {
+  constexpr int NV = NS + NM, NW = NT / 32;
+  constexpr int NP = NV <= 2 ? 2 : (NV <= 4 ? 4 : 8);   // padded to a power of two
+  constexpr int LOG = NP == 2 ? 1 : (NP == 4 ? 2 : 3);
+  static_assert(NV <= 8, "a reduction slot holds 8 values");
+  static_assert(NW > 1, "the chain has at least two warps");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* buf = red + par * NW * 8;
+  par ^= 1;
+  if (NV <= 2) {
+    // two values: a plain butterfly on both is as short, and free of selects
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const float x = __shfl_xor_sync(0xffffffffu, v[j], o);
+        v[j] = j < NS ? v[j] + x : fmaxf(v[j], x);
+      }
+    }
+    if (lane < NV) buf[warp * 8 + lane] = lane == 0 ? v[0] : v[NV - 1];
+  } else {
+    float t[NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) t[j] = j < NV ? v[j] : 0.f;
+    int base = 0;   // index of the value this lane carries in t[0]
+#pragma unroll
+    for (int r = 0; r < LOG; ++r) {
+      const int o = 16 >> r, half = NP >> (r + 1);
+      const bool upper = (lane & o) != 0;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const float send = upper ? t[j] : t[j + half];
+        const float keep = upper ? t[j + half] : t[j];
+        const float x = __shfl_xor_sync(0xffffffffu, send, o);
+        if (NM == 0)
+          t[j] = keep + x;
+        else
+          t[j] = base + j + (upper ? half : 0) < NS ? keep + x : fmaxf(keep, x);
+      }
+      if (upper) base += half;
+    }
+#pragma unroll
+    for (int o = 16 >> LOG; o > 0; o >>= 1) {
+      const float x = __shfl_xor_sync(0xffffffffu, t[0], o);
+      t[0] = (NM == 0 || base < NS) ? t[0] + x : fmaxf(t[0], x);
+    }
+    if ((lane & (32 / NP - 1)) == 0) buf[warp * 8 + base] = t[0];
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
+  const float4* buf4 = reinterpret_cast<const float4*>(buf);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    float s[8];
+    const float4 x = buf4[w * 2];
+    s[0] = x.x, s[1] = x.y, s[2] = x.z, s[3] = x.w;
+    if (NV > 4) {
+      const float4 y = buf4[w * 2 + 1];
+      s[4] = y.x, s[5] = y.y, s[6] = y.z, s[7] = y.w;
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      v[j] = w == 0 ? s[j] : (j < NS ? v[j] + s[j] : fmaxf(v[j], s[j]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward sweep
+// ---------------------------------------------------------------------------
+
+struct FwdArgs {
+  const float *lemg, *beta, *lem_pad;
+  const int *slots, *first_read;
+  const float *lab_init, *trans;
+  const int* cnt_max;
+  float *lemg_out, *alpha_out;
+  int* h_out;
+  float *logc_out, *uf_out, *lab_out;
+  int G, B, W, K, K_real, it_mode, want_alpha;
+  int vec, DS, DR;   // 16-byte copies allowed; ring depths
+  float invK;
+  float prior[NL];
+};
+
+struct SlotWords {
+  int u, h, skip, rg, cnt;   // the four planes of slot (g, i, b) and cnt_max[g]
+  float t0, t1;              // trans[:, g]
+};
+
+__device__ __forceinline__ SlotWords load_words(const FwdArgs& a, int g, int i,
+                                                int b) {
+  SlotWords w = {0, 0, 1, 0, a.cnt_max[g], a.trans[g], a.trans[a.G + g]};
+  if (i < a.W) {
+    const size_t WB = (size_t)a.W * a.B;
+    const size_t sl = ((size_t)g * 4 * a.W + i) * a.B + b;
+    w.u = a.slots[sl];
+    w.h = a.slots[sl + WB];
+    w.skip = a.slots[sl + 2 * WB];
+    w.rg = a.slots[sl + 3 * WB];
+  }
+  return w;
+}
+
+// The producer warp of chain b. Grid stage s (s = 0 .. G) holds lemg[s]
+// (s < G) and, for s >= 1, beta[s-1] with trans[s-1] and the number of live
+// slots of grid s-1; the chain consumes stage g+1 when it advances into
+// grid g. The live slots of grid g follow in the row ring, in slot order.
+__device__ void fwd_producer(const FwdArgs& a, float* stage_buf, float* row_buf,
+                             float (*smeta)[4], int (*rmeta)[4],
+                             uint64_t* full_s, uint64_t* empty_s,
+                             uint64_t* full_r, uint64_t* empty_r) {
+  const int lane = threadIdx.x & 31, b = blockIdx.x;
+  const int K = a.K, BN = NL * a.B;
+  const size_t stage_floats = (size_t)2 * NL * K;
+  Ring S(a.DS), R(a.DR);
+  mbar_wait(&empty_s[0], 1);
+  for (int h = 0; h < NL; ++h)
+    copy_row(stage_buf + h * K, a.lemg + ((size_t)h * a.B + b) * K, K, a.vec, lane);
+  cp_async_arrive(&full_s[0]);
+  if (lane == 0) mbar_arrive(&full_s[0]);
+  S.next();
+  SlotWords cur = load_words(a, 0, lane, b);
+  for (int g = 0; g < a.G; ++g) {
+    const SlotWords nxt = g + 1 < a.G ? load_words(a, g + 1, lane, b) : cur;
+    mbar_wait(&empty_s[S.stage], S.phase ^ 1);
+    float* sb = stage_buf + S.stage * stage_floats;
+    for (int h = 0; h < NL; ++h) {
+      if (g + 1 < a.G)
+        copy_row(sb + h * K, a.lemg + ((size_t)(g + 1) * BN + h * a.B + b) * K, K,
+                 a.vec, lane);
+      copy_row(sb + (NL + h) * K, a.beta + ((size_t)g * BN + h * a.B + b) * K, K,
+               a.vec, lane);
+    }
+    const int n = cur.cnt;
+    int nlive = 0;
+    for (int i0 = 0; i0 < a.W; i0 += 32) {
+      const SlotWords w = i0 == 0 ? cur : load_words(a, g, i0 + lane, b);
+      const bool live = i0 + lane < n && i0 + lane < a.W && w.skip == 0;
+      nlive += __popc(__ballot_sync(0xffffffffu, live));
+    }
+    if (lane == 0) {
+      smeta[S.stage][0] = cur.t0;
+      smeta[S.stage][1] = cur.t1;
+      smeta[S.stage][2] = __int_as_float(nlive);
+    }
+    cp_async_arrive(&full_s[S.stage]);
+    if (lane == 0) mbar_arrive(&full_s[S.stage]);
+    S.next();
+    for (int i0 = 0; i0 < a.W; i0 += 32) {
+      const SlotWords w = i0 == 0 ? cur : load_words(a, g, i0 + lane, b);
+      const int i = i0 + lane;
+      const bool live = i < n && i < a.W && w.skip == 0;
+      if (i < a.W && !live) a.h_out[((size_t)g * a.W + i) * a.B + b] = w.h;
+      unsigned mask = __ballot_sync(0xffffffffu, live);
+      while (mask) {
+        const int src = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int u = __shfl_sync(0xffffffffu, w.u, src);
+        const int hC = __shfl_sync(0xffffffffu, w.h, src);
+        const int rg = __shfl_sync(0xffffffffu, w.rg, src);
+        mbar_wait(&empty_r[R.stage], R.phase ^ 1);
+        copy_row(row_buf + (size_t)R.stage * K,
+                 a.lem_pad + (((size_t)g * a.W + i0 + src) * a.B + b) * K, K, a.vec,
+                 lane);
+        if (lane == 0) {
+          rmeta[R.stage][0] = u;
+          rmeta[R.stage][1] = hC;
+          rmeta[R.stage][2] = rg;
+          rmeta[R.stage][3] = i0 + src;
+        }
+        cp_async_arrive(&full_r[R.stage]);
+        if (lane == 0) mbar_arrive(&full_r[R.stage]);
+        R.next();
+      }
+    }
+    cur = nxt;
+  }
+}
+
+// logc gathers the logs of the chain's normalisers. The product of the
+// read slots' normalisers is carried in `prod` and its log taken only when
+// it nears the float range, so no logf sits on a read's step.
+__device__ __forceinline__ void carry_log(float& logc, float& prod, float z) {
+  prod *= z;
+  if (prod > 1e30f || prod < 1e-30f) {
+    logc += logf(prod);
+    prod = 1.f;
+  }
+}
+
+// A live read slot as the chain holds it: the thread's columns of the
+// emission row with exp(+-lem), and the slot's words. fetch() takes the
+// next entry of the row ring. The chain takes a grid's first live read
+// while it advances into the grid and every later one a step ahead of its
+// use, never one of a grid it has not advanced into: the producer queues a
+// grid's reads only after the stage that the advance consumes.
+template <int CPT>
+struct ReadRow {
+  float l[CPT], em[CPT], iv[CPT];
+  float u;
+  int hC, rg, slot;
+
+  template <int NT, int UNROLL>
+  __device__ __forceinline__ void fetch(const float* row_buf, int (*rmeta)[4],
+                                        uint64_t* full_r, uint64_t* empty_r,
+                                        Ring& R, int K, int ncol) {
+    mbar_wait(&full_r[R.stage], R.phase);
+    const float* rb = row_buf + (size_t)R.stage * K;
+    u = __int_as_float(rmeta[R.stage][0]);
+    hC = rmeta[R.stage][1];
+    rg = rmeta[R.stage][2];
+    slot = rmeta[R.stage][3];
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      const int c = threadIdx.x + m * NT;
+      l[m] = c < K ? rb[c] : 0.f;
+    }
+    release(&empty_r[R.stage]);
+    R.next();
   }
 
-  for (int g = 0; g < G; ++g) {
-    // ---- alpha advance into grid g ----
-    const float t0 = trans[g], t1 = trans[G + g];
-    const float isf = (g == 0) ? 1.f : 0.f;
-    const size_t r0 = ((size_t)g * BN + b) * K;
-    const size_t r1 = ((size_t)g * BN + B + b) * K;
-    float mx[2] = {NEG, NEG};
-    for (int k = threadIdx.x; k < K; k += NT) {
-      const float x0 = lemg[r0 + k], x1 = lemg[r1 + k];
-      lg[k] = x0;
-      lg[K + k] = x1;
-      bet[k] = beta[r0 + k];
-      bet[K + k] = beta[r1 + k];
-      if (k < K_real) {
-        mx[0] = fmaxf(mx[0], x0);
-        mx[1] = fmaxf(mx[1], x1);
-      }
-    }
-    block_reduce(mx, red, MaxOp());
-    float s[2] = {0.f, 0.f};
-    for (int k = threadIdx.x; k < K; k += NT) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float e = (k < K_real) ? expf(lg[h * K + k] - mx[h]) : 0.f;
-        const float a = e * (t0 * alpha[h * K + k] + (t1 + isf) * invK);
-        alpha[h * K + k] = a;
-        s[h] += a;
-      }
-    }
-    block_reduce(s, red, SumOp());
-    uf = uf || !isfinite(s[0]) || s[0] <= 0.f || !isfinite(s[1]) ||
-         s[1] <= 0.f;
-    const float ss0 = s[0] > 0.f ? s[0] : 1.f;
-    const float ss1 = s[1] > 0.f ? s[1] : 1.f;
-    const float q0 = 1.f / ss0, q1 = 1.f / ss1;
-    float pc[2] = {0.f, 0.f};
-    for (int k = threadIdx.x; k < K; k += NT) {
-      const float a0 = alpha[k] * q0, a1 = alpha[K + k] * q1;
-      alpha[k] = a0;
-      alpha[K + k] = a1;
-      pc[0] += a0 * bet[k];
-      pc[1] += a1 * bet[K + k];
-    }
-    block_reduce(pc, red, SumOp());
-    pc0 = pc[0];
-    pc1 = pc[1];
-    logc0 = logc0 + logf(ss0) + mx[0];
-    logc1 = logc1 + logf(ss1) + mx[1];
+  template <int UNROLL>
+  __device__ __forceinline__ void take(const ReadRow& o, int ncol) {
+    u = o.u, hC = o.hC, rg = o.rg, slot = o.slot;
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) l[m] = o.l[m], em[m] = o.em[m], iv[m] = o.iv[m];
+  }
 
-    // ---- sequential resampling of the grid's reads ----
-    const int n = cnt_max[g];
-    for (int i = 0; i < n; ++i) {
-      const size_t sl = ((size_t)g * 4 * W + i) * B + b;   // plane 0
-      const float u = __int_as_float(slots[sl]);
-      const int hC = slots[sl + WB];
-      const bool skip = slots[sl + 2 * WB] > 0;
-      const int rg = slots[sl + 3 * WB];
-      const float* lem = lem_pad + (((size_t)g * W + i) * B + b) * K;
-      float q[4] = {0.f, 0.f, 0.f, 0.f};   // gain0, gain1, lose0, lose1
-      for (int k = threadIdx.x; k < K; k += NT) {
-        const float l = lem[k];
-        const float em = expf(l), iv = expf(-l);
-        const float ab0 = alpha[k] * bet[k], ab1 = alpha[K + k] * bet[K + k];
-        q[0] += ab0 * em;
-        q[1] += ab1 * em;
-        q[2] += ab0 * iv;
-        q[3] += ab1 * iv;
+  template <int UNROLL>
+  __device__ __forceinline__ void exponentials(int ncol) {
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      em[m] = expf(l[m]);
+      iv[m] = expf(-l[m]);
+    }
+  }
+};
+
+// NT consumer threads (the chain) and one producer warp. FAST: K <= NT*CPT
+// and the column loops unroll over CPT registers; otherwise CPT is the
+// capacity of per-thread local arrays and the loops run ceil(K/NT) times.
+template <int NT, int CPT, bool FAST>
+__global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ uint64_t bars[2 * MAX_DS + 2 * MAX_DR];
+  __shared__ float smeta[MAX_DS][4];
+  __shared__ int rmeta[MAX_DR][4];
+  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  uint64_t* full_s = bars;
+  uint64_t* empty_s = bars + MAX_DS;
+  uint64_t* full_r = bars + 2 * MAX_DS;
+  uint64_t* empty_r = bars + 2 * MAX_DS + MAX_DR;
+  const int K = a.K, K_real = a.K_real;
+  float* stage_buf = dyn;
+  float* row_buf = dyn + (size_t)a.DS * 2 * NL * K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.DS; ++s) {
+      mbar_init(&full_s[s], 33);        // 32 cp.async arrivals + lane 0's
+      mbar_init(&empty_s[s], NT / 32);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < a.DR; ++s) {
+      mbar_init(&full_r[s], 33);
+      mbar_init(&empty_r[s], NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= NT) {
+    fwd_producer(a, stage_buf, row_buf, smeta, rmeta, full_s, empty_s, full_r,
+                 empty_r);
+    return;
+  }
+
+  // ---- the chain ----
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int BN = NL * a.B;
+  const int ncol = FAST ? CPT : (K + NT - 1) / NT;
+  constexpr int UNROLL = FAST ? CPT : 1;
+  const int first = a.first_read[b];
+  const size_t stage_floats = (size_t)2 * NL * K;
+  // alpha, beta and lemg of the current grid; lemg of the next one and
+  // e = exp(lemg - rowmax) of the grid the chain advances into next
+  float alpha[NL][CPT], bet[NL][CPT], lg[NL][CPT], lgn[NL][CPT], e[NL][CPT];
+  ReadRow<CPT> cur, nxt;
+  float pc[NL], logc[NL], zprod[NL], lab[NL];
+  bool uf = false;
+  int par = 0;
+  Ring S(a.DS), R(a.DR);
+#pragma unroll
+  for (int h = 0; h < NL; ++h) {
+    logc[h] = 0.f;
+    zprod[h] = 1.f;
+    pc[h] = 0.f;
+    lab[h] = a.lab_init[NL * b + h];
+  }
+
+  // stage 0: lemg of grid 0, its row maxima (the one reduction outside the
+  // per-grid and per-slot ones) and e
+  float mx[NL];
+  {
+    mbar_wait(&full_s[0], 0);
+#pragma unroll
+    for (int h = 0; h < NL; ++h) mx[h] = NEG;
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      const int c = tid + m * NT;
+#pragma unroll
+      for (int h = 0; h < NL; ++h) {
+        alpha[h][m] = 0.f;
+        lg[h][m] = c < K ? stage_buf[h * K + c] : 0.f;
+        if (c < K_real) mx[h] = fmaxf(mx[h], lg[h][m]);
       }
-      block_reduce(q, red, SumOp());
-      const float gain0 = q[0], gain1 = q[1];
+    }
+    release(&empty_s[0]);
+    S.next();
+    chain_reduce<NT, 0, NL>(mx, red, par);
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+#pragma unroll
+      for (int h = 0; h < NL; ++h)
+        e[h][m] = tid + m * NT < K_real ? expf(lg[h][m] - mx[h]) : 0.f;
+    }
+  }
+
+  for (int g = 0; g < a.G; ++g) {
+    // ---- alpha advance into grid g: one reduction ----
+    mbar_wait(&full_s[S.stage], S.phase);
+    const float* sb = stage_buf + S.stage * stage_floats;
+    const float t0 = smeta[S.stage][0], t1 = smeta[S.stage][1];
+    const int nlive = __float_as_int(smeta[S.stage][2]);
+    const bool has_next = g + 1 < a.G;
+    const float jump = (t1 + (g == 0 ? 1.f : 0.f)) * a.invK;
+    float v[3 * NL];   // sum(a_raw), sum(a_raw*beta) | max of the next lemg
+#pragma unroll
+    for (int h = 0; h < NL; ++h) v[h] = v[NL + h] = 0.f, v[2 * NL + h] = NEG;
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      const int c = tid + m * NT;
+#pragma unroll
+      for (int h = 0; h < NL; ++h) {
+        bet[h][m] = c < K ? sb[(NL + h) * K + c] : 0.f;
+        lgn[h][m] = (has_next && c < K) ? sb[h * K + c] : 0.f;
+        if (c < K_real) v[2 * NL + h] = fmaxf(v[2 * NL + h], lgn[h][m]);
+        const float ar = e[h][m] * (t0 * alpha[h][m] + jump);
+        alpha[h][m] = ar;
+        v[h] += ar;
+        v[NL + h] += ar * bet[h][m];
+      }
+    }
+    release(&empty_s[S.stage]);
+    S.next();
+    if (nlive > 0) {
+      nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, K, ncol);
+      nxt.template exponentials<UNROLL>(ncol);
+    }
+    chain_reduce<NT, 2 * NL, NL>(v, red, par);
+#pragma unroll
+    for (int h = 0; h < NL; ++h) {
+      const float s = v[h];
+      uf = uf || !isfinite(s) || s <= 0.f;
+      const float ss = s > 0.f ? s : 1.f;
+      const float q = __fdividef(1.f, ss);
+#pragma unroll UNROLL
+      for (int m = 0; m < ncol; ++m) {
+        alpha[h][m] *= q;
+        // e of the next grid: its lemg is an input and its maximum is known now
+        e[h][m] = tid + m * NT < K_real ? expf(lgn[h][m] - v[2 * NL + h]) : 0.f;
+      }
+      pc[h] = v[NL + h] * q;
+      logc[h] = logc[h] + logf(ss) + mx[h];   // once a grid; the slots carry theirs
+      mx[h] = v[2 * NL + h];
+    }
+
+    // ---- sequential resampling of the grid's live reads: one reduction
+    // each; the next read's row and exponentials are taken ahead of it ----
+    for (int j = 0; j < nlive; ++j) {
+      cur.template take<UNROLL>(nxt, ncol);
+      if (j + 1 < nlive)
+        nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, K, ncol);
+      // q: gain[h] = sum(alpha*beta*em), lose[h] = sum(alpha*beta*iv), then
+      // the sums alpha has after gaining (alpha*em) or losing (alpha*iv) the read
+      float q[4 * NL];
+#pragma unroll
+      for (int j2 = 0; j2 < 4 * NL; ++j2) q[j2] = 0.f;
+#pragma unroll UNROLL
+      for (int m = 0; m < ncol; ++m) {
+#pragma unroll
+        for (int h = 0; h < NL; ++h) {
+          const float ab = alpha[h][m] * bet[h][m];
+          q[h] += ab * cur.em[m];
+          q[NL + h] += ab * cur.iv[m];
+          q[2 * NL + h] += alpha[h][m] * cur.em[m];
+          q[3 * NL + h] += alpha[h][m] * cur.iv[m];
+        }
+      }
+      if (j + 1 < nlive) nxt.template exponentials<UNROLL>(ncol);
+      chain_reduce<NT, 4 * NL, 0>(q, red, par);
+
+      const float u = cur.u;
+      const int hC = cur.hC, rg = cur.rg;
+      // what a flip would renormalise by, ahead of the decision
+      float z[2 * NL], rs[2 * NL];
+#pragma unroll
+      for (int j2 = 0; j2 < 2 * NL; ++j2) {
+        z[j2] = q[2 * NL + j2] > 0.f ? q[2 * NL + j2] : 1.f;
+        rs[j2] = __fdividef(1.f, z[j2]);
+      }
       bool doing_pass = false, doing_init = false;
-      if (it_mode == 0) {
+      if (a.it_mode == 0) {
         doing_pass = rg < first;
         doing_init = rg >= first;
-      } else if (it_mode == 1) {
+      } else if (a.it_mode == 1) {
         doing_init = rg < first;
       }
       const bool normal = !doing_init;
-      const bool oh0 = hC == 0, oh1 = hC == 1;
-      const float lose_C = oh1 ? q[3] : q[2];
+      float lose_C = q[NL];
+#pragma unroll
+      for (int h = 1; h < NL; ++h)
+        if (hC == h) lose_C = q[NL + h];
       // candidate weights w[n] = prior[n] * prod_m term(n, m)
       // (reference: sample_reads_in_grid, gibbs-nipt.cpp:733-1341)
-      const float w0 = (doing_init ? gain0 : (oh0 ? pc0 : gain0)) *
-                       (doing_init ? pc1 : (oh0 ? pc1 : (oh1 ? lose_C : pc1))) *
-                       0.5f;
-      const float w1 = (doing_init ? pc0 : (oh1 ? pc0 : (oh0 ? lose_C : pc0))) *
-                       (doing_init ? gain1 : (oh1 ? pc1 : gain1)) * 0.5f;
-      const float wsum = w0 + w1;
+      float w[NL], wsum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NL; ++n) {
+        float prod = 1.f;
+#pragma unroll
+        for (int m = 0; m < NL; ++m) {
+          float term;
+          if (m == n)
+            term = (doing_init || hC != n) ? q[n] : pc[m];
+          else
+            term = (doing_init || hC == n || hC != m) ? pc[m] : lose_C;
+          prod = m == 0 ? term : prod * term;
+        }
+        w[n] = prod * a.prior[n];
+        wsum = n == 0 ? w[n] : wsum + w[n];
+      }
       const bool badv = !isfinite(wsum) || wsum <= 0.f;
-      uf = uf || (badv && !skip);
-      const float wss = wsum > 0.f ? wsum : 1.f;
-      const float cum = badv ? 0.5f : w0 / wss;
-      const int h_new = (cum <= u) ? 1 : 0;
-      const bool active = !skip && !doing_pass && !badv;
-      const bool flip = active && (h_new != hC || doing_init);
-      const float fl = flip ? 1.f : 0.f;
-      const float d0 = ((h_new == 0 ? 1.f : 0.f) - (oh0 ? 1.f : 0.f) * (normal ? 1.f : 0.f)) * fl;
-      const float d1 = ((h_new == 1 ? 1.f : 0.f) - (oh1 ? 1.f : 0.f) * (normal ? 1.f : 0.f)) * fl;
-      float sn[2] = {0.f, 0.f};
-      for (int k = threadIdx.x; k < K; k += NT) {
-        float a0 = alpha[k], a1 = alpha[K + k];
-        if (flip) {
-          const float l = lem[k];
-          const float em = expf(l), iv = expf(-l);
-          a0 *= (h_new == 0 ? em : 1.f) * ((oh0 && normal) ? iv : 1.f);
-          a1 *= (h_new == 1 ? em : 1.f) * ((oh1 && normal) ? iv : 1.f);
-          lg[k] += d0 * l;
-          lg[K + k] += d1 * l;
-        }
-        alpha[k] = a0;
-        alpha[K + k] = a1;
-        if (k < K_real) {
-          sn[0] += a0;
-          sn[1] += a1;
-        }
+      uf = uf || badv;
+      // h_new = number of candidates whose cumulative probability <= u
+      // (compared as cumulative weight <= u * wsum: no division on the
+      // chain; a bad wsum never flips, whatever h_new is)
+      const float uw = u * wsum;
+      float cum = 0.f;
+      int h_new = 0;
+#pragma unroll
+      for (int n = 0; n < NL - 1; ++n) {
+        cum += w[n];
+        h_new += cum <= uw ? 1 : 0;
       }
-      block_reduce(sn, red, SumOp());
-      // pC after the move: the winner gets gain; (normal) the previous
-      // label gets lose_C; the other keeps its value
+      const bool flip = !doing_pass && !badv && (h_new != hC || doing_init);
       if (flip) {
-        const float n0 = (h_new == 0) ? gain0 : ((oh0 && normal) ? lose_C : pc0);
-        const float n1 = (h_new == 1) ? gain1 : ((oh1 && normal) ? lose_C : pc1);
-        pc0 = n0;
-        pc1 = n1;
-        lab0 += ((h_new == 0 ? 1.f : 0.f) - (oh0 ? 1.f : 0.f));
-        lab1 += ((h_new == 1 ? 1.f : 0.f) - (oh1 ? 1.f : 0.f));
+        // the winner takes the read (em), the previous label (a normal
+        // move) gives it up (iv); any other row keeps alpha, pC and lemg
+#pragma unroll
+        for (int h = 0; h < NL; ++h) {
+          const bool gains = h_new == h, loses = hC == h && normal;
+          if (gains || loses) {
+            const float r = gains ? rs[h] : rs[NL + h];
+            const float d = gains ? 1.f : -1.f;
+#pragma unroll UNROLL
+            for (int m = 0; m < ncol; ++m) {
+              alpha[h][m] = alpha[h][m] * (gains ? cur.em[m] : cur.iv[m]) * r;
+              lg[h][m] += d * cur.l[m];
+            }
+            pc[h] = (gains ? q[h] : lose_C) * r;
+            carry_log(logc[h], zprod[h], gains ? z[h] : z[NL + h]);
+          }
+          lab[h] += (h_new == h ? 1.f : 0.f) - (hC == h ? 1.f : 0.f);
+        }
       }
-      const float z0 = sn[0] > 0.f ? sn[0] : 1.f;
-      const float z1 = sn[1] > 0.f ? sn[1] : 1.f;
-      const float rs0 = 1.f / z0, rs1 = 1.f / z1;
-      for (int k = threadIdx.x; k < K; k += NT) {
-        alpha[k] *= rs0;
-        alpha[K + k] *= rs1;
-      }
-      logc0 += logf(z0);
-      logc1 += logf(z1);
-      pc0 *= rs0;
-      pc1 *= rs1;
-      if (threadIdx.x == 0)
-        h_out[((size_t)g * W + i) * B + b] = flip ? h_new : hC;
+      if (tid == 0)
+        a.h_out[((size_t)g * a.W + cur.slot) * a.B + b] = flip ? h_new : hC;
     }
-    for (int i = n + threadIdx.x; i < W; i += NT)
-      h_out[((size_t)g * W + i) * B + b] = slots[((size_t)g * 4 * W + i) * B + b + WB];
-    for (int k = threadIdx.x; k < K; k += NT) {
-      lemg_out[r0 + k] = lg[k];
-      lemg_out[r1 + k] = lg[K + k];
-      if (want_alpha) {
-        alpha_out[r0 + k] = alpha[k];
-        alpha_out[r1 + k] = alpha[K + k];
+
+    // ---- the grid's outputs, then the next grid's lemg takes its place ----
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      const int c = tid + m * NT;
+#pragma unroll
+      for (int h = 0; h < NL; ++h) {
+        const size_t r = ((size_t)g * BN + h * a.B + b) * K + c;
+        if (c < K) {
+          a.lemg_out[r] = lg[h][m];
+          if (a.want_alpha) a.alpha_out[r] = alpha[h][m];
+        }
+        lg[h][m] = lgn[h][m];
       }
     }
   }
-  if (threadIdx.x == 0) {
-    logc_out[b] = logc0;
-    logc_out[B + b] = logc1;
-    uf_out[b] = uf ? 1.f : 0.f;
-    lab_out[2 * b] = lab0;
-    lab_out[2 * b + 1] = lab1;
+  if (tid == 0) {
+#pragma unroll
+    for (int h = 0; h < NL; ++h) {
+      a.logc_out[h * a.B + b] = logc[h] + logf(zprod[h]);
+      a.lab_out[NL * b + h] = lab[h];
+    }
+    a.uf_out[b] = uf ? 1.f : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(NT) gibbs_bwd_kernel(
-    const float* __restrict__ lemg, const float* __restrict__ trans,
-    float* __restrict__ beta_out, int G, int BN, int K, int K_real,
-    float invK) {
-  extern __shared__ float bs[];   // [K] beta of the row, owned per column
-  __shared__ float red[NWARP];
-  const int row = blockIdx.x;
-  for (int k = threadIdx.x; k < K; k += NT) {
-    bs[k] = 1.f;
-    beta_out[((size_t)(G - 1) * BN + row) * K + k] = 1.f;
+// ---------------------------------------------------------------------------
+// backward sweep
+// ---------------------------------------------------------------------------
+
+struct BwdArgs {
+  const float *lemg, *trans;
+  float* beta_out;
+  int G, BN, K, K_real, DE, prep;   // ring depth; active preparation warps
+  float invK;
+};
+
+// NT consumer threads (the chain of state row blockIdx.x) and BWD_PREP
+// preparation warps. Step n (n = 0 .. G-2) takes beta from grid gn = G-1-n
+// to grid gn-1; its ring stage holds e = exp(lemg[gn] - rowmax) and
+// trans[:, gn]. Stage n % DE is always filled by warp n % prep (the
+// launcher keeps DE a multiple of prep), so its fills stay in order.
+template <int NT, int CPT, bool FAST>
+__global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
+    const BwdArgs a) {
+  extern __shared__ __align__(16) float dyn[];   // [DE][K] e rows
+  __shared__ uint64_t bars[2 * MAX_DE];
+  __shared__ float meta[MAX_DE][2];
+  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  uint64_t* full = bars;
+  uint64_t* empty = bars + MAX_DE;
+  const int K = a.K, K_real = a.K_real, G = a.G, row = blockIdx.x;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.DE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+  if (threadIdx.x >= NT) {
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x - NT) >> 5;
+    if (warp >= a.prep) return;
+    for (int n = warp; n < G - 1; n += a.prep) {
+      const int gn = G - 1 - n, stage = n % a.DE;
+      const float* lr = a.lemg + ((size_t)gn * a.BN + row) * K;
+      float m = NEG;
+      for (int k = lane; k < K_real; k += 32) m = fmaxf(m, lr[k]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      mbar_wait(&empty[stage], ((n / a.DE) & 1) ^ 1);
+      float* eb = dyn + (size_t)stage * K;
+      for (int k = lane; k < K; k += 32)
+        eb[k] = k < K_real ? expf(lr[k] - m) : 0.f;
+      if (lane == 0) {
+        meta[stage][0] = a.trans[gn];
+        meta[stage][1] = a.trans[G + gn];
+      }
+      release(&full[stage]);
+    }
+    return;
+  }
+
+  // ---- the chain: one reduction per grid; the next grid's e row is taken
+  // from the ring a step ahead of its use ----
+  const int tid = threadIdx.x;
+  const int ncol = FAST ? CPT : (K + NT - 1) / NT;
+  constexpr int UNROLL = FAST ? CPT : 1;
+  float bs[CPT], etb[CPT], en[CPT];
+  float t0n = 0.f, t1n = 0.f;
+  int par = 0;
+  Ring E(a.DE);
+  auto fetch = [&]() {
+    mbar_wait(&full[E.stage], E.phase);
+    const float* eb = dyn + (size_t)E.stage * K;
+    t0n = meta[E.stage][0], t1n = meta[E.stage][1];
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      const int c = tid + m * NT;
+      en[m] = c < K ? eb[c] : 0.f;
+    }
+    release(&empty[E.stage]);
+    E.next();
+  };
+#pragma unroll UNROLL
+  for (int m = 0; m < ncol; ++m) {
+    const int c = tid + m * NT;
+    bs[m] = 1.f;
+    if (c < K) a.beta_out[((size_t)(G - 1) * a.BN + row) * K + c] = 1.f;
+  }
+  if (G > 1) fetch();
   for (int g = G - 2; g >= 0; --g) {
-    const int gn = g + 1;
-    const float* lr = lemg + ((size_t)gn * BN + row) * K;
-    float m[1] = {NEG};
-    for (int k = threadIdx.x; k < K_real; k += NT) m[0] = fmaxf(m[0], lr[k]);
-    block_reduce(m, red, MaxOp());
-    float sm[1] = {0.f};
-    for (int k = threadIdx.x; k < K; k += NT) {
-      const float e = (k < K_real) ? expf(lr[k] - m[0]) : 0.f;
-      const float etb = e * bs[k];
-      bs[k] = etb;
-      sm[0] += etb;
+    const float t0 = t0n, t1 = t1n;
+    float v[2] = {0.f, 0.f};   // sum(e*beta) | max(e*beta)
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      etb[m] = en[m] * bs[m];
+      v[0] += etb[m];
+      v[1] = fmaxf(v[1], etb[m]);
     }
-    block_reduce(sm, red, SumOp());
-    const float t0 = trans[gn];
-    const float c = trans[G + gn] * sm[0] * invK;
-    float mb[1] = {-INFINITY};
-    for (int k = threadIdx.x; k < K; k += NT) {
-      const float bn = t0 * bs[k] + c;
-      bs[k] = bn;
-      mb[0] = fmaxf(mb[0], bn);
-    }
-    block_reduce(mb, red, MaxOp());
-    const float d = mb[0] > 0.f ? mb[0] : 1.f;
-    for (int k = threadIdx.x; k < K; k += NT) {
-      const float v = bs[k] / d;
-      bs[k] = v;
-      beta_out[((size_t)g * BN + row) * K + k] = v;
+    if (g > 0) fetch();
+    chain_reduce<NT, 1, 1>(v, red, par);
+    const float c0 = t1 * v[0] * a.invK;
+    const float top = fmaf(t0, v[1], c0);   // = max_k fma(t0, etb_k, c0)
+    const float inv = 1.f / (top > 0.f ? top : 1.f);
+#pragma unroll UNROLL
+    for (int m = 0; m < ncol; ++m) {
+      const int c = tid + m * NT;
+      bs[m] = fmaf(t0, etb[m], c0) * inv;
+      if (c < K) a.beta_out[((size_t)g * a.BN + row) * K + c] = bs[m];
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// the least a dependent step can take: the chain's reduction alone
+// ---------------------------------------------------------------------------
+
+template <int NT>
+__global__ void __launch_bounds__(NT) chain_floor_kernel(float* out, int steps) {
+  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  float v[8];
+  int par = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = 1e-3f * (threadIdx.x + j);
+  for (int s = 0; s < steps; ++s) {
+    chain_reduce<NT, 8, 0>(v, red, par);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = v[j] * 1e-3f + 1e-3f * threadIdx.x;
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = v[0] + v[7];
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
 int set_smem(const void* fn, size_t smem) {
   if (smem > 48 * 1024)
@@ -305,35 +822,111 @@ int set_smem(const void* fn, size_t smem) {
   return 0;
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <int NT, int CPT, bool FAST>
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)a.DS * 2 * NL + a.DR) * a.K * sizeof(float);
+  int err = set_smem((const void*)gibbs_fwd_kernel<NT, CPT, FAST>, smem);
+  if (err) return err;
+  gibbs_fwd_kernel<NT, CPT, FAST><<<a.B, NT + 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int NT, int CPT, bool FAST>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.DE * a.K * sizeof(float);
+  int err = set_smem((const void*)gibbs_bwd_kernel<NT, CPT, FAST>, smem);
+  if (err) return err;
+  gibbs_bwd_kernel<NT, CPT, FAST>
+      <<<a.BN, NT + 32 * BWD_PREP, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The instantiated (threads, columns a thread) pairs, smallest first per
+// thread count: threads = 0 takes the first that holds K among the default
+// thread count's and then the wider ones'; above them all, the general
+// variant. An explicit thread count (64, 128, 256) takes only its own
+// pairs; -1 forces the general variant.
+#define SWEEP_DISPATCH(LAUNCH, K, threads, a, stream)                          \
+  do {                                                                         \
+    const int k_ = (K), t_ = (threads);                                        \
+    if (t_ == 64 && k_ <= 64 * 10) return LAUNCH<64, 10, true>(a, stream);     \
+    if (t_ == 0 || t_ == 128) {                                                \
+      if (k_ <= 128 * 2) return LAUNCH<128, 2, true>(a, stream);               \
+      if (k_ <= 128 * 4) return LAUNCH<128, 4, true>(a, stream);               \
+      if (k_ <= 128 * 5) return LAUNCH<128, 5, true>(a, stream);               \
+      if (k_ <= 128 * 8) return LAUNCH<128, 8, true>(a, stream);               \
+    }                                                                          \
+    if (t_ == 0 || t_ == 256) {                                                \
+      if (k_ <= 256 * 3) return LAUNCH<256, 3, true>(a, stream);               \
+      if (k_ <= 256 * 8) return LAUNCH<256, 8, true>(a, stream);               \
+    }                                                                          \
+    if ((t_ == 0 || t_ == -1) && k_ <= GENERAL_NT * GENERAL_CPT)               \
+      return LAUNCH<GENERAL_NT, GENERAL_CPT, false>(a, stream);                \
+    return (int)cudaErrorInvalidValue;                                         \
+  } while (0)
+
 }  // namespace
 
+// threads: 0 = the fastest variant that holds K; 64 / 128 / 256 = that many
+// chain threads (cudaErrorInvalidValue if no such variant holds K); -1 = the
+// general variant.
 extern "C" int gibbs_fwd(
     const void* lemg, const void* beta, const void* lem_pad,
     const void* slots, const void* first_read, const void* lab_init,
     const void* trans, const void* cnt_max, void* lemg_out, void* alpha_out,
     void* h_out, void* logc_out, void* uf_out, void* lab_out, int G, int B,
-    int W, int K, int K_real, int it_mode, int want_alpha, float invK,
-    void* stream) {
-  const size_t smem = 6 * (size_t)K * sizeof(float);
-  int err = set_smem((const void*)gibbs_fwd_kernel, smem);
-  if (err) return err;
-  gibbs_fwd_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)lemg, (const float*)beta, (const float*)lem_pad,
-      (const int*)slots, (const int*)first_read, (const float*)lab_init,
-      (const float*)trans, (const int*)cnt_max, (float*)lemg_out,
-      (float*)alpha_out, (int*)h_out, (float*)logc_out, (float*)uf_out,
-      (float*)lab_out, G, B, W, K, K_real, it_mode, want_alpha, invK);
-  return (int)cudaGetLastError();
+    int W, int K, int K_real, int it_mode, int want_alpha, int threads,
+    float invK, void* stream) {
+  FwdArgs a;
+  a.lemg = (const float*)lemg, a.beta = (const float*)beta;
+  a.lem_pad = (const float*)lem_pad, a.slots = (const int*)slots;
+  a.first_read = (const int*)first_read, a.lab_init = (const float*)lab_init;
+  a.trans = (const float*)trans, a.cnt_max = (const int*)cnt_max;
+  a.lemg_out = (float*)lemg_out, a.alpha_out = (float*)alpha_out;
+  a.h_out = (int*)h_out, a.logc_out = (float*)logc_out;
+  a.uf_out = (float*)uf_out, a.lab_out = (float*)lab_out;
+  a.G = G, a.B = B, a.W = W, a.K = K, a.K_real = K_real, a.it_mode = it_mode;
+  a.want_alpha = want_alpha, a.invK = invK;
+  for (int h = 0; h < NL; ++h) a.prior[h] = 1.f / NL;   // the diploid prior
+  a.vec = K % 4 == 0 && aligned16(lemg) && aligned16(beta) && aligned16(lem_pad);
+  // the rings shrink, not K: rows first, then grid stages, down to one each
+  a.DS = MAX_DS, a.DR = MAX_DR;
+  const size_t row = (size_t)K * sizeof(float);
+  while (((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
+    if (a.DR > 1) a.DR /= 2;
+    else if (a.DS > 1) a.DS -= 1;
+    else return (int)cudaErrorInvalidValue;
+  }
+  SWEEP_DISPATCH(launch_fwd, K, threads, a, (cudaStream_t)stream);
 }
 
 extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
-                         int G, int BN, int K, int K_real, float invK,
-                         void* stream) {
-  const size_t smem = (size_t)K * sizeof(float);
-  int err = set_smem((const void*)gibbs_bwd_kernel, smem);
-  if (err) return err;
-  gibbs_bwd_kernel<<<BN, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)lemg, (const float*)trans, (float*)beta_out, G, BN, K,
-      K_real, invK);
+                         int G, int BN, int K, int K_real, int threads,
+                         float invK, void* stream) {
+  BwdArgs a;
+  a.lemg = (const float*)lemg, a.trans = (const float*)trans;
+  a.beta_out = (float*)beta_out;
+  a.G = G, a.BN = BN, a.K = K, a.K_real = K_real, a.invK = invK;
+  a.DE = MAX_DE;
+  while ((size_t)a.DE * K * sizeof(float) > (size_t)SMEM_LIMIT) {
+    if (a.DE > 1) a.DE /= 2;
+    else return (int)cudaErrorInvalidValue;
+  }
+  a.prep = a.DE < BWD_PREP ? a.DE : BWD_PREP;
+  SWEEP_DISPATCH(launch_bwd, K, threads, a, (cudaStream_t)stream);
+}
+
+// `steps` dependent 8-value reductions of `threads` (64 / 128 / 256) threads
+// in each of `blocks` blocks; out [blocks] floats.
+extern "C" int gibbs_chain_floor(void* out, int blocks, int steps, int threads,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (threads == 64) chain_floor_kernel<64><<<blocks, 64, 0, s>>>((float*)out, steps);
+  else if (threads == 128) chain_floor_kernel<128><<<blocks, 128, 0, s>>>((float*)out, steps);
+  else if (threads == 256) chain_floor_kernel<256><<<blocks, 256, 0, s>>>((float*)out, steps);
+  else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -6,6 +6,22 @@ functions' signatures and nl-major [G, nl*B, K] layouts (state row h*B + b).
 The CUDA kernels are csrc/gibbs_sweep.cu; the plain PyTorch versions below
 compute the same function and serve the CPU (and the kernel checks).
 
+On the card a sweep is bound by its dependent chain: one step per grid plus
+one per live read slot, each needing sums over all K haplotypes before the
+next can start. The kernels therefore keep a chain's state in the registers
+of 128 threads (one block per chain forward, per state row backward), take
+exactly one reduction (one butterfly, one named barrier) per step, and leave
+every device-memory load to producer warps that run ahead of the chain and
+fill shared-memory rings. A skipped slot (empty, or an uninformative read)
+is no step at all: it cannot flip and changes no state, and both the kernel
+and `fwd_sweep_plain` leave alpha, pC and logc untouched there, where the
+Pallas kernel renormalises by a sum that is 1 within float32 rounding.
+
+`threads` picks a kernel variant (None: the fastest that holds K; 64, 128 or
+256 chain threads with the state in registers, as far as instantiated; -1:
+the general variant with the state in per-thread local arrays, which takes
+every K the shared-memory rings can hold).
+
 Only the diploid sampler (nl = 2, prior (0.5, 0.5)) is in this slice; the
 NIPT sampler (nl = 3) comes with the NIPT slice.
 """
@@ -18,8 +34,9 @@ import torch
 from .._build import Kernel, check_tensor as _check
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FWD_KERNEL = Kernel("gibbs_sweep", "gibbs_fwd", [_P] * 14 + [_I] * 7 + [_F])
-BWD_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", [_P] * 3 + [_I] * 4 + [_F])
+FWD_KERNEL = Kernel("gibbs_sweep", "gibbs_fwd", [_P] * 14 + [_I] * 8 + [_F])
+BWD_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", [_P] * 3 + [_I] * 5 + [_F])
+FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 3)
 _NEG = -1e30
 
 
@@ -32,7 +49,7 @@ def _require_diploid(nl: int, prior=None) -> None:
 
 
 def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
-              cnt_max, nl, K_real, it_mode, prior, want_alpha=True):
+              cnt_max, nl, K_real, it_mode, prior, want_alpha=True, threads=None):
     """One forward Gibbs sweep.
 
     lemg/beta [G, BN, K] f32; lem_pad [G, W, B, K] f32 (the kernel keeps
@@ -43,7 +60,7 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     want_alpha=False alphas is a [1, BN, K] placeholder.
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
-    kernel."""
+    kernel (variant `threads`, see the module's docstring)."""
     _require_diploid(nl, prior)
     G, BN, K = lemg.shape
     B = BN // 2
@@ -76,12 +93,12 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
         trans.data_ptr(), cnt_max.data_ptr(), lemg_out.data_ptr(),
         alphas.data_ptr(), h_out.data_ptr(), logc.data_ptr(), uf.data_ptr(),
         lab.data_ptr(), G, B, W, K, K_real, it_mode, int(want_alpha),
-        1.0 / K_real,
+        threads or 0, 1.0 / K_real,
     )
     return lemg_out, alphas, h_out, logc, uf, lab
 
 
-def bwd_sweep(lemg, trans, nl, K_real):
+def bwd_sweep(lemg, trans, nl, K_real, threads=None):
     """Reverse-grid beta recursion from lemg [G, BN, K]: a max-shifted
     emission, then t0*e*beta + t1*sum(e*beta)/K, max-normalised per row.
     Returns beta [G, BN, K]."""
@@ -96,14 +113,27 @@ def bwd_sweep(lemg, trans, nl, K_real):
         return bwd_sweep_plain(lemg, trans, K_real)
     beta = torch.empty_like(lemg)
     BWD_KERNEL.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
-                      G, BN, K, K_real, 1.0 / K_real)
+                      G, BN, K, K_real, threads or 0, 1.0 / K_real)
     return beta
+
+
+def chain_floor(steps: int, threads: int, blocks: int, device) -> torch.Tensor:
+    """Launches `steps` dependent reductions of the sweep kernels' kind (8
+    values: butterfly, one shared-memory slot per warp, one named barrier)
+    with `threads` threads in each of `blocks` blocks and nothing else: timed,
+    it gives the least a dependent step of a sweep can take on the card."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("chain_floor times the card and needs a CUDA device")
+    out = torch.empty((blocks,), dtype=torch.float32, device=device)
+    FLOOR_KERNEL.launch(out.data_ptr(), blocks, steps, threads)
+    return out
 
 
 def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
                     cnt_max, K_real, it_mode, want_alpha=True):
     """Plain PyTorch version of the forward sweep (same semantics as the
-    Pallas kernel _make_fwd_kernel, diploid)."""
+    Pallas kernel _make_fwd_kernel, diploid, but for the skipped slots,
+    which leave alpha, pC and logc as they are)."""
     G, BN, K = lemg.shape
     B = BN // 2
     f32 = torch.float32
@@ -199,7 +229,9 @@ def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
                     oh_N[h], gain[h], torch.where(oh_C[h] & normal, lose_C, pcs[h])
                 )
                 pc_h = torch.where(flip, pc_new, pcs[h])
-                sh = (a_h * km).sum(1, keepdim=True)
+                # a skipped slot changes nothing: no renormalisation (its
+                # sum is 1 within rounding) and no logc term
+                sh = torch.where(skip, 1.0, (a_h * km).sum(1, keepdim=True))
                 sh_safe = torch.where(sh > 0, sh, torch.ones_like(sh))
                 rs = 1.0 / sh_safe
                 rows.append((a_h * rs, torch.log(sh_safe), pc_h * rs))

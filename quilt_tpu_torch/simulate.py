@@ -97,15 +97,18 @@ def write_bam_world(out_dir: str, rng: np.random.Generator, K: int = 80,
 
 
 def random_sweep_state(rng: np.random.Generator, G: int, B: int, W: int, K: int,
-                       K_real: int, max_reads: int):
+                       K_real: int, max_reads: int, p_skip: float = 0.05, counts=None):
     """A random diploid Gibbs sweep state in the sweep kernels' layouts
     (numpy arrays, in the argument order of kernels.gibbs_sweep.fwd_sweep):
     up to max_reads reads per (grid, chain) in W slots, log emissions in
-    [-6, 0] with the pad haplotypes (>= K_real) copying haplotype 0, 5% of
-    the reads uninformative, lemg consistent with the random labels, and
-    first_read uniform over each chain's reads."""
+    [-6, 0] with the pad haplotypes (>= K_real) copying haplotype 0, a share
+    p_skip of the reads uninformative, lemg consistent with the random labels, and
+    first_read uniform over each chain's reads. counts [G, B], when given,
+    sets the reads per (grid, chain) instead of the uniform draw."""
     BN = 2 * B
-    counts = rng.integers(0, max_reads + 1, size=(G, B))
+    if counts is None:
+        counts = rng.integers(0, max_reads + 1, size=(G, B))
+    counts = np.minimum(np.asarray(counts, dtype=np.int64), W)
     valid = np.arange(W)[None, :, None] < counts[:, None, :]
     lem_pad = rng.uniform(-6.0, 0.0, size=(G, W, B, K)).astype(np.float32)
     lem_pad[..., K_real:] = lem_pad[..., :1]
@@ -113,7 +116,7 @@ def random_sweep_state(rng: np.random.Generator, G: int, B: int, W: int, K: int,
     labels = rng.integers(0, 2, size=(G, W, B)).astype(np.int32)
     starts = np.cumsum(counts, axis=0) - counts
     r_pad = np.where(valid, starts[:, None, :] + np.arange(W)[None, :, None], -1)
-    skip = (~valid | (rng.random((G, W, B)) < 0.05)).astype(np.int32)
+    skip = (~valid | (rng.random((G, W, B)) < p_skip)).astype(np.int32)
     u = rng.random((G, W, B)).astype(np.float32)
     slots = np.stack([u.view(np.int32), labels, skip, r_pad.astype(np.int32)], axis=1)
     oh = (np.stack([labels == 0, labels == 1], -1) & valid[..., None]).astype(np.float32)

@@ -33,36 +33,68 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("it_mode,G,B,W,K,K_real,max_reads", [
-    (0, 9, 3, 6, 40, 36, 6),
-    (1, 9, 3, 6, 40, 36, 6),
-    (2, 9, 3, 6, 40, 36, 6),
-    (2, 4, 2, 96, 300, 290, 90),
+def _sweep_variants(K):
+    """The kernel variants that hold K: the default, each explicit thread
+    count as far as instantiated, and the general (local-array) variant."""
+    return [None, -1] + [t for t, cap in ((64, 640), (128, 1024), (256, 2048)) if K <= cap]
+
+
+@pytest.mark.parametrize("it_mode,G,B,W,K,K_real,max_reads,p_skip,dead_grid", [
+    (0, 9, 3, 6, 40, 36, 6, 0.05, None),
+    (1, 9, 3, 6, 40, 36, 6, 0.05, None),
+    (2, 9, 3, 6, 40, 36, 6, 0.05, None),
+    (2, 4, 2, 96, 300, 290, 90, 0.05, None),
+    (2, 9, 3, 6, 41, 37, 6, 0.05, None),         # K no multiple of 4 or of the threads
+    (0, 9, 3, 6, 41, 41, 6, 0.5, 4),             # a grid with no live slot; mostly skipped
+    (2, 1, 2, 5, 40, 36, 5, 0.05, None),         # one grid
+    (2, 1, 2, 5, 40, 36, 5, 0.05, 0),            # one grid and nothing to do
+    (2, 5, 2, 40, 640, 600, 35, 0.3, 2),         # the main path's K, two slot chunks
+    (1, 4, 2, 6, 1100, 1000, 6, 0.05, None),     # above the 128-thread variants
+    (2, 4, 2, 6, 2100, 2050, 6, 0.05, None),     # above every register variant
+    (2, 3, 2, 4, 2101, 2101, 4, 0.05, 1),        # the same, 4-byte copies
+    (1, 4, 2, 3, 9000, 8990, 3, 0.05, 2),        # the rings shrunk to one stage each
 ])
-def test_sweep_kernels_match_plain(cuda, it_mode, G, B, W, K, K_real, max_reads):
+def test_sweep_kernels_match_plain(cuda, it_mode, G, B, W, K, K_real, max_reads, p_skip,
+                                   dead_grid):
     rng = np.random.default_rng(100 + it_mode + W)
-    args = [torch.from_numpy(x).to(cuda)
-            for x in random_sweep_state(rng, G, B, W, K, K_real, max_reads)]
+    state = list(random_sweep_state(rng, G, B, W, K, K_real, max_reads, p_skip))
+    if dead_grid is not None:
+        state[3][dead_grid, 2] = 1
+    args = [torch.from_numpy(x).to(cuda) for x in state]
+    live = args[3][:, 2] == 0
     for want_alpha in (True, False):
-        got = gs.fwd_sweep(*args, nl=2, K_real=K_real, it_mode=it_mode,
-                           prior=(0.5, 0.5), want_alpha=want_alpha)
         ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=it_mode,
                                  want_alpha=want_alpha)
-        live = args[3][:, 2] == 0
-        assert (got[2][live] == ref[2][live]).float().mean().item() > 0.995
-        assert torch.equal(got[2][~live], ref[2][~live])
-        same = ((got[2] == ref[2]) | ~live).all(0).all(0)
-        rows = torch.cat([same, same])
-        assert same.any()
-        torch.testing.assert_close(got[0][:, rows], ref[0][:, rows], rtol=1e-4, atol=1e-3)
-        torch.testing.assert_close(got[3][rows], ref[3][rows], rtol=1e-4, atol=1e-3)
-        torch.testing.assert_close(got[5][same], ref[5][same], rtol=0, atol=0)
-        assert torch.equal(got[4], ref[4])
-        if want_alpha:
-            torch.testing.assert_close(got[1][:, rows], ref[1][:, rows], rtol=1e-4, atol=1e-6)
-    beta = gs.bwd_sweep(args[0], args[6], nl=2, K_real=K_real)
-    torch.testing.assert_close(beta, gs.bwd_sweep_plain(args[0], args[6], K_real),
-                               rtol=1e-5, atol=1e-6)
+        for threads in _sweep_variants(K):
+            got = gs.fwd_sweep(*args, nl=2, K_real=K_real, it_mode=it_mode,
+                               prior=(0.5, 0.5), want_alpha=want_alpha, threads=threads)
+            if live.any():
+                assert (got[2][live] == ref[2][live]).float().mean().item() > 0.995
+            assert torch.equal(got[2][~live], ref[2][~live])
+            same = ((got[2] == ref[2]) | ~live).all(0).all(0)
+            rows = torch.cat([same, same])
+            assert same.any()
+            torch.testing.assert_close(got[0][:, rows], ref[0][:, rows], rtol=1e-4, atol=1e-3)
+            torch.testing.assert_close(got[3][rows], ref[3][rows], rtol=1e-4, atol=1e-3)
+            torch.testing.assert_close(got[5][same], ref[5][same], rtol=0, atol=0)
+            assert torch.equal(got[4], ref[4])
+            if want_alpha:
+                torch.testing.assert_close(got[1][:, rows], ref[1][:, rows],
+                                           rtol=1e-4, atol=1e-6)
+    ref_b = gs.bwd_sweep_plain(args[0], args[6], K_real)
+    for threads in _sweep_variants(K):
+        beta = gs.bwd_sweep(args[0], args[6], nl=2, K_real=K_real, threads=threads)
+        torch.testing.assert_close(beta, ref_b, rtol=1e-5, atol=1e-6)
+
+
+def test_sweep_kernels_refuse_a_variant_that_does_not_hold_k(cuda):
+    """An explicit thread count never gives way to another variant."""
+    args = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+        np.random.default_rng(1), 2, 1, 2, 700, 700, 2)]
+    with pytest.raises(RuntimeError, match="gibbs_fwd"):
+        gs.fwd_sweep(*args, nl=2, K_real=700, it_mode=2, prior=(0.5, 0.5), threads=64)
+    with pytest.raises(RuntimeError, match="gibbs_bwd"):
+        gs.bwd_sweep(args[0], args[6], nl=2, K_real=700, threads=64)
 
 
 @pytest.mark.parametrize("K,B", [(90, 5), (700, 3)])

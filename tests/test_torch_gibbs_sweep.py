@@ -4,8 +4,9 @@ CPU) on identical numpy-made inputs.
 
 Tolerances: read labels agree on > 99.5% of slots (a uniform that lands
 within float rounding of a candidate boundary may draw the other label);
-logc and lemg rtol 1e-4 / atol 1e-3 (float32 sums taken in another order);
-beta rtol 1e-5."""
+logc and lemg rtol 1e-4 / atol 1e-3 (float32 sums taken in another order,
+and the port does nothing at a skipped slot, where the Pallas kernel
+renormalises alpha by a sum that is 1 within rounding); beta rtol 1e-5."""
 import numpy as np
 import pytest
 import torch
@@ -21,8 +22,9 @@ torch.set_num_threads(2)
 _NAMES = ("lemg", "beta", "lem_pad", "slots", "first_read", "lab_init", "trans", "cnt_max")
 
 
-def _inputs(seed, G, B, W, K, K_real, max_reads):
-    state = random_sweep_state(np.random.default_rng(seed), G, B, W, K, K_real, max_reads)
+def _inputs(seed, G, B, W, K, K_real, max_reads, p_skip=0.05):
+    state = random_sweep_state(np.random.default_rng(seed), G, B, W, K, K_real, max_reads,
+                               p_skip)
     return dict(zip(_NAMES, state))
 
 
@@ -60,6 +62,51 @@ def test_fwd_sweep_wide_slot_axis():
     arrs = _inputs(seed=11, G=3, B=2, W=128, K=24, K_real=24, max_reads=90)
     assert arrs["cnt_max"].max() > 64
     _compare_fwd(arrs, K_real=24, it_mode=2, want_alpha=False)
+
+
+@pytest.mark.parametrize("it_mode", [0, 1, 2])
+def test_fwd_sweep_mostly_skipped_slots(it_mode):
+    """Most slots empty or uninformative: the port does nothing at a
+    skipped slot, where the Pallas kernel still renormalises alpha by a
+    sum that is 1 within rounding and adds its log to logc."""
+    arrs = _inputs(seed=21 + it_mode, G=9, B=3, W=24, K=40, K_real=36,
+                   max_reads=6, p_skip=0.5)
+    assert (arrs["slots"][:, 2] > 0).mean() > 0.8
+    _compare_fwd(arrs, K_real=36, it_mode=it_mode)
+
+
+def _torch_fwd(arrs, K_real, it_mode=2):
+    return [x.numpy() for x in fwd_sweep(
+        *(torch.from_numpy(arrs[k]) for k in _NAMES), nl=2, K_real=K_real,
+        it_mode=it_mode, prior=(0.5, 0.5))]
+
+
+def test_fwd_sweep_skipped_slot_changes_nothing():
+    """A skipped slot leaves the whole state bit-identical: a sweep over
+    skipped slots only returns lemg, the labels and the counts as they
+    came, and what a skipped slot holds (emissions, uniform, label) moves
+    no bit of the other outputs."""
+    arrs = _inputs(seed=31, G=6, B=3, W=8, K=24, K_real=20, max_reads=5, p_skip=0.4)
+    skipped = arrs["slots"][:, 2] > 0
+    assert skipped.any() and not skipped.all()
+    rng = np.random.default_rng(32)
+    other = {k: v.copy() for k, v in arrs.items()}
+    noise = rng.uniform(-6.0, 0.0, arrs["lem_pad"].shape).astype(np.float32)
+    other["lem_pad"] = np.where(skipped[..., None], noise, arrs["lem_pad"])
+    other["slots"][:, 0] = np.where(
+        skipped, rng.random(skipped.shape).astype(np.float32).view(np.int32),
+        arrs["slots"][:, 0])
+    got, got_other = _torch_fwd(arrs, 20), _torch_fwd(other, 20)
+    for a, b in zip(got, got_other):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[2][skipped], arrs["slots"][:, 1][skipped])
+    idle = {k: v.copy() for k, v in arrs.items()}
+    idle["slots"][:, 2] = 1
+    out = _torch_fwd(idle, 20)
+    np.testing.assert_array_equal(out[0], idle["lemg"])
+    np.testing.assert_array_equal(out[2], idle["slots"][:, 1])
+    np.testing.assert_array_equal(out[5], idle["lab_init"])
+    assert not out[4].any()
 
 
 def test_bwd_sweep_matches_pallas():
