@@ -9,8 +9,9 @@ Phases, each fatal on failure:
   2. kernels - run each ported kernel at the full-width shapes of the main
                paths against its plain PyTorch version, print the error and
                the median times of both (CUDA events); the Gibbs sweeps also
-               in their general variant, by chain thread count (64 / 128 /
-               256) beside the time of the bare dependent reduction, and the
+               in their general variant, timed in turn by chain thread count
+               (64 / 128 / 256) and, backward, in the step's look-ahead form,
+               beside the time of the bare dependent reduction, and the
                forward sweep at a second state with the slot occupancy of
                the world's own samples; the four K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
@@ -43,6 +44,7 @@ The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -77,22 +79,53 @@ def _median_ms(fn, n):
     return statistics.median(times)
 
 
+def _alternating_ms(fns, rounds=4, n=7):
+    """{name: median ms} of the functions timed in turn, `rounds` times round
+    (every other round in reverse order), the median of n launches each time:
+    the card's clock drifts within a call, and variants timed one after the
+    other would carry the drift."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else reversed(list(fns))):
+            times[name].append(_median_ms(fns[name], n))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops):
-    """One row of the kernels line. bound_ms is the least time the card could
-    take: the larger of the bytes the function must move (each input read
-    once, each output written once) over the HBM rate and its float32
-    operations over the float32 peak. No single PyTorch call computes any of
-    these functions, so library_ms is null."""
+def _fwd_work(args, outs):
+    """(bytes, operations) of a forward sweep on this state. A skipped slot
+    is no step, so of lem_pad only the rows of live slots are read; every
+    other tensor is read or written once in full. Operations: per (grid,
+    state row, haplotype) ~8 for the emission and alpha step, and per live
+    read slot and haplotype ~12 for the relabelling."""
+    lemg, lem_pad = args[0], args[2]
+    G, BN, K = lemg.shape
+    n_live = int((args[3][:, 2] == 0).sum())
+    others = [t for i, t in enumerate(args) if i != 2]
+    return (_nbytes(*others, *outs) + n_live * K * lem_pad.element_size(),
+            8 * G * BN * K + 12 * n_live * K)
+
+
+def _bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take, the
+    larger of the bytes the function must move (each input read once, each
+    output written once) over the HBM rate and its float32 operations over
+    the float32 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops):
+    """One row of the kernels line. No single PyTorch call computes any of
+    these functions, so library_ms is null."""
+    bound_ms, bound_by = _bound(nbytes, flops)
     return dict(name=name, route="cuda", source=f"quilt_tpu_torch/csrc/{source}",
                 replaces=f"quilt_tpu/kernels/{replaces}", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_bytes, t_flops),
-                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
 
 
@@ -151,39 +184,42 @@ def check_kernels(world):
     ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2)
     got, err = _check_fwd("gibbs_fwd", gs.fwd_sweep(*args, **kw), ref, args)
     # the general variant (state in local arrays) takes any K; same check
-    _check_fwd("gibbs_fwd, general variant", gs.fwd_sweep(*args, threads=-1, **kw), ref, args)
-    ms = _median_ms(lambda: gs.fwd_sweep(*args, **kw), 5)
+    _check_fwd("gibbs_fwd, general variant", gs.fwd_sweep(*args, _variant=-1, **kw), ref, args)
     plain_ms = _median_ms(lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2), 2)
-    # operations: per (grid, state row, haplotype) ~8 for the emission and
-    # alpha step, and per live read slot and haplotype ~12 for the relabelling
     live = args[3][:, 2] == 0
-    rows.append(_row("gibbs_fwd", "gibbs_sweep.cu", "gibbs_pallas.py:56",
-                     err, ms, plain_ms, _nbytes(*args, *got),
-                     8 * G * 2 * B * K + 12 * int(live.sum()) * K))
 
     lemg = got[0]
     trans = args[6]
     ref_b = gs.bwd_sweep_plain(lemg, trans, K_real)
-    for label, threads in (("gibbs_bwd, general variant", -1), ("gibbs_bwd", None)):
-        got_b = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, threads=threads)
-        err = (got_b - ref_b).abs().max().item()
-        print(f"{label}: max |beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
+    for label, bkw in (("gibbs_bwd, general variant", dict(_variant=-1)),
+                       ("gibbs_bwd, look-ahead form", dict(_variant=128, _ahead=True)),
+                       ("gibbs_bwd", {})):
+        got_b = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, **bkw)
+        err_b = (got_b - ref_b).abs().max().item()
+        print(f"{label}: max |beta err| {err_b:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
         if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
             _fail(f"{label} disagrees with its plain version")
-    rows.append(_row("gibbs_bwd", "gibbs_sweep.cu", "gibbs_pallas.py:351", err,
-                     _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real), 5),
+
+    # the kernels as the engine launches them (default) beside the chain
+    # variants (64 / 128 / 256 chain threads with the state in registers, the
+    # general one, and the backward step's look-ahead form), timed in turn
+    variants = (("default", None), ("64", 64), ("128", 128), ("256", 256), ("general", -1))
+    bwd = lambda **v: (lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, **v))
+    t_fwd = _alternating_ms({n: (lambda t=t: gs.fwd_sweep(*args, _variant=t, **kw))
+                             for n, t in variants})
+    t_bwd = _alternating_ms({**{n: bwd(_variant=t) for n, t in variants},
+                             "128 look-ahead": bwd(_variant=128, _ahead=True)})
+    fmt = lambda d: ", ".join(f"{k} {v:.3f} ms" for k, v in d.items())
+    print(f"gibbs_fwd by chain threads (K={K}, timed in turn): {fmt(t_fwd)}", flush=True)
+    print(f"gibbs_bwd by chain threads (K={K}, timed in turn): {fmt(t_bwd)}", flush=True)
+    rows.append(_row("gibbs_fwd", "gibbs_sweep.cu", "gibbs_pallas.py:56",
+                     err, t_fwd["default"], plain_ms, *_fwd_work(args, got)))
+    rows.append(_row("gibbs_bwd", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b,
+                     t_bwd["default"],
                      _median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2),
                      _nbytes(lemg, trans, got_b), 8 * G * 2 * B * K))
 
-    # the chain variants (64 / 128 / 256 chain threads with the state in
-    # registers, and the general one) and the least a dependent step can take
-    variants = (("64", 64), ("128", 128), ("256", 256), ("general", -1))
-    t_fwd = {n: _median_ms(lambda: gs.fwd_sweep(*args, threads=t, **kw), 5) for n, t in variants}
-    t_bwd = {n: _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, threads=t), 5)
-             for n, t in variants}
-    fmt = lambda d: ", ".join(f"{k} {v:.3f} ms" for k, v in d.items())
-    print(f"gibbs_fwd by chain threads (K={K}): {fmt(t_fwd)}; default {ms:.3f} ms", flush=True)
-    print(f"gibbs_bwd by chain threads (K={K}): {fmt(t_bwd)}", flush=True)
+    # the least a dependent step can take
     steps = 20000
     floor_ns = {t: _median_ms(lambda: gs.chain_floor(steps, t, B, "cuda"), 3) * 1e6 / steps
                 for t in (64, 128, 256)}
@@ -202,11 +238,13 @@ def check_kernels(world):
     args_w = [torch.from_numpy(x).cuda() for x in random_sweep_state(
         np.random.default_rng(SEED + 3), G, B, W, K, K_real, W, counts=counts)]
     ref_w = gs.fwd_sweep_plain(*args_w, K_real=K_real, it_mode=2)
-    _check_fwd("gibbs_fwd, world occupancy", gs.fwd_sweep(*args_w, **kw), ref_w, args_w)
+    got_w, _ = _check_fwd("gibbs_fwd, world occupancy", gs.fwd_sweep(*args_w, **kw), ref_w, args_w)
     live_w = args_w[3][:, 2] == 0
     walked = int(args_w[7].sum()) * B
     ms_w = _median_ms(lambda: gs.fwd_sweep(*args_w, **kw), 5)
-    print(f"gibbs_fwd, world occupancy: {ms_w:.3f} ms; {int(live_w.sum())} live of {walked} slots "
+    bound_w, by_w = _bound(*_fwd_work(args_w, got_w))
+    print(f"gibbs_fwd, world occupancy: {ms_w:.3f} ms, bound {bound_w:.4f} ms ({by_w}); "
+          f"{int(live_w.sum())} live of {walked} slots "
           f"under the per-grid maximum ({100 * int(live_w.sum()) / max(walked, 1):.1f}% live; "
           f"{G + int(live_w.sum(dim=(0, 1)).max())} steps on the longest chain); table shape: "
           f"{100 * int(live.sum()) / (int(args[7].sum()) * B):.1f}% live", flush=True)
@@ -494,6 +532,30 @@ def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False):
 # phases 3 and 4: full-width end-to-end imputation through the port's engine
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _slot_stats():
+    """Counts, over the forward sweeps launched inside the block, the slots
+    under the per-grid maximum of the batch (cnt_max[g] for each chain: what
+    a kernel vectorised over the chains walks) and the live ones among them
+    (a real, informative read). It reads the sweep's arguments on the host,
+    so it wraps the warm-up call only."""
+    from quilt_tpu_torch.kernels import gibbs
+
+    stats = {"walked": 0, "live": 0}
+    real = gibbs.fwd_sweep
+
+    def counting(lemg, beta, lem_pad, slots, first_read, lab_init, trans, cnt_max, **kw):
+        stats["walked"] += int(cnt_max.sum()) * slots.shape[3]
+        stats["live"] += int((slots[:, 2] == 0).sum())
+        return real(lemg, beta, lem_pad, slots, first_read, lab_init, trans, cnt_max, **kw)
+
+    gibbs.fwd_sweep = counting
+    try:
+        yield stats
+    finally:
+        gibbs.fwd_sweep = real
+
+
 def run_e2e(world, kernels, cfg, label):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
@@ -502,16 +564,14 @@ def run_e2e(world, kernels, cfg, label):
     import numpy as np
     import torch
     from quilt_tpu_torch.engine.driver import quilt_impute
-    from quilt_tpu_torch.kernels import gibbs
 
     samples = world["samples"]
     names = [f"S{i}" for i in range(len(samples))]
     truth_gen = np.stack([t.sum(axis=0) for t in world["truths"]], axis=1).astype(float)
-    gibbs.SLOT_STATS = {"walked": 0, "live": 0}
-    quilt_impute(world["prep"], samples, names, cfg, "cuda")
-    stats, gibbs.SLOT_STATS = gibbs.SLOT_STATS, None
-    print(f"{label}: {stats['live']} live read slots of the {stats['walked']} under the per-grid "
-          f"maximum that a chain's block used to walk ({100 * stats['live'] / max(stats['walked'], 1):.1f}% "
+    with _slot_stats() as stats:
+        quilt_impute(world["prep"], samples, names, cfg, "cuda")
+    print(f"{label}: over the call's forward sweeps, {stats['live']} live read slots of the "
+          f"{stats['walked']} under the per-grid maximum that a chain's block used to walk ({100 * stats['live'] / max(stats['walked'], 1):.1f}% "
           f"live; the rest are empty or uninformative and are no longer a step)", flush=True)
     for k in kernels:
         k.launches = 0

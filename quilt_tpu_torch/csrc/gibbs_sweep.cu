@@ -27,9 +27,9 @@
 //     every skipped slot. In gibbs_bwd eight preparation warps compute the
 //     row maximum and e = exp(lemg - max) of the coming grids, which depend
 //     on the input alone, into a ring. The chain's (consumer) warps never
-//     wait for device memory unless the producers fall behind, and they
-//     take the next read's row (and its exponentials) or the next grid's e
-//     row out of the ring one step ahead of its use.
+//     wait for device memory unless the producers fall behind, and the
+//     forward chain takes the next read's row (and its exponentials) out of
+//     the ring one step ahead of its use.
 //   * State in registers. Each consumer thread owns the same haplotype
 //     columns (tid, tid + NT, ...) of all latent rows for the whole sweep:
 //     alpha, beta, lemg and the read's exp(+-lem) live in registers when
@@ -691,6 +691,7 @@ struct BwdArgs {
   const float *lemg, *trans;
   float* beta_out;
   int G, BN, K, K_real, DE, prep;   // ring depth; active preparation warps
+  int ahead;                        // the look-ahead form of the chain's step
   float invK;
 };
 
@@ -699,7 +700,11 @@ struct BwdArgs {
 // to grid gn-1; its ring stage holds e = exp(lemg[gn] - rowmax) and
 // trans[:, gn]. Stage n % DE is always filled by warp n % prep (the
 // launcher keeps DE a multiple of prep), so its fills stay in order.
-template <int NT, int CPT, bool FAST>
+// AHEAD is a second form of the chain's step, kept to be timed beside the
+// default: it takes the next grid's e row out of the ring before the
+// reduction instead of at the step's start, and multiplies by a reciprocal
+// instead of dividing. At 128 chain threads it is the slower of the two.
+template <int NT, int CPT, bool FAST, bool AHEAD>
 __global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
     const BwdArgs a) {
   extern __shared__ __align__(16) float dyn[];   // [DE][K] e rows
@@ -741,8 +746,7 @@ __global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
     return;
   }
 
-  // ---- the chain: one reduction per grid; the next grid's e row is taken
-  // from the ring a step ahead of its use ----
+  // ---- the chain: one reduction per grid ----
   const int tid = threadIdx.x;
   const int ncol = FAST ? CPT : (K + NT - 1) / NT;
   constexpr int UNROLL = FAST ? CPT : 1;
@@ -768,8 +772,9 @@ __global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
     bs[m] = 1.f;
     if (c < K) a.beta_out[((size_t)(G - 1) * a.BN + row) * K + c] = 1.f;
   }
-  if (G > 1) fetch();
+  if (AHEAD && G > 1) fetch();
   for (int g = G - 2; g >= 0; --g) {
+    if (!AHEAD) fetch();
     const float t0 = t0n, t1 = t1n;
     float v[2] = {0.f, 0.f};   // sum(e*beta) | max(e*beta)
 #pragma unroll UNROLL
@@ -778,15 +783,16 @@ __global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
       v[0] += etb[m];
       v[1] = fmaxf(v[1], etb[m]);
     }
-    if (g > 0) fetch();
+    if (AHEAD && g > 0) fetch();
     chain_reduce<NT, 1, 1>(v, red, par);
     const float c0 = t1 * v[0] * a.invK;
     const float top = fmaf(t0, v[1], c0);   // = max_k fma(t0, etb_k, c0)
-    const float inv = 1.f / (top > 0.f ? top : 1.f);
+    const float d = top > 0.f ? top : 1.f;
+    const float inv = 1.f / d;
 #pragma unroll UNROLL
     for (int m = 0; m < ncol; ++m) {
       const int c = tid + m * NT;
-      bs[m] = fmaf(t0, etb[m], c0) * inv;
+      bs[m] = AHEAD ? fmaf(t0, etb[m], c0) * inv : fmaf(t0, etb[m], c0) / d;
       if (c < K) a.beta_out[((size_t)g * a.BN + row) * K + c] = bs[m];
     }
   }
@@ -834,21 +840,34 @@ int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int NT, int CPT, bool FAST>
-int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+template <int NT, int CPT, bool FAST, bool AHEAD>
+int launch_bwd_form(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.DE * a.K * sizeof(float);
-  int err = set_smem((const void*)gibbs_bwd_kernel<NT, CPT, FAST>, smem);
+  int err = set_smem((const void*)gibbs_bwd_kernel<NT, CPT, FAST, AHEAD>, smem);
   if (err) return err;
-  gibbs_bwd_kernel<NT, CPT, FAST>
+  gibbs_bwd_kernel<NT, CPT, FAST, AHEAD>
       <<<a.BN, NT + 32 * BWD_PREP, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The look-ahead form is built for the shape it is timed at only.
+template <int NT, int CPT, bool FAST>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  if (a.ahead) {
+    if constexpr (NT == 128 && CPT == 5)
+      return launch_bwd_form<NT, CPT, FAST, true>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_bwd_form<NT, CPT, FAST, false>(a, stream);
+}
+
 // The instantiated (threads, columns a thread) pairs, smallest first per
 // thread count: threads = 0 takes the first that holds K among the default
-// thread count's and then the wider ones'; above them all, the general
-// variant. An explicit thread count (64, 128, 256) takes only its own
-// pairs; -1 forces the general variant.
+// thread count's (128) and then the wider one's; above them all, the
+// general variant. An explicit thread count (64, 128, 256) takes only its
+// own pairs; -1 forces the general variant. <64, 10> and <256, 3> are
+// reached by an explicit count only: they exist to be timed at K = 640
+// beside the default.
 #define SWEEP_DISPATCH(LAUNCH, K, threads, a, stream)                          \
   do {                                                                         \
     const int k_ = (K), t_ = (threads);                                        \
@@ -872,7 +891,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 
 // threads: 0 = the fastest variant that holds K; 64 / 128 / 256 = that many
 // chain threads (cudaErrorInvalidValue if no such variant holds K); -1 = the
-// general variant.
+// general variant. Callers other than timings and tests pass 0.
 extern "C" int gibbs_fwd(
     const void* lemg, const void* beta, const void* lem_pad,
     const void* slots, const void* first_read, const void* lab_init,
@@ -903,13 +922,15 @@ extern "C" int gibbs_fwd(
   SWEEP_DISPATCH(launch_fwd, K, threads, a, (cudaStream_t)stream);
 }
 
+// ahead: 0 but to time the look-ahead form (128 threads, K in (512, 640]).
 extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
                          int G, int BN, int K, int K_real, int threads,
-                         float invK, void* stream) {
+                         int ahead, float invK, void* stream) {
   BwdArgs a;
   a.lemg = (const float*)lemg, a.trans = (const float*)trans;
   a.beta_out = (float*)beta_out;
   a.G = G, a.BN = BN, a.K = K, a.K_real = K_real, a.invK = invK;
+  a.ahead = ahead;
   a.DE = MAX_DE;
   while ((size_t)a.DE * K * sizeof(float) > (size_t)SMEM_LIMIT) {
     if (a.DE > 1) a.DE /= 2;

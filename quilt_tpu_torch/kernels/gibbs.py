@@ -36,11 +36,6 @@ PER_IT_COLS = (
 )
 BOUNDARY_PASSES = 4   # cascade depth of the device boundary detector
 PRIOR = (0.5, 0.5)
-# When a caller sets this to {"walked": 0, "live": 0}, every Gibbs call adds
-# its slot occupancy: the slots under the per-grid maximum of the batch
-# (cnt_max[g] for each chain) and the live ones among them (a real,
-# informative read). It costs one device synchronisation a call.
-SLOT_STATS = None
 
 
 @dataclass
@@ -250,9 +245,6 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
     H_pad = layout.to_slots(H0.to(torch.int32), 0).to(torch.int32)
     skip_pad = layout.to_slots(skip_r.to(torch.int32), 1).to(torch.int32)
     first_col = first_read.reshape(B, 1).to(torch.int32).contiguous()
-    if SLOT_STATS is not None:
-        SLOT_STATS["walked"] += int(layout.cnt_max.sum()) * B
-        SLOT_STATS["live"] += int((skip_pad == 0).sum())
     if iterative_init:
         lemg = torch.zeros((G, 2 * B, K), dtype=torch.float32, device=dev)
     else:

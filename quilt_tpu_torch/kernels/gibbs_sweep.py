@@ -12,15 +12,18 @@ next can start. The kernels therefore keep a chain's state in the registers
 of 128 threads (one block per chain forward, per state row backward), take
 exactly one reduction (one butterfly, one named barrier) per step, and leave
 every device-memory load to producer warps that run ahead of the chain and
-fill shared-memory rings. A skipped slot (empty, or an uninformative read)
+fill shared-memory rings. They pick the variant themselves: the smallest
+register variant that holds K, and above K = 2,048 the general variant with
+the state in per-thread local arrays, which takes every K the shared-memory
+rings can hold. A skipped slot (empty, or an uninformative read)
 is no step at all: it cannot flip and changes no state, and both the kernel
 and `fwd_sweep_plain` leave alpha, pC and logc untouched there, where the
 Pallas kernel renormalises by a sum that is 1 within float32 rounding.
 
-`threads` picks a kernel variant (None: the fastest that holds K; 64, 128 or
-256 chain threads with the state in registers, as far as instantiated; -1:
-the general variant with the state in per-thread local arrays, which takes
-every K the shared-memory rings can hold).
+The private `_variant` argument is for timings and tests only (64, 128 or
+256: that many chain threads, as far as instantiated; -1: the general
+variant whatever K is), as is `_ahead` (the backward step's look-ahead
+form); the engine never passes them.
 
 Only the diploid sampler (nl = 2, prior (0.5, 0.5)) is in this slice; the
 NIPT sampler (nl = 3) comes with the NIPT slice.
@@ -35,7 +38,7 @@ from .._build import Kernel, check_tensor as _check
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD_KERNEL = Kernel("gibbs_sweep", "gibbs_fwd", [_P] * 14 + [_I] * 8 + [_F])
-BWD_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", [_P] * 3 + [_I] * 5 + [_F])
+BWD_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", [_P] * 3 + [_I] * 6 + [_F])
 FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 3)
 _NEG = -1e30
 
@@ -49,7 +52,7 @@ def _require_diploid(nl: int, prior=None) -> None:
 
 
 def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
-              cnt_max, nl, K_real, it_mode, prior, want_alpha=True, threads=None):
+              cnt_max, nl, K_real, it_mode, prior, want_alpha=True, _variant=None):
     """One forward Gibbs sweep.
 
     lemg/beta [G, BN, K] f32; lem_pad [G, W, B, K] f32 (the kernel keeps
@@ -60,7 +63,7 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     want_alpha=False alphas is a [1, BN, K] placeholder.
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
-    kernel (variant `threads`, see the module's docstring)."""
+    kernel."""
     _require_diploid(nl, prior)
     G, BN, K = lemg.shape
     B = BN // 2
@@ -93,12 +96,12 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
         trans.data_ptr(), cnt_max.data_ptr(), lemg_out.data_ptr(),
         alphas.data_ptr(), h_out.data_ptr(), logc.data_ptr(), uf.data_ptr(),
         lab.data_ptr(), G, B, W, K, K_real, it_mode, int(want_alpha),
-        threads or 0, 1.0 / K_real,
+        _variant or 0, 1.0 / K_real,
     )
     return lemg_out, alphas, h_out, logc, uf, lab
 
 
-def bwd_sweep(lemg, trans, nl, K_real, threads=None):
+def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False):
     """Reverse-grid beta recursion from lemg [G, BN, K]: a max-shifted
     emission, then t0*e*beta + t1*sum(e*beta)/K, max-normalised per row.
     Returns beta [G, BN, K]."""
@@ -113,7 +116,7 @@ def bwd_sweep(lemg, trans, nl, K_real, threads=None):
         return bwd_sweep_plain(lemg, trans, K_real)
     beta = torch.empty_like(lemg)
     BWD_KERNEL.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
-                      G, BN, K, K_real, threads or 0, 1.0 / K_real)
+                      G, BN, K, K_real, _variant or 0, int(_ahead), 1.0 / K_real)
     return beta
 
 

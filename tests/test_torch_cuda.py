@@ -65,9 +65,9 @@ def test_sweep_kernels_match_plain(cuda, it_mode, G, B, W, K, K_real, max_reads,
     for want_alpha in (True, False):
         ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=it_mode,
                                  want_alpha=want_alpha)
-        for threads in _sweep_variants(K):
+        for variant in _sweep_variants(K):
             got = gs.fwd_sweep(*args, nl=2, K_real=K_real, it_mode=it_mode,
-                               prior=(0.5, 0.5), want_alpha=want_alpha, threads=threads)
+                               prior=(0.5, 0.5), want_alpha=want_alpha, _variant=variant)
             if live.any():
                 assert (got[2][live] == ref[2][live]).float().mean().item() > 0.995
             assert torch.equal(got[2][~live], ref[2][~live])
@@ -82,8 +82,11 @@ def test_sweep_kernels_match_plain(cuda, it_mode, G, B, W, K, K_real, max_reads,
                 torch.testing.assert_close(got[1][:, rows], ref[1][:, rows],
                                            rtol=1e-4, atol=1e-6)
     ref_b = gs.bwd_sweep_plain(args[0], args[6], K_real)
-    for threads in _sweep_variants(K):
-        beta = gs.bwd_sweep(args[0], args[6], nl=2, K_real=K_real, threads=threads)
+    for variant in _sweep_variants(K):
+        beta = gs.bwd_sweep(args[0], args[6], nl=2, K_real=K_real, _variant=variant)
+        torch.testing.assert_close(beta, ref_b, rtol=1e-5, atol=1e-6)
+    if 512 < K <= 640:     # the look-ahead form of the backward step, where it is built
+        beta = gs.bwd_sweep(args[0], args[6], nl=2, K_real=K_real, _variant=128, _ahead=True)
         torch.testing.assert_close(beta, ref_b, rtol=1e-5, atol=1e-6)
 
 
@@ -92,9 +95,9 @@ def test_sweep_kernels_refuse_a_variant_that_does_not_hold_k(cuda):
     args = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
         np.random.default_rng(1), 2, 1, 2, 700, 700, 2)]
     with pytest.raises(RuntimeError, match="gibbs_fwd"):
-        gs.fwd_sweep(*args, nl=2, K_real=700, it_mode=2, prior=(0.5, 0.5), threads=64)
+        gs.fwd_sweep(*args, nl=2, K_real=700, it_mode=2, prior=(0.5, 0.5), _variant=64)
     with pytest.raises(RuntimeError, match="gibbs_bwd"):
-        gs.bwd_sweep(args[0], args[6], nl=2, K_real=700, threads=64)
+        gs.bwd_sweep(args[0], args[6], nl=2, K_real=700, _variant=64)
 
 
 @pytest.mark.parametrize("K,B", [(90, 5), (700, 3)])
