@@ -13,7 +13,15 @@ Phases, each fatal on failure:
                (64 / 128 / 256) and, backward, in the step's look-ahead form,
                beside the time of the bare dependent reduction, and the
                forward sweep at a second state with the slot occupancy of
-               the world's own samples; the four K-split FB
+               the world's own samples; the three Gibbs kernels again at
+               NL = 3 (NIPT: 56 chains = 168 state rows, prior (0.5, 0.45,
+               0.05)), timed in turn with the NL = 2 launches, the forward
+               one also with a step's 9 / 12 values reduced as one reduction
+               of 16 instead of two of at most 8; the share of chains whose labels
+               part from the plain version's is printed and bounded; the
+               forward bank of the NIPT block move (nipt_bank, a kernel with
+               no Pallas counterpart: the JAX package runs it as an XLA scan)
+               at 28 chains; the four K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
                world exists, together with fb_tiled_core against the fused
                fb_core, and both FB families are timed at 28 and 112 rows x
@@ -36,8 +44,20 @@ Phases, each fatal on failure:
                haplotypes, 16,384 SNPs, 2 samples = 28 FB rows), where the
                FB plan takes the K-split kernels; the four of them and the
                two Gibbs sweeps must launch and the fused FB must not;
-  6. cli     - small file-based `prepare` + `impute` and `prepare2` +
-               `impute2` runs through the port's CLI; checks the VCFs.
+  6. nipt    - NIPT (mother + fetus, 3 latent haplotypes a chain) at full
+               width: QUILT1-NIPT on the K=5,120 world's shape with 8 samples
+               at 2x coverage, four at fetal fraction 0.10 and four at 0.20
+               (two batches of 28 chains = 84 state and FB rows), then
+               QUILT2-NIPT (msPBWT + rare/common) with 4 samples at 0.20;
+               prints samples/s, maternal and fetal r2, the per-stage timers
+               (block moves and read classes apart from the sweeps) and a
+               profile; the forward and backward sweeps at NL = 3 and the
+               block move's bank kernel must launch on both and the dosage
+               kernel on the second; fails
+               under maternal r2 0.85 or fetal r2 0.5;
+  7. cli     - small file-based `prepare` + `impute`, `prepare2` +
+               `impute2` and `impute --method nipt --fflist` runs through
+               the port's CLI; checks the VCFs.
 The port must run without the JAX package: the script fails if `jax` or
 `quilt_tpu` is loaded after the port's modules are imported.
 The line before the last is {"kernels": [...]}; the last is
@@ -57,6 +77,10 @@ SEED = 20240611
 # published H100 SXM peaks: HBM3 bytes/s and float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# a uniform within rounding of a candidate boundary may draw the other label
+# in the kernel than in the plain version, and that chain then parts for the
+# rest of the sweep; more than this share of the chains parting is a fault
+PARTED_CHAINS_BOUND = 0.1
 
 
 def _fail(msg):
@@ -100,13 +124,14 @@ def _fwd_work(args, outs):
     is no step, so of lem_pad only the rows of live slots are read; every
     other tensor is read or written once in full. Operations: per (grid,
     state row, haplotype) ~8 for the emission and alpha step, and per live
-    read slot and haplotype ~12 for the relabelling."""
+    read slot, latent row and haplotype ~6 for the relabelling."""
     lemg, lem_pad = args[0], args[2]
     G, BN, K = lemg.shape
+    nl = BN // lem_pad.shape[2]
     n_live = int((args[3][:, 2] == 0).sum())
     others = [t for i, t in enumerate(args) if i != 2]
     return (_nbytes(*others, *outs) + n_live * K * lem_pad.element_size(),
-            8 * G * BN * K + 12 * n_live * K)
+            8 * G * BN * K + 6 * nl * n_live * K)
 
 
 def _bound(nbytes, flops):
@@ -141,11 +166,12 @@ def _check_fwd(label, got, ref, args):
     torch.cuda.synchronize()
     live = args[3][:, 2] == 0
     B = live.shape[2]
+    nl = args[0].shape[1] // B
     agree = (got[2][live] == ref[2][live]).float().mean().item()
     # a uniform within rounding of a candidate boundary may draw the other
     # label and fork that chain; compare state only on rows that agree
     same = ((got[2] == ref[2]) | ~live).all(dim=0).all(dim=0)          # [B]
-    rows2 = torch.cat([same, same])
+    rows2 = torch.cat([same] * nl)
     err_lemg = (got[0] - ref[0]).abs()[:, rows2].max().item()
     err_logc = (got[3] - ref[3]).abs()[rows2].max().item()
     ok = (agree > 0.995 and torch.equal(got[2][~live], ref[2][~live])
@@ -153,11 +179,15 @@ def _check_fwd(label, got, ref, args):
           and torch.allclose(got[1][:, rows2], ref[1][:, rows2], rtol=1e-4, atol=1e-6)
           and torch.allclose(got[3][rows2], ref[3][rows2], rtol=1e-4, atol=1e-3)
           and torch.equal(got[4], ref[4]) and torch.equal(got[5][same], ref[5][same]))
-    print(f"{label}: labels agree {agree:.6f}, {int(same.sum())}/{B} rows identical, "
+    parted = 1.0 - int(same.sum()) / B
+    print(f"{label}: labels agree {agree:.6f}, {int(same.sum())}/{B} chains identical "
+          f"({100 * parted:.1f}% part, bound {100 * PARTED_CHAINS_BOUND:.0f}%), "
           f"max |lemg err| {err_lemg:.3e}, max |logc err| {err_logc:.3e} "
           f"(tolerance: labels > 0.995, rtol 1e-4 / atol 1e-3)", flush=True)
     if not ok:
         _fail(f"{label} disagrees with its plain version")
+    if parted > PARTED_CHAINS_BOUND:
+        _fail(f"{label}: {100 * parted:.1f}% of the chains part from the plain version")
     return got, max(err_lemg, err_logc)
 
 
@@ -266,6 +296,10 @@ def check_kernels(world):
                      _median_ms(lambda: gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps), 2),
                      _nbytes(alphas, beta_d, words_T, hd), (32 + 2) * G * 2 * B * K))
 
+    rows += check_kernels_nl3(G, B, W, K, K_real, kw, args, lemg, trans, alphas, beta_d,
+                              words_T)
+    rows.append(check_nipt_bank(G, K, K_real))
+
     # full-panel FB at the e2e shape: B = 56 chains x 2 latent haps
     fb = world["fb"]
     dev = fb.device_tensors("cuda")
@@ -312,6 +346,136 @@ def check_kernels(world):
                      _nbytes(dl, words, ck, trans2, thin, d, tv, ti), 84 * cells))
     _print_rows(rows)
     return rows
+
+
+def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, beta2, words_T):
+    """The three Gibbs kernels at NL = 3 (NIPT) against their plain versions
+    at the table shape (B chains = 3B state rows, prior (0.5, 0.45, 0.05)),
+    timed in turn with the NL = 2 launches on the NL = 2 state. Returns the
+    three rows (gibbs_fwd_nl3, gibbs_bwd_nl3, gibbs_dos_nl3)."""
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.kernels import gibbs_dosage as gd
+    from quilt_tpu_torch.kernels import gibbs_sweep as gs
+    from quilt_tpu_torch.simulate import random_sweep_state
+
+    prior = (0.5, 0.45, 0.05)
+    args = [torch.from_numpy(x).cuda() for x in random_sweep_state(
+        np.random.default_rng(SEED + 5), G, B, W, K, K_real, W, nl=3)]
+    kw = dict(nl=3, K_real=K_real, it_mode=2, prior=prior)
+    plain = lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2, nl=3, prior=prior)
+    ref = plain()
+    got, err = _check_fwd("gibbs_fwd_nl3", gs.fwd_sweep(*args, **kw), ref, args)
+    for label, v in (("general variant", dict(_variant=-1)), ("256 threads", dict(_variant=256)),
+                     ("one reduction of 16", dict(_wide=True))):
+        _check_fwd(f"gibbs_fwd_nl3, {label}", gs.fwd_sweep(*args, **v, **kw), ref, args)
+    drawn = got[2][args[3][:, 2] == 0]
+    print(f"gibbs_fwd_nl3: labels drawn 0 / 1 / 2: "
+          f"{[int((drawn == h).sum()) for h in range(3)]}", flush=True)
+    # fetal fraction 0: the third label has prior 0 and is never drawn
+    got0 = gs.fwd_sweep(*args, nl=3, K_real=K_real, it_mode=0, prior=(0.5, 0.5, 0.0))
+    torch.cuda.synchronize()
+    changed = got0[2] != args[3][:, 1]
+    if not changed.any() or bool((got0[2][changed] == 2).any()):
+        _fail("gibbs_fwd_nl3 drew the label of prior 0 (or drew nothing)")
+    plain_ms = _median_ms(plain, 2)
+
+    lemg = got[0]
+    ref_b = gs.bwd_sweep_plain(lemg, trans, K_real)
+    got_b = gs.bwd_sweep(lemg, trans, nl=3, K_real=K_real)
+    err_b = (got_b - ref_b).abs().max().item()
+    print(f"gibbs_bwd_nl3 ({lemg.shape[1]} state rows): max |beta err| {err_b:.3e} "
+          f"(tolerance rtol 1e-5, atol 1e-6)", flush=True)
+    if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
+        _fail("gibbs_bwd_nl3 disagrees with its plain version")
+
+    fwd3 = lambda **v: (lambda: gs.fwd_sweep(*args, **v, **kw))
+    t_fwd = _alternating_ms({
+        "nl2": lambda: gs.fwd_sweep(*args2, **kw2), "nl3": fwd3(),
+        "nl3 one reduction of 16": fwd3(_wide=True), "nl3 256 threads": fwd3(_variant=256),
+        "nl3 general": fwd3(_variant=-1)})
+    t_bwd = _alternating_ms({
+        "nl2": lambda: gs.bwd_sweep(lemg2, trans, nl=2, K_real=K_real),
+        "nl3": lambda: gs.bwd_sweep(lemg, trans, nl=3, K_real=K_real)})
+    fmt = lambda d: ", ".join(f"{k} {v:.3f} ms" for k, v in d.items())
+    print(f"gibbs_fwd at NL = 2 and 3 (K={K}, timed in turn): {fmt(t_fwd)}", flush=True)
+    print(f"gibbs_bwd at NL = 2 and 3 (K={K}, timed in turn): {fmt(t_bwd)}", flush=True)
+    steps = 20000
+    floor_ns = {v: _median_ms(lambda: gs.chain_floor(steps, 128, B, "cuda", values=v), 3)
+                * 1e6 / steps for v in (8, 16)}
+    live_b = (args[3][:, 2] == 0).sum(dim=(0, 1))
+    fwd_steps = G + int(live_b.max())
+    print(f"chain floor at 128 threads: one 16-value reduction {floor_ns[16]:.1f} ns, one 8-value "
+          f"{floor_ns[8]:.1f} ns; gibbs_fwd_nl3 walks {fwd_steps} dependent steps on its longest "
+          f"chain = {2 * fwd_steps * floor_ns[8] / 1e6:.3f} ms with two 8-value reductions a "
+          f"step (the kernel's form), {fwd_steps * floor_ns[16] / 1e6:.3f} ms with one of 16",
+          flush=True)
+    rows = [_row("gibbs_fwd_nl3", "gibbs_sweep.cu", "gibbs_pallas.py:56", err, t_fwd["nl3"],
+                 plain_ms, *_fwd_work(args, got)),
+            _row("gibbs_bwd_nl3", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b, t_bwd["nl3"],
+                 _median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2),
+                 _nbytes(lemg, trans, got_b), 8 * G * 3 * B * K)]
+
+    alphas, eps = got[1], 0.001
+    hd = gd.dosage_sweep(alphas, got_b, words_T, 3, K_real, eps)
+    hd_r = gd.dosage_sweep_plain(alphas, got_b, words_T, K_real, eps, 3)
+    err_d = (hd - hd_r).abs().max().item()
+    print(f"gibbs_dos_nl3: max |dosage err| {err_d:.3e} (tolerance atol 1e-5)", flush=True)
+    if not err_d <= 1e-5:
+        _fail("gibbs_dos_nl3 disagrees with its plain version")
+    t_dos = _alternating_ms({
+        "nl2": lambda: gd.dosage_sweep(alphas2, beta2, words_T, 2, K_real, eps),
+        "nl3": lambda: gd.dosage_sweep(alphas, got_b, words_T, 3, K_real, eps)})
+    print(f"gibbs_dos at NL = 2 and 3 (timed in turn): {fmt(t_dos)}", flush=True)
+    rows.append(_row(
+        "gibbs_dos_nl3", "gibbs_dosage.cu", "gibbs_pallas.py:420", err_d, t_dos["nl3"],
+        _median_ms(lambda: gd.dosage_sweep_plain(alphas, got_b, words_T, K_real, eps, 3), 2),
+        _nbytes(alphas, got_b, words_T, hd), (32 + 2) * G * 3 * B * K))
+    return rows
+
+
+def check_nipt_bank(G, K, K_real, B=28):
+    """The forward bank of the NIPT block move against its plain version (the
+    Python loop over the grids) at the NIPT path's shape: B chains of one
+    batch, ~12 blocks a chain at random grids. Returns its row."""
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.kernels import nipt_bank as nb
+    from quilt_tpu_torch.simulate import random_sweep_state
+
+    rng = np.random.default_rng(SEED + 6)
+    lemg, beta = (torch.from_numpy(x).cuda() for x in random_sweep_state(
+        rng, G, B, 4, K, K_real, 4, nl=3)[:2])
+    km = (torch.arange(K, device="cuda") < K_real).float()
+    e = torch.exp(lemg - torch.where(km > 0, lemg, -torch.inf).amax(2, keepdim=True)) * km
+    bk = beta * km
+    trans = torch.from_numpy(np.stack([np.full(G, 0.98), np.full(G, 0.02)]).astype(np.float32))
+    trans[:, 0] = torch.tensor([1.0, 0.0])
+    is_end = torch.from_numpy((rng.random((G, B)) < 12 / G).astype(np.int32))
+    is_end[G - 1] = 1
+    args = (e, bk, trans.cuda(), torch.from_numpy(rng.normal(0, 2, (G, B, 6)).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.random((G, B)).astype(np.float32)).cuda(), is_end.cuda(),
+            torch.ones(6, device="cuda"), K_real)
+    got_c, got_p = nb.bank_scan(*args)
+    ref_c, ref_p = nb.bank_scan_plain(*args)
+    torch.cuda.synchronize()
+    # a uniform within rounding of a cumulative probability may draw the
+    # neighbouring relabelling, and that chain's bank then differs for good
+    same = (got_c == ref_c).all(dim=0)                                   # [B]
+    parted = 1.0 - int(same.sum()) / B
+    err = (got_p - ref_p)[:, same].abs().max().item()
+    n_ends = int(is_end.sum())
+    print(f"nipt_bank: {int(same.sum())}/{B} chains draw the same {n_ends} relabellings "
+          f"({100 * parted:.1f}% part, bound {100 * PARTED_CHAINS_BOUND:.0f}%; drawn: "
+          f"{torch.bincount(got_c[is_end.cuda() != 0].long(), minlength=6).tolist()}), max "
+          f"|probability err| {err:.3e} (tolerance atol 1e-4)", flush=True)
+    if parted > PARTED_CHAINS_BOUND or not err <= 1e-4:
+        _fail("nipt_bank disagrees with its plain version")
+    row = _row("nipt_bank", "nipt_bank.cu", "gibbs.py:502", err,
+               _median_ms(lambda: nb.bank_scan(*args), 5),
+               _median_ms(lambda: nb.bank_scan_plain(*args), 1),
+               _nbytes(*args[:7], got_c, got_p), 6 * 9 * G * B * K)
+    return row
 
 
 def _print_rows(rows):
@@ -487,10 +651,11 @@ def time_fb_plan(fb, rows_list=(28, 112)):
 # the full-width world (phase 3 imputes it; phase 2 takes its shapes)
 # ---------------------------------------------------------------------------
 
-def e2e_config(n_samples, quilt2=False):
+def e2e_config(n_samples, quilt2=False, nipt=False):
     """QUILT1 defaults at the quick-start scale: 7 chains x 3 seek
     iterations x 21 sweeps, Ksubset 600, all samples in one batch; quilt2
-    adds the QUILT2 defaults use_mspbwt and impute_rare_common."""
+    adds the QUILT2 defaults use_mspbwt and impute_rare_common; nipt makes
+    it the NIPT method (batches then form within equal fetal fractions)."""
     from quilt_tpu_torch.engine.driver import ImputeConfig
 
     return ImputeConfig(
@@ -499,29 +664,35 @@ def e2e_config(n_samples, quilt2=False):
         override_default_params_for_small_ref_panel=False,
         print_extra_timing_information=True, verbose=False,
         use_mspbwt=quilt2, impute_rare_common=quilt2,
+        method="nipt" if nipt else "diploid",
     )
 
 
-def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False):
-    """A full-width world (K = 5,120 for the QUILT1 / QUILT2 phases, 40,960
-    for the large-panel phase); quilt2 rewrites 10% of the sites to 1-4
-    carriers and prepares the panel as `prepare2` does."""
+def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False, ffs=None, coverage=1.0):
+    """A full-width world (K = 5,120 for the QUILT1 / QUILT2 / NIPT phases,
+    40,960 for the large-panel phase); quilt2 rewrites 10% of the sites to
+    1-4 carriers and prepares the panel as `prepare2` does; ffs makes the
+    samples NIPT ones at these fetal fractions."""
     import numpy as np
     from quilt_tpu_torch.inputs import region_tensors
     from quilt_tpu_torch.simulate import make_world as simulate
 
     t = time.time()
     world = simulate(np.random.default_rng(SEED), K=K, nSNPs=nSNPs, n_samples=n_samples,
-                     rare_frac=0.1 if quilt2 else 0.0, quilt2=quilt2)
+                     rare_frac=0.1 if quilt2 else 0.0, quilt2=quilt2, ffs=ffs,
+                     coverage=coverage)
+    world["ffs"] = ffs
     prep = world["prep"]
     W = max(int(np.bincount(r.wif0, minlength=r.wif0.max() + 1).max())
             for r in world["samples"])
     world.update(nGrids=prep.nGrids, max_reads_per_grid=W)
-    if not quilt2:
+    if not quilt2 and ffs is None:
         world["fb"] = region_tensors(prep, e2e_config(n_samples), "cuda")["fb"]
     rare = "" if not quilt2 else (
         f", {int((~prep.snp_is_common).sum())} rare sites held out of "
         f"{prep.nGrids} common grids, {len(prep.ms_indices)} msPBWT indices")
+    if ffs is not None:
+        rare += f", NIPT at fetal fractions {sorted(set(float(f) for f in ffs))}, {coverage}x"
     print(f"world: K={K}, nSNPs={nSNPs}, nGrids={prep.nGrids}{rare}, {n_samples} samples, "
           f"{sum(r.nReads for r in world['samples'])} reads, max reads/grid {W} "
           f"({time.time() - t:.1f} s to simulate and prepare)", flush=True)
@@ -545,8 +716,9 @@ def _slot_stats():
     real = gibbs.fwd_sweep
 
     def counting(lemg, beta, lem_pad, slots, first_read, lab_init, trans, cnt_max, **kw):
-        stats["walked"] += int(cnt_max.sum()) * slots.shape[3]
-        stats["live"] += int((slots[:, 2] == 0).sum())
+        if int(cnt_max.sum()):       # not the read-free re-run of a NIPT block move
+            stats["walked"] += int(cnt_max.sum()) * slots.shape[3]
+            stats["live"] += int((slots[:, 2] == 0).sum())
         return real(lemg, beta, lem_pad, slots, first_read, lab_init, trans, cnt_max, **kw)
 
     gibbs.fwd_sweep = counting
@@ -560,14 +732,17 @@ def run_e2e(world, kernels, cfg, label):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
     before it, then one more call under torch.profiler after the counts
-    are read. Returns (output, truth, {kernel entry: launches})."""
+    are read. Returns (output, truth, {kernel name: launches}). In a NIPT
+    world the truth and the r2 of the report are the mother's (haplotypes
+    1 + 2); nipt_report gives the fetus's."""
     import numpy as np
     import torch
-    from quilt_tpu_torch.engine.driver import quilt_impute
+    from quilt_tpu_torch.engine import driver
 
     samples = world["samples"]
     names = [f"S{i}" for i in range(len(samples))]
-    truth_gen = np.stack([t.sum(axis=0) for t in world["truths"]], axis=1).astype(float)
+    truth_gen = np.stack([t[:2].sum(axis=0) for t in world["truths"]], axis=1).astype(float)
+    quilt_impute = lambda *a, **k: driver.quilt_impute(*a, ff_values=world.get("ffs"), **k)
     with _slot_stats() as stats:
         quilt_impute(world["prep"], samples, names, cfg, "cuda")
     print(f"{label}: over the call's forward sweeps, {stats['live']} live read slots of the "
@@ -580,7 +755,7 @@ def run_e2e(world, kernels, cfg, label):
     out = quilt_impute(world["prep"], samples, names, cfg, "cuda", truth_gen=truth_gen)
     torch.cuda.synchronize()
     dt = time.time() - t
-    launches = {k.entry: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
     r2 = out.r2_per_sample
     n_out = truth_gen.shape[0]
     finite = all(np.isfinite(res.dosage).all() and res.dosage.shape == (n_out,)
@@ -630,7 +805,7 @@ def profile_call(label, fn, untraced_s):
 
 
 def check_launched(label, launches, needed):
-    missing = [k.entry for k in needed if not launches[k.entry]]
+    missing = [k.name for k in needed if not launches[k.name]]
     if missing:
         _fail(f"{label}: a kernel of the path never launched: {missing} ({launches})")
 
@@ -649,8 +824,38 @@ def quilt2_report(world, out, truth_gen):
           f"mean |dosage err| at rare sites {err_rare:.5f}", flush=True)
 
 
+def nipt_report(label, world, out):
+    """Maternal (haplotypes 1 + 2) and fetal (1 + 3) r2 of a NIPT run per
+    sample; fails under the bounds of the JAX package's NIPT acceptance
+    test (maternal 0.85, fetal 0.5)."""
+    import numpy as np
+    from quilt_tpu_torch.out.metrics import r2_simple
+
+    r2m = [r2_simple((t[0] + t[1]).astype(float), r.mat_dosage)
+           for t, r in zip(world["truths"], out.results)]
+    r2f = [r2_simple((t[0] + t[2]).astype(float), r.fet_dosage)
+           for t, r in zip(world["truths"], out.results)]
+    fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)
+    print(f"{label}: fetal fractions {[float(f) for f in world['ffs']]}; maternal r2 min "
+          f"{min(r2m):.4f} mean {np.mean(r2m):.4f} ({fmt(r2m)}); fetal r2 min {min(r2f):.4f} "
+          f"mean {np.mean(r2f):.4f} ({fmt(r2f)})", flush=True)
+    block = sum(v["seconds"] for k, v in out.timing.items() if k in ("gibbs:block_move", "gibbs:hclass"))
+    sweep = out.timing.get("gibbs:sweep_kernel", {}).get("seconds", 0.0) \
+        + out.timing.get("rare:sweep_kernel", {}).get("seconds", 0.0)
+    print(f"{label}: block moves and read classes take {block * 1000:.1f} ms of the "
+          f"{sweep * 1000:.1f} ms of the Gibbs calls ({100 * block / max(sweep, 1e-9):.1f}%)",
+          flush=True)
+    for res in out.results:
+        ok = (res.phased_haps.shape[0] == 3 and np.isfinite(res.fet_dosage).all()
+              and np.isfinite(res.fet_gp).all())
+        if not ok:
+            _fail(f"{label} produced misshapen or non-finite fetal outputs")
+    if min(r2m) < 0.85 or min(r2f) < 0.5:
+        _fail(f"{label}: maternal r2 below 0.85 or fetal r2 below 0.5")
+
+
 # ---------------------------------------------------------------------------
-# phase 5: file-based prepare + impute (QUILT1, QUILT2) through the port's CLI
+# phase 7: file-based prepare + impute (QUILT1, QUILT2, NIPT) through the port's CLI
 # ---------------------------------------------------------------------------
 
 def run_cli():
@@ -662,19 +867,30 @@ def run_cli():
 
     small = ["--nGibbsSamples", "3", "--n_seek_its", "2", "--Ksubset", "48", "--Knew", "48",
              "--small_ref_panel_gibbs_iterations", "8", "--verbose", "FALSE"]
-    for prepare, impute, extra, n_rare in (
-        ("prepare", "impute", [], 0),
-        ("prepare2", "impute2", ["--rare_af_threshold", "0.03"], 24),
+    for prepare, impute, extra, n_rare, ff in (
+        ("prepare", "impute", [], 0, None),
+        ("prepare2", "impute2", ["--rare_af_threshold", "0.03"], 24, None),
+        ("prepare", "impute", [], 0, 0.2),
     ):
         with tempfile.TemporaryDirectory() as d:
             vcf, gmap, bamlist, truths, nSNPs = write_bam_world(
-                d, np.random.default_rng(SEED), n_rare=n_rare)
+                d, np.random.default_rng(SEED), n_rare=n_rare, ff=ff,
+                coverage=2.0 if ff is None else 4.0)
             out = os.path.join(d, "out")
             base = [sys.executable, "-m", "quilt_tpu_torch"]
+            nipt = []
+            if ff is not None:
+                fflist = os.path.join(d, "ff.txt")
+                with open(fflist, "w") as fh:
+                    fh.write("".join(f"{ff}\n" for _ in truths))
+                nipt = ["--method", "nipt", "--fflist", fflist]
+                impute_label = f"{impute} --method nipt --fflist"
+            else:
+                impute_label = impute
             for args in (
                 [prepare, "--outputdir", out, "--chr", "chr20", "--reference_vcf_file", vcf,
                  "--genetic_map_file", gmap, "--nGen", "100"] + extra,
-                [impute, "--outputdir", out, "--chr", "chr20", "--bamlist", bamlist] + small,
+                [impute, "--outputdir", out, "--chr", "chr20", "--bamlist", bamlist] + small + nipt,
             ):
                 res = subprocess.run(base + args, cwd=HERE, capture_output=True, text=True,
                                      timeout=600)
@@ -683,17 +899,29 @@ def run_cli():
             with gzip.open(os.path.join(out, "quilt.chr20.vcf.gz"), "rt") as fh:
                 lines = fh.readlines()
         body = [l for l in lines if not l.startswith("#")]
+        fmt = body[0].split("\t")[8]
+        if nipt and fmt != "GT:MGP:MDS:FGP:FDS":
+            _fail(f"CLI {impute_label} wrote FORMAT {fmt}")
         r2 = []
         for i, truth in enumerate(truths):
+            # DS, or the mother's MDS: the third field
             ds = np.array([float(l.split("\t")[9 + i].split(":")[2]) for l in body])
-            r2.append(float(np.corrcoef(ds, truth.sum(axis=0))[0, 1] ** 2))
-        print(f"cli: {prepare} + {impute} wrote {len(body)} of {nSNPs} sites; r2 {r2}",
-              flush=True)
+            r2.append(float(np.corrcoef(ds, truth[:2].sum(axis=0))[0, 1] ** 2))
+        msg = f"cli: {prepare} + {impute_label} wrote {len(body)} of {nSNPs} sites; r2 {r2}"
+        if nipt:
+            r2f = []
+            for i, truth in enumerate(truths):
+                fds = np.array([float(l.split("\t")[9 + i].split(":")[4]) for l in body])
+                r2f.append(float(np.corrcoef(fds, truth[0] + truth[2])[0, 1] ** 2))
+            msg += f" (maternal), fetal r2 {r2f}"
+            if min(r2f) < 0.5:
+                _fail(f"CLI {impute_label}: fetal r2 below 0.5: {r2f}")
+        print(msg, flush=True)
         if len(body) != nSNPs or min(r2) < 0.85:
-            _fail(f"CLI {impute} VCF is incomplete or inaccurate")
+            _fail(f"CLI {impute_label} VCF is incomplete or inaccurate")
 
 
-PHASES = ("kernels", "e2e", "quilt2", "largek", "cli")
+PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "cli")
 
 
 def main():
@@ -732,13 +960,19 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+            elif "Compiling entry function" in line:
+                # the mangled name carries the template arguments (threads,
+                # columns a thread, ..., NL) of the instantiation
+                print(f"  {name}: {line.split(chr(39))[1][:110]}")
 
-    from quilt_tpu_torch.kernels import fb, gibbs_dosage, gibbs_sweep
+    from quilt_tpu_torch.kernels import fb, gibbs_dosage, gibbs_sweep, nipt_bank
 
     gfwd, gbwd, gdos = gibbs_sweep.FWD_KERNEL, gibbs_sweep.BWD_KERNEL, gibbs_dosage.DOS_KERNEL
+    nl3 = [gibbs_sweep.FWD_KERNELS[3], gibbs_sweep.BWD_KERNELS[3], gibbs_dosage.DOS_KERNELS[3]]
+    bank = nipt_bank.BANK_KERNEL
     fused = [fb.FWD_KERNEL, fb.BWD_KERNEL]
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.REMAT_TILED_KERNEL, fb.BWD_TILED_KERNEL]
-    kernels = [gfwd, gbwd, gdos] + fused + tiled                  # the order of rows
+    kernels = [gfwd, gbwd, gdos] + nl3 + [bank] + fused + tiled   # the order of rows
     rows, launches = [], {}
 
     if phases & {"kernels", "e2e"}:
@@ -778,9 +1012,30 @@ def main():
         if min(out.r2_per_sample) < 0.9:
             _fail(f"largek r2 against truth below 0.9: {out.r2_per_sample}")
         check_launched("largek", l3, [gfwd, gbwd] + tiled)
-        if any(l3[k.entry] for k in fused):
+        if any(l3[k.name] for k in fused):
             _fail(f"largek launched a fused FB kernel: {l3}")
         del world3
+
+    if "nipt" in phases:
+        # QUILT1-NIPT: 8 samples at 2x, two fetal fractions -> two batches of
+        # 4 samples x 7 chains = 28 chains = 84 state rows and 84 FB rows
+        ffs = [0.1] * 4 + [0.2] * 4
+        world4 = make_world(ffs=ffs, coverage=2.0)
+        out, _, l4 = run_e2e(world4, kernels, e2e_config(8, nipt=True), "nipt")
+        launches["nipt"] = l4
+        nipt_report("nipt", world4, out)
+        check_launched("nipt", l4, nl3[:2] + [bank] + fused)
+        if l4[gfwd.name] or l4[gbwd.name]:
+            _fail(f"nipt launched an NL = 2 sweep: {l4}")
+        del world4
+        # QUILT2-NIPT on the QUILT2 world's panel: the dosages come from the
+        # Gibbs dosage kernel at NL = 3
+        world5 = make_world(n_samples=4, quilt2=True, ffs=[0.2] * 4, coverage=2.0)
+        out, _, l5 = run_e2e(world5, kernels, e2e_config(4, quilt2=True, nipt=True), "nipt2")
+        launches["nipt2"] = l5
+        nipt_report("nipt2", world5, out)
+        check_launched("nipt2", l5, nl3 + [bank])
+        del world5
     if "cli" in phases:
         run_cli()
 
@@ -788,8 +1043,10 @@ def main():
     if phases != set(PHASES):
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 0
+    if len(rows) != len(kernels):
+        _fail(f"{len(rows)} kernel rows for {len(kernels)} kernels")
     for row, k in zip(rows, kernels):
-        row["launches_by_path"] = {path: l[k.entry] for path, l in launches.items()}
+        row["launches_by_path"] = {path: l[k.name] for path, l in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

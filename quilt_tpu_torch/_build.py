@@ -112,11 +112,14 @@ class Kernel:
     ``argtypes`` lists the ctypes types of the entry's arguments (the
     stream, a ``c_void_p``, is appended by ``launch``). ``launches`` is a
     plain integer that the wrapper's launch path, and nothing else,
-    increments; a caller may reset it to 0."""
+    increments; a caller may reset it to 0. ``name`` tells apart two counts
+    of one entry (the same C function launched for two samplers); it is the
+    entry's name unless given."""
 
-    def __init__(self, library: str, entry: str, argtypes):
+    def __init__(self, library: str, entry: str, argtypes, name: Optional[str] = None):
         self.library = library
         self.entry = entry
+        self.name = name or entry
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
         self._fn = None

@@ -341,6 +341,12 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
         )
         for b in bam_files
     ]
+    ff_values = None
+    if cfg.method == "nipt":
+        if not cfg.fflist:
+            print("--fflist is required for method=nipt", file=sys.stderr)
+            return 1
+        ff_values = np.loadtxt(cfg.fflist, ndmin=1)
     truth_gen = truth_haps = None
     if cfg.posfile and (cfg.genfile or cfg.phasefile):
         _, pos_t, _, _ = read_posfile(cfg.posfile)
@@ -363,7 +369,7 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
                 truth_gen = truth_haps.sum(axis=2)
     os.makedirs(cfg.outputdir or ".", exist_ok=True)
     quilt_impute(prep, samples, names, cfg, device, output_filename=out_file,
-                 truth_gen=truth_gen, truth_haps=truth_haps)
+                 ff_values=ff_values, truth_gen=truth_gen, truth_haps=truth_haps)
     return 0
 
 
@@ -373,7 +379,8 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     parser = argparse.ArgumentParser(
         prog="python -m quilt_tpu_torch",
-        description="QUILT1 / QUILT2 diploid imputation on an NVIDIA GPU (PyTorch + CUDA port)",
+        description="QUILT1 / QUILT2 imputation, diploid or NIPT (--method nipt --fflist), "
+                    "on an NVIDIA GPU (PyTorch + CUDA port)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     quilt2 = {"use_mspbwt": True, "impute_rare_common": True}
@@ -382,10 +389,10 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> int:
     _add_dataclass_args(sub.add_parser(
         "prepare2", help="prepare reference panel (QUILT2 defaults: use_mspbwt + "
         "impute_rare_common)"), PrepareConfig, overrides=quilt2)
-    _add_dataclass_args(sub.add_parser("impute", help="impute (QUILT1 diploid)"),
+    _add_dataclass_args(sub.add_parser("impute", help="impute (QUILT1)"),
                         ImputeConfig)
     _add_dataclass_args(sub.add_parser(
-        "impute2", help="impute (QUILT2 diploid: use_mspbwt + impute_rare_common)"),
+        "impute2", help="impute (QUILT2: use_mspbwt + impute_rare_common)"),
         ImputeConfig, overrides=quilt2)
     args = parser.parse_args(argv)
     print_message("quilt_tpu_torch invocation: " + " ".join(argv))

@@ -9,18 +9,19 @@
 //                hd[t] = sum_k gamma_k * (bit_k,t * (1 - 2 eps) + eps),
 //                the bits unpacked from the packed subset words.
 // Layouts are the JAX function's: alphas / beta [G, nl*B, K] (state row
-// h*B + b), words_T [G, B, K] int32, hd [G, nl*B, 32].
+// h*B + b), words_T [G, B, K] int32, hd [G, nl*B, 32]; nl = 2 (diploid) or
+// 3 (NIPT), a template parameter.
 //
 // What bounds it on the H100: device memory. Every alpha, beta and word is
 // read once and used for ~32 FMAs, far below the card's ~20 FLOPs per byte
 // of float32 balance; at the full-width shape (G=512, B=56, K=640) a call
 // reads ~370 MB.
 //
-// Simple design: one thread block per (grid g, chain b) serves both latent
-// rows h*B + b, so row b's words are read once for both. Threads own
+// Simple design: one thread block per (grid g, chain b) serves all its latent
+// rows h*B + b, so row b's words are read once for them. Threads own
 // haplotype columns (reads along K coalesce); each keeps alpha*beta of its
 // columns in shared memory for the second pass, one block reduction gives
-// the two normalisers, then each thread holds 32 per-SNP partial sums per
+// the rows' normalisers, then each thread holds 32 per-SNP partial sums per
 // latent row, which reduce with a transposing warp butterfly (31 shuffles
 // for 32 values) and one shared-memory pass across warps.
 #include <cuda_runtime.h>
@@ -79,68 +80,91 @@ __device__ __forceinline__ float block_sum32(float (&v)[32], float* red) {
   return r;
 }
 
+// NL latent rows a chain: 2 (diploid) or 3 (NIPT).
+template <int NL>
 __global__ void __launch_bounds__(NT) gibbs_dos_kernel(
     const float* __restrict__ alphas, const float* __restrict__ beta,
     const int* __restrict__ words_T, float* __restrict__ hd, int B, int K,
     int K_real, float eps) {
-  extern __shared__ float ab[];   // [2][K] alpha * beta, owned per column
+  extern __shared__ float ab[];   // [NL][K] alpha * beta, owned per column
   __shared__ float red[NWARP * 32];
   const int g = blockIdx.x, b = blockIdx.y;
-  const int BN = 2 * B;
-  const size_t r0 = ((size_t)g * BN + b) * K;
-  const size_t r1 = ((size_t)g * BN + B + b) * K;
+  const int BN = NL * B;
+  size_t r[NL];
+#pragma unroll
+  for (int h = 0; h < NL; ++h) r[h] = ((size_t)g * BN + h * B + b) * K;
   const int* w = words_T + ((size_t)g * B + b) * K;
 
-  float s[2] = {0.f, 0.f};
+  float s[NL];
+#pragma unroll
+  for (int h = 0; h < NL; ++h) s[h] = 0.f;
   for (int k = threadIdx.x; k < K; k += NT) {
     const bool real = k < K_real;
-    const float x0 = real ? alphas[r0 + k] * beta[r0 + k] : 0.f;
-    const float x1 = real ? alphas[r1 + k] * beta[r1 + k] : 0.f;
-    ab[k] = x0;
-    ab[K + k] = x1;
-    s[0] += x0;
-    s[1] += x1;
+#pragma unroll
+    for (int h = 0; h < NL; ++h) {
+      const float x = real ? alphas[r[h] + k] * beta[r[h] + k] : 0.f;
+      ab[h * K + k] = x;
+      s[h] += x;
+    }
   }
   block_sum(s, red);
-  const float q0 = 1.f / fmaxf(s[0], 1e-30f), q1 = 1.f / fmaxf(s[1], 1e-30f);
+  float q[NL];
+#pragma unroll
+  for (int h = 0; h < NL; ++h) q[h] = 1.f / fmaxf(s[h], 1e-30f);
   const float hi = 1.f - eps;   // bit * (1 - 2 eps) + eps at a set bit
 
-  float p0[32], p1[32];
+  float p[NL][32];
 #pragma unroll
-  for (int t = 0; t < 32; ++t) p0[t] = p1[t] = 0.f;
+  for (int h = 0; h < NL; ++h) {
+#pragma unroll
+    for (int t = 0; t < 32; ++t) p[h][t] = 0.f;
+  }
   for (int k = threadIdx.x; k < K; k += NT) {
     const unsigned word = (unsigned)w[k];
-    const float g0 = ab[k] * q0, g1 = ab[K + k] * q1;
+    float gk[NL];
+#pragma unroll
+    for (int h = 0; h < NL; ++h) gk[h] = ab[h * K + k] * q[h];
 #pragma unroll
     for (int t = 0; t < 32; ++t) {
       const float e = ((word >> t) & 1u) ? hi : eps;
-      p0[t] += g0 * e;
-      p1[t] += g1 * e;
+#pragma unroll
+      for (int h = 0; h < NL; ++h) p[h][t] += gk[h] * e;
     }
   }
-  const float d0 = block_sum32(p0, red);
-  const float d1 = block_sum32(p1, red);
-  if (threadIdx.x < 32) {
-    hd[((size_t)g * BN + b) * 32 + threadIdx.x] = d0;
-    hd[((size_t)g * BN + B + b) * 32 + threadIdx.x] = d1;
+#pragma unroll
+  for (int h = 0; h < NL; ++h) {
+    const float d = block_sum32(p[h], red);
+    if (threadIdx.x < 32) hd[((size_t)g * BN + h * B + b) * 32 + threadIdx.x] = d;
   }
+}
+
+template <int NL>
+int launch_dos(const float* alphas, const float* beta, const int* words_T,
+               float* hd, int G, int B, int K, int K_real, float eps,
+               cudaStream_t stream) {
+  const size_t smem = NL * (size_t)K * sizeof(float);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        (const void*)gibbs_dos_kernel<NL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  // grids on x: a long region has more grids than the 65,535 blocks y allows
+  gibbs_dos_kernel<NL><<<dim3(G, B), NT, smem, stream>>>(alphas, beta, words_T, hd,
+                                                        B, K, K_real, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int gibbs_dos(const void* alphas, const void* beta,
                          const void* words_T, void* hd, int G, int B, int K,
-                         int K_real, float eps, void* stream) {
-  const size_t smem = 2 * (size_t)K * sizeof(float);
-  if (smem > 48 * 1024) {
-    const int err = (int)cudaFuncSetAttribute(
-        (const void*)gibbs_dos_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-  }
-  // grids on x: a long region has more grids than the 65,535 blocks y allows
-  gibbs_dos_kernel<<<dim3(G, B), NT, smem, (cudaStream_t)stream>>>(
-      (const float*)alphas, (const float*)beta, (const int*)words_T,
-      (float*)hd, B, K, K_real, eps);
-  return (int)cudaGetLastError();
+                         int K_real, int nl, float eps, void* stream) {
+  const float* a = (const float*)alphas;
+  const float* bt = (const float*)beta;
+  const int* w = (const int*)words_T;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nl == 2) return launch_dos<2>(a, bt, w, (float*)hd, G, B, K, K_real, eps, s);
+  if (nl == 3) return launch_dos<3>(a, bt, w, (float*)hd, G, B, K, K_real, eps, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// Gibbs forward and backward sweeps of the diploid per-read sampler.
+// Gibbs forward and backward sweeps of the per-read sampler: diploid (two
+// latent rows a chain) and NIPT (three: mother's two and the fetus's third).
 //
 // Replaces two Pallas TPU kernels of quilt_tpu/kernels/gibbs_pallas.py:
 //   gibbs_fwd  <- _make_fwd_kernel (launched by _fwd_sweep): alpha advance
@@ -61,15 +62,20 @@
 //     producer never queues them. They cannot flip and touch no state; the
 //     renormalisation the TPU kernel still performs there (by a sum that is
 //     1 within rounding) is dropped, in the plain version too.
-// The latent row count NL is a compile-time constant that every loop runs
-// over; only NL = 2 (diploid) is instantiated.
+// The latent row count NL is a template parameter that every loop of the
+// forward kernel runs over, instantiated for 2 (diploid) and 3 (NIPT); the
+// label prior comes from the caller. At NL = 3 a grid's advance reduces 9
+// values and a read's step 12: they go as two reductions of at most 8
+// values (two butterflies, two barriers), which on the card is the faster of
+// the two forms; the WIDE form, one reduction in a slot of 16 floats (one
+// more butterfly round), exists to be timed beside it. The backward kernel
+// works on a state row and never sees NL.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NL = 2;            // latent rows of a chain (diploid)
 constexpr float NEG = -1e30f;
 constexpr int MAX_DS = 4;        // ring depth: grid stages (lemg[g+1] + beta[g])
 constexpr int MAX_DR = 16;       // ring depth: read-slot emission rows
@@ -179,19 +185,21 @@ __device__ __forceinline__ void release(uint64_t* bar) {
 // shuffles, not 40, and end as one total in each group of 4 lanes. One lane
 // per group writes it to the warp's shared-memory slot in the buffer of
 // this call's parity; after one named barrier every thread adds the warps'
-// slots in the same order, so all threads hold the same values. `red` holds
-// 2 x (NT/32) x 8 floats; a buffer is written again two calls later, after
-// a barrier that every reader of this call has passed.
-template <int NT, int NS, int NM>
+// slots in the same order, so all threads hold the same values. A slot
+// holds SLOT (8 or 16) floats and `red` 2 x (NT/32) x SLOT; a buffer is
+// written again two calls later, after a barrier that every reader of this
+// call has passed, so every call of one kernel uses the same SLOT.
+template <int NT, int NS, int NM, int SLOT = 8>
 __device__ __forceinline__ void chain_reduce(float (&v)[NS + NM], float* red,
                                              int& par) {
   constexpr int NV = NS + NM, NW = NT / 32;
-  constexpr int NP = NV <= 2 ? 2 : (NV <= 4 ? 4 : 8);   // padded to a power of two
-  constexpr int LOG = NP == 2 ? 1 : (NP == 4 ? 2 : 3);
-  static_assert(NV <= 8, "a reduction slot holds 8 values");
+  constexpr int NP = NV <= 2 ? 2 : (NV <= 4 ? 4 : (NV <= 8 ? 8 : 16));   // a power of two
+  constexpr int LOG = NP == 2 ? 1 : (NP == 4 ? 2 : (NP == 8 ? 3 : 4));
+  static_assert(SLOT == 8 || SLOT == 16, "a reduction slot holds 8 or 16 values");
+  static_assert(NV <= SLOT, "more values than the reduction slot holds");
   static_assert(NW > 1, "the chain has at least two warps");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* buf = red + par * NW * 8;
+  float* buf = red + par * NW * SLOT;
   par ^= 1;
   if (NV <= 2) {
     // two values: a plain butterfly on both is as short, and free of selects
@@ -203,7 +211,7 @@ __device__ __forceinline__ void chain_reduce(float (&v)[NS + NM], float* red,
         v[j] = j < NS ? v[j] + x : fmaxf(v[j], x);
       }
     }
-    if (lane < NV) buf[warp * 8 + lane] = lane == 0 ? v[0] : v[NV - 1];
+    if (lane < NV) buf[warp * SLOT + lane] = lane == 0 ? v[0] : v[NV - 1];
   } else {
     float t[NP];
 #pragma unroll
@@ -230,18 +238,17 @@ __device__ __forceinline__ void chain_reduce(float (&v)[NS + NM], float* red,
       const float x = __shfl_xor_sync(0xffffffffu, t[0], o);
       t[0] = (NM == 0 || base < NS) ? t[0] + x : fmaxf(t[0], x);
     }
-    if ((lane & (32 / NP - 1)) == 0) buf[warp * 8 + base] = t[0];
+    if ((lane & (32 / NP - 1)) == 0) buf[warp * SLOT + base] = t[0];
   }
   asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
   const float4* buf4 = reinterpret_cast<const float4*>(buf);
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
-    float s[8];
-    const float4 x = buf4[w * 2];
-    s[0] = x.x, s[1] = x.y, s[2] = x.z, s[3] = x.w;
-    if (NV > 4) {
-      const float4 y = buf4[w * 2 + 1];
-      s[4] = y.x, s[5] = y.y, s[6] = y.z, s[7] = y.w;
+    float s[SLOT];
+#pragma unroll
+    for (int q = 0; q < (NV + 3) / 4; ++q) {
+      const float4 x = buf4[w * (SLOT / 4) + q];
+      s[4 * q] = x.x, s[4 * q + 1] = x.y, s[4 * q + 2] = x.z, s[4 * q + 3] = x.w;
     }
 #pragma unroll
     for (int j = 0; j < NV; ++j)
@@ -249,11 +256,35 @@ __device__ __forceinline__ void chain_reduce(float (&v)[NS + NM], float* red,
   }
 }
 
+// chain_reduce of any number of values: more than a slot holds go as two
+// reductions, the first SLOT values and then the rest.
+template <int NT, int NS, int NM, int SLOT>
+__device__ __forceinline__ void chain_reduce_n(float (&v)[NS + NM], float* red,
+                                               int& par) {
+  if constexpr (NS + NM <= SLOT) {
+    chain_reduce<NT, NS, NM, SLOT>(v, red, par);
+  } else {
+    constexpr int NS1 = NS < SLOT ? NS : SLOT, NM1 = SLOT - NS1;
+    constexpr int NS2 = NS - NS1, NM2 = NM - NM1;
+    float a[SLOT], b[NS2 + NM2];
+#pragma unroll
+    for (int j = 0; j < SLOT; ++j) a[j] = v[j];
+#pragma unroll
+    for (int j = 0; j < NS2 + NM2; ++j) b[j] = v[SLOT + j];
+    chain_reduce<NT, NS1, NM1, SLOT>(a, red, par);
+    chain_reduce<NT, NS2, NM2, SLOT>(b, red, par);
+#pragma unroll
+    for (int j = 0; j < SLOT; ++j) v[j] = a[j];
+#pragma unroll
+    for (int j = 0; j < NS2 + NM2; ++j) v[SLOT + j] = b[j];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // forward sweep
 // ---------------------------------------------------------------------------
 
-struct FwdArgs {
+struct FwdCommon {
   const float *lemg, *beta, *lem_pad;
   const int *slots, *first_read;
   const float *lab_init, *trans;
@@ -264,7 +295,11 @@ struct FwdArgs {
   int G, B, W, K, K_real, it_mode, want_alpha;
   int vec, DS, DR;   // 16-byte copies allowed; ring depths
   float invK;
-  float prior[NL];
+};
+
+template <int NL>
+struct FwdArgs : FwdCommon {
+  float prior[NL];   // label prior of the NL latent rows
 };
 
 struct SlotWords {
@@ -272,7 +307,7 @@ struct SlotWords {
   float t0, t1;              // trans[:, g]
 };
 
-__device__ __forceinline__ SlotWords load_words(const FwdArgs& a, int g, int i,
+__device__ __forceinline__ SlotWords load_words(const FwdCommon& a, int g, int i,
                                                 int b) {
   SlotWords w = {0, 0, 1, 0, a.cnt_max[g], a.trans[g], a.trans[a.G + g]};
   if (i < a.W) {
@@ -290,7 +325,8 @@ __device__ __forceinline__ SlotWords load_words(const FwdArgs& a, int g, int i,
 // (s < G) and, for s >= 1, beta[s-1] with trans[s-1] and the number of live
 // slots of grid s-1; the chain consumes stage g+1 when it advances into
 // grid g. The live slots of grid g follow in the row ring, in slot order.
-__device__ void fwd_producer(const FwdArgs& a, float* stage_buf, float* row_buf,
+template <int NL>
+__device__ void fwd_producer(const FwdArgs<NL>& a, float* stage_buf, float* row_buf,
                              float (*smeta)[4], int (*rmeta)[4],
                              uint64_t* full_s, uint64_t* empty_s,
                              uint64_t* full_r, uint64_t* empty_r) {
@@ -424,13 +460,16 @@ struct ReadRow {
 // NT consumer threads (the chain) and one producer warp. FAST: K <= NT*CPT
 // and the column loops unroll over CPT registers; otherwise CPT is the
 // capacity of per-thread local arrays and the loops run ceil(K/NT) times.
-template <int NT, int CPT, bool FAST>
-__global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs a) {
+// WIDE (NL = 3 only): a reduction slot of 16 values, so that no reduction
+// of a step goes as two.
+template <int NT, int CPT, bool FAST, int NL, bool WIDE>
+__global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a) {
+  constexpr int SLOT = (NL > 2 && WIDE) ? 16 : 8;
   extern __shared__ __align__(16) float dyn[];
   __shared__ uint64_t bars[2 * MAX_DS + 2 * MAX_DR];
   __shared__ float smeta[MAX_DS][4];
   __shared__ int rmeta[MAX_DR][4];
-  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  __shared__ __align__(16) float red[2 * (NT / 32) * SLOT];
   uint64_t* full_s = bars;
   uint64_t* empty_s = bars + MAX_DS;
   uint64_t* full_r = bars + 2 * MAX_DS;
@@ -498,7 +537,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs a) {
     }
     release(&empty_s[0]);
     S.next();
-    chain_reduce<NT, 0, NL>(mx, red, par);
+    chain_reduce<NT, 0, NL, SLOT>(mx, red, par);
 #pragma unroll UNROLL
     for (int m = 0; m < ncol; ++m) {
 #pragma unroll
@@ -538,7 +577,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs a) {
       nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, K, ncol);
       nxt.template exponentials<UNROLL>(ncol);
     }
-    chain_reduce<NT, 2 * NL, NL>(v, red, par);
+    chain_reduce_n<NT, 2 * NL, NL, SLOT>(v, red, par);
 #pragma unroll
     for (int h = 0; h < NL; ++h) {
       const float s = v[h];
@@ -579,7 +618,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs a) {
         }
       }
       if (j + 1 < nlive) nxt.template exponentials<UNROLL>(ncol);
-      chain_reduce<NT, 4 * NL, 0>(q, red, par);
+      chain_reduce_n<NT, 4 * NL, 0, SLOT>(q, red, par);
 
       const float u = cur.u;
       const int hC = cur.hC, rg = cur.rg;
@@ -802,19 +841,19 @@ __global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
 // the least a dependent step can take: the chain's reduction alone
 // ---------------------------------------------------------------------------
 
-template <int NT>
+template <int NT, int NV>
 __global__ void __launch_bounds__(NT) chain_floor_kernel(float* out, int steps) {
-  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
-  float v[8];
+  __shared__ __align__(16) float red[2 * (NT / 32) * NV];
+  float v[NV];
   int par = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = 1e-3f * (threadIdx.x + j);
+  for (int j = 0; j < NV; ++j) v[j] = 1e-3f * (threadIdx.x + j);
   for (int s = 0; s < steps; ++s) {
-    chain_reduce<NT, 8, 0>(v, red, par);
+    chain_reduce<NT, NV, 0, NV>(v, red, par);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = v[j] * 1e-3f + 1e-3f * threadIdx.x;
+    for (int j = 0; j < NV; ++j) v[j] = v[j] * 1e-3f + 1e-3f * threadIdx.x;
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = v[0] + v[7];
+  if (threadIdx.x == 0) out[blockIdx.x] = v[0] + v[NV - 1];
 }
 
 // ---------------------------------------------------------------------------
@@ -830,13 +869,13 @@ int set_smem(const void* fn, size_t smem) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <int NT, int CPT, bool FAST>
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+template <int NT, int CPT, bool FAST, bool WIDE = false, int NL>
+int launch_fwd(const FwdArgs<NL>& a, cudaStream_t stream) {
   const size_t smem =
       ((size_t)a.DS * 2 * NL + a.DR) * a.K * sizeof(float);
-  int err = set_smem((const void*)gibbs_fwd_kernel<NT, CPT, FAST>, smem);
+  int err = set_smem((const void*)gibbs_fwd_kernel<NT, CPT, FAST, NL, WIDE>, smem);
   if (err) return err;
-  gibbs_fwd_kernel<NT, CPT, FAST><<<a.B, NT + 32, smem, stream>>>(a);
+  gibbs_fwd_kernel<NT, CPT, FAST, NL, WIDE><<<a.B, NT + 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -887,19 +926,76 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)
 
+// The forward sweep of the diploid sampler: every pair of SWEEP_DISPATCH.
+int dispatch_fwd(const FwdArgs<2>& a, int threads, int wide, cudaStream_t stream) {
+  if (wide) return (int)cudaErrorInvalidValue;
+  SWEEP_DISPATCH(launch_fwd, a.K, threads, a, stream);
+}
+
+// The forward sweep at NL = 3 holds half as many more registers a column,
+// so it is not built for the pairs that exist only to be timed, and the
+// WIDE form only at the shape it is timed at (128 threads, K in (512, 640]).
+int dispatch_fwd(const FwdArgs<3>& a, int threads, int wide, cudaStream_t stream) {
+  const int K = a.K;
+  if (wide) {
+    if ((threads == 0 || threads == 128) && K > 128 * 4 && K <= 128 * 5)
+      return launch_fwd<128, 5, true, true>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (threads == 0 || threads == 128) {
+    if (K <= 128 * 2) return launch_fwd<128, 2, true>(a, stream);
+    if (K <= 128 * 4) return launch_fwd<128, 4, true>(a, stream);
+    if (K <= 128 * 5) return launch_fwd<128, 5, true>(a, stream);
+    if (K <= 128 * 8) return launch_fwd<128, 8, true>(a, stream);
+  }
+  if ((threads == 0 || threads == 256) && K <= 256 * 8)
+    return launch_fwd<256, 8, true>(a, stream);
+  if ((threads == 0 || threads == -1) && K <= GENERAL_NT * GENERAL_CPT)
+    return launch_fwd<GENERAL_NT, GENERAL_CPT, false>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int NL>
+int run_fwd(const FwdCommon& c, const float* prior, int threads, int wide,
+            cudaStream_t stream) {
+  FwdArgs<NL> a;
+  static_cast<FwdCommon&>(a) = c;
+  for (int h = 0; h < NL; ++h) a.prior[h] = prior[h];
+  // the rings shrink, not K: rows first, then grid stages, down to one each
+  a.DS = MAX_DS, a.DR = MAX_DR;
+  const size_t row = (size_t)a.K * sizeof(float);
+  while (((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
+    if (a.DR > 1) a.DR /= 2;
+    else if (a.DS > 1) a.DS -= 1;
+    else return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_fwd(a, threads, wide, stream);
+}
+
+template <int NT>
+int launch_floor(float* out, int blocks, int steps, int values, cudaStream_t s) {
+  if (values == 8) chain_floor_kernel<NT, 8><<<blocks, NT, 0, s>>>(out, steps);
+  else if (values == 16) chain_floor_kernel<NT, 16><<<blocks, NT, 0, s>>>(out, steps);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// threads: 0 = the fastest variant that holds K; 64 / 128 / 256 = that many
-// chain threads (cudaErrorInvalidValue if no such variant holds K); -1 = the
-// general variant. Callers other than timings and tests pass 0.
+// nl: 2 (diploid) or 3 (NIPT) latent rows a chain, with the label prior
+// p0..p2 (p2 unread at nl = 2). threads: 0 = the fastest variant that holds
+// K; 64 / 128 / 256 = that many chain threads (cudaErrorInvalidValue if no
+// such variant holds K); -1 = the general variant. wide: 0 but to time the
+// one-reduction form of the nl = 3 steps (128 threads, K in (512, 640]).
+// Callers other than timings and tests pass threads = 0 and wide = 0.
 extern "C" int gibbs_fwd(
     const void* lemg, const void* beta, const void* lem_pad,
     const void* slots, const void* first_read, const void* lab_init,
     const void* trans, const void* cnt_max, void* lemg_out, void* alpha_out,
     void* h_out, void* logc_out, void* uf_out, void* lab_out, int G, int B,
     int W, int K, int K_real, int it_mode, int want_alpha, int threads,
-    float invK, void* stream) {
-  FwdArgs a;
+    int nl, int wide, float invK, float p0, float p1, float p2, void* stream) {
+  FwdCommon a;
   a.lemg = (const float*)lemg, a.beta = (const float*)beta;
   a.lem_pad = (const float*)lem_pad, a.slots = (const int*)slots;
   a.first_read = (const int*)first_read, a.lab_init = (const float*)lab_init;
@@ -909,17 +1005,12 @@ extern "C" int gibbs_fwd(
   a.uf_out = (float*)uf_out, a.lab_out = (float*)lab_out;
   a.G = G, a.B = B, a.W = W, a.K = K, a.K_real = K_real, a.it_mode = it_mode;
   a.want_alpha = want_alpha, a.invK = invK;
-  for (int h = 0; h < NL; ++h) a.prior[h] = 1.f / NL;   // the diploid prior
   a.vec = K % 4 == 0 && aligned16(lemg) && aligned16(beta) && aligned16(lem_pad);
-  // the rings shrink, not K: rows first, then grid stages, down to one each
-  a.DS = MAX_DS, a.DR = MAX_DR;
-  const size_t row = (size_t)K * sizeof(float);
-  while (((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
-    if (a.DR > 1) a.DR /= 2;
-    else if (a.DS > 1) a.DS -= 1;
-    else return (int)cudaErrorInvalidValue;
-  }
-  SWEEP_DISPATCH(launch_fwd, K, threads, a, (cudaStream_t)stream);
+  a.DS = a.DR = 0;
+  const float prior[3] = {p0, p1, p2};
+  if (nl == 2) return run_fwd<2>(a, prior, threads, wide, (cudaStream_t)stream);
+  if (nl == 3) return run_fwd<3>(a, prior, threads, wide, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ahead: 0 but to time the look-ahead form (128 threads, K in (512, 640]).
@@ -940,14 +1031,13 @@ extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
   SWEEP_DISPATCH(launch_bwd, K, threads, a, (cudaStream_t)stream);
 }
 
-// `steps` dependent 8-value reductions of `threads` (64 / 128 / 256) threads
-// in each of `blocks` blocks; out [blocks] floats.
+// `steps` dependent reductions of `values` (8 or 16) sums by `threads`
+// (64 / 128 / 256) threads in each of `blocks` blocks; out [blocks] floats.
 extern "C" int gibbs_chain_floor(void* out, int blocks, int steps, int threads,
-                                 void* stream) {
+                                 int values, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (threads == 64) chain_floor_kernel<64><<<blocks, 64, 0, s>>>((float*)out, steps);
-  else if (threads == 128) chain_floor_kernel<128><<<blocks, 128, 0, s>>>((float*)out, steps);
-  else if (threads == 256) chain_floor_kernel<256><<<blocks, 256, 0, s>>>((float*)out, steps);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (threads == 64) return launch_floor<64>((float*)out, blocks, steps, values, s);
+  if (threads == 128) return launch_floor<128>((float*)out, blocks, steps, values, s);
+  if (threads == 256) return launch_floor<256>((float*)out, blocks, steps, values, s);
+  return (int)cudaErrorInvalidValue;
 }

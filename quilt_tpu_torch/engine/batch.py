@@ -1,9 +1,10 @@
-"""Multi-sample batched diploid imputation on one device, QUILT1 and
-QUILT2.
+"""Multi-sample batched imputation on one device, diploid and NIPT, QUILT1
+and QUILT2.
 
-The diploid branches of quilt_tpu/engine/batch.py:impute_samples_batched
-(:67-709). Batch rows are {sample x chain}; per seek iteration a 21-sweep
-Gibbs call labels every read. QUILT1: the labels give haploid GLs, the
+The port of quilt_tpu/engine/batch.py:impute_samples_batched (:67-709).
+Batch rows are {sample x chain}, each with nl = 2 latent haplotypes (diploid)
+or 3 (NIPT: mother + fetus, one fetal fraction per batch); per seek iteration
+a 21-sweep Gibbs call labels every read. QUILT1: the labels give haploid GLs, the
 full-panel FB gives dosages and top-K matches, and the haplotype subsets
 are re-selected on the device. msPBWT (QUILT2): the Gibbs call's own
 haplotype dosages are the dosages, and their distinct-haplotype symbols
@@ -11,7 +12,9 @@ drive the host msPBWT match search that re-selects the subsets. Dosages
 and genotype posteriors accumulate past the seek burn-in; a read-label
 consensus across chains seeds a final phasing pass. Rare/common (QUILT2):
 the seek loop runs on common SNPs, then one all-SNP Gibbs call after the
-seek loop and one after the phasing pass give the all-SNP outputs.
+seek loop and one after the phasing pass give the all-SNP outputs. NIPT
+keeps, beside the maternal dosages (haplotypes 1 + 2), the fetal ones
+(1 + 3), and folds label 2 onto 1 for the consensus.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from ..panel.mspbwt import select_new_haps_mspbwt_batch, symbols_device
 from .context import RegionContext, sample_allele_count
 from .rare_common import initial_all_snp_labels
 from .selection import (
-    consensus_read_labels, read_confidence_device, recast_haps,
+    consensus_read_labels, read_confidence_device, recast_haps, recast_nipt_haps,
     select_new_haps_device,
 )
 
@@ -50,11 +53,16 @@ _CPU_LEM_BUDGET = int(2.5e9)
 @dataclass
 class SampleResult:
     imputed: bool
-    dosage: Optional[np.ndarray] = None        # [nSNPs] diploid dosage
+    dosage: Optional[np.ndarray] = None        # [nSNPs] diploid dosage (NIPT: maternal)
     gp: Optional[np.ndarray] = None            # [3, nSNPs]
-    phased_haps: Optional[np.ndarray] = None   # [2, nSNPs] 0/1
+    phased_haps: Optional[np.ndarray] = None   # [2 or 3, nSNPs] 0/1
     read_labels: Optional[np.ndarray] = None   # [R]
     allele_count: Optional[np.ndarray] = None  # [nSNPs, 2] (alt, total)
+    # NIPT: maternal (haplotypes 1 + 2) and fetal (1 + 3) posteriors and dosages
+    mat_gp: Optional[np.ndarray] = None
+    fet_gp: Optional[np.ndarray] = None
+    mat_dosage: Optional[np.ndarray] = None
+    fet_dosage: Optional[np.ndarray] = None
 
 
 def lem_full_budget(device: torch.device) -> int:
@@ -66,19 +74,19 @@ def lem_full_budget(device: torch.device) -> int:
 
 
 def impute_samples_batched(ctx: RegionContext, reads_list: Sequence[SampleReads],
-                           cfg: ImputeConfig, seed: int,
+                           cfg: ImputeConfig, seed: int, ff: float = 0.0,
                            reads_all_list: Optional[Sequence[SampleReads]] = None,
                            ) -> List[SampleResult]:
     """Whole-batch underflow retry (reference: the per-call /10 retry of
     functions.R:2704-2714): the underflow flag is checked once at the end
     of a batch, and on underflow the whole batch reruns with seed+attempt
-    and a tenth of maxDifferenceBetweenReads. Under rare/common,
-    reads_list holds the common-SNP reads and reads_all_list the same
-    samples' all-SNP reads."""
+    and a tenth of maxDifferenceBetweenReads. ff is the batch's fetal
+    fraction (NIPT). Under rare/common, reads_list holds the common-SNP
+    reads and reads_all_list the same samples' all-SNP reads."""
     max_diff = cfg.maxDifferenceBetweenReads
     for attempt in range(11):
         results, uf_seen = _impute_once(ctx, reads_list, cfg, seed + attempt, max_diff,
-                                        reads_all_list)
+                                        ff, reads_all_list)
         if not uf_seen:
             return results
         max_diff = max(1.0, max_diff / 10.0)
@@ -87,10 +95,11 @@ def impute_samples_batched(ctx: RegionContext, reads_list: Sequence[SampleReads]
 
 
 def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
-                 max_diff: float, reads_all_list=None):
+                 max_diff: float, ff: float = 0.0, reads_all_list=None):
     prep = ctx.prep
     dev = ctx.device
-    nSNPs, nGrids, K, nl = prep.nSNPs, prep.nGrids, prep.K, 2
+    nSNPs, nGrids, K, nl = prep.nSNPs, prep.nGrids, prep.K, ctx.n_latent
+    label_prior = [0.5, 0.5] if nl == 2 else [0.5, (1 - ff) / 2, ff / 2]
     use_ms = cfg.use_mspbwt
     rare_common = reads_all_list is not None
     rng = np.random.default_rng(seed)
@@ -126,7 +135,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     for s in range(S):
         nr = reads_sorted[s].nReads
         for c in range(C):
-            H[s * C + c, :nr] = rng.choice(nl, size=nr, p=[0.5, 0.5])
+            H[s * C + c, :nr] = rng.choice(nl, size=nr, p=label_prior)
     first_read = np.array([rng.integers(0, max(reads_sorted[b // C].nReads, 1))
                            for b in range(B)], dtype=np.int32)
     gen = torch.Generator(device=dev)
@@ -166,7 +175,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     def run_chains(which_b, H0_b, iterative, first_b):
         """One n_its-sweep Gibbs call; the underflow flag accumulates on the
         device and is read once at the end of the batch. Returns the labels
-        and, under msPBWT, the Gibbs haplotype dosages [B, 2, nSNPs]."""
+        and, under msPBWT, the Gibbs haplotype dosages [B, nl, nSNPs]."""
         nonlocal uf_any
         Ksub_b = which_b.shape[1]
         words = None
@@ -178,21 +187,25 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
             uniforms = torch.rand((n_its, B, R), generator=gen, device=dev)
             block_u = torch.rand((n_its, max(nb_slots, 1), 3, B), generator=gen,
                                  device=dev)[:, :nb_slots]
+            # the NIPT block move resamples the labels from the read classes
+            resample_u = (torch.rand((n_its, B, R), generator=gen, device=dev)
+                          if nl == 3 and nb_slots else None)
         if lem_full is not None:
             with sec("gibbs:lem_subset"):
                 lem, skip = lem_subset(lem_full, sp_of_row[:, None] * K + which_p, max_diff, R)
         with sec("gibbs:sweep_kernel"):
             if lem_full is None:
                 lem, skip = read_lem(words, rows, max_diff, R)
-            Hn, _, uf, hap_dos, _ = run_gibbs_chains(
+            call = run_gibbs_chains(
                 layout, ctx.tensors["gibbs_trans"], lem, skip, uniforms, H0_b,
                 first_b, iterative, Ksub_b,
                 block_u=block_u if nb_slots else None, do_block=do_block,
                 smooth_w=ctx.smooth_w, quantile_prob=ctx.block_quantile,
                 words=words if use_ms else None, ref_error=prep.ref_error, timed=sec,
+                nl=nl, ff=ff, resample_u=resample_u,
             )
-        uf_any = uf_any | uf.any()
-        return Hn, None if hap_dos is None else hap_dos[:, :, :nSNPs]
+        uf_any = uf_any | call.underflow.any()
+        return call.H, None if call.hap_dos is None else call.hap_dos[:, :, :nSNPs]
 
     def run_fb_and_select(H_b, which_b):
         with sec("fb:gl_build"):
@@ -230,7 +243,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         return as_t(new_sets.astype(np.int64))
 
     def seek_step(which_b, H0_b, iterative, first_b):
-        """One seek iteration: (labels, hap dosages [B, 2, nSNPs], new subsets)."""
+        """One seek iteration: (labels, hap dosages [B, nl, nSNPs], new subsets)."""
         Hn, hap_dos = run_chains(which_b, H0_b, iterative, first_b)
         if use_ms:
             return Hn, hap_dos, select_mspbwt(hap_dos, which_b)
@@ -255,7 +268,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         labels start from the common-SNP dosages, the subset words come from
         the region's all-SNP panel, no block moves, and an underflow retries
         the call with a tenth of maxDifferenceBetweenReads (11 attempts).
-        Returns the hap dosages [B, 2, nSNPs_all]."""
+        Returns the hap dosages [B, nl, nSNPs_all]."""
         Ksub_b = which_b.shape[1]
         with sec("rare:bits_build"):
             words = gather_words(ctx.tensors["rhb_all"], pad_subsets(which_b))
@@ -264,27 +277,47 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         for b in range(B):
             ra = reads_all_sorted[b // C]
             H0[b, :ra.nReads] = initial_all_snp_labels(ra, hd_common[b], prep.snp_is_common,
-                                                       nl, 0.0, rng)
+                                                       nl, ff, rng)
         uniforms = as_t(rng.random((n_its, B, R_all)).astype(np.float32))
         H0, zero = as_t(H0), torch.zeros(B, dtype=torch.int32, device=dev)
         md = max_diff
         for _ in range(11):
             with sec("rare:sweep_kernel"):
                 lem, skip = read_lem(words, rows_all, md, R_all)
-                _, _, uf, hd, _ = run_gibbs_chains(
+                call = run_gibbs_chains(
                     layout_all, ctx.tensors["gibbs_trans_all"], lem, skip, uniforms, H0, zero,
                     False, Ksub_b, words=words, ref_error=prep.ref_error, timed=sec,
+                    nl=nl, ff=ff,
                 )
-            if not bool(uf.any()):
+            if not bool(call.underflow.any()):
                 break
             md = max(1.0, md / 10.0)
             print_message(f"Underflow in all-SNP Gibbs; retrying batch with "
                           f"maxDifferenceBetweenReads={md}")
-        return hd[:, :, :nSNPs_all]
+        return call.hap_dos[:, :, :nSNPs_all]
 
-    dosage_acc = torch.zeros((S, nSNPs), dtype=torch.float32, device=dev)
-    gp_acc = torch.zeros((S, 3, nSNPs), dtype=torch.float32, device=dev)
-    n_acc = 0
+    class Accumulator:
+        """Per-sample sums over chains of the maternal (haplotypes 1 + 2; the
+        diploid pair) and, for NIPT, fetal (1 + 3) dosages and genotype
+        posteriors; they stay on the device until `means`."""
+
+        def __init__(self, n_sites):
+            self.n = 0
+            self.sums = [(torch.zeros((S, n_sites), dtype=torch.float32, device=dev),
+                          torch.zeros((S, 3, n_sites), dtype=torch.float32, device=dev))
+                         for _ in range(nl - 1)]
+
+        def add(self, hap_dos):
+            for other, (dos, gp) in enumerate(self.sums, start=1):
+                _accumulate(dos, gp, hap_dos, S, C, other)
+            self.n += C
+
+        def means(self):
+            """[(dosage [S, n], gp [S, 3, n])] float64: maternal, then fetal."""
+            return [tuple(x.double().cpu().numpy() / max(self.n, 1) for x in pair)
+                    for pair in self.sums]
+
+    acc = Accumulator(nSNPs)
     which = as_t(which_haps.astype(np.int64))
     H_dev = as_t(H)
     first = as_t(first_read)
@@ -293,20 +326,14 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         H_dev, hap_dos, which = seek_step(which, H_dev, i_it == 1, first)
         if i_it > ctx.n_burn_in_seek_its:
             with sec("accumulate"):
-                # in place: the accumulators stay device-resident
-                _accumulate(dosage_acc, gp_acc, hap_dos, S, C)
-            n_acc += C
+                acc.add(hap_dos)
     with sec("final_fetch"):
-        dosage_np = dosage_acc.double().cpu().numpy() / max(n_acc, 1)
-        gp_np = gp_acc.double().cpu().numpy() / max(n_acc, 1)
+        means = acc.means()
     if rare_common:
         # all-SNP outputs: one final all-SNP call on the last seek state
-        hd_a = run_all_snp_gibbs(which, hap_dos)
-        dosage_all = torch.zeros((S, nSNPs_all), dtype=torch.float32, device=dev)
-        gp_all = torch.zeros((S, 3, nSNPs_all), dtype=torch.float32, device=dev)
-        _accumulate(dosage_all, gp_all, hd_a, S, C)
-        dosage_np = dosage_all.double().cpu().numpy() / C
-        gp_np = gp_all.double().cpu().numpy() / C
+        acc = Accumulator(nSNPs_all)
+        acc.add(run_all_snp_gibbs(which, hap_dos))
+        means = acc.means()
 
     # per-sample consensus: read confidence on the device from the final
     # per-chain dosages; the flip-detection walk is sequential, on the host
@@ -316,10 +343,18 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         cons_list = []
         for s in range(S):
             nr = reads_sorted[s].nReads
-            cons_list.append(consensus_read_labels(
-                H_np[s * C:(s + 1) * C, :nr].T.astype(np.int64),
-                conf[s * C:(s + 1) * C, :nr].T,
-            ))
+            labels_all = H_np[s * C:(s + 1) * C, :nr].T.astype(np.int64)
+            conf_all = conf[s * C:(s + 1) * C, :nr].T
+            if nl == 3:
+                # the flip walk knows two labels: fetal reads count as the
+                # mother's second haplotype and are never confident, then
+                # take their label back from the canonical chain
+                fetal = labels_all == 2
+                cons = consensus_read_labels(np.where(fetal, 1, labels_all), conf_all & ~fetal)
+                cons[fetal[:, C - 1]] = 2
+            else:
+                cons = consensus_read_labels(labels_all, conf_all)
+            cons_list.append(cons)
 
     # phasing pass: one chain per sample, replicated over the C rows
     H_p = np.zeros((B, R), dtype=np.int32)
@@ -341,24 +376,31 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         if not ok[s]:
             results.append(SampleResult(imputed=False))
             continue
-        gp = gp_np[s]
-        hd1, hd2 = recast_haps(hap_dos_ph[s, 0], hap_dos_ph[s, 1], gp)
-        results.append(SampleResult(
-            imputed=True, dosage=dosage_np[s], gp=gp,
-            phased_haps=np.stack([np.round(hd1), np.round(hd2)]),
-            read_labels=cons_list[s],
+        dosage, gp = means[0][0][s], means[0][1][s]
+        common = dict(
+            imputed=True, dosage=dosage, gp=gp, read_labels=cons_list[s],
             allele_count=(sample_allele_count(reads_all_sorted[s], nSNPs_all) if rare_common
                           else sample_allele_count(reads_sorted[s], nSNPs)),
-        ))
+        )
+        if nl == 2:
+            hd1, hd2 = recast_haps(hap_dos_ph[s, 0], hap_dos_ph[s, 1], gp)
+            results.append(SampleResult(
+                phased_haps=np.stack([np.round(hd1), np.round(hd2)]), **common))
+        else:
+            fet_dosage, fet_gp = means[1][0][s], means[1][1][s]
+            results.append(SampleResult(
+                phased_haps=np.stack(recast_nipt_haps(*hap_dos_ph[s], gp, fet_gp)),
+                mat_gp=gp, fet_gp=fet_gp, mat_dosage=dosage, fet_dosage=fet_dosage, **common))
     return results, bool(uf_any.item())
 
 
-def _accumulate(dosage_acc, gp_acc, hap_dos, S, C):
-    """Add the chains' diploid dosages and genotype posteriors of hap_dos
-    [S*C, 2, n] to the per-sample accumulators [S, n] / [S, 3, n]."""
+def _accumulate(dosage_acc, gp_acc, hap_dos, S, C, other=1):
+    """Add the chains' dosages and genotype posteriors of the haplotype pair
+    (0, other) of hap_dos [S*C, nl, n] to the per-sample accumulators
+    [S, n] / [S, 3, n], in place."""
     n = hap_dos.shape[2]
     h1 = hap_dos[:, 0].reshape(S, C, n)
-    h2 = hap_dos[:, 1].reshape(S, C, n)
+    h2 = hap_dos[:, other].reshape(S, C, n)
     dosage_acc += (h1 + h2).sum(1)
     gp_acc[:, 0] += ((1 - h1) * (1 - h2)).sum(1)
     gp_acc[:, 1] += (h1 * (1 - h2) + (1 - h1) * h2).sum(1)

@@ -33,7 +33,7 @@ from .rare_common import all_snp_panel
 @dataclass
 class RegionContext:
     """Per-region constants and device tensors shared across sample
-    batches (diploid, one device). Under msPBWT selection there are no FB
+    batches (one device; n_latent = 2 diploid, 3 NIPT). Under msPBWT selection there are no FB
     inputs (fb_inputs and thinned_grids are None) and tensors["dh_bits"]
     holds the distinct haplotypes [nMaxDH, nGrids*32]; under rare/common,
     trans_all / nGrids_all are the all-SNP grid's and tensors["rhb_all"]
@@ -125,6 +125,7 @@ class RegionContext:
             block_nb_cap=nb_cap,
             timers=SectionTimers(cfg.print_extra_timing_information),
             trans_all=trans_all, nGrids_all=nGrids_all,
+            n_latent=3 if cfg.method == "nipt" else 2,
         )
 
 
@@ -214,6 +215,14 @@ def validate_impute_config(cfg: ImputeConfig) -> None:
     if cfg.estimate_bq_using_truth_read_labels:
         raise QuiltValidationError(
             "estimate_bq_using_truth_read_labels is not supported by quilt_tpu")
+    if not cfg.use_sample_is_diploid and cfg.method == "diploid":
+        # the diploid Gibbs kernel is the two-haplotype instantiation
+        # (reference toggles this at functions.R:2539); the flag cannot
+        # turn that off
+        print_message(
+            "Note: use_sample_is_diploid=FALSE has no effect; the diploid "
+            "Gibbs kernel always runs the two-haplotype path (documented "
+            "deviation, see PARITY.md)")
 
 
 def validate_region_consistency(prep: PreparedReference, cfg: ImputeConfig) -> None:

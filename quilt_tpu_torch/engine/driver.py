@@ -16,8 +16,8 @@ from ..config import ImputeConfig
 from ..io.reads import SampleReads
 from ..out.metrics import calculate_pse, r2_simple
 from ..out.vcf_writer import (
-    MISSING_DIPLOID_COL, diploid_sample_column, hwe_from_counts, info_score,
-    write_quilt_vcf,
+    MISSING_DIPLOID_COL, MISSING_NIPT_COL, diploid_sample_column, hwe_from_counts,
+    info_score, nipt_sample_column, write_quilt_vcf,
 )
 from ..panel.prepare import PreparedReference
 from ..utils import print_message, set_verbosity
@@ -57,8 +57,6 @@ def check_slice(cfg: ImputeConfig) -> None:
     """Refuse what this port does not run yet, naming the slice it belongs
     to (see ROADMAP.md)."""
     later = []
-    if cfg.method != "diploid":
-        later.append(f"method={cfg.method} (NIPT slice)")
     if cfg.hla_run or cfg.gamma_physically_closest_to is not None:
         later.append("hla_run / gamma capture (HLA slice)")
     flags = [f for f in _PER_SAMPLE_FLAGS if getattr(cfg, f)]
@@ -72,12 +70,12 @@ def check_slice(cfg: ImputeConfig) -> None:
         )
 
 
-def max_chains(K_pad: int, W: int, G: int, device: torch.device) -> int:
+def max_chains(K_pad: int, W: int, G: int, device: torch.device, nl: int = 2) -> int:
     """Largest Gibbs chain batch whose working set fits: per chain, the
-    lemg/beta/alpha [G, 2, K_pad] planes (twice: inputs and outputs of a
+    lemg/beta/alpha [G, nl, K_pad] planes (twice: inputs and outputs of a
     sweep), the [G, W, K_pad] float32 slot emissions (and the gather that
     builds them) and the [K_pad, R ~ 4G] read emissions."""
-    per_row = 4 * (2 * 3 * 2 * G * K_pad + 2 * G * max(W, 1) * K_pad + 4 * G * K_pad)
+    per_row = 4 * (2 * 3 * nl * G * K_pad + 2 * G * max(W, 1) * K_pad + 4 * G * K_pad)
     if device.type == "cuda":
         budget = int(torch.cuda.mem_get_info(device)[0] * _GIBBS_MEM_FRACTION)
     else:
@@ -107,14 +105,16 @@ def _key(cfg: ImputeConfig, fields) -> tuple:
 def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                  sample_names: Sequence[str], cfg: ImputeConfig, device,
                  output_filename: Optional[str] = None,
+                 ff_values: Optional[np.ndarray] = None,
                  truth_gen: Optional[np.ndarray] = None,
                  truth_haps: Optional[np.ndarray] = None) -> ImputeOutput:
-    """Diploid imputation of `samples` on `device` (a torch device: "cuda"
-    on the GPU, "cpu" for the tests): QUILT1, or QUILT2 with use_mspbwt
+    """Imputation of `samples` on `device` (a torch device: "cuda" on the
+    GPU, "cpu" for the tests), diploid or NIPT (cfg.method; ff_values [N]
+    the samples' fetal fractions): QUILT1, or QUILT2 with use_mspbwt
     and / or impute_rare_common. Under rare/common the samples hold
     all-SNP reads and every output (VCF sites, dosages, truth_gen) is on
     the all-SNP axis. truth_gen [nSNPs, N] and truth_haps [nSNPs, N, 2]
-    give per-sample r2 / PSE reports."""
+    give per-sample r2 / PSE reports (NIPT: of the mother)."""
     t0 = time.time()
     set_verbosity(cfg.verbose)
     validate_impute_config(cfg)
@@ -123,6 +123,10 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     device = torch.device(device)
     ctx = _region_context(prep, cfg, device)
     N = len(samples)
+    nipt = cfg.method == "nipt"
+    ff_values = np.zeros(N) if ff_values is None else np.asarray(ff_values, dtype=float)
+    if len(ff_values) != N:
+        raise ValueError(f"{len(ff_values)} fetal fractions for {N} samples")
     rare_common = cfg.impute_rare_common and prep.snp_is_common is not None
     samples_all = None
     if rare_common:
@@ -146,17 +150,26 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         if r is not None and r.nReads:
             W_max = max(W_max, int(np.bincount(np.clip(r.wif0, 0, prep.nGrids - 1),
                                                minlength=prep.nGrids).max()))
-    cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids, device)
+    cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids, device,
+                     ctx.n_latent)
     sample_batch = max(1, min(cfg.sample_batch, cap // max(cfg.nGibbsSamples, 1)))
     if sample_batch < cfg.sample_batch:
         print_message(f"Clamping sample_batch {cfg.sample_batch} -> {sample_batch} "
                       f"(Gibbs working set at Ksubset={cfg.Ksubset})")
     results: List[Optional[SampleResult]] = [None] * N
-    for s0 in range(0, N, sample_batch):
-        group = list(range(s0, min(s0 + sample_batch, N)))
+    # a NIPT batch shares one fetal fraction (the label prior and the class
+    # tables of a Gibbs call are made from it): batches form within the
+    # samples of equal ff
+    by_ff: Dict[float, List[int]] = {}
+    for i in range(N):
+        by_ff.setdefault(float(ff_values[i]) if nipt else 0.0, []).append(i)
+    groups = [v[j:j + sample_batch] for v in by_ff.values()
+              for j in range(0, len(v), sample_batch)]
+    for group in groups:
         print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
         for i, res in zip(group, impute_samples_batched(
                 ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0],
+                ff=float(ff_values[group[0]]) if nipt else 0.0,
                 reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
             results[i] = res
 
@@ -172,10 +185,10 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         if not res.imputed:
             print_message(f"Sample {sample_names[i]} has fewer than "
                           f"{cfg.minimum_number_of_sample_reads} reads; output missing")
-            columns.append([MISSING_DIPLOID_COL] * nSNPs)
+            columns.append([MISSING_NIPT_COL if nipt else MISSING_DIPLOID_COL] * nSNPs)
             continue
         n_imputed += 1
-        gp = res.gp
+        gp = res.mat_gp if nipt else res.gp
         eij = np.round(gp[1] + 2 * gp[2], 3)
         fij = np.round(gp[1] + 4 * gp[2], 3)
         eij_sum += eij
@@ -184,10 +197,14 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         hwe_counts[np.arange(nSNPs), gp.argmax(axis=0)] += 1
         allele_count += res.allele_count
         with ctx.timers.section("vcf:columns"):
-            columns.append(diploid_sample_column(
-                res.gp, res.phased_haps, res.dosage,
-                output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
-            ))
+            if nipt:
+                columns.append(nipt_sample_column(
+                    res.mat_gp, res.fet_gp, res.mat_dosage, res.fet_dosage, res.phased_haps))
+            else:
+                columns.append(diploid_sample_column(
+                    res.gp, res.phased_haps, res.dosage,
+                    output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
+                ))
         if truth_gen is not None:
             r2 = r2_simple(truth_gen[:, i], res.dosage)
             r2s.append(r2)
@@ -199,7 +216,7 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                 msg += (f" (common {r2_simple(truth_gen[com, i], res.dosage[com]):.4f}, "
                         f"rare {r2_simple(truth_gen[~com, i], res.dosage[~com]):.4f})")
             if truth_haps is not None:
-                pse = calculate_pse(res.phased_haps.T, truth_haps[:, i])
+                pse = calculate_pse(res.phased_haps[:2].T, truth_haps[:, i])
                 msg += f", PSE: {pse['pse']:.4f} ({pse.get('phase_sites', 0)} het sites)"
             print_message(msg)
 
@@ -214,7 +231,7 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                 sample_names=sample_names, sample_columns=columns, eaf=eaf,
                 info=info, hwe=hwe_from_counts(hwe_counts),
                 allele_count=allele_count, in_region=in_region,
-                method="diploid",
+                method=cfg.method,
                 output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
                 with_ohd=False,
             )

@@ -3,8 +3,8 @@ the host-side consensus and recast helpers.
 
 select_new_haps_device and read_confidence_device are torch versions of
 quilt_tpu/engine/selection.py:63-150 (a torch.Generator replaces the jax
-key); consensus_read_labels and recast_haps are NumPy copies of :153-258
-(their module imports nothing of jax, but its package does).
+key); consensus_read_labels, recast_haps and recast_nipt_haps are NumPy copies of
+:153-303 (their module imports nothing of jax, but its package does).
 """
 from __future__ import annotations
 
@@ -135,3 +135,37 @@ def recast_haps(hd1: np.ndarray, hd2: np.ndarray, gp: np.ndarray):
     hd1[w1] = np.where(gtr, 1.0, 0.0)
     hd2[w1] = np.where(gtr, 0.0, 1.0)
     return hd1, hd2
+
+
+def recast_nipt_haps(hap1: np.ndarray, hap2: np.ndarray, hap3: np.ndarray,
+                     mat_gp: np.ndarray, fet_gp: np.ndarray):
+    """NIPT variant: make the 3 phased haplotypes agree with the maternal and
+    fetal genotype posteriors (reference: recast_nipt_haps,
+    functions.R:3214-3288)."""
+    hap1, hap2, hap3 = hap1.copy(), hap2.copy(), hap3.copy()
+    gtM = mat_gp.argmax(axis=0)
+    gtF = fet_gp.argmax(axis=0)
+    conv = [
+        (0, 0, 0, 0, 0), (0, 1, 0, 0, 1), (0, 2, 0, 0, 1), (1, 0, 0, 1, 0),
+        (1, 2, 1, 0, 1), (2, 0, 1, 1, 0), (2, 1, 1, 1, 0), (2, 2, 1, 1, 1),
+    ]
+    for m, f, h1, h2, h3 in conv:
+        w = (gtM == m) & (gtF == f)
+        hap1[w] = h1
+        hap2[w] = h2
+        hap3[w] = h3
+    w1 = (gtM == 1) & (gtF == 1)
+    r1 = np.round(hap1[w1])
+    r2 = np.round(hap2[w1])
+    r3 = np.round(hap3[w1])
+    case_a = (r1 == 1) & (r2 == 0) & (r3 == 0)
+    case_b = (r1 == 0) & (r2 == 1) & (r3 == 1)
+    other = ~case_a & ~case_b
+    h1n = np.where(case_a, 1, np.where(case_b, 0, r1))
+    h2n = np.where(case_a, 0, np.where(case_b, 1, r2))
+    h3n = np.where(case_a, 0, np.where(case_b, 1, 1 - h1n))
+    h3n = np.where(other, 1 - h1n, h3n)
+    hap1[w1] = h1n
+    hap2[w1] = h2n
+    hap3[w1] = h3n
+    return np.round(hap1), np.round(hap2), np.round(hap3)

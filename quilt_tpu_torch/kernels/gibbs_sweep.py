@@ -20,13 +20,17 @@ is no step at all: it cannot flip and changes no state, and both the kernel
 and `fwd_sweep_plain` leave alpha, pC and logc untouched there, where the
 Pallas kernel renormalises by a sum that is 1 within float32 rounding.
 
+Both samplers run through them: the diploid one (nl = 2 latent rows a
+chain, prior (0.5, 0.5)) and the NIPT one (nl = 3, prior (0.5, (1-ff)/2,
+ff/2)); the forward kernel is instantiated for each and takes the prior
+from the caller, the backward kernel works on state rows and takes any
+nl. Each nl has its own launch count (`FWD_KERNELS[nl]`, `BWD_KERNELS[nl]`).
+
 The private `_variant` argument is for timings and tests only (64, 128 or
 256: that many chain threads, as far as instantiated; -1: the general
-variant whatever K is), as is `_ahead` (the backward step's look-ahead
-form); the engine never passes them.
-
-Only the diploid sampler (nl = 2, prior (0.5, 0.5)) is in this slice; the
-NIPT sampler (nl = 3) comes with the NIPT slice.
+variant whatever K is), as are `_ahead` (the backward step's look-ahead
+form) and `_wide` (nl = 3: a step's 9 or 12 values reduced as one
+reduction of 16 instead of two of at most 8); the engine never passes them.
 """
 from __future__ import annotations
 
@@ -37,22 +41,38 @@ import torch
 from .._build import Kernel, check_tensor as _check
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FWD_KERNEL = Kernel("gibbs_sweep", "gibbs_fwd", [_P] * 14 + [_I] * 8 + [_F])
-BWD_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", [_P] * 3 + [_I] * 6 + [_F])
-FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 3)
+_FWD_ARGS = [_P] * 14 + [_I] * 10 + [_F] * 4
+_BWD_ARGS = [_P] * 3 + [_I] * 6 + [_F]
+# one launch count per sampler: the same C entries serve nl = 2 and nl = 3
+FWD_KERNELS = {2: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS),
+               3: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS, name="gibbs_fwd_nl3")}
+BWD_KERNELS = {2: Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS),
+               3: Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_nl3")}
+FWD_KERNEL, BWD_KERNEL = FWD_KERNELS[2], BWD_KERNELS[2]
+FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 4)
 _NEG = -1e30
+# dynamic shared memory a block may take (csrc/gibbs_sweep.cu SMEM_LIMIT): the
+# forward kernel's rings shrink to one grid stage (2 * nl rows of K floats)
+# and one read row before K is refused
+_SMEM_LIMIT = 227 * 1024 - 4096
 
 
-def _require_diploid(nl: int, prior=None) -> None:
-    if nl != 2 or (prior is not None and tuple(prior) != (0.5, 0.5)):
-        raise NotImplementedError(
-            "the Gibbs sweep kernels support the diploid sampler only "
-            "(nl=2); the NIPT sampler (nl=3) belongs to the NIPT slice"
-        )
+def max_fwd_K(nl: int) -> int:
+    """Largest (padded) K the forward kernel holds: 11,417 at nl = 2, 8,155
+    at nl = 3."""
+    return _SMEM_LIMIT // (4 * (2 * nl + 1))
+
+
+def _check_nl(nl: int, BN: int, prior=None) -> None:
+    if nl not in (2, 3) or BN % nl:
+        raise ValueError(f"nl must be 2 or 3 and divide the {BN} state rows, got {nl}")
+    if prior is not None and (len(prior) != nl or min(prior) < 0 or not sum(prior) > 0):
+        raise ValueError(f"prior must hold {nl} non-negative weights, got {prior}")
 
 
 def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
-              cnt_max, nl, K_real, it_mode, prior, want_alpha=True, _variant=None):
+              cnt_max, nl, K_real, it_mode, prior, want_alpha=True, _variant=None,
+              _wide=False):
     """One forward Gibbs sweep.
 
     lemg/beta [G, BN, K] f32; lem_pad [G, W, B, K] f32 (the kernel keeps
@@ -64,9 +84,9 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
     kernel."""
-    _require_diploid(nl, prior)
     G, BN, K = lemg.shape
-    B = BN // 2
+    _check_nl(nl, BN, prior)
+    B = BN // nl
     W = lem_pad.shape[1]
     f32, i32 = torch.float32, torch.int32
     dev = lemg.device
@@ -75,7 +95,7 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     _check(lem_pad, "lem_pad", f32, (G, W, B, K), dev)
     _check(slots, "slots", i32, (G, 4, W, B), dev)
     _check(first_read, "first_read", i32, (B, 1), dev)
-    _check(lab_init, "lab_init", f32, (B, 2), dev)
+    _check(lab_init, "lab_init", f32, (B, nl), dev)
     _check(trans, "trans", f32, (2, G), dev)
     _check(cnt_max, "cnt_max", i32, (1, G), dev)
     if not 0 < K_real <= K or it_mode not in (0, 1, 2):
@@ -83,20 +103,24 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     if dev.type == "cpu":
         return fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read,
                                lab_init, trans, cnt_max, K_real, it_mode,
-                               want_alpha)
+                               want_alpha, nl=nl, prior=prior)
+    if K > max_fwd_K(nl):
+        raise ValueError(f"K={K} is more than the forward sweep kernel holds at nl={nl} "
+                         f"({max_fwd_K(nl)}: one grid stage and one read row of shared memory)")
     lemg_out = torch.empty_like(lemg)
     alphas = torch.empty((G if want_alpha else 1, BN, K), dtype=f32, device=dev)
     h_out = torch.empty((G, W, B), dtype=i32, device=dev)
     logc = torch.empty((BN, 1), dtype=f32, device=dev)
     uf = torch.empty((B, 1), dtype=f32, device=dev)
-    lab = torch.empty((B, 2), dtype=f32, device=dev)
-    FWD_KERNEL.launch(
+    lab = torch.empty((B, nl), dtype=f32, device=dev)
+    p = [float(x) for x in prior] + [0.0] * (3 - nl)
+    FWD_KERNELS[nl].launch(
         lemg.data_ptr(), beta.data_ptr(), lem_pad.data_ptr(),
         slots.data_ptr(), first_read.data_ptr(), lab_init.data_ptr(),
         trans.data_ptr(), cnt_max.data_ptr(), lemg_out.data_ptr(),
         alphas.data_ptr(), h_out.data_ptr(), logc.data_ptr(), uf.data_ptr(),
         lab.data_ptr(), G, B, W, K, K_real, it_mode, int(want_alpha),
-        _variant or 0, 1.0 / K_real,
+        _variant or 0, nl, int(_wide), 1.0 / K_real, *p,
     )
     return lemg_out, alphas, h_out, logc, uf, lab
 
@@ -105,8 +129,8 @@ def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False):
     """Reverse-grid beta recursion from lemg [G, BN, K]: a max-shifted
     emission, then t0*e*beta + t1*sum(e*beta)/K, max-normalised per row.
     Returns beta [G, BN, K]."""
-    _require_diploid(nl)
     G, BN, K = lemg.shape
+    _check_nl(nl, BN)
     dev = lemg.device
     _check(lemg, "lemg", torch.float32, (G, BN, K), dev)
     _check(trans, "trans", torch.float32, (2, G), dev)
@@ -115,30 +139,34 @@ def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False):
     if dev.type == "cpu":
         return bwd_sweep_plain(lemg, trans, K_real)
     beta = torch.empty_like(lemg)
-    BWD_KERNEL.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
+    BWD_KERNELS[nl].launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
                       G, BN, K, K_real, _variant or 0, int(_ahead), 1.0 / K_real)
     return beta
 
 
-def chain_floor(steps: int, threads: int, blocks: int, device) -> torch.Tensor:
-    """Launches `steps` dependent reductions of the sweep kernels' kind (8
-    values: butterfly, one shared-memory slot per warp, one named barrier)
+def chain_floor(steps: int, threads: int, blocks: int, device, values: int = 8) -> torch.Tensor:
+    """Launches `steps` dependent reductions of the sweep kernels' kind
+    (`values` = 8 sums, or 16 as the nl = 3 forward steps take them:
+    butterfly, one shared-memory slot per warp, one named barrier)
     with `threads` threads in each of `blocks` blocks and nothing else: timed,
     it gives the least a dependent step of a sweep can take on the card."""
     if torch.device(device).type != "cuda":
         raise ValueError("chain_floor times the card and needs a CUDA device")
     out = torch.empty((blocks,), dtype=torch.float32, device=device)
-    FLOOR_KERNEL.launch(out.data_ptr(), blocks, steps, threads)
+    FLOOR_KERNEL.launch(out.data_ptr(), blocks, steps, threads, values)
     return out
 
 
 def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
-                    cnt_max, K_real, it_mode, want_alpha=True):
+                    cnt_max, K_real, it_mode, want_alpha=True, nl=2, prior=(0.5, 0.5)):
     """Plain PyTorch version of the forward sweep (same semantics as the
-    Pallas kernel _make_fwd_kernel, diploid, but for the skipped slots,
-    which leave alpha, pC and logc as they are)."""
+    Pallas kernel _make_fwd_kernel but for the skipped slots, which leave
+    alpha, pC and logc as they are, and for the label draw, which compares
+    the cumulative weight with u * (sum of weights) as the CUDA kernel does
+    where the Pallas kernel divides)."""
     G, BN, K = lemg.shape
-    B = BN // 2
+    B = BN // nl
+    row = lambda x, h: x[h * B:(h + 1) * B]
     f32 = torch.float32
     dev = lemg.device
     km = (torch.arange(K, device=dev) < K_real).to(f32)
@@ -163,7 +191,8 @@ def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
         a_raw = e_g * (trans[0, g] * alpha + (trans[1, g] + isf) * invK)
         s = a_raw.sum(1, keepdim=True)
         bad = ((~torch.isfinite(s)) | (s <= 0)).to(f32)
-        uf = torch.maximum(uf, torch.maximum(bad[:B], bad[B:]))
+        for h in range(nl):
+            uf = torch.maximum(uf, row(bad, h))
         s_safe = torch.where(s > 0, s, torch.ones_like(s))
         alpha = a_raw * (1.0 / s_safe)
         logc = logc + torch.log(s_safe) + mx
@@ -177,10 +206,10 @@ def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
             hC = h_out[g, i][:, None]
             skip = skip_all[g, i][:, None]
             rg = rg_all[g, i][:, None]
-            ab = (alpha[:B] * bg[:B], alpha[B:] * bg[B:])
+            ab = [row(alpha, h) * row(bg, h) for h in range(nl)]
             gain = [(x * emk).sum(1, keepdim=True) for x in ab]
             lose = [(x * inv).sum(1, keepdim=True) for x in ab]
-            pcs = [pc[:B], pc[B:]]
+            pcs = [row(pc, h) for h in range(nl)]
             no = torch.zeros_like(skip)
             if it_mode == 0:
                 doing_pass, doing_init = rg < first, rg >= first
@@ -189,14 +218,16 @@ def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
             else:
                 doing_pass, doing_init = no, no
             normal = ~doing_init
-            oh_C = [hC == 0, hC == 1]
-            lose_C = torch.where(oh_C[1], lose[1], lose[0])
+            oh_C = [hC == h for h in range(nl)]
+            lose_C = lose[0]
+            for h in range(1, nl):
+                lose_C = torch.where(oh_C[h], lose[h], lose_C)
             # candidate weights w[n] = prior[n] * prod_m term(n, m)
             # (reference: sample_reads_in_grid, gibbs-nipt.cpp:733-1341)
             w = []
-            for n in range(2):
+            for n in range(nl):
                 prod = None
-                for m in range(2):
+                for m in range(nl):
                     if m == n:
                         t_norm = torch.where(oh_C[n], pcs[m], gain[n])
                         t_init = gain[n]
@@ -208,19 +239,27 @@ def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
                         t_init = pcs[m]
                     term = torch.where(doing_init, t_init, t_norm)
                     prod = term if prod is None else prod * term
-                w.append(prod * 0.5)
-            wsum = w[0] + w[1]
+                w.append(prod * float(prior[n]))
+            wsum = w[0]
+            for n in range(1, nl):
+                wsum = wsum + w[n]
             badv = (~torch.isfinite(wsum)) | (wsum <= 0)
             uf = torch.maximum(uf, (badv & ~skip).to(f32))
-            wsum_safe = torch.where(wsum > 0, wsum, torch.ones_like(wsum))
-            cum = torch.where(badv, torch.full_like(wsum, 0.5), w[0] / wsum_safe)
-            h_new = (cum <= u).to(torch.int32)
+            # h_new = number of candidates whose cumulative weight <= u * wsum
+            # (a bad wsum never flips, whatever h_new is); a candidate of
+            # prior 0 at the end is never drawn, since u < 1
+            uw = u * wsum
+            cum = torch.zeros_like(wsum)
+            h_new = torch.zeros_like(hC)
+            for n in range(nl - 1):
+                cum = cum + w[n]
+                h_new = h_new + (cum <= uw).to(torch.int32)
             active = (~skip) & (~doing_pass) & (~badv)
-            oh_N = [h_new == 0, h_new == 1]
+            oh_N = [h_new == h for h in range(nl)]
             flip = active & ((h_new != hC) | doing_init)
             flip_f = flip.to(f32)
             rows = []
-            for h in range(2):
+            for h in range(nl):
                 fac = torch.where(oh_N[h], emk, 1.0) * torch.where(
                     oh_C[h] & normal, inv, 1.0
                 )
@@ -239,9 +278,9 @@ def fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
                 rs = 1.0 / sh_safe
                 rows.append((a_h * rs, torch.log(sh_safe), pc_h * rs))
             h_out[g, i] = torch.where(flip, h_new, hC)[:, 0]
-            alpha = torch.cat([rows[0][0], rows[1][0]])
-            logc = logc + torch.cat([rows[0][1], rows[1][1]])
-            pc = torch.cat([rows[0][2], rows[1][2]])
+            alpha = torch.cat([r[0] for r in rows])
+            logc = logc + torch.cat([r[1] for r in rows])
+            pc = torch.cat([r[2] for r in rows])
         if want_alpha:
             alphas[g] = alpha
     return lemg_out, alphas, h_out, logc, uf, lab

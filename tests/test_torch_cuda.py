@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, and the engine on
 the GPU (QUILT1 and QUILT2), at small shapes that reach the kernels' edge
 cases (fewer haplotypes than threads, padded haplotypes, more than 64
-reads in a grid, the iterative-init modes). They need an NVIDIA GPU and
+reads in a grid, the iterative-init modes), for both samplers (NL = 2
+diploid, NL = 3 NIPT). They need an NVIDIA GPU and
 nvcc and skip elsewhere; on the GPU machine, which has no jax, run them
 with
 
@@ -19,6 +20,7 @@ import torch
 from quilt_tpu_torch.kernels import fb as fbk
 from quilt_tpu_torch.kernels import gibbs_dosage as gd
 from quilt_tpu_torch.kernels import gibbs_sweep as gs
+from quilt_tpu_torch.kernels import nipt_bank as nb
 from quilt_tpu_torch.simulate import make_world, random_sweep_state
 
 pytestmark = pytest.mark.cuda
@@ -33,10 +35,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sweep_variants(K):
+def _sweep_variants(K, nl=2):
     """The kernel variants that hold K: the default, each explicit thread
-    count as far as instantiated, and the general (local-array) variant."""
-    return [None, -1] + [t for t, cap in ((64, 640), (128, 1024), (256, 2048)) if K <= cap]
+    count as far as instantiated (64 threads at NL = 2 only), and the
+    general (local-array) variant."""
+    caps = ((64, 640 if nl == 2 else 0), (128, 1024), (256, 2048))
+    return [None, -1] + [t for t, cap in caps if K <= cap]
 
 
 @pytest.mark.parametrize("it_mode,G,B,W,K,K_real,max_reads,p_skip,dead_grid", [
@@ -90,6 +94,53 @@ def test_sweep_kernels_match_plain(cuda, it_mode, G, B, W, K, K_real, max_reads,
         torch.testing.assert_close(beta, ref_b, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("it_mode,G,B,W,K,K_real,max_reads,p_skip,dead_grid,prior", [
+    (0, 9, 3, 6, 40, 36, 6, 0.05, None, (0.5, 0.4, 0.1)),
+    (1, 9, 3, 6, 40, 36, 6, 0.05, None, (0.5, 0.4, 0.1)),
+    (2, 9, 3, 6, 41, 37, 6, 0.05, None, (0.5, 0.45, 0.05)),     # K no multiple of 4
+    (0, 9, 3, 6, 40, 36, 6, 0.5, 4, (0.5, 0.5, 0.0)),           # ff = 0: label 2 never drawn
+    (2, 5, 2, 40, 640, 600, 35, 0.3, 2, (0.5, 0.4, 0.1)),       # the main path's K
+    (2, 4, 2, 6, 1000, 990, 6, 0.05, None, (0.5, 0.4, 0.1)),    # 8 columns a thread
+    (1, 4, 2, 6, 2048, 2000, 6, 0.05, None, (0.5, 0.4, 0.1)),   # the 256-thread pair's limit
+    (2, 4, 2, 6, 2100, 2050, 6, 0.05, None, (0.5, 0.4, 0.1)),   # the general variant
+    (1, 4, 2, 3, 8100, 8090, 3, 0.05, 2, (0.5, 0.4, 0.1)),      # the rings shrunk to one stage each
+])
+def test_sweep_kernels_match_plain_nipt(cuda, it_mode, G, B, W, K, K_real, max_reads, p_skip,
+                                        dead_grid, prior):
+    rng = np.random.default_rng(200 + it_mode + W)
+    state = list(random_sweep_state(rng, G, B, W, K, K_real, max_reads, p_skip, nl=3))
+    if dead_grid is not None:
+        state[3][dead_grid, 2] = 1
+    args = [torch.from_numpy(x).to(cuda) for x in state]
+    live = args[3][:, 2] == 0
+    kw = dict(nl=3, K_real=K_real, it_mode=it_mode, prior=prior)
+    ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=it_mode, nl=3, prior=prior)
+    forms = [dict(_variant=v) for v in _sweep_variants(K, 3)]
+    if 512 < K <= 640:       # the one-reduction form of a step, where it is built
+        forms.append(dict(_wide=True))
+    launches = gs.FWD_KERNELS[3].launches, gs.FWD_KERNELS[2].launches
+    for form in forms:
+        got = gs.fwd_sweep(*args, **form, **kw)
+        assert (got[2][live] == ref[2][live]).float().mean().item() > 0.995
+        assert torch.equal(got[2][~live], ref[2][~live])
+        if prior[2] == 0.0:
+            assert not (got[2][live & (got[2] != args[3][:, 1])] == 2).any()
+        same = ((got[2] == ref[2]) | ~live).all(0).all(0)
+        rows = torch.cat([same] * 3)
+        assert same.any()
+        torch.testing.assert_close(got[0][:, rows], ref[0][:, rows], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[1][:, rows], ref[1][:, rows], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(got[3][rows], ref[3][rows], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[5][same], ref[5][same], rtol=0, atol=0)
+        assert torch.equal(got[4], ref[4])
+    assert gs.FWD_KERNELS[3].launches == launches[0] + len(forms)
+    assert gs.FWD_KERNELS[2].launches == launches[1]
+    ref_b = gs.bwd_sweep_plain(args[0], args[6], K_real)
+    for variant in _sweep_variants(K):                       # 3B state rows: an odd count
+        beta = gs.bwd_sweep(args[0], args[6], nl=3, K_real=K_real, _variant=variant)
+        torch.testing.assert_close(beta, ref_b, rtol=1e-5, atol=1e-6)
+
+
 def test_sweep_kernels_refuse_a_variant_that_does_not_hold_k(cuda):
     """An explicit thread count never gives way to another variant."""
     args = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
@@ -98,6 +149,18 @@ def test_sweep_kernels_refuse_a_variant_that_does_not_hold_k(cuda):
         gs.fwd_sweep(*args, nl=2, K_real=700, it_mode=2, prior=(0.5, 0.5), _variant=64)
     with pytest.raises(RuntimeError, match="gibbs_bwd"):
         gs.bwd_sweep(args[0], args[6], nl=2, K_real=700, _variant=64)
+    # the forms built for one shape only: NL = 3 has no 64-thread pair, and
+    # its one-reduction form exists for K in (512, 640]
+    args3 = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+        np.random.default_rng(1), 2, 1, 2, 700, 700, 2, nl=3)]
+    for form in (dict(_variant=64), dict(_wide=True)):
+        with pytest.raises(RuntimeError, match="gibbs_fwd"):
+            gs.fwd_sweep(*args3, nl=3, K_real=700, it_mode=2, prior=(0.5, 0.4, 0.1), **form)
+    # a K whose single grid stage (6 rows at NL = 3) and read row outgrow shared memory
+    big = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+        np.random.default_rng(1), 2, 1, 2, 9000, 9000, 2, nl=3)]
+    with pytest.raises(ValueError, match="more than the forward sweep kernel holds"):
+        gs.fwd_sweep(*big, nl=3, K_real=9000, it_mode=2, prior=(0.5, 0.4, 0.1))
 
 
 @pytest.mark.parametrize("K,B", [(90, 5), (700, 3)])
@@ -202,16 +265,19 @@ def test_fb_tiled_refuses_bad_tiles(cuda):
         fbk.fb_max_tiled(dl, words, 300, 100)            # does not cut K_pad
 
 
-@pytest.mark.parametrize("G,B,K,K_real", [(5, 3, 40, 33), (9, 4, 700, 700)])
-def test_dosage_kernel_matches_plain(cuda, G, B, K, K_real):
+@pytest.mark.parametrize("G,B,K,K_real,nl", [
+    (5, 3, 40, 33, 2), (9, 4, 700, 700, 2), (5, 3, 41, 33, 3), (9, 4, 700, 700, 3),
+    (2, 2, 5000, 4990, 3),                      # more than 48 KB of shared memory
+])
+def test_dosage_kernel_matches_plain(cuda, G, B, K, K_real, nl):
     rng = np.random.default_rng(G + K)
-    alphas = torch.from_numpy(rng.uniform(0, 1, (G, 2 * B, K)).astype(np.float32)).to(cuda)
-    beta = torch.from_numpy(rng.uniform(0.1, 1, (G, 2 * B, K)).astype(np.float32)).to(cuda)
+    alphas = torch.from_numpy(rng.uniform(0, 1, (G, nl * B, K)).astype(np.float32)).to(cuda)
+    beta = torch.from_numpy(rng.uniform(0.1, 1, (G, nl * B, K)).astype(np.float32)).to(cuda)
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (G, B, K)).astype(np.int32)).to(cuda)
-    launches = gd.DOS_KERNEL.launches
-    got = gd.dosage_sweep(alphas, beta, words, 2, K_real, 0.001)
-    assert gd.DOS_KERNEL.launches == launches + 1
-    torch.testing.assert_close(got, gd.dosage_sweep_plain(alphas, beta, words, K_real, 0.001),
+    launches = gd.DOS_KERNELS[nl].launches
+    got = gd.dosage_sweep(alphas, beta, words, nl, K_real, 0.001)
+    assert gd.DOS_KERNELS[nl].launches == launches + 1
+    torch.testing.assert_close(got, gd.dosage_sweep_plain(alphas, beta, words, K_real, 0.001, nl),
                                rtol=0, atol=1e-5)
 
 
@@ -269,3 +335,62 @@ def test_engine_on_gpu_with_the_tiled_fb(cuda):
     assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
     assert all(k.launches > 0 for k in tiled), [k.launches for k in tiled]
     assert fbk.FWD_KERNEL.launches == 0 and fbk.BWD_KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("G,B,K,K_real,p_end", [
+    (9, 3, 40, 36, 0.3), (40, 5, 641, 600, 0.1), (6, 2, 3000, 2990, 1.0), (12, 2, 64, 64, 0.0),
+])
+def test_nipt_bank_kernel_matches_plain(cuda, G, B, K, K_real, p_end):
+    """The NIPT block move's bank kernel against the Python loop: the same
+    relabellings on (nearly) every chain, probabilities atol 1e-4 on the
+    chains whose draws agree; a block end at every grid, and at none but the
+    last."""
+    rng = np.random.default_rng(G + K)
+    lemg, beta = (torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+        rng, G, B, 4, K, K_real, 4, nl=3)[:2])
+    km = (torch.arange(K, device=cuda) < K_real).float()
+    e = torch.exp(lemg - torch.where(km > 0, lemg, -torch.inf).amax(2, keepdim=True)) * km
+    trans = np.stack([rng.uniform(0.9, 0.999, G), rng.uniform(0.001, 0.1, G)]).astype(np.float32)
+    trans[:, 0] = (1.0, 0.0)
+    is_end = (rng.random((G, B)) < p_end).astype(np.int32)
+    is_end[G - 1] = 1
+    t = lambda x: torch.from_numpy(x).to(cuda)
+    mask = torch.ones(6, device=cuda)
+    mask[3] = 0.0                                   # a relabelling that is not allowed
+    args = (e, beta * km, t(trans), t(rng.normal(0, 2, (G, B, 6)).astype(np.float32)),
+            t(rng.random((G, B)).astype(np.float32)), t(is_end), mask, K_real)
+    launches = nb.BANK_KERNEL.launches
+    got_c, got_p = nb.bank_scan(*args)
+    assert nb.BANK_KERNEL.launches == launches + 1
+    ref_c, ref_p = nb.bank_scan_plain(*args)
+    same = (got_c == ref_c).all(0)
+    assert same.sum() >= B - 1
+    assert not (got_c == 3).any() and not got_c[t(is_end) == 0].any()
+    torch.testing.assert_close(got_p[:, same], ref_p[:, same], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("quilt2", [False, True])
+def test_nipt_engine_on_gpu(cuda, quilt2):
+    """NIPT at a small size: QUILT1-NIPT launches the sweeps at NL = 3 and
+    the fused FB, QUILT2-NIPT the dosage kernel at NL = 3 as well; no NL = 2
+    sweep runs. Bounds: maternal r2 0.85, fetal r2 0.5."""
+    from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
+    from quilt_tpu_torch.out.metrics import r2_simple
+
+    ffs = [0.2, 0.2, 0.3]
+    world = make_world(np.random.default_rng(7), K=120, nSNPs=640, n_samples=3, coverage=4.0,
+                       rare_frac=0.1 if quilt2 else 0.0, quilt2=quilt2, ffs=ffs)
+    nl3 = [gs.FWD_KERNELS[3], gs.BWD_KERNELS[3], nb.BANK_KERNEL] + ([gd.DOS_KERNELS[3]] if quilt2 else
+                                                  [fbk.FWD_KERNEL, fbk.BWD_KERNEL])
+    for k in nl3 + [gs.FWD_KERNEL, gs.BWD_KERNEL]:
+        k.launches = 0
+    out = quilt_impute(world["prep"], world["samples"], ["a", "b", "c"],
+                       ImputeConfig(method="nipt", nGibbsSamples=3, n_seek_its=2, Ksubset=48,
+                                    Knew=48, small_ref_panel_gibbs_iterations=8, seed=3,
+                                    use_mspbwt=quilt2, impute_rare_common=quilt2),
+                       "cuda", ff_values=np.array(ffs))
+    for t, res in zip(world["truths"], out.results):
+        assert r2_simple((t[0] + t[1]).astype(float), res.mat_dosage) > 0.85
+        assert r2_simple((t[0] + t[2]).astype(float), res.fet_dosage) > 0.5
+    assert all(k.launches > 0 for k in nl3), [k.launches for k in nl3]
+    assert gs.FWD_KERNEL.launches == 0 and gs.BWD_KERNEL.launches == 0

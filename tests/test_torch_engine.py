@@ -98,7 +98,7 @@ def test_region_context_key_is_derived(world):
 
 
 @pytest.mark.parametrize("override", [
-    {"method": "nipt"}, {"distributed_nproc": 2}, {"addOptimalHapsToVCF": True},
+    {"mesh_data": 2}, {"distributed_nproc": 2}, {"addOptimalHapsToVCF": True},
     {"hla_run": True}, {"gamma_physically_closest_to": 1000},
     {"record_interim_dosages": True}, {"make_plots": True}, {"mesh_panel": 2},
 ])
@@ -126,8 +126,9 @@ def test_cli_prepare_and_impute_on_cpu(tmp_path):
         ds = np.array([float(l.split("\t")[9 + i].split(":")[2]) for l in body])
         r2 = np.corrcoef(ds, truths[i].sum(axis=0))[0, 1] ** 2
         assert r2 > 0.85, f"sample {i} r2 {r2}"
-    # options outside the ported slice are refused
-    assert cli.main(imp + ["--method", "nipt"], device="cpu") == 2
+    # options outside the ported slices are refused; NIPT wants its fetal fractions
+    assert cli.main(imp + ["--mesh_panel", "2"], device="cpu") == 2
+    assert cli.main(imp + ["--method", "nipt"], device="cpu") == 1
 
 
 def test_cli_impute_needs_a_gpu(monkeypatch, tmp_path):

@@ -76,7 +76,7 @@ def test_gibbs_call_matches_jax(iterative, monkeypatch):
         quantile_prob=0.95, lem_read=(lem, skip),
     )
     port_in = GibbsInputs.build_batched(reads, trans, nGrids).repeat_rows(C)
-    H, ll, uf, _, _ = run_gibbs_chains(
+    H, ll, uf, *_ = run_gibbs_chains(
         SlotLayout.build(port_in, B, "cpu"), torch.from_numpy(port_in.trans.T.copy()),
         torch.from_numpy(np.array(lem)), torch.from_numpy(np.array(skip)),
         torch.from_numpy(uniforms), torch.from_numpy(H0), torch.from_numpy(first),

@@ -38,23 +38,25 @@ from quilt_tpu_torch.panel.mspbwt import distinct_hap_bits, symbols_device
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("G,B,K,K_real,chunk_bytes", [
-    (3, 2, 128, 100, 1 << 27),
-    (7, 3, 256, 256, 1 << 27),
-    (5, 4, 384, 301, 4 * 384 * 32 * 4 * 2),     # two grids per plain-version step
+@pytest.mark.parametrize("G,B,K,K_real,chunk_bytes,nl", [
+    (3, 2, 128, 100, 1 << 27, 2),
+    (7, 3, 256, 256, 1 << 27, 2),
+    (5, 4, 384, 301, 4 * 384 * 32 * 4 * 2, 2),  # two grids per plain-version step
+    (4, 3, 128, 100, 1 << 27, 3),               # NIPT: three latent rows a chain
+    (5, 2, 256, 256, 2 * 256 * 32 * 4 * 2, 3),
 ])
-def test_dosage_plain_matches_pallas(G, B, K, K_real, chunk_bytes, monkeypatch):
+def test_dosage_plain_matches_pallas(G, B, K, K_real, chunk_bytes, nl, monkeypatch):
     monkeypatch.setattr(gibbs_dosage, "_PLAIN_CHUNK_BYTES", chunk_bytes)
     rng = np.random.default_rng(G * 100 + K)
-    alphas = rng.uniform(0.0, 1.0, (G, 2 * B, K)).astype(np.float32)
-    beta = rng.uniform(0.1, 1.0, (G, 2 * B, K)).astype(np.float32)
+    alphas = rng.uniform(0.0, 1.0, (G, nl * B, K)).astype(np.float32)
+    beta = rng.uniform(0.1, 1.0, (G, nl * B, K)).astype(np.float32)
     alphas[0, 1] = 0.0                          # a row with no mass: floor 1e-30
     words = rng.integers(-2**31, 2**31, (G, B, K)).astype(np.int32)
     ref = np.asarray(_dosage_sweep(jnp.asarray(alphas), jnp.asarray(beta), jnp.asarray(words),
-                                   nl=2, K_real=K_real, ref_error=0.001))
+                                   nl=nl, K_real=K_real, ref_error=0.001))
     got = gibbs_dosage.dosage_sweep(torch.from_numpy(alphas), torch.from_numpy(beta),
-                                    torch.from_numpy(words), 2, K_real, 0.001)
-    assert got.shape == (G, 2 * B, 32)
+                                    torch.from_numpy(words), nl, K_real, 0.001)
+    assert got.shape == (G, nl * B, 32)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
 
 
@@ -89,7 +91,7 @@ def test_gibbs_call_dosages_match_jax(monkeypatch):
     w_t = torch.from_numpy(words[which])
     em = emat_read_from_bits(w_t, torch.from_numpy(pr.u_pad), torch.from_numpy(pr.lr),
                              torch.from_numpy(pr.la), 1e10, R_out=port_in.R)
-    H, _, uf, hap_dos, gp = run_gibbs_chains(
+    H, _, uf, hap_dos, gp, *_ = run_gibbs_chains(
         SlotLayout.build(port_in, B, "cpu"), torch.from_numpy(port_in.trans.T.copy()),
         torch.log(em), (em.amax(1) - em.amin(1)) <= 1e-9, torch.from_numpy(uniforms),
         torch.from_numpy(H0), torch.from_numpy(first), True, Ksub, words=w_t, ref_error=0.001)
@@ -165,3 +167,11 @@ def test_rare_common_reads_and_labels_match_jax(rare_prep):
                                             np.random.default_rng(3))
     np.testing.assert_array_equal(labels, ref_labels)
     assert 0 < labels.mean() < 1
+
+
+def test_dosage_refuses_other_row_counts():
+    a = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="nl must be 2 or 3"):
+        gibbs_dosage.dosage_sweep(a, a, torch.zeros((2, 2, 16), dtype=torch.int32), 4, 16, 0.001)
+    with pytest.raises(ValueError, match="nl must be 2 or 3"):
+        gibbs_dosage.dosage_sweep(a, a, torch.zeros((2, 4, 16), dtype=torch.int32), 3, 16, 0.001)

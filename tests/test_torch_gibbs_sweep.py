@@ -6,7 +6,8 @@ Tolerances: read labels agree on > 99.5% of slots (a uniform that lands
 within float rounding of a candidate boundary may draw the other label);
 logc and lemg rtol 1e-4 / atol 1e-3 (float32 sums taken in another order,
 and the port does nothing at a skipped slot, where the Pallas kernel
-renormalises alpha by a sum that is 1 within rounding); beta rtol 1e-5."""
+renormalises alpha by a sum that is 1 within rounding); beta rtol 1e-5.
+Both samplers: diploid (nl = 2) and NIPT (nl = 3, with its label prior)."""
 import numpy as np
 import pytest
 import torch
@@ -22,14 +23,14 @@ torch.set_num_threads(2)
 _NAMES = ("lemg", "beta", "lem_pad", "slots", "first_read", "lab_init", "trans", "cnt_max")
 
 
-def _inputs(seed, G, B, W, K, K_real, max_reads, p_skip=0.05):
+def _inputs(seed, G, B, W, K, K_real, max_reads, p_skip=0.05, nl=2):
     state = random_sweep_state(np.random.default_rng(seed), G, B, W, K, K_real, max_reads,
-                               p_skip)
+                               p_skip, nl=nl)
     return dict(zip(_NAMES, state))
 
 
-def _compare_fwd(arrs, K_real, it_mode, want_alpha=True):
-    kw = dict(nl=2, K_real=K_real, it_mode=it_mode, prior=(0.5, 0.5),
+def _compare_fwd(arrs, K_real, it_mode, want_alpha=True, nl=2, prior=(0.5, 0.5)):
+    kw = dict(nl=nl, K_real=K_real, it_mode=it_mode, prior=prior,
               want_alpha=want_alpha)
     ref = _fwd_sweep(*(jnp.asarray(arrs[k]) for k in _NAMES), **kw)
     got = fwd_sweep(*(torch.from_numpy(arrs[k]) for k in _NAMES), **kw)
@@ -122,12 +123,106 @@ def test_bwd_sweep_matches_pallas():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
 
 
-def test_sweeps_refuse_nipt():
-    arrs = _inputs(seed=1, G=2, B=1, W=2, K=8, K_real=8, max_reads=2)
-    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
-    with pytest.raises(NotImplementedError, match="NIPT"):
-        fwd_sweep(t["lemg"], t["beta"], t["lem_pad"], t["slots"],
-                  t["first_read"], t["lab_init"], t["trans"], t["cnt_max"],
-                  nl=3, K_real=8, it_mode=2, prior=(0.5, 0.4, 0.1))
-    with pytest.raises(NotImplementedError, match="NIPT"):
-        bwd_sweep(t["lemg"], t["trans"], nl=3, K_real=8)
+@pytest.mark.parametrize("prior", [(0.5, 0.4, 0.1), (0.5, 0.5, 0.0)])
+@pytest.mark.parametrize("it_mode", [0, 1, 2])
+def test_fwd_sweep_nipt_matches_pallas(it_mode, prior):
+    """nl = 3 with the NIPT label prior; at fetal fraction 0 the third
+    label has prior 0 and is never drawn."""
+    arrs = _inputs(seed=41 + it_mode, G=7, B=3, W=6, K=40, K_real=36, max_reads=6, nl=3)
+    _, got = _compare_fwd(arrs, K_real=36, it_mode=it_mode, nl=3, prior=prior)
+    live = arrs["slots"][:, 2] == 0
+    drawn = got[2][live] != arrs["slots"][:, 1][live]
+    assert drawn.any()
+    if prior[2] == 0.0:
+        assert not (got[2][live][drawn] == 2).any()
+    else:
+        assert (got[2][live][drawn] == 2).any()
+
+
+def test_fwd_sweep_nipt_mostly_skipped_slots():
+    arrs = _inputs(seed=51, G=9, B=3, W=24, K=40, K_real=36, max_reads=6, p_skip=0.5, nl=3)
+    assert (arrs["slots"][:, 2] > 0).mean() > 0.8
+    _compare_fwd(arrs, K_real=36, it_mode=2, nl=3, prior=(0.5, 0.45, 0.05))
+
+
+@pytest.mark.parametrize("nl", [2, 3])
+def test_fwd_sweep_no_reads_is_the_alpha_recursion(nl):
+    """cnt_max = 0 everywhere: the sweep is the plain forward recursion that
+    the NIPT block move re-runs; lemg and the labels come back as they went."""
+    arrs = _inputs(seed=61, G=8, B=2, W=4, K=24, K_real=20, max_reads=4, nl=nl)
+    arrs["cnt_max"] = np.zeros_like(arrs["cnt_max"])
+    prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
+    _, got = _compare_fwd(arrs, K_real=20, it_mode=2, nl=nl, prior=prior)
+    np.testing.assert_array_equal(got[0], arrs["lemg"])
+    np.testing.assert_array_equal(got[2], arrs["slots"][:, 1])
+    np.testing.assert_allclose(got[1][:, :, :20].sum(2), 1.0, rtol=1e-5)
+
+
+def test_bwd_sweep_nipt_matches_pallas():
+    rng = np.random.default_rng(6)
+    G, BN, K, K_real = 9, 9, 40, 33
+    lemg = rng.uniform(-30.0, 0.0, size=(G, BN, K)).astype(np.float32)
+    trans = np.stack([rng.uniform(0.9, 0.999, G),
+                      rng.uniform(0.001, 0.1, G)]).astype(np.float32)
+    ref = np.asarray(_bwd_sweep(jnp.asarray(lemg), jnp.asarray(trans),
+                                nl=3, K_real=K_real))
+    got = bwd_sweep(torch.from_numpy(lemg), torch.from_numpy(trans),
+                    nl=3, K_real=K_real).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
+
+
+def test_chained_sweeps_with_skipped_slots_keep_logc():
+    """21 forward / backward sweeps chained at ~52% skipped slots: the port
+    does nothing at a skipped slot where the Pallas kernel renormalises, and
+    the difference must not build up. Compared where the chains' labels
+    still agree (a chain that drew another label at a rounding boundary has
+    forked for good): logc within the Gibbs tolerance rtol 1e-4 / atol 1e-3
+    after the last sweep."""
+    G, B, K, K_real, n_sweeps = 10, 4, 40, 36, 21
+    rng = np.random.default_rng(72)
+    arrs = dict(zip(_NAMES, random_sweep_state(
+        np.random.default_rng(71), G, B, 5, K, K_real, 5, p_skip=0.4,
+        counts=rng.integers(3, 6, size=(G, B)))))
+    share = (arrs["slots"][:, 2] > 0).mean()
+    assert 0.45 < share < 0.6, share
+    j = {k: jnp.asarray(v) for k, v in arrs.items()}
+    t = {k: torch.from_numpy(v.copy()) for k, v in arrs.items()}
+    kw = dict(nl=2, K_real=K_real, it_mode=2, prior=(0.5, 0.5), want_alpha=False)
+    for _ in range(n_sweeps):
+        u = rng.random(arrs["slots"][:, 0].shape).astype(np.float32).view(np.int32)
+        sj = np.array(j["slots"])
+        sj[:, 0] = u
+        st = t["slots"].numpy().copy()
+        st[:, 0] = u
+        j["slots"], t["slots"] = jnp.asarray(sj), torch.from_numpy(st)
+        rj = _fwd_sweep(*(j[k] for k in _NAMES), **kw)
+        rt = fwd_sweep(*(t[k] for k in _NAMES), **kw)
+        j["lemg"], j["lab_init"] = rj[0], rj[5]
+        t["lemg"], t["lab_init"] = rt[0], rt[5]
+        j["slots"] = jnp.asarray(sj).at[:, 1].set(rj[2])
+        st[:, 1] = rt[2].numpy()
+        t["slots"] = torch.from_numpy(st)
+        j["beta"] = _bwd_sweep(j["lemg"], j["trans"], nl=2, K_real=K_real)
+        t["beta"] = bwd_sweep(t["lemg"], t["trans"], nl=2, K_real=K_real)
+    same = (np.asarray(j["slots"])[:, 1] == t["slots"].numpy()[:, 1]).all(axis=(0, 1))   # [B]
+    assert same.sum() >= B - 1, same
+    rows = np.concatenate([same, same])
+    np.testing.assert_allclose(rt[3].numpy()[rows], np.asarray(rj[3])[rows], rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(t["beta"].numpy()[:, rows], np.asarray(j["beta"])[:, rows],
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("nl,BN", [(4, 8), (3, 8), (1, 4)])
+def test_sweeps_refuse_other_row_counts(nl, BN):
+    lemg = torch.zeros((2, BN, 8))
+    trans = torch.ones((2, 2))
+    with pytest.raises(ValueError, match="nl must be 2 or 3"):
+        bwd_sweep(lemg, trans, nl=nl, K_real=8)
+
+
+def test_largest_k_of_the_forward_kernel():
+    """One grid stage (2 * nl rows) and one read row of K floats must fit the
+    card's 227 KB of shared memory less 4 KB."""
+    from quilt_tpu_torch.kernels.gibbs_sweep import max_fwd_K
+
+    assert max_fwd_K(2) == 11417 and max_fwd_K(3) == 8155

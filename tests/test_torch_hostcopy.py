@@ -1,5 +1,5 @@
 """The port's own copies of the JAX package's jax-free host modules
-(config, utils, io, out, panel, native): the same seeded numpy inputs
+(config, utils, io, out, panel, native, kernels.nipt): the same seeded numpy inputs
 through a copy and through its quilt_tpu original give equal results, and
 files written by one package are read by the other."""
 import dataclasses
@@ -15,6 +15,7 @@ import quilt_tpu.io.bam_writer as bamw_j
 import quilt_tpu.io.native as native_j
 import quilt_tpu.io.simulate as sim_j
 import quilt_tpu.io.vcf as vcf_j
+import quilt_tpu.kernels.nipt as nipt_j
 import quilt_tpu.out.metrics as metrics_j
 import quilt_tpu.out.vcf_writer as vcfw_j
 import quilt_tpu.panel.mspbwt as ms_j
@@ -27,6 +28,7 @@ import quilt_tpu_torch.io.bam_writer as bamw_t
 import quilt_tpu_torch.io.native as native_t
 import quilt_tpu_torch.io.simulate as sim_t
 import quilt_tpu_torch.io.vcf as vcf_t
+import quilt_tpu_torch.kernels.nipt as nipt_t
 import quilt_tpu_torch.out.metrics as metrics_t
 import quilt_tpu_torch.out.vcf_writer as vcfw_t
 import quilt_tpu_torch.panel.mspbwt as ms_t
@@ -246,3 +248,33 @@ def test_native_and_python_io_agree(tmp_path):
     rhb = utils_t.pack_bits_32(haps)
     _same(prep_t.compress_panel(rhb, 77, ref_error=0.001, nMaxDH=8),
           prep_j.compress_panel(rhb, 77, ref_error=0.001, nMaxDH=8), "panel")
+
+
+@pytest.mark.parametrize("ff", [0.0, 0.1, 0.35])
+def test_nipt_tables_and_oracles(ff):
+    """kernels/nipt.py: the relabelling tables, the per-ff class tables and
+    the NumPy oracles of the read classification and the relabelling
+    choices give equal results in both packages."""
+    for name in ("PERMS", "INVS", "CLASS_PERM", "MUL", "CLASS_PERM_INV"):
+        np.testing.assert_array_equal(getattr(nipt_t, name), getattr(nipt_j, name))
+    assert nipt_t.CLASS_SUM_CUTOFF == nipt_j.CLASS_SUM_CUTOFF
+    for fn in ("nipt_prior", "make_rlc", "class_log_p"):
+        np.testing.assert_array_equal(getattr(nipt_t, fn)(ff), getattr(nipt_j, fn)(ff))
+    rng = np.random.default_rng(int(ff * 100))
+    prior, rlc = nipt_t.nipt_prior(ff), nipt_t.make_rlc(ff)
+    for _ in range(20):
+        gain, pC = rng.random(3), rng.random(3)
+        lose_C, h = float(rng.random()), int(rng.integers(0, 3))
+        assert (nipt_t.classify_read_np(gain, lose_C, pC, h, prior, rlc)
+                == nipt_j.classify_read_np(gain, lose_C, pC, h, prior, rlc))
+        cmat, ns = rng.random((3, 3)), rng.integers(0, 30, 8).astype(float)
+        np.testing.assert_array_equal(nipt_t.perm_choice_probs_np(cmat, ns, ff),
+                                      nipt_j.perm_choice_probs_np(cmat, ns, ff))
+        rc = rng.integers(0, 50, 3).astype(float)
+        np.testing.assert_array_equal(nipt_t.entire_relabel_probs_np(rc, ff),
+                                      nipt_j.entire_relabel_probs_np(rc, ff))
+        assert nipt_t.log_dmultinom_np(rc, prior) == nipt_j.log_dmultinom_np(rc, prior) \
+            or ff == 0.0
+        u = float(rng.random())
+        p = rng.dirichlet(np.ones(6))
+        assert nipt_t.sample_index_np(p, u) == nipt_j.sample_index_np(p, u)
