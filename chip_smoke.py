@@ -26,6 +26,9 @@ Phases, each fatal on failure:
                world exists, together with fb_tiled_core against the fused
                fb_core, and both FB families are timed at 28 and 112 rows x
                K=5,120 and 40,960 (the measurements behind kernels.fb.fb_plan);
+               the fused FB backward with gamma capture (the HLA form) is
+               checked at 112 and 14 rows x K=5,120 and timed in turn with
+               the form without capture;
   3. e2e     - QUILT1 diploid imputation through the batched engine at
                full width (K=5,120 panel haplotypes, 16,384 SNPs, Ksubset
                600, 7 chains x 3 seek iterations x 21 sweeps, 8 samples at
@@ -55,9 +58,24 @@ Phases, each fatal on failure:
                block move's bank kernel must launch on both and the dosage
                kernel on the second; fails
                under maternal r2 0.85 or fetal r2 0.5;
-  7. cli     - small file-based `prepare` + `impute`, `prepare2` +
+  7. hla     - QUILT-HLA at full width through `hla-prepare` and `hla`
+               of the port's CLI (in this process): the K=5,120 /
+               16,384-SNP shape with a 3,000 bp gene whose panel SNPs are
+               the variant sites of 2,000 simulated alleles (each panel
+               haplotype carries one, Zipf-skewed), 4 samples at 1x plus
+               reads over the gene, 7 chains x 3 seek iterations x 21
+               sweeps through the per-sample engine with gamma capture;
+               prints seconds, samples/s, the stage times (the pair scan
+               and hla-prepare among them), launches, a profile of one
+               sample's engine call and the share of the 8 true alleles
+               typed (combined, and from the gammas alone); the sweeps, the
+               FB forward and the capturing FB backward must launch; fails
+               on a sample without captured gamma or under half the
+               alleles typed (combined);
+  8. cli     - small file-based `prepare` + `impute`, `prepare2` +
                `impute2` and `impute --method nipt --fflist` runs through
-               the port's CLI; checks the VCFs.
+               the port's CLI, and a one-sample `impute` that must go
+               through the per-sample engine; checks the VCFs.
 The port must run without the JAX package: the script fails if `jax` or
 `quilt_tpu` is loaded after the port's modules are imported.
 The line before the last is {"kernels": [...]}; the last is
@@ -344,8 +362,50 @@ def check_kernels(world):
                      _median_ms(lambda: fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps), 5),
                      _median_ms(lambda: fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps), 2),
                      _nbytes(dl, words, ck, trans2, thin, d, tv, ti), 84 * cells))
+    rows.append(check_fb_capture(fb, dl, ck, K_top, eps))
     _print_rows(rows)
     return rows
+
+
+def check_fb_capture(fb, dl, ck, K_top, eps):
+    """fb_backward with gamma capture (the HLA run's form) against its plain
+    version at 112 rows and at the HLA path's 14 rows (one sample: 7 chains
+    x 2) x K = 5,120, the capture at the middle grid: gcap atol 1e-5, and
+    the dosage / top-K outputs equal those of the launch without capture;
+    both forms timed in turn. Returns the row of the capturing launch at
+    14 rows."""
+    import dataclasses
+
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    fbc = dataclasses.replace(fb, capture_grid=fb.nGrids // 2)
+    dev = fbc.device_tensors("cuda")
+    words, trans2, thin, cap = dev["words"], dev["trans2"], dev["thin_flag"], dev["capture_flag"]
+    row = None
+    for B in (112, 14):
+        dl_b, ck_b = dl[:B].contiguous(), ck[:, :B].contiguous()
+        args = (dl_b, words, ck_b, trans2, thin, fb.K, K_top, eps)
+        got = fbk.fb_backward(*args, cap=cap)
+        ref = fbk.fb_backward_plain(*args, cap=cap)
+        plain_form = fbk.fb_backward(*args)
+        torch.cuda.synchronize()
+        err = (got[3] - ref[3]).abs().max().item()
+        same = all(torch.equal(a, b) for a, b in zip(got[:3], plain_form))
+        sums = got[3].sum(1)
+        print(f"fb_bwd with capture, {B} rows x K={fb.K}: max |gcap err| {err:.3e} (tolerance "
+              f"atol 1e-5), row sums {sums.min().item():.6f}-{sums.max().item():.6f}, dosage and "
+              f"top-K equal to the launch without capture: {same}", flush=True)
+        if not err <= 1e-5 or not same or (got[3][:, fb.K:] != 0).any():
+            _fail("fb_bwd with capture disagrees with its plain version")
+        t = _alternating_ms({"capture": lambda: fbk.fb_backward(*args, cap=cap),
+                             "no capture": lambda: fbk.fb_backward(*args)})
+        print(f"fb_bwd at {B} rows, timed in turn: with capture {t['capture']:.3f} ms, without "
+              f"{t['no capture']:.3f} ms", flush=True)
+        row = _row("fb_bwd_capture", "fb.cu", "fb_pallas.py:151", err, t["capture"],
+                   _median_ms(lambda: fbk.fb_backward_plain(*args, cap=cap), 1),
+                   _nbytes(dl_b, words, ck_b, trans2, thin, cap, *got), 84 * B * fb.nGrids * fb.K)
+    return row
 
 
 def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, beta2, words_T):
@@ -920,8 +980,197 @@ def run_cli():
         if len(body) != nSNPs or min(r2) < 0.85:
             _fail(f"CLI {impute_label} VCF is incomplete or inaccurate")
 
+    # a lone sample goes through the per-sample engine, as in the JAX driver
+    with tempfile.TemporaryDirectory() as d:
+        vcf, gmap, bamlist, truths, nSNPs = write_bam_world(
+            d, np.random.default_rng(SEED + 1), n_samples=1)
+        out = os.path.join(d, "out")
+        for args in (
+            ["prepare", "--outputdir", out, "--chr", "chr20", "--reference_vcf_file", vcf,
+             "--genetic_map_file", gmap, "--nGen", "100"],
+            ["impute", "--outputdir", out, "--chr", "chr20", "--bamlist", bamlist] + small[:-2],
+        ):
+            res = subprocess.run([sys.executable, "-m", "quilt_tpu_torch"] + args, cwd=HERE,
+                                 capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                _fail(f"CLI {args[0]} (one sample) exited {res.returncode}:\n{res.stderr[-3000:]}")
+        with gzip.open(os.path.join(out, "quilt.chr20.vcf.gz"), "rt") as fh:
+            body = [l for l in fh if not l.startswith("#")]
+        ds = np.array([float(l.split("\t")[9].split(":")[2]) for l in body])
+        r2 = float(np.corrcoef(ds, truths[0].sum(axis=0))[0, 1] ** 2)
+        per_sample = "Imputing sample 1/1:" in res.stderr and "(batched)" not in res.stderr
+        print(f"cli: a lone sample: impute went through the per-sample engine: {per_sample} "
+              f"(log: {[l[22:] for l in res.stderr.splitlines() if 'Imputing' in l]}); "
+              f"{len(body)} of {nSNPs} sites, r2 {r2:.4f}", flush=True)
+        if not per_sample or len(body) != nSNPs or r2 < 0.85:
+            _fail("CLI impute of a lone sample missed the per-sample engine or is inaccurate")
 
-PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "cli")
+
+# ---------------------------------------------------------------------------
+# phase 8: QUILT-HLA at full width through the port's `hla-prepare` and `hla`
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _stage_times(targets, results):
+    """Times every call of the functions targets {label: (module, name)}
+    (each returns host data, so its device work is done when it returns)
+    and keeps impute_one_sample's results in `results`."""
+    import importlib
+
+    times = {label: [0.0, 0] for label in targets}
+    saved = []
+    for label, (mod_name, name) in targets.items():
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, name)
+
+        def timed(*a, _real=real, _label=label, **k):
+            t = time.time()
+            out = _real(*a, **k)
+            times[_label][0] += time.time() - t
+            times[_label][1] += 1
+            if _label == "impute_one_sample":
+                results.append(out)
+            return out
+
+        setattr(mod, name, timed)
+        saved.append((mod, name, real))
+    try:
+        yield times
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def hla_args(out, w, hla_prep, extra=()):
+    """The `hla` verb at the quick-start shape: 7 chains x 3 seek iterations
+    x 21 sweeps, Ksubset 600."""
+    return ["hla", "--outputdir", out, "--chr", "chr6", "--bamlist", w["bamlist"],
+            "--prepared_reference_filename", w["prep_file"],
+            "--prepared_hla_reference_filename", hla_prep, "--nGibbsSamples", "7",
+            "--n_seek_its", "3", "--Ksubset", "600", "--Knew", "600",
+            "--small_ref_panel_gibbs_iterations", "20",
+            "--override_default_params_for_small_ref_panel", "FALSE", "--seed", "1", *extra]
+
+
+def run_hla(kernels, capture_kernels, device="cuda", K=5120, nSNPs=16384, n_samples=4,
+            n_alleles=2000):
+    """QUILT-HLA at full width: the world of simulate.write_hla_world (K
+    panel haplotypes, nSNPs SNPs, a 3,000 bp gene in the middle whose
+    panel SNPs are the variant sites of n_alleles simulated alleles, each
+    panel haplotype carrying one, Zipf-skewed; n_samples samples at 1x
+    plus reads over the gene at 1x) through `hla-prepare` and `hla` of the
+    port's CLI in this process, with every launch count set to 0 just
+    before `hla`; prints seconds, samples/s, the stage times, launches, a
+    profile of one sample's engine call and the share of the true alleles
+    typed, combined and from the gammas alone. Fails if a sample has no
+    captured gamma or under half the alleles typed (combined)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from quilt_tpu_torch import cli
+    from quilt_tpu_torch.simulate import write_hla_world
+
+    sync = (lambda: torch.cuda.synchronize()) if device == "cuda" else (lambda: None)
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        w = write_hla_world(d, np.random.default_rng(SEED + 7), K=K, nSNPs=nSNPs,
+                            n_samples=n_samples, n_alleles=n_alleles)
+        print(f"hla world: K={K}, nSNPs={nSNPs}, gene {w['gene'].name} "
+              f"{w['gene'].start}-{w['gene'].end}, {n_alleles} alleles, {n_samples} samples; "
+              f"true alleles {w['alleles']} ({time.time() - t:.1f} s to simulate, prepare and "
+              f"write the BAMs)", flush=True)
+        hla_prep = os.path.join(d, "hla_prep.npz")
+        t = time.time()
+        if cli.main(["hla-prepare", "--hla_db", w["db_file"], "--prepared_reference_filename",
+                     w["prep_file"], "--output_file", hla_prep]) != 0:
+            _fail("hla-prepare failed")
+        t_prep = time.time() - t
+        out = os.path.join(d, "out")
+        targets = {
+            "load_bam_reads": ("quilt_tpu_torch.io.bam", "load_bam_reads"),
+            "load_bam_sequences": ("quilt_tpu_torch.io.bam", "load_bam_sequences"),
+            "impute_one_sample": ("quilt_tpu_torch.engine.sample", "impute_one_sample"),
+            "type_hla_sample": ("quilt_tpu_torch.hla.typing", "type_hla_sample"),
+            "pair scan (in type_hla_sample)": ("quilt_tpu_torch.hla.typing", "_pair_read_logsum"),
+        }
+        results = []
+        with _stage_times(targets, results) as stages:
+            for k in kernels:
+                k.launches = 0
+            sync()
+            t = time.time()
+            rc = cli.main(hla_args(out, w, hla_prep, ["--print_extra_timing_information",
+                                                       "TRUE"]), device=device)
+            sync()
+            dt = time.time() - t
+        launches = {k.name: k.launches for k in kernels}
+        if rc != 0:
+            _fail(f"hla exited {rc}")
+        print(f"hla: {n_samples} samples in {dt:.2f} s = {n_samples / dt:.3f} samples/s "
+              f"(hla-prepare before it: {t_prep:.2f} s)", flush=True)
+        for label, (sec, n) in stages.items():
+            print(f"  {label:<32} {sec * 1000:10.1f} ms ({n} calls)", flush=True)
+        print(f"  launches: {launches}", flush=True)
+        check_launched("hla", launches, capture_kernels)
+        typed = {}
+        for mode in ("combined", "quiltonly"):
+            path = os.path.join(out, f"quilt.hla.output.{mode}.topresult.{w['gene'].name}.txt")
+            with open(path) as fh:
+                rows = [line.rstrip("\n").split("\t") for line in fh][1:]
+            hits = 0
+            for row, truth in zip(rows, w["alleles"]):
+                left = list(truth)
+                for a in row[2:4]:
+                    if a in left:
+                        left.remove(a)
+                        hits += 1
+            typed[mode] = hits / (2 * n_samples)
+            print(f"hla: {mode}: typed {[tuple(r[2:4]) for r in rows]}; {hits} of "
+                  f"{2 * n_samples} true alleles = {100 * typed[mode]:.1f}%", flush=True)
+        for i, res in enumerate(results):
+            g = res.hla_gamma_total
+            if g is None or not np.isfinite(g).all() or abs(g.sum() - 14.0) > 1e-3:
+                _fail(f"hla: sample {i} has no captured gamma (or a malformed one)")
+        if len(results) != n_samples:
+            _fail(f"hla: {len(results)} engine calls for {n_samples} samples")
+        if typed["combined"] < 0.5:
+            _fail(f"hla: {100 * typed['combined']:.1f}% of the true alleles typed (combined)")
+        profile_hla_sample(w, device, dt / n_samples)
+    return launches
+
+
+def profile_hla_sample(w, device, per_sample_s):
+    """One sample's per-sample engine call with the HLA capture, timed and
+    then profiled (the hla call's own profile would trace the typing's
+    host work too)."""
+    from quilt_tpu_torch.config import ImputeConfig
+    from quilt_tpu_torch.engine.context import RegionContext
+    from quilt_tpu_torch.engine.sample import impute_one_sample
+    from quilt_tpu_torch.io.bam import load_bam_reads
+    from quilt_tpu_torch.panel.prepare import PreparedReference
+
+    prep = PreparedReference.load(w["prep_file"])
+    cfg = ImputeConfig(nGibbsSamples=7, n_seek_its=3, Ksubset=600, Knew=600,
+                       small_ref_panel_gibbs_iterations=20,
+                       override_default_params_for_small_ref_panel=False, verbose=False,
+                       hla_run=True, gamma_physically_closest_to=(w["gene"].start + w["gene"].end) // 2)
+    ctx = RegionContext.build(prep, cfg, device)
+    with open(w["bamlist"]) as fh:
+        bam = fh.readline().strip()
+    reads = load_bam_reads(bam, prep.chrom, prep.pos, prep.ref_allele, prep.alt_allele, prep.grid)
+    impute_one_sample(ctx, reads, cfg, seed=1)
+    t = time.time()
+    impute_one_sample(ctx, reads, cfg, seed=1)
+    dt = time.time() - t
+    print(f"hla: one sample's engine call {dt:.3f} s (of {per_sample_s:.3f} s a sample in the "
+          f"hla call)", flush=True)
+    if device == "cuda":
+        profile_call("hla (one sample's engine call)",
+                     lambda: impute_one_sample(ctx, reads, cfg, seed=1), dt)
+
+
+PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "hla", "cli")
 
 
 def main():
@@ -971,8 +1220,9 @@ def main():
     nl3 = [gibbs_sweep.FWD_KERNELS[3], gibbs_sweep.BWD_KERNELS[3], gibbs_dosage.DOS_KERNELS[3]]
     bank = nipt_bank.BANK_KERNEL
     fused = [fb.FWD_KERNEL, fb.BWD_KERNEL]
+    capture = fb.BWD_CAPTURE_KERNEL
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.REMAT_TILED_KERNEL, fb.BWD_TILED_KERNEL]
-    kernels = [gfwd, gbwd, gdos] + nl3 + [bank] + fused + tiled   # the order of rows
+    kernels = [gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + tiled   # the order of rows
     rows, launches = [], {}
 
     if phases & {"kernels", "e2e"}:
@@ -1036,6 +1286,10 @@ def main():
         nipt_report("nipt2", world5, out)
         check_launched("nipt2", l5, nl3 + [bank])
         del world5
+    if "hla" in phases:
+        launches["hla"] = run_hla(kernels, [gfwd, gbwd, fb.FWD_KERNEL, capture])
+        if launches["hla"][fb.BWD_KERNEL.name]:
+            _fail(f"hla launched the FB backward without capture: {launches['hla']}")
     if "cli" in phases:
         run_cli()
 

@@ -4,27 +4,32 @@
     python -m quilt_tpu_torch impute ...    (QUILT1 diploid, on the GPU)
     python -m quilt_tpu_torch prepare2 ...  (prepare with the QUILT2 defaults)
     python -m quilt_tpu_torch impute2 ...   (QUILT2 diploid, on the GPU)
+    python -m quilt_tpu_torch hla-prepare ... (HLA reference preparation, on the host)
+    python -m quilt_tpu_torch hla ...       (HLA allele typing, on the GPU)
 
 The flags are the JAX package's, generated from the config dataclasses
 (config.py, a copy of quilt_tpu/config.py); the QUILT2 verbs default
 use_mspbwt and impute_rare_common to TRUE, as the JAX package's do.
-`prepare` is a copy of quilt_tpu/cli.py:cmd_prepare over the port's own
-readers and reference preparation. `impute` and `impute2` run on the CUDA
-device and refuse options outside the ported slice; without a GPU they
-exit non-zero.
+`prepare` and `hla-prepare` are copies of quilt_tpu/cli.py:cmd_prepare /
+cmd_hla_prepare over the port's own readers and reference preparation.
+`impute`, `impute2` and `hla` run on the CUDA device and refuse options
+outside the ported slice; without a GPU they exit non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import multiprocessing
 import os
 import sys
+from concurrent.futures import ProcessPoolExecutor
+from functools import partial
 from typing import List, Optional
 
 import numpy as np
 
 from .config import ImputeConfig, PrepareConfig
-from .utils import print_message
+from .utils import print_message, set_verbosity
 
 
 def _add_dataclass_args(
@@ -330,17 +335,21 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
     pos, ref_allele, alt_allele, grid = (
         (prep.pos_all, prep.ref_allele_all, prep.alt_allele_all, prep.grid_all) if rc_mode
         else (prep.pos, prep.ref_allele, prep.alt_allele, prep.grid))
-    samples = [
-        load_bam_reads(
-            b, chrom=prep.chrom, snp_pos=pos, ref_allele=ref_allele,
-            alt_allele=alt_allele, grid=grid, bqFilter=cfg.bqFilter,
-            iSizeUpperLimit=cfg.iSizeUpperLimit, downsampleToCov=cfg.downsampleToCov,
-            use_bx_tag=cfg.use_bx_tag, bxTagUpperLimit=cfg.bxTagUpperLimit,
-            seed=cfg.seed, cram_fasta=cfg.reference or None,
-            useSoftClippedBases=cfg.useSoftClippedBases,
-        )
-        for b in bam_files
-    ]
+    load_one = partial(
+        load_bam_reads, chrom=prep.chrom, snp_pos=pos, ref_allele=ref_allele,
+        alt_allele=alt_allele, grid=grid, bqFilter=cfg.bqFilter,
+        iSizeUpperLimit=cfg.iSizeUpperLimit, downsampleToCov=cfg.downsampleToCov,
+        use_bx_tag=cfg.use_bx_tag, bxTagUpperLimit=cfg.bxTagUpperLimit,
+        seed=cfg.seed, cram_fasta=cfg.reference or None,
+        useSoftClippedBases=cfg.useSoftClippedBases,
+    )
+    if cfg.nCores > 1 and len(bam_files) > 1:
+        # read extraction in nCores processes (quilt_tpu/cli.py:388-393)
+        with ProcessPoolExecutor(max_workers=cfg.nCores,
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            samples = list(ex.map(load_one, bam_files))
+    else:
+        samples = [load_one(b) for b in bam_files]
     ff_values = None
     if cfg.method == "nipt":
         if not cfg.fflist:
@@ -373,14 +382,139 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
     return 0
 
 
+def cmd_hla_prepare(args) -> int:
+    """QUILT_HLA_prepare_reference equivalent: allele DB (+ prepared
+    reference panel) -> kmer database + allele-labeled haplotypes."""
+    from .hla.db import load_hla_db
+    from .hla.prepare import prepare_hla_reference, save_hla_prepared
+    from .panel.prepare import PreparedReference
+
+    if args.ipd_igmt_alignments_zip_file:
+        from .hla.db import HLAGene
+        from .hla.imgt import load_imgt_zip
+
+        if not args.region:
+            print("--region is required with --ipd_igmt_alignments_zip_file", file=sys.stderr)
+            return 1
+        if args.region_end:
+            gene = HLAGene(name=args.region, chrom=args.region_chrom,
+                           start=args.region_start, end=args.region_end)
+            strand = args.region_strand
+        else:
+            # built-in ancillary gene table (reference:
+            # hla_ancillary_files/hlagenes.txt + supplementary strand info)
+            from .hla.ancillary import gene_info, gene_strand
+            gene = gene_info(args.region)
+            if gene is None:
+                print(f"unknown HLA gene {args.region}; pass --region_start/--region_end",
+                      file=sys.stderr)
+                return 1
+            strand = gene_strand(args.region)
+            print_message(f"HLA gene {gene.name}: {gene.chrom}:{gene.start}-{gene.end} "
+                          f"strand {strand} (ancillary table)")
+        db = load_imgt_zip(args.ipd_igmt_alignments_zip_file, gene, strand=strand)
+        print_message(f"Parsed IPD-IMGT alignment for {gene.name}: "
+                      f"{db.n_alleles} four-digit alleles x {db.gene.length} bp")
+    elif args.hla_db:
+        db = load_hla_db(args.hla_db)
+    else:
+        print("one of --hla_db / --ipd_igmt_alignments_zip_file is required", file=sys.stderr)
+        return 1
+    prep = PreparedReference.load(args.prepared_reference_filename)
+    hla_types = None
+    if args.hla_types_panel:
+        from .hla.prepare import load_hla_types_panel
+        region = args.region or db.gene.name.split("-")[-1]
+        hla_types = load_hla_types_panel(args.hla_types_panel, region)
+    hla = prepare_hla_reference(db, prep, k=args.kmer_size, hla_types=hla_types)
+    save_hla_prepared(hla, args.output_file)
+    print_message(f"Saved prepared HLA reference to {args.output_file}")
+    return 0
+
+
+def cmd_hla(args, device) -> int:
+    """QUILT_HLA equivalent (quilt_tpu/cli.py:cmd_hla): impute each sample
+    through the per-sample engine with gamma capture at the gene centre,
+    take the gene's reads (the mapped gene-region reads and the reads on
+    the gene's HLA alt contigs), type the alleles, and write the four
+    summary tables; a comma-separated list of prepared HLA references types
+    several genes in one invocation."""
+    from .engine.context import RegionContext
+    from .engine.driver import check_slice
+    from .engine.sample import impute_one_sample
+    from .hla.prepare import load_hla_prepared
+    from .hla.typing import GeneRead, type_hla_sample, write_hla_summaries
+    from .io.bam import (
+        bam_sample_name, load_bam_reads, load_bam_sequences, load_hla_alt_contig_reads,
+    )
+    from .panel.prepare import PreparedReference
+
+    cfg: ImputeConfig = _config_from_args(ImputeConfig, args)
+    set_verbosity(cfg.verbose)
+    try:
+        check_slice(cfg)
+    except NotImplementedError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    prep = PreparedReference.load(cfg.prepared_reference_filename)
+    with open(cfg.bamlist) as fh:
+        bam_files = [line.strip() for line in fh if line.strip()]
+    names = [bam_sample_name(b) or os.path.basename(b).split(".")[0] for b in bam_files]
+    refseq_contigs = None
+    if args.hla_refseq_file:
+        # contig-name list (reference's refseq file; get_that2 greps its
+        # second column for HLA-<gene> names)
+        from .out.bgzf import bgzf_open
+        refseq_contigs = [
+            line.split("\t")[0].removeprefix("SN:")
+            for line in bgzf_open(args.hla_refseq_file)
+            if line.strip() and not line.startswith("#")
+        ]
+    hla_files = [f for f in args.prepared_hla_reference_filename.split(",") if f]
+    for hla_file in hla_files:
+        hla = load_hla_prepared(hla_file)
+        gene = hla.db.gene
+        cfg.hla_run = True
+        cfg.gamma_physically_closest_to = (gene.start + gene.end) // 2
+        ctx = RegionContext.build(prep, cfg, device)
+        results = {}
+        for i, bam in enumerate(bam_files):
+            reads = load_bam_reads(
+                bam, prep.chrom, prep.pos, prep.ref_allele, prep.alt_allele,
+                prep.grid, bqFilter=cfg.bqFilter,
+                downsampleToCov=cfg.downsampleToCov, seed=cfg.seed,
+            )
+            res = impute_one_sample(ctx, reads, cfg, seed=cfg.seed + i)
+            raw = load_bam_sequences(bam, gene.chrom, gene.start - 300, gene.end + 300)
+            gene_reads = [GeneRead(pos0=p0, seq=seq, qual=q) for (_qn, p0, seq, q) in raw]
+            if not args.no_hla_alt_contig_reads:
+                # second read source: reads mapped to the gene's HLA alt
+                # contigs (get_that2 / filter_that2, hla_functions.R:544-669),
+                # placed on the allele alignment by kmer seeding
+                alt_raw = load_hla_alt_contig_reads(
+                    bam, gene.name, gene.chrom, gene.start, gene.end,
+                    contig_names=[c for c in refseq_contigs if c.startswith(f"HLA-{gene.name}")]
+                    if refseq_contigs else None,
+                )
+                gene_reads += [GeneRead(pos0=-1, seq=seq, qual=q) for (_qn, seq, q) in alt_raw]
+                if alt_raw:
+                    print_message(f"{bam}: +{len(alt_raw)} HLA alt-contig reads for {gene.name}")
+            gam = res.hla_gamma_total if res.imputed else None
+            results[names[i]] = type_hla_sample(hla, gene_reads, gammas=gam, device=device)
+        ctx.timers.report()
+        write_hla_summaries(results, names, cfg.outputdir or ".", gene.name)
+        print_message(f"Wrote HLA summaries for {len(names)} samples ({gene.name})")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> int:
-    """Run one subcommand. `impute` runs on `device`, by default the CUDA
-    device, which must exist (tests pass device="cpu")."""
+    """Run one subcommand. `impute`, `impute2` and `hla` run on `device`, by
+    default the CUDA device, which must exist (tests pass device="cpu")."""
     argv = argv if argv is not None else sys.argv[1:]
     parser = argparse.ArgumentParser(
         prog="python -m quilt_tpu_torch",
         description="QUILT1 / QUILT2 imputation, diploid or NIPT (--method nipt --fflist), "
-                    "on an NVIDIA GPU (PyTorch + CUDA port)",
+                    "and QUILT-HLA typing, on an NVIDIA GPU (PyTorch + CUDA port)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
     quilt2 = {"use_mspbwt": True, "impute_rare_common": True}
@@ -394,10 +528,39 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> int:
     _add_dataclass_args(sub.add_parser(
         "impute2", help="impute (QUILT2: use_mspbwt + impute_rare_common)"),
         ImputeConfig, overrides=quilt2)
+    p_hp = sub.add_parser("hla-prepare", help="prepare HLA reference")
+    p_hp.add_argument("--hla_db", default="", help="prebuilt allele DB (.npz)")
+    p_hp.add_argument("--ipd_igmt_alignments_zip_file", default="",
+                      help="IPD-IMGT/HLA release zip with alignments/<gene>_gen.txt "
+                           "(reference's flag spelling)")
+    p_hp.add_argument("--region", default="", help="HLA gene name for --ipd_igmt_... (e.g. A)")
+    p_hp.add_argument("--region_chrom", default="chr6")
+    p_hp.add_argument("--region_start", type=int, default=0)
+    p_hp.add_argument("--region_end", type=int, default=0)
+    p_hp.add_argument("--region_strand", type=int, default=1)
+    p_hp.add_argument("--prepared_reference_filename", required=True)
+    p_hp.add_argument("--output_file", required=True)
+    p_hp.add_argument("--kmer_size", type=int, default=10)
+    p_hp.add_argument("--hla_types_panel", default="",
+                      help="tab-separated unphased HLA types per reference sample "
+                           "(Sample.ID + HLA.<gene>.1/.2 columns); enables the two-step "
+                           "haplotype phasing")
+    p_hla = sub.add_parser("hla", help="HLA allele typing")
+    _add_dataclass_args(p_hla, ImputeConfig)
+    p_hla.add_argument("--prepared_hla_reference_filename", required=True,
+                       help="prepared HLA npz; comma-separate to type several genes in one "
+                            "invocation")
+    p_hla.add_argument("--hla_refseq_file", default="",
+                       help="contig-name list restricting the HLA alt-contig read source "
+                            "(reference's refseq file)")
+    p_hla.add_argument("--no_hla_alt_contig_reads", action="store_true",
+                       help="disable the HLA alt-contig read source")
     args = parser.parse_args(argv)
     print_message("quilt_tpu_torch invocation: " + " ".join(argv))
     if args.command in ("prepare", "prepare2"):
         return cmd_prepare(args)
+    if args.command == "hla-prepare":
+        return cmd_hla_prepare(args)
     if device is None:
         import torch
 
@@ -406,4 +569,6 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None) -> int:
                   file=sys.stderr)
             return 1
         device = "cuda"
+    if args.command == "hla":
+        return cmd_hla(args, device)
     return cmd_impute(args, device, quilt2=args.command == "impute2")

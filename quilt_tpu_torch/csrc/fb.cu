@@ -10,7 +10,11 @@
 //             runs the max-normalised beta, and emits gamma's dosage
 //             eps + (1-2eps) * sum_k gamma_k bit_k,s and, at thinned grids,
 //             the top-K_top gammas (lowest index first on ties, as
-//             _topk_extract). Gamma capture (HLA) is not part of this port.
+//             _topk_extract); at the grids that the optional `cap` flags
+//             (the HLA run's gene grid), it adds the normalised gamma of
+//             every haplotype into gcap [B, K_pad] (Pallas gcap_ref). One
+//             block owns one row, so the capture needs no atomics, and a
+//             call without capture passes no flags and does no extra work.
 //
 // What bounds it on the H100: each of the B rows is a 512-step dependent
 // recursion over K = 5,120 haplotypes; per grid a row does ~32 FMAs per
@@ -92,6 +96,7 @@ __global__ void __launch_bounds__(NT) fb_bwd_kernel(
     const float* __restrict__ ckpt, const float* __restrict__ trans2,
     const int* __restrict__ thin, float* __restrict__ dos,
     float* __restrict__ tv, int* __restrict__ ti, float* __restrict__ scratch,
+    const float* __restrict__ cap, float* __restrict__ gcap,
     int Gp, int K, int K_pad, int B, int CG, int K_top, float invK,
     float eps) {
   __shared__ float dls[32];
@@ -161,12 +166,14 @@ __global__ void __launch_bounds__(NT) fb_bwd_kernel(
         sg += aj[k] * bk;
       }
       const float gsum = block_reduce(sg, red, SumOp());
+      float* gcr = (cap != nullptr && cap[g] > 0.f) ? gcap + (size_t)b * K_pad : nullptr;
       float part[32];
 #pragma unroll
       for (int t = 0; t < 32; ++t) part[t] = 0.f;
       for (int k = threadIdx.x; k < K_pad; k += NT) {
         const float gm = (aj[k] * beta[k]) / gsum;
         work[k] = (k < K) ? gm : -1.f;
+        if (gcr != nullptr && k < K) gcr[k] += gm;
         const unsigned w = (unsigned)words[(size_t)g * K_pad + k];
 #pragma unroll
         for (int t = 0; t < 32; ++t) part[t] += ((w >> t) & 1u) ? gm : 0.f;
@@ -217,12 +224,13 @@ extern "C" int fb_forward(const void* words, const void* dl,
 extern "C" int fb_backward(const void* words, const void* dl,
                            const void* ckpt, const void* trans2,
                            const void* thin, void* dos, void* tv, void* ti,
-                           void* scratch, int Gp, int K, int K_pad, int B,
-                           int CG, int K_top, float invK, float eps,
-                           void* stream) {
+                           void* scratch, const void* cap, void* gcap, int Gp,
+                           int K, int K_pad, int B, int CG, int K_top,
+                           float invK, float eps, void* stream) {
   fb_bwd_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
       (const int*)words, (const float*)dl, (const float*)ckpt,
       (const float*)trans2, (const int*)thin, (float*)dos, (float*)tv,
-      (int*)ti, (float*)scratch, Gp, K, K_pad, B, CG, K_top, invK, eps);
+      (int*)ti, (float*)scratch, (const float*)cap, (float*)gcap, Gp, K,
+      K_pad, B, CG, K_top, invK, eps);
   return (int)cudaGetLastError();
 }

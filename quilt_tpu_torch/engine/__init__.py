@@ -1,1 +1,1 @@
-"""The batched imputation engine of the port."""
+"""The imputation engines of the port: batched (batch.py) and per-sample (sample.py)."""

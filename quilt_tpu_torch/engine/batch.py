@@ -63,6 +63,28 @@ class SampleResult:
     fet_gp: Optional[np.ndarray] = None
     mat_dosage: Optional[np.ndarray] = None
     fet_dosage: Optional[np.ndarray] = None
+    # HLA run (the per-sample engine): the full-panel gamma of every chain
+    # and latent haplotype at the capture grid, and its sum
+    hla_gammas: Optional[np.ndarray] = None       # [C, nl, K]
+    hla_gamma_total: Optional[np.ndarray] = None  # [K]
+
+
+def timed_sections(timers, dev):
+    """sec(name): a context manager timing `name` on `timers` when timing
+    is on; the section drains the device queue before its clock stops, so
+    asynchronous work lands on the section that issued it."""
+
+    @contextlib.contextmanager
+    def sec(name):
+        if not timers.enabled:
+            yield
+            return
+        with timers.section(name):
+            yield
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    return sec
 
 
 def lem_full_budget(device: torch.device) -> int:
@@ -103,19 +125,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     use_ms = cfg.use_mspbwt
     rare_common = reads_all_list is not None
     rng = np.random.default_rng(seed)
-    timers = ctx.timers
-
-    @contextlib.contextmanager
-    def sec(name):
-        # a timed section drains the device queue before its clock stops,
-        # so asynchronous work lands on the section that issued it
-        if not timers.enabled:
-            yield
-            return
-        with timers.section(name):
-            yield
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+    sec = timed_sections(ctx.timers, dev)
 
     S = len(reads_list)
     C = cfg.nGibbsSamples

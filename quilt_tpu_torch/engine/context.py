@@ -4,7 +4,8 @@ helpers of the JAX package's engine.
 RegionContext is the single-device counterpart of
 quilt_tpu/engine/sample.py:RegionContext (:40-216), with the QUILT2 state
 of :100-151 (the distinct-haplotype bits of msPBWT selection, the all-SNP
-transitions and panel of rare/common imputation); detect_boundaries is
+transitions and panel of rare/common imputation) and the HLA run's gamma
+capture (:129-145, the capture grid in inputs.capture_grid); detect_boundaries is
 quilt_tpu/oracle/block_gibbs.py:36, sample_allele_count
 quilt_tpu/engine/sample.py:716, and the validators
 quilt_tpu/engine/validators.py:15,79.
@@ -59,6 +60,8 @@ class RegionContext:
     n_latent: int = 2
     # family / splits forced on kernels.fb.fb_plan (empty: its own rule)
     fb_plan_args: Dict = field(default_factory=dict)
+    # HLA run: the FB captures gamma at fb_inputs.capture_grid
+    hla_capture: bool = False
     _e_full: Optional[torch.Tensor] = None
 
     def rhb_dev(self) -> torch.Tensor:
@@ -126,6 +129,7 @@ class RegionContext:
             timers=SectionTimers(cfg.print_extra_timing_information),
             trans_all=trans_all, nGrids_all=nGrids_all,
             n_latent=3 if cfg.method == "nipt" else 2,
+            hla_capture=t["fb"] is not None and t["fb"].capture_grid >= 0,
         )
 
 

@@ -1,7 +1,8 @@
-"""Multi-sample imputation driver of the port: the batched dispatch of
-quilt_tpu/engine/driver.py:quilt_impute (:44-223), with the rare/common
-read split and all-SNP output axis of :94-114, the INFO / allele
-frequency / HWE aggregation after it, and the VCF write through
+"""Multi-sample imputation driver of the port: the dispatch of
+quilt_tpu/engine/driver.py:quilt_impute (:44-235) between the batched engine
+(engine/batch.py) and the per-sample one (engine/sample.py), with the
+rare/common read split and all-SNP output axis of :94-114, the INFO /
+allele frequency / HWE aggregation after it, and the VCF write through
 out.vcf_writer."""
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from .context import (
     validate_region_consistency,
 )
 from .rare_common import restrict_reads_to_common
+from .sample import impute_one_sample
 
 # diagnostic options served by the JAX package's per-sample engine
 _PER_SAMPLE_FLAGS = (
@@ -57,11 +59,9 @@ def check_slice(cfg: ImputeConfig) -> None:
     """Refuse what this port does not run yet, naming the slice it belongs
     to (see ROADMAP.md)."""
     later = []
-    if cfg.hla_run or cfg.gamma_physically_closest_to is not None:
-        later.append("hla_run / gamma capture (HLA slice)")
     flags = [f for f in _PER_SAMPLE_FLAGS if getattr(cfg, f)]
     if flags:
-        later.append(f"{', '.join(flags)} (per-sample engine slice)")
+        later.append(f"{', '.join(flags)} (per-sample diagnostics slice)")
     if (cfg.mesh_data > 1 or cfg.mesh_panel > 1 or cfg.distributed_nproc > 1):
         later.append("mesh_data / mesh_panel / distributed_nproc (multi-GPU slice)")
     if later:
@@ -143,35 +143,46 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         out_pos, out_ref, out_alt = prep.pos, prep.ref_allele, prep.alt_allele
         in_region = prep.in_region()
 
-    # sample batches of the batched engine; the batch is clamped so one
-    # Gibbs call's working set fits the device
-    W_max = 1
-    for r in samples:
-        if r is not None and r.nReads:
-            W_max = max(W_max, int(np.bincount(np.clip(r.wif0, 0, prep.nGrids - 1),
-                                               minlength=prep.nGrids).max()))
-    cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids, device,
-                     ctx.n_latent)
-    sample_batch = max(1, min(cfg.sample_batch, cap // max(cfg.nGibbsSamples, 1)))
-    if sample_batch < cfg.sample_batch:
-        print_message(f"Clamping sample_batch {cfg.sample_batch} -> {sample_batch} "
-                      f"(Gibbs working set at Ksubset={cfg.Ksubset})")
     results: List[Optional[SampleResult]] = [None] * N
-    # a NIPT batch shares one fetal fraction (the label prior and the class
-    # tables of a Gibbs call are made from it): batches form within the
-    # samples of equal ff
-    by_ff: Dict[float, List[int]] = {}
+    # the batched engine takes several samples at a time; a lone sample and
+    # the samples of an HLA run go through the per-sample engine
+    # (quilt_tpu/engine/driver.py:146-158)
+    if cfg.sample_batch > 1 and N > 1 and not cfg.hla_run:
+        # sample batches, clamped so one Gibbs call's working set fits the device
+        W_max = 1
+        for r in samples:
+            if r is not None and r.nReads:
+                W_max = max(W_max, int(np.bincount(np.clip(r.wif0, 0, prep.nGrids - 1),
+                                                   minlength=prep.nGrids).max()))
+        cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids, device,
+                         ctx.n_latent)
+        sample_batch = max(1, min(cfg.sample_batch, cap // max(cfg.nGibbsSamples, 1)))
+        if sample_batch < cfg.sample_batch:
+            print_message(f"Clamping sample_batch {cfg.sample_batch} -> {sample_batch} "
+                          f"(Gibbs working set at Ksubset={cfg.Ksubset})")
+        # a NIPT batch shares one fetal fraction (the label prior and the class
+        # tables of a Gibbs call are made from it): batches form within the
+        # samples of equal ff
+        by_ff: Dict[float, List[int]] = {}
+        for i in range(N):
+            by_ff.setdefault(float(ff_values[i]) if nipt else 0.0, []).append(i)
+        groups = [v[j:j + sample_batch] for v in by_ff.values()
+                  for j in range(0, len(v), sample_batch)]
+        for group in groups:
+            if len(group) == 1 and rare_common:
+                continue   # no batching win: the per-sample engine below
+            print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
+            for i, res in zip(group, impute_samples_batched(
+                    ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0],
+                    ff=float(ff_values[group[0]]) if nipt else 0.0,
+                    reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
+                results[i] = res
     for i in range(N):
-        by_ff.setdefault(float(ff_values[i]) if nipt else 0.0, []).append(i)
-    groups = [v[j:j + sample_batch] for v in by_ff.values()
-              for j in range(0, len(v), sample_batch)]
-    for group in groups:
-        print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
-        for i, res in zip(group, impute_samples_batched(
-                ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0],
-                ff=float(ff_values[group[0]]) if nipt else 0.0,
-                reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
-            results[i] = res
+        if results[i] is None:
+            print_message(f"Imputing sample {i + 1}/{N}: {sample_names[i]}")
+            results[i] = impute_one_sample(
+                ctx, samples[i], cfg, seed=cfg.seed + i, ff=float(ff_values[i]),
+                reads_all=samples_all[i] if rare_common else None)
 
     eij_sum = np.zeros(nSNPs)
     var_sum = np.zeros(nSNPs)

@@ -3,13 +3,72 @@ the host-side consensus and recast helpers.
 
 select_new_haps_device and read_confidence_device are torch versions of
 quilt_tpu/engine/selection.py:63-150 (a torch.Generator replaces the jax
-key); consensus_read_labels, recast_haps and recast_nipt_haps are NumPy copies of
-:153-303 (their module imports nothing of jax, but its package does).
+key), for the batched engine; select_new_haps_from_topk and
+read_confidence are NumPy copies of :21 and :215, for the per-sample
+engine; consensus_read_labels, recast_haps and recast_nipt_haps are NumPy
+copies of :153-303 (their module imports jax).
 """
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
+
+
+def select_new_haps_from_topk(top_idx: np.ndarray, top_vals: np.ndarray, Knew: int, K: int,
+                              previously_selected: np.ndarray, rng: np.random.Generator,
+                              K_top_matches: int = 5) -> np.ndarray:
+    """Pick Knew haplotypes from ranked top-match lists top_idx / top_vals
+    [n_lists, K_top] (everything_select_good_haps, reference:
+    QUILT/R/functions.R:2262-2310): all rank-1 matches, then rank-2, ...,
+    outside the retained set; at the depth that overflows, a random subset;
+    when the lists run out, every listed haplotype, then a random fill."""
+    prev = set(previously_selected.tolist())
+    keep: List[int] = []
+    kept = set()
+    depth_max = min(K_top_matches, top_idx.shape[1])
+    for depth in range(depth_max):
+        new = np.unique(top_idx[:, depth])
+        new = [h for h in new.tolist() if h not in prev and h not in kept]
+        room = Knew - len(keep)
+        if len(new) < room:
+            keep.extend(new)
+            kept.update(new)
+        else:
+            chosen = rng.choice(len(new), size=room, replace=False)
+            keep.extend(np.asarray(new)[chosen].tolist())
+            kept.update(keep)
+            break
+    if len(keep) < Knew:
+        allm = np.unique(top_idx)
+        extra = [h for h in allm.tolist() if h not in prev and h not in kept]
+        room = Knew - len(keep)
+        keep.extend(extra[:room])
+        kept.update(keep)
+    if len(keep) < Knew:
+        pool = np.setdiff1d(np.arange(K), np.asarray(sorted(kept | prev), dtype=np.int64))
+        fill = rng.choice(pool, size=Knew - len(keep), replace=False)
+        keep.extend(fill.tolist())
+    return np.asarray(keep[:Knew], dtype=np.int64)
+
+
+def read_confidence(em_vs_haps: np.ndarray, minrp: float = 0.95) -> np.ndarray:
+    """Which reads confidently belong to one haplotype, from P(read | final
+    haplotype dosages) [n_latent, R] (reference:
+    assess_ability_of_reads_to_be_confident, functions.R:1615-1660)."""
+    if em_vs_haps.shape[0] == 2:
+        p1, p2 = em_vs_haps
+        with np.errstate(invalid="ignore", divide="ignore"):
+            mp = p1 / (p1 + p2)
+        mp = np.where(np.isfinite(mp), mp, 0.5)
+        mp = np.where(mp < 0.5, 1 - mp, mp)
+        return mp > minrp
+    d = em_vs_haps.sum(axis=0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        p = em_vs_haps / d
+    mp = np.nanmax(np.where(np.isfinite(p), p, 1 / 3), axis=0)
+    return mp > minrp
 
 
 def select_new_haps_device(tv, ti, which, gen: torch.Generator, n_keep: int,

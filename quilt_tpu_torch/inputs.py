@@ -172,7 +172,8 @@ def gibbs_trans(trans: np.ndarray, nGrids: int) -> np.ndarray:
     return out
 
 
-FB_FIELDS = ("words", "trans", "thin_flag", "K", "K_pad", "nGrids", "S", "nSNPs")
+FB_FIELDS = ("words", "trans", "thin_flag", "K", "K_pad", "nGrids", "S", "nSNPs",
+             "capture_grid")
 
 
 @dataclass
@@ -187,11 +188,13 @@ class FBInputs:
     nGrids: int               # Gp: grids padded to GRID_CHUNK
     S: int                    # Gp * 32
     nSNPs: int
-    _dev: Dict[str, Dict[str, torch.Tensor]] = field(default_factory=dict, repr=False)
+    capture_grid: int = -1    # grid whose gamma the FB captures (hla_run), -1 none
+    _dev: Dict = field(default_factory=dict, init=False, repr=False)
 
     @classmethod
     def build(cls, panel: CompressedPanel, trans: np.ndarray,
-              thinned_grids: Optional[np.ndarray] = None) -> "FBInputs":
+              thinned_grids: Optional[np.ndarray] = None,
+              capture_grid: int = -1) -> "FBInputs":
         K, nGrids = panel.K, panel.nGrids
         # a multiple of 128 is also a multiple of every K split the tiled FB
         # takes (1, 2, 4 or 8 blocks per row), so the split needs no padding
@@ -219,16 +222,23 @@ class FBInputs:
         words[:nGrids, :K] = w.T
         return cls(words=words.view(np.int32), trans=trans_full,
                    thin_flag=thin_flag, K=K, K_pad=K_pad, nGrids=Gp,
-                   S=Gp * 32, nSNPs=panel.nSNPs)
+                   S=Gp * 32, nSNPs=panel.nSNPs, capture_grid=capture_grid)
 
-    def device_tensors(self, device) -> Dict[str, torch.Tensor]:
-        """words / trans2 [2, Gp] / thin_flag on `device`, uploaded once."""
-        key = str(torch.device(device))
+    def device_tensors(self, device) -> Dict[str, Optional[torch.Tensor]]:
+        """words / trans2 [2, Gp] / thin_flag on `device`, uploaded once, and
+        capture_flag [Gp] f32, 1 at the capture grid (None without one;
+        quilt_tpu/kernels/fb_full.py:FBInputs.device)."""
+        key = (str(torch.device(device)), self.capture_grid)
         if key not in self._dev:
+            cap = None
+            if self.capture_grid >= 0:
+                cap = torch.zeros(self.nGrids, dtype=torch.float32, device=device)
+                cap[self.capture_grid] = 1.0
             self._dev[key] = {
                 "words": torch.as_tensor(self.words, device=device).contiguous(),
                 "trans2": torch.as_tensor(self.trans.T.copy(), device=device),
                 "thin_flag": torch.as_tensor(self.thin_flag, device=device),
+                "capture_flag": cap,
             }
         return self._dev[key]
 
@@ -243,7 +253,7 @@ def fb_inputs_from_reference(fields: Dict) -> FBInputs:
         thin_flag=np.asarray(fields["thin_flag"], dtype=np.int32),
         K=int(fields["K"]), K_pad=int(fields["K_pad"]),
         nGrids=int(fields["nGrids"]), S=int(fields["S"]),
-        nSNPs=int(fields["nSNPs"]),
+        nSNPs=int(fields["nSNPs"]), capture_grid=int(fields.get("capture_grid", -1)),
     )
 
 
@@ -251,6 +261,17 @@ def thinned_grids(nGrids: int, heuristic_match_thin: float) -> np.ndarray:
     """Grids whose top-K gamma lists feed the haplotype re-selection."""
     n_thin = max(1, round(heuristic_match_thin * nGrids))
     return np.unique(np.linspace(0, nGrids - 1, n_thin).round().astype(np.int64))
+
+
+def capture_grid(prep: PreparedReference, cfg) -> int:
+    """The grid whose full-panel gamma an HLA run captures: the grid of the
+    SNP physically closest to cfg.gamma_physically_closest_to, else the
+    middle grid (quilt_tpu/engine/sample.py:129-145); -1 without hla_run."""
+    if not cfg.hla_run:
+        return -1
+    if cfg.gamma_physically_closest_to is not None:
+        return int(prep.grid[int(np.abs(prep.pos - cfg.gamma_physically_closest_to).argmin())])
+    return prep.nGrids // 2
 
 
 def region_tensors(prep: PreparedReference, cfg, device) -> Dict:
@@ -263,16 +284,18 @@ def region_tensors(prep: PreparedReference, cfg, device) -> Dict:
     of the FB, "gibbs_trans" [2, nGrids] f32 of the Gibbs sweeps, and
     "smooth_band" / "smooth_idx0" (None without block boundaries). Under
     msPBWT selection nothing runs the full-panel FB: "fb" and
-    "thinned_grids" are None and the FB tensors are not uploaded."""
+    "thinned_grids" are None and the FB tensors are not uploaded, unless
+    the run is an HLA run, whose FB inputs carry the capture grid."""
     trans = trans_rates(prep.sigma)
     smooth_w = None
     if (cfg.block_gibbs_boundary_detection == "gamma" and prep.nGrids > 4
             and cfg.max_block_gibbs_boundaries > 0):
         smooth_w = smoothing_band(prep.L_grid, cfg.shuffle_bin_radius)
     out = {"trans": trans, "thinned_grids": None, "fb": None, "smooth_w": smooth_w}
-    if not cfg.use_mspbwt:
+    if not cfg.use_mspbwt or cfg.hla_run:
         out["thinned_grids"] = thinned_grids(prep.nGrids, cfg.heuristic_match_thin)
-        out["fb"] = FBInputs.build(prep.panel, trans, thinned_grids=out["thinned_grids"])
+        out["fb"] = FBInputs.build(prep.panel, trans, thinned_grids=out["thinned_grids"],
+                                   capture_grid=capture_grid(prep, cfg))
         out.update(out["fb"].device_tensors(device))
     out["rhb_t"] = torch.as_tensor(
         np.ascontiguousarray(prep.rhb_t).view(np.int32), device=device

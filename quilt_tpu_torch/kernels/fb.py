@@ -19,8 +19,9 @@ the kernels, the second is a 32-term dot with the grid's panel bits.
 Sizing: K_pad (multiple of 128, hence of every split count 1, 2, 4, 8) and
 the grid padding to GRID_CHUNK = 16 come from the prepared inputs
 (inputs.FBInputs) and are kept; CG = 16 is also the checkpoint interval of
-both forwards. Gamma capture (the HLA run's `cap` input) is in neither
-family yet, and the JAX tiled path refuses it too.
+both forwards. Gamma capture (the HLA run: FBInputs.capture_grid >= 0) is a
+part of the fused backward only; fb_plan keeps such calls fused, as the
+JAX package keeps them off its tiled path (fb_full.py:_pallas_plan).
 """
 from __future__ import annotations
 
@@ -34,7 +35,11 @@ from ..inputs import GRID_CHUNK, FBInputs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD_KERNEL = Kernel("fb", "fb_forward", [_P] * 6 + [_I] * 5 + [_F])
-BWD_KERNEL = Kernel("fb", "fb_backward", [_P] * 9 + [_I] * 6 + [_F, _F])
+_BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _F]
+BWD_KERNEL = Kernel("fb", "fb_backward", _BWD_ARGS)
+# the same entry launched with capture flags: counted apart, so that a run
+# shows the capturing form ran
+BWD_CAPTURE_KERNEL = Kernel("fb", "fb_backward", _BWD_ARGS, name="fb_backward_capture")
 MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 5)
 FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F])
 REMAT_TILED_KERNEL = Kernel("fb_tiled", "fb_remat_tiled", [_P] * 7 + [_I] * 7 + [_F])
@@ -77,11 +82,13 @@ def fb_forward(dl, words, trans2, K, CG=GRID_CHUNK):
     return ckpt, logs
 
 
-def fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK):
+def fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK, cap=None):
     """Backward pass from the forward's checkpoints. thin [Gp] i32 (>= 0 at
-    thinned grids). Returns (dos [B, S] f32 per-SNP dosages, tv/ti
-    [Gp, B, K_top] top gammas and their haplotype indices, zero away from
-    thinned grids)."""
+    thinned grids); cap [Gp] f32 (> 0 at the grids whose gamma to capture)
+    or None. Returns (dos [B, S] f32 per-SNP dosages, tv/ti [Gp, B, K_top]
+    top gammas and their haplotype indices, zero away from thinned grids)
+    and, given cap, gcap [B, K_pad]: the sum of the normalised gammas at the
+    captured grids (zero at padded haplotypes)."""
     B, S = dl.shape
     Gp, K_pad = words.shape
     dev = dl.device
@@ -90,19 +97,25 @@ def fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK):
     _check(ckpt, "ckpt", torch.float32, (Gp // CG, B, K_pad), dev)
     _check(trans2, "trans2", torch.float32, (2, Gp), dev)
     _check(thin, "thin", torch.int32, (Gp,), dev)
+    if cap is not None:
+        _check(cap, "cap", torch.float32, (Gp,), dev)
     if Gp % CG or not 0 < K_top <= K <= K_pad:
         raise ValueError(f"bad Gp={Gp} / CG={CG} / K={K} / K_top={K_top}")
     if dev.type == "cpu":
-        return fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG)
+        return fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG, cap)
     dos = torch.empty((B, S), dtype=torch.float32, device=dev)
     tv = torch.empty((Gp, B, K_top), dtype=torch.float32, device=dev)
     ti = torch.empty((Gp, B, K_top), dtype=torch.int32, device=dev)
     scratch = torch.empty((B, 2 * CG + 3, K_pad), dtype=torch.float32, device=dev)
-    BWD_KERNEL.launch(words.data_ptr(), dl.data_ptr(), ckpt.data_ptr(),
-                      trans2.data_ptr(), thin.data_ptr(), dos.data_ptr(),
-                      tv.data_ptr(), ti.data_ptr(), scratch.data_ptr(),
-                      Gp, K, K_pad, B, CG, K_top, 1.0 / K, float(eps))
-    return dos, tv, ti
+    gcap = None if cap is None else torch.zeros((B, K_pad), dtype=torch.float32, device=dev)
+    kernel = BWD_KERNEL if cap is None else BWD_CAPTURE_KERNEL
+    kernel.launch(words.data_ptr(), dl.data_ptr(), ckpt.data_ptr(),
+                  trans2.data_ptr(), thin.data_ptr(), dos.data_ptr(),
+                  tv.data_ptr(), ti.data_ptr(), scratch.data_ptr(),
+                  None if cap is None else cap.data_ptr(),
+                  None if gcap is None else gcap.data_ptr(),
+                  Gp, K, K_pad, B, CG, K_top, 1.0 / K, float(eps))
+    return (dos, tv, ti) if cap is None else (dos, tv, ti, gcap)
 
 
 def _emissions(dl, words, g, K):
@@ -135,10 +148,11 @@ def fb_forward_plain(dl, words, trans2, K, CG=GRID_CHUNK):
     return ckpt, acc[:, 0]
 
 
-def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK):
+def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK, cap=None):
     """Plain PyTorch version of fb_backward (Pallas _bwd_kernel): chunk
     rematerialisation from the checkpoints, max-normalised beta, gamma,
-    dosage, and top-K by iterative masked argmax (lowest index on ties)."""
+    dosage, top-K by iterative masked argmax (lowest index on ties), and
+    the gamma sum at the grids that cap flags."""
     B, S = dl.shape
     Gp, K_pad = words.shape
     NSC = Gp // CG
@@ -150,6 +164,8 @@ def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUN
     tv = torch.zeros((Gp, B, K_top), dtype=torch.float32, device=dev)
     ti = torch.zeros((Gp, B, K_top), dtype=torch.int32, device=dev)
     thin_h = thin.tolist()
+    cap_h = [0.0] * Gp if cap is None else cap.tolist()
+    gcap = None if cap is None else torch.zeros((B, K_pad), dtype=torch.float32, device=dev)
     beta = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
     e_next0 = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
     for s in range(NSC):
@@ -180,6 +196,8 @@ def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUN
             gamma = gamma / gamma.sum(1, keepdim=True)
             hN = ((words[g][:, None] >> sh[None, :]) & 1).to(torch.float32)
             dos[:, g * 32:(g + 1) * 32] = eps + (1.0 - 2.0 * eps) * (gamma @ hN)
+            if cap_h[g] > 0:
+                gcap += torch.where(lane[None, :] < K, gamma, 0.0)
             if thin_h[g] >= 0:
                 work = torch.where(lane[None, :] < K, gamma, -1.0)
                 for t in range(K_top):
@@ -188,18 +206,19 @@ def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUN
                     ti[g, :, t] = idx[:, 0].to(torch.int32)
                     work = work.scatter(1, idx, -2.0)
         e_next0 = es[0]
-    return dos, tv, ti
+    return (dos, tv, ti) if cap is None else (dos, tv, ti, gcap)
 
 
-def fb_core(gl, words, trans2, thin, K, K_top, ref_error, CG=GRID_CHUNK):
-    """The fused FB of one row batch, as quilt_tpu's fb_pallas_core without
-    the gamma capture: gl [B, 2, S] f32 (padded SNPs = 1). Returns
-    (dosage [B, S], log_like [B], top_vals, top_idx [Gp, B, K_top])."""
+def fb_core(gl, words, trans2, thin, K, K_top, ref_error, CG=GRID_CHUNK, cap=None):
+    """The fused FB of one row batch, as quilt_tpu's fb_pallas_core: gl
+    [B, 2, S] f32 (padded SNPs = 1), cap [Gp] f32 capture flags or None.
+    Returns (dosage [B, S], log_like [B], top_vals, top_idx [Gp, B, K_top])
+    and, given cap, gcap [B, K_pad]."""
     eps = float(ref_error)
     dl, csum = _gl_log_ratios(gl, eps)
     ckpt, logs = fb_forward(dl, words, trans2, K, CG)
-    dos, tv, ti = fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG)
-    return dos, logs + csum, tv, ti
+    dos, tv, ti, *gcap = fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG, cap)
+    return (dos, logs + csum, tv, ti, *gcap)
 
 
 def _gl_log_ratios(gl, eps):
@@ -508,7 +527,8 @@ def fb_tiled_core(gl, words, trans2, thin, K, K_top, ref_error, k_tile, CG=GRID_
 
 
 def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
-            splits: Optional[int] = None, CG: int = GRID_CHUNK) -> Tuple[str, int, int]:
+            splits: Optional[int] = None, CG: int = GRID_CHUNK,
+            capture: bool = False) -> Tuple[str, int, int]:
     """("fused" | "tiled", rows per core call, K splits) for B rows: the
     counterpart of quilt_tpu/kernels/fb_full.py:_pallas_plan on this card.
 
@@ -523,9 +543,17 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     barriers, and 4 or 2 blocks per row still win (1.2-2.6x) with two
     blocks sharing an SM (rows x splits <= 264); otherwise (many rows,
     small panel) the fused family is faster and the call stays fused.
+    A call that captures gamma (`capture`) is fused: only the fused
+    backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""
     if family not in (None, "fused", "tiled"):
         raise ValueError(f"unknown FB family {family!r}")
+    if capture:
+        if family == "tiled":
+            raise NotImplementedError(
+                "gamma capture (the HLA run) is a part of the fused FB only, "
+                "as in the JAX package; the K-split family cannot be forced with it")
+        family = "fused"
     planes = {"fused": fb.nGrids // CG + 2 * CG + 3, "tiled": fb.nGrids // CG + CG + 5}
 
     def rows(fam):
@@ -546,33 +574,29 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     return family, rows(family), splits
 
 
-def fb_full_batched(gl, fb: FBInputs, K_top=16, ref_error=0.001,
-                    capture_grid=-1, family=None, splits=None):
+def fb_full_batched(gl, fb: FBInputs, K_top=16, ref_error=0.001, family=None, splits=None):
     """Batched FB over the whole panel. gl [B, 2, S] tensor (padded to
     fb.S, or shorter and padded here with 1). family / splits go to
     fb_plan. Returns device tensors (dosage [B, S], log_like [B],
-    top_vals [Gp, B, K_top], top_idx)."""
-    if capture_grid >= 0:
-        raise NotImplementedError(
-            "FB gamma capture is part of the HLA slice, not this port"
-        )
+    top_vals [Gp, B, K_top], top_idx) and, when fb.capture_grid >= 0, the
+    normalised gamma at that grid, gcap [B, K] (quilt_tpu/kernels/
+    fb_full.py:fb_full_batched returns it so)."""
     dev = fb.device_tensors(gl.device)
     B = gl.shape[0]
     if gl.shape[2] != fb.S:
         pad = torch.ones((B, 2, fb.S), dtype=torch.float32, device=gl.device)
         pad[:, :, :gl.shape[2]] = gl
         gl = pad
-    family, step, splits = fb_plan(B, fb, family, splits)
+    family, step, splits = fb_plan(B, fb, family, splits, capture=fb.capture_grid >= 0)
     args = (dev["words"], dev["trans2"], dev["thin_flag"], fb.K, K_top, ref_error)
     if family == "tiled":
         core = lambda rows: fb_tiled_core(rows, *args, k_tile=fb.K_pad // splits)
     else:
-        core = lambda rows: fb_core(rows, *args)
+        core = lambda rows: fb_core(rows, *args, cap=dev["capture_flag"])
     parts = [core(gl[b0:b0 + step]) for b0 in range(0, B, step)]
-    if len(parts) == 1:
-        return parts[0]
-    return (
-        torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
-        torch.cat([p[2] for p in parts], dim=1),
-        torch.cat([p[3] for p in parts], dim=1),
-    )
+    out = parts[0] if len(parts) == 1 else tuple(
+        torch.cat([p[i] for p in parts], dim=1 if i in (2, 3) else 0)
+        for i in range(len(parts[0])))
+    if fb.capture_grid >= 0:
+        out = out[:4] + (out[4][:, :fb.K],)
+    return out

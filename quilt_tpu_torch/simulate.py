@@ -1,5 +1,5 @@
 """Synthetic worlds for the port's smoke run and tests, made from a seed
-with the port's simulators (io.simulate) and reference preparation
+with the port's simulators (io.simulate, hla.db) and reference preparation
 (panel.prepare)."""
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Dict
 
 import numpy as np
 
+from .hla.db import HLAGene, alleles_at_positions, save_hla_db, simulate_hla_db
 from .io import simulate_panel, simulate_sample_reads
 from .io.bam_writer import BamWriter, write_panel_vcf
 from .io.simulate import simulate_truth_mosaic
@@ -137,3 +138,97 @@ def random_sweep_state(rng: np.random.Generator, G: int, B: int, W: int, K: int,
     cnt_max = counts.max(axis=1).astype(np.int32)[None, :]
     return tuple(np.ascontiguousarray(x) for x in (
         lemg, beta, lem_pad, slots, first, lab, trans, cnt_max))
+
+
+def write_hla_world(out_dir: str, rng: np.random.Generator, K: int = 5120, nSNPs: int = 16384,
+                    n_samples: int = 4, n_alleles: int = 2000) -> Dict:
+    """An HLA world under out_dir: a panel of K haplotypes over nSNPs SNPs
+    (~60 bp apart, ref A / alt G) with a 3,000 bp gene in the middle, whose
+    160 panel SNPs are the variant sites of a simulated allele database of
+    n_alleles alleles (hla.db.simulate_hla_db); each panel haplotype carries
+    one allele, drawn with Zipf frequencies (the r-th allele ~ 1/r). The
+    samples' truth haplotypes are mosaics of the panel without a switch
+    inside the gene, so each carries one panel allele. Writes the prepared
+    reference (prep.npz, as `prepare` would), the allele database
+    (hla_db.npz, for `hla-prepare --hla_db`) and a BAM a sample: 600 bp reads
+    at 1x over the region plus 150 bp reads at 1x over the gene, the
+    sequence being the truth haplotype's alleles at the SNPs, the allele's
+    sequence inside the gene and C elsewhere, with 0.3% base errors.
+    Returns {"prep_file", "db_file", "bamlist", "gene", "alleles" ([n_samples]
+    of the two truth allele names), "truths" ([2, nSNPs] each)}."""
+    gene_length, read_length_bp, gene_read_length_bp = 3000, 600, 150
+    gene0 = HLAGene("HLA-B", "chr6", 1, gene_length)
+    db = simulate_hla_db(rng, gene0, n_alleles=n_alleles, n_variant_sites=160)
+    var = np.flatnonzero((db.seqs != db.seqs[0][None, :]).any(axis=0))
+    n_bg = nSNPs - len(var)
+    haps_bg, pos_bg = simulate_panel(rng, K=K, nSNPs=n_bg, region_span=n_bg * 60)
+    start = int(pos_bg[n_bg // 2]) + 30
+    pos_bg = np.where(pos_bg >= start, pos_bg + gene_length + 60, pos_bg)
+    gene = HLAGene("HLA-B", "chr6", start, start + gene_length - 1)
+    db.gene = gene
+    pos_g = start + var.astype(np.int64)
+    ref_g = np.array(["ACGT"[b] for b in db.seqs[0, var]])
+    alt_g = []
+    for s in var:
+        col = db.seqs[:, s]
+        other = col[(col != db.seqs[0, s]) & (col < 4)]
+        alt_g.append("ACGT"[int(np.bincount(other, minlength=4).argmax())])
+    alt_g = np.array(alt_g)
+    freq = 1.0 / np.arange(1, n_alleles + 1)
+    hap_allele = rng.choice(n_alleles, size=K, p=freq / freq.sum())
+    states, _ = alleles_at_positions(db, pos_g, ref_g, alt_g)
+    pos = np.concatenate([pos_bg, pos_g])
+    order = np.argsort(pos, kind="stable")
+    pos = pos[order]
+    haps = np.concatenate([haps_bg, (states[hap_allele] == 1).astype(np.uint8)], axis=1)[:, order]
+    ref = np.concatenate([np.array(["A"] * n_bg), ref_g])[order]
+    alt = np.concatenate([np.array(["G"] * n_bg), alt_g])[order]
+    prep = prepare_panel(chrom="chr6", pos=pos, ref_allele=ref, alt_allele=alt, haps=haps)
+    prep_file = os.path.join(out_dir, "prep.npz")
+    prep.save(prep_file)
+    db_file = os.path.join(out_dir, "hla_db.npz")
+    save_hla_db(db, db_file)
+
+    in_gene = (pos >= gene.start) & (pos <= gene.end)
+    g0 = int(np.flatnonzero(in_gene)[0])
+    snp_base = np.where(haps == 1, 2, 0).astype(np.uint8)          # A = 0, G = 2
+    L_region = int(pos[-1]) + 1000
+    truths, alleles, bams = [], [], []
+    for i in range(n_samples):
+        truth = np.zeros((2, nSNPs), dtype=np.uint8)
+        seqs = np.full((2, L_region), 1, dtype=np.uint8)               # C
+        names = []
+        for h in range(2):
+            jumps = rng.random(nSNPs) < 0.002
+            jumps[0] = True
+            jumps[in_gene] = False
+            src = rng.integers(0, K, size=nSNPs)[
+                np.maximum.accumulate(np.where(jumps, np.arange(nSNPs), 0))]
+            truth[h] = haps[src, np.arange(nSNPs)]
+            seqs[h, pos - 1] = snp_base[src, np.arange(nSNPs)]
+            a = int(hap_allele[src[g0]])
+            seqs[h, gene.start - 1:gene.end] = db.seqs[a]
+            names.append(db.allele_names[a])
+        truths.append(truth)
+        alleles.append(tuple(names))
+        bam = os.path.join(out_dir, f"s{i}.bam")
+        with BamWriter(bam, "chr6", L_region, sample_name=f"HLA{i}") as w:
+            r = 0
+            for L, lo, hi, n in (
+                    (read_length_bp, int(pos[0]) - 100, int(pos[-1]),
+                     int((pos[-1] - pos[0]) / read_length_bp)),
+                    (gene_read_length_bp, gene.start - 1, gene.end - gene_read_length_bp,
+                     gene_length // gene_read_length_bp)):
+                for _ in range(n):
+                    s0 = int(rng.integers(max(lo, 0), min(hi, L_region - L)))
+                    b = seqs[int(rng.integers(0, 2)), s0:s0 + L].copy()
+                    err = rng.random(L) < 0.003
+                    b[err] = (b[err] + rng.integers(1, 4, int(err.sum()))) % 4
+                    w.write_read(f"r{r}", s0, "".join("ACGTN"[x] for x in b), [25] * L)
+                    r += 1
+        bams.append(bam)
+    bamlist = os.path.join(out_dir, "bamlist.txt")
+    with open(bamlist, "w") as fh:
+        fh.write("\n".join(bams) + "\n")
+    return dict(prep_file=prep_file, db_file=db_file, bamlist=bamlist, gene=gene,
+                alleles=alleles, truths=truths)

@@ -192,6 +192,40 @@ def test_fb_kernels_match_plain(cuda, K, B):
     assert not got[2][~g].any()
 
 
+@pytest.mark.parametrize("K,B,g", [(90, 5, 0), (700, 14, 17), (700, 3, 34)])
+def test_fb_backward_capture_matches_plain(cuda, K, B, g):
+    """fb_backward with the capture flag at grid g against its plain version
+    (gcap atol 1e-5, each row a distribution within 1e-5, zero at padded
+    haplotypes); dosage and top-K equal those of the call without capture;
+    the capturing launch is counted apart; through fb_full_batched the
+    fifth output is gcap[:, :K]."""
+    from quilt_tpu_torch.inputs import FBInputs, thinned_grids
+    from quilt_tpu_torch.panel.prepare import trans_rates
+
+    world = make_world(np.random.default_rng(K), K=K, nSNPs=1100, n_samples=1)
+    prep = world["prep"]
+    fb = FBInputs.build(prep.panel, trans_rates(prep.sigma),
+                        thinned_grids=thinned_grids(prep.nGrids, 0.3), capture_grid=g)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin, cap = dev["words"], dev["trans2"], dev["thin_flag"], dev["capture_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(K + g)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    ck, _ = fbk.fb_forward(dl, words, trans2, K)
+    fbk.BWD_KERNEL.launches = fbk.BWD_CAPTURE_KERNEL.launches = 0
+    got = fbk.fb_backward(dl, words, ck, trans2, thin, K, 8, 0.001, cap=cap)
+    plain = fbk.fb_backward(dl, words, ck, trans2, thin, K, 8, 0.001)
+    assert (fbk.BWD_KERNEL.launches, fbk.BWD_CAPTURE_KERNEL.launches) == (1, 1)
+    ref = fbk.fb_backward_plain(dl, words, ck, trans2, thin, K, 8, 0.001, cap=cap)
+    torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[3].sum(1), torch.ones(B, device=cuda), rtol=0, atol=1e-5)
+    assert not got[3][:, K:].any()
+    for a, b in zip(got[:3], plain):
+        assert torch.equal(a, b)
+    out = fbk.fb_full_batched(gl, fb, K_top=8)
+    torch.testing.assert_close(out[4], got[3][:, :K], rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("K,B,splits", [(90, 5, 2), (700, 3, 8), (700, 3, 1), (3000, 2, 4)])
 def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     """Each K-split kernel against its plain version, the whole tiled FB

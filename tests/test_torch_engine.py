@@ -99,7 +99,7 @@ def test_region_context_key_is_derived(world):
 
 @pytest.mark.parametrize("override", [
     {"mesh_data": 2}, {"distributed_nproc": 2}, {"addOptimalHapsToVCF": True},
-    {"hla_run": True}, {"gamma_physically_closest_to": 1000},
+    {"plot_per_sample_likelihoods": True}, {"record_read_label_usage": True},
     {"record_interim_dosages": True}, {"make_plots": True}, {"mesh_panel": 2},
 ])
 def test_out_of_slice_options_are_refused(override):
@@ -134,3 +134,34 @@ def test_cli_prepare_and_impute_on_cpu(tmp_path):
 def test_cli_impute_needs_a_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["impute", "--outputdir", str(tmp_path), "--chr", "chr20"]) == 1
+
+
+def test_cli_ncores_loads_bams_in_processes(tmp_path, monkeypatch):
+    """nCores > 1 reads the BAMs in a pool of that many processes
+    (quilt_tpu/cli.py:388-393) and writes the VCF of nCores = 1."""
+    import concurrent.futures
+
+    vcf, gmap, bamlist, _, _ = write_bam_world(str(tmp_path), np.random.default_rng(4))
+    outdir = str(tmp_path / "out")
+    assert cli.main(["prepare", "--outputdir", outdir, "--chr", "chr20",
+                     "--reference_vcf_file", vcf, "--genetic_map_file", gmap,
+                     "--nGen", "100"]) == 0
+    pools = []
+    real = cli.ProcessPoolExecutor
+
+    def counting(*a, **k):
+        pools.append(k["max_workers"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(cli, "ProcessPoolExecutor", counting)
+    bodies = []
+    for n in ("1", "2"):
+        out = str(tmp_path / f"n{n}.vcf.gz")
+        assert cli.main(["impute", "--outputdir", outdir, "--chr", "chr20", "--bamlist",
+                         bamlist, "--nGibbsSamples", "2", "--n_seek_its", "1",
+                         "--Ksubset", "48", "--Knew", "48",
+                         "--small_ref_panel_gibbs_iterations", "4", "--nCores", n,
+                         "--output_filename", out], device="cpu") == 0
+        bodies.append([l for l in bgzf_open(out) if not l.startswith("#")])
+    assert pools == [2] and issubclass(real, concurrent.futures.Executor)
+    assert bodies[0] == bodies[1] and len(bodies[0]) > 100

@@ -4,7 +4,9 @@ the float64 oracle haploid_dosage_versus_refs.
 
 Tolerances: dosage atol 1e-4; log-likelihood within 1e-2 (a sum of ~10
 float32 logs per grid); top-K values atol 1e-4, with indices equal wherever
-neighbouring values differ by more than 1e-3 (near-ties may swap)."""
+neighbouring values differ by more than 1e-3 (near-ties may swap); the
+captured gamma atol 1e-5 (normalised float32 values of at most 1, the
+Pallas path's bf16 hi/lo split ~2e-6 from float64)."""
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,7 @@ from quilt_tpu.panel import assign_positions_to_grid, compress_panel, trans_rate
 from quilt_tpu.utils import pack_bits_32
 
 from quilt_tpu_torch.inputs import FB_FIELDS, FBInputs, fb_inputs_from_reference
-from quilt_tpu_torch.kernels.fb import fb_core, fb_full_batched
+from quilt_tpu_torch.kernels.fb import fb_core, fb_full_batched, fb_plan
 
 torch.set_num_threads(2)
 
@@ -108,7 +110,42 @@ def test_fb_row_chunks_are_exact(world, monkeypatch):
 
 
 def test_fb_refuses_gamma_capture(world):
+    """Only the fused family captures gamma, as on the TPU: forcing the
+    K-split family on a capturing call raises; left to fb_plan, the call
+    stays fused and returns the capture as a fifth output."""
     panel, trans, gl, _, _ = world
-    fb = FBInputs.build(panel, trans)
+    fb = FBInputs.build(panel, trans, capture_grid=3)
     with pytest.raises(NotImplementedError, match="HLA"):
-        fb_full_batched(torch.from_numpy(gl), fb, capture_grid=3)
+        fb_full_batched(torch.from_numpy(gl), fb, family="tiled", splits=2)
+    assert fb_plan(2, fb, capture=True)[0] == "fused"
+    assert fb_full_batched(torch.from_numpy(gl), fb, K_top=8)[4].shape == (2, fb.K)
+
+
+@pytest.mark.parametrize("capture_grid", [5, 0])
+def test_fb_capture_matches_pallas(world, capture_grid):
+    """fb_core with the capture flag at one grid against the interpreted
+    Pallas fb_pallas_core (gcap atol 1e-5, each row a distribution over the
+    K haplotypes within 1e-5, zero at padded haplotypes); the other outputs
+    equal those of the same call without capture."""
+    panel, trans, gl, _, thinned = world
+    ref = JaxFBInputs.build(panel, trans, thinned_grids=thinned)
+    ref.capture_grid = capture_grid
+    fb = fb_inputs_from_reference({k: getattr(ref, k) for k in FB_FIELDS})
+    assert fb.capture_grid == capture_grid
+    gl_pad = np.ones((gl.shape[0], 2, ref.S), dtype=np.float32)
+    gl_pad[:, :, :gl.shape[2]] = gl
+    dev = ref.device()
+    *_, g_ref = (np.asarray(x) for x in fb_pallas_core(
+        jnp.asarray(gl_pad), dev["words"], dev["trans2"], dev["thin_flag"],
+        dev["capture_flag"], K=ref.K, K_pad=ref.K_pad, K_top=8,
+        ref_error=0.001, CG=16, interpret=True,
+    ))
+    t = fb.device_tensors("cpu")
+    args = (torch.from_numpy(gl_pad), t["words"], t["trans2"], t["thin_flag"], fb.K, 8, 0.001)
+    got = fb_core(*args, cap=t["capture_flag"])
+    gcap = got[4].numpy()
+    np.testing.assert_allclose(gcap, g_ref, atol=1e-5)
+    np.testing.assert_allclose(gcap.sum(1), 1.0, atol=1e-5)
+    assert not gcap[:, fb.K:].any() and gcap.shape == (gl.shape[0], fb.K_pad)
+    for a, b in zip(got[:4], fb_core(*args)):
+        assert torch.equal(a, b)

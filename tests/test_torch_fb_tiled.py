@@ -8,6 +8,8 @@ bf16 hi/lo emission split is itself ~2e-6 from float64) and 1e-5 against
 the port's fused path (same float32 arithmetic, sums over K taken in
 another order); log-likelihood rtol 1e-4 + atol 1e-2 (a sum of ~10 float32
 logs per grid); sorted top-K values atol 5e-4."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -177,7 +179,8 @@ def test_fb_plan_forced_and_capture(world):
         fbk.fb_plan(3, fb, splits=3)
     gl = torch.from_numpy(gl_pad)
     with pytest.raises(NotImplementedError, match="HLA"):
-        fbk.fb_full_batched(gl, fb, capture_grid=3, family="tiled", splits=2)
+        fbk.fb_full_batched(gl, dataclasses.replace(fb, capture_grid=3), family="tiled",
+                            splits=2)
     forced = fbk.fb_full_batched(gl, fb, K_top=8, ref_error=EPS, family="tiled", splits=2)
     direct = fbk.fb_tiled_core(gl, *_tensors(fb), fb.K, 8, EPS, k_tile=fb.K_pad // 2)
     for a, b in zip(forced, direct):

@@ -1,15 +1,21 @@
 """The port's own copies of the JAX package's jax-free host modules
-(config, utils, io, out, panel, native, kernels.nipt): the same seeded numpy inputs
+(config, utils, io, out, panel, native, kernels.nipt, hla): the same seeded numpy inputs
 through a copy and through its quilt_tpu original give equal results, and
 files written by one package are read by the other."""
+import ast
 import dataclasses
 import filecmp
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
 import quilt_tpu.config as cfg_j
+import quilt_tpu.engine.sample as sample_j
+import quilt_tpu.engine.selection as sel_j
+import quilt_tpu.hla.db as hdb_j
+import quilt_tpu.hla.prepare as hprep_j
 import quilt_tpu.io.bam as bam_j
 import quilt_tpu.io.bam_writer as bamw_j
 import quilt_tpu.io.native as native_j
@@ -23,6 +29,10 @@ import quilt_tpu.panel.prepare as prep_j
 import quilt_tpu.utils as utils_j
 
 import quilt_tpu_torch.config as cfg_t
+import quilt_tpu_torch.engine.sample as sample_t
+import quilt_tpu_torch.engine.selection as sel_t
+import quilt_tpu_torch.hla.db as hdb_t
+import quilt_tpu_torch.hla.prepare as hprep_t
 import quilt_tpu_torch.io.bam as bam_t
 import quilt_tpu_torch.io.bam_writer as bamw_t
 import quilt_tpu_torch.io.native as native_t
@@ -278,3 +288,88 @@ def test_nipt_tables_and_oracles(ff):
         u = float(rng.random())
         p = rng.dirichlet(np.ones(6))
         assert nipt_t.sample_index_np(p, u) == nipt_j.sample_index_np(p, u)
+
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("name", ["__init__", "db", "imgt", "ancillary", "prepare"])
+def test_hla_module_is_a_copy(name):
+    """The jax-free HLA modules are the JAX package's, statement for
+    statement (hla/typing.py is a port: tests/test_torch_hla.py)."""
+    src = [(ROOT / pkg / "hla" / f"{name}.py").read_text() for pkg in ("quilt_tpu", "quilt_tpu_torch")]
+    assert ast.dump(ast.parse(src[0])) == ast.dump(ast.parse(src[1]))
+
+
+def _hla_prepared(db_mod, prep_mod, panel_mod):
+    """An allele database simulated from one seed and a panel whose
+    haplotypes carry its alleles, prepared by one package's modules."""
+    rng = np.random.default_rng(4)
+    gene = db_mod.HLAGene("HLA-C", "chr6", 2_001, 3_500)
+    db = db_mod.simulate_hla_db(rng, gene, n_alleles=12, n_variant_sites=40)
+    var = np.flatnonzero((db.seqs != db.seqs[0][None, :]).any(axis=0))
+    pos = gene.start + var.astype(np.int64)
+    ref = np.array([db_mod.BASES[b] for b in db.seqs[0, var]])
+    alt = np.array([db_mod.BASES[(b + 1) % 4] for b in db.seqs[0, var]])
+    states, _ = db_mod.alleles_at_positions(db, pos, ref, alt)
+    haps = (states[rng.integers(0, 12, 50)] == 1).astype(np.uint8)
+    prep = panel_mod.prepare_panel(chrom="chr6", pos=pos, ref_allele=ref, alt_allele=alt,
+                                   haps=haps, nMaxDH=32)
+    return prep_mod.prepare_hla_reference(db, prep, k=8)
+
+
+def test_prepare_hla_reference_field_by_field():
+    a = _hla_prepared(hdb_j, hprep_j, prep_j)
+    b = _hla_prepared(hdb_t, hprep_t, prep_t)
+    assert (a.hap_labels >= 0).sum() > 40 and len(a.kmers) > 1000
+    _same(a, b, "hla")
+    gamma = np.random.default_rng(1).dirichlet(np.ones(50))
+    np.testing.assert_array_equal(a.allele_prior_from_gamma(gamma),
+                                  b.allele_prior_from_gamma(gamma))
+
+
+@pytest.mark.parametrize("saver, loader", [(hprep_j, hprep_t), (hprep_t, hprep_j)],
+                         ids=["jax-to-port", "port-to-jax"])
+def test_hla_prepared_moves_between_packages(tmp_path, saver, loader):
+    hla = _hla_prepared(hdb_j, hprep_j, prep_j) if saver is hprep_j else \
+        _hla_prepared(hdb_t, hprep_t, prep_t)
+    path = str(tmp_path / "hla.npz")
+    saver.save_hla_prepared(hla, path)
+    _same(saver.load_hla_prepared(path), loader.load_hla_prepared(path), "hla")
+    _same(hla.db, loader.load_hla_prepared(path).db, "db")
+
+
+def _host_case(name, rng):
+    """(function name, module pair, args) of one host helper of the
+    per-sample engine, on inputs drawn from rng."""
+    haps, pos, truth, reads, sim = _simulate(sim_t, seed=int(rng.integers(100)))
+    nSNPs = len(pos)
+    if name == "select_new_haps_from_topk":
+        ti = rng.integers(0, 60, (12, 8))
+        return (sel_j, sel_t), (ti, rng.random((12, 8)), 20, 60,
+                                rng.choice(60, 10, replace=False))
+    if name == "read_confidence":
+        nl = int(rng.integers(2, 4))
+        em = rng.random((nl, 50)) ** 8
+        em[:, :3] = 0.0
+        return (sel_j, sel_t), (em,)
+    if name == "gls_from_labels":
+        return (sample_j, sample_t), (reads, sim.labels.astype(np.int32), 2, nSNPs, 1e-10)
+    if name == "emat_read_vs_dosages":
+        return (sample_j, sample_t), (reads, rng.random((2, nSNPs)))
+    tv, ti = rng.random((16, 6, 8)), rng.integers(0, 60, (16, 6, 8))
+    return (sample_j, sample_t), (tv, ti, np.array([1, 4, 9]), 2, 1, 8)
+
+
+@pytest.mark.parametrize("name", ["select_new_haps_from_topk", "read_confidence",
+                                  "gls_from_labels", "emat_read_vs_dosages",
+                                  "_gather_topk_lists"])
+def test_per_sample_host_helpers(name):
+    """The per-sample engine's NumPy helpers, copied from modules of the JAX
+    package that import jax, give equal results on equal inputs (and equal
+    draws from equal generators)."""
+    for seed in range(3):
+        (mj, mt), args = _host_case(name, np.random.default_rng(seed))
+        extra = ([np.random.default_rng(seed)], [np.random.default_rng(seed)]) \
+            if name == "select_new_haps_from_topk" else ([], [])
+        _same(getattr(mj, name)(*args, *extra[0]), getattr(mt, name)(*args, *extra[1]), name)

@@ -24,7 +24,8 @@ def test_every_module_imports_with_jax_blocked():
     """... and with the JAX package blocked as well."""
     mods = list(_modules())
     assert "quilt_tpu_torch.engine.batch" in mods
-    assert {"quilt_tpu_torch.kernels.nipt", "quilt_tpu_torch.kernels.nipt_bank"} <= set(mods)
+    assert {"quilt_tpu_torch.kernels.nipt", "quilt_tpu_torch.kernels.nipt_bank",
+            "quilt_tpu_torch.engine.sample", "quilt_tpu_torch.hla.typing"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
