@@ -24,11 +24,18 @@ Phases, each fatal on failure:
                at 28 chains; the four K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
                world exists, together with fb_tiled_core against the fused
-               fb_core, and both FB families are timed at 28 and 112 rows x
-               K=5,120 and 40,960 (the measurements behind kernels.fb.fb_plan);
+               fb_core, and both FB families are timed at 14 to 112 rows x
+               K=5,120, 8,192, 10,240, 20,480 and 40,960 (the measurements
+               behind kernels.fb.fb_plan);
                the fused FB backward with gamma capture (the HLA form) is
                checked at 112 and 14 rows x K=5,120 and timed in turn with
-               the form without capture;
+               the form without capture; the fused FB forward and backward
+               (redesigned: row state in registers and shared memory, few
+               reductions a step) are timed in turn with their previous form
+               and, backward, the same launch with no thinned grid, beside
+               the chain floor of their reductions (the "fb step split"
+               line); at K=40,960 the fused backward takes its global-plane
+               storage;
   3. e2e     - QUILT1 diploid imputation through the batched engine at
                full width (K=5,120 panel haplotypes, 16,384 SNPs, Ksubset
                600, 7 chains x 3 seek iterations x 21 sweeps, 8 samples at
@@ -327,6 +334,12 @@ def check_kernels(world):
     t0 = gl[:, 0] * (1 - eps) + gl[:, 1] * eps
     t1 = gl[:, 0] * eps + gl[:, 1] * (1 - eps)
     dl = (torch.log(t1) - torch.log(t0)).contiguous()
+    CG = fbk.fused_cg(fb.K_pad, fb.nGrids)
+    K_top = 8
+    smem, cpt = fbk._bwd_storage(CG, fb.K_pad, K_top)
+    print(f"fb kernels at {Bf} rows x K={fb.K} x {fb.nGrids} grids: checkpoint interval {CG}, "
+          f"the chunk's alphas in {'shared' if smem else 'global'} memory, {cpt} haplotypes a "
+          f"thread in registers", flush=True)
     ck, lg = fbk.fb_forward(dl, words, trans2, fb.K)
     ck_r, lg_r = fbk.fb_forward_plain(dl, words, trans2, fb.K)
     err_ck = (ck - ck_r).abs().max().item()
@@ -336,44 +349,70 @@ def check_kernels(world):
           f"loglik rtol 1e-5 + atol 1e-2)", flush=True)
     if err_ck > 1e-5 or not torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2):
         _fail("fb_fwd disagrees with its plain version")
+
+    d, tv, ti = fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps)
+    d_r, tv_r, ti_r = fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps)
+    err_d = (d - d_r).abs().max().item()
+    err_tv, idx_ok, n_firm = _topk_agree(tv, ti, tv_r, ti_r, thin)
+    print(f"fb_bwd: max |dosage err| {err_d:.3e}, max |top-K value err| {err_tv:.3e}, "
+          f"top-K indices equal where gap > 1e-3: {idx_ok} ({n_firm} places) "
+          f"(tolerance dosage / top-K atol 1e-4)", flush=True)
+    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok:
+        _fail("fb_bwd disagrees with its plain version")
+
+    # the redesigned kernels timed in turn with their previous form (its own
+    # checkpoints, every 16 grids) and the backward on the same inputs
+    # without a thinned grid (the top-K's share)
+    ck16 = fbk.fb_forward(dl, words, trans2, fb.K, 16, _prev=True)[0]
+    no_thin = torch.full_like(thin, -1)
+    fwd = lambda *a, **v: (lambda: fbk.fb_forward(dl, words, trans2, fb.K, *a, **v))
+    bwd = lambda c, th, *a, **v: (lambda: fbk.fb_backward(dl, words, c, trans2, th, fb.K, K_top,
+                                                          eps, *a, **v))
+    t_fwd = _alternating_ms({"new": fwd(), "previous form": fwd(16, _prev=True)})
+    t_bwd = _alternating_ms({"new": bwd(ck, thin), "no thinned grid": bwd(ck, no_thin),
+                             "previous form": bwd(ck16, thin, 16, _prev=True)})
+    fmt = lambda d: ", ".join(f"{k} {v:.3f} ms" for k, v in d.items())
+    print(f"fb_fwd, timed in turn: {fmt(t_fwd)}", flush=True)
+    print(f"fb_bwd, timed in turn: {fmt(t_bwd)}", flush=True)
+    steps = 20000
+    floor_ns = [_median_ms(lambda: fbk.chain_floor(steps, Bf, w, "cuda"), 3) * 1e6 / steps
+                for w in (0, 1)]
+    G = fb.nGrids
+    n_thin = int((thin >= 0).sum())
+    prev_f, prev_b = t_fwd["previous form"], t_bwd["previous form"]
+    print(f"fb step split at {Bf} rows (this run): fb_fwd {1e3 * t_fwd['new'] / G:.2f} us a grid "
+          f"step (previous form {1e3 * prev_f / G:.2f}), chain floor {floor_ns[0] / 1e3:.2f} us "
+          f"(one (m, s) reduction of 512 threads) = {G * floor_ns[0] / 1e6:.3f} ms a launch; fb_bwd "
+          f"{1e3 * t_bwd['new'] / G:.2f} us a grid (remat + reverse step; previous form "
+          f"{1e3 * prev_b / G:.2f}), of it top-K at the {n_thin} thinned grids "
+          f"{t_bwd['new'] - t_bwd['no thinned grid']:.3f} ms "
+          f"({100 * (1 - t_bwd['no thinned grid'] / t_bwd['new']):.1f}%), chain floor "
+          f"{(floor_ns[0] + floor_ns[1]) / 1e3:.2f} us (the remat's (m, s), then a (sum, max) "
+          f"and a 33-value reduction; {floor_ns[1] / 1e3:.2f} us the reverse step's two) = "
+          f"{G * (floor_ns[0] + floor_ns[1]) / 1e6:.3f} ms a launch", flush=True)
     # operations per (row, grid, haplotype): 32 for the emission sum, ~8 for
     # the alpha step and its normalisation; the backward adds 32 for the
     # dosage and ~12 for beta and gamma to the remat's 40
     cells = Bf * fb.nGrids * fb.K
-    rows.append(_row("fb_fwd", "fb.cu", "fb_pallas.py:106", err_ck,
-                     _median_ms(lambda: fbk.fb_forward(dl, words, trans2, fb.K), 5),
+    rows.append(_row("fb_fwd", "fb.cu", "fb_pallas.py:106", err_ck, t_fwd["new"],
                      _median_ms(lambda: fbk.fb_forward_plain(dl, words, trans2, fb.K), 2),
                      _nbytes(dl, words, trans2, ck, lg), 40 * cells))
-
-    K_top = 8
-    d, tv, ti = fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps)
-    d_r, tv_r, ti_r = fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps)
-    err_d = (d - d_r).abs().max().item()
-    err_tv = (tv - tv_r).abs().max().item()
-    g = thin >= 0
-    firm = (tv_r[g][:, :, :-1] - tv_r[g][:, :, 1:]) > 1e-3
-    idx_ok = bool((ti[g][:, :, :-1][firm] == ti_r[g][:, :, :-1][firm]).all())
-    print(f"fb_bwd: max |dosage err| {err_d:.3e}, max |top-K value err| {err_tv:.3e}, "
-          f"top-K indices equal where gap > 1e-3: {idx_ok} "
-          f"(tolerance dosage / top-K atol 1e-4)", flush=True)
-    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok:
-        _fail("fb_bwd disagrees with its plain version")
-    rows.append(_row("fb_bwd", "fb.cu", "fb_pallas.py:151", err_d,
-                     _median_ms(lambda: fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps), 5),
+    rows.append(_row("fb_bwd", "fb.cu", "fb_pallas.py:151", err_d, t_bwd["new"],
                      _median_ms(lambda: fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps), 2),
                      _nbytes(dl, words, ck, trans2, thin, d, tv, ti), 84 * cells))
-    rows.append(check_fb_capture(fb, dl, ck, K_top, eps))
+    rows.append(check_fb_capture(fb, dl, ck, ck16, K_top, eps))
     _print_rows(rows)
     return rows
 
 
-def check_fb_capture(fb, dl, ck, K_top, eps):
+def check_fb_capture(fb, dl, ck, ck16, K_top, eps):
     """fb_backward with gamma capture (the HLA run's form) against its plain
     version at 112 rows and at the HLA path's 14 rows (one sample: 7 chains
     x 2) x K = 5,120, the capture at the middle grid: gcap atol 1e-5, and
     the dosage / top-K outputs equal those of the launch without capture;
-    both forms timed in turn. Returns the row of the capturing launch at
-    14 rows."""
+    timed in turn with the launch without capture and with the previous form's
+    capture (ck16: its checkpoints). Returns the row of the capturing launch
+    at 14 rows."""
     import dataclasses
 
     import torch
@@ -384,7 +423,7 @@ def check_fb_capture(fb, dl, ck, K_top, eps):
     words, trans2, thin, cap = dev["words"], dev["trans2"], dev["thin_flag"], dev["capture_flag"]
     row = None
     for B in (112, 14):
-        dl_b, ck_b = dl[:B].contiguous(), ck[:, :B].contiguous()
+        dl_b, ck_b, ck16_b = dl[:B].contiguous(), ck[:, :B].contiguous(), ck16[:, :B].contiguous()
         args = (dl_b, words, ck_b, trans2, thin, fb.K, K_top, eps)
         got = fbk.fb_backward(*args, cap=cap)
         ref = fbk.fb_backward_plain(*args, cap=cap)
@@ -398,10 +437,14 @@ def check_fb_capture(fb, dl, ck, K_top, eps):
               f"top-K equal to the launch without capture: {same}", flush=True)
         if not err <= 1e-5 or not same or (got[3][:, fb.K:] != 0).any():
             _fail("fb_bwd with capture disagrees with its plain version")
+        args16 = (dl_b, words, ck16_b, trans2, thin, fb.K, K_top, eps, 16)
+        prev = lambda: fbk.fb_backward(*args16, cap=cap, _prev=True)
         t = _alternating_ms({"capture": lambda: fbk.fb_backward(*args, cap=cap),
-                             "no capture": lambda: fbk.fb_backward(*args)})
+                             "no capture": lambda: fbk.fb_backward(*args),
+                             "previous form, capture": prev})
         print(f"fb_bwd at {B} rows, timed in turn: with capture {t['capture']:.3f} ms, without "
-              f"{t['no capture']:.3f} ms", flush=True)
+              f"{t['no capture']:.3f} ms, the previous form with capture {t['previous form, capture']:.3f} ms",
+              flush=True)
         row = _row("fb_bwd_capture", "fb.cu", "fb_pallas.py:151", err, t["capture"],
                    _median_ms(lambda: fbk.fb_backward_plain(*args, cap=cap), 1),
                    _nbytes(dl_b, words, ck_b, trans2, thin, cap, *got), 84 * B * fb.nGrids * fb.K)
@@ -653,7 +696,15 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
                      _median_ms(lambda: fbk.fb_backward_tiled_plain(*bargs), 2),
                      _nbytes(*chunk_in[:3], al, eb, E, *got), 76 * cells * CG // Gp))
 
-    # the whole tiled FB against the fused CUDA FB and its own plain path
+    # the whole tiled FB against the fused CUDA FB, whose backward keeps the
+    # chunk's alphas in global planes at this K_pad
+    cg_f = fbk.fused_cg(fb.K_pad, Gp)
+    smem_f, cpt_f = fbk._bwd_storage(cg_f, fb.K_pad, K_top)
+    print(f"fused fb_core at K={fb.K}: checkpoint interval {cg_f}, the chunk's alphas in "
+          f"{'shared' if smem_f else 'global'} memory, {cpt_f} haplotypes a thread in registers "
+          f"(0: the general form)", flush=True)
+    if smem_f:
+        _fail(f"the fused backward at K_pad={fb.K_pad} took the shared-memory storage")
     args = (gl, words, trans2, thin, fb.K, K_top, eps)
     d_t, l_t, tv_t, ti_t = fbk.fb_tiled_core(*args, k_tile=kt)
     d_f, l_f, tv_f, ti_f = fbk.fb_core(*args)
@@ -1232,9 +1283,9 @@ def main():
             _fail(f"the port pulled in the JAX package or jax: {gone[:5]}")
         if "kernels" in phases:
             rows += check_kernels(world)
-            time_fb_plan(world["fb"], (28, 56, 112))
-            for K in (10240, 20480):
-                time_fb_plan(synthetic_fb(K), (28, 56, 112))
+            time_fb_plan(world["fb"], (14, 28, 56, 112))
+            for K in (8192, 10240, 20480):
+                time_fb_plan(synthetic_fb(K), (14, 28, 56, 112) if K == 8192 else (28, 56, 112))
         if "e2e" in phases:
             out, _, launches["quilt1"] = run_e2e(world, kernels, e2e_config(8), "e2e")
             if min(out.r2_per_sample) < 0.9:

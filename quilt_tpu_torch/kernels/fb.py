@@ -18,10 +18,13 @@ the kernels, the second is a 32-term dot with the grid's panel bits.
 
 Sizing: K_pad (multiple of 128, hence of every split count 1, 2, 4, 8) and
 the grid padding to GRID_CHUNK = 16 come from the prepared inputs
-(inputs.FBInputs) and are kept; CG = 16 is also the checkpoint interval of
-both forwards. Gamma capture (the HLA run: FBInputs.capture_grid >= 0) is a
-part of the fused backward only; fb_plan keeps such calls fused, as the
-JAX package keeps them off its tiled path (fb_full.py:_pallas_plan).
+(inputs.FBInputs) and are kept. The checkpoint interval of the tiled
+family is GRID_CHUNK; that of the fused family is fused_cg(K_pad, Gp), the
+chunk whose rematerialised alphas fit the backward kernel's shared memory
+(16, 8 or 4 grids; GRID_CHUNK with global planes above K_pad = 13,824).
+Gamma capture (the HLA run: FBInputs.capture_grid >= 0) is a part of the
+fused backward only; fb_plan keeps such calls fused, as the JAX package
+keeps them off its tiled path (fb_full.py:_pallas_plan).
 """
 from __future__ import annotations
 
@@ -34,12 +37,17 @@ from .._build import Kernel, check_tensor as _check
 from ..inputs import GRID_CHUNK, FBInputs
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FWD_KERNEL = Kernel("fb", "fb_forward", [_P] * 6 + [_I] * 5 + [_F])
-_BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _F]
+FWD_KERNEL = Kernel("fb", "fb_forward", [_P] * 6 + [_I] * 5 + [_F, _I])
+_BWD_ARGS = [_P] * 11 + [_I] * 6 + [_F, _F, _I, _I]
 BWD_KERNEL = Kernel("fb", "fb_backward", _BWD_ARGS)
 # the same entry launched with capture flags: counted apart, so that a run
 # shows the capturing form ran
 BWD_CAPTURE_KERNEL = Kernel("fb", "fb_backward", _BWD_ARGS, name="fb_backward_capture")
+FLOOR_KERNEL = Kernel("fb", "fb_chain_floor", [_P] + [_I] * 3)
+# the fused kernels as they were before their redesign (csrc/fb_prev.cu),
+# for timing beside it only (fb_forward / fb_backward with _prev=True)
+_PREV_FWD = Kernel("fb_prev", "fb_forward_prev", [_P] * 6 + [_I] * 5 + [_F])
+_PREV_BWD = Kernel("fb_prev", "fb_backward_prev", [_P] * 11 + [_I] * 6 + [_F, _F])
 MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 5)
 FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F])
 REMAT_TILED_KERNEL = Kernel("fb_tiled", "fb_remat_tiled", [_P] * 7 + [_I] * 7 + [_F])
@@ -53,19 +61,87 @@ _CALL_BYTES = 4 << 30
 # own (1,280 a block still won at K = 5,120), and the panel size from which
 # a split pays even with two blocks per SM
 _N_SM = 132
+# the largest panel at which the fused kernels beat every split at 14, 28,
+# 56 and 112 rows (at K_pad = 8,192 the splits win at 14 and 28 rows)
+_FUSED_MAX_K = 5120
 _MIN_K_PER_SPLIT = 1024
 _OVERSUBSCRIBE_K = 16384
 _SPLITS = (8, 4, 2)
 
+# The fused kernels (csrc/fb.cu): NT threads a row, thread t holding the
+# haplotypes t, t + NT, ...; in registers when K_pad <= NT * max(_CPTS).
+# This module chooses the storage and the columns a thread holds (_CPTS:
+# the kernels' instantiations) and sizes the scratch rows for them; the
+# entry points refuse a choice without an instantiation or beyond the
+# block's shared memory. That memory (fb.cu bwd_smem_floats): two
+# reduction buffers (a warp's record of the gamma reduction _RW floats),
+# the chunk's maxima, the top-K candidate lists, the chunk's log-ratios and
+# emission tables (_EMF floats a grid) and, where they fit, the chunk's
+# alpha planes. fused_cg reserves room for up to _KTOP_RESERVE top gammas.
+_NT = 512
+_NWARP = _NT // 32
+_CPTS = (1, 2, 4, 8, 10, 16)
+_RW, _EMF = 33, 128
+_SMEM_LIMIT = 232448
+_KTOP_RESERVE = 32
 
-def fb_forward(dl, words, trans2, K, CG=GRID_CHUNK):
+
+def _r4(n):
+    return (n + 3) & ~3
+
+
+def _bwd_smem_bytes(CG, K_pad, K_top, planes):
+    return 4 * (_r4(2 * _NWARP * _RW) + _r4(4 * _NWARP) + _r4(CG) + 2 * _r4(_NWARP * K_top)
+                + _r4(CG * 32) + CG * _EMF + (CG * K_pad if planes else 0))
+
+
+def fused_cg(K_pad: int, Gp: int) -> int:
+    """Checkpoint interval of the fused family: the largest of 16, 8, 4
+    dividing Gp whose alpha planes fit the backward kernel's shared memory
+    (16 up to K_pad = 3,328, 8 up to 6,784, 4 up to 13,824); above that
+    GRID_CHUNK, with the planes in global memory."""
+    for cg in (16, 8, 4):
+        if Gp % cg == 0 and _bwd_smem_bytes(cg, K_pad, _KTOP_RESERVE, True) <= _SMEM_LIMIT:
+            return cg
+    return GRID_CHUNK
+
+
+def _cpt(K_pad, general=False):
+    """Columns a thread of the fused kernels holds in registers: the
+    fewest of _CPTS that hold K_pad, else 0, the general form (its state in
+    global planes; any K_pad). `general` forces it (tests only)."""
+    if general:
+        return 0
+    return next((c for c in _CPTS if c * _NT >= K_pad), 0)
+
+
+def _bwd_storage(CG, K_pad, K_top, general=False):
+    """(alpha planes in shared memory?, columns a thread in registers or 0
+    for the general form) of the backward kernel."""
+    smem = _bwd_smem_bytes(CG, K_pad, K_top, True) <= _SMEM_LIMIT
+    return smem, _cpt(K_pad, general) if smem else 0
+
+
+def _bwd_scratch_planes(CG, K_pad, K_top, general=False):
+    """Global planes of K_pad floats a row of the backward kernel: the
+    general form's four state planes, and the chunk's alphas when they do
+    not fit shared memory."""
+    smem, cpt = _bwd_storage(CG, K_pad, K_top, general)
+    return (4 if cpt == 0 else 0) + (0 if smem else CG)
+
+
+def fb_forward(dl, words, trans2, K, CG=None, _prev=False, _general=False):
     """Forward pass. dl [B, S] f32 GL log-ratios (S = Gp*32); words
     [Gp, K_pad] i32 packed panel bits; trans2 [2, Gp] f32 (stay, jump)
-    into each grid. Returns (ckpt [Gp/CG, B, K_pad] alphas entering each
-    chunk, logs [B] log-likelihood without the per-row constant)."""
+    into each grid; CG the checkpoint interval (default fused_cg). Returns
+    (ckpt [Gp/CG, B, K_pad] alphas entering each chunk, logs [B]
+    log-likelihood without the per-row constant). _prev (the kernels before
+    their redesign, csrc/fb_prev.cu; timings only) and _general (the
+    general form at any K_pad; tests only) are private."""
     B, S = dl.shape
     Gp, K_pad = words.shape
     dev = dl.device
+    CG = fused_cg(K_pad, Gp) if CG is None else CG
     _check(dl, "dl", torch.float32, (B, Gp * 32), dev)
     _check(words, "words", torch.int32, (Gp, K_pad), dev)
     _check(trans2, "trans2", torch.float32, (2, Gp), dev)
@@ -75,23 +151,32 @@ def fb_forward(dl, words, trans2, K, CG=GRID_CHUNK):
         return fb_forward_plain(dl, words, trans2, K, CG)
     ckpt = torch.empty((Gp // CG, B, K_pad), dtype=torch.float32, device=dev)
     logs = torch.empty((B,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((B, 2, K_pad), dtype=torch.float32, device=dev)
-    FWD_KERNEL.launch(words.data_ptr(), dl.data_ptr(), trans2.data_ptr(),
-                      ckpt.data_ptr(), logs.data_ptr(), scratch.data_ptr(),
-                      Gp, K, K_pad, B, CG, 1.0 / K)
+    cpt = _cpt(K_pad, _general)
+    planes = 2 if (_prev or cpt == 0) else 0
+    scratch = torch.empty((B, planes, K_pad) if planes else (1,), dtype=torch.float32, device=dev)
+    args = (words.data_ptr(), dl.data_ptr(), trans2.data_ptr(), ckpt.data_ptr(),
+            logs.data_ptr(), scratch.data_ptr(), Gp, K, K_pad, B, CG, 1.0 / K)
+    if _prev:
+        _PREV_FWD.launch(*args)
+    else:
+        FWD_KERNEL.launch(*args, cpt)
     return ckpt, logs
 
 
-def fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK, cap=None):
-    """Backward pass from the forward's checkpoints. thin [Gp] i32 (>= 0 at
-    thinned grids); cap [Gp] f32 (> 0 at the grids whose gamma to capture)
-    or None. Returns (dos [B, S] f32 per-SNP dosages, tv/ti [Gp, B, K_top]
-    top gammas and their haplotype indices, zero away from thinned grids)
-    and, given cap, gcap [B, K_pad]: the sum of the normalised gammas at the
-    captured grids (zero at padded haplotypes)."""
+def fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=None, cap=None, _prev=False,
+                _general=False):
+    """Backward pass from the forward's checkpoints (CG as given to
+    fb_forward). thin [Gp] i32 (>= 0 at thinned grids); cap [Gp] f32 (> 0
+    at the grids whose gamma to capture) or None. Returns (dos [B, S] f32
+    per-SNP dosages, tv/ti [Gp, B, K_top] top gammas and their haplotype
+    indices, zero away from thinned grids) and, given cap, gcap [B, K_pad]:
+    the sum of the normalised gammas at the captured grids (zero at padded
+    haplotypes). The kernel keeps the chunk's alphas in shared memory where
+    CG planes fit, else in global memory. _prev / _general as fb_forward."""
     B, S = dl.shape
     Gp, K_pad = words.shape
     dev = dl.device
+    CG = fused_cg(K_pad, Gp) if CG is None else CG
     _check(dl, "dl", torch.float32, (B, Gp * 32), dev)
     _check(words, "words", torch.int32, (Gp, K_pad), dev)
     _check(ckpt, "ckpt", torch.float32, (Gp // CG, B, K_pad), dev)
@@ -106,16 +191,32 @@ def fb_backward(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK, cap
     dos = torch.empty((B, S), dtype=torch.float32, device=dev)
     tv = torch.empty((Gp, B, K_top), dtype=torch.float32, device=dev)
     ti = torch.empty((Gp, B, K_top), dtype=torch.int32, device=dev)
-    scratch = torch.empty((B, 2 * CG + 3, K_pad), dtype=torch.float32, device=dev)
+    smem, cpt = _bwd_storage(CG, K_pad, K_top, _general)
+    planes = 2 * CG + 3 if _prev else _bwd_scratch_planes(CG, K_pad, K_top, _general)
+    scratch = torch.empty((B, planes, K_pad) if planes else (1,), dtype=torch.float32, device=dev)
     gcap = None if cap is None else torch.zeros((B, K_pad), dtype=torch.float32, device=dev)
-    kernel = BWD_KERNEL if cap is None else BWD_CAPTURE_KERNEL
-    kernel.launch(words.data_ptr(), dl.data_ptr(), ckpt.data_ptr(),
-                  trans2.data_ptr(), thin.data_ptr(), dos.data_ptr(),
-                  tv.data_ptr(), ti.data_ptr(), scratch.data_ptr(),
-                  None if cap is None else cap.data_ptr(),
-                  None if gcap is None else gcap.data_ptr(),
-                  Gp, K, K_pad, B, CG, K_top, 1.0 / K, float(eps))
+    args = (words.data_ptr(), dl.data_ptr(), ckpt.data_ptr(), trans2.data_ptr(),
+            thin.data_ptr(), dos.data_ptr(), tv.data_ptr(), ti.data_ptr(), scratch.data_ptr(),
+            None if cap is None else cap.data_ptr(), None if gcap is None else gcap.data_ptr(),
+            Gp, K, K_pad, B, CG, K_top, 1.0 / K, float(eps))
+    if _prev:
+        _PREV_BWD.launch(*args)
+    else:
+        (BWD_KERNEL if cap is None else BWD_CAPTURE_KERNEL).launch(*args, int(smem), cpt)
     return (dos, tv, ti) if cap is None else (dos, tv, ti, gcap)
+
+
+def chain_floor(steps: int, blocks: int, which: int, device) -> torch.Tensor:
+    """Launches `steps` dependent reductions of a fused FB step's kind (which
+    = 0: the forward's (m, s) pair; 1: the reverse step's two, a sum and a
+    maximum, then 33 sums) with the kernels' 512 threads in each of `blocks`
+    blocks and nothing else: timed, it gives the least a step of the fused
+    kernels can take on the card."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("chain_floor times the card and needs a CUDA device")
+    out = torch.empty((blocks,), dtype=torch.float32, device=device)
+    FLOOR_KERNEL.launch(out.data_ptr(), blocks, steps, which)
+    return out
 
 
 def _emissions(dl, words, g, K):
@@ -130,31 +231,59 @@ def _emissions(dl, words, g, K):
     return torch.exp(logm - mx), mx
 
 
-def fb_forward_plain(dl, words, trans2, K, CG=GRID_CHUNK):
-    """Plain PyTorch version of fb_forward (Pallas _fwd_kernel)."""
+def _fwd_step_plain(alpha, x, stay, cj, K):
+    """One grid of the fused forward in the kernel's algebra: alpha, x [B,
+    K_pad] (normalised alphas, logits; columns >= K do not count). Thread t
+    of the kernel holds the columns t, t + NT, ...: its logit maximum m_t
+    and its sum s_t of a = (stay alpha + cj) e^(x - m_t); the pairs combine
+    to (mx, ssum) and alpha <- a e^(m_t - mx) / ssum. Returns (alpha, mx,
+    ssum), the last two [B, 1]."""
+    B, K_pad = x.shape
+    n = -(-K_pad // _NT) * _NT
+    real = (torch.arange(n, device=x.device) < K).view(-1, _NT)
+    xg = torch.full((B, n), _NEG, dtype=torch.float32, device=x.device)
+    ag = torch.zeros((B, n), dtype=torch.float32, device=x.device)
+    xg[:, :K_pad], ag[:, :K_pad] = x, alpha
+    xg = torch.where(real, xg.view(B, -1, _NT), _NEG)
+    mt = xg.amax(1, keepdim=True)                                     # [B, 1, NT]
+    a = torch.where(real, (stay * ag.view(B, -1, _NT) + cj) * torch.exp(xg - mt), 0.0)
+    mx = mt.amax(2)                                                   # [B, 1]
+    f = torch.exp(mt[:, 0] - mx)                                      # [B, NT]
+    ssum = (a.sum(1) * f).sum(1, keepdim=True)
+    return (a * (f / ssum)[:, None, :]).reshape(B, n)[:, :K_pad], mx, ssum
+
+
+def fb_forward_plain(dl, words, trans2, K, CG=None):
+    """Plain PyTorch version of fb_forward (Pallas _fwd_kernel), in the
+    kernel's online (m, s) form."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
+    CG = fused_cg(K_pad, Gp) if CG is None else CG
     alpha = torch.zeros((B, K_pad), dtype=torch.float32, device=dl.device)
     acc = torch.zeros((B, 1), dtype=torch.float32, device=dl.device)
     ckpt = torch.empty((Gp // CG, B, K_pad), dtype=torch.float32, device=dl.device)
     for g in range(Gp):
         if g % CG == 0:
             ckpt[g // CG] = alpha
-        e, mx = _emissions(dl, words, g, K)
-        a_raw = (trans2[0, g] * alpha + trans2[1, g] * (1.0 / K)) * e
-        ssum = a_raw.sum(1, keepdim=True)
-        alpha = a_raw / ssum
+        x = _tile_logits(dl, words, g, K, 0, K_pad)
+        alpha, mx, ssum = _fwd_step_plain(alpha, x, trans2[0, g], trans2[1, g] * (1.0 / K), K)
         acc = acc + torch.log(ssum) + mx
     return ckpt, acc[:, 0]
 
 
-def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUNK, cap=None):
-    """Plain PyTorch version of fb_backward (Pallas _bwd_kernel): chunk
-    rematerialisation from the checkpoints, max-normalised beta, gamma,
-    dosage, top-K by iterative masked argmax (lowest index on ties), and
+def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=None, cap=None):
+    """Plain PyTorch version of fb_backward (Pallas _bwd_kernel) in the
+    kernel's algebra: chunk rematerialisation from the checkpoints (the
+    forward's step), then per grid, with etb = e_{g+1} beta, c = jump/K of
+    grid g+1 and se = sum etb: num = stay etb + c se, beta' = num / max num
+    (max num = stay max etb + c se), gamma = alpha num / G with G = sum alpha
+    num, and the dosages from the bit-masked sums of alpha num (the global
+    last grid: stay 0, c se 1); e of grid g from its logits and the remat's
+    maximum; top-K by iterative masked argmax (lowest index on ties), and
     the gamma sum at the grids that cap flags."""
     B, S = dl.shape
     Gp, K_pad = words.shape
+    CG = fused_cg(K_pad, Gp) if CG is None else CG
     NSC = Gp // CG
     dev = dl.device
     invK = 1.0 / K
@@ -167,35 +296,33 @@ def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUN
     cap_h = [0.0] * Gp if cap is None else cap.tolist()
     gcap = None if cap is None else torch.zeros((B, K_pad), dtype=torch.float32, device=dev)
     beta = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
-    e_next0 = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
+    en = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
     for s in range(NSC):
         ci = NSC - 1 - s
         alpha = ckpt[ci]
-        alphas, es = [], []
+        alphas, mxs = [], []
         for j in range(CG):
             g = ci * CG + j
-            e, _ = _emissions(dl, words, g, K)
-            a_raw = (trans2[0, g] * alpha + trans2[1, g] * invK) * e
-            alpha = a_raw / a_raw.sum(1, keepdim=True)
+            x = _tile_logits(dl, words, g, K, 0, K_pad)
+            alpha, mx, _ = _fwd_step_plain(alpha, x, trans2[0, g], trans2[1, g] * invK, K)
             alphas.append(alpha)
-            es.append(e)
+            mxs.append(mx)
         for j in range(CG - 1, -1, -1):
             g = ci * CG + j
-            if j == CG - 1:
-                e_next = e_next0
-                gn = min((ci + 1) * CG, NSC * CG - 1)
-            else:
-                e_next = es[j + 1]
-                gn = g + 1
-            etb = e_next * beta
-            beta = trans2[0, gn] * etb + (trans2[1, gn] * invK) * etb.sum(1, keepdim=True)
-            if j == CG - 1 and s == 0:
-                beta = torch.ones_like(beta)
-            beta = beta / torch.clamp(beta.amax(1, keepdim=True), min=1e-30)
-            gamma = alphas[j] * beta
-            gamma = gamma / gamma.sum(1, keepdim=True)
+            last = g == Gp - 1
+            stay = 0.0 if last else trans2[0, g + 1]
+            etb = en * beta
+            x = _tile_logits(dl, words, g, K, 0, K_pad)
+            en = torch.where(lane[None, :] < K, torch.exp(x - mxs[j]), 0.0)
+            se = etb.sum(1, keepdim=True)
+            cse = torch.ones_like(se) if last else trans2[1, g + 1] * invK * se
+            num = stay * etb + cse
+            beta = num * (1.0 / torch.clamp(stay * etb.amax(1, keepdim=True) + cse, min=1e-30))
+            gr = alphas[j] * num
+            G = gr.sum(1, keepdim=True)
             hN = ((words[g][:, None] >> sh[None, :]) & 1).to(torch.float32)
-            dos[:, g * 32:(g + 1) * 32] = eps + (1.0 - 2.0 * eps) * (gamma @ hN)
+            dos[:, g * 32:(g + 1) * 32] = eps + (1.0 - 2.0 * eps) * ((gr @ hN) / G)
+            gamma = gr / G
             if cap_h[g] > 0:
                 gcap += torch.where(lane[None, :] < K, gamma, 0.0)
             if thin_h[g] >= 0:
@@ -205,15 +332,15 @@ def fb_backward_plain(dl, words, ckpt, trans2, thin, K, K_top, eps, CG=GRID_CHUN
                     tv[g, :, t] = work.gather(1, idx)[:, 0]
                     ti[g, :, t] = idx[:, 0].to(torch.int32)
                     work = work.scatter(1, idx, -2.0)
-        e_next0 = es[0]
     return (dos, tv, ti) if cap is None else (dos, tv, ti, gcap)
 
 
-def fb_core(gl, words, trans2, thin, K, K_top, ref_error, CG=GRID_CHUNK, cap=None):
+def fb_core(gl, words, trans2, thin, K, K_top, ref_error, CG=None, cap=None):
     """The fused FB of one row batch, as quilt_tpu's fb_pallas_core: gl
-    [B, 2, S] f32 (padded SNPs = 1), cap [Gp] f32 capture flags or None.
-    Returns (dosage [B, S], log_like [B], top_vals, top_idx [Gp, B, K_top])
-    and, given cap, gcap [B, K_pad]."""
+    [B, 2, S] f32 (padded SNPs = 1), cap [Gp] f32 capture flags or None;
+    CG the checkpoint interval (default fused_cg). Returns (dosage [B, S],
+    log_like [B], top_vals, top_idx [Gp, B, K_top]) and, given cap, gcap
+    [B, K_pad]."""
     eps = float(ref_error)
     dl, csum = _gl_log_ratios(gl, eps)
     ckpt, logs = fb_forward(dl, words, trans2, K, CG)
@@ -533,16 +660,25 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     counterpart of quilt_tpu/kernels/fb_full.py:_pallas_plan on this card.
 
     Rows are independent, so a call takes as many as fit _CALL_BYTES (per
-    row, fused: Gp/CG checkpoints + 2*CG+3 scratch planes of K_pad floats;
-    tiled: Gp/CG checkpoints + CG alphas + 5 carry / scratch planes). The
+    row, fused: Gp/CG checkpoints at CG = fused_cg, and the backward's
+    global planes, none where its state and alphas fit the SM (K_pad <=
+    8,192), else 4 state planes + CG alphas where those do not fit shared
+    memory; tiled: Gp/CG checkpoints + CG alphas + 5 carry / scratch
+    planes; CG the tiled family's interval). The
     fused kernels run one block per row. Measured on the H100 (512 grids,
-    28 / 56 / 112 rows x K = 5,120 .. 40,960): while rows x splits fits the
-    132 SMs, splitting a row over the largest such cluster (8, 4 or 2
-    blocks, each keeping >= _MIN_K_PER_SPLIT haplotypes) wins by 1.3-3.7x;
-    from K_pad = _OVERSUBSCRIBE_K up a block's per-grid work outweighs the
-    barriers, and 4 or 2 blocks per row still win (1.2-2.6x) with two
-    blocks sharing an SM (rows x splits <= 264); otherwise (many rows,
-    small panel) the fused family is faster and the call stays fused.
+    14 / 28 / 56 / 112 rows x K = 5,120 .. 40,960, chip_smoke.py's "fb_plan
+    timing" lines): up to K_pad = _FUSED_MAX_K the fused kernels beat every
+    split at each of those row counts since their redesign (before it a
+    split of 4 won at 28 rows x 5,120), so such a call stays fused. Above
+    it (at 8,192 a thread holds 16 haplotypes and the backward spills),
+    while rows x splits fits the 132 SMs, splitting a row over the largest
+    such cluster (8, 4 or 2 blocks, each keeping >= _MIN_K_PER_SPLIT
+    haplotypes) wins, but for 56 rows x 8,192, where the fused call was
+    7% faster than the 2 blocks the rule takes; from
+    K_pad = _OVERSUBSCRIBE_K up a block's per-grid work outweighs the
+    barriers, and 4 or 2 blocks per row still win with two blocks sharing
+    an SM (rows x splits <= 264); otherwise (many rows) the fused family
+    is faster and the call stays fused.
     A call that captures gamma (`capture`) is fused: only the fused
     backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""
@@ -554,7 +690,9 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
                 "gamma capture (the HLA run) is a part of the fused FB only, "
                 "as in the JAX package; the K-split family cannot be forced with it")
         family = "fused"
-    planes = {"fused": fb.nGrids // CG + 2 * CG + 3, "tiled": fb.nGrids // CG + CG + 5}
+    cg_f = fused_cg(fb.K_pad, fb.nGrids)
+    planes = {"fused": fb.nGrids // cg_f + _bwd_scratch_planes(cg_f, fb.K_pad, _KTOP_RESERVE),
+              "tiled": fb.nGrids // CG + CG + 5}
 
     def rows(fam):
         return max(1, min(B, _CALL_BYTES // (planes[fam] * fb.K_pad * 4)))
@@ -565,6 +703,8 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
                        if n * s <= _N_SM and fb.K_pad // s >= _MIN_K_PER_SPLIT), 1)
         if fb.K_pad >= _OVERSUBSCRIBE_K:
             splits = max(splits, next((s for s in (4, 2) if n * s <= 2 * _N_SM), 1))
+        if fb.K_pad <= _FUSED_MAX_K:
+            splits = 1
     elif splits not in (1, 2, 4, 8):
         raise ValueError(f"splits must be 1, 2, 4 or 8, got {splits}")
     if family is None:

@@ -226,6 +226,109 @@ def test_fb_backward_capture_matches_plain(cuda, K, B, g):
     torch.testing.assert_close(out[4], got[3][:, :K], rtol=0, atol=1e-6)
 
 
+def _random_fb(K, nGrids, seed, capture_grid=-1):
+    """FB inputs of a random panel (random words, 2% jump rate, every tenth
+    grid thinned, K_pad = K rounded up to 128), as chip_smoke.synthetic_fb."""
+    from quilt_tpu_torch.inputs import FBInputs
+
+    rng = np.random.default_rng(seed)
+    K_pad = -(-K // 128) * 128
+    words = np.zeros((nGrids, K_pad), dtype=np.int32)
+    words[:, :K] = rng.integers(-2**31, 2**31, (nGrids, K), dtype=np.int64).astype(np.int32)
+    trans = np.tile(np.float32([0.98, 0.02]), (nGrids, 1))
+    trans[0] = (1.0, 1.0)
+    thin = np.full(nGrids, -1, dtype=np.int32)
+    thin[::10] = np.arange(len(thin[::10]))
+    return FBInputs(words=words, trans=trans, thin_flag=thin, K=K, K_pad=K_pad, nGrids=nGrids,
+                    S=nGrids * 32, nSNPs=nGrids * 32, capture_grid=capture_grid)
+
+
+@pytest.mark.parametrize("K,B,capture,general", [
+    (90, 1, False, False), (90, 14, True, False),    # 1 haplotype a thread
+    (700, 14, False, False), (700, 112, True, False),  # 2
+    (700, 14, True, True),                           # the general form, alphas in shared memory
+    (2000, 14, True, False), (4000, 14, False, False),  # 4, 8
+    (5120, 1, True, False), (5120, 14, False, False), (5120, 112, True, False),  # 10
+    (8000, 14, True, False), (8000, 112, False, False),  # 16, checkpoint interval 4
+    (14000, 14, True, False),                        # K_pad 14,080: alphas in global planes
+])
+def test_fb_redesigned_kernels_match_plain(cuda, K, B, capture, general):
+    """The fused forward and backward at their checkpoint interval
+    (fused_cg) against their plain versions: checkpoints atol 1e-5,
+    log-likelihood rtol 1e-5 + atol 1e-2, dosage and top-K values atol 1e-4
+    with indices equal where the gap is over 1e-3, gcap atol 1e-5 (the
+    capture at the global last grid, the beta = 1 step); two launches give
+    the same bits."""
+    nG = 64
+    fb = _random_fb(K, nG, K + B, capture_grid=nG - 1 if capture else -1)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    cap = dev["capture_flag"] if capture else None
+    gen = torch.Generator(device=cuda).manual_seed(K + B)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    smem, cpt = fbk._bwd_storage(fbk.fused_cg(fb.K_pad, nG), fb.K_pad, 8, general)
+    assert smem == (K < 14000) and (cpt == 0) == (K == 14000 or general)
+    ck, lg = fbk.fb_forward(dl, words, trans2, K, _general=general)
+    ck_r, lg_r = fbk.fb_forward_plain(dl, words, trans2, K)
+    torch.testing.assert_close(ck, ck_r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lg, lg_r, rtol=1e-5, atol=1e-2)
+    got = fbk.fb_backward(dl, words, ck, trans2, thin, K, 8, 0.001, cap=cap, _general=general)
+    again = fbk.fb_backward(dl, words, ck, trans2, thin, K, 8, 0.001, cap=cap, _general=general)
+    ref = fbk.fb_backward_plain(dl, words, ck, trans2, thin, K, 8, 0.001, cap=cap)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
+    g = thin >= 0
+    firm = (ref[1][g][:, :, :-1] - ref[1][g][:, :, 1:]) > 1e-3
+    assert torch.equal(got[2][g][:, :, :-1][firm], ref[2][g][:, :, :-1][firm])
+    if capture:
+        torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-5)
+        assert not got[3][:, K:].any()
+
+
+def test_fb_kernels_refuse_columns_without_an_instantiation(cuda):
+    """The entry points take the wrapper's register columns a thread and
+    refuse a count that does not hold K_pad or has no instantiation."""
+    K_pad, Gp, B, CG = 1024, 16, 2, 8
+    words = torch.zeros((Gp, K_pad), dtype=torch.int32, device=cuda)
+    dl = torch.zeros((B, Gp * 32), dtype=torch.float32, device=cuda)
+    trans2 = torch.ones((2, Gp), dtype=torch.float32, device=cuda)
+    ckpt = torch.empty((Gp // CG, B, K_pad), dtype=torch.float32, device=cuda)
+    logs = torch.empty((B,), dtype=torch.float32, device=cuda)
+    for cpt in (1, 3):                       # 512 columns < K_pad; no instantiation
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fbk.FWD_KERNEL.launch(words.data_ptr(), dl.data_ptr(), trans2.data_ptr(),
+                                  ckpt.data_ptr(), logs.data_ptr(), None, Gp, K_pad, K_pad,
+                                  B, CG, 1.0 / K_pad, cpt)
+
+
+def test_fb_previous_form_matches_the_redesign(cuda):
+    """The previous fused kernels, kept for timing beside the redesign, give
+    the same FB (dosage atol 1e-4) at their own checkpoint interval of 16."""
+    fb = _random_fb(5120, 64, 3)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    gl = 0.05 + 0.95 * torch.rand((14, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    launches = fbk.FWD_KERNEL.launches, fbk.BWD_KERNEL.launches
+    ck16, lg16 = fbk.fb_forward(dl, words, trans2, fb.K, 16, _prev=True)
+    old = fbk.fb_backward(dl, words, ck16, trans2, thin, fb.K, 8, 0.001, 16, _prev=True)
+    assert (fbk.FWD_KERNEL.launches, fbk.BWD_KERNEL.launches) == launches
+    ck, lg = fbk.fb_forward(dl, words, trans2, fb.K)
+    new = fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, 8, 0.001)
+    torch.testing.assert_close(lg, lg16, rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(new[0], old[0], rtol=0, atol=1e-4)
+
+
+def test_fb_chain_floor_runs(cuda):
+    for which in (0, 1):
+        out = fbk.chain_floor(100, 2, which, cuda)
+        torch.cuda.synchronize()
+        assert out.shape == (2,) and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("K,B,splits", [(90, 5, 2), (700, 3, 8), (700, 3, 1), (3000, 2, 4)])
 def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     """Each K-split kernel against its plain version, the whole tiled FB

@@ -157,14 +157,18 @@ class _Shape:
 
 
 @pytest.mark.parametrize("rows, K, family, splits", [
-    (112, 5120, "fused", 1), (28, 40960, "tiled", 4), (28, 5120, "tiled", 4),
+    (112, 5120, "fused", 1), (28, 40960, "tiled", 4), (28, 5120, "fused", 1),
+    (14, 5120, "fused", 1), (14, 8192, "tiled", 8), (28, 8192, "tiled", 4),
+    (56, 8192, "tiled", 2), (112, 8192, "fused", 1), (28, 8320, "tiled", 4),
     (56, 10240, "tiled", 2), (112, 10240, "fused", 1), (112, 20480, "tiled", 2),
     (56, 20480, "tiled", 4), (56, 40960, "tiled", 4), (112, 40960, "tiled", 2),
     (200, 40960, "fused", 1), (2, 256, "fused", 1), (14, 40960, "tiled", 8),
 ])
 def test_fb_plan(rows, K, family, splits):
     """The measured decision points (PERF.md): the QUILT1 quick-start shape
-    stays fused, the large-panel shape is split."""
+    and any panel up to K_pad = 5,120 stay fused at any row count (the
+    lone sample's 14 rows too); above it the split rule decides (K_pad =
+    8,192: split at 14-56 rows), and the large-panel shape is split."""
     assert fbk.fb_plan(rows, _Shape(K)) == (family, rows, splits)
 
 
