@@ -21,12 +21,16 @@ Phases, each fatal on failure:
                part from the plain version's is printed and bounded; the
                forward bank of the NIPT block move (nipt_bank, a kernel with
                no Pallas counterpart: the JAX package runs it as an XLA scan)
-               at 28 chains; the four K-split FB
+               at 28 chains; the three K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
-               world exists, together with fb_tiled_core against the fused
-               fb_core, and both FB families are timed at 14 to 112 rows x
-               K=5,120, 8,192, 10,240, 20,480 and 40,960 (the measurements
-               behind kernels.fb.fb_plan);
+               world exists (the backward, one launch an FB call, on all
+               512 grids, two launches equal bit for bit), the backward is
+               timed in turn with its previous form (a remat and a backward
+               launch per chunk) beside its cluster exchange's floor (the
+               "tiled step split" line), fb_tiled_core is held against the
+               fused fb_core, and both FB families are timed at 14 to 112
+               rows x K=5,120, 8,192, 10,240, 20,480 and 40,960 (the
+               measurements behind kernels.fb.fb_plan);
                the fused FB backward with gamma capture (the HLA form) is
                checked at 112 and 14 rows x K=5,120 and timed in turn with
                the form without capture; the fused FB forward and backward
@@ -52,8 +56,10 @@ Phases, each fatal on failure:
                forward, backward and dosage kernels must launch;
   5. largek  - QUILT1 diploid imputation against a large panel (K=40,960
                haplotypes, 16,384 SNPs, 2 samples = 28 FB rows), where the
-               FB plan takes the K-split kernels; the four of them and the
-               two Gibbs sweeps must launch and the fused FB must not;
+               FB plan takes the K-split kernels; the three of them must
+               launch once an FB call each (6 a call), the two Gibbs sweeps
+               must launch, and the fused FB must not; no path may launch
+               the previous tiled backward;
   6. nipt    - NIPT (mother + fetus, 3 latent haplotypes a chain) at full
                width: QUILT1-NIPT on the K=5,120 world's shape with 8 samples
                at 2x coverage, four at fetal fraction 0.10 and four at 0.20
@@ -106,6 +112,28 @@ F32_FLOP_PER_S = 67e12
 # in the kernel than in the plain version, and that chain then parts for the
 # rest of the sweep; more than this share of the chains parting is a fault
 PARTED_CHAINS_BOUND = 0.1
+
+
+# ptxas's report of the tiled backward's instantiations, filled by the build
+PTXAS = {}
+
+
+def _note_ptxas(entry, line):
+    """Keeps the registers and spills that ptxas reports for each
+    instantiation <CPT, SMEM> of fb_tiled.cu's backward kernel."""
+    import re
+
+    if entry is None or "fb_bwd_tiled_kernelILi" not in entry or "prev" in entry:
+        return
+    m = re.search(r"fb_bwd_tiled_kernelILi(\d+)ELb(\d)E", entry)
+    tag = f"<{m.group(1)}, {'shared' if m.group(2) == '1' else 'global'}>"
+    notes = PTXAS.setdefault("fb_bwd_tiled_kernel", [])
+    if "spill" in line:
+        st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+        notes.append(f"{tag} spills {st}/{ld} B")
+    else:
+        regs = re.search(r"Used (\d+) registers", line).group(1)
+        notes[-1] += f", {regs} registers"
 
 
 def _fail(msg):
@@ -370,6 +398,7 @@ def check_kernels(world):
                                                           eps, *a, **v))
     t_fwd = _alternating_ms({"new": fwd(), "previous form": fwd(16, _prev=True)})
     t_bwd = _alternating_ms({"new": bwd(ck, thin), "no thinned grid": bwd(ck, no_thin),
+                             "general form": bwd(ck, thin, _general=True),
                              "previous form": bwd(ck16, thin, 16, _prev=True)})
     fmt = lambda d: ", ".join(f"{k} {v:.3f} ms" for k, v in d.items())
     print(f"fb_fwd, timed in turn: {fmt(t_fwd)}", flush=True)
@@ -606,10 +635,12 @@ def _topk_agree(tv, ti, tv_r, ti_r, thin):
 
 
 def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
-    """The four K-split FB kernels against their plain versions at the large
-    world's shape, then fb_tiled_core against the fused fb_core. The remat
-    and backward kernels are launched per chunk of 16 grids: they are checked
-    on every chunk (through fb_tiled_core) and timed on the middle one."""
+    """The three K-split FB kernels against their plain versions at the
+    large world's shape on all its grids, the backward (one launch an FB
+    call: every chunk's rebuild and reverse sweep) timed in turn with its
+    previous form (a remat and a backward launch per chunk of 16 grids) and
+    with no thinned grid, beside its cluster exchange's floor (the "tiled
+    step split" line), then fb_tiled_core against the fused fb_core."""
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
 
@@ -617,19 +648,23 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
     gen.manual_seed(SEED + 1)
     dev = fb.device_tensors("cuda")
     words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
-    CG, Gp = fbk.GRID_CHUNK, fb.nGrids
+    Gp = fb.nGrids
     splits = fbk.fb_plan(B, fb)[2]
     kt = fb.K_pad // splits
+    CG = fbk.tiled_cg(kt, Gp)
+    smem, cpt = fbk._tiled_storage(CG, kt, K_top)
     gl, dl = _random_dl(fb, B, gen, eps)
     cells = B * Gp * fb.K
     print(f"tiled FB kernels at {B} rows x K={fb.K} (K_pad {fb.K_pad}) x {Gp} grids, "
-          f"{splits} blocks per row, plain versions on all {Gp} grids", flush=True)
+          f"{splits} blocks per row, checkpoint interval {CG}, the chunk's alphas in "
+          f"{'shared' if smem else 'global'} memory, {cpt} haplotypes a thread in registers "
+          f"(0: the general form); plain versions on all {Gp} grids", flush=True)
     rows = []
 
     mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
     mx_r = fbk.fb_max_tiled_plain(dl, words, fb.K, kt)
     # a maximum is order-free, and the plain version adds a haplotype's
-    # set-bit log-ratios in the kernel's order: the two agree exactly
+    # log-ratios in the kernel's order: the two agree exactly
     err = (mx - mx_r).abs().max().item()
     print(f"fb_max_tiled: max |mx err| {err:.3e} (tolerance: exact; logits up to "
           f"{mx_r.abs().max().item():.1f})", flush=True)
@@ -657,44 +692,61 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
                      _median_ms(lambda: fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt), 1),
                      _nbytes(dl, words, trans2, mx, ck, S, lg), 40 * cells))
 
-    ci = Gp // CG // 2
-    al = fbk.fb_remat_tiled(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt)
-    al_r = fbk.fb_remat_tiled_plain(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt)
-    err = (al - al_r).abs().max().item()
-    print(f"fb_remat_tiled (chunk {ci}): max |alpha err| {err:.3e} (tolerance atol 1e-6)", flush=True)
-    if not err <= 1e-6:
-        _fail("fb_remat_tiled disagrees with its plain version")
-    cs = slice(ci * CG, (ci + 1) * CG)
-    chunk_in = (dl[:, ci * CG * 32:(ci + 1) * CG * 32], words[cs], mx[cs], S[cs])
-    rows.append(_row("fb_remat_tiled", "fb_tiled.cu", "fb_pallas.py:494", err,
-                     _median_ms(lambda: fbk.fb_remat_tiled(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt), 5),
-                     _median_ms(lambda: fbk.fb_remat_tiled_plain(dl, words, ck[ci], trans2, mx, S, ci, fb.K, kt), 2),
-                     _nbytes(*chunk_in, ck[ci], al), 40 * cells * CG // Gp))
-
-    # carries of the middle chunk: run the chunks above it with the kernels
-    eb = torch.ones((B, fb.K_pad), device="cuda")
-    E = torch.full((B,), float(fb.K), device="cuda")
-    for c in range(Gp // CG - 1, ci, -1):
-        a_c = fbk.fb_remat_tiled(dl, words, ck[c], trans2, mx, S, c, fb.K, kt)
-        eb, E = fbk.fb_backward_tiled(dl, words, a_c, trans2, thin, mx, eb, E, c, fb.K, K_top, eps, kt)[3:]
-    bargs = (dl, words, al, trans2, thin, mx, eb, E, ci, fb.K, K_top, eps, kt)
+    bargs = (dl, words, ck, trans2, thin, mx, S, fb.K, K_top, eps, kt)
     got = fbk.fb_backward_tiled(*bargs)
-    ref = fbk.fb_backward_tiled_plain(*bargs)
+    again = fbk.fb_backward_tiled(*bargs)
+    plain = {}
+    plain_ms = _median_ms(lambda: plain.setdefault("ref", fbk.fb_backward_tiled_plain(*bargs)), 1)
+    ref = plain["ref"]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     err_d = (got[0] - ref[0]).abs().max().item()
-    thin_c = thin[cs]
-    err_tv, idx_ok, n_firm = _topk_agree(got[1], got[2], ref[1], ref[2], thin_c)
-    rel_eb = ((got[3] - ref[3]).abs().max() / ref[3].abs().max()).item()
-    rel_E = ((got[4] - ref[4]).abs() / ref[4]).max().item()
-    print(f"fb_bwd_tiled (chunk {ci}, {int((thin_c >= 0).sum())} thinned grids): max |dosage err| "
-          f"{err_d:.3e}, max |top-K value err| {err_tv:.3e}, indices equal where gap > 1e-3: "
-          f"{idx_ok} ({n_firm} places), carries rel err e*beta {rel_eb:.3e} / E {rel_E:.3e} "
-          f"(tolerance dosage / top-K atol 1e-4, carries rtol 1e-4)", flush=True)
-    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok or rel_eb > 1e-4 or rel_E > 1e-4:
+    err_tv, idx_ok, n_firm = _topk_agree(got[1], got[2], ref[1], ref[2], thin)
+    zeros = not got[1][thin < 0].any() and not got[2][thin < 0].any()
+    print(f"fb_bwd_tiled ({int((thin >= 0).sum())} thinned grids): max |dosage err| {err_d:.3e}, "
+          f"max |top-K value err| {err_tv:.3e}, indices equal where gap > 1e-3: {idx_ok} "
+          f"({n_firm} places), zeros away from thinned grids: {zeros}, two launches equal bit "
+          f"for bit: {same} (tolerance dosage / top-K atol 1e-4)", flush=True)
+    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok or not zeros or not same:
         _fail("fb_bwd_tiled disagrees with its plain version")
-    rows.append(_row("fb_bwd_tiled", "fb_tiled.cu", "fb_pallas.py:539", err_d,
-                     _median_ms(lambda: fbk.fb_backward_tiled(*bargs), 5),
-                     _median_ms(lambda: fbk.fb_backward_tiled_plain(*bargs), 2),
-                     _nbytes(*chunk_in[:3], al, eb, E, *got), 76 * cells * CG // Gp))
+
+    # the backward timed in turn with its previous form (its own checkpoints
+    # every 16 grids), on the same inputs with no thinned grid (the top-K's
+    # share) and in its general form (e*beta in a global plane, the words
+    # read in the step); the floor of its cluster exchange at this shape
+    ck16 = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt, CG=16)[0]
+    old = fbk.fb_backward_tiled(dl, words, ck16, trans2, thin, mx, S, fb.K, K_top, eps, kt, 16,
+                                _prev=True)
+    err_old = (old[0] - got[0]).abs().max().item()
+    no_thin = torch.full_like(thin, -1)
+    bwd = lambda c, th, *a, **v: (lambda: fbk.fb_backward_tiled(dl, words, c, trans2, th, mx, S,
+                                                                fb.K, K_top, eps, kt, *a, **v))
+    t_bwd = _alternating_ms({"new": bwd(ck, thin), "no thinned grid": bwd(ck, no_thin),
+                             "general form": bwd(ck, thin, _general=True),
+                             "previous form": bwd(ck16, thin, 16, _prev=True)})
+    steps = 5000
+    floor_us = _median_ms(lambda: fbk.tiled_chain_floor(steps, B, splits, "cuda"), 3) * 1e3 / steps
+    n_thin = int((thin >= 0).sum())
+    new_ms, prev_ms = t_bwd["new"], t_bwd["previous form"]
+    print(f"fb_bwd_tiled ({cpt} haplotypes a thread in registers), timed in turn over a whole "
+          f"FB call: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_bwd.items())
+          + f" (the previous form: {2 * Gp // 16} launches; its dosage {err_old:.3e} from the new "
+          f"kernel's)", flush=True)
+    print(f"tiled step split at {B} rows x {kt} haplotypes a block (this run): fb_bwd_tiled "
+          f"{1e3 * new_ms / Gp:.2f} us a grid (rebuild + reverse step; previous form "
+          f"{1e3 * prev_ms / Gp:.2f}), cluster exchange floor {floor_us:.2f} us a step "
+          f"(the 34-value reduction, one cluster barrier, the posts' reads) = "
+          f"{Gp * floor_us / 1e3:.3f} ms a call, top-K at the {n_thin} thinned grids "
+          f"{new_ms - t_bwd['no thinned grid']:.3f} ms "
+          f"({100 * (1 - t_bwd['no thinned grid'] / new_ms):.1f}%); ptxas: "
+          + "; ".join(PTXAS.get("fb_bwd_tiled_kernel", ["not reported"])), flush=True)
+    # operations per (row, grid, haplotype): ~40 to rebuild alpha (the
+    # emission sum and the step), ~76 in the reverse step (emission, beta,
+    # gamma and 32 dosage adds); each input read once, each output written once
+    row = _row("fb_bwd_tiled", "fb_tiled.cu", "fb_pallas.py:539", err_d, new_ms, plain_ms,
+               _nbytes(dl, words, ck, trans2, thin, mx, S, *got), (40 + 76) * cells)
+    row["also_replaces"] = "quilt_tpu/kernels/fb_pallas.py:494"
+    row["previous_form_ms"] = prev_ms
+    rows.append(row)
 
     # the whole tiled FB against the fused CUDA FB, whose backward keeps the
     # chunk's alphas in global planes at this K_pad
@@ -1257,13 +1309,16 @@ def main():
     reports = _build.build_all()
     print(f"build: {sorted(reports)} in {time.time() - t:.1f} s", flush=True)
     for name, log in reports.items():
+        entry = None
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+                _note_ptxas(entry, line)
             elif "Compiling entry function" in line:
                 # the mangled name carries the template arguments (threads,
                 # columns a thread, ..., NL) of the instantiation
-                print(f"  {name}: {line.split(chr(39))[1][:110]}")
+                entry = line.split(chr(39))[1]
+                print(f"  {name}: {entry[:110]}")
 
     from quilt_tpu_torch.kernels import fb, gibbs_dosage, gibbs_sweep, nipt_bank
 
@@ -1272,8 +1327,11 @@ def main():
     bank = nipt_bank.BANK_KERNEL
     fused = [fb.FWD_KERNEL, fb.BWD_KERNEL]
     capture = fb.BWD_CAPTURE_KERNEL
-    tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.REMAT_TILED_KERNEL, fb.BWD_TILED_KERNEL]
+    tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
     kernels = [gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + tiled   # the order of rows
+    # the previous tiled backward (timings only) must launch on no path
+    prev_tiled = [fb._PREV_REMAT_TILED, fb._PREV_BWD_TILED]
+    counted = kernels + prev_tiled
     rows, launches = [], {}
 
     if phases & {"kernels", "e2e"}:
@@ -1285,9 +1343,9 @@ def main():
             rows += check_kernels(world)
             time_fb_plan(world["fb"], (14, 28, 56, 112))
             for K in (8192, 10240, 20480):
-                time_fb_plan(synthetic_fb(K), (14, 28, 56, 112) if K == 8192 else (28, 56, 112))
+                time_fb_plan(synthetic_fb(K), (28, 56, 112) if K == 10240 else (14, 28, 56, 112))
         if "e2e" in phases:
-            out, _, launches["quilt1"] = run_e2e(world, kernels, e2e_config(8), "e2e")
+            out, _, launches["quilt1"] = run_e2e(world, counted, e2e_config(8), "e2e")
             if min(out.r2_per_sample) < 0.9:
                 _fail(f"e2e r2 against truth below 0.9: {out.r2_per_sample}")
             check_launched("e2e", launches["quilt1"], [gfwd, gbwd] + fused)
@@ -1295,7 +1353,7 @@ def main():
 
     if "quilt2" in phases:
         world2 = make_world(quilt2=True)
-        out, truth_gen, launches["quilt2"] = run_e2e(world2, kernels, e2e_config(8, quilt2=True),
+        out, truth_gen, launches["quilt2"] = run_e2e(world2, counted, e2e_config(8, quilt2=True),
                                                      "quilt2")
         quilt2_report(world2, out, truth_gen)
         if min(out.r2_per_sample) < 0.85:
@@ -1308,13 +1366,16 @@ def main():
         world3 = make_world(n_samples=2, K=40960)
         rows += check_tiled_kernels(world3["fb"])
         time_fb_plan(world3["fb"], (28, 56, 112))
-        out, _, l3 = run_e2e(world3, kernels, e2e_config(2), "largek")
+        out, _, l3 = run_e2e(world3, counted, e2e_config(2), "largek")
         launches["largek"] = l3
         if min(out.r2_per_sample) < 0.9:
             _fail(f"largek r2 against truth below 0.9: {out.r2_per_sample}")
         check_launched("largek", l3, [gfwd, gbwd] + tiled)
         if any(l3[k.name] for k in fused):
             _fail(f"largek launched a fused FB kernel: {l3}")
+        # one launch of each tiled kernel an FB call, 6 FB calls a largek call
+        if [l3[k.name] for k in tiled] != [6, 6, 6]:
+            _fail(f"largek: the tiled kernels did not launch once an FB call each: {l3}")
         del world3
 
     if "nipt" in phases:
@@ -1322,7 +1383,7 @@ def main():
         # 4 samples x 7 chains = 28 chains = 84 state rows and 84 FB rows
         ffs = [0.1] * 4 + [0.2] * 4
         world4 = make_world(ffs=ffs, coverage=2.0)
-        out, _, l4 = run_e2e(world4, kernels, e2e_config(8, nipt=True), "nipt")
+        out, _, l4 = run_e2e(world4, counted, e2e_config(8, nipt=True), "nipt")
         launches["nipt"] = l4
         nipt_report("nipt", world4, out)
         check_launched("nipt", l4, nl3[:2] + [bank] + fused)
@@ -1332,18 +1393,22 @@ def main():
         # QUILT2-NIPT on the QUILT2 world's panel: the dosages come from the
         # Gibbs dosage kernel at NL = 3
         world5 = make_world(n_samples=4, quilt2=True, ffs=[0.2] * 4, coverage=2.0)
-        out, _, l5 = run_e2e(world5, kernels, e2e_config(4, quilt2=True, nipt=True), "nipt2")
+        out, _, l5 = run_e2e(world5, counted, e2e_config(4, quilt2=True, nipt=True), "nipt2")
         launches["nipt2"] = l5
         nipt_report("nipt2", world5, out)
         check_launched("nipt2", l5, nl3 + [bank])
         del world5
     if "hla" in phases:
-        launches["hla"] = run_hla(kernels, [gfwd, gbwd, fb.FWD_KERNEL, capture])
+        launches["hla"] = run_hla(counted, [gfwd, gbwd, fb.FWD_KERNEL, capture])
         if launches["hla"][fb.BWD_KERNEL.name]:
             _fail(f"hla launched the FB backward without capture: {launches['hla']}")
     if "cli" in phases:
         run_cli()
 
+    stale = {path: {k.name: l[k.name] for k in prev_tiled if l[k.name]}
+             for path, l in launches.items()}
+    if any(stale.values()):
+        _fail(f"a path launched the previous tiled backward: {stale}")
     print(smi)
     if phases != set(PHASES):
         print(f"partial run (phases {sorted(phases)}): no result line")

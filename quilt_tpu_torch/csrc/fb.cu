@@ -63,7 +63,8 @@
 //   * Emissions: once a chunk, eight 16-entry tables a grid of the partial
 //     sums of the grid's log-ratios over each nibble of a panel word, so a
 //     logit is 8 conflict-free shared-memory lookups (adding the set bits'
-//     log-ratios one at a time was slower on the H100: PERF.md section 6).
+//     log-ratios one at a time was slower on the H100: PERF.md section 6;
+//     fb_common.cuh stage_chunk / logit, shared with fb_tiled.cu).
 //     The forward and the remat call one step routine, so the rebuilt
 //     alphas equal the forward's bit for bit.
 //   * The wrapper (kernels/fb.py) chooses the storage and the columns a
@@ -77,11 +78,8 @@
 
 namespace {
 
-constexpr int EMF = 128;             // floats a grid of the emission tables (8 x 16)
 constexpr int RW = 33;               // floats of a warp's record in the gamma reduction
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may take
-
-__host__ __device__ constexpr int r4(int n) { return (n + 3) & ~3; }
 
 // Dynamic shared memory of the backward kernel in floats, region by region
 // (kernels/fb.py:_bwd_smem_bytes mirrors it): the two reduction buffers,
@@ -95,56 +93,9 @@ __host__ __device__ inline int fwd_smem_floats(int CG) {
   return r4(4 * NWARP) + r4(CG * 32) + CG * EMF;
 }
 
-// A thread's columns k = tid + c*NT: in registers (CPT > 0, loops unrolled)
-// or, in the general instantiation (CPT = 0), in a global plane p of K_pad.
-template <int CPT, class T = float>
-struct Cols {
-  T r[CPT > 0 ? CPT : 1];
-  T* p;
-  __device__ __forceinline__ T& operator[](int c) {
-    if constexpr (CPT > 0) return r[c];
-    else return p[threadIdx.x + c * NT];
-  }
-};
-
 template <int CPT>
 __device__ __forceinline__ int ncols(int K_pad) {
   return CPT > 0 ? CPT : (K_pad + NT - 1) / NT;
-}
-
-// ---------------------------------------------------------------------------
-// emissions
-// ---------------------------------------------------------------------------
-
-// Stages the GL log-ratios of grids g0 .. g0+n-1 of row `dlr` in dls_s and
-// builds their tables in em (n x EMF floats: table q of grid j at
-// em[j*EMF + q*16], entry v = the sum of the log-ratios of the set bits of
-// nibble v of the word's bits 4q..4q+3, added in bit order). Ends with a
-// barrier.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ dlr, int g0, int n,
-                                            float* dls_s, float* em) {
-  for (int i = threadIdx.x; i < n * 32; i += NT) dls_s[i] = dlr[(size_t)g0 * 32 + i];
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * EMF; e += NT) {
-    const float* d = dls_s + (e >> 7) * 32 + ((e >> 4) & 7) * 4;
-    const int v = e & 15;
-    float x = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x += ((v >> i) & 1) ? d[i] : 0.f;
-    em[e] = x;
-  }
-  __syncthreads();
-}
-
-// The logit of panel word w at grid j of the staged chunk. A 16-entry
-// table spans 16 distinct banks, so the 8 lookups of a warp never conflict
-// (equal entries are broadcast).
-__device__ __forceinline__ float logit(unsigned w, const float* em, int j) {
-  const float* t = em + j * EMF;
-  float x = t[w & 15u];
-#pragma unroll
-  for (int q = 1; q < 8; ++q) x += t[q * 16 + ((w >> (4 * q)) & 15u)];
-  return x;
 }
 
 // ---------------------------------------------------------------------------
@@ -178,32 +129,6 @@ __device__ __forceinline__ void reduce_ms(float& m, float& s, float* red, int& p
   s = 0.f;
 #pragma unroll
   for (int w = 0; w < NWARP; ++w) s += v[w].y * expf(v[w].x - m);
-}
-
-// One round of the transposing butterfly: lanes with bit O set keep the
-// upper half of their O*2 values, the others the lower half, and each adds
-// its partner's copy of the half it keeps.
-template <int O>
-__device__ __forceinline__ void transpose_round(float (&v)[32], int lane) {
-  const bool upper = lane & O;
-#pragma unroll
-  for (int j = 0; j < O; ++j) {
-    const float send = upper ? v[j] : v[j + O];
-    const float keep = upper ? v[j + O] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-}
-
-// Within a warp, leaves lane l with the warp's sum of v[l] in v[0] (31
-// shuffles for 32 values). Each round has a constant trip count, so v
-// stays in registers.
-__device__ __forceinline__ void warp_transpose_sum(float (&v)[32]) {
-  const int lane = threadIdx.x & 31;
-  transpose_round<16>(v, lane);
-  transpose_round<8>(v, lane);
-  transpose_round<4>(v, lane);
-  transpose_round<2>(v, lane);
-  transpose_round<1>(v, lane);
 }
 
 // A sum and a maximum (the reverse step's first reduction): red is the

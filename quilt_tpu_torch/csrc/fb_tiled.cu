@@ -12,16 +12,16 @@
 //                        S = sum_k a_raw crosses the K splits; one alpha
 //                        checkpoint per chunk of CG grids, S per grid, and
 //                        the log-likelihood sum_g (log S + mx);
-//   fb_remat_tiled    <- _remat_kernel_tiled: a chunk's normalised alphas
-//                        from its checkpoint and the stored (S, mx), with no
-//                        step across splits;
-//   fb_backward_tiled <- _bwd_kernel_tiled + _merge_topk: one chunk, grids
-//                        descending: beta = stay_n*etb/E + jump_n/K, gamma =
-//                        alpha*beta unnormalised; across the splits AB = sum
-//                        gamma, E = sum e*beta, the 32 dosage partials and
-//                        the top-K_top merge (value descending, lowest
-//                        haplotype index on ties); carries e*beta and E to
-//                        the next chunk. No gamma capture, as on the TPU.
+//   fb_backward_tiled <- _remat_kernel_tiled + _bwd_kernel_tiled +
+//                        _merge_topk, ONE launch an FB call: for each chunk
+//                        of CG grids from the last to the first, the chunk's
+//                        alphas rebuilt from its checkpoint and the stored
+//                        (S, mx), then its grids descending: beta =
+//                        stay_n*etb/E + jump_n/K, gamma = alpha*beta
+//                        unnormalised; across the splits AB = sum gamma, E =
+//                        sum e*beta, the 32 dosage partials and the
+//                        top-K_top merge (value descending, lowest haplotype
+//                        index on ties). No gamma capture, as on the TPU.
 //
 // The TPU kernels walk a (grid, K tile) iteration space in order on one
 // core and exchange the cross-tile sums through VMEM scratch. Here the K
@@ -32,22 +32,57 @@
 // partials over distributed shared memory in rank order (so S, E and AB are
 // the same in every block and in every run). The posts are double-buffered
 // by step parity, which is what makes one cluster barrier per step enough.
-// Rank 0 finishes the dosage and merges the splits' top-K lists.
 //
-// What bounds it on the H100: as fb.cu, a dependent chain over the grids
-// (512 steps), each a few block reductions plus one cluster barrier, and
-// ~64 FMAs per haplotype per grid for emission and dosage. The split cuts
-// the per-step work of a block by the cluster size and spreads few rows
-// over many SMs; the chain's latency stays.
+// What bounds it on the H100: a dependent chain over the grids (512 steps),
+// each a block reduction plus one cluster barrier, and per haplotype and
+// grid ~40 operations to rebuild alpha (emission, step) and ~76 in the
+// reverse step (emission, beta, gamma, 32 dosage adds) on the block's SM.
+// The split cuts the per-step work of a block by the cluster size and
+// spreads few rows over many SMs; the chain's latency stays.
+//
+// Design of the backward (one launch an FB call; the previous form,
+// fb_tiled_prev.cu, launched a remat and a backward kernel per chunk):
+//   * Every chunk in one launch. Each block walks the chunks from last to
+//     first; it rebuilds its own haplotypes' alphas from the checkpoint
+//     (no cluster barrier: nothing crosses the splits), then runs the
+//     chunk's reverse steps with one cluster exchange a step. The e*beta
+//     carry and E never leave the kernel.
+//   * Chunk alphas on chip: the wrapper's checkpoint interval
+//     (kernels/fb.py:tiled_cg) is the largest of 16, 8, 4, 2 whose alpha
+//     planes fit the block's shared memory beside the tables and posts (4 at
+//     10,240 haplotypes a block); where not even two fit, CG = 16 planes in
+//     a global scratch row. A thread reads and writes only its own columns
+//     of a plane, so no plane needs a barrier. The planes hold the RAW
+//     rebuilt alpha; the reverse step normalises it by 1/S as it reads it.
+//   * Register state: e*beta of the next grid and the next grid's panel
+//     words in registers for up to CPT = 20 haplotypes a thread (a template
+//     parameter); the general form (CPT = 0, any block width) keeps e*beta
+//     in a global plane and reads the words in the step.
+//   * Emissions by the nibble tables of fb_common.cuh, staged once a chunk,
+//     in the forward and the rebuild alike, with one step routine
+//     (alpha_step): the rebuilt alphas equal the forward's bit for bit.
+//   * One block reduction a reverse step: the 32 dosage partials (one
+//     transposing butterfly per warp), AB and E are independent, so each
+//     warp posts one record of 34 values, one barrier, and 34 threads add
+//     the 16 records in warp order into the block's post. Then the cluster
+//     barrier and the reads of the posts in rank order.
+//   * Top-K off the chain: at a thinned grid the alpha plane, once read,
+//     takes the grid's gammas; each warp takes its own top K_top from its
+//     lanes' columns by shuffles (a lane rescans its columns only when its
+//     best is taken) and posts the sorted list with the step's partials.
+//     After the cluster barrier, rank 0's warp 0 merges the NS x 16 sorted
+//     lists (lane l holds the heads of lists l, l+32, ...) while the other
+//     warps go on. It finishes before it reaches the next cluster barrier,
+//     so no block can overwrite that parity's post (two steps later) before
+//     the merge has read it.
+//   * Operands ahead of the chain: the next grid's words are loaded into
+//     registers before the current step's reduction; a chunk's log-ratios,
+//     tables, maxima, 1/S and transition terms are staged once a chunk.
 //
 // Checkpoint convention (the port's, as fb.cu): checkpoint c holds the
 // alpha ENTERING chunk c (zeros for c = 0), here unnormalised, to be
 // divided by S of the grid before the chunk. (The Pallas kernel's block c
 // held the alpha entering chunk c+1, an artefact of its output write-back.)
-// The per-row planes live in global scratch that each thread touches only at
-// its own columns; emissions come from fb_common.cuh:emission_logit and the
-// alpha step from alpha_step below in both the forward and the remat, so
-// the rebuilt alphas equal the forward's divided by S, bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -61,10 +96,13 @@ namespace {
 
 constexpr int MAX_SPLITS = 8;
 constexpr int MAX_KTOP = 32;
-constexpr int MAX_CG = 32;
+constexpr int MAX_CG = 16;             // the largest checkpoint interval
+constexpr int RW = 34;                 // a warp's record: the 32 dosage sums, AB, E
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may take
+constexpr unsigned FULL = 0xffffffffu;
 
 // One forward step of one haplotype, with explicit roundings so that the
-// forward and the remat kernel cannot be contracted differently.
+// forward and the rebuild cannot be contracted differently.
 __device__ __forceinline__ float alpha_step(float a_prev, float inv_sprev,
                                             float stay, float jumpK, float e) {
   return __fmul_rn(__fmaf_rn(stay, __fmul_rn(a_prev, inv_sprev), jumpK), e);
@@ -79,9 +117,9 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
   }
 }
 
-// ---- kernel 6: emission maximum. One block per (grid, K split), rows
-// looped inside so the split's words stay in L1; partial maxima of the
-// splits combine with an atomic maximum.
+// ---- emission maximum. One block per (grid, K split), rows looped inside
+// so the split's words stay in L1; partial maxima of the splits combine
+// with an atomic maximum.
 __global__ void __launch_bounds__(NT) fb_max_tiled_kernel(
     const int* __restrict__ words, const float* __restrict__ dl,
     float* __restrict__ mx, int Gp, int K, int K_pad, int B, int KS) {
@@ -96,7 +134,7 @@ __global__ void __launch_bounds__(NT) fb_max_tiled_kernel(
     __syncthreads();
     float m = NEG;
     for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-      const float x = emission_logit((unsigned)wg[k], dls);
+      const float x = logit_direct((unsigned)wg[k], dls);
       m = fmaxf(m, (k < K) ? x : NEG);
     }
     m = block_reduce(m, red, MaxOp());
@@ -104,7 +142,8 @@ __global__ void __launch_bounds__(NT) fb_max_tiled_kernel(
   }
 }
 
-// ---- kernel 7: forward. Grid (splits, B), cluster (splits, 1, 1).
+// ---- forward. Grid (splits, B), cluster (splits, 1, 1). The row's alpha
+// lives in the global scratch row, each thread at its own columns.
 __global__ void __launch_bounds__(NT) fb_fwd_tiled_kernel(
     const int* __restrict__ words, const float* __restrict__ dl,
     const float* __restrict__ trans2, const float* __restrict__ mx,
@@ -112,30 +151,30 @@ __global__ void __launch_bounds__(NT) fb_fwd_tiled_kernel(
     float* __restrict__ logs, float* __restrict__ scratch, int Gp, int K,
     int K_pad, int B, int CG, int KS, float invK) {
   cg::cluster_group cluster = cg::this_cluster();
-  __shared__ float dls[32];
+  __shared__ float dls_s[MAX_CG * 32];
+  __shared__ float em[MAX_CG * EMF];
   __shared__ float red[NWARP];
   __shared__ float part[2];
   const int b = blockIdx.y;
   const unsigned rank = cluster.block_rank(), NS = cluster.num_blocks();
   const int k0 = rank * KS, k1 = k0 + KS;
-  const size_t S = (size_t)Gp * 32;
+  const float* dlr = dl + (size_t)b * Gp * 32;
   float* alpha = scratch + (size_t)b * K_pad;
   for (int k = k0 + threadIdx.x; k < k1; k += NT) alpha[k] = 0.f;
   float acc = 0.f, inv_sprev = 1.f;
   for (int g = 0; g < Gp; ++g) {
-    if (g % CG == 0) {
+    const int j = g % CG;
+    if (j == 0) {
       float* c = ckpt + ((size_t)(g / CG) * B + b) * K_pad;
       for (int k = k0 + threadIdx.x; k < k1; k += NT) c[k] = alpha[k];
+      stage_chunk(dlr, g, CG, dls_s, em);
     }
-    if (threadIdx.x < 32) dls[threadIdx.x] = dl[(size_t)b * S + (size_t)g * 32 + threadIdx.x];
-    __syncthreads();
     const float mxg = mx[(size_t)g * B + b];
     const float stay = trans2[g], jumpK = trans2[Gp + g] * invK;
     const int* wg = words + (size_t)g * K_pad;
     float s = 0.f;
     for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-      float x = emission_logit((unsigned)wg[k], dls);
-      x = (k < K) ? x : NEG;
+      const float x = (k < K) ? logit((unsigned)wg[k], em, j) : NEG;
       const float a = alpha_step(alpha[k], inv_sprev, stay, jumpK, expf(x - mxg));
       alpha[k] = a;
       s += a;
@@ -153,211 +192,392 @@ __global__ void __launch_bounds__(NT) fb_fwd_tiled_kernel(
   if (rank == 0 && threadIdx.x == 0) logs[b] = acc;
 }
 
-// ---- kernel 8: remat of chunk ci. Grid (splits, B), no cluster: each
-// thread carries its own haplotypes through the chunk's CG grids.
-__global__ void __launch_bounds__(NT) fb_remat_tiled_kernel(
-    const int* __restrict__ words, const float* __restrict__ dl,
-    const float* __restrict__ ckpt_c, const float* __restrict__ trans2,
-    const float* __restrict__ mx, const float* __restrict__ ssum,
-    float* __restrict__ alphas, int Gp, int K, int K_pad, int B, int CG,
-    int ci, int KS, float invK) {
-  __shared__ float dls[MAX_CG][32];
-  __shared__ float mxs[MAX_CG], stay[MAX_CG], jumpK[MAX_CG], inv_s[MAX_CG + 1];
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.x * KS, k1 = k0 + KS;
-  const int cs = ci * CG;
-  const size_t S = (size_t)Gp * 32;
-  for (int i = threadIdx.x; i < CG * 32; i += NT)
-    dls[i >> 5][i & 31] = dl[(size_t)b * S + (size_t)cs * 32 + i];
-  for (int j = threadIdx.x; j <= CG; j += NT) {
-    const int gp = cs + j - 1;   // the grid whose S normalises the alpha entering cs + j
-    inv_s[j] = (gp >= 0) ? 1.f / ssum[(size_t)gp * B + b] : 1.f;
-    if (j < CG) {
-      mxs[j] = mx[(size_t)(cs + j) * B + b];
-      stay[j] = trans2[cs + j];
-      jumpK[j] = trans2[Gp + cs + j] * invK;
-    }
-  }
-  __syncthreads();
-  for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-    float a = ckpt_c[(size_t)b * K_pad + k];
-    for (int j = 0; j < CG; ++j) {
-      float x = emission_logit((unsigned)words[(size_t)(cs + j) * K_pad + k], dls[j]);
-      x = (k < K) ? x : NEG;
-      a = alpha_step(a, inv_s[j], stay[j], jumpK[j], expf(x - mxs[j]));
-      alphas[((size_t)j * B + b) * K_pad + k] = a * inv_s[j + 1];
+// ---------------------------------------------------------------------------
+// the backward: rebuild + reverse sweep of every chunk, one launch
+// ---------------------------------------------------------------------------
+
+// Floats of a block's post (one parity): its 34 sums, then its warps' top-K
+// lists, NWARP x K_top values and NWARP x K_top haplotype indices.
+__host__ __device__ inline int post_floats(int K_top) { return r4(RW + 2 * NWARP * K_top); }
+
+// Dynamic shared memory of the backward in floats, region by region
+// (kernels/fb.py:_bwd_tiled_smem_bytes mirrors it): the warps' records, the
+// two posts, the chunk's scalars (maxima, stay, jump/K, 1/S), its
+// log-ratios and emission tables, and (shared-memory storage) its CG alpha
+// planes of KS floats.
+__host__ __device__ inline int bwd_smem_floats(int CG, int KS, int K_top, bool planes) {
+  return r4(NWARP * RW) + 2 * post_floats(K_top) + r4(4 * CG + 1) + r4(CG * 32) + CG * EMF +
+         (planes ? CG * KS : 0);
+}
+
+template <int CPT>
+__device__ __forceinline__ int ncols(int KS) {
+  return CPT > 0 ? CPT : (KS + NT - 1) / NT;
+}
+
+// The words of grid g at the thread's columns (register forms only); wb
+// points at the block's first haplotype of grid 0.
+template <int CPT>
+__device__ __forceinline__ void load_words(Cols<CPT, unsigned>& w, const int* __restrict__ wb,
+                                           int g, int K_pad, int KS) {
+  if constexpr (CPT > 0) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int kl = threadIdx.x + c * NT;
+      w[c] = kl < KS ? (unsigned)__ldg(wb + (size_t)g * K_pad + kl) : 0u;
     }
   }
 }
 
-// What one block tells its cluster about one grid step.
-struct Post {
-  float ab, e;
-  float dos[32];
-  float tv[MAX_KTOP];
-  int ti[MAX_KTOP];
-};
+template <int CPT>
+__device__ __forceinline__ unsigned word_at(Cols<CPT, unsigned>& w, int c,
+                                            const int* __restrict__ wb, int g, int K_pad) {
+  if constexpr (CPT > 0) return w[c];
+  else return (unsigned)__ldg(wb + (size_t)g * K_pad + threadIdx.x + c * NT);
+}
 
-// ---- kernel 9: backward of chunk ci. Grid (splits, B), cluster (splits,
-// 1, 1). eb_in / e_in carry e*beta [B, K_pad] and E [B] of the grid after
-// the chunk; eb_out / e_out receive those of the chunk's first grid.
-__global__ void __launch_bounds__(NT) fb_bwd_tiled_kernel(
-    const int* __restrict__ words, const float* __restrict__ dl,
-    const float* __restrict__ alphas, const float* __restrict__ trans2,
-    const int* __restrict__ thin, const float* __restrict__ mx,
-    const float* __restrict__ eb_in, const float* __restrict__ e_in,
-    float* __restrict__ dos, float* __restrict__ tv, int* __restrict__ ti,
-    float* __restrict__ eb_out, float* __restrict__ e_out,
-    float* __restrict__ work_scr, int Gp, int K, int K_pad, int B, int CG,
-    int ci, int K_top, int KS, float invK, float eps) {
-  cg::cluster_group cluster = cg::this_cluster();
-  __shared__ float dls[32];
-  __shared__ float red[NWARP * 32];
-  __shared__ float rv[NWARP];
-  __shared__ int ri[NWARP];
-  __shared__ Post post[2];
-  __shared__ float cand_v[MAX_SPLITS * MAX_KTOP];
-  __shared__ int cand_i[MAX_SPLITS * MAX_KTOP];
-  const int b = blockIdx.y;
-  const unsigned rank = cluster.block_rank(), NS = cluster.num_blocks();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = rank * KS, k1 = k0 + KS;
-  const int cs = ci * CG;
-  const size_t S = (size_t)Gp * 32;
-  float* eo = eb_out + (size_t)b * K_pad;
-  float* work = work_scr + (size_t)b * K_pad;
-  float e_prev = e_in[b];
-  for (int p = 0; p < CG; ++p) {
-    const int j = CG - 1 - p, g = cs + j;
-    Post* mine = &post[p & 1];
-    const bool last = (g == Gp - 1);             // beta = 1: no successor
-    const float stay_n = last ? 1.f : trans2[g + 1];
-    const float jumpK_n = last ? 0.f : trans2[Gp + g + 1] * invK;
-    const float inv_e = 1.f / fmaxf(e_prev, 1e-30f);
-    const float* en = (p == 0) ? eb_in + (size_t)b * K_pad : eo;
-    const float* aj = alphas + ((size_t)j * B + b) * K_pad;
-    const int* wg = words + (size_t)g * K_pad;
-    const bool thinned = thin[g] >= 0;
-    if (threadIdx.x < 32) dls[threadIdx.x] = dl[(size_t)b * S + (size_t)g * 32 + threadIdx.x];
-    __syncthreads();
-    const float mxg = mx[(size_t)g * B + b];
-    float sab = 0.f, se = 0.f;
-    float part[32];
+// The lane's best entry of plane v among its columns (ascending, so the
+// first maximum has the lowest index): value and local column, or (-inf,
+// -1) when none is left.
+template <int CPT>
+__device__ __forceinline__ void lane_best(const float* v, int KS, float& bv, int& bk) {
+  bv = -INFINITY;
+  bk = -1;
 #pragma unroll
-    for (int t = 0; t < 32; ++t) part[t] = 0.f;
-    for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-      const float beta = last ? 1.f : stay_n * (en[k] * inv_e) + jumpK_n;
-      const float gu = aj[k] * beta;
-      sab += gu;
-      const unsigned w = (unsigned)wg[k];
+  for (int c = 0; c < ncols<CPT>(KS); ++c) {
+    const int kl = threadIdx.x + c * NT;
+    if (kl < KS && v[kl] > bv) {
+      bv = v[kl];
+      bk = kl;
+    }
+  }
+}
+
+// The warp's top K_top of plane v over its lanes' columns into the list
+// (lv, li), value descending, lowest index first on ties; indices are
+// global (k0 + local column), INT_MAX after the warp's last column.
+template <int CPT>
+__device__ __forceinline__ void warp_topk(float* v, int KS, int k0, int K_top, float* lv,
+                                          int* li) {
+  const int lane = threadIdx.x & 31;
+  float bv;
+  int bk;
+  lane_best<CPT>(v, KS, bv, bk);
+  for (int t = 0; t < K_top; ++t) {
+    float wv = bv;
+    int wi = bk >= 0 ? k0 + bk : INT_MAX;
 #pragma unroll
-      for (int t = 0; t < 32; ++t) part[t] += ((w >> t) & 1u) ? gu : 0.f;
-      if (thinned) work[k] = (k < K) ? gu : -1.f;
-      float x = emission_logit(w, dls);
-      x = (k < K) ? x : NEG;
-      const float etb = expf(x - mxg) * beta;
-      eo[k] = etb;
-      se += etb;
-    }
-    sab = block_reduce(sab, red, SumOp());
-    se = block_reduce(se, red, SumOp());
-    const float d = block_reduce32(part, red);
-    if (threadIdx.x == 0) {
-      mine->ab = sab;
-      mine->e = se;
-    }
-    if (threadIdx.x < 32) mine->dos[threadIdx.x] = d;
-    if (thinned) {
-      // the split's own top K_top, by masked argmax (lowest index on ties)
-      for (int t = 0; t < K_top; ++t) {
-        float v = -INFINITY;
-        int idx = INT_MAX;
-        for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-          if (work[k] > v || (work[k] == v && k < idx)) {
-            v = work[k];
-            idx = k;
-          }
-        }
-        block_argmax(v, idx, rv, ri);
-        if (threadIdx.x == 0) {
-          mine->tv[t] = v;
-          mine->ti[t] = idx;
-        }
-        if ((idx - k0) % NT == (int)threadIdx.x) work[idx] = -2.f;   // owner masks it
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, wv, o);
+      const int oi = __shfl_xor_sync(FULL, wi, o);
+      if (ov > wv || (ov == wv && oi < wi)) {
+        wv = ov;
+        wi = oi;
       }
     }
-    cluster.sync();
-    float ab = 0.f, e = 0.f;
-    for (unsigned q = 0; q < NS; ++q) {
-      const Post* theirs = cluster.map_shared_rank(mine, q);
-      ab += theirs->ab;
-      e += theirs->e;
+    if (lane == 0) {
+      lv[t] = wv;
+      li[t] = wi;
     }
-    e_prev = e;
-    if (rank == 0) {
-      const float inv_ab = 1.f / fmaxf(ab, 1e-30f);
-      if (threadIdx.x < 32) {
-        float dsum = 0.f;
-        for (unsigned q = 0; q < NS; ++q) dsum += cluster.map_shared_rank(mine, q)->dos[threadIdx.x];
-        dos[((size_t)b * CG + j) * 32 + threadIdx.x] = eps + (1.f - 2.f * eps) * dsum * inv_ab;
-      }
-      float* tvr = tv + ((size_t)j * B + b) * K_top;
-      int* tir = ti + ((size_t)j * B + b) * K_top;
-      if (thinned && warp == 0) {
-        // merge the splits' lists: value descending, lowest index on ties
-        const int n = NS * K_top;
-        for (int c = lane; c < n; c += 32) {
-          const Post* theirs = cluster.map_shared_rank(mine, c / K_top);
-          cand_v[c] = theirs->tv[c % K_top];
-          cand_i[c] = theirs->ti[c % K_top];
-        }
-        __syncwarp();
-        for (int t = 0; t < K_top; ++t) {
-          float v = -INFINITY;
-          int idx = INT_MAX, pos = -1;
-          for (int c = lane; c < n; c += 32) {
-            if (cand_v[c] > v || (cand_v[c] == v && cand_i[c] < idx)) {
-              v = cand_v[c];
-              idx = cand_i[c];
-              pos = c;
-            }
-          }
+    if (bk >= 0 && wi == k0 + bk) {   // this lane's entry was taken
+      v[bk] = -INFINITY;
+      lane_best<CPT>(v, KS, bv, bk);
+    }
+  }
+}
+
+// Rank 0's warp 0: the row's top K_top from the NS x NWARP sorted lists of
+// the cluster's posts at `mine`'s offset, by K_top rounds of a merge whose
+// lane l holds the heads of lists l, l + 32, ...; values scaled by inv_ab.
+__device__ __forceinline__ void merge_lists(cg::cluster_group& cluster, float* mine, int NS,
+                                            int K_top, float inv_ab, float* tvr, int* tir) {
+  constexpr int HL = MAX_SPLITS * NWARP / 32;
+  const int lane = threadIdx.x & 31;
+  const int L = NS * NWARP;
+  const float* lv[HL];
+  const int* li[HL];
+  int h[HL];
+  float hv[HL];
+  int hi[HL];
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-            const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
-            const int op = __shfl_xor_sync(0xffffffffu, pos, o);
-            if (ov > v || (ov == v && oi < idx)) {
-              v = ov;
-              idx = oi;
-              pos = op;
-            }
-          }
-          if (lane == 0) {
-            tvr[t] = v * inv_ab;
-            tir[t] = idx;
-            cand_v[pos] = -3.f;
-          }
-          __syncwarp();
+  for (int i = 0; i < HL; ++i) {
+    const int l = lane + 32 * i;
+    h[i] = 0;
+    hv[i] = -INFINITY;
+    hi[i] = INT_MAX;
+    lv[i] = nullptr;
+    li[i] = nullptr;
+    if (l < L) {
+      const float* theirs = cluster.map_shared_rank(mine, l / NWARP);
+      lv[i] = theirs + RW + (l % NWARP) * K_top;
+      li[i] = reinterpret_cast<const int*>(theirs + RW + NWARP * K_top) + (l % NWARP) * K_top;
+      hv[i] = lv[i][0];
+      hi[i] = li[i][0];
+    }
+  }
+  for (int t = 0; t < K_top; ++t) {
+    float bv = -INFINITY;
+    int bi = INT_MAX, bs = -1;
+#pragma unroll
+    for (int i = 0; i < HL; ++i) {
+      if (hv[i] > bv || (hv[i] == bv && hi[i] < bi)) {
+        bv = hv[i];
+        bi = hi[i];
+        bs = i;
+      }
+    }
+    float wv = bv;
+    int wi = bi;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, wv, o);
+      const int oi = __shfl_xor_sync(FULL, wi, o);
+      if (ov > wv || (ov == wv && oi < wi)) {
+        wv = ov;
+        wi = oi;
+      }
+    }
+    if (lane == 0) {
+      tvr[t] = wv * inv_ab;
+      tir[t] = wi;
+    }
+    if (bs >= 0 && bi == wi) {   // the head of this lane's list bs was taken
+#pragma unroll
+      for (int i = 0; i < HL; ++i) {
+        if (i == bs) {
+          ++h[i];
+          hv[i] = h[i] < K_top ? lv[i][h[i]] : -INFINITY;
+          hi[i] = h[i] < K_top ? li[i][h[i]] : INT_MAX;
         }
-      } else if (!thinned && threadIdx.x < K_top) {
-        tvr[threadIdx.x] = 0.f;
-        tir[threadIdx.x] = 0;
       }
     }
   }
+}
+
+// Grid (splits, B), cluster (splits, 1, 1). Block `rank` of row b owns the
+// haplotypes k0 = rank*KS .. k0+KS-1; thread t the local columns t + c*NT.
+// scratch row of a block's row: the general form's e*beta plane (K_pad),
+// then (global storage) the CG alpha planes. `rebuilt` (tests only; null
+// on every other call) receives the raw rebuilt alphas [Gp, B, K_pad].
+template <int CPT, bool SMEM>
+__global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
+    const int* __restrict__ words, const float* __restrict__ dl,
+    const float* __restrict__ ckpt, const float* __restrict__ trans2,
+    const int* __restrict__ thin, const float* __restrict__ mx,
+    const float* __restrict__ ssum, float* __restrict__ dos, float* __restrict__ tv,
+    int* __restrict__ ti, float* __restrict__ scratch, float* __restrict__ rebuilt, int Gp,
+    int K, int K_pad, int B, int CG, int K_top, int KS, float invK, float eps) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);   // the warps' records
+  float* posts = red + r4(NWARP * RW);            // 2 parities
+  const int PW = post_floats(K_top);
+  float* sc = posts + 2 * PW;                     // the chunk's scalars
+  float* mxs = sc;
+  float* stay = sc + CG;
+  float* jmp = sc + 2 * CG;
+  float* inv_s = sc + 3 * CG;                     // CG + 1: 1/S of the grid before j
+  float* dls_s = sc + r4(4 * CG + 1);
+  float* em = dls_s + r4(CG * 32);
+  const int b = blockIdx.y;
+  const unsigned rank = cluster.block_rank();
+  const int NS = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = rank * KS;
+  const int nc = ncols<CPT>(KS);
+  const int NSC = Gp / CG;
+  const float* dlr = dl + (size_t)b * Gp * 32;
+  const int* wb = words + k0;
+  float* row = scratch + (size_t)b * ((CPT == 0 ? 1 : 0) + (SMEM ? 0 : CG)) * K_pad;
+  // plane j, local column kl: pl[j * pstride + kl]
+  float* pl = SMEM ? em + CG * EMF : row + (CPT == 0 ? K_pad : 0) + k0;
+  const int pstride = SMEM ? KS : K_pad;
+  Cols<CPT> eb;
+  Cols<CPT, unsigned> w;
+  if constexpr (CPT == 0) eb.p = row + k0;
+#pragma unroll
+  for (int c = 0; c < nc; ++c)
+    if (threadIdx.x + c * NT < KS) eb[c] = 1.f;
+  float e_prev = (float)K;
+  int par = 0;
+  for (int s = 0; s < NSC; ++s) {
+    const int ci = NSC - 1 - s, g0 = ci * CG;
+    // ---- stage the chunk (the previous chunk's last step has passed its
+    // cluster barrier, so nothing reads these regions any more) ----
+    for (int j = threadIdx.x; j <= CG; j += NT) {
+      const int gp = g0 + j - 1;
+      inv_s[j] = gp >= 0 ? 1.f / ssum[(size_t)gp * B + b] : 1.f;
+      if (j < CG) {
+        mxs[j] = mx[(size_t)(g0 + j) * B + b];
+        stay[j] = trans2[g0 + j];
+        jmp[j] = trans2[Gp + g0 + j] * invK;
+      }
+    }
+    stage_chunk(dlr, g0, CG, dls_s, em);
+    // ---- rebuild the chunk's raw alphas, the forward's step ----
+    const float* ck = ckpt + ((size_t)ci * B + b) * K_pad + k0;
+    for (int j = 0; j < CG; ++j) {
+      const int g = g0 + j;
+      const float* pp = j == 0 ? ck : pl + (size_t)(j - 1) * pstride;
+      float* pj = pl + (size_t)j * pstride;
+      const float isp = inv_s[j], st = stay[j], jk = jmp[j], m = mxs[j];
+      // the chunk's last grid's words stay in w for the reverse sweep
+      load_words<CPT>(w, wb, g, K_pad, KS);
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int kl = threadIdx.x + c * NT;
+        if (kl < KS) {
+          const float x = k0 + kl < K ? logit(word_at<CPT>(w, c, wb, g, K_pad), em, j) : NEG;
+          const float a = alpha_step(pp[kl], isp, st, jk, expf(x - m));
+          pj[kl] = a;
+          if (rebuilt != nullptr) rebuilt[((size_t)g * B + b) * K_pad + k0 + kl] = a;
+        }
+      }
+    }
+    // ---- reverse sweep: beta, gamma, dosage, top-K ----
+    for (int j = CG - 1; j >= 0; --j) {
+      const int g = g0 + j;
+      const bool last = g == Gp - 1;                 // beta = 1: no successor
+      const float stay_n = last ? 1.f : trans2[g + 1];
+      const float jumpK_n = last ? 0.f : trans2[Gp + g + 1] * invK;
+      const float inv_e = 1.f / fmaxf(e_prev, 1e-30f);
+      const float ia = inv_s[j + 1], m = mxs[j];
+      const bool thinned = thin[g] >= 0;
+      float* pj = pl + (size_t)j * pstride;
+      float sab = 0.f, se = 0.f;
+      float D[32];
+#pragma unroll
+      for (int t = 0; t < 32; ++t) D[t] = 0.f;
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int kl = threadIdx.x + c * NT;
+        if (kl < KS) {
+          const int k = k0 + kl;
+          const unsigned wd = word_at<CPT>(w, c, wb, g, K_pad);
+          const float beta = last ? 1.f : stay_n * (eb[c] * inv_e) + jumpK_n;
+          const float gu = (pj[kl] * ia) * beta;
+          sab += gu;
+#pragma unroll
+          for (int t = 0; t < 32; ++t)
+            if ((wd >> t) & 1u) D[t] += gu;
+          if (thinned) pj[kl] = k < K ? gu : -1.f;
+          const float x = k < K ? logit(wd, em, j) : NEG;
+          const float etb = expf(x - m) * beta;
+          eb[c] = etb;
+          se += etb;
+        }
+      }
+      if (j > 0) load_words<CPT>(w, wb, g - 1, K_pad, KS);
+      // one block reduction of 34 values: a record per warp, one barrier
+      warp_transpose_sum(D);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sab += __shfl_xor_sync(FULL, sab, o);
+        se += __shfl_xor_sync(FULL, se, o);
+      }
+      float* rec = red + warp * RW;
+      rec[lane] = D[0];
+      if (lane == 0) {
+        rec[32] = sab;
+        rec[33] = se;
+      }
+      float* mine = posts + par * PW;
+      if (thinned)
+        warp_topk<CPT>(pj, KS, k0, K_top, mine + RW + warp * K_top,
+                       reinterpret_cast<int*>(mine + RW + NWARP * K_top) + warp * K_top);
+      __syncthreads();
+      if (threadIdx.x < RW) {
+        float v = red[threadIdx.x];
+#pragma unroll
+        for (int q = 1; q < NWARP; ++q) v += red[q * RW + threadIdx.x];
+        mine[threadIdx.x] = v;
+      }
+      cluster.sync();
+      float e = 0.f, ab = 0.f;
+      for (int q = 0; q < NS; ++q) {
+        const float* theirs = cluster.map_shared_rank(mine, q);
+        e += theirs[33];
+        ab += theirs[32];
+      }
+      e_prev = e;
+      if (rank == 0) {
+        const float inv_ab = 1.f / fmaxf(ab, 1e-30f);
+        if (threadIdx.x < 32) {
+          float d = 0.f;
+          for (int q = 0; q < NS; ++q) d += cluster.map_shared_rank(mine, q)[threadIdx.x];
+          dos[(size_t)b * Gp * 32 + (size_t)g * 32 + threadIdx.x] =
+              eps + (1.f - 2.f * eps) * d * inv_ab;
+        }
+        float* tvr = tv + ((size_t)g * B + b) * K_top;
+        int* tir = ti + ((size_t)g * B + b) * K_top;
+        if (thinned) {
+          if (warp == 0) merge_lists(cluster, mine, NS, K_top, inv_ab, tvr, tir);
+        } else if (threadIdx.x < K_top) {
+          tvr[threadIdx.x] = 0.f;
+          tir[threadIdx.x] = 0;
+        }
+      }
+      par ^= 1;
+    }
+  }
   cluster.sync();   // no block leaves while its posts may still be read
-  if (rank == 0 && threadIdx.x == 0) e_out[b] = e_prev;
+}
+
+// The cluster exchange's floor: `steps` reverse steps with no haplotype
+// work, each the 34-value block reduction, the post, the cluster barrier
+// and the reads of the NS posts, by NT threads a block.
+__global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int steps) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float red[NWARP * RW];
+  __shared__ float posts[2 * RW];
+  const int NS = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    float D[32], sab = acc + 1.f, se = acc;
+#pragma unroll
+    for (int t = 0; t < 32; ++t) D[t] = acc + t;
+    warp_transpose_sum(D);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sab += __shfl_xor_sync(FULL, sab, o);
+      se += __shfl_xor_sync(FULL, se, o);
+    }
+    red[warp * RW + lane] = D[0];
+    if (lane == 0) {
+      red[warp * RW + 32] = sab;
+      red[warp * RW + 33] = se;
+    }
+    float* mine = posts + (i & 1) * RW;
+    __syncthreads();
+    if (threadIdx.x < RW) {
+      float v = red[threadIdx.x];
+#pragma unroll
+      for (int q = 1; q < NWARP; ++q) v += red[q * RW + threadIdx.x];
+      mine[threadIdx.x] = v;
+    }
+    cluster.sync();
+    float e = 0.f;
+    for (int q = 0; q < NS; ++q) e += cluster.map_shared_rank(mine, q)[33];
+    acc = e * 1e-9f;
+  }
+  cluster.sync();
+  if (threadIdx.x == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = acc;
 }
 
 // Launch on a grid (splits, B) whose x axis is one cluster per row.
 template <class... Params, class... Args>
-int launch_cluster(void (*kernel)(Params...), int splits, int B, cudaStream_t stream,
-                   Args... args) {
+int launch_cluster(void (*kernel)(Params...), int splits, int B, int smem_bytes,
+                   cudaStream_t stream, Args... args) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, B);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -374,6 +594,29 @@ int launch_cluster(void (*kernel)(Params...), int splits, int B, cudaStream_t st
 bool bad_split(int splits, int K_pad, int KS) {
   return splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) ||
          (long long)splits * KS != K_pad;
+}
+
+// An instantiation of the backward exists for cpt haplotypes a thread in
+// registers (0: the general form, any block width).
+bool cpt_ok(int cpt, int KS) {
+  switch (cpt) {
+    case 0: return true;
+    case 2: case 4: case 8: case 16: case 20: return cpt * NT >= KS;
+    default: return false;
+  }
+}
+
+template <int CPT, bool SMEM>
+int launch_bwd(const void* words, const void* dl, const void* ckpt, const void* trans2,
+               const void* thin, const void* mx, const void* ssum, void* dos, void* tv, void* ti,
+               void* scratch, void* rebuilt, int Gp, int K, int K_pad, int B, int CG, int K_top,
+               int splits, float invK, float eps, cudaStream_t st) {
+  const int KS = K_pad / splits;
+  return launch_cluster(
+      fb_bwd_tiled_kernel<CPT, SMEM>, splits, B, 4 * bwd_smem_floats(CG, KS, K_top, SMEM), st,
+      (const int*)words, (const float*)dl, (const float*)ckpt, (const float*)trans2,
+      (const int*)thin, (const float*)mx, (const float*)ssum, (float*)dos, (float*)tv, (int*)ti,
+      (float*)scratch, (float*)rebuilt, Gp, K, K_pad, B, CG, K_top, KS, invK, eps);
 }
 
 }  // namespace
@@ -397,43 +640,51 @@ extern "C" int fb_forward_tiled(const void* words, const void* dl,
                                 int B, int CG, int splits, float invK,
                                 void* stream) {
   const int KS = K_pad / (splits > 0 ? splits : 1);
-  if (bad_split(splits, K_pad, KS)) return ERR_INVALID;
+  if (bad_split(splits, K_pad, KS) || CG < 1 || CG > MAX_CG || Gp % CG) return ERR_INVALID;
   return launch_cluster(
-      fb_fwd_tiled_kernel, splits, B, (cudaStream_t)stream,
+      fb_fwd_tiled_kernel, splits, B, 0, (cudaStream_t)stream,
       (const int*)words, (const float*)dl, (const float*)trans2,
       (const float*)mx, (float*)ckpt, (float*)ssum, (float*)logs,
       (float*)scratch, Gp, K, K_pad, B, CG, KS, invK);
 }
 
-extern "C" int fb_remat_tiled(const void* words, const void* dl,
-                              const void* ckpt_c, const void* trans2,
-                              const void* mx, const void* ssum, void* alphas,
-                              int Gp, int K, int K_pad, int B, int CG, int ci,
-                              int splits, float invK, void* stream) {
-  if (splits < 1 || K_pad % splits || CG > MAX_CG) return ERR_INVALID;
-  fb_remat_tiled_kernel<<<dim3(splits, B), NT, 0, (cudaStream_t)stream>>>(
-      (const int*)words, (const float*)dl, (const float*)ckpt_c,
-      (const float*)trans2, (const float*)mx, (const float*)ssum,
-      (float*)alphas, Gp, K, K_pad, B, CG, ci, K_pad / splits, invK);
-  return (int)cudaGetLastError();
+// The backward of a whole FB call from the forward's checkpoints (interval
+// CG), S and the emission maxima. smem_planes: the chunk's alphas in shared
+// memory (1) or in the scratch rows (0, general form only); cpt: haplotypes
+// a thread in registers (2, 4, 8, 16 or 20, at least K_pad / splits / NT)
+// or 0 for the general form. The scratch row of a row holds, in planes of
+// K_pad floats, the general form's e*beta plane, then (smem_planes = 0) the
+// CG alpha planes. Returns cudaErrorInvalidValue for a split, K_top, cpt or
+// storage without an instantiation, or shared memory beyond the block's.
+extern "C" int fb_backward_tiled(const void* words, const void* dl, const void* ckpt,
+                                 const void* trans2, const void* thin, const void* mx,
+                                 const void* ssum, void* dos, void* tv, void* ti, void* scratch,
+                                 void* rebuilt, int Gp, int K, int K_pad, int B, int CG,
+                                 int K_top, int splits, float invK, float eps, int smem_planes,
+                                 int cpt, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int KS = K_pad / (splits > 0 ? splits : 1);
+  if (bad_split(splits, K_pad, KS) || K_top < 1 || K_top > MAX_KTOP || K_top > KS ||
+      CG < 1 || CG > MAX_CG || Gp % CG || !cpt_ok(cpt, KS) || (!smem_planes && cpt) ||
+      4 * bwd_smem_floats(CG, KS, K_top, smem_planes != 0) > SMEM_LIMIT)
+    return ERR_INVALID;
+#define BWD(C, M)                                                                           \
+  launch_bwd<C, M>(words, dl, ckpt, trans2, thin, mx, ssum, dos, tv, ti, scratch, rebuilt, Gp, K, \
+                   K_pad, B, CG, K_top, splits, invK, eps, st)
+  if (!smem_planes) return BWD(0, false);
+  switch (cpt) {
+    case 2: return BWD(2, true);
+    case 4: return BWD(4, true);
+    case 8: return BWD(8, true);
+    case 16: return BWD(16, true);
+    case 20: return BWD(20, true);
+    default: return BWD(0, true);
+  }
+#undef BWD
 }
 
-extern "C" int fb_backward_tiled(const void* words, const void* dl,
-                                 const void* alphas, const void* trans2,
-                                 const void* thin, const void* mx,
-                                 const void* eb_in, const void* e_in,
-                                 void* dos, void* tv, void* ti, void* eb_out,
-                                 void* e_out, void* work, int Gp, int K,
-                                 int K_pad, int B, int CG, int ci, int K_top,
-                                 int splits, float invK, float eps,
-                                 void* stream) {
-  const int KS = K_pad / (splits > 0 ? splits : 1);
-  if (bad_split(splits, K_pad, KS) || K_top > MAX_KTOP || K_top > KS) return ERR_INVALID;
-  return launch_cluster(
-      fb_bwd_tiled_kernel, splits, B, (cudaStream_t)stream,
-      (const int*)words, (const float*)dl, (const float*)alphas,
-      (const float*)trans2, (const int*)thin, (const float*)mx,
-      (const float*)eb_in, (const float*)e_in, (float*)dos, (float*)tv,
-      (int*)ti, (float*)eb_out, (float*)e_out, (float*)work, Gp, K, K_pad, B,
-      CG, ci, K_top, KS, invK, eps);
+extern "C" int fb_tiled_chain_floor(void* out, int splits, int B, int steps, void* stream) {
+  if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1))) return ERR_INVALID;
+  return launch_cluster(fb_tiled_floor_kernel, splits, B, 0, (cudaStream_t)stream,
+                        (float*)out, steps);
 }

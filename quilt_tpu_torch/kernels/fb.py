@@ -7,8 +7,8 @@ Two kernel families, chosen per call by fb_plan:
   _bwd_kernel). For many rows against a small panel.
 - tiled (csrc/fb_tiled.cu): one row's haplotypes split over a cluster of
   blocks. Counterpart of fb_pallas_tiled_core (Pallas _max_kernel_tiled,
-  _fwd_kernel_tiled, _remat_kernel_tiled, _bwd_kernel_tiled). For few rows
-  against a large panel.
+  _fwd_kernel_tiled, and _remat_kernel_tiled with _bwd_kernel_tiled folded
+  into one backward launch an FB call). For few rows against a large panel.
 fb_full_batched is the counterpart of quilt_tpu/kernels/fb_full.py:
 fb_full_batched. The emission factorisation is the Pallas one: with
 t0/t1 the GL terms of hap allele 0/1 and dl = log t1 - log t0, the log
@@ -18,10 +18,11 @@ the kernels, the second is a 32-term dot with the grid's panel bits.
 
 Sizing: K_pad (multiple of 128, hence of every split count 1, 2, 4, 8) and
 the grid padding to GRID_CHUNK = 16 come from the prepared inputs
-(inputs.FBInputs) and are kept. The checkpoint interval of the tiled
-family is GRID_CHUNK; that of the fused family is fused_cg(K_pad, Gp), the
-chunk whose rematerialised alphas fit the backward kernel's shared memory
-(16, 8 or 4 grids; GRID_CHUNK with global planes above K_pad = 13,824).
+(inputs.FBInputs) and are kept. The checkpoint interval of each family is
+the chunk whose rematerialised alphas fit its backward kernel's shared
+memory: fused_cg(K_pad, Gp) (16, 8 or 4 grids; GRID_CHUNK with global
+planes above K_pad = 13,824) and tiled_cg(K_pad / splits, Gp) (16, 8, 4 or
+2; GRID_CHUNK with global planes above 27,552 haplotypes a block).
 Gamma capture (the HLA run: FBInputs.capture_grid >= 0) is a part of the
 fused backward only; fb_plan keeps such calls fused, as the JAX package
 keeps them off its tiled path (fb_full.py:_pallas_plan).
@@ -50,20 +51,28 @@ _PREV_FWD = Kernel("fb_prev", "fb_forward_prev", [_P] * 6 + [_I] * 5 + [_F])
 _PREV_BWD = Kernel("fb_prev", "fb_backward_prev", [_P] * 11 + [_I] * 6 + [_F, _F])
 MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 5)
 FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F])
-REMAT_TILED_KERNEL = Kernel("fb_tiled", "fb_remat_tiled", [_P] * 7 + [_I] * 7 + [_F])
-BWD_TILED_KERNEL = Kernel("fb_tiled", "fb_backward_tiled", [_P] * 14 + [_I] * 8 + [_F, _F])
+BWD_TILED_KERNEL = Kernel("fb_tiled", "fb_backward_tiled",
+                          [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I])
+TILED_FLOOR_KERNEL = Kernel("fb_tiled", "fb_tiled_chain_floor", [_P] + [_I] * 3)
+# the tiled backward as it was before its redesign (csrc/fb_tiled_prev.cu:
+# a remat and a backward launch per chunk), for timing beside it only
+# (fb_backward_tiled with _prev=True)
+_PREV_REMAT_TILED = Kernel("fb_tiled_prev", "fb_remat_tiled_prev", [_P] * 7 + [_I] * 7 + [_F])
+_PREV_BWD_TILED = Kernel("fb_tiled_prev", "fb_backward_tiled_prev",
+                         [_P] * 14 + [_I] * 8 + [_F, _F])
 _NEG = -1e30
 # device-memory budget of one core call's checkpoints + scratch: fb_plan
 # takes rows per call = budget / per-row bytes of the chosen family
 _CALL_BYTES = 4 << 30
 # the split rule of fb_plan, set from chip_smoke.py's timings on an H100
-# (PERF.md section 6): its SMs, the fewest haplotypes worth a block of their
-# own (1,280 a block still won at K = 5,120), and the panel size from which
-# a split pays even with two blocks per SM
+# (PERF.md section 6): its SMs (the tiled backward takes one a block), the
+# smallest panel that is split (the smallest measured; a split of the
+# K = 5,120 world's rows won at 14 to 56 rows), the fewest haplotypes worth
+# a block of their own (1,280 a block won at K = 5,120), and the panel size
+# from which a split of 4 still pays in two waves of blocks (above
+# _TILED_MIN_K a split of 2 does)
 _N_SM = 132
-# the largest panel at which the fused kernels beat every split at 14, 28,
-# 56 and 112 rows (at K_pad = 8,192 the splits win at 14 and 28 rows)
-_FUSED_MAX_K = 5120
+_TILED_MIN_K = 5120
 _MIN_K_PER_SPLIT = 1024
 _OVERSUBSCRIBE_K = 16384
 _SPLITS = (8, 4, 2)
@@ -220,13 +229,9 @@ def chain_floor(steps: int, blocks: int, which: int, device) -> torch.Tensor:
 
 
 def _emissions(dl, words, g, K):
-    """Plain per-grid emissions scaled to max 1, and their log max."""
-    K_pad = words.shape[1]
-    sh = torch.arange(32, device=words.device, dtype=torch.int32)
-    hT = ((words[g][None, :] >> sh[:, None]) & 1).to(torch.float32)  # [32, K_pad]
-    logm = dl[:, g * 32:(g + 1) * 32] @ hT
-    lane = torch.arange(K_pad, device=words.device)
-    logm = torch.where(lane[None, :] < K, logm, _NEG)
+    """Plain per-grid emissions of the whole panel scaled to max 1 (the
+    kernels' logits, _tile_logits), and their log max."""
+    logm = _tile_logits(dl, words, g, K, 0, words.shape[1])
     mx = logm.amax(1, keepdim=True)
     return torch.exp(logm - mx), mx
 
@@ -367,6 +372,63 @@ def _gl_log_ratios(gl, eps):
 # in order, with any k_tile (the last tile may be ragged). Sums over K are
 # taken tile by tile, so they depend on k_tile at rounding level and are
 # reproducible for a given k_tile.
+#
+# The backward (csrc/fb_tiled.cu fb_backward_tiled) is one launch an FB
+# call. Its checkpoint interval is tiled_cg(k_tile, Gp): the chunk whose
+# rebuilt alphas fit a block's shared memory. The wrapper picks the storage
+# (_tiled_storage: shared-memory or global alpha planes, and the haplotypes
+# a thread holds in registers, _TILED_CPTS, or 0 for the general form),
+# sizes the scratch for it and passes both; the entry point refuses a choice
+# without an instantiation. Its shared memory (fb_tiled.cu bwd_smem_floats):
+# the warps' records (_TILED_RW floats each), two posts (the records' sums
+# and the warps' top-K lists), the chunk's scalars, log-ratios and emission
+# tables, and the chunk's alpha planes of k_tile floats.
+_TILED_CPTS = (2, 4, 8, 16, 20)
+_TILED_RW = 34
+
+
+def _bwd_tiled_smem_bytes(CG, KS, K_top, planes):
+    post = _r4(_TILED_RW + 2 * _NWARP * K_top)
+    return 4 * (_r4(_NWARP * _TILED_RW) + 2 * post + _r4(4 * CG + 1) + _r4(CG * 32)
+                + CG * _EMF + (CG * KS if planes else 0))
+
+
+def tiled_cg(KS: int, Gp: int) -> int:
+    """Checkpoint interval of the tiled family at KS haplotypes a block: the
+    largest of 16, 8, 4, 2 dividing Gp whose alpha planes fit the backward
+    kernel's shared memory (16 up to KS = 3,296, 8 up to 6,752, 4 up to
+    13,696, 2 up to 27,552); above that GRID_CHUNK, with the planes in
+    global memory."""
+    for cg in (16, 8, 4, 2):
+        if Gp % cg == 0 and _bwd_tiled_smem_bytes(cg, KS, _KTOP_RESERVE, True) <= _SMEM_LIMIT:
+            return cg
+    return GRID_CHUNK
+
+
+def _tiled_storage(CG, KS, K_top, general=False):
+    """(alpha planes in shared memory?, haplotypes a thread in registers or
+    0 for the general form) of the tiled backward at KS haplotypes a block.
+    `general` forces the general form (tests and timings only)."""
+    smem = _bwd_tiled_smem_bytes(CG, KS, K_top, True) <= _SMEM_LIMIT
+    cpt = next((c for c in _TILED_CPTS if c * _NT >= KS), 0)
+    return smem, 0 if (general or not smem) else cpt
+
+
+def _tiled_scratch_planes(CG, KS, K_top, general=False):
+    """Global planes of K_pad floats a row of the tiled backward: the
+    general form's e*beta plane, and the chunk's alphas where they do not
+    fit shared memory."""
+    smem, cpt = _tiled_storage(CG, KS, K_top, general)
+    return (1 if cpt == 0 else 0) + (0 if smem else CG)
+
+
+def _tiled_planes(K_pad, Gp, splits):
+    """Planes of K_pad floats a row of one tiled FB call: the checkpoints,
+    the forward's alpha plane and the backward's scratch planes."""
+    KS = K_pad // splits
+    cg = tiled_cg(KS, Gp)
+    return Gp // cg + 1 + _tiled_scratch_planes(cg, KS, _KTOP_RESERVE)
+
 
 def _splits(K_pad, k_tile):
     splits = K_pad // k_tile
@@ -398,16 +460,18 @@ def fb_max_tiled(dl, words, K, k_tile):
     return mx
 
 
-def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=GRID_CHUNK):
-    """Forward pass against the pre-computed emission maxima mx [Gp, B].
-    Returns (ckpt [Gp/CG, B, K_pad], S [Gp, B], logs [B]): checkpoint c is
-    the UNNORMALISED alpha entering chunk c (zeros for c = 0; the Pallas
-    kernel's block c held the alpha entering chunk c+1), S[g] = sum_k of
-    the unnormalised alpha of grid g, which normalises it, and logs the
-    log-likelihood sum_g (log S[g] + mx[g]) without the per-row constant."""
+def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=None):
+    """Forward pass against the pre-computed emission maxima mx [Gp, B]; CG
+    the checkpoint interval (default tiled_cg). Returns (ckpt [Gp/CG, B,
+    K_pad], S [Gp, B], logs [B]): checkpoint c is the UNNORMALISED alpha
+    entering chunk c (zeros for c = 0; the Pallas kernel's block c held the
+    alpha entering chunk c+1), S[g] = sum_k of the unnormalised alpha of
+    grid g, which normalises it, and logs the log-likelihood sum_g (log S[g]
+    + mx[g]) without the per-row constant."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
     dev = dl.device
+    CG = tiled_cg(k_tile, Gp) if CG is None else CG
     _check_tiled(dl, words, K, k_tile, CG)
     _check(trans2, "trans2", torch.float32, (2, Gp), dev)
     _check(mx, "mx", torch.float32, (Gp, B), dev)
@@ -424,79 +488,112 @@ def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=GRID_CHUNK):
     return ckpt, S, logs
 
 
-def fb_remat_tiled(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG=GRID_CHUNK):
-    """The normalised alphas [CG, B, K_pad] of chunk ci from its checkpoint
-    ckpt_c [B, K_pad] and the forward's stored S and mx [Gp, B]."""
+def fb_backward_tiled(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps, k_tile, CG=None,
+                      _prev=False, _general=False, _rebuilt=None):
+    """Backward pass of a whole FB call from the forward's checkpoints
+    ckpt [Gp/CG, B, K_pad] (CG as given to fb_forward_tiled), its S and the
+    emission maxima mx [Gp, B]: per chunk from the last to the first, the
+    chunk's alphas rebuilt, then its grids descending, carrying e*beta and
+    its sum over K between chunks. Returns (dos [B, Gp*32] per-SNP
+    dosages, tv / ti [Gp, B, K_top] top gammas and their haplotype indices,
+    zero away from thinned grids). One kernel launch on the card.
+    Private: _prev (timings only) launches the previous form, a remat and a
+    backward kernel per chunk (csrc/fb_tiled_prev.cu); _general (tests and
+    timings only) forces the general form; _rebuilt (tests only) is a [Gp,
+    B, K_pad] tensor that receives the raw rebuilt alphas."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
     dev = dl.device
+    CG = tiled_cg(k_tile, Gp) if CG is None else CG
     _check_tiled(dl, words, K, k_tile, CG)
-    _check(ckpt_c, "ckpt_c", torch.float32, (B, K_pad), dev)
-    _check(trans2, "trans2", torch.float32, (2, Gp), dev)
-    _check(mx, "mx", torch.float32, (Gp, B), dev)
-    _check(S, "S", torch.float32, (Gp, B), dev)
-    if not 0 <= ci < Gp // CG:
-        raise ValueError(f"chunk {ci} outside 0..{Gp // CG - 1}")
-    if dev.type == "cpu":
-        return fb_remat_tiled_plain(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG)
-    alphas = torch.empty((CG, B, K_pad), dtype=torch.float32, device=dev)
-    REMAT_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), ckpt_c.data_ptr(),
-                              trans2.data_ptr(), mx.data_ptr(), S.data_ptr(),
-                              alphas.data_ptr(), Gp, K, K_pad, B, CG, ci,
-                              _splits(K_pad, k_tile), 1.0 / K)
-    return alphas
-
-
-def fb_backward_tiled(dl, words, alphas, trans2, thin, mx, eb, E, ci, K, K_top, eps,
-                      k_tile, CG=GRID_CHUNK):
-    """Backward pass over chunk ci, grids descending, from the chunk's
-    normalised alphas [CG, B, K_pad]. eb [B, K_pad] and E [B] carry e*beta
-    and its sum over K of the grid after the chunk (ones and K above the
-    last chunk, whose last grid has beta = 1). Returns (dos [B, CG*32]
-    per-SNP dosages, tv / ti [CG, B, K_top] top gammas and their haplotype
-    indices, zero away from thinned grids, and the carries eb', E' of the
-    chunk's first grid)."""
-    B = dl.shape[0]
-    Gp, K_pad = words.shape
-    dev = dl.device
-    _check_tiled(dl, words, K, k_tile, CG)
-    _check(alphas, "alphas", torch.float32, (CG, B, K_pad), dev)
+    _check(ckpt, "ckpt", torch.float32, (Gp // CG, B, K_pad), dev)
     _check(trans2, "trans2", torch.float32, (2, Gp), dev)
     _check(thin, "thin", torch.int32, (Gp,), dev)
     _check(mx, "mx", torch.float32, (Gp, B), dev)
-    _check(eb, "eb", torch.float32, (B, K_pad), dev)
-    _check(E, "E", torch.float32, (B,), dev)
-    if not 0 <= ci < Gp // CG or not 0 < K_top <= min(K, k_tile):
-        raise ValueError(f"bad chunk {ci} / K_top={K_top} / k_tile={k_tile}")
+    _check(S, "S", torch.float32, (Gp, B), dev)
+    if not 0 < K_top <= min(K, k_tile):
+        raise ValueError(f"bad K_top={K_top} for K={K} / k_tile={k_tile}")
     if dev.type == "cpu":
-        return fb_backward_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E, ci, K,
-                                       K_top, eps, k_tile, CG)
-    dos = torch.empty((B, CG * 32), dtype=torch.float32, device=dev)
-    tv = torch.empty((CG, B, K_top), dtype=torch.float32, device=dev)
-    ti = torch.empty((CG, B, K_top), dtype=torch.int32, device=dev)
-    eb_out = torch.empty_like(eb)
-    E_out = torch.empty_like(E)
+        return fb_backward_tiled_plain(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps,
+                                       k_tile, CG)
+    splits = _splits(K_pad, k_tile)
+    if _prev:
+        return _backward_tiled_prev(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps,
+                                    splits, CG)
+    dos = torch.empty((B, Gp * 32), dtype=torch.float32, device=dev)
+    tv = torch.empty((Gp, B, K_top), dtype=torch.float32, device=dev)
+    ti = torch.empty((Gp, B, K_top), dtype=torch.int32, device=dev)
+    smem, cpt = _tiled_storage(CG, k_tile, K_top, _general)
+    planes = _tiled_scratch_planes(CG, k_tile, K_top, _general)
+    scratch = torch.empty((B, planes, K_pad) if planes else (1,), dtype=torch.float32, device=dev)
+    if _rebuilt is not None:
+        _check(_rebuilt, "_rebuilt", torch.float32, (Gp, B, K_pad), dev)
+    BWD_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), ckpt.data_ptr(), trans2.data_ptr(),
+                            thin.data_ptr(), mx.data_ptr(), S.data_ptr(), dos.data_ptr(),
+                            tv.data_ptr(), ti.data_ptr(), scratch.data_ptr(),
+                            None if _rebuilt is None else _rebuilt.data_ptr(), Gp, K, K_pad, B,
+                            CG, K_top, splits, 1.0 / K, float(eps), int(smem), cpt)
+    return dos, tv, ti
+
+
+def _backward_tiled_prev(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps, splits, CG):
+    """fb_backward_tiled by the previous form: per chunk a remat launch
+    writing the chunk's alphas to device memory and a backward launch
+    reading them and the e*beta carry (csrc/fb_tiled_prev.cu)."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    eb = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
+    E = torch.full((B,), float(K), dtype=torch.float32, device=dev)
+    dos = torch.empty((B, Gp * 32), dtype=torch.float32, device=dev)
+    tv = torch.empty((Gp, B, K_top), dtype=torch.float32, device=dev)
+    ti = torch.empty((Gp, B, K_top), dtype=torch.int32, device=dev)
+    alphas = torch.empty((CG, B, K_pad), dtype=torch.float32, device=dev)
     work = torch.empty((B, K_pad), dtype=torch.float32, device=dev)
-    BWD_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), alphas.data_ptr(),
-                            trans2.data_ptr(), thin.data_ptr(), mx.data_ptr(),
-                            eb.data_ptr(), E.data_ptr(), dos.data_ptr(), tv.data_ptr(),
-                            ti.data_ptr(), eb_out.data_ptr(), E_out.data_ptr(),
-                            work.data_ptr(), Gp, K, K_pad, B, CG, ci, K_top,
-                            _splits(K_pad, k_tile), 1.0 / K, float(eps))
-    return dos, tv, ti, eb_out, E_out
+    eb_out, E_out = torch.empty_like(eb), torch.empty_like(E)
+    dos_c = torch.empty((B, CG * 32), dtype=torch.float32, device=dev)
+    for ci in range(Gp // CG - 1, -1, -1):
+        _PREV_REMAT_TILED.launch(words.data_ptr(), dl.data_ptr(), ckpt[ci].data_ptr(),
+                                 trans2.data_ptr(), mx.data_ptr(), S.data_ptr(),
+                                 alphas.data_ptr(), Gp, K, K_pad, B, CG, ci, splits, 1.0 / K)
+        _PREV_BWD_TILED.launch(words.data_ptr(), dl.data_ptr(), alphas.data_ptr(),
+                               trans2.data_ptr(), thin.data_ptr(), mx.data_ptr(),
+                               eb.data_ptr(), E.data_ptr(), dos_c.data_ptr(),
+                               tv[ci * CG].data_ptr(), ti[ci * CG].data_ptr(),
+                               eb_out.data_ptr(), E_out.data_ptr(), work.data_ptr(), Gp, K,
+                               K_pad, B, CG, ci, K_top, splits, 1.0 / K, float(eps))
+        dos[:, ci * CG * 32:(ci + 1) * CG * 32] = dos_c
+        eb, eb_out, E, E_out = eb_out, eb, E_out, E
+    return dos, tv, ti
+
+
+def tiled_chain_floor(steps: int, B: int, splits: int, device) -> torch.Tensor:
+    """Launches `steps` reverse steps of the tiled backward with no
+    haplotype work (the 34-value block reduction, the post, the cluster
+    barrier and the reads of the posts) on B clusters of `splits` blocks:
+    timed, it gives the least a step of that kernel can take on the card."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("tiled_chain_floor times the card and needs a CUDA device")
+    out = torch.empty((B, splits), dtype=torch.float32, device=device)
+    TILED_FLOOR_KERNEL.launch(out.data_ptr(), splits, B, steps)
+    return out
 
 
 def _tile_logits(dl, words, g, K, k0, k1):
     """Emission logits [B, k1-k0] of grid g for haplotypes k0..k1-1 (pads
-    -1e30), the set bits' log-ratios added one SNP at a time in the CUDA
-    kernels' order (bit x log-ratio is exact), so the tiled kernels and
+    -1e30) in the CUDA kernels' order (fb_common.cuh): per nibble of the
+    panel word the sum of its set bits' log-ratios in bit order (bit x
+    log-ratio is exact), then the 8 nibble sums in order, so the kernels and
     their plain versions start from identical emissions."""
     sh = torch.arange(32, device=words.device, dtype=torch.int32)
     hT = ((words[g, k0:k1][None, :] >> sh[:, None]) & 1).to(torch.float32)
     d = dl[:, g * 32:(g + 1) * 32]
-    logm = torch.zeros((dl.shape[0], k1 - k0), dtype=torch.float32, device=dl.device)
-    for s in range(32):
-        logm.addcmul_(d[:, s:s + 1], hT[s][None, :])
+    logm = None
+    for q in range(8):
+        nib = torch.zeros((dl.shape[0], k1 - k0), dtype=torch.float32, device=dl.device)
+        for s in range(4 * q, 4 * q + 4):
+            nib.addcmul_(d[:, s:s + 1], hT[s][None, :])
+        logm = nib if logm is None else logm + nib
     lane = torch.arange(k0, k1, device=words.device)
     return torch.where(lane[None, :] < K, logm, _NEG)
 
@@ -515,11 +612,12 @@ def fb_max_tiled_plain(dl, words, K, k_tile):
     return mx
 
 
-def fb_forward_tiled_plain(dl, words, trans2, mx, K, k_tile, CG=GRID_CHUNK):
+def fb_forward_tiled_plain(dl, words, trans2, mx, K, k_tile, CG=None):
     """Plain PyTorch version of fb_forward_tiled (Pallas _fwd_kernel_tiled)."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
     dev = dl.device
+    CG = tiled_cg(k_tile, Gp) if CG is None else CG
     alpha = torch.zeros((B, K_pad), dtype=torch.float32, device=dev)
     inv_sprev = torch.ones((B, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((B,), dtype=torch.float32, device=dev)
@@ -542,8 +640,10 @@ def fb_forward_tiled_plain(dl, words, trans2, mx, K, k_tile, CG=GRID_CHUNK):
     return ckpt, S, acc
 
 
-def fb_remat_tiled_plain(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG=GRID_CHUNK):
-    """Plain PyTorch version of fb_remat_tiled (Pallas _remat_kernel_tiled)."""
+def fb_remat_tiled_plain(dl, words, ckpt_c, trans2, mx, S, ci, K, k_tile, CG):
+    """The normalised alphas [CG, B, K_pad] of chunk ci from its checkpoint
+    ckpt_c [B, K_pad] and the forward's stored S and mx [Gp, B] (Pallas
+    _remat_kernel_tiled)."""
     B = dl.shape[0]
     K_pad = words.shape[1]
     alphas = torch.empty((CG, B, K_pad), dtype=torch.float32, device=dl.device)
@@ -572,12 +672,16 @@ def _top_lists(vals, idx, K_top):
     return torch.cat(tv, 1), torch.cat(ti, 1)
 
 
-def fb_backward_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E, ci, K, K_top, eps,
-                            k_tile, CG=GRID_CHUNK):
-    """Plain PyTorch version of fb_backward_tiled (Pallas _bwd_kernel_tiled
-    and _merge_topk): per tile the partial AB, E, dosage sums and the
-    tile's own top K_top; the tiles' lists merge by value descending,
-    lowest haplotype index on ties."""
+def _bwd_chunk_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E, ci, K, K_top, eps,
+                           k_tile, CG):
+    """The backward over chunk ci, grids descending, from the chunk's
+    normalised alphas [CG, B, K_pad] (Pallas _bwd_kernel_tiled and
+    _merge_topk): per tile the partial AB, E, dosage sums and the tile's own
+    top K_top; the tiles' lists merge by value descending, lowest haplotype
+    index on ties. eb [B, K_pad] and E [B] carry e*beta and its sum over K
+    of the grid after the chunk (ones and K above the last chunk, whose last
+    grid has beta = 1). Returns (dos [B, CG*32], tv / ti [CG, B, K_top],
+    and the carries eb', E' of the chunk's first grid)."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
     dev = dl.device
@@ -627,35 +731,48 @@ def fb_backward_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E, ci, K, K
     return dos, tv, ti, eb, E
 
 
-def fb_tiled_core(gl, words, trans2, thin, K, K_top, ref_error, k_tile, CG=GRID_CHUNK):
+def fb_backward_tiled_plain(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps, k_tile,
+                            CG=None):
+    """Plain PyTorch version of fb_backward_tiled: per chunk from the last
+    to the first, fb_remat_tiled_plain then _bwd_chunk_tiled_plain, carrying
+    e*beta and its sum between chunks."""
+    B = dl.shape[0]
+    Gp, K_pad = words.shape
+    dev = dl.device
+    CG = tiled_cg(k_tile, Gp) if CG is None else CG
+    eb = torch.ones((B, K_pad), dtype=torch.float32, device=dev)
+    E = torch.full((B,), float(K), dtype=torch.float32, device=dev)
+    chunks = []
+    for ci in range(Gp // CG - 1, -1, -1):
+        alphas = fb_remat_tiled_plain(dl, words, ckpt[ci], trans2, mx, S, ci, K, k_tile, CG)
+        dos, tv, ti, eb, E = _bwd_chunk_tiled_plain(dl, words, alphas, trans2, thin, mx, eb, E,
+                                                    ci, K, K_top, eps, k_tile, CG)
+        chunks.append((dos, tv, ti))
+    chunks.reverse()
+    return (torch.cat([c[0] for c in chunks], dim=1), torch.cat([c[1] for c in chunks]),
+            torch.cat([c[2] for c in chunks]))
+
+
+def fb_tiled_core(gl, words, trans2, thin, K, K_top, ref_error, k_tile, CG=None):
     """The K-split FB of one row batch, with the contract of fb_core
     (quilt_tpu's fb_pallas_tiled_core without its all-zero capture output):
-    the emission-maximum pre-pass, the forward, then per chunk from the last
-    to the first {remat -> backward}, carrying e*beta and its sum between
-    chunks. Returns (dosage [B, S], log_like [B], top_vals, top_idx
+    the emission-maximum pre-pass, the forward, then the backward, one
+    kernel launch each on the card; CG the checkpoint interval (default
+    tiled_cg). Returns (dosage [B, S], log_like [B], top_vals, top_idx
     [Gp, B, K_top])."""
     eps = float(ref_error)
-    B = gl.shape[0]
-    Gp, K_pad = words.shape
+    Gp = words.shape[0]
+    CG = tiled_cg(k_tile, Gp) if CG is None else CG
     dl, csum = _gl_log_ratios(gl, eps)
     mx = fb_max_tiled(dl, words, K, k_tile)
     ckpt, S, logs = fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG)
-    eb = torch.ones((B, K_pad), dtype=torch.float32, device=gl.device)
-    E = torch.full((B,), float(K), dtype=torch.float32, device=gl.device)
-    chunks = []
-    for ci in range(Gp // CG - 1, -1, -1):
-        alphas = fb_remat_tiled(dl, words, ckpt[ci], trans2, mx, S, ci, K, k_tile, CG)
-        dos, tv, ti, eb, E = fb_backward_tiled(dl, words, alphas, trans2, thin, mx, eb, E,
-                                               ci, K, K_top, eps, k_tile, CG)
-        chunks.append((dos, tv, ti))
-    chunks.reverse()
-    return (torch.cat([c[0] for c in chunks], dim=1), logs + csum,
-            torch.cat([c[1] for c in chunks]), torch.cat([c[2] for c in chunks]))
+    dos, tv, ti = fb_backward_tiled(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps,
+                                    k_tile, CG)
+    return dos, logs + csum, tv, ti
 
 
 def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
-            splits: Optional[int] = None, CG: int = GRID_CHUNK,
-            capture: bool = False) -> Tuple[str, int, int]:
+            splits: Optional[int] = None, capture: bool = False) -> Tuple[str, int, int]:
     """("fused" | "tiled", rows per core call, K splits) for B rows: the
     counterpart of quilt_tpu/kernels/fb_full.py:_pallas_plan on this card.
 
@@ -663,22 +780,23 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     row, fused: Gp/CG checkpoints at CG = fused_cg, and the backward's
     global planes, none where its state and alphas fit the SM (K_pad <=
     8,192), else 4 state planes + CG alphas where those do not fit shared
-    memory; tiled: Gp/CG checkpoints + CG alphas + 5 carry / scratch
-    planes; CG the tiled family's interval). The
-    fused kernels run one block per row. Measured on the H100 (512 grids,
-    14 / 28 / 56 / 112 rows x K = 5,120 .. 40,960, chip_smoke.py's "fb_plan
-    timing" lines): up to K_pad = _FUSED_MAX_K the fused kernels beat every
-    split at each of those row counts since their redesign (before it a
-    split of 4 won at 28 rows x 5,120), so such a call stays fused. Above
-    it (at 8,192 a thread holds 16 haplotypes and the backward spills),
-    while rows x splits fits the 132 SMs, splitting a row over the largest
-    such cluster (8, 4 or 2 blocks, each keeping >= _MIN_K_PER_SPLIT
-    haplotypes) wins, but for 56 rows x 8,192, where the fused call was
-    7% faster than the 2 blocks the rule takes; from
-    K_pad = _OVERSUBSCRIBE_K up a block's per-grid work outweighs the
-    barriers, and 4 or 2 blocks per row still win with two blocks sharing
-    an SM (rows x splits <= 264); otherwise (many rows) the fused family
-    is faster and the call stays fused.
+    memory; tiled: Gp/CG checkpoints at CG = tiled_cg, the forward's alpha
+    plane and the backward's scratch planes, _tiled_planes). The
+    fused kernels run one block per row, the tiled backward one block per
+    SM. Measured on the H100 since the tiled backward became one launch
+    (512 grids, 14 / 28 / 56 / 112 rows x K = 5,120 .. 40,960,
+    chip_smoke.py's "fb_plan timing" lines): from K_pad = _TILED_MIN_K up,
+    splitting a row over the largest cluster (8, 4 or 2 blocks, each
+    keeping >= _MIN_K_PER_SPLIT haplotypes) whose rows x splits blocks fit
+    the 132 SMs in one wave beats the fused call (at 5,120: 4.47 / 4.77 /
+    6.58 ms against 7.49 / 7.54 / 7.69 at 14 / 28 / 56 rows). Where no
+    split fits one wave, 2 blocks a row in two waves (rows x 2 <= 264)
+    still win above _TILED_MIN_K (112 rows x 8,192: 14.06 against 14.81
+    fused), and from K_pad = _OVERSUBSCRIBE_K up 4 blocks a row in two
+    waves win over 2 in one (56 rows x 20,480: 16.77 against 17.85); at
+    _TILED_MIN_K with many rows (112 x 5,120: 7.61 fused against 10.50)
+    and below it, the call stays fused. (At 112 rows x 40,960 the rule's 2
+    blocks, 101 rows a call, took 65.22 ms against 55.98 for 4.)
     A call that captures gamma (`capture`) is fused: only the fused
     backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""
@@ -691,27 +809,31 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
                 "as in the JAX package; the K-split family cannot be forced with it")
         family = "fused"
     cg_f = fused_cg(fb.K_pad, fb.nGrids)
-    planes = {"fused": fb.nGrids // cg_f + _bwd_scratch_planes(cg_f, fb.K_pad, _KTOP_RESERVE),
-              "tiled": fb.nGrids // CG + CG + 5}
+    fused_planes = fb.nGrids // cg_f + _bwd_scratch_planes(cg_f, fb.K_pad, _KTOP_RESERVE)
 
-    def rows(fam):
-        return max(1, min(B, _CALL_BYTES // (planes[fam] * fb.K_pad * 4)))
+    def rows(planes):
+        return max(1, min(B, _CALL_BYTES // (planes * fb.K_pad * 4)))
+
+    def tiled_rows(s):
+        return rows(_tiled_planes(fb.K_pad, fb.nGrids, s))
+
+    def fits(s, waves):
+        return tiled_rows(s) * s <= waves * _N_SM and fb.K_pad // s >= _MIN_K_PER_SPLIT
 
     if splits is None:
-        n = rows("tiled")
-        splits = next((s for s in _SPLITS
-                       if n * s <= _N_SM and fb.K_pad // s >= _MIN_K_PER_SPLIT), 1)
-        if fb.K_pad >= _OVERSUBSCRIBE_K:
-            splits = max(splits, next((s for s in (4, 2) if n * s <= 2 * _N_SM), 1))
-        if fb.K_pad <= _FUSED_MAX_K:
+        splits = next((s for s in _SPLITS if fits(s, 1)), 1)
+        if fb.K_pad > _TILED_MIN_K:
+            wide = (4, 2) if fb.K_pad >= _OVERSUBSCRIBE_K else (2,)
+            splits = max(splits, next((s for s in wide if fits(s, 2)), 1))
+        if fb.K_pad < _TILED_MIN_K:
             splits = 1
     elif splits not in (1, 2, 4, 8):
         raise ValueError(f"splits must be 1, 2, 4 or 8, got {splits}")
     if family is None:
         family = "tiled" if splits > 1 else "fused"
     if family == "fused":
-        splits = 1
-    return family, rows(family), splits
+        return family, rows(fused_planes), 1
+    return family, tiled_rows(splits), splits
 
 
 def fb_full_batched(gl, fb: FBInputs, K_top=16, ref_error=0.001, family=None, splits=None):

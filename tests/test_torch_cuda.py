@@ -11,8 +11,9 @@ with
 Tolerances: as chip_smoke.py states them (labels > 0.995 with the state
 compared on chains whose labels all agree at rtol 1e-4 / atol 1e-3; beta
 rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5; the
-K-split FB: emission maxima exact, checkpoints and S rtol 1e-5, remat
-alphas atol 1e-6, dosage and top-K atol 1e-4)."""
+K-split FB: emission maxima exact, checkpoints and S rtol 1e-5, the
+backward's rebuilt alphas equal to the forward's, dosage and top-K atol
+1e-4)."""
 import numpy as np
 import pytest
 import torch
@@ -332,7 +333,8 @@ def test_fb_chain_floor_runs(cuda):
 @pytest.mark.parametrize("K,B,splits", [(90, 5, 2), (700, 3, 8), (700, 3, 1), (3000, 2, 4)])
 def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     """Each K-split kernel against its plain version, the whole tiled FB
-    against the fused CUDA FB, launch counts, and run-to-run equality."""
+    against the fused CUDA FB, launch counts (one launch of each kernel an
+    FB call), and run-to-run equality."""
     from quilt_tpu_torch.inputs import FBInputs, thinned_grids
     from quilt_tpu_torch.panel.prepare import trans_rates
 
@@ -346,9 +348,8 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
     dl, _ = fbk._gl_log_ratios(gl, 0.001)
     kt = fb.K_pad // splits
-    CG, NSC = fbk.GRID_CHUNK, fb.nGrids // fbk.GRID_CHUNK
-    kernels = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.REMAT_TILED_KERNEL,
-               fbk.BWD_TILED_KERNEL]
+    kernels = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.BWD_TILED_KERNEL,
+               fbk._PREV_REMAT_TILED, fbk._PREV_BWD_TILED]
     for k in kernels:
         k.launches = 0
     mx = fbk.fb_max_tiled(dl, words, K, kt)
@@ -358,26 +359,10 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     torch.testing.assert_close(ck, ck_r, rtol=1e-5, atol=1e-30)
     torch.testing.assert_close(S, S_r, rtol=1e-5, atol=0)
     torch.testing.assert_close(lg, lg_r, rtol=1e-5, atol=1e-2)
-    eb = torch.ones((B, fb.K_pad), device=cuda)
-    E = torch.full((B,), float(K), device=cuda)
-    for ci in range(NSC - 1, -1, -1):
-        al = fbk.fb_remat_tiled(dl, words, ck[ci], trans2, mx, S, ci, K, kt)
-        torch.testing.assert_close(
-            al, fbk.fb_remat_tiled_plain(dl, words, ck[ci], trans2, mx, S, ci, K, kt),
-            rtol=0, atol=1e-6)
-        bargs = (dl, words, al, trans2, thin, mx, eb, E, ci, K, 8, 0.001, kt)
-        got = fbk.fb_backward_tiled(*bargs)
-        ref = fbk.fb_backward_tiled_plain(*bargs)
-        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
-        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
-        g = thin[ci * CG:(ci + 1) * CG] >= 0
-        firm = (ref[1][g][:, :, :-1] - ref[1][g][:, :, 1:]) > 1e-3
-        assert torch.equal(got[2][g][:, :, :-1][firm], ref[2][g][:, :, :-1][firm])
-        assert not got[1][~g].any() and not got[2][~g].any()
-        torch.testing.assert_close(got[3], ref[3], rtol=1e-4, atol=1e-30)
-        torch.testing.assert_close(got[4], ref[4], rtol=1e-4, atol=0)
-        eb, E = got[3], got[4]
-    assert [k.launches for k in kernels] == [1, 1, NSC, NSC]
+    got = fbk.fb_backward_tiled(dl, words, ck, trans2, thin, mx, S, K, 8, 0.001, kt)
+    ref = fbk.fb_backward_tiled_plain(dl, words, ck, trans2, thin, mx, S, K, 8, 0.001, kt)
+    _assert_tiled_backward(got, ref, thin)
+    assert [k.launches for k in kernels] == [1, 1, 1, 0, 0]
     args = (gl, words, trans2, thin, K, 8, 0.001)
     tiled = fbk.fb_tiled_core(*args, k_tile=kt)
     fused = fbk.fb_core(*args)
@@ -391,6 +376,97 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     assert all(torch.equal(a, b) for a, b in zip(tiled, again))
     forced = fbk.fb_full_batched(gl, fb, K_top=8, family="tiled", splits=splits)
     assert all(torch.equal(a, b) for a, b in zip(tiled, forced))
+    assert [k.launches for k in kernels] == [4, 4, 4, 0, 0]
+
+
+def _assert_tiled_backward(got, ref, thin):
+    """Dosage and top-K values atol 1e-4, indices equal where the plain
+    version's neighbouring values differ by more than 1e-3, zeros away from
+    the thinned grids."""
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-4)
+    g = thin >= 0
+    firm = (ref[1][g][:, :, :-1] - ref[1][g][:, :, 1:]) > 1e-3
+    assert torch.equal(got[2][g][:, :, :-1][firm], ref[2][g][:, :, :-1][firm])
+    assert not got[1][~g].any() and not got[2][~g].any()
+
+
+@pytest.mark.parametrize("K,splits", [
+    (2000, 2), (2000, 4), (2000, 8),          # ragged: K_pad 2,048; 2 haplotypes a thread
+    (13500, 2), (13500, 4), (13500, 8),       # 16, 8, 4 a thread
+    (40960, 2), (40960, 4), (40960, 8),       # general form (shared planes), 20, 16
+    (60000, 2),                               # 30,016 a block: alpha planes in global memory
+])
+def test_fb_tiled_backward_matches_plain(cuda, K, splits):
+    """The one-launch tiled backward against fb_backward_tiled_plain at
+    K_top 1, 8, 16 and 32, with its checkpoint interval tiled_cg and every
+    storage form it has; two launches give the same bits; the rebuilt
+    alphas equal the forward's bit for bit (the forward's alpha entering
+    grid g + 1, read from its checkpoints at interval 1)."""
+    nG, B = 64, 3
+    fb = _random_fb(K, nG, K + splits)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(K + splits)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // splits
+    CG = fbk.tiled_cg(kt, nG)
+    smem, cpt = fbk._tiled_storage(CG, kt, 32)
+    assert smem == (kt <= 27552) and (cpt == 0) == (kt > 20 * 512)
+    mx = fbk.fb_max_tiled(dl, words, K, kt)
+    ck, S, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+    for K_top in (1, 8, 16, 32):
+        args = (dl, words, ck, trans2, thin, mx, S, K, K_top, 0.001, kt)
+        got = fbk.fb_backward_tiled(*args)
+        _assert_tiled_backward(got, fbk.fb_backward_tiled_plain(*args), thin)
+        again = fbk.fb_backward_tiled(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rebuilt = torch.zeros((nG, B, fb.K_pad), device=cuda)
+    fbk.fb_backward_tiled(dl, words, ck, trans2, thin, mx, S, K, 8, 0.001, kt, _rebuilt=rebuilt)
+    ck1, S1, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt, CG=1)
+    assert torch.equal(S1, S)
+    assert torch.equal(rebuilt[:-1], ck1[1:])
+
+
+def test_fb_tiled_general_form_matches_the_register_form(cuda):
+    """The general form (e*beta in a global plane, words read in the step)
+    forced at a width the register form holds: the same FB to rounding."""
+    fb = _random_fb(13500, 64, 5)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gl = 0.05 + 0.95 * torch.rand((3, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // 4
+    mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
+    ck, S, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt)
+    args = (dl, words, ck, trans2, thin, mx, S, fb.K, 8, 0.001, kt)
+    _assert_tiled_backward(fbk.fb_backward_tiled(*args, _general=True),
+                           fbk.fb_backward_tiled(*args), thin)
+
+
+def test_fb_tiled_previous_form_matches_the_redesign(cuda):
+    """The previous tiled backward (a remat and a backward launch per chunk
+    of 16 grids), kept for timing beside the redesign, gives the same FB
+    (dosage and top-K atol 1e-4) with its own launch counts."""
+    fb = _random_fb(40960, 64, 9)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    gl = 0.05 + 0.95 * torch.rand((4, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // 4
+    mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
+    ck16, S, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt, CG=16)
+    ck, _, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt)
+    launches = fbk.BWD_TILED_KERNEL.launches, fbk._PREV_REMAT_TILED.launches
+    old = fbk.fb_backward_tiled(dl, words, ck16, trans2, thin, mx, S, fb.K, 8, 0.001, kt, 16,
+                                _prev=True)
+    assert fbk.BWD_TILED_KERNEL.launches == launches[0]
+    assert fbk._PREV_REMAT_TILED.launches == launches[1] + 64 // 16
+    new = fbk.fb_backward_tiled(dl, words, ck, trans2, thin, mx, S, fb.K, 8, 0.001, kt)
+    _assert_tiled_backward(old, new, thin)
 
 
 def test_fb_tiled_refuses_bad_tiles(cuda):
@@ -400,6 +476,34 @@ def test_fb_tiled_refuses_bad_tiles(cuda):
         fbk.fb_max_tiled(dl, words, 300, 128)            # 3 blocks per row
     with pytest.raises(ValueError, match="k_tile"):
         fbk.fb_max_tiled(dl, words, 300, 100)            # does not cut K_pad
+
+
+def test_fb_tiled_backward_refuses_what_it_has_no_instantiation_for(cuda):
+    """A split that does not cut K_pad into 1, 2, 4 or 8 blocks, a K_top
+    above 32, and register columns or a storage without an instantiation
+    raise; nothing falls back to the plain version."""
+    fb = _random_fb(4096, 16, 1)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    B, Gp, K_pad = 2, 16, fb.K_pad
+    dl = torch.zeros((B, Gp * 32), device=cuda)
+    mx = torch.zeros((Gp, B), device=cuda)
+    S = torch.ones((Gp, B), device=cuda)
+    ck = torch.zeros((Gp // 16, B, K_pad), device=cuda)
+    args = (dl, words, ck, trans2, thin, mx, S, fb.K)
+    with pytest.raises(ValueError, match="k_tile"):
+        fbk.fb_backward_tiled(*args, 8, 0.001, K_pad // 3 + 1, 16)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fbk.fb_backward_tiled(*args, 33, 0.001, K_pad // 4, 16)
+    out = torch.empty((B, Gp * 32 + 2 * Gp * 33), device=cuda)
+    scratch = torch.empty((B, 17, K_pad), device=cuda)
+    for smem, cpt in ((1, 1), (1, 3), (1, 2), (0, 8)):   # no such columns; 1,024 < 2,048 a block
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fbk.BWD_TILED_KERNEL.launch(
+                words.data_ptr(), dl.data_ptr(), ck.data_ptr(), trans2.data_ptr(),
+                thin.data_ptr(), mx.data_ptr(), S.data_ptr(), out.data_ptr(), out.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), None, Gp, fb.K, K_pad, B, 16, 8, 2,
+                1.0 / fb.K, 0.001, smem, cpt)
 
 
 @pytest.mark.parametrize("G,B,K,K_real,nl", [
@@ -455,23 +559,25 @@ def test_engine_on_gpu(cuda):
 
 def test_engine_on_gpu_with_the_tiled_fb(cuda):
     """The large-panel path at a small size: the FB plan forced to the
-    K-split family launches its four kernels and no fused one."""
+    K-split family launches its three kernels once an FB call each, and no
+    fused kernel and no previous tiled form."""
     from quilt_tpu_torch.engine.driver import ImputeConfig, _region_context, quilt_impute
 
     world = make_world(np.random.default_rng(5), K=300, nSNPs=640, n_samples=2, coverage=1.5)
     cfg = ImputeConfig(nGibbsSamples=3, n_seek_its=2, Ksubset=48, Knew=48,
                        small_ref_panel_gibbs_iterations=8, seed=3)
     _region_context(world["prep"], cfg, "cuda").fb_plan_args = dict(family="tiled", splits=2)
-    tiled = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.REMAT_TILED_KERNEL,
-             fbk.BWD_TILED_KERNEL]
-    for k in tiled + [fbk.FWD_KERNEL, fbk.BWD_KERNEL]:
+    tiled = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.BWD_TILED_KERNEL]
+    prev = [fbk._PREV_REMAT_TILED, fbk._PREV_BWD_TILED]
+    for k in tiled + prev + [fbk.FWD_KERNEL, fbk.BWD_KERNEL]:
         k.launches = 0
     truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
     out = quilt_impute(world["prep"], world["samples"], ["a", "b"], cfg, "cuda",
                        truth_gen=truth_gen)
     assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
     assert all(k.launches > 0 for k in tiled), [k.launches for k in tiled]
-    assert fbk.FWD_KERNEL.launches == 0 and fbk.BWD_KERNEL.launches == 0
+    assert len({k.launches for k in tiled}) == 1, [k.launches for k in tiled]
+    assert all(k.launches == 0 for k in prev + [fbk.FWD_KERNEL, fbk.BWD_KERNEL])
 
 
 @pytest.mark.parametrize("G,B,K,K_real,p_end", [

@@ -115,6 +115,33 @@ def test_tiled_matches_fused(world, k_tile):
     np.testing.assert_array_equal(ti[g][:, :, :-1][firm], ti_f[g][:, :, :-1][firm])
 
 
+@pytest.mark.parametrize("CG", [2, 4, 8, 16])
+@pytest.mark.parametrize("k_tile", [32, 64, 128, 48])
+def test_tiled_checkpoint_intervals(world, k_tile, CG):
+    """The K-split FB at each checkpoint interval of the tiled backward
+    (tiled_cg gives 16, 8, 4 or 2 by block width) and tile width (one tile,
+    two, four, a ragged last tile) against the float64 oracle (dosage atol
+    1e-4, log-likelihood 1e-2) and the fused FB (dosage and top-K atol
+    1e-5, indices equal where the gap is over 1e-5); the backward's output
+    does not depend on the interval beyond rounding."""
+    panel, trans, _, fb, gl_pad = world
+    args = (torch.from_numpy(gl_pad), *_tensors(fb), fb.K, 8, EPS)
+    d, ll, tv, ti = (x.numpy() for x in fbk.fb_tiled_core(*args, k_tile=k_tile, CG=CG))
+    for row in range(2):
+        orc = haploid_dosage_versus_refs(
+            gl_pad[row, :, :panel.nSNPs].astype(np.float64), panel, trans, ref_error=EPS)
+        np.testing.assert_allclose(d[row, :panel.nSNPs], orc.dosage, atol=1e-4)
+        assert abs(float(ll[row]) - orc.log_like) < 1e-2
+    d_f, l_f, tv_f, ti_f = (x.numpy() for x in fbk.fb_core(*args))
+    np.testing.assert_allclose(d, d_f, atol=1e-5)
+    np.testing.assert_allclose(ll, l_f, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(tv, tv_f, atol=1e-5)
+    g = fb.thin_flag >= 0
+    firm = (tv_f[g][:, :, :-1] - tv_f[g][:, :, 1:]) > 1e-5
+    assert firm.any()
+    np.testing.assert_array_equal(ti[g][:, :, :-1][firm], ti_f[g][:, :, :-1][firm])
+
+
 @pytest.mark.parametrize("k_tile", [32, 64, 128])
 def test_tiled_stages(world, k_tile):
     """Stage by stage: the max pre-pass equals the max of the fused
@@ -128,15 +155,17 @@ def test_tiled_stages(world, k_tile):
     for g in (0, 3, fb.nGrids - 1):
         torch.testing.assert_close(mx[g], fbk._emissions(dl, words, g, fb.K)[1][:, 0],
                                    rtol=0, atol=1e-6)
+    CG = fbk.tiled_cg(k_tile, fb.nGrids)
+    assert CG == fbk.fused_cg(fb.K_pad, fb.nGrids) == 16
     ckpt, S, logs = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, k_tile)
     ckpt_f, logs_f = fbk.fb_forward(dl, words, trans2, fb.K)
     torch.testing.assert_close(logs, logs_f, rtol=1e-5, atol=1e-3)
-    CG = fbk.GRID_CHUNK
     for ci in range(fb.nGrids // CG):
         # checkpoint ci: unnormalised alpha entering the chunk, over S before it
         norm = S[ci * CG - 1][:, None] if ci else 1.0
         torch.testing.assert_close(ckpt[ci] / norm, ckpt_f[ci], rtol=1e-4, atol=1e-7)
-        alphas = fbk.fb_remat_tiled(dl, words, ckpt[ci], trans2, mx, S, ci, fb.K, k_tile)
+        alphas = fbk.fb_remat_tiled_plain(dl, words, ckpt[ci], trans2, mx, S, ci, fb.K, k_tile,
+                                          CG)
         torch.testing.assert_close(alphas.sum(-1), torch.ones_like(alphas.sum(-1)),
                                    rtol=1e-5, atol=0)
         if ci + 1 < fb.nGrids // CG:
@@ -157,19 +186,61 @@ class _Shape:
 
 
 @pytest.mark.parametrize("rows, K, family, splits", [
-    (112, 5120, "fused", 1), (28, 40960, "tiled", 4), (28, 5120, "fused", 1),
-    (14, 5120, "fused", 1), (14, 8192, "tiled", 8), (28, 8192, "tiled", 4),
-    (56, 8192, "tiled", 2), (112, 8192, "fused", 1), (28, 8320, "tiled", 4),
-    (56, 10240, "tiled", 2), (112, 10240, "fused", 1), (112, 20480, "tiled", 2),
-    (56, 20480, "tiled", 4), (56, 40960, "tiled", 4), (112, 40960, "tiled", 2),
-    (200, 40960, "fused", 1), (2, 256, "fused", 1), (14, 40960, "tiled", 8),
+    (112, 5120, "fused", 1), (28, 40960, "tiled", 4), (28, 5120, "tiled", 4),
+    (14, 5120, "tiled", 4), (56, 5120, "tiled", 2), (84, 5120, "fused", 1),
+    (14, 8192, "tiled", 8), (28, 8192, "tiled", 4), (56, 8192, "tiled", 2),
+    (112, 8192, "tiled", 2), (200, 8192, "fused", 1), (28, 8320, "tiled", 4),
+    (28, 10240, "tiled", 4), (56, 10240, "tiled", 2), (112, 10240, "tiled", 2),
+    (14, 20480, "tiled", 8), (28, 20480, "tiled", 4), (56, 20480, "tiled", 4),
+    (112, 20480, "tiled", 2), (14, 40960, "tiled", 8), (56, 40960, "tiled", 4),
+    (112, 40960, "tiled", 2), (200, 40960, "tiled", 2), (2, 256, "fused", 1),
+    (14, 4096, "fused", 1),
 ])
 def test_fb_plan(rows, K, family, splits):
-    """The measured decision points (PERF.md): the QUILT1 quick-start shape
-    and any panel up to K_pad = 5,120 stay fused at any row count (the
-    lone sample's 14 rows too); above it the split rule decides (K_pad =
-    8,192: split at 14-56 rows), and the large-panel shape is split."""
-    assert fbk.fb_plan(rows, _Shape(K)) == (family, rows, splits)
+    """The measured decision points (PERF.md): from K_pad = 5,120 a split
+    whose blocks fit the SMs in one wave wins (the quick-start shape's 14 to
+    56 rows, a lone sample's 14), and above 5,120 a split of 2 (of 4 from
+    16,384) in two waves; the QUILT1 quick-start shape (112 rows), the NIPT
+    batch (84) and smaller panels stay fused. A call takes the rows whose
+    checkpoints and scratch fit _CALL_BYTES (101 rows at 40,960 split in 2,
+    whose checkpoint interval is 2)."""
+    per_call = min(rows, 101) if (K, splits) == (40960, 2) else rows
+    assert fbk.fb_plan(rows, _Shape(K)) == (family, per_call, splits)
+
+
+@pytest.mark.parametrize("KS, cg, cpt", [
+    (64, 16, 2), (1024, 16, 2), (3296, 16, 8), (3312, 8, 8), (5120, 8, 16), (6752, 8, 16),
+    (6768, 4, 16), (10240, 4, 20), (13696, 4, 0), (13712, 2, 0), (20480, 2, 0),
+    (27552, 2, 0), (27568, 16, 0),
+])
+def test_tiled_cg(KS, cg, cpt):
+    """The tiled backward's checkpoint interval is the largest of 16, 8, 4, 2
+    whose alpha planes fit a block's shared memory beside its tables, posts
+    and 32-entry top-K lists (at K_top 32 the largest call), else 16 with
+    the planes in global memory; the register form holds up to 20
+    haplotypes a thread."""
+    assert fbk.tiled_cg(KS, 512) == cg
+    smem, c = fbk._tiled_storage(cg, KS, 32)
+    assert smem == (KS <= 27552) and c == cpt
+    assert fbk._bwd_tiled_smem_bytes(cg, KS, 32, smem) <= fbk._SMEM_LIMIT
+    if 2 < cg < 16 and smem:
+        assert fbk._bwd_tiled_smem_bytes(2 * cg, KS, 32, True) > fbk._SMEM_LIMIT
+    if smem:
+        assert fbk.tiled_cg(KS, 24) == min(cg, 8)      # the interval divides Gp
+
+
+@pytest.mark.parametrize("K, splits, planes", [
+    (40960, 4, 512 // 4 + 1),            # registers: checkpoints + the forward's plane
+    (40960, 2, 512 // 2 + 1 + 1),        # general form: + its e*beta plane
+    (60032, 2, 512 // 16 + 1 + 1 + 16),  # + the chunk's 16 alpha planes in global memory
+    (8192, 8, 512 // 16 + 1),
+])
+def test_fb_plan_tiled_planes(K, splits, planes):
+    """fb_plan's rows per tiled call follow the backward's checkpoint
+    interval: _CALL_BYTES over the planes of K_pad floats a row."""
+    assert fbk._tiled_planes(K, 512, splits) == planes
+    rows = fbk.fb_plan(1000, _Shape(K), family="tiled", splits=splits)[1]
+    assert rows == min(1000, fbk._CALL_BYTES // (planes * K * 4))
 
 
 def test_fb_plan_forced_and_capture(world):
