@@ -653,6 +653,12 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
     kt = fb.K_pad // splits
     CG = fbk.tiled_cg(kt, Gp)
     smem, cpt = fbk._tiled_storage(CG, kt, K_top)
+    # the wrapper chooses the interval and storage from its copy of the
+    # backward's shared-memory layout: it must equal the kernel library's
+    for args in ((CG, kt, K_top, smem), (2 * CG, kt, 32, True), (CG, kt, 32, False)):
+        if fbk.kernel_tiled_smem_bytes(*args) != fbk._bwd_tiled_smem_bytes(*args):
+            _fail(f"the tiled backward's shared memory at {args} differs between "
+                  f"kernels/fb.py and fb_tiled.cu")
     gl, dl = _random_dl(fb, B, gen, eps)
     cells = B * Gp * fb.K
     print(f"tiled FB kernels at {B} rows x K={fb.K} (K_pad {fb.K_pad}) x {Gp} grids, "
@@ -717,6 +723,8 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
     old = fbk.fb_backward_tiled(dl, words, ck16, trans2, thin, mx, S, fb.K, K_top, eps, kt, 16,
                                 _prev=True)
     err_old = (old[0] - got[0]).abs().max().item()
+    if err_old > 1e-4:
+        _fail(f"the previous tiled backward's dosage is {err_old:.3e} from the new kernel's")
     no_thin = torch.full_like(thin, -1)
     bwd = lambda c, th, *a, **v: (lambda: fbk.fb_backward_tiled(dl, words, c, trans2, th, mx, S,
                                                                 fb.K, K_top, eps, kt, *a, **v))
@@ -791,20 +799,20 @@ def synthetic_fb(K, nGrids=512):
 
 def time_fb_plan(fb, rows_list=(28, 112)):
     """Both FB families at the plan's decision points: median ms of three
-    whole-FB calls (fused fb_core; fb_tiled_core at 2, 4 and 8 blocks per
-    row) on random GLs, and what fb_plan chooses there."""
+    whole-FB calls through fb_full_batched (so with the plan's rows per core
+    call) forced to the fused family and to the K-split one at 2, 4 and 8
+    blocks per row, on random GLs, and what fb_plan chooses there."""
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
-    dev = fb.device_tensors("cuda")
-    args = (dev["words"], dev["trans2"], dev["thin_flag"], fb.K, 8, 0.001)
+    forced = {"fused": dict(family="fused")}
+    forced.update({f"tiled/{s}": dict(family="tiled", splits=s) for s in (2, 4, 8)})
     for B in rows_list:
         gl, _ = _random_dl(fb, B, gen)
-        t = {"fused": _median_ms(lambda: fbk.fb_core(gl, *args), 3)}
-        for s in (2, 4, 8):
-            t[f"tiled/{s}"] = _median_ms(lambda: fbk.fb_tiled_core(gl, *args, k_tile=fb.K_pad // s), 3)
+        t = {name: _median_ms(lambda: fbk.fb_full_batched(gl, fb, 8, 0.001, **kw), 3)
+             for name, kw in forced.items()}
         plan = fbk.fb_plan(B, fb)
         print(f"fb_plan timing, {B} rows x K={fb.K}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
               + f"; fb_plan -> {plan[0]}, {plan[1]} rows per call, {plan[2]} blocks per row", flush=True)
@@ -1341,9 +1349,13 @@ def main():
             _fail(f"the port pulled in the JAX package or jax: {gone[:5]}")
         if "kernels" in phases:
             rows += check_kernels(world)
-            time_fb_plan(world["fb"], (14, 28, 56, 112))
-            for K in (8192, 10240, 20480):
-                time_fb_plan(synthetic_fb(K), (28, 56, 112) if K == 10240 else (14, 28, 56, 112))
+            # fb_plan's decision points: the QUILT1 batch (112 rows), the
+            # NIPT one (84), lone samples (14) and 2-4 samples; 200 rows
+            # beyond one wave of fused rows; a ragged K_pad (8,320)
+            time_fb_plan(world["fb"], (14, 28, 56, 84, 112))
+            for K, n in ((8192, (14, 28, 56, 112, 200)), (8320, (28,)), (10240, (28, 56, 112)),
+                         (20480, (14, 28, 56, 112, 200))):
+                time_fb_plan(synthetic_fb(K), n)
         if "e2e" in phases:
             out, _, launches["quilt1"] = run_e2e(world, counted, e2e_config(8), "e2e")
             if min(out.r2_per_sample) < 0.9:
@@ -1365,7 +1377,7 @@ def main():
         # large panel: K = 40,960; 2 samples x 7 chains x 2 haplotypes = 28 FB rows
         world3 = make_world(n_samples=2, K=40960)
         rows += check_tiled_kernels(world3["fb"])
-        time_fb_plan(world3["fb"], (28, 56, 112))
+        time_fb_plan(world3["fb"], (28, 56, 112, 200))
         out, _, l3 = run_e2e(world3, counted, e2e_config(2), "largek")
         launches["largek"] = l3
         if min(out.r2_per_sample) < 0.9:

@@ -201,7 +201,8 @@ __global__ void __launch_bounds__(NT) fb_fwd_tiled_kernel(
 __host__ __device__ inline int post_floats(int K_top) { return r4(RW + 2 * NWARP * K_top); }
 
 // Dynamic shared memory of the backward in floats, region by region
-// (kernels/fb.py:_bwd_tiled_smem_bytes mirrors it): the warps' records, the
+// (kernels/fb.py:_bwd_tiled_smem_bytes mirrors it; fb_backward_tiled_smem_bytes
+// exports it): the warps' records, the
 // two posts, the chunk's scalars (maxima, stay, jump/K, 1/S), its
 // log-ratios and emission tables, and (shared-memory storage) its CG alpha
 // planes of KS floats.
@@ -681,6 +682,13 @@ extern "C" int fb_backward_tiled(const void* words, const void* dl, const void* 
     default: return BWD(0, true);
   }
 #undef BWD
+}
+
+// The backward's dynamic shared memory in bytes (bwd_smem_floats), so that
+// the wrapper's copy of the layout (kernels/fb.py:_bwd_tiled_smem_bytes)
+// can be held to it.
+extern "C" int fb_backward_tiled_smem_bytes(int CG, int KS, int K_top, int planes) {
+  return 4 * bwd_smem_floats(CG, KS, K_top, planes != 0);
 }
 
 extern "C" int fb_tiled_chain_floor(void* out, int splits, int B, int steps, void* stream) {

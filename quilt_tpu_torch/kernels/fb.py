@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _build
 from .._build import Kernel, check_tensor as _check
 from ..inputs import GRID_CHUNK, FBInputs
 
@@ -64,18 +65,24 @@ _NEG = -1e30
 # device-memory budget of one core call's checkpoints + scratch: fb_plan
 # takes rows per call = budget / per-row bytes of the chosen family
 _CALL_BYTES = 4 << 30
-# the split rule of fb_plan, set from chip_smoke.py's timings on an H100
-# (PERF.md section 6): its SMs (the tiled backward takes one a block), the
-# smallest panel that is split (the smallest measured; a split of the
-# K = 5,120 world's rows won at 14 to 56 rows), the fewest haplotypes worth
-# a block of their own (1,280 a block won at K = 5,120), and the panel size
-# from which a split of 4 still pays in two waves of blocks (above
-# _TILED_MIN_K a split of 2 does)
+# fb_plan's cost model, fitted to chip_smoke.py's "fb_plan timing" lines on
+# an H100 (PERF.md section 6). A core call's blocks run in waves over the
+# card's _N_SM SMs (one block a row fused, a cluster of `splits` a row
+# split); a wave costs about its blocks' haplotypes a grid, plus
+# _BLOCK_OVERHEAD_K haplotypes' worth for a split block's fixed work a grid
+# (cluster exchange, reductions, top-K), times _GENERAL_FORM_COST for a
+# split block too wide for registers (the general form's backward: 11.745
+# against 8.459 ms at 28 rows x 40,960) and, for a fused row wider than
+# _TILED_MIN_K, _FUSED_WIDE_COST (measured 1.2 at 8,192 to 1.9 at 40,960).
+# Below _TILED_MIN_K nothing is split (unmeasured), nor to fewer than
+# _MIN_K_PER_SPLIT haplotypes a block. Any overhead in 1,664-2,048 and wide
+# cost in 1.3-2.0 reproduce every measured choice.
 _N_SM = 132
 _TILED_MIN_K = 5120
 _MIN_K_PER_SPLIT = 1024
-_OVERSUBSCRIBE_K = 16384
-_SPLITS = (8, 4, 2)
+_BLOCK_OVERHEAD_K = 1792
+_GENERAL_FORM_COST = 1.4
+_FUSED_WIDE_COST = 1.5
 
 # The fused kernels (csrc/fb.cu): NT threads a row, thread t holding the
 # haplotypes t, t + NT, ...; in registers when K_pad <= NT * max(_CPTS).
@@ -229,9 +236,15 @@ def chain_floor(steps: int, blocks: int, which: int, device) -> torch.Tensor:
 
 
 def _emissions(dl, words, g, K):
-    """Plain per-grid emissions of the whole panel scaled to max 1 (the
-    kernels' logits, _tile_logits), and their log max."""
-    logm = _tile_logits(dl, words, g, K, 0, words.shape[1])
+    """Plain per-grid emissions scaled to max 1, and their log max. The
+    logits are one matrix product, independent of the kernels' order of
+    additions (_tile_logits), so tests can hold the kernels against them."""
+    K_pad = words.shape[1]
+    sh = torch.arange(32, device=words.device, dtype=torch.int32)
+    hT = ((words[g][None, :] >> sh[:, None]) & 1).to(dl.dtype)  # [32, K_pad]
+    logm = dl[:, g * 32:(g + 1) * 32] @ hT
+    lane = torch.arange(K_pad, device=words.device)
+    logm = torch.where(lane[None, :] < K, logm, _NEG)
     mx = logm.amax(1, keepdim=True)
     return torch.exp(logm - mx), mx
 
@@ -391,6 +404,16 @@ def _bwd_tiled_smem_bytes(CG, KS, K_top, planes):
     post = _r4(_TILED_RW + 2 * _NWARP * K_top)
     return 4 * (_r4(_NWARP * _TILED_RW) + 2 * post + _r4(4 * CG + 1) + _r4(CG * 32)
                 + CG * _EMF + (CG * KS if planes else 0))
+
+
+def kernel_tiled_smem_bytes(CG, KS, K_top, planes) -> int:
+    """The tiled backward's shared memory in bytes as the kernel library
+    computes it (fb_tiled.cu bwd_smem_floats): the layout that
+    _bwd_tiled_smem_bytes copies, for tests to hold the two equal. Builds
+    the library; needs nvcc, not a card."""
+    fn = _build.load("fb_tiled").fb_backward_tiled_smem_bytes
+    fn.argtypes, fn.restype = [_I] * 4, _I
+    return fn(CG, KS, K_top, int(planes))
 
 
 def tiled_cg(KS: int, Gp: int) -> int:
@@ -771,6 +794,21 @@ def fb_tiled_core(gl, words, trans2, thin, K, K_top, ref_error, k_tile, CG=None)
     return dos, logs + csum, tv, ti
 
 
+def _plan_cost(B, K_pad, Gp, splits, per_call):
+    """fb_plan's estimated cost of B rows at `splits` blocks a row (1: the
+    fused family), per_call rows a core call: SM waves x a wave's cost in
+    haplotypes a grid (see _BLOCK_OVERHEAD_K). A fused wave holds at most
+    _N_SM rows; a split call's blocks beyond one wave add their share."""
+    calls = [per_call] * (B // per_call) + ([B % per_call] if B % per_call else [])
+    if splits == 1:
+        return sum(-(-r // _N_SM) for r in calls) * K_pad * (
+            _FUSED_WIDE_COST if K_pad > _TILED_MIN_K else 1.0)
+    KS = K_pad // splits
+    general = _tiled_storage(tiled_cg(KS, Gp), KS, _KTOP_RESERVE)[1] == 0
+    waves = sum(max(1.0, r * splits / _N_SM) for r in calls)
+    return waves * (KS + _BLOCK_OVERHEAD_K) * (_GENERAL_FORM_COST if general else 1.0)
+
+
 def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
             splits: Optional[int] = None, capture: bool = False) -> Tuple[str, int, int]:
     """("fused" | "tiled", rows per core call, K splits) for B rows: the
@@ -781,22 +819,16 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     global planes, none where its state and alphas fit the SM (K_pad <=
     8,192), else 4 state planes + CG alphas where those do not fit shared
     memory; tiled: Gp/CG checkpoints at CG = tiled_cg, the forward's alpha
-    plane and the backward's scratch planes, _tiled_planes). The
-    fused kernels run one block per row, the tiled backward one block per
-    SM. Measured on the H100 since the tiled backward became one launch
-    (512 grids, 14 / 28 / 56 / 112 rows x K = 5,120 .. 40,960,
-    chip_smoke.py's "fb_plan timing" lines): from K_pad = _TILED_MIN_K up,
-    splitting a row over the largest cluster (8, 4 or 2 blocks, each
-    keeping >= _MIN_K_PER_SPLIT haplotypes) whose rows x splits blocks fit
-    the 132 SMs in one wave beats the fused call (at 5,120: 4.47 / 4.77 /
-    6.58 ms against 7.49 / 7.54 / 7.69 at 14 / 28 / 56 rows). Where no
-    split fits one wave, 2 blocks a row in two waves (rows x 2 <= 264)
-    still win above _TILED_MIN_K (112 rows x 8,192: 14.06 against 14.81
-    fused), and from K_pad = _OVERSUBSCRIBE_K up 4 blocks a row in two
-    waves win over 2 in one (56 rows x 20,480: 16.77 against 17.85); at
-    _TILED_MIN_K with many rows (112 x 5,120: 7.61 fused against 10.50)
-    and below it, the call stays fused. (At 112 rows x 40,960 the rule's 2
-    blocks, 101 rows a call, took 65.22 ms against 55.98 for 4.)
+    plane and the backward's scratch planes, _tiled_planes). Of the fused
+    family and the splits of 2, 4 and 8 blocks a row, the plan takes the
+    least cost (_plan_cost) over all the core calls of B rows. Measured on
+    the H100 (512 grids, 14 to 200 rows x K = 5,120 .. 40,960, chip_smoke.py's
+    "fb_plan timing" lines): this takes the fastest choice at every shape
+    but 14 x 5,120 (4 blocks 4.47 ms, 8 blocks of 640 haplotypes 4.45), e.g.
+    fused at 84 and 112 x 5,120 (7.75 / 7.61 against 10.13 / 10.50 for 2
+    blocks), 2 blocks at 200 x 8,192 (27.27 against 28.76 fused), 4 at 112
+    x 40,960 (56.43 against 100.50 for 2 blocks, whose interval-2
+    checkpoints take two calls).
     A call that captures gamma (`capture`) is fused: only the fused
     backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""
@@ -817,16 +849,11 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     def tiled_rows(s):
         return rows(_tiled_planes(fb.K_pad, fb.nGrids, s))
 
-    def fits(s, waves):
-        return tiled_rows(s) * s <= waves * _N_SM and fb.K_pad // s >= _MIN_K_PER_SPLIT
-
     if splits is None:
-        splits = next((s for s in _SPLITS if fits(s, 1)), 1)
-        if fb.K_pad > _TILED_MIN_K:
-            wide = (4, 2) if fb.K_pad >= _OVERSUBSCRIBE_K else (2,)
-            splits = max(splits, next((s for s in wide if fits(s, 2)), 1))
-        if fb.K_pad < _TILED_MIN_K:
-            splits = 1
+        splits = min((1,) + tuple(s for s in (2, 4, 8) if fb.K_pad >= _TILED_MIN_K
+                                  and fb.K_pad // s >= _MIN_K_PER_SPLIT),
+                     key=lambda s: _plan_cost(B, fb.K_pad, fb.nGrids, s,
+                                              rows(fused_planes) if s == 1 else tiled_rows(s)))
     elif splits not in (1, 2, 4, 8):
         raise ValueError(f"splits must be 1, 2, 4 or 8, got {splits}")
     if family is None:

@@ -506,6 +506,19 @@ def test_fb_tiled_backward_refuses_what_it_has_no_instantiation_for(cuda):
                 1.0 / fb.K, 0.001, smem, cpt)
 
 
+@pytest.mark.parametrize("KS", [64, 1024, 3296, 3312, 5120, 10240, 13712, 27552, 30016])
+def test_fb_tiled_smem_layout_matches_the_kernel(cuda, KS):
+    """The wrapper's copy of the tiled backward's shared-memory layout
+    (_bwd_tiled_smem_bytes, which tiled_cg and _tiled_storage read) equals
+    the kernel library's (fb_tiled.cu bwd_smem_floats), so the interval and
+    storage that the wrapper chooses are the ones the kernel accepts."""
+    for CG in (1, 2, 4, 8, 16):
+        for K_top in (1, 8, 16, 32):
+            for planes in (True, False):
+                assert (fbk.kernel_tiled_smem_bytes(CG, KS, K_top, planes)
+                        == fbk._bwd_tiled_smem_bytes(CG, KS, K_top, planes))
+
+
 @pytest.mark.parametrize("G,B,K,K_real,nl", [
     (5, 3, 40, 33, 2), (9, 4, 700, 700, 2), (5, 3, 41, 33, 3), (9, 4, 700, 700, 3),
     (2, 2, 5000, 4990, 3),                      # more than 48 KB of shared memory

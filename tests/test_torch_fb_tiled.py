@@ -142,19 +142,44 @@ def test_tiled_checkpoint_intervals(world, k_tile, CG):
     np.testing.assert_array_equal(ti[g][:, :, :-1][firm], ti_f[g][:, :, :-1][firm])
 
 
+def _nibble_logit_max(dl, words, g, K):
+    """[B] max over the K haplotypes of grid g's emission logit, in numpy
+    float32 in the kernels' order of additions (fb_common.cuh): per nibble
+    of the panel word its set bits' log-ratios in bit order, then the 8
+    nibble sums in order."""
+    d = dl[:, g * 32:(g + 1) * 32].numpy()
+    w = words[g, :K].numpy().astype(np.int64) & 0xFFFFFFFF
+    bits = ((w[None, :] >> np.arange(32)[:, None]) & 1).astype(bool)      # [32, K]
+    tot = None
+    for q in range(8):
+        nib = np.zeros((d.shape[0], K), np.float32)
+        for s in range(4 * q, 4 * q + 4):
+            nib = np.where(bits[s][None, :], nib + d[:, s:s + 1], nib)
+        tot = nib if tot is None else tot + nib
+    return torch.from_numpy(tot.max(1))
+
+
 @pytest.mark.parametrize("k_tile", [32, 64, 128])
 def test_tiled_stages(world, k_tile):
-    """Stage by stage: the max pre-pass equals the max of the fused
-    emissions; the forward's S, checkpoints and log-likelihood agree with
-    the fused forward's; the remat reproduces the forward's normalised
-    alphas."""
+    """Stage by stage: the max pre-pass equals the max of the emission
+    logits added in the kernels' order, and the float64 product's within
+    the float32 rounding of those additions; the forward's S, checkpoints
+    and log-likelihood agree with the fused forward's; the remat reproduces
+    the forward's normalised alphas."""
     _, _, _, fb, gl_pad = world
     words, trans2, _ = _tensors(fb)
     dl, _ = fbk._gl_log_ratios(torch.from_numpy(gl_pad), EPS)
     mx = fbk.fb_max_tiled(dl, words, fb.K, k_tile)
     for g in (0, 3, fb.nGrids - 1):
-        torch.testing.assert_close(mx[g], fbk._emissions(dl, words, g, fb.K)[1][:, 0],
+        torch.testing.assert_close(mx[g], _nibble_logit_max(dl, words, g, fb.K),
                                    rtol=0, atol=1e-6)
+        # float64 reference: each logit is 32 terms through at most 3 + 7
+        # float32 additions, each rounding by at most 2^-24 of a partial
+        # sum, so it lies within 10 * 2^-24 * sum |log-ratio| of the exact one
+        d64 = dl[:, g * 32:(g + 1) * 32].double()
+        _, mx64 = fbk._emissions(dl.double(), words, g, fb.K)
+        bound = 10 * 2.0 ** -24 * d64.abs().sum(1)
+        assert ((mx[g].double() - mx64[:, 0]).abs() <= bound).all()
     CG = fbk.tiled_cg(k_tile, fb.nGrids)
     assert CG == fbk.fused_cg(fb.K_pad, fb.nGrids) == 16
     ckpt, S, logs = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, k_tile)
@@ -186,26 +211,26 @@ class _Shape:
 
 
 @pytest.mark.parametrize("rows, K, family, splits", [
-    (112, 5120, "fused", 1), (28, 40960, "tiled", 4), (28, 5120, "tiled", 4),
-    (14, 5120, "tiled", 4), (56, 5120, "tiled", 2), (84, 5120, "fused", 1),
+    (14, 5120, "tiled", 4), (28, 5120, "tiled", 4), (56, 5120, "tiled", 2),
+    (84, 5120, "fused", 1), (112, 5120, "fused", 1),
     (14, 8192, "tiled", 8), (28, 8192, "tiled", 4), (56, 8192, "tiled", 2),
-    (112, 8192, "tiled", 2), (200, 8192, "fused", 1), (28, 8320, "tiled", 4),
+    (112, 8192, "tiled", 2), (200, 8192, "tiled", 2), (28, 8320, "tiled", 4),
     (28, 10240, "tiled", 4), (56, 10240, "tiled", 2), (112, 10240, "tiled", 2),
     (14, 20480, "tiled", 8), (28, 20480, "tiled", 4), (56, 20480, "tiled", 4),
-    (112, 20480, "tiled", 2), (14, 40960, "tiled", 8), (56, 40960, "tiled", 4),
-    (112, 40960, "tiled", 2), (200, 40960, "tiled", 2), (2, 256, "fused", 1),
-    (14, 4096, "fused", 1),
+    (112, 20480, "tiled", 2), (200, 20480, "tiled", 2),
+    (28, 40960, "tiled", 8), (56, 40960, "tiled", 4), (112, 40960, "tiled", 4),
+    (200, 40960, "tiled", 4), (2, 256, "fused", 1), (14, 4096, "fused", 1),
 ])
 def test_fb_plan(rows, K, family, splits):
-    """The measured decision points (PERF.md): from K_pad = 5,120 a split
-    whose blocks fit the SMs in one wave wins (the quick-start shape's 14 to
-    56 rows, a lone sample's 14), and above 5,120 a split of 2 (of 4 from
-    16,384) in two waves; the QUILT1 quick-start shape (112 rows), the NIPT
-    batch (84) and smaller panels stay fused. A call takes the rows whose
-    checkpoints and scratch fit _CALL_BYTES (101 rows at 40,960 split in 2,
-    whose checkpoint interval is 2)."""
-    per_call = min(rows, 101) if (K, splits) == (40960, 2) else rows
-    assert fbk.fb_plan(rows, _Shape(K)) == (family, per_call, splits)
+    """The plan at every shape that chip_smoke.py's "fb_plan timing" lines
+    measured (PERF.md), each the fastest there but 14 x 5,120 (4 blocks
+    against 8 of 640 haplotypes, 0.4% apart): a split of 4 or 8 while the
+    blocks fit about one wave, of 2 beyond it, 4 at 40,960 (2 blocks a row
+    there take the general form and, at 112 rows and up, two calls); the
+    fused family at 5,120 once no split fits one wave (the QUILT1
+    quick-start batch of 112 rows, the NIPT batch of 84); and below 5,120,
+    where no split was measured. Every call here takes all its rows."""
+    assert fbk.fb_plan(rows, _Shape(K)) == (family, rows, splits)
 
 
 @pytest.mark.parametrize("KS, cg, cpt", [
