@@ -21,13 +21,17 @@ Phases, each fatal on failure:
                part from the plain version's is printed and bounded; the
                forward bank of the NIPT block move (nipt_bank, a kernel with
                no Pallas counterpart: the JAX package runs it as an XLA scan)
-               at 28 chains; the three K-split FB
+               at 28 chains in each of its forms, timed in turn with its
+               previous form beside the floor of a step's reduction (the
+               "bank step split" line); the three K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
                world exists (the backward, one launch an FB call, on all
-               512 grids, two launches equal bit for bit), the backward is
-               timed in turn with its previous form (a remat and a backward
-               launch per chunk) beside its cluster exchange's floor (the
-               "tiled step split" line), fb_tiled_core is held against the
+               512 grids, two launches equal bit for bit), the forward and
+               the backward are timed in turn with their previous forms (the
+               forward's alpha in a global row; a remat and a backward
+               launch per chunk) beside their cluster exchanges' floors (the
+               "tiled forward step split" and "tiled step split" lines),
+               fb_tiled_core is held against the
                fused fb_core, and both FB families are timed at 14 to 112
                rows x K=5,120, 8,192, 10,240, 20,480 and 40,960 (the
                measurements behind kernels.fb.fb_plan);
@@ -59,7 +63,7 @@ Phases, each fatal on failure:
                FB plan takes the K-split kernels; the three of them must
                launch once an FB call each (6 a call), the two Gibbs sweeps
                must launch, and the fused FB must not; no path may launch
-               the previous tiled backward;
+               a previous form of a redesigned kernel;
   6. nipt    - NIPT (mother + fetus, 3 latent haplotypes a chain) at full
                width: QUILT1-NIPT on the K=5,120 world's shape with 8 samples
                at 2x coverage, four at fetal fraction 0.10 and four at 0.20
@@ -114,20 +118,27 @@ F32_FLOP_PER_S = 67e12
 PARTED_CHAINS_BOUND = 0.1
 
 
-# ptxas's report of the tiled backward's instantiations, filled by the build
+# ptxas's report of the redesigned kernels' instantiations, filled by the build
 PTXAS = {}
+# kernel -> the names of its template arguments in the ptxas notes
+_PTXAS_KERNELS = {"fb_bwd_tiled_kernel": ("CPT", "shared"), "fb_fwd_tiled_kernel": ("CPT",),
+                  "nipt_bank_kernel": ("CPT",), "nipt_bank_general_kernel": ()}
 
 
-def _note_ptxas(entry, line):
+def _note_ptxas(library, entry, line):
     """Keeps the registers and spills that ptxas reports for each
-    instantiation <CPT, SMEM> of fb_tiled.cu's backward kernel."""
+    instantiation of fb_tiled.cu's forward and backward kernels and of
+    nipt_bank.cu's kernels (not their previous forms)."""
     import re
 
-    if entry is None or "fb_bwd_tiled_kernelILi" not in entry or "prev" in entry:
+    if entry is None or library not in ("fb_tiled", "nipt_bank"):
         return
-    m = re.search(r"fb_bwd_tiled_kernelILi(\d+)ELb(\d)E", entry)
-    tag = f"<{m.group(1)}, {'shared' if m.group(2) == '1' else 'global'}>"
-    notes = PTXAS.setdefault("fb_bwd_tiled_kernel", [])
+    m = re.search(r"\d+(" + "|".join(_PTXAS_KERNELS) + r")(I((?:L[a-z]+\d+E)+)E)?", entry)
+    if m is None:
+        return
+    args = re.findall(r"L[a-z]+(\d+)E", m.group(3) or "")
+    tag = "<" + ", ".join(f"{n}={a}" for n, a in zip(_PTXAS_KERNELS[m.group(1)], args)) + ">"
+    notes = PTXAS.setdefault(m.group(1), [])
     if "spill" in line:
         st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
         notes.append(f"{tag} spills {st}/{ld} B")
@@ -566,47 +577,133 @@ def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, bet
     return rows
 
 
-def check_nipt_bank(G, K, K_real, B=28):
-    """The forward bank of the NIPT block move against its plain version (the
-    Python loop over the grids) at the NIPT path's shape: B chains of one
-    batch, ~12 blocks a chain at random grids. Returns its row."""
+def _bank_state(G, B, K, K_real, rng):
+    """The bank's inputs at B chains x K haplotypes x G grids, ~12 blocks a
+    chain at random grids, from rng."""
     import numpy as np
     import torch
-    from quilt_tpu_torch.kernels import nipt_bank as nb
     from quilt_tpu_torch.simulate import random_sweep_state
 
-    rng = np.random.default_rng(SEED + 6)
     lemg, beta = (torch.from_numpy(x).cuda() for x in random_sweep_state(
         rng, G, B, 4, K, K_real, 4, nl=3)[:2])
-    km = (torch.arange(K, device="cuda") < K_real).float()
-    e = torch.exp(lemg - torch.where(km > 0, lemg, -torch.inf).amax(2, keepdim=True)) * km
-    bk = beta * km
     trans = torch.from_numpy(np.stack([np.full(G, 0.98), np.full(G, 0.02)]).astype(np.float32))
     trans[:, 0] = torch.tensor([1.0, 0.0])
     is_end = torch.from_numpy((rng.random((G, B)) < 12 / G).astype(np.int32))
     is_end[G - 1] = 1
-    args = (e, bk, trans.cuda(), torch.from_numpy(rng.normal(0, 2, (G, B, 6)).astype(np.float32)).cuda(),
-            torch.from_numpy(rng.random((G, B)).astype(np.float32)).cuda(), is_end.cuda(),
-            torch.ones(6, device="cuda"), K_real)
-    got_c, got_p = nb.bank_scan(*args)
+    is_end = is_end.cuda()
+    rest = (torch.from_numpy(rng.normal(0, 2, (G, B, 6)).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.random((G, B)).astype(np.float32)).cuda())
+    return (lemg, beta, trans.cuda(), *rest, is_end, torch.ones(6, device="cuda"), K_real)
+
+
+def time_bank_forms(G=512, B=28, shapes=((256, 250), (1024, 1000))):
+    """The bank's instantiations timed in turn at the K where they border
+    (every register form that holds K and the general form, launched
+    through the kernel's entry with its columns a thread): the
+    "bank forms" lines, which chose the instantiations that the kernel
+    keeps. Each form must draw what the wrapper's form draws, bit for bit."""
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.kernels import nipt_bank as nb
+
+    for K, K_real in shapes:
+        args = _bank_state(G, B, K, K_real, np.random.default_rng(SEED + K))
+        chosen = torch.empty((G, B), dtype=torch.int32, device="cuda")
+        probs = torch.empty((G, B, 6), dtype=torch.float32, device="cuda")
+
+        def launch(cpt):
+            nb.BANK_KERNEL.launch(*(a.data_ptr() for a in args[:7]), chosen.data_ptr(),
+                                  probs.data_ptr(), G, B, K, K_real, cpt, 1.0 / K_real)
+
+        cpts = [c for c in nb._BANK_CPTS if c * nb._NT >= K] + [0]
+        ref = nb.bank_scan(*args)
+        for c in cpts:
+            launch(c)
+            if not (torch.equal(chosen, ref[0]) and torch.equal(probs, ref[1])):
+                _fail(f"nipt_bank: the form of {c} columns a thread (0: general) at K={K} "
+                      f"draws otherwise than the wrapper's form ({nb._bank_cpt(K)})")
+        t = _alternating_ms({c: (lambda c=c: launch(c)) for c in cpts})
+        print(f"bank forms at {B} chains x K={K} (K_real {K_real}) x {G} grids, timed in turn "
+              f"(4 rounds of 7; the wrapper takes {nb._bank_cpt(K)}; all draw the same bits): "
+              + ", ".join(f"{f'<{c}>' if c else 'general'} {v:.3f} ms" for c, v in t.items()),
+              flush=True)
+
+
+def check_nipt_bank(G, K, K_real, B=28):
+    """The forward bank of the NIPT block move against its plain version (the
+    Python loop over the grids) at the NIPT path's shape: B chains of one
+    batch, ~12 blocks a chain at random grids; the kernel timed in turn with
+    the previous form (the route: its e and beta * mask planes built, then
+    its kernel; and its kernel alone on planes built beforehand) and with
+    the same launch with no block end but the last (the block ends' share),
+    beside the floor of one step's reduction (the "bank step split" line).
+    Returns its row."""
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.kernels import nipt_bank as nb
+
+    args = _bank_state(G, B, K, K_real, np.random.default_rng(SEED + 6))
+    lemg, is_end = args[0], args[5]
     ref_c, ref_p = nb.bank_scan_plain(*args)
-    torch.cuda.synchronize()
-    # a uniform within rounding of a cumulative probability may draw the
-    # neighbouring relabelling, and that chain's bank then differs for good
-    same = (got_c == ref_c).all(dim=0)                                   # [B]
-    parted = 1.0 - int(same.sum()) / B
-    err = (got_p - ref_p)[:, same].abs().max().item()
     n_ends = int(is_end.sum())
-    print(f"nipt_bank: {int(same.sum())}/{B} chains draw the same {n_ends} relabellings "
-          f"({100 * parted:.1f}% part, bound {100 * PARTED_CHAINS_BOUND:.0f}%; drawn: "
-          f"{torch.bincount(got_c[is_end.cuda() != 0].long(), minlength=6).tolist()}), max "
-          f"|probability err| {err:.3e} (tolerance atol 1e-4)", flush=True)
-    if parted > PARTED_CHAINS_BOUND or not err <= 1e-4:
-        _fail("nipt_bank disagrees with its plain version")
-    row = _row("nipt_bank", "nipt_bank.cu", "gibbs.py:502", err,
-               _median_ms(lambda: nb.bank_scan(*args), 5),
-               _median_ms(lambda: nb.bank_scan_plain(*args), 1),
-               _nbytes(*args[:7], got_c, got_p), 6 * 9 * G * B * K)
+    forms = {"new": {}, "previous form": dict(_prev=True)}
+    err = 0.0
+    for label, form in forms.items():
+        got_c, got_p = nb.bank_scan(*args, **form)
+        again = nb.bank_scan(*args, **form)
+        torch.cuda.synchronize()
+        # a uniform within rounding of a cumulative probability may draw the
+        # neighbouring relabelling, and that chain's bank then differs for good
+        same = (got_c == ref_c).all(dim=0)                               # [B]
+        parted = 1.0 - int(same.sum()) / B
+        e = (got_p - ref_p)[:, same].abs().max().item()
+        equal = torch.equal(got_c, again[0]) and torch.equal(got_p, again[1])
+        print(f"nipt_bank, {label}: {int(same.sum())}/{B} chains draw the same {n_ends} "
+              f"relabellings ({100 * parted:.1f}% part, bound {100 * PARTED_CHAINS_BOUND:.0f}%; "
+              f"drawn: {torch.bincount(got_c[is_end != 0].long(), minlength=6).tolist()}), max "
+              f"|probability err| {e:.3e} (tolerance atol 1e-4), two launches equal bit for "
+              f"bit: {equal}", flush=True)
+        if parted > PARTED_CHAINS_BOUND or not e <= 1e-4 or not equal:
+            _fail(f"nipt_bank ({label}) disagrees with its plain version")
+        if label == "new":
+            err = e
+    last_only = torch.zeros_like(is_end)
+    last_only[G - 1] = 1
+    args_last = args[:5] + (last_only,) + args[6:]
+    planes = nb._prev_planes(lemg, args[1], K_real)
+    timed = {label: (lambda f=form: nb.bank_scan(*args, **f)) for label, form in forms.items()}
+    timed["previous kernel alone"] = lambda: nb._prev_bank_scan(*planes, *args[2:])
+    timed["no block end but the last"] = lambda: nb.bank_scan(*args_last)
+    t = _alternating_ms(timed)
+    del planes
+    steps = 20000
+    floor_ns = _median_ms(lambda: nb.bank_floor(steps, B, "cuda"), 3) * 1e6 / steps
+    new_ms = t["new"]
+    print("nipt_bank, timed in turn (4 rounds of 7; the previous form's route builds its two "
+          "planes, its kernel alone reads them built beforehand): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
+    print(f"bank step split at {B} chains x K={K} x {G} grids (this run): nipt_bank "
+          f"{1e3 * new_ms / G:.2f} us a grid step (previous kernel "
+          f"{1e3 * t['previous kernel alone'] / G:.2f}); floor of one step's reduction (16 "
+          f"slots, a record a warp, one barrier, 128 threads) {floor_ns:.1f} ns = "
+          f"{G * floor_ns / 1e6:.3f} ms a call; block ends ({n_ends}, "
+          f"~{n_ends / B:.1f} a chain): {new_ms - t['no block end but the last']:.3f} ms "
+          f"({100 * (1 - t['no block end but the last'] / new_ms):.1f}%); ptxas: "
+          + "; ".join(PTXAS.get("nipt_bank_kernel", ["not reported"])
+                      + PTXAS.get("nipt_bank_general_kernel", [])), flush=True)
+    time_bank_forms(G, B)
+    # what this run's data needs: lemg's real haplotypes once; beta's real
+    # haplotypes, the class-count terms and the uniform only where a chain's
+    # block ends; the transitions, the block ends, the mask and the outputs
+    # whole. Operations: ~54 a (grid, chain, real haplotype).
+    end_bytes = n_ends * (3 * K_real + 6 + 1) * 4
+    nbytes = (G * 3 * B * K_real * 4 + end_bytes
+              + _nbytes(args[2], is_end, args[6], ref_c, ref_p))
+    row = _row("nipt_bank", "nipt_bank.cu", "gibbs.py:502", err, new_ms,
+               _median_ms(lambda: nb.bank_scan_plain(*args), 1), nbytes,
+               6 * 9 * G * B * K_real)
+    row["previous_form_ms"] = t["previous form"]
+    row["previous_kernel_ms"] = t["previous kernel alone"]
     return row
 
 
@@ -693,10 +790,47 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
           f"1e-5, loglik rtol 1e-5 + atol 1e-2)", flush=True)
     if not ok:
         _fail("fb_fwd_tiled disagrees with its plain version")
-    rows.append(_row("fb_fwd_tiled", "fb_tiled.cu", "fb_pallas.py:439", (ck - ck_r).abs().max().item(),
-                     _median_ms(lambda: fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt), 5),
-                     _median_ms(lambda: fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt), 1),
-                     _nbytes(dl, words, trans2, mx, ck, S, lg), 40 * cells))
+    # the forward timed in turn with its previous form (alpha in a global
+    # row, three barriers a step) and its general form, beside the floor of
+    # its exchange (the "tiled forward step split" line); the two forms give
+    # the same bits
+    cpt_f = fbk._fwd_tiled_cpt(kt)
+    fwd = lambda **v: (lambda: fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt, **v))
+    fwd_forms = {"new": {}, "general form": dict(_general=True)}
+    for label, form in fwd_forms.items():
+        other = fwd(**form)()
+        if not all(torch.equal(a, b) for a, b in zip(other, (ck, S, lg))):
+            _fail(f"fb_fwd_tiled ({label}) differs from the default form")
+    old_f = fwd(_prev=True)()
+    if not (torch.allclose(old_f[0], ck, rtol=1e-5, atol=1e-30)
+            and torch.allclose(old_f[1], S, rtol=1e-5, atol=0)):
+        _fail("the previous tiled forward disagrees with the new one")
+    t_fwd = _alternating_ms({**{k: fwd(**v) for k, v in fwd_forms.items()},
+                             "previous form": fwd(_prev=True)})
+    # and at the other split of the two that fb_plan weighs at this shape
+    kt2 = fb.K_pad // (4 if splits == 8 else 8)
+    fwd2 = lambda **v: (lambda: fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt2, **v))
+    t_fwd2 = _alternating_ms({"new": fwd2(), "previous form": fwd2(_prev=True)})
+    steps = 5000
+    ffloor_us = _median_ms(lambda: fbk.tiled_chain_floor(steps, B, splits, "cuda", fwd=True),
+                           3) * 1e3 / steps
+    print(f"fb_fwd_tiled ({cpt_f} haplotypes a thread in registers), "
+          f"timed in turn over a whole FB call: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t_fwd.items())
+          + f"; at {fb.K_pad // kt2} blocks a row ({fbk._fwd_tiled_cpt(kt2)} a thread): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t_fwd2.items()), flush=True)
+    print(f"tiled forward step split at {B} rows x {kt} haplotypes a block (this run): "
+          f"fb_fwd_tiled {1e3 * t_fwd['new'] / Gp:.2f} us a grid (previous form "
+          f"{1e3 * t_fwd['previous form'] / Gp:.2f}), forward exchange floor {ffloor_us:.2f} us "
+          f"a step (each warp's sum posted, one cluster barrier, the {splits} x 16 posts read) = "
+          f"{Gp * ffloor_us / 1e3:.3f} ms a call; ptxas: "
+          + "; ".join(PTXAS.get("fb_fwd_tiled_kernel", ["not reported"])), flush=True)
+    row = _row("fb_fwd_tiled", "fb_tiled.cu", "fb_pallas.py:439", (ck - ck_r).abs().max().item(),
+               t_fwd["new"],
+               _median_ms(lambda: fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt), 1),
+               _nbytes(dl, words, trans2, mx, ck, S, lg), 40 * cells)
+    row["previous_form_ms"] = t_fwd["previous form"]
+    rows.append(row)
 
     bargs = (dl, words, ck, trans2, thin, mx, S, fb.K, K_top, eps, kt)
     got = fbk.fb_backward_tiled(*bargs)
@@ -1321,7 +1455,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-                _note_ptxas(entry, line)
+                _note_ptxas(name, entry, line)
             elif "Compiling entry function" in line:
                 # the mangled name carries the template arguments (threads,
                 # columns a thread, ..., NL) of the instantiation
@@ -1337,8 +1471,10 @@ def main():
     capture = fb.BWD_CAPTURE_KERNEL
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
     kernels = [gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + tiled   # the order of rows
-    # the previous tiled backward (timings only) must launch on no path
-    prev_tiled = [fb._PREV_REMAT_TILED, fb._PREV_BWD_TILED]
+    # the previous forms of the redesigned kernels (timings only) must launch
+    # on no path
+    prev_tiled = [fb._PREV_REMAT_TILED, fb._PREV_BWD_TILED, fb._PREV_FWD_TILED,
+                  nipt_bank._PREV_BANK_KERNEL]
     counted = kernels + prev_tiled
     rows, launches = [], {}
 
@@ -1420,7 +1556,7 @@ def main():
     stale = {path: {k.name: l[k.name] for k in prev_tiled if l[k.name]}
              for path, l in launches.items()}
     if any(stale.values()):
-        _fail(f"a path launched the previous tiled backward: {stale}")
+        _fail(f"a path launched a previous form of a redesigned kernel: {stale}")
     print(smi)
     if phases != set(PHASES):
         print(f"partial run (phases {sorted(phases)}): no result line")

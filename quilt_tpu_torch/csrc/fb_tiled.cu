@@ -40,6 +40,27 @@
 // The split cuts the per-step work of a block by the cluster size and
 // spreads few rows over many SMs; the chain's latency stays.
 //
+// Design of the forward (the previous form, fb_tiled_prev.cu, kept alpha
+// in a global row and took three barriers a step):
+//   * Alpha in registers for up to CPT = 20 haplotypes a thread (the
+//     backward's instantiations), the general form (CPT = 0) in the row's
+//     scratch plane above; the checkpoint is written from the registers.
+//   * Operands ahead of the chain: a grid's emissions (panel words, table
+//     lookups, exp) do not depend on S, so the register forms compute the
+//     next grid's between their arrival at the cluster barrier and their
+//     wait on it, hiding the exchange; a chunk's log-ratios, maxima, stay
+//     and jump/K are loaded a chunk ahead (one value a thread) and staged in
+//     shared memory with its emission tables.
+//   * One barrier a step: each warp posts its shuffle sum (NWARP floats a
+//     block, double-buffered by step parity), one cluster barrier, then
+//     every warp reads the NS x NWARP posts over distributed shared memory,
+//     a few a lane, and adds them in a fixed order, so S is the same in
+//     every block and every run.
+//   * The pad haplotypes of a ragged row take no step: a thread steps only
+//     its columns below K (a per-thread count), and theirs stay 0.
+//   * One step routine (alpha_step) and the nibble tables, as the rebuild:
+//     the backward's rebuilt alphas equal the forward's bit for bit.
+//
 // Design of the backward (one launch an FB call; the previous form,
 // fb_tiled_prev.cu, launched a remat and a backward kernel per chunk):
 //   * Every chunk in one launch. Each block walks the chunks from last to
@@ -142,56 +163,6 @@ __global__ void __launch_bounds__(NT) fb_max_tiled_kernel(
   }
 }
 
-// ---- forward. Grid (splits, B), cluster (splits, 1, 1). The row's alpha
-// lives in the global scratch row, each thread at its own columns.
-__global__ void __launch_bounds__(NT) fb_fwd_tiled_kernel(
-    const int* __restrict__ words, const float* __restrict__ dl,
-    const float* __restrict__ trans2, const float* __restrict__ mx,
-    float* __restrict__ ckpt, float* __restrict__ ssum,
-    float* __restrict__ logs, float* __restrict__ scratch, int Gp, int K,
-    int K_pad, int B, int CG, int KS, float invK) {
-  cg::cluster_group cluster = cg::this_cluster();
-  __shared__ float dls_s[MAX_CG * 32];
-  __shared__ float em[MAX_CG * EMF];
-  __shared__ float red[NWARP];
-  __shared__ float part[2];
-  const int b = blockIdx.y;
-  const unsigned rank = cluster.block_rank(), NS = cluster.num_blocks();
-  const int k0 = rank * KS, k1 = k0 + KS;
-  const float* dlr = dl + (size_t)b * Gp * 32;
-  float* alpha = scratch + (size_t)b * K_pad;
-  for (int k = k0 + threadIdx.x; k < k1; k += NT) alpha[k] = 0.f;
-  float acc = 0.f, inv_sprev = 1.f;
-  for (int g = 0; g < Gp; ++g) {
-    const int j = g % CG;
-    if (j == 0) {
-      float* c = ckpt + ((size_t)(g / CG) * B + b) * K_pad;
-      for (int k = k0 + threadIdx.x; k < k1; k += NT) c[k] = alpha[k];
-      stage_chunk(dlr, g, CG, dls_s, em);
-    }
-    const float mxg = mx[(size_t)g * B + b];
-    const float stay = trans2[g], jumpK = trans2[Gp + g] * invK;
-    const int* wg = words + (size_t)g * K_pad;
-    float s = 0.f;
-    for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-      const float x = (k < K) ? logit((unsigned)wg[k], em, j) : NEG;
-      const float a = alpha_step(alpha[k], inv_sprev, stay, jumpK, expf(x - mxg));
-      alpha[k] = a;
-      s += a;
-    }
-    s = block_reduce(s, red, SumOp());
-    if (threadIdx.x == 0) part[g & 1] = s;
-    cluster.sync();
-    float tot = 0.f;
-    for (unsigned q = 0; q < NS; ++q) tot += *cluster.map_shared_rank(&part[g & 1], q);
-    inv_sprev = 1.f / tot;
-    acc = acc + logf(tot) + mxg;
-    if (rank == 0 && threadIdx.x == 0) ssum[(size_t)g * B + b] = tot;
-  }
-  cluster.sync();   // no block leaves while its partial may still be read
-  if (rank == 0 && threadIdx.x == 0) logs[b] = acc;
-}
-
 // ---------------------------------------------------------------------------
 // the backward: rebuild + reverse sweep of every chunk, one launch
 // ---------------------------------------------------------------------------
@@ -235,6 +206,144 @@ __device__ __forceinline__ unsigned word_at(Cols<CPT, unsigned>& w, int c,
                                             const int* __restrict__ wb, int g, int K_pad) {
   if constexpr (CPT > 0) return w[c];
   else return (unsigned)__ldg(wb + (size_t)g * K_pad + threadIdx.x + c * NT);
+}
+
+// The cluster barrier split in two: what a thread does between its arrival
+// and its wait overlaps the other blocks' arrival (writes before the arrive
+// are visible to reads after the wait).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// ---- forward. Grid (splits, B), cluster (splits, 1, 1). Block `rank` of
+// row b owns the haplotypes k0 = rank*KS .. k0+KS-1, thread t the local
+// columns t + c*NT; their alphas in registers (CPT > 0) or, in the general
+// form, in the row's scratch plane. Two blocks an SM (<= 64 registers a
+// thread) up to 16 haplotypes a thread: at 8 blocks a row, 28 rows make one
+// wave (3.068 ms an FB call against 4.040 at one block an SM, 28 x 40,960,
+// measured before the split barrier, PERF.md; at 16 a thread the alphas,
+// emissions and words then spill 92 B); 20 haplotypes a thread need one.
+template <int CPT>
+__global__ void __launch_bounds__(NT, CPT == 20 ? 1 : 2) fb_fwd_tiled_kernel(
+    const int* __restrict__ words, const float* __restrict__ dl,
+    const float* __restrict__ trans2, const float* __restrict__ mx,
+    float* __restrict__ ckpt, float* __restrict__ ssum, float* __restrict__ logs,
+    float* __restrict__ scratch, int Gp, int K, int K_pad, int B, int CG, int KS,
+    float invK) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float dls_s[MAX_CG * 32];
+  __shared__ float em[MAX_CG * EMF];
+  __shared__ float sc[3 * MAX_CG];          // the chunk's maxima, stay, jump/K
+  __shared__ float post[2][NWARP];          // the warps' sums, by step parity
+  const int b = blockIdx.y;
+  const unsigned rank = cluster.block_rank();
+  const int NS = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = rank * KS;
+  const int nc = ncols<CPT>(KS);
+  // the thread's real haplotypes: its local columns below min(KS, K - k0);
+  // the pad columns keep alpha 0 and take no step
+  const int kr = min(KS, K - k0) - tid;
+  const int nreal = kr > 0 ? (kr + NT - 1) / NT : 0;
+  const float* dlr = dl + (size_t)b * Gp * 32;
+  const int* wb = words + k0 + tid;
+  Cols<CPT> alpha;
+  // register forms: e of the next step's grid, and the panel words of the
+  // grid after it (loaded a step ahead of their use)
+  float e[CPT > 0 ? CPT : 1];
+  unsigned w[CPT > 0 ? CPT : 1];
+  if constexpr (CPT == 0) alpha.p = scratch + (size_t)b * K_pad + k0;
+#pragma unroll
+  for (int c = 0; c < nc; ++c)
+    if (tid + c * NT < KS) alpha[c] = 0.f;
+  // the emissions exp(logit - max) of a grid (chunk slot j) at the thread's
+  // real columns; they do not depend on S, so the register forms compute
+  // the next grid's while the cluster barrier is pending
+  auto emission = [&](unsigned word, int j) { return expf(logit(word, em, j) - sc[j]); };
+  auto load_next = [&](int g) {
+    if constexpr (CPT > 0) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        if (c < nreal && g < Gp) w[c] = (unsigned)__ldg(wb + (size_t)g * K_pad + c * NT);
+    }
+  };
+  auto emit_next = [&](int j) {       // e of the grid whose words w holds
+    if constexpr (CPT > 0) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        if (c < nreal) e[c] = emission(w[c], j);
+    }
+  };
+  load_next(0);
+  // a chunk's log-ratios and scalars, one value a thread, loaded a chunk ahead
+  auto chunk_operands = [&](int g0, float& d, float& x) {
+    d = tid < CG * 32 ? __ldg(dlr + (size_t)g0 * 32 + tid) : 0.f;
+    const int i = tid % CG, which = tid / CG;
+    x = which == 0 ? __ldg(mx + (size_t)(g0 + i) * B + b)
+        : which == 1 ? __ldg(trans2 + g0 + i)
+        : which == 2 ? __ldg(trans2 + Gp + g0 + i) * invK : 0.f;
+  };
+  float pre_d, pre_x;
+  chunk_operands(0, pre_d, pre_x);
+  float acc = 0.f, inv_sprev = 1.f;
+  for (int g = 0; g < Gp; ++g) {
+    const int j = g % CG;
+    if (j == 0) {
+      // the checkpoint: the raw alpha entering the chunk, from the thread's columns
+      float* ck = ckpt + ((size_t)(g / CG) * B + b) * K_pad + k0;
+#pragma unroll
+      for (int c = 0; c < nc; ++c)
+        if (tid + c * NT < KS) ck[tid + c * NT] = alpha[c];
+      // stage the chunk (every read of the previous chunk's tables and
+      // scalars came before the last cluster barrier), then fetch the next
+      if (tid < CG * 32) dls_s[tid] = pre_d;
+      if (tid < 3 * CG) sc[tid] = pre_x;
+      __syncthreads();
+      for (int x = tid; x < CG * EMF; x += NT)
+        em[x] = nibble_sum(x & 15, dls_s + (x >> 7) * 32 + ((x >> 4) & 7) * 4);
+      __syncthreads();
+      if (g + CG < Gp) chunk_operands(g + CG, pre_d, pre_x);
+      emit_next(0);
+      load_next(g + 1);
+    }
+    const float m = sc[j], st = sc[CG + j], jk = sc[2 * CG + j];
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      if (c < nreal) {
+        float ec;
+        if constexpr (CPT > 0) ec = e[c];
+        else ec = emission((unsigned)__ldg(wb + (size_t)g * K_pad + c * NT), j);
+        const float a = alpha_step(alpha[c], inv_sprev, st, jk, ec);
+        alpha[c] = a;
+        s += a;
+      }
+    }
+    // one exchange a step: each warp posts its sum, one cluster barrier,
+    // then every warp adds the cluster's NS x NWARP posts in a fixed order
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    if (lane == 0) post[g & 1][warp] = s;
+    cluster_arrive();
+    if (j + 1 < CG && g + 1 < Gp) {   // else the next chunk's first step, after staging
+      emit_next(j + 1);
+      load_next(g + 2);
+    }
+    cluster_wait();
+    float tot = 0.f;
+    for (int q = lane; q < NS * NWARP; q += 32)
+      tot += *cluster.map_shared_rank(&post[g & 1][q % NWARP], q / NWARP);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(FULL, tot, o);
+    inv_sprev = 1.f / tot;
+    acc = acc + logf(tot) + m;
+    if (rank == 0 && tid == 0) ssum[(size_t)g * B + b] = tot;
+  }
+  cluster.sync();   // no block leaves while its posts may still be read
+  if (rank == 0 && tid == 0) logs[b] = acc;
 }
 
 // The lane's best entry of plane v among its columns (ascending, so the
@@ -524,9 +633,12 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
   cluster.sync();   // no block leaves while its posts may still be read
 }
 
-// The cluster exchange's floor: `steps` reverse steps with no haplotype
-// work, each the 34-value block reduction, the post, the cluster barrier
-// and the reads of the NS posts, by NT threads a block.
+// The cluster exchange's floor: `steps` steps with no haplotype work by NT
+// threads a block. FWD: the forward's (each warp posts its shuffle sum, the
+// cluster barrier, every warp adds the NS x NWARP posts); else the reverse
+// step's (the 34-value block reduction, the post, the cluster barrier, the
+// reads of the NS posts).
+template <bool FWD>
 __global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int steps) {
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ float red[NWARP * RW];
@@ -535,32 +647,46 @@ __global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int s
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc = 0.f;
   for (int i = 0; i < steps; ++i) {
-    float D[32], sab = acc + 1.f, se = acc;
-#pragma unroll
-    for (int t = 0; t < 32; ++t) D[t] = acc + t;
-    warp_transpose_sum(D);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sab += __shfl_xor_sync(FULL, sab, o);
-      se += __shfl_xor_sync(FULL, se, o);
-    }
-    red[warp * RW + lane] = D[0];
-    if (lane == 0) {
-      red[warp * RW + 32] = sab;
-      red[warp * RW + 33] = se;
-    }
     float* mine = posts + (i & 1) * RW;
-    __syncthreads();
-    if (threadIdx.x < RW) {
-      float v = red[threadIdx.x];
+    if constexpr (FWD) {
+      float s = acc + 1.f;
 #pragma unroll
-      for (int q = 1; q < NWARP; ++q) v += red[q * RW + threadIdx.x];
-      mine[threadIdx.x] = v;
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+      if (lane == 0) mine[warp] = s;
+      cluster.sync();
+      float tot = 0.f;
+      for (int q = lane; q < NS * NWARP; q += 32)
+        tot += *cluster.map_shared_rank(mine + q % NWARP, q / NWARP);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(FULL, tot, o);
+      acc = tot * 1e-9f;
+    } else {
+      float D[32], sab = acc + 1.f, se = acc;
+#pragma unroll
+      for (int t = 0; t < 32; ++t) D[t] = acc + t;
+      warp_transpose_sum(D);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sab += __shfl_xor_sync(FULL, sab, o);
+        se += __shfl_xor_sync(FULL, se, o);
+      }
+      red[warp * RW + lane] = D[0];
+      if (lane == 0) {
+        red[warp * RW + 32] = sab;
+        red[warp * RW + 33] = se;
+      }
+      __syncthreads();
+      if (threadIdx.x < RW) {
+        float v = red[threadIdx.x];
+#pragma unroll
+        for (int q = 1; q < NWARP; ++q) v += red[q * RW + threadIdx.x];
+        mine[threadIdx.x] = v;
+      }
+      cluster.sync();
+      float e = 0.f;
+      for (int q = 0; q < NS; ++q) e += cluster.map_shared_rank(mine, q)[33];
+      acc = e * 1e-9f;
     }
-    cluster.sync();
-    float e = 0.f;
-    for (int q = 0; q < NS; ++q) e += cluster.map_shared_rank(mine, q)[33];
-    acc = e * 1e-9f;
   }
   cluster.sync();
   if (threadIdx.x == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = acc;
@@ -634,19 +760,32 @@ extern "C" int fb_max_tiled(const void* words, const void* dl, void* mx,
   return (int)cudaGetLastError();
 }
 
-extern "C" int fb_forward_tiled(const void* words, const void* dl,
-                                const void* trans2, const void* mx,
-                                void* ckpt, void* ssum, void* logs,
-                                void* scratch, int Gp, int K, int K_pad,
-                                int B, int CG, int splits, float invK,
-                                void* stream) {
+// The forward of a whole FB call (checkpoint interval CG). cpt: haplotypes
+// a thread in registers (2, 4, 8, 16 or 20, at least K_pad / splits / NT)
+// or 0 for the general form, whose alphas live in the scratch row [B, K_pad]
+// (unread otherwise). Returns cudaErrorInvalidValue for a split, interval or
+// form without an instantiation.
+extern "C" int fb_forward_tiled(const void* words, const void* dl, const void* trans2,
+                                const void* mx, void* ckpt, void* ssum, void* logs,
+                                void* scratch, int Gp, int K, int K_pad, int B, int CG,
+                                int splits, float invK, int cpt, void* stream) {
   const int KS = K_pad / (splits > 0 ? splits : 1);
-  if (bad_split(splits, K_pad, KS) || CG < 1 || CG > MAX_CG || Gp % CG) return ERR_INVALID;
-  return launch_cluster(
-      fb_fwd_tiled_kernel, splits, B, 0, (cudaStream_t)stream,
-      (const int*)words, (const float*)dl, (const float*)trans2,
-      (const float*)mx, (float*)ckpt, (float*)ssum, (float*)logs,
-      (float*)scratch, Gp, K, K_pad, B, CG, KS, invK);
+  if (bad_split(splits, K_pad, KS) || CG < 1 || CG > MAX_CG || Gp % CG || !cpt_ok(cpt, KS))
+    return ERR_INVALID;
+#define FWD(C)                                                                            \
+  launch_cluster(fb_fwd_tiled_kernel<C>, splits, B, 0, (cudaStream_t)stream,              \
+                 (const int*)words, (const float*)dl, (const float*)trans2,               \
+                 (const float*)mx, (float*)ckpt, (float*)ssum, (float*)logs,              \
+                 (float*)scratch, Gp, K, K_pad, B, CG, KS, invK)
+  switch (cpt) {
+    case 2: return FWD(2);
+    case 4: return FWD(4);
+    case 8: return FWD(8);
+    case 16: return FWD(16);
+    case 20: return FWD(20);
+    default: return FWD(0);
+  }
+#undef FWD
 }
 
 // The backward of a whole FB call from the forward's checkpoints (interval
@@ -691,8 +830,14 @@ extern "C" int fb_backward_tiled_smem_bytes(int CG, int KS, int K_top, int plane
   return 4 * bwd_smem_floats(CG, KS, K_top, planes != 0);
 }
 
-extern "C" int fb_tiled_chain_floor(void* out, int splits, int B, int steps, void* stream) {
+// `steps` exchange steps of the backward (fwd = 0) or the forward (fwd = 1)
+// on B clusters of `splits` blocks.
+extern "C" int fb_tiled_chain_floor(void* out, int splits, int B, int steps, int fwd,
+                                    void* stream) {
   if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1))) return ERR_INVALID;
-  return launch_cluster(fb_tiled_floor_kernel, splits, B, 0, (cudaStream_t)stream,
+  if (fwd)
+    return launch_cluster(fb_tiled_floor_kernel<true>, splits, B, 0, (cudaStream_t)stream,
+                          (float*)out, steps);
+  return launch_cluster(fb_tiled_floor_kernel<false>, splits, B, 0, (cudaStream_t)stream,
                         (float*)out, steps);
 }

@@ -1,14 +1,19 @@
-// The K-split FB backward as it was before its redesign in fb_tiled.cu: a
-// remat kernel and a backward kernel launched in turn on each chunk of CG
-// grids (2 x Gp/CG launches an FB call), the chunk's normalised alphas and
-// the e*beta carry passing through device memory, emissions by 32
-// bit-selects (fb_common.cuh emission_logit), three block reductions and a
-// top-K by K_top block-wide argmax rounds a reverse step. Kept beside the
-// redesign so that chip_smoke.py can time the two in turn on one card.
-// Measurement-only: the package reaches it only through the private
-// `_prev=True` of kernels/fb.py:fb_backward_tiled. Counterparts of
-// quilt_tpu/kernels/fb_pallas.py _remat_kernel_tiled and _bwd_kernel_tiled
-// + _merge_topk; fb_tiled.cu says what they compute.
+// The K-split FB kernels as they were before their redesign in
+// fb_tiled.cu, kept beside it so that chip_smoke.py can time each new form
+// in turn with its previous form on one card. Measurement-only: the package
+// reaches them only through the private `_prev=True` of kernels/fb.py's
+// fb_forward_tiled and fb_backward_tiled. fb_tiled.cu says what they compute.
+//   * the backward: a remat kernel and a backward kernel launched in turn on
+//     each chunk of CG grids (2 x Gp/CG launches an FB call), the chunk's
+//     normalised alphas and the e*beta carry passing through device memory,
+//     emissions by 32 bit-selects (fb_common.cuh emission_logit), three block
+//     reductions and a top-K by K_top block-wide argmax rounds a reverse
+//     step (counterparts of quilt_tpu/kernels/fb_pallas.py
+//     _remat_kernel_tiled and _bwd_kernel_tiled + _merge_topk);
+//   * the forward: the row's alpha in a global scratch row, each grid's
+//     words, maximum and transition terms loaded inside its step, a block
+//     reduction (two barriers) then the cluster exchange of one value a
+//     block (counterpart of fb_pallas.py _fwd_kernel_tiled).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -228,6 +233,58 @@ __global__ void __launch_bounds__(NT) fb_bwd_tiled_kernel(
   if (rank == 0 && threadIdx.x == 0) e_out[b] = e_prev;
 }
 
+// ---- the previous forward. Grid (splits, B), cluster (splits, 1, 1). The
+// row's alpha lives in the global scratch row, each thread at its own columns.
+constexpr int FWD_MAX_CG = 16;
+
+__global__ void __launch_bounds__(NT) fb_fwd_tiled_prev_kernel(
+    const int* __restrict__ words, const float* __restrict__ dl,
+    const float* __restrict__ trans2, const float* __restrict__ mx,
+    float* __restrict__ ckpt, float* __restrict__ ssum,
+    float* __restrict__ logs, float* __restrict__ scratch, int Gp, int K,
+    int K_pad, int B, int CG, int KS, float invK) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float dls_s[FWD_MAX_CG * 32];
+  __shared__ float em[FWD_MAX_CG * EMF];
+  __shared__ float red[NWARP];
+  __shared__ float part[2];
+  const int b = blockIdx.y;
+  const unsigned rank = cluster.block_rank(), NS = cluster.num_blocks();
+  const int k0 = rank * KS, k1 = k0 + KS;
+  const float* dlr = dl + (size_t)b * Gp * 32;
+  float* alpha = scratch + (size_t)b * K_pad;
+  for (int k = k0 + threadIdx.x; k < k1; k += NT) alpha[k] = 0.f;
+  float acc = 0.f, inv_sprev = 1.f;
+  for (int g = 0; g < Gp; ++g) {
+    const int j = g % CG;
+    if (j == 0) {
+      float* c = ckpt + ((size_t)(g / CG) * B + b) * K_pad;
+      for (int k = k0 + threadIdx.x; k < k1; k += NT) c[k] = alpha[k];
+      stage_chunk(dlr, g, CG, dls_s, em);
+    }
+    const float mxg = mx[(size_t)g * B + b];
+    const float stay = trans2[g], jumpK = trans2[Gp + g] * invK;
+    const int* wg = words + (size_t)g * K_pad;
+    float s = 0.f;
+    for (int k = k0 + threadIdx.x; k < k1; k += NT) {
+      const float x = (k < K) ? logit((unsigned)wg[k], em, j) : NEG;
+      const float a = alpha_step(alpha[k], inv_sprev, stay, jumpK, expf(x - mxg));
+      alpha[k] = a;
+      s += a;
+    }
+    s = block_reduce(s, red, SumOp());
+    if (threadIdx.x == 0) part[g & 1] = s;
+    cluster.sync();
+    float tot = 0.f;
+    for (unsigned q = 0; q < NS; ++q) tot += *cluster.map_shared_rank(&part[g & 1], q);
+    inv_sprev = 1.f / tot;
+    acc = acc + logf(tot) + mxg;
+    if (rank == 0 && threadIdx.x == 0) ssum[(size_t)g * B + b] = tot;
+  }
+  cluster.sync();   // no block leaves while its partial may still be read
+  if (rank == 0 && threadIdx.x == 0) logs[b] = acc;
+}
+
 // Launch on a grid (splits, B) whose x axis is one cluster per row.
 template <class... Params, class... Args>
 int launch_cluster(void (*kernel)(Params...), int splits, int B, cudaStream_t stream,
@@ -289,4 +346,17 @@ extern "C" int fb_backward_tiled_prev(const void* words, const void* dl,
       (const float*)eb_in, (const float*)e_in, (float*)dos, (float*)tv,
       (int*)ti, (float*)eb_out, (float*)e_out, (float*)work, Gp, K, K_pad, B,
       CG, ci, K_top, KS, invK, eps);
+}
+
+extern "C" int fb_forward_tiled_prev(const void* words, const void* dl, const void* trans2,
+                                     const void* mx, void* ckpt, void* ssum, void* logs,
+                                     void* scratch, int Gp, int K, int K_pad, int B, int CG,
+                                     int splits, float invK, void* stream) {
+  const int KS = K_pad / (splits > 0 ? splits : 1);
+  if (bad_split(splits, K_pad, KS) || CG < 1 || CG > FWD_MAX_CG || Gp % CG) return ERR_INVALID;
+  return launch_cluster(
+      fb_fwd_tiled_prev_kernel, splits, B, (cudaStream_t)stream,
+      (const int*)words, (const float*)dl, (const float*)trans2,
+      (const float*)mx, (float*)ckpt, (float*)ssum, (float*)logs,
+      (float*)scratch, Gp, K, K_pad, B, CG, KS, invK);
 }

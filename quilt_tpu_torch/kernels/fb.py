@@ -51,13 +51,15 @@ FLOOR_KERNEL = Kernel("fb", "fb_chain_floor", [_P] + [_I] * 3)
 _PREV_FWD = Kernel("fb_prev", "fb_forward_prev", [_P] * 6 + [_I] * 5 + [_F])
 _PREV_BWD = Kernel("fb_prev", "fb_backward_prev", [_P] * 11 + [_I] * 6 + [_F, _F])
 MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 5)
-FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F])
+FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F, _I])
 BWD_TILED_KERNEL = Kernel("fb_tiled", "fb_backward_tiled",
                           [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I])
-TILED_FLOOR_KERNEL = Kernel("fb_tiled", "fb_tiled_chain_floor", [_P] + [_I] * 3)
-# the tiled backward as it was before its redesign (csrc/fb_tiled_prev.cu:
-# a remat and a backward launch per chunk), for timing beside it only
-# (fb_backward_tiled with _prev=True)
+TILED_FLOOR_KERNEL = Kernel("fb_tiled", "fb_tiled_chain_floor", [_P] + [_I] * 4)
+# the tiled forward and backward as they were before their redesign
+# (csrc/fb_tiled_prev.cu: the forward's alpha in a global row; a remat and a
+# backward launch per chunk), for timing beside them only
+# (fb_forward_tiled / fb_backward_tiled with _prev=True)
+_PREV_FWD_TILED = Kernel("fb_tiled_prev", "fb_forward_tiled_prev", [_P] * 8 + [_I] * 6 + [_F])
 _PREV_REMAT_TILED = Kernel("fb_tiled_prev", "fb_remat_tiled_prev", [_P] * 7 + [_I] * 7 + [_F])
 _PREV_BWD_TILED = Kernel("fb_tiled_prev", "fb_backward_tiled_prev",
                          [_P] * 14 + [_I] * 8 + [_F, _F])
@@ -75,12 +77,15 @@ _CALL_BYTES = 4 << 30
 # against 8.459 ms at 28 rows x 40,960) and, for a fused row wider than
 # _TILED_MIN_K, _FUSED_WIDE_COST (measured 1.2 at 8,192 to 1.9 at 40,960).
 # Below _TILED_MIN_K nothing is split (unmeasured), nor to fewer than
-# _MIN_K_PER_SPLIT haplotypes a block. Any overhead in 1,664-2,048 and wide
-# cost in 1.3-2.0 reproduce every measured choice.
+# _MIN_K_PER_SPLIT haplotypes a block. Refitted after the tiled forward's
+# redesign (its alpha in registers made 4 blocks a row beat 8 at 28 x
+# 40,960, and 2 beat 4 at 56 x 20,480): any overhead in 2,240-2,496, wide
+# cost in 1.4-2.5 and general-form cost in 1.2-2.0 reproduce every measured
+# choice.
 _N_SM = 132
 _TILED_MIN_K = 5120
 _MIN_K_PER_SPLIT = 1024
-_BLOCK_OVERHEAD_K = 1792
+_BLOCK_OVERHEAD_K = 2368
 _GENERAL_FORM_COST = 1.4
 _FUSED_WIDE_COST = 1.5
 
@@ -437,6 +442,13 @@ def _tiled_storage(CG, KS, K_top, general=False):
     return smem, 0 if (general or not smem) else cpt
 
 
+def _fwd_tiled_cpt(KS, general=False):
+    """Haplotypes a thread of the tiled forward holds in registers at KS
+    haplotypes a block (the backward's register instantiations), or 0 for
+    the general form, whose alphas live in a global plane a row."""
+    return 0 if general else next((c for c in _TILED_CPTS if c * _NT >= KS), 0)
+
+
 def _tiled_scratch_planes(CG, KS, K_top, general=False):
     """Global planes of K_pad floats a row of the tiled backward: the
     general form's e*beta plane, and the chunk's alphas where they do not
@@ -447,10 +459,12 @@ def _tiled_scratch_planes(CG, KS, K_top, general=False):
 
 def _tiled_planes(K_pad, Gp, splits):
     """Planes of K_pad floats a row of one tiled FB call: the checkpoints,
-    the forward's alpha plane and the backward's scratch planes."""
+    the forward's alpha plane (general form only) and the backward's
+    scratch planes."""
     KS = K_pad // splits
     cg = tiled_cg(KS, Gp)
-    return Gp // cg + 1 + _tiled_scratch_planes(cg, KS, _KTOP_RESERVE)
+    return (Gp // cg + (1 if _fwd_tiled_cpt(KS) == 0 else 0)
+            + _tiled_scratch_planes(cg, KS, _KTOP_RESERVE))
 
 
 def _splits(K_pad, k_tile):
@@ -483,14 +497,18 @@ def fb_max_tiled(dl, words, K, k_tile):
     return mx
 
 
-def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=None):
+def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=None, _prev=False, _general=False):
     """Forward pass against the pre-computed emission maxima mx [Gp, B]; CG
     the checkpoint interval (default tiled_cg). Returns (ckpt [Gp/CG, B,
     K_pad], S [Gp, B], logs [B]): checkpoint c is the UNNORMALISED alpha
     entering chunk c (zeros for c = 0; the Pallas kernel's block c held the
     alpha entering chunk c+1), S[g] = sum_k of the unnormalised alpha of
     grid g, which normalises it, and logs the log-likelihood sum_g (log S[g]
-    + mx[g]) without the per-row constant."""
+    + mx[g]) without the per-row constant. One kernel launch on the card,
+    its alphas in registers (_fwd_tiled_cpt) or, above 20 haplotypes a
+    thread, in a global plane a row.
+    Private, tests and timings only: _prev launches the previous form
+    (csrc/fb_tiled_prev.cu); _general forces the general form."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
     dev = dl.device
@@ -500,14 +518,20 @@ def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=None):
     _check(mx, "mx", torch.float32, (Gp, B), dev)
     if dev.type == "cpu":
         return fb_forward_tiled_plain(dl, words, trans2, mx, K, k_tile, CG)
+    splits = _splits(K_pad, k_tile)
     ckpt = torch.empty((Gp // CG, B, K_pad), dtype=torch.float32, device=dev)
     S = torch.empty((Gp, B), dtype=torch.float32, device=dev)
     logs = torch.empty((B,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((B, K_pad), dtype=torch.float32, device=dev)
-    FWD_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), trans2.data_ptr(),
-                            mx.data_ptr(), ckpt.data_ptr(), S.data_ptr(),
-                            logs.data_ptr(), scratch.data_ptr(), Gp, K, K_pad, B, CG,
-                            _splits(K_pad, k_tile), 1.0 / K)
+    cpt = _fwd_tiled_cpt(k_tile, _general)
+    general = _prev or cpt == 0
+    scratch = torch.empty((B, K_pad) if general else (1,), dtype=torch.float32, device=dev)
+    args = (words.data_ptr(), dl.data_ptr(), trans2.data_ptr(), mx.data_ptr(), ckpt.data_ptr(),
+            S.data_ptr(), logs.data_ptr(), scratch.data_ptr(), Gp, K, K_pad, B, CG, splits,
+            1.0 / K)
+    if _prev:
+        _PREV_FWD_TILED.launch(*args)
+    else:
+        FWD_TILED_KERNEL.launch(*args, cpt)
     return ckpt, S, logs
 
 
@@ -590,15 +614,17 @@ def _backward_tiled_prev(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps, sp
     return dos, tv, ti
 
 
-def tiled_chain_floor(steps: int, B: int, splits: int, device) -> torch.Tensor:
-    """Launches `steps` reverse steps of the tiled backward with no
-    haplotype work (the 34-value block reduction, the post, the cluster
-    barrier and the reads of the posts) on B clusters of `splits` blocks:
-    timed, it gives the least a step of that kernel can take on the card."""
+def tiled_chain_floor(steps: int, B: int, splits: int, device, fwd=False) -> torch.Tensor:
+    """Launches `steps` steps of the tiled backward (fwd False: the 34-value
+    block reduction, the post, the cluster barrier and the reads of the
+    posts) or of the tiled forward (fwd True: each warp's shuffle sum
+    posted, the cluster barrier, the NS x 16 posts read by every warp), with
+    no haplotype work, on B clusters of `splits` blocks: timed, it gives the
+    least a step of that kernel can take on the card."""
     if torch.device(device).type != "cuda":
         raise ValueError("tiled_chain_floor times the card and needs a CUDA device")
     out = torch.empty((B, splits), dtype=torch.float32, device=device)
-    TILED_FLOOR_KERNEL.launch(out.data_ptr(), splits, B, steps)
+    TILED_FLOOR_KERNEL.launch(out.data_ptr(), splits, B, steps, int(fwd))
     return out
 
 
@@ -818,17 +844,17 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     row, fused: Gp/CG checkpoints at CG = fused_cg, and the backward's
     global planes, none where its state and alphas fit the SM (K_pad <=
     8,192), else 4 state planes + CG alphas where those do not fit shared
-    memory; tiled: Gp/CG checkpoints at CG = tiled_cg, the forward's alpha
-    plane and the backward's scratch planes, _tiled_planes). Of the fused
+    memory; tiled: Gp/CG checkpoints at CG = tiled_cg, the general forward's
+    alpha plane and the backward's scratch planes, _tiled_planes). Of the fused
     family and the splits of 2, 4 and 8 blocks a row, the plan takes the
     least cost (_plan_cost) over all the core calls of B rows. Measured on
     the H100 (512 grids, 14 to 200 rows x K = 5,120 .. 40,960, chip_smoke.py's
-    "fb_plan timing" lines): this takes the fastest choice at every shape
-    but 14 x 5,120 (4 blocks 4.47 ms, 8 blocks of 640 haplotypes 4.45), e.g.
-    fused at 84 and 112 x 5,120 (7.75 / 7.61 against 10.13 / 10.50 for 2
-    blocks), 2 blocks at 200 x 8,192 (27.27 against 28.76 fused), 4 at 112
-    x 40,960 (56.43 against 100.50 for 2 blocks, whose interval-2
-    checkpoints take two calls).
+    "fb_plan timing" lines, tabulated in PERF.md §6 "fb_plan"): this takes
+    the fastest choice at every timed shape, e.g. fused at 84 and 112 x
+    5,120 (7.55 / 7.47 ms against 9.53 / 9.81 for 2 blocks), 2 blocks at
+    200 x 8,192 (24.65 against 29.02 fused), 4 at 28 x 40,960 (13.48
+    against 16.28 for 8) and at 112 x 40,960 (52.25 against 100.65 for 2
+    blocks, whose interval-2 checkpoints take two calls).
     A call that captures gamma (`capture`) is fused: only the fused
     backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""

@@ -342,14 +342,13 @@ def nipt_block_within(lemg, beta, H_pad, Hc_pad, valid, lem_pad, slots, first_co
 
     bnd_rb [NB, B] per-row suffix starts (0 = pad); block_u_it [NB, 3, B].
     Returns (lemg, beta, alphas, H_pad, Hc_pad)."""
-    G, BN, K = lemg.shape
+    G, BN = lemg.shape[:2]
     B = BN // 3
     NB = bnd_rb.shape[0]
     dev = lemg.device
     f32 = torch.float32
     perms_t, invs_t, clsperm_t = _perm_tables(dev)
     rows_b = torch.arange(B, device=dev)
-    km = torch.arange(K, device=dev) < K_real
     # block topology per row from the suffix starts (pads -> G)
     bb = torch.sort(torch.where(bnd_rb > 0, bnd_rb, G).long(), dim=0).values      # [NB, B]
     gidx = torch.arange(G, device=dev)
@@ -367,11 +366,8 @@ def nipt_block_within(lemg, beta, H_pad, Hc_pad, valid, lem_pad, slots, first_co
     # per-block uniforms: slot [j, 0] for block j < NB, slot [NB-1, 1] for the last
     u_blocks = torch.cat([block_u_it[:, 0], block_u_it[NB - 1:NB, 1]], 0)          # [NB+1, B]
     u_g = u_blocks[block_of_g.clamp(max=NB), rows_b[None, :]].contiguous()         # [G, B]
-    kmf = km.to(f32)
-    e_all = torch.exp(lemg - torch.where(km, lemg, -torch.inf).amax(2, keepdim=True)) * kmf
-    chosen_g, _ = bank_scan(e_all, beta * kmf, trans, ht, u_g, is_end.to(torch.int32),
-                            perm_mask, K_real)
-    del e_all
+    chosen_g, _ = bank_scan(lemg.contiguous(), beta.contiguous(), trans, ht, u_g,
+                            is_end.to(torch.int32), perm_mask, K_real)
     # a grid's relabelling is the one drawn at its block's end grid
     bnd_next = bb.gather(0, block_of_g.clamp(max=NB - 1))
     ends_g = torch.where(block_of_g < NB, bnd_next - 1, G - 1)

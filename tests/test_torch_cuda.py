@@ -349,7 +349,7 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     dl, _ = fbk._gl_log_ratios(gl, 0.001)
     kt = fb.K_pad // splits
     kernels = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.BWD_TILED_KERNEL,
-               fbk._PREV_REMAT_TILED, fbk._PREV_BWD_TILED]
+               fbk._PREV_REMAT_TILED, fbk._PREV_BWD_TILED, fbk._PREV_FWD_TILED]
     for k in kernels:
         k.launches = 0
     mx = fbk.fb_max_tiled(dl, words, K, kt)
@@ -362,7 +362,7 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     got = fbk.fb_backward_tiled(dl, words, ck, trans2, thin, mx, S, K, 8, 0.001, kt)
     ref = fbk.fb_backward_tiled_plain(dl, words, ck, trans2, thin, mx, S, K, 8, 0.001, kt)
     _assert_tiled_backward(got, ref, thin)
-    assert [k.launches for k in kernels] == [1, 1, 1, 0, 0]
+    assert [k.launches for k in kernels] == [1, 1, 1, 0, 0, 0]
     args = (gl, words, trans2, thin, K, 8, 0.001)
     tiled = fbk.fb_tiled_core(*args, k_tile=kt)
     fused = fbk.fb_core(*args)
@@ -376,7 +376,7 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     assert all(torch.equal(a, b) for a, b in zip(tiled, again))
     forced = fbk.fb_full_batched(gl, fb, K_top=8, family="tiled", splits=splits)
     assert all(torch.equal(a, b) for a, b in zip(tiled, forced))
-    assert [k.launches for k in kernels] == [4, 4, 4, 0, 0]
+    assert [k.launches for k in kernels] == [4, 4, 4, 0, 0, 0]
 
 
 def _assert_tiled_backward(got, ref, thin):
@@ -427,6 +427,75 @@ def test_fb_tiled_backward_matches_plain(cuda, K, splits):
     ck1, S1, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt, CG=1)
     assert torch.equal(S1, S)
     assert torch.equal(rebuilt[:-1], ck1[1:])
+
+
+@pytest.mark.parametrize("K,splits", [
+    (2000, 1), (2000, 2), (2000, 4), (2000, 8),         # ragged: K_pad 2,048
+    (13500, 1), (13500, 2), (13500, 4), (13500, 8),     # ragged: K_pad 13,568
+    (40960, 1), (40960, 2), (40960, 4), (40960, 8),
+])
+def test_fb_tiled_forward_matches_plain(cuda, K, splits):
+    """The tiled forward against fb_forward_tiled_plain at each checkpoint
+    interval (2, 4, 8, 16), in its general form and, where 20 haplotypes a
+    thread hold the block, its register form: checkpoints rtol 1e-5, S rtol
+    1e-6, log-likelihood atol 1e-3; the pad haplotypes' checkpoints 0; two
+    launches, and the two forms, equal bit for bit; the previous form
+    (timings only) agrees."""
+    nG, B = 32, 3
+    fb = _random_fb(K, nG, K + 7 * splits)
+    dev = fb.device_tensors(cuda)
+    words, trans2 = dev["words"], dev["trans2"]
+    gen = torch.Generator(device=cuda).manual_seed(K + splits)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // splits
+    mx = fbk.fb_max_tiled(dl, words, K, kt)
+    ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt, CG=1)
+    cpt = fbk._fwd_tiled_cpt(kt)
+    assert (cpt == 0) == (kt > 20 * 512)
+    forms = [dict(_general=True)] + ([{}] if cpt else [])
+    for CG in (2, 4, 8, 16):
+        first = None
+        for form in forms + [dict(_prev=True)]:
+            got = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt, CG, **form)
+            ck, S, lg = got
+            torch.testing.assert_close(ck, ck_r[::CG], rtol=1e-5, atol=1e-30)
+            torch.testing.assert_close(S, S_r, rtol=1e-6, atol=0)
+            torch.testing.assert_close(lg, lg_r, rtol=0, atol=1e-3)
+            if form.get("_prev"):
+                continue
+            assert not ck[..., K:].any()
+            again = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt, CG, **form)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), form
+            first = first or got
+            assert all(torch.equal(a, b) for a, b in zip(got, first)), form
+
+
+def test_fb_tiled_forward_refuses_what_it_has_no_instantiation_for(cuda):
+    """Register columns too few for the block or without an instantiation,
+    and an interval above 16 raise; nothing falls back to the general form
+    or the plain version."""
+    fb = _random_fb(4096, 32, 2)
+    dev = fb.device_tensors(cuda)
+    words, trans2 = dev["words"], dev["trans2"]
+    B, Gp, K_pad = 2, 32, fb.K_pad
+    dl = torch.zeros((B, Gp * 32), device=cuda)
+    mx = torch.zeros((Gp, B), device=cuda)
+    out = torch.empty((B, Gp * K_pad), device=cuda)
+    for CG, cpt in ((16, 2),                     # 1,024 < 2,048 haplotypes a block
+                    (16, 3), (16, 12), (32, 4)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fbk.FWD_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), trans2.data_ptr(),
+                                        mx.data_ptr(), out.data_ptr(), out.data_ptr(),
+                                        out.data_ptr(), out.data_ptr(), Gp, fb.K, K_pad, B, CG,
+                                        2, 1.0 / fb.K, cpt)
+
+
+def test_fb_tiled_forward_floor_runs(cuda):
+    for fwd in (False, True):
+        out = fbk.tiled_chain_floor(100, 2, 4, cuda, fwd=fwd)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 4) and torch.isfinite(out).all()
 
 
 def test_fb_tiled_general_form_matches_the_register_form(cuda):
@@ -581,7 +650,7 @@ def test_engine_on_gpu_with_the_tiled_fb(cuda):
                        small_ref_panel_gibbs_iterations=8, seed=3)
     _region_context(world["prep"], cfg, "cuda").fb_plan_args = dict(family="tiled", splits=2)
     tiled = [fbk.MAX_TILED_KERNEL, fbk.FWD_TILED_KERNEL, fbk.BWD_TILED_KERNEL]
-    prev = [fbk._PREV_REMAT_TILED, fbk._PREV_BWD_TILED]
+    prev = [fbk._PREV_REMAT_TILED, fbk._PREV_BWD_TILED, fbk._PREV_FWD_TILED]
     for k in tiled + prev + [fbk.FWD_KERNEL, fbk.BWD_KERNEL]:
         k.launches = 0
     truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
@@ -595,17 +664,19 @@ def test_engine_on_gpu_with_the_tiled_fb(cuda):
 
 @pytest.mark.parametrize("G,B,K,K_real,p_end", [
     (9, 3, 40, 36, 0.3), (40, 5, 641, 600, 0.1), (6, 2, 3000, 2990, 1.0), (12, 2, 64, 64, 0.0),
+    (512, 28, 640, 600, 12 / 512),                  # the nipt path's shape
 ])
 def test_nipt_bank_kernel_matches_plain(cuda, G, B, K, K_real, p_end):
-    """The NIPT block move's bank kernel against the Python loop: the same
-    relabellings on (nearly) every chain, probabilities atol 1e-4 on the
-    chains whose draws agree; a block end at every grid, and at none but the
-    last."""
+    """The NIPT block move's bank kernel against the Python loop, in the
+    form the wrapper picks (registers up to K = 1,024, the general form at
+    3,000): the same
+    relabellings on all but a tenth of the chains (at most one of a few),
+    probabilities atol 1e-4 on the chains whose draws agree; a block end at
+    every grid, and at none but the last; two launches equal bit for bit;
+    the previous form (timings only) draws the same."""
     rng = np.random.default_rng(G + K)
     lemg, beta = (torch.from_numpy(x).to(cuda) for x in random_sweep_state(
         rng, G, B, 4, K, K_real, 4, nl=3)[:2])
-    km = (torch.arange(K, device=cuda) < K_real).float()
-    e = torch.exp(lemg - torch.where(km > 0, lemg, -torch.inf).amax(2, keepdim=True)) * km
     trans = np.stack([rng.uniform(0.9, 0.999, G), rng.uniform(0.001, 0.1, G)]).astype(np.float32)
     trans[:, 0] = (1.0, 0.0)
     is_end = (rng.random((G, B)) < p_end).astype(np.int32)
@@ -613,16 +684,43 @@ def test_nipt_bank_kernel_matches_plain(cuda, G, B, K, K_real, p_end):
     t = lambda x: torch.from_numpy(x).to(cuda)
     mask = torch.ones(6, device=cuda)
     mask[3] = 0.0                                   # a relabelling that is not allowed
-    args = (e, beta * km, t(trans), t(rng.normal(0, 2, (G, B, 6)).astype(np.float32)),
+    args = (lemg, beta, t(trans), t(rng.normal(0, 2, (G, B, 6)).astype(np.float32)),
             t(rng.random((G, B)).astype(np.float32)), t(is_end), mask, K_real)
-    launches = nb.BANK_KERNEL.launches
-    got_c, got_p = nb.bank_scan(*args)
-    assert nb.BANK_KERNEL.launches == launches + 1
     ref_c, ref_p = nb.bank_scan_plain(*args)
-    same = (got_c == ref_c).all(0)
-    assert same.sum() >= B - 1
-    assert not (got_c == 3).any() and not got_c[t(is_end) == 0].any()
-    torch.testing.assert_close(got_p[:, same], ref_p[:, same], rtol=0, atol=1e-4)
+    for form in ({}, {"_prev": True}):
+        counter = nb._PREV_BANK_KERNEL if form.get("_prev") else nb.BANK_KERNEL
+        launches = counter.launches
+        got_c, got_p = nb.bank_scan(*args, **form)
+        assert counter.launches == launches + 1, form
+        same = (got_c == ref_c).all(0)
+        assert same.sum() >= B - max(1, B // 10), (form, same)
+        assert not (got_c == 3).any() and not got_c[t(is_end) == 0].any()
+        torch.testing.assert_close(got_p[:, same], ref_p[:, same], rtol=0, atol=1e-4)
+        again = nb.bank_scan(*args, **form)
+        assert torch.equal(got_c, again[0]) and torch.equal(got_p, again[1]), form
+
+
+def test_nipt_bank_refuses_what_it_has_no_instantiation_for(cuda):
+    """A K or a form without an instantiation raises: a K whose general
+    form exceeds a block's shared memory, register columns too few for K or
+    not instantiated; nothing falls back."""
+    G, B, K = 4, 2, 7000
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=cuda)
+    args = (z(G, 3 * B, K), z(G, 3 * B, K), z(2, G), z(G, B, 6), z(G, B),
+            z(G, B, dt=torch.int32), torch.ones(6, device=cuda), K)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        nb.bank_scan(*args)                              # 9 x 7,000 floats: above a block's
+    out = z(G * B * 7)
+    for K_, cpt in ((640, 3), (640, 4), (7000, 8)):    # no such form; 8 x 128 < 7,000
+        with pytest.raises(RuntimeError, match="cudaError"):
+            nb.BANK_KERNEL.launch(*(a.data_ptr() for a in args[:7]), out.data_ptr(),
+                                  out.data_ptr(), G, B, K_, 600, cpt, 1 / 600)
+
+
+def test_nipt_bank_floor_runs(cuda):
+    out = nb.bank_floor(100, 3, cuda)
+    torch.cuda.synchronize()
+    assert out.shape == (3,) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("quilt2", [False, True])

@@ -216,17 +216,17 @@ class _Shape:
     (14, 8192, "tiled", 8), (28, 8192, "tiled", 4), (56, 8192, "tiled", 2),
     (112, 8192, "tiled", 2), (200, 8192, "tiled", 2), (28, 8320, "tiled", 4),
     (28, 10240, "tiled", 4), (56, 10240, "tiled", 2), (112, 10240, "tiled", 2),
-    (14, 20480, "tiled", 8), (28, 20480, "tiled", 4), (56, 20480, "tiled", 4),
+    (14, 20480, "tiled", 8), (28, 20480, "tiled", 4), (56, 20480, "tiled", 2),
     (112, 20480, "tiled", 2), (200, 20480, "tiled", 2),
-    (28, 40960, "tiled", 8), (56, 40960, "tiled", 4), (112, 40960, "tiled", 4),
+    (28, 40960, "tiled", 4), (56, 40960, "tiled", 4), (112, 40960, "tiled", 4),
     (200, 40960, "tiled", 4), (2, 256, "fused", 1), (14, 4096, "fused", 1),
 ])
 def test_fb_plan(rows, K, family, splits):
     """The plan at every shape that chip_smoke.py's "fb_plan timing" lines
-    measured (PERF.md), each the fastest there but 14 x 5,120 (4 blocks
-    against 8 of 640 haplotypes, 0.4% apart): a split of 4 or 8 while the
+    measured (PERF.md), each the fastest there: a split of 4 or 8 while the
     blocks fit about one wave, of 2 beyond it, 4 at 40,960 (2 blocks a row
-    there take the general form and, at 112 rows and up, two calls); the
+    there take the general form and, at 112 rows and up, two calls; 8 lost
+    to 4 at 28 rows once the forward held its alphas in registers); the
     fused family at 5,120 once no split fits one wave (the QUILT1
     quick-start batch of 112 rows, the NIPT batch of 84); and below 5,120,
     where no split was measured. Every call here takes all its rows."""
@@ -255,10 +255,11 @@ def test_tiled_cg(KS, cg, cpt):
 
 
 @pytest.mark.parametrize("K, splits, planes", [
-    (40960, 4, 512 // 4 + 1),            # registers: checkpoints + the forward's plane
-    (40960, 2, 512 // 2 + 1 + 1),        # general form: + its e*beta plane
+    (40960, 4, 512 // 4),                # registers: the checkpoints only
+    (40960, 2, 512 // 2 + 1 + 1),        # general forms: + the forward's alpha plane and
+                                         # the backward's e*beta plane
     (60032, 2, 512 // 16 + 1 + 1 + 16),  # + the chunk's 16 alpha planes in global memory
-    (8192, 8, 512 // 16 + 1),
+    (8192, 8, 512 // 16),
 ])
 def test_fb_plan_tiled_planes(K, splits, planes):
     """fb_plan's rows per tiled call follow the backward's checkpoint
@@ -324,3 +325,29 @@ def test_engine_tiled_matches_fused_and_jax():
         assert a > 0.9
         assert abs(a - b) < 0.01, (a, b)
         assert abs(a - c) < 0.01, (a, c)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_tiled_forward_ragged_last_block(world, splits):
+    """The forward at each split the GPU form takes (k_tile = K_pad / splits,
+    so the last real block is ragged and, at 8 splits, two blocks hold only
+    pad haplotypes): the pads' checkpoints stay 0, S equals the one-block
+    forward's (rtol 1e-6: sums in another order), and the normalised
+    checkpoints and the log-likelihood agree with the fused forward (rtol
+    1e-4 / atol 1e-7; rtol 1e-5 + atol 1e-3)."""
+    _, _, _, fb, gl_pad = world
+    words, trans2, _ = _tensors(fb)
+    assert fb.K_pad % 8 == 0 and fb.K_pad - fb.K > fb.K_pad // 8
+    dl, _ = fbk._gl_log_ratios(torch.from_numpy(gl_pad), EPS)
+    kt = fb.K_pad // splits
+    mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
+    ckpt, S, logs = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt)
+    _, S1, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, fb.K_pad)
+    assert not ckpt[..., fb.K:].any()
+    torch.testing.assert_close(S, S1, rtol=1e-6, atol=0)
+    ckpt_f, logs_f = fbk.fb_forward(dl, words, trans2, fb.K)
+    torch.testing.assert_close(logs, logs_f, rtol=1e-5, atol=1e-3)
+    CG = fbk.tiled_cg(kt, fb.nGrids)
+    for ci in range(1, fb.nGrids // CG):
+        torch.testing.assert_close(ckpt[ci] / S[ci * CG - 1][:, None], ckpt_f[ci],
+                                   rtol=1e-4, atol=1e-7)

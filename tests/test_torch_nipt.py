@@ -9,6 +9,12 @@ package, on the same numpy-seeded inputs:
   classes equal, lemg / alpha / beta rtol 1e-4 (float32 sums in another
   order; atol 1e-3 on lemg as in the sweep tests, 1e-6 on alpha and beta);
 - entire_relabel vs _entire_probs + _apply_perm3_padded: equal;
+- the block move's bank scan (kernels.nipt_bank.bank_scan_plain, the plain
+  version of the bank kernel) vs a float64 numpy transcription of the JAX
+  scan_step (quilt_tpu/kernels/gibbs.py, nipt_block_within): the same
+  relabellings drawn, probabilities atol 1e-5 (float32 against float64 over
+  a few tens of grids); a per-(grid, row) shift of lemg leaves the draws
+  equal and the probabilities within 1e-5 (the shifted lemg itself rounds);
 - the whole Gibbs call at nl = 3, ff = 0.2, with block moves and the label
   resample, vs run_gibbs_chains on its Pallas path (interpreted): the
   tolerances of tests/test_gibbs_pallas.py (labels > 0.995, maternal and
@@ -47,6 +53,7 @@ from quilt_tpu_torch.config import ImputeConfig
 from quilt_tpu_torch.engine.driver import check_slice, quilt_impute
 from quilt_tpu_torch.inputs import GibbsInputs, PaddedReads
 from quilt_tpu_torch.kernels import gibbs as tg
+from quilt_tpu_torch.kernels import nipt_bank as nb
 from quilt_tpu_torch.kernels.emissions import emat_read_from_bits
 from quilt_tpu_torch.panel.prepare import prepare_panel as prepare_panel_t
 from quilt_tpu_torch.simulate import random_sweep_state, write_bam_world
@@ -177,6 +184,101 @@ def test_entire_relabel_matches_jax():
     np.testing.assert_array_equal(got[5].numpy(), np.asarray(chosen))
     for a, b in zip(got[:5], ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _scan_step_f64(lemg, beta, trans, ht, u, is_end, perm_mask, K_real):
+    """The JAX scan_step of nipt_block_within in float64 numpy, per chain the
+    6 relabellings x 3 rows of the bank (aS [B, 6, 3, K]); ht stands for its
+    class-count term ns_t @ clp. Returns (chosen [G, B], probs [G, B, 6]),
+    0 where no block ends."""
+    G, BN, K = lemg.shape
+    B = BN // 3
+    to4 = lambda x: x.reshape(G, 3, B, K).transpose(0, 2, 1, 3).astype(np.float64)
+    lemg4, beta4 = to4(lemg), to4(beta)
+    km = (np.arange(K) < K_real).astype(np.float64)
+    k_mask = np.arange(K) < K_real
+    invs = jnipt.INVS
+    aS = np.zeros((B, 6, 3, K))
+    lgS = np.zeros((B, 6, 3))
+    chosen_g = np.zeros((G, B), np.int64)
+    probs_g = np.zeros((G, B, 6))
+    for g in range(G):
+        lm = np.where(k_mask[None, None, :], lemg4[g], -np.inf)
+        e_g = np.exp(lm - lm.max(axis=2, keepdims=True)) * km[None, None, :]
+        t = trans[:, g].astype(np.float64)
+        a_raw = e_g[:, invs] * (t[0] * aS + (t[1] + float(g == 0)) / K_real)
+        s = np.maximum(a_raw.sum(axis=3, keepdims=True), 1e-30)
+        aS = a_raw / s
+        lgS = lgS + np.log(s[..., 0])
+        end_b = is_end[g] != 0
+        junction = np.einsum("brik,bik->bri", aS, beta4[g] * km[None, None, :])
+        lw = np.log(np.maximum(junction, 1e-30)).sum(axis=2) + lgS.sum(axis=2) + ht[g]
+        lw = lw - lw.max(axis=1, keepdims=True)
+        w = np.exp(np.clip(lw, -100.0, None)) * perm_mask
+        w = w / w.sum(axis=1, keepdims=True)
+        chosen = np.minimum((np.cumsum(w, axis=-1) <= u[g][:, None]).sum(axis=-1), 5)
+        aS_new = np.broadcast_to(aS[np.arange(B), chosen][:, None], aS.shape)
+        aS = np.where(end_b[:, None, None, None], aS_new, aS)
+        lgS = np.where(end_b[:, None, None], 0.0, lgS)
+        chosen_g[g] = np.where(end_b, chosen, 0)
+        probs_g[g] = np.where(end_b[:, None], w, 0.0)
+    return chosen_g, probs_g
+
+
+def _bank_inputs(seed, G=24, B=4, K=28, K_real=25, p_end=0.3):
+    rng = np.random.default_rng(seed)
+    lemg, beta = random_sweep_state(rng, G, B, 4, K, K_real, 4, nl=3)[:2]
+    trans = np.stack([rng.uniform(0.9, 0.999, G), rng.uniform(0.001, 0.1, G)]).astype(np.float32)
+    trans[:, 0] = (1.0, 0.0)
+    is_end = (rng.random((G, B)) < p_end).astype(np.int32)
+    is_end[G - 1] = 1
+    ht = rng.normal(0, 2, (G, B, 6)).astype(np.float32)
+    u = rng.random((G, B)).astype(np.float32)
+    return lemg, beta, trans, ht, u, is_end
+
+
+@pytest.mark.parametrize("seed, mask", [
+    (1, (1, 1, 1, 1, 1, 1)), (2, (1, 1, 1, 1, 1, 1)),
+    (3, (1, 0, 1, 0, 0, 0)),                          # ff = 0: the fetal row stays
+    (4, (1, 1, 1, 0, 1, 1)),
+])
+def test_bank_scan_plain_matches_jax_scan_step(seed, mask):
+    lemg, beta, trans, ht, u, is_end = _bank_inputs(seed)
+    perm_mask = np.asarray(mask, np.float32)
+    K_real = 25
+    ref_c, ref_p = _scan_step_f64(lemg, beta, trans, ht, u, is_end, perm_mask, K_real)
+    t = torch.from_numpy
+    got_c, got_p = nb.bank_scan(t(lemg), t(beta), t(trans), t(ht), t(u), t(is_end),
+                                t(perm_mask), K_real)
+    np.testing.assert_array_equal(got_c.numpy(), ref_c)
+    np.testing.assert_allclose(got_p.numpy(), ref_p, rtol=0, atol=1e-5)
+    drawn = ref_c[is_end != 0]
+    assert len(np.unique(drawn)) >= 2, drawn
+    assert not np.isin(drawn, np.flatnonzero(perm_mask == 0)).any()
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_bank_scan_ignores_a_row_shift(seed):
+    """The kernel may exponentiate lemg against any per-(grid, row) shift:
+    it scales a bank row's sums by one constant, which the normalised bank,
+    the junctions and the softmax cancel."""
+    lemg, beta, trans, ht, u, is_end = _bank_inputs(seed)
+    rng = np.random.default_rng(seed)
+    shift = rng.uniform(-20.0, 20.0, lemg.shape[:2] + (1,)).astype(np.float32)
+    t = torch.from_numpy
+    rest = (t(trans), t(ht), t(u), t(is_end), torch.ones(6), 25)
+    c0, p0 = nb.bank_scan_plain(t(lemg), t(beta), *rest)
+    c1, p1 = nb.bank_scan_plain(t(lemg + shift), t(beta), *rest)
+    assert torch.equal(c0, c1)
+    torch.testing.assert_close(p1, p0, rtol=0, atol=1e-5)
+
+
+def test_bank_forms():
+    """The kernel's form by K: 2, 5 or 8 columns a thread of 128 in
+    registers, the general form (0) above 1,024."""
+    assert nb._bank_cpt(40) == 2 and nb._bank_cpt(256) == 2
+    assert nb._bank_cpt(640) == 5 and nb._bank_cpt(641) == 8 and nb._bank_cpt(1024) == 8
+    assert nb._bank_cpt(1025) == 0 and nb._bank_cpt(3000) == 0
 
 
 def _nipt_reads(rng, haps, pos, grid, n, coverage, ffs):
