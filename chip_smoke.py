@@ -19,6 +19,12 @@ Phases, each fatal on failure:
                one also with a step's 9 / 12 values reduced as one reduction
                of 16 instead of two of at most 8; the share of chains whose labels
                part from the plain version's is printed and bounded; the
+               dosage kernel (redesigned: a warp a (grid, chain) pair, the
+               normalisation deferred) timed in turn with its previous form
+               at NL = 2 and 3; the forms that take any K (the sweeps' global
+               forms at K = 10,368, NL = 2 and 3, also timed at 12,288; the
+               bank's at 6,272; the dosage kernel at 30,000) against their
+               plain versions at a small G; the
                forward bank of the NIPT block move (nipt_bank, a kernel with
                no Pallas counterpart: the JAX package runs it as an XLA scan)
                at 28 chains in each of its forms, timed in turn with its
@@ -26,7 +32,9 @@ Phases, each fatal on failure:
                "bank step split" line); the three K-split FB
                kernels are checked at 28 rows x K=40,960 once the large
                world exists (the backward, one launch an FB call, on all
-               512 grids, two launches equal bit for bit), the forward and
+               512 grids, two launches equal bit for bit; the emission
+               maxima, redesigned with byte tables, within their stated
+               tolerance and timed in turn with their previous form), the forward and
                the backward are timed in turn with their previous forms (the
                forward's alpha in a global row; a remat and a backward
                launch per chunk) beside their cluster exchanges' floors (the
@@ -75,7 +83,13 @@ Phases, each fatal on failure:
                block move's bank kernel must launch on both and the dosage
                kernel on the second; fails
                under maternal r2 0.85 or fetal r2 0.5;
-  7. hla     - QUILT-HLA at full width through `hla-prepare` and `hla`
+  7. wide    - Gibbs at a Ksubset past the kernels' shared-memory forms: a
+               panel of 10,496 haplotypes over 1,024 SNPs, 2 samples, imputed
+               diploid at Ksubset 10,368 (both sweeps' global forms must
+               launch; fails under r2 0.9) and NIPT at Ksubset 8,192, ff 0.2
+               (the forward's global form at NL = 3 and the bank's must
+               launch; fails under maternal r2 0.85 or fetal r2 0.5);
+  8. hla     - QUILT-HLA at full width through `hla-prepare` and `hla`
                of the port's CLI (in this process): the K=5,120 /
                16,384-SNP shape with a 3,000 bp gene whose panel SNPs are
                the variant sites of 2,000 simulated alleles (each panel
@@ -89,12 +103,13 @@ Phases, each fatal on failure:
                FB forward and the capturing FB backward must launch; fails
                on a sample without captured gamma or under half the
                alleles typed (combined);
-  8. cli     - small file-based `prepare` + `impute`, `prepare2` +
+  9. cli     - small file-based `prepare` + `impute`, `prepare2` +
                `impute2` and `impute --method nipt --fflist` runs through
                the port's CLI, and a one-sample `impute` that must go
                through the per-sample engine; checks the VCFs.
-The port must run without the JAX package: the script fails if `jax` or
-`quilt_tpu` is loaded after the port's modules are imported.
+Each phase prints its seconds. The port must run without the JAX package:
+the script fails if `jax` or `quilt_tpu` is loaded after the port's
+modules are imported.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -122,16 +137,18 @@ PARTED_CHAINS_BOUND = 0.1
 PTXAS = {}
 # kernel -> the names of its template arguments in the ptxas notes
 _PTXAS_KERNELS = {"fb_bwd_tiled_kernel": ("CPT", "shared"), "fb_fwd_tiled_kernel": ("CPT",),
-                  "nipt_bank_kernel": ("CPT",), "nipt_bank_general_kernel": ()}
+                  "nipt_bank_kernel": ("CPT",), "nipt_bank_general_kernel": ("GLOBAL",),
+                  "fb_max_tiled_kernel": (), "gibbs_dos_kernel": ("NL", "VEC"),
+                  "gibbs_fwd_global_kernel": ("NL",), "gibbs_bwd_global_kernel": ()}
 
 
 def _note_ptxas(library, entry, line):
     """Keeps the registers and spills that ptxas reports for each
-    instantiation of fb_tiled.cu's forward and backward kernels and of
-    nipt_bank.cu's kernels (not their previous forms)."""
+    instantiation of the kernels of _PTXAS_KERNELS (not their previous
+    forms)."""
     import re
 
-    if entry is None or library not in ("fb_tiled", "nipt_bank"):
+    if entry is None or library not in ("fb_tiled", "nipt_bank", "gibbs_sweep", "gibbs_dosage"):
         return
     m = re.search(r"\d+(" + "|".join(_PTXAS_KERNELS) + r")(I((?:L[a-z]+\d+E)+)E)?", entry)
     if m is None:
@@ -167,6 +184,23 @@ def _median_ms(fn, n):
     return statistics.median(times)
 
 
+def _timed(fn):
+    """(fn(), its ms on the card): a plain version's reference run, timed
+    with CUDA events, is its timing where it takes seconds; a shorter one is
+    timed again after it (median of 2), so that no first call's set-up
+    enters the time."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    return out, ms if ms >= 2000 else _median_ms(fn, 2)
+
+
 def _alternating_ms(fns, rounds=4, n=7):
     """{name: median ms} of the functions timed in turn, `rounds` times round
     (every other round in reverse order), the median of n launches each time:
@@ -183,19 +217,45 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _fwd_work(args, outs):
-    """(bytes, operations) of a forward sweep on this state. A skipped slot
-    is no step, so of lem_pad only the rows of live slots are read; every
-    other tensor is read or written once in full. Operations: per (grid,
-    state row, haplotype) ~8 for the emission and alpha step, and per live
-    read slot, latent row and haplotype ~6 for the relabelling."""
-    lemg, lem_pad = args[0], args[2]
-    G, BN, K = lemg.shape
+def _real_bytes(t, K_real):
+    """Bytes of a [..., K] tensor's first K_real columns: the real
+    haplotypes, all that a function masking the pads needs of it."""
+    return t.numel() // t.shape[-1] * K_real * t.element_size()
+
+
+def _fwd_work(args, outs, K_real):
+    """(bytes, operations) of a forward sweep on this state, as the function
+    needs them: beta and, of lem_pad, only the rows of live slots (a skipped
+    slot is no step) at the K_real real haplotypes; lemg whole (lemg' carries
+    its pad columns); every other tensor read or written once in full.
+    Operations: per (grid, state row, real haplotype) ~8 for the emission
+    and alpha step, and per live read slot, latent row and real haplotype
+    ~6 for the relabelling."""
+    lemg, beta, lem_pad = args[0], args[1], args[2]
+    G, BN, _ = lemg.shape
     nl = BN // lem_pad.shape[2]
     n_live = int((args[3][:, 2] == 0).sum())
-    others = [t for i, t in enumerate(args) if i != 2]
-    return (_nbytes(*others, *outs) + n_live * K * lem_pad.element_size(),
-            8 * G * BN * K + 6 * nl * n_live * K)
+    others = [t for i, t in enumerate(args) if i not in (1, 2)]
+    return (_nbytes(*others, *outs) + _real_bytes(beta, K_real)
+            + n_live * K_real * lem_pad.element_size(),
+            8 * G * BN * K_real + 6 * nl * n_live * K_real)
+
+
+def _bwd_work(lemg, trans, beta, K_real):
+    """(bytes, operations) of a backward sweep: lemg at the real haplotypes
+    (the pads are masked), trans, beta written whole (its pads hold the jump
+    term); ~8 operations a (grid, state row, real haplotype)."""
+    G, BN, _ = lemg.shape
+    return (_real_bytes(lemg, K_real) + _nbytes(trans, beta), 8 * G * BN * K_real)
+
+
+def _dos_work(alphas, beta, words_T, hd, K_real):
+    """(bytes, operations) of a dosage sweep: alphas, beta and the words at
+    the real haplotypes only (the pads are masked), hd written whole; ~34
+    operations a (grid, state row, real haplotype)."""
+    G, BN, _ = alphas.shape
+    return (sum(_real_bytes(t, K_real) for t in (alphas, beta, words_T)) + _nbytes(hd),
+            (32 + 2) * G * BN * K_real)
 
 
 def _bound(nbytes, flops):
@@ -261,7 +321,6 @@ def check_kernels(world):
     import numpy as np
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
-    from quilt_tpu_torch.kernels import gibbs_dosage as gd
     from quilt_tpu_torch.kernels import gibbs_sweep as gs
     from quilt_tpu_torch.simulate import random_sweep_state
 
@@ -275,16 +334,15 @@ def check_kernels(world):
     args = [torch.from_numpy(x).cuda() for x in random_sweep_state(
         np.random.default_rng(SEED), G, B, W, K, K_real, W)]
     kw = dict(nl=2, K_real=K_real, it_mode=2, prior=(0.5, 0.5))
-    ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2)
+    ref, plain_ms = _timed(lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2))
     got, err = _check_fwd("gibbs_fwd", gs.fwd_sweep(*args, **kw), ref, args)
     # the general variant (state in local arrays) takes any K; same check
     _check_fwd("gibbs_fwd, general variant", gs.fwd_sweep(*args, _variant=-1, **kw), ref, args)
-    plain_ms = _median_ms(lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2), 2)
     live = args[3][:, 2] == 0
 
     lemg = got[0]
     trans = args[6]
-    ref_b = gs.bwd_sweep_plain(lemg, trans, K_real)
+    ref_b, plain_b = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, K_real))
     for label, bkw in (("gibbs_bwd, general variant", dict(_variant=-1)),
                        ("gibbs_bwd, look-ahead form", dict(_variant=128, _ahead=True)),
                        ("gibbs_bwd", {})):
@@ -307,11 +365,9 @@ def check_kernels(world):
     print(f"gibbs_fwd by chain threads (K={K}, timed in turn): {fmt(t_fwd)}", flush=True)
     print(f"gibbs_bwd by chain threads (K={K}, timed in turn): {fmt(t_bwd)}", flush=True)
     rows.append(_row("gibbs_fwd", "gibbs_sweep.cu", "gibbs_pallas.py:56",
-                     err, t_fwd["default"], plain_ms, *_fwd_work(args, got)))
+                     err, t_fwd["default"], plain_ms, *_fwd_work(args, got, K_real)))
     rows.append(_row("gibbs_bwd", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b,
-                     t_bwd["default"],
-                     _median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2),
-                     _nbytes(lemg, trans, got_b), 8 * G * 2 * B * K))
+                     t_bwd["default"], plain_b, *_bwd_work(lemg, trans, got_b, K_real)))
 
     # the least a dependent step can take
     steps = 20000
@@ -336,7 +392,7 @@ def check_kernels(world):
     live_w = args_w[3][:, 2] == 0
     walked = int(args_w[7].sum()) * B
     ms_w = _median_ms(lambda: gs.fwd_sweep(*args_w, **kw), 5)
-    bound_w, by_w = _bound(*_fwd_work(args_w, got_w))
+    bound_w, by_w = _bound(*_fwd_work(args_w, got_w, K_real))
     print(f"gibbs_fwd, world occupancy: {ms_w:.3f} ms, bound {bound_w:.4f} ms ({by_w}); "
           f"{int(live_w.sum())} live of {walked} slots "
           f"under the per-grid maximum ({100 * int(live_w.sum()) / max(walked, 1):.1f}% live; "
@@ -349,19 +405,9 @@ def check_kernels(world):
     words_T = torch.randint(-2**31, 2**31 - 1, (G, B, K), generator=gen, device="cuda",
                             dtype=torch.int64).to(torch.int32)
     eps = 0.001
-    hd = gd.dosage_sweep(alphas, beta_d, words_T, 2, K_real, eps)
-    hd_r = gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps)
-    err = (hd - hd_r).abs().max().item()
-    print(f"gibbs_dos: max |dosage err| {err:.3e} (tolerance atol 1e-5)", flush=True)
-    if not err <= 1e-5:
-        _fail("gibbs_dos disagrees with its plain version")
-    rows.append(_row("gibbs_dos", "gibbs_dosage.cu", "gibbs_pallas.py:420", err,
-                     _median_ms(lambda: gd.dosage_sweep(alphas, beta_d, words_T, 2, K_real, eps), 5),
-                     _median_ms(lambda: gd.dosage_sweep_plain(alphas, beta_d, words_T, K_real, eps), 2),
-                     _nbytes(alphas, beta_d, words_T, hd), (32 + 2) * G * 2 * B * K))
+    rows.append(check_dosage(2, alphas, beta_d, words_T, K_real, eps))
 
-    rows += check_kernels_nl3(G, B, W, K, K_real, kw, args, lemg, trans, alphas, beta_d,
-                              words_T)
+    rows += check_kernels_nl3(G, B, W, K, K_real, kw, args, lemg, trans, words_T)
     rows.append(check_nipt_bank(G, K, K_real))
 
     # full-panel FB at the e2e shape: B = 56 chains x 2 latent haps
@@ -491,14 +537,14 @@ def check_fb_capture(fb, dl, ck, ck16, K_top, eps):
     return row
 
 
-def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, beta2, words_T):
+def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, words_T):
     """The three Gibbs kernels at NL = 3 (NIPT) against their plain versions
     at the table shape (B chains = 3B state rows, prior (0.5, 0.45, 0.05)),
-    timed in turn with the NL = 2 launches on the NL = 2 state. Returns the
-    three rows (gibbs_fwd_nl3, gibbs_bwd_nl3, gibbs_dos_nl3)."""
+    the sweeps timed in turn with the NL = 2 launches on the NL = 2 state
+    (the dosage kernel in turn with its previous form, check_dosage).
+    Returns the three rows (gibbs_fwd_nl3, gibbs_bwd_nl3, gibbs_dos_nl3)."""
     import numpy as np
     import torch
-    from quilt_tpu_torch.kernels import gibbs_dosage as gd
     from quilt_tpu_torch.kernels import gibbs_sweep as gs
     from quilt_tpu_torch.simulate import random_sweep_state
 
@@ -506,8 +552,8 @@ def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, bet
     args = [torch.from_numpy(x).cuda() for x in random_sweep_state(
         np.random.default_rng(SEED + 5), G, B, W, K, K_real, W, nl=3)]
     kw = dict(nl=3, K_real=K_real, it_mode=2, prior=prior)
-    plain = lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2, nl=3, prior=prior)
-    ref = plain()
+    ref, plain_ms = _timed(lambda: gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=2, nl=3,
+                                                      prior=prior))
     got, err = _check_fwd("gibbs_fwd_nl3", gs.fwd_sweep(*args, **kw), ref, args)
     for label, v in (("general variant", dict(_variant=-1)), ("256 threads", dict(_variant=256)),
                      ("one reduction of 16", dict(_wide=True))):
@@ -521,10 +567,9 @@ def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, bet
     changed = got0[2] != args[3][:, 1]
     if not changed.any() or bool((got0[2][changed] == 2).any()):
         _fail("gibbs_fwd_nl3 drew the label of prior 0 (or drew nothing)")
-    plain_ms = _median_ms(plain, 2)
 
     lemg = got[0]
-    ref_b = gs.bwd_sweep_plain(lemg, trans, K_real)
+    ref_b, plain_b = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, K_real))
     got_b = gs.bwd_sweep(lemg, trans, nl=3, K_real=K_real)
     err_b = (got_b - ref_b).abs().max().item()
     print(f"gibbs_bwd_nl3 ({lemg.shape[1]} state rows): max |beta err| {err_b:.3e} "
@@ -554,26 +599,147 @@ def check_kernels_nl3(G, B, W, K, K_real, kw2, args2, lemg2, trans, alphas2, bet
           f"step (the kernel's form), {fwd_steps * floor_ns[16] / 1e6:.3f} ms with one of 16",
           flush=True)
     rows = [_row("gibbs_fwd_nl3", "gibbs_sweep.cu", "gibbs_pallas.py:56", err, t_fwd["nl3"],
-                 plain_ms, *_fwd_work(args, got)),
+                 plain_ms, *_fwd_work(args, got, K_real)),
             _row("gibbs_bwd_nl3", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b, t_bwd["nl3"],
-                 _median_ms(lambda: gs.bwd_sweep_plain(lemg, trans, K_real), 2),
-                 _nbytes(lemg, trans, got_b), 8 * G * 3 * B * K)]
+                 plain_b, *_bwd_work(lemg, trans, got_b, K_real))]
 
-    alphas, eps = got[1], 0.001
-    hd = gd.dosage_sweep(alphas, got_b, words_T, 3, K_real, eps)
-    hd_r = gd.dosage_sweep_plain(alphas, got_b, words_T, K_real, eps, 3)
-    err_d = (hd - hd_r).abs().max().item()
-    print(f"gibbs_dos_nl3: max |dosage err| {err_d:.3e} (tolerance atol 1e-5)", flush=True)
-    if not err_d <= 1e-5:
-        _fail("gibbs_dos_nl3 disagrees with its plain version")
-    t_dos = _alternating_ms({
-        "nl2": lambda: gd.dosage_sweep(alphas2, beta2, words_T, 2, K_real, eps),
-        "nl3": lambda: gd.dosage_sweep(alphas, got_b, words_T, 3, K_real, eps)})
-    print(f"gibbs_dos at NL = 2 and 3 (timed in turn): {fmt(t_dos)}", flush=True)
-    rows.append(_row(
-        "gibbs_dos_nl3", "gibbs_dosage.cu", "gibbs_pallas.py:420", err_d, t_dos["nl3"],
-        _median_ms(lambda: gd.dosage_sweep_plain(alphas, got_b, words_T, K_real, eps, 3), 2),
-        _nbytes(alphas, got_b, words_T, hd), (32 + 2) * G * 3 * B * K))
+    rows.append(check_dosage(3, got[1], got_b, words_T, K_real, 0.001))
+    return rows
+
+
+def check_dosage(nl, alphas, beta, words_T, K_real, eps):
+    """The dosage kernel against its plain version (atol 1e-5) at the table
+    shape, and against its previous form, timed in turn with it (4 rounds
+    of 7). Returns its row."""
+    from quilt_tpu_torch.kernels import gibbs_dosage as gd
+
+    G, BN, K = alphas.shape
+    name = "gibbs_dos" + ("" if nl == 2 else "_nl3")
+    hd_r, plain_ms = _timed(lambda: gd.dosage_sweep_plain(alphas, beta, words_T, K_real, eps, nl))
+    hd = gd.dosage_sweep(alphas, beta, words_T, nl, K_real, eps)
+    hd_p = gd.dosage_sweep(alphas, beta, words_T, nl, K_real, eps, _prev=True)
+    err = (hd - hd_r).abs().max().item()
+    err_p = (hd_p - hd_r).abs().max().item()
+    print(f"{name}: max |dosage err| {err:.3e}, previous form {err_p:.3e} (tolerance atol 1e-5)",
+          flush=True)
+    if not (err <= 1e-5 and err_p <= 1e-5):
+        _fail(f"{name} disagrees with its plain version")
+    t = _alternating_ms({
+        "new": lambda: gd.dosage_sweep(alphas, beta, words_T, nl, K_real, eps),
+        "previous form": lambda: gd.dosage_sweep(alphas, beta, words_T, nl, K_real, eps,
+                                                 _prev=True)})
+    nbytes, flops = _dos_work(alphas, beta, words_T, hd, K_real)
+    bound = _bound(nbytes, flops)[0]
+    print(f"{name} at {G} grids x {BN} state rows x K={K} (K_real {K_real}), timed in turn: new "
+          f"{t['new']:.3f} ms, previous form {t['previous form']:.3f} ms; 50% of the bound "
+          f"(bound / 0.5) {bound / 0.5:.4f} ms", flush=True)
+    row = _row(name, "gibbs_dosage.cu", "gibbs_pallas.py:420", err, t["new"], plain_ms, nbytes,
+               flops)
+    row["previous_form_ms"] = t["previous form"]
+    return row
+
+
+def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288):
+    """The forms that take any K, each against its plain version just
+    above the limit of the forms before it, at a small G: the sweeps' global
+    forms at K = 10,368 (NL = 2 and 3; the backward's one count serves
+    both), the bank's at 6,272 (512 grids x 4 chains), and the dosage kernel
+    (one form at any K) at 30,000; the sweeps and the bank also timed at
+    K = 12,288 over G grids.
+    Returns the rows gibbs_fwd_global, gibbs_fwd_global_nl3,
+    gibbs_bwd_global and nipt_bank_global."""
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.kernels import gibbs_dosage as gd
+    from quilt_tpu_torch.kernels import gibbs_sweep as gs
+    from quilt_tpu_torch.kernels import nipt_bank as nb
+    from quilt_tpu_torch.simulate import random_sweep_state
+
+    rows, bwd_row = [], None
+    state = lambda nl, k, seed: [torch.from_numpy(x).cuda() for x in random_sweep_state(
+        np.random.default_rng(seed), G, B, W, k, k - 68, W, nl=nl)]
+    for nl in (2, 3):
+        if gs.fwd_form(K, nl) != gs.GLOBAL or gs.bwd_form(K) != gs.GLOBAL:
+            _fail(f"the sweeps at K={K}, nl={nl} do not take their global forms")
+        prior = (0.5, 0.5) if nl == 2 else (0.5, 0.45, 0.05)
+        name = "gibbs_fwd_global" + ("" if nl == 2 else "_nl3")
+        args, args_t = state(nl, K, SEED + 7 + nl), state(nl, K_time, SEED + 9 + nl)
+        kw = dict(nl=nl, K_real=K - 68, it_mode=2, prior=prior)
+        kw_t = dict(kw, K_real=K_time - 68)
+        ref, plain_ms = _timed(lambda: gs.fwd_sweep_plain(*args, K_real=K - 68, it_mode=2, nl=nl,
+                                                          prior=prior))
+        got, err = _check_fwd(name, gs.fwd_sweep(*args, **kw), ref, args)
+        ms = _median_ms(lambda: gs.fwd_sweep(*args, **kw), 5)
+        ms_t = _median_ms(lambda: gs.fwd_sweep(*args_t, **kw_t), 5)
+        lemg, trans = got[0], args[6]
+        ref_b, plain_b = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, K - 68))
+        got_b = gs.bwd_sweep(lemg, trans, nl=nl, K_real=K - 68)
+        err_b = (got_b - ref_b).abs().max().item()
+        ms_b = _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=nl, K_real=K - 68), 5)
+        lemg_t = args_t[0]
+        ms_bt = _median_ms(lambda: gs.bwd_sweep(lemg_t, trans, nl=nl, K_real=K_time - 68), 5)
+        print(f"{name} at {G} grids x {B} chains x {W} slots: {ms:.3f} ms at K={K}, {ms_t:.3f} ms "
+              f"at K={K_time} (plain {plain_ms:.1f} ms at K={K}); gibbs_bwd_global at NL = {nl}: "
+              f"{ms_b:.3f} ms at K={K}, {ms_bt:.3f} ms at K={K_time} (plain {plain_b:.1f} ms), "
+              f"max |beta err| {err_b:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
+        if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
+            _fail(f"gibbs_bwd_global at nl={nl} disagrees with its plain version")
+        row = _row(name, "gibbs_sweep.cu", "gibbs_pallas.py:56", err, ms, plain_ms,
+                   *_fwd_work(args, got, K - 68))
+        row["ms_at_K12288"] = ms_t
+        rows.append(row)
+        if nl == 2:
+            bwd_row = _row("gibbs_bwd_global", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b,
+                           ms_b, plain_b, *_bwd_work(lemg, trans, got_b, K - 68))
+            bwd_row["ms_at_K12288"] = ms_bt
+    rows.append(bwd_row)
+
+    # the bank's global form: 9K + 3G floats outgrow a block's shared memory
+    Gb, Bb, Kb, Kb_real = 512, 4, 6272, 6200
+    if nb.bank_form(Kb, Gb) != gs.GLOBAL:
+        _fail(f"the bank at K={Kb} does not take its global form")
+    args = _bank_state(Gb, Bb, Kb, Kb_real, np.random.default_rng(SEED + 8))
+    (ref_c, ref_p), plain_ms = _timed(lambda: nb.bank_scan_plain(*args))
+    got_c, got_p = nb.bank_scan(*args)
+    torch.cuda.synchronize()
+    same = (got_c == ref_c).all(dim=0)
+    err = (got_p - ref_p)[:, same].abs().max().item()
+    print(f"nipt_bank_global at {Gb} grids x {Bb} chains x K={Kb} (K_real {Kb_real}): "
+          f"{int(same.sum())}/{Bb} chains draw the same relabellings, max |probability err| "
+          f"{err:.3e} (tolerance atol 1e-4)", flush=True)
+    if 1.0 - int(same.sum()) / Bb > PARTED_CHAINS_BOUND or not err <= 1e-4:
+        _fail("nipt_bank_global disagrees with its plain version")
+    n_ends = int(args[5].sum())
+    nbytes = (Gb * 3 * Bb * Kb_real * 4 + n_ends * (3 * Kb_real + 7) * 4
+              + _nbytes(args[2], args[5], args[6], ref_c, ref_p))
+    row = _row("nipt_bank_global", "nipt_bank.cu", "gibbs.py:502", err,
+               _median_ms(lambda: nb.bank_scan(*args), 5), plain_ms, nbytes,
+               6 * 9 * Gb * Bb * Kb_real)
+    # and at K = 12,288 over the sweeps' small G
+    args_t = _bank_state(G, Bb, K_time, K_time - 68, np.random.default_rng(SEED + 10))
+    row["ms_at_K12288"] = _median_ms(lambda: nb.bank_scan(*args_t), 5)
+    print(f"nipt_bank_global at {G} grids x {Bb} chains x K={K_time}: {row['ms_at_K12288']:.3f} "
+          f"ms; at {Gb} grids x K={Kb}: {row['ms']:.3f} ms", flush=True)
+    rows.append(row)
+
+    # the dosage kernel far past the previous form's shared-memory plane
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    Gd, Bd, Kd = 8, 4, 30000
+    alphas = torch.rand((Gd, 2 * Bd, Kd), generator=gen, device="cuda")
+    beta = 0.1 + 0.9 * torch.rand((Gd, 2 * Bd, Kd), generator=gen, device="cuda")
+    words = torch.randint(-2**31, 2**31 - 1, (Gd, Bd, Kd), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+    hd_r, plain_ms = _timed(lambda: gd.dosage_sweep_plain(alphas, beta, words, Kd - 10, 0.001))
+    hd = gd.dosage_sweep(alphas, beta, words, 2, Kd - 10, 0.001)
+    err = (hd - hd_r).abs().max().item()
+    ms = _median_ms(lambda: gd.dosage_sweep(alphas, beta, words, 2, Kd - 10, 0.001), 5)
+    print(f"gibbs_dos at {Gd} grids x {2 * Bd} state rows x K={Kd}: {ms:.3f} ms (plain "
+          f"{plain_ms:.1f} ms, bound {_bound(*_dos_work(alphas, beta, words, hd, Kd - 10))[0]:.4f} "
+          f"ms), "
+          f"max |dosage err| {err:.3e} (tolerance atol 1e-5)", flush=True)
+    if not err <= 1e-5:
+        _fail(f"gibbs_dos at K={Kd} disagrees with its plain version")
+    _print_rows(rows)
     return rows
 
 
@@ -610,22 +776,25 @@ def time_bank_forms(G=512, B=28, shapes=((256, 250), (1024, 1000))):
         args = _bank_state(G, B, K, K_real, np.random.default_rng(SEED + K))
         chosen = torch.empty((G, B), dtype=torch.int32, device="cuda")
         probs = torch.empty((G, B, 6), dtype=torch.float32, device="cuda")
+        scratch = torch.empty((B, nb._staged_floats(G) + 9 * K), device="cuda")
 
         def launch(cpt):
             nb.BANK_KERNEL.launch(*(a.data_ptr() for a in args[:7]), chosen.data_ptr(),
-                                  probs.data_ptr(), G, B, K, K_real, cpt, 1.0 / K_real)
+                                  probs.data_ptr(), G, B, K, K_real, cpt, 1.0 / K_real,
+                                  scratch.data_ptr())
 
-        cpts = [c for c in nb._BANK_CPTS if c * nb._NT >= K] + [0]
+        cpts = [c for c in nb._BANK_CPTS if c * nb._NT >= K] + [nb.GENERAL, nb.GLOBAL]
         ref = nb.bank_scan(*args)
         for c in cpts:
             launch(c)
             if not (torch.equal(chosen, ref[0]) and torch.equal(probs, ref[1])):
-                _fail(f"nipt_bank: the form of {c} columns a thread (0: general) at K={K} "
-                      f"draws otherwise than the wrapper's form ({nb._bank_cpt(K)})")
+                _fail(f"nipt_bank: the form {c} (columns a thread; -1 general, -2 global) at "
+                      f"K={K} draws otherwise than the wrapper's form ({nb.bank_form(K, G)})")
         t = _alternating_ms({c: (lambda c=c: launch(c)) for c in cpts})
+        names = {nb.GENERAL: "general", nb.GLOBAL: "global"}
         print(f"bank forms at {B} chains x K={K} (K_real {K_real}) x {G} grids, timed in turn "
-              f"(4 rounds of 7; the wrapper takes {nb._bank_cpt(K)}; all draw the same bits): "
-              + ", ".join(f"{f'<{c}>' if c else 'general'} {v:.3f} ms" for c, v in t.items()),
+              f"(4 rounds of 7; the wrapper takes {nb.bank_form(K, G)}; all draw the same bits): "
+              + ", ".join(f"{names.get(c, f'<{c}>')} {v:.3f} ms" for c, v in t.items()),
               flush=True)
 
 
@@ -764,19 +933,32 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
           f"(0: the general form); plain versions on all {Gp} grids", flush=True)
     rows = []
 
+    mx_r, plain_ms = _timed(lambda: fbk.fb_max_tiled_plain(dl, words, fb.K, kt))
     mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
-    mx_r = fbk.fb_max_tiled_plain(dl, words, fb.K, kt)
-    # a maximum is order-free, and the plain version adds a haplotype's
-    # log-ratios in the kernel's order: the two agree exactly
+    mx_p = fbk.fb_max_tiled(dl, words, fb.K, kt, _prev=True)
+    # the kernel adds a logit's log-ratios by byte tables, the plain version
+    # (and the previous form) by nibbles in order: the maxima agree within
+    # the rounding of the two orders; the previous form's exactly
     err = (mx - mx_r).abs().max().item()
-    print(f"fb_max_tiled: max |mx err| {err:.3e} (tolerance: exact; logits up to "
-          f"{mx_r.abs().max().item():.1f})", flush=True)
-    if not torch.equal(mx, mx_r):
+    tol = fbk.max_tiled_tolerance(dl, Gp)
+    print(f"fb_max_tiled: max |mx err| {err:.3e} (tolerance max_tiled_tolerance, here "
+          f"{tol.min().item():.2e}-{tol.max().item():.2e}; logits up to "
+          f"{mx_r.abs().max().item():.1f}), previous form exact: {torch.equal(mx_p, mx_r)}",
+          flush=True)
+    if not ((mx - mx_r).abs() <= tol).all() or not torch.equal(mx_p, mx_r):
         _fail("fb_max_tiled disagrees with its plain version")
-    rows.append(_row("fb_max_tiled", "fb_tiled.cu", "fb_pallas.py:420", err,
-                     _median_ms(lambda: fbk.fb_max_tiled(dl, words, fb.K, kt), 5),
-                     _median_ms(lambda: fbk.fb_max_tiled_plain(dl, words, fb.K, kt), 1),
-                     _nbytes(dl, words, mx), 33 * cells))
+    t_max = _alternating_ms({
+        "new": lambda: fbk.fb_max_tiled(dl, words, fb.K, kt),
+        "previous form": lambda: fbk.fb_max_tiled(dl, words, fb.K, kt, _prev=True)})
+    max_bound = _bound(_nbytes(dl, words, mx), 33 * cells)[0]
+    print(f"fb_max_tiled at {B} rows x K={fb.K} x {Gp} grids, timed in turn: new "
+          f"{t_max['new']:.3f} ms, previous form ({splits} blocks a row) "
+          f"{t_max['previous form']:.3f} ms; 50% of the bound (bound / 0.5) "
+          f"{max_bound / 0.5:.4f} ms; ptxas: " + "; ".join(PTXAS.get("fb_max_tiled_kernel", ["not reported"])), flush=True)
+    row = _row("fb_max_tiled", "fb_tiled.cu", "fb_pallas.py:420", err, t_max["new"], plain_ms,
+               _nbytes(dl, words, mx), 33 * cells)
+    row["previous_form_ms"] = t_max["previous form"]
+    rows.append(row)
 
     ck, S, lg = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt)
     ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt)
@@ -956,15 +1138,16 @@ def time_fb_plan(fb, rows_list=(28, 112)):
 # the full-width world (phase 3 imputes it; phase 2 takes its shapes)
 # ---------------------------------------------------------------------------
 
-def e2e_config(n_samples, quilt2=False, nipt=False):
+def e2e_config(n_samples, quilt2=False, nipt=False, ksubset=600):
     """QUILT1 defaults at the quick-start scale: 7 chains x 3 seek
-    iterations x 21 sweeps, Ksubset 600, all samples in one batch; quilt2
-    adds the QUILT2 defaults use_mspbwt and impute_rare_common; nipt makes
-    it the NIPT method (batches then form within equal fetal fractions)."""
+    iterations x 21 sweeps, Ksubset (and Knew) 600, all samples in one
+    batch; quilt2 adds the QUILT2 defaults use_mspbwt and
+    impute_rare_common; nipt makes it the NIPT method (batches then form
+    within equal fetal fractions)."""
     from quilt_tpu_torch.engine.driver import ImputeConfig
 
     return ImputeConfig(
-        nGibbsSamples=7, n_seek_its=3, Ksubset=600, Knew=600,
+        nGibbsSamples=7, n_seek_its=3, Ksubset=ksubset, Knew=ksubset,
         small_ref_panel_gibbs_iterations=20, seed=1, sample_batch=n_samples,
         override_default_params_for_small_ref_panel=False,
         print_extra_timing_information=True, verbose=False,
@@ -1079,16 +1262,19 @@ def run_e2e(world, kernels, cfg, label):
 
 def profile_call(label, fn, untraced_s):
     """Device busy time, idle share and the largest kernels of one call.
-    The tracer slows the host side, so the idle share is given against the
-    traced wall time and against the untraced call's."""
+    Only the card's activity is traced: the busy time sums device events
+    alone, and host operator events would only slow the call and the
+    summary (key_averages took ~3.5 s a call with them). The tracer still
+    slows the host side, so the idle share is given against the traced
+    wall time and against the untraced call's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profile(activities=[ProfilerActivity.CUDA]):
         torch.zeros(1, device="cuda")          # the tracer's one-time start-up, kept out of the window
     torch.cuda.synchronize()
     t = time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.time() - t
@@ -1415,7 +1601,12 @@ def profile_hla_sample(w, device, per_sample_s):
                      lambda: impute_one_sample(ctx, reads, cfg, seed=1), dt)
 
 
-PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "hla", "cli")
+PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "wide", "hla", "cli")
+
+
+def _took(name, t):
+    print(f"phase {name}: {time.time() - t:.1f} s", flush=True)
+    return time.time()
 
 
 def main():
@@ -1469,14 +1660,20 @@ def main():
     bank = nipt_bank.BANK_KERNEL
     fused = [fb.FWD_KERNEL, fb.BWD_KERNEL]
     capture = fb.BWD_CAPTURE_KERNEL
+    # the forms that take any K
+    wide = [gibbs_sweep.FWD_GLOBAL_KERNELS[2], gibbs_sweep.FWD_GLOBAL_KERNELS[3],
+            gibbs_sweep.BWD_GLOBAL_KERNEL, nipt_bank.BANK_GLOBAL_KERNEL]
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
-    kernels = [gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + tiled   # the order of rows
+    kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide
+               + tiled)   # the order of rows
     # the previous forms of the redesigned kernels (timings only) must launch
     # on no path
     prev_tiled = [fb._PREV_REMAT_TILED, fb._PREV_BWD_TILED, fb._PREV_FWD_TILED,
-                  nipt_bank._PREV_BANK_KERNEL]
+                  fb._PREV_MAX_TILED, nipt_bank._PREV_BANK_KERNEL,
+                  *gibbs_dosage._PREV_DOS_KERNELS.values()]
     counted = kernels + prev_tiled
     rows, launches = [], {}
+    t = time.time()
 
     if phases & {"kernels", "e2e"}:
         world = make_world()
@@ -1485,6 +1682,7 @@ def main():
             _fail(f"the port pulled in the JAX package or jax: {gone[:5]}")
         if "kernels" in phases:
             rows += check_kernels(world)
+            rows += check_global_forms()
             # fb_plan's decision points: the QUILT1 batch (112 rows), the
             # NIPT one (84), lone samples (14) and 2-4 samples; 200 rows
             # beyond one wave of fused rows; a ragged K_pad (8,320)
@@ -1492,11 +1690,13 @@ def main():
             for K, n in ((8192, (14, 28, 56, 112, 200)), (8320, (28,)), (10240, (28, 56, 112)),
                          (20480, (14, 28, 56, 112, 200))):
                 time_fb_plan(synthetic_fb(K), n)
+            t = _took("kernels", t)
         if "e2e" in phases:
             out, _, launches["quilt1"] = run_e2e(world, counted, e2e_config(8), "e2e")
             if min(out.r2_per_sample) < 0.9:
                 _fail(f"e2e r2 against truth below 0.9: {out.r2_per_sample}")
             check_launched("e2e", launches["quilt1"], [gfwd, gbwd] + fused)
+            t = _took("e2e", t)
         del world
 
     if "quilt2" in phases:
@@ -1508,6 +1708,7 @@ def main():
             _fail(f"quilt2 r2 over all sites below 0.85: {out.r2_per_sample}")
         check_launched("quilt2", launches["quilt2"], [gfwd, gbwd, gdos])
         del world2
+        t = _took("quilt2", t)
 
     if "largek" in phases:
         # large panel: K = 40,960; 2 samples x 7 chains x 2 haplotypes = 28 FB rows
@@ -1525,6 +1726,7 @@ def main():
         if [l3[k.name] for k in tiled] != [6, 6, 6]:
             _fail(f"largek: the tiled kernels did not launch once an FB call each: {l3}")
         del world3
+        t = _took("largek", t)
 
     if "nipt" in phases:
         # QUILT1-NIPT: 8 samples at 2x, two fetal fractions -> two batches of
@@ -1546,12 +1748,36 @@ def main():
         nipt_report("nipt2", world5, out)
         check_launched("nipt2", l5, nl3 + [bank])
         del world5
+        t = _took("nipt", t)
+
+    if "wide" in phases:
+        # Gibbs at a Ksubset past the forms held in shared memory: a
+        # panel of 10,496 haplotypes over 1,024 SNPs, 2 samples. Diploid at
+        # Ksubset 10,368 takes both sweeps' global forms; NIPT at 8,192 the
+        # forward's at NL = 3 and the bank's.
+        world6 = make_world(n_samples=2, K=10496, nSNPs=1024)
+        out, _, l6 = run_e2e(world6, counted, e2e_config(2, ksubset=10368), "wide")
+        launches["wide"] = l6
+        if min(out.r2_per_sample) < 0.9:
+            _fail(f"wide r2 against truth below 0.9: {out.r2_per_sample}")
+        check_launched("wide", l6, wide[0:1] + wide[2:3])
+        del world6
+        world7 = make_world(n_samples=2, K=10496, nSNPs=1024, ffs=[0.2] * 2, coverage=2.0)
+        out, _, l7 = run_e2e(world7, counted, e2e_config(2, nipt=True, ksubset=8192),
+                             "wide_nipt")
+        launches["wide_nipt"] = l7
+        nipt_report("wide_nipt", world7, out)
+        check_launched("wide_nipt", l7, [wide[1], wide[3]])
+        del world7
+        t = _took("wide", t)
     if "hla" in phases:
         launches["hla"] = run_hla(counted, [gfwd, gbwd, fb.FWD_KERNEL, capture])
         if launches["hla"][fb.BWD_KERNEL.name]:
             _fail(f"hla launched the FB backward without capture: {launches['hla']}")
+        t = _took("hla", t)
     if "cli" in phases:
         run_cli()
+        t = _took("cli", t)
 
     stale = {path: {k.name: l[k.name] for k in prev_tiled if l[k.name]}
              for path, l in launches.items()}

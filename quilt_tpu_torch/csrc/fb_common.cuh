@@ -111,12 +111,13 @@ __device__ __forceinline__ float emission_logit(unsigned w, const float* dls) {
   return x;
 }
 
-// ---- emissions by nibble tables (every current FB kernel) ----------------
+// ---- emissions by nibble tables (the FB forward and backward kernels) ----
 // The logit of a panel word w is the sum over its 8 nibbles q of the table
 // entry T_q[(w >> 4q) & 15], T_q[v] the sum of the log-ratios of the set
 // bits of v (bits 4q..4q+3, added in bit order from 0), the 8 entries added
 // in nibble order. The plain versions (kernels/fb.py:_tile_logits) add in
-// the same order, so kernel and plain logits are equal.
+// the same order, so kernel and plain logits are equal. (fb_tiled.cu's
+// emission maximum adds the nibble sums by byte instead.)
 
 // Entry v of the table of one nibble whose 4 log-ratios are d[0..3].
 __device__ __forceinline__ float nibble_sum(unsigned v, const float* d) {
@@ -150,7 +151,7 @@ __device__ __forceinline__ float logit(unsigned w, const float* em, int j) {
 }
 
 // The same logit from the grid's 32 log-ratios, without tables (equal to
-// logit() bit for bit).
+// logit() bit for bit); the previous emission maximum's (fb_tiled_prev.cu).
 __device__ __forceinline__ float logit_direct(unsigned w, const float* dls) {
   float x = nibble_sum(w & 15u, dls);
 #pragma unroll

@@ -6,7 +6,8 @@
 //   fb_max_tiled      <- _max_kernel_tiled: per (grid, row) the maximum over
 //                        all haplotypes of the emission logit (pads -1e30),
 //                        so that every block of the forward exponentiates
-//                        against the same value;
+//                        against the same value (a block a grid, the rows'
+//                        byte tables staged once; below);
 //   fb_forward_tiled  <- _fwd_kernel_tiled: a_raw = (stay*a_prev/S_prev +
 //                        jump/K) * exp(logit - mx), kept UNNORMALISED; only
 //                        S = sum_k a_raw crosses the K splits; one alpha
@@ -129,37 +130,92 @@ __device__ __forceinline__ float alpha_step(float a_prev, float inv_sprev,
   return __fmul_rn(__fmaf_rn(stay, __fmul_rn(a_prev, inv_sprev), jumpK), e);
 }
 
-// Order-free float maximum on a cell initialised to -inf.
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (v >= 0.f) {
-    atomicMax((int*)addr, __float_as_int(v));
-  } else {
-    atomicMin((unsigned int*)addr, __float_as_uint(v));
-  }
-}
+// ---- emission maximum. One block per grid serves all its rows, 32 rows
+// (one a lane) a pass. A pass stages the rows' byte tables once: entry
+// (q, v, row) is the logit contribution of byte q of a panel word whose value
+// is v, the sum of the log-ratios of v's set bits in bit order (two nibble
+// sums, the low nibble's first; each thread builds 32 entries from the 8
+// log-ratios in its registers), laid out [4][256][32 rows] so that the 32
+// lanes reading one entry for their rows hit 32 banks. A warp then walks
+// chunks of 32 haplotypes: its lanes load the chunk's words (coalesced, one
+// chunk ahead), write each word's four table offsets to the warp's buffer,
+// and every lane takes, for each haplotype, its row's logit as four lookups
+// added in byte order and keeps a running maximum. One block reduction a
+// pass; no atomics, no barrier a row.
+//
+// The logit adds the 8 nibble sums as ((b0 + b1) + b2) + b3 with b_q the
+// sum of nibbles 2q and 2q + 1, where the forward, the backward and the
+// plain versions add them in nibble order: mx differs from the largest of
+// their logits by rounding only (kernels/fb.py:max_tiled_tolerance), and
+// the forward and the backward both read this mx.
+constexpr int MX_NT = 1024;
+constexpr int MX_NWARP = MX_NT / 32;
+constexpr int MX_ROWS = 32;                  // rows a pass, one a lane
+constexpr int MX_TAB = 4 * 256 * MX_ROWS;    // floats of a pass's byte tables
+constexpr int MX_DLS = MX_ROWS * 33;         // the pass's log-ratios, rows padded to 33
+constexpr int MX_SMEM = 4 * (MX_TAB + MX_DLS + MX_NWARP * MX_ROWS + MX_NWARP * 32 * 4);
 
-// ---- emission maximum. One block per (grid, K split), rows looped inside
-// so the split's words stay in L1; partial maxima of the splits combine
-// with an atomic maximum.
-__global__ void __launch_bounds__(NT) fb_max_tiled_kernel(
-    const int* __restrict__ words, const float* __restrict__ dl,
-    float* __restrict__ mx, int Gp, int K, int K_pad, int B, int KS) {
-  __shared__ float dls[32];
-  __shared__ float red[NWARP];
-  const int g = blockIdx.x;
-  const int k0 = blockIdx.y * KS, k1 = k0 + KS;
-  const size_t S = (size_t)Gp * 32;
-  const int* wg = words + (size_t)g * K_pad;
-  for (int b = 0; b < B; ++b) {
-    if (threadIdx.x < 32) dls[threadIdx.x] = dl[(size_t)b * S + (size_t)g * 32 + threadIdx.x];
+__global__ void __launch_bounds__(MX_NT, 1) fb_max_tiled_kernel(
+    const unsigned* __restrict__ words, const float* __restrict__ dl, float* __restrict__ mx,
+    int Gp, int K, int K_pad, int B) {
+  extern __shared__ float4 mx_smem4[];
+  float* tab = reinterpret_cast<float*>(mx_smem4);              // [4][256][32]
+  float* dls = tab + MX_TAB;                                    // [32][33]
+  float* red = dls + MX_DLS;                                    // [warps][32]
+  int4* offs = reinterpret_cast<int4*>(red + MX_NWARP * MX_ROWS) + (threadIdx.x >> 5) * 32;
+  const int g = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned* wg = words + (size_t)g * K_pad;
+  const float* t = tab + lane;                                  // this lane's row
+  for (int r0 = 0; r0 < B; r0 += MX_ROWS) {
+    const int nr = B - r0 < MX_ROWS ? B - r0 : MX_ROWS;
+    for (int i = threadIdx.x; i < MX_ROWS * 32; i += MX_NT) {
+      const int r = i >> 5, s = i & 31;
+      dls[r * 33 + s] = r < nr ? dl[((size_t)(r0 + r) * Gp + g) * 32 + s] : 0.f;
+    }
+    __syncthreads();
+    {
+      // thread (v group, byte q, row r) builds entries v0 .. v0 + 31 of table
+      // q for row r from the row's 8 log-ratios in registers: the 16 sums of
+      // the low nibble and the two of the high nibbles it meets
+      static_assert(MX_NT == 8 * 4 * MX_ROWS, "the table build takes one thread a (v group, q, r)");
+      const int r = threadIdx.x & 31, q = (threadIdx.x >> 5) & 3, v0 = (threadIdx.x >> 7) * 32;
+      float d[8], lo[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = dls[r * 33 + 8 * q + i];
+#pragma unroll
+      for (int v = 0; v < 16; ++v) lo[v] = nibble_sum(v, d);
+      const float hi0 = nibble_sum(v0 >> 4, d + 4), hi1 = nibble_sum((v0 >> 4) + 1, d + 4);
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        tab[((q * 256) + v0 + v) * MX_ROWS + r] = lo[v & 15] + (v < 16 ? hi0 : hi1);
+    }
     __syncthreads();
     float m = NEG;
-    for (int k = k0 + threadIdx.x; k < k1; k += NT) {
-      const float x = logit_direct((unsigned)wg[k], dls);
-      m = fmaxf(m, (k < K) ? x : NEG);
+    int kc = warp * 32;
+    unsigned wn = kc + lane < K ? __ldg(wg + kc + lane) : 0u;
+    for (; kc < K; kc += MX_NWARP * 32) {
+      const unsigned w = wn;
+      const int kn = kc + MX_NWARP * 32 + lane;
+      wn = kn < K ? __ldg(wg + kn) : 0u;
+      // entry (q, byte q of w) of the tables, in floats from the lane's row
+      offs[lane] = make_int4((int)(w & 255u) << 5, (int)(((w >> 8) & 255u) + 256) << 5,
+                             (int)(((w >> 16) & 255u) + 512) << 5, (int)((w >> 24) + 768) << 5);
+      __syncwarp();
+      const int n = K - kc < 32 ? K - kc : 32;
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {
+        const int4 o = offs[j];
+        m = fmaxf(m, ((t[o.x] + t[o.y]) + t[o.z]) + t[o.w]);
+      }
+      __syncwarp();
     }
-    m = block_reduce(m, red, MaxOp());
-    if (threadIdx.x == 0) atomic_max_float(mx + (size_t)g * B + b, m);
+    red[warp * MX_ROWS + lane] = m;
+    __syncthreads();
+    if (threadIdx.x < nr) {
+      float r = red[threadIdx.x];
+      for (int w = 1; w < MX_NWARP; ++w) r = fmaxf(r, red[w * MX_ROWS + threadIdx.x]);
+      mx[(size_t)g * B + r0 + threadIdx.x] = r;
+    }
   }
 }
 
@@ -750,13 +806,16 @@ int launch_bwd(const void* words, const void* dl, const void* ckpt, const void* 
 
 constexpr int ERR_INVALID = (int)cudaErrorInvalidValue;
 
-extern "C" int fb_max_tiled(const void* words, const void* dl, void* mx,
-                            int Gp, int K, int K_pad, int B, int splits,
-                            void* stream) {
-  if (splits < 1 || K_pad % splits) return ERR_INVALID;
-  fb_max_tiled_kernel<<<dim3(Gp, splits), NT, 0, (cudaStream_t)stream>>>(
-      (const int*)words, (const float*)dl, (float*)mx, Gp, K, K_pad, B,
-      K_pad / splits);
+// mx [Gp, B]: the largest emission logit of each (grid, row) over the K
+// real haplotypes (words [Gp, K_pad], dl [B, Gp * 32]).
+extern "C" int fb_max_tiled(const void* words, const void* dl, void* mx, int Gp, int K,
+                            int K_pad, int B, void* stream) {
+  if (Gp < 1 || B < 1 || K < 1 || K > K_pad) return ERR_INVALID;
+  const int err = (int)cudaFuncSetAttribute(
+      (const void*)fb_max_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MX_SMEM);
+  if (err) return err;
+  fb_max_tiled_kernel<<<Gp, MX_NT, MX_SMEM, (cudaStream_t)stream>>>(
+      (const unsigned*)words, (const float*)dl, (float*)mx, Gp, K, K_pad, B);
   return (int)cudaGetLastError();
 }
 

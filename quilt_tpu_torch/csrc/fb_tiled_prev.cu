@@ -13,7 +13,12 @@
 //   * the forward: the row's alpha in a global scratch row, each grid's
 //     words, maximum and transition terms loaded inside its step, a block
 //     reduction (two barriers) then the cluster exchange of one value a
-//     block (counterpart of fb_pallas.py _fwd_kernel_tiled).
+//     block (counterpart of fb_pallas.py _fwd_kernel_tiled);
+//   * the emission maximum: one block per (grid, K split), the rows looped
+//     inside with a staging barrier, a block maximum and an atomic a row,
+//     each logit built bit by bit from the grid's 32 log-ratios
+//     (fb_common.cuh logit_direct, in the nibble order of the other
+//     kernels; counterpart of fb_pallas.py _max_kernel_tiled).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -34,6 +39,40 @@ constexpr int MAX_CG = 32;
 __device__ __forceinline__ float alpha_step(float a_prev, float inv_sprev,
                                             float stay, float jumpK, float e) {
   return __fmul_rn(__fmaf_rn(stay, __fmul_rn(a_prev, inv_sprev), jumpK), e);
+}
+
+// Order-free float maximum on a cell initialised to -inf.
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  if (v >= 0.f) {
+    atomicMax((int*)addr, __float_as_int(v));
+  } else {
+    atomicMin((unsigned int*)addr, __float_as_uint(v));
+  }
+}
+
+// ---- emission maximum. One block per (grid, K split), rows looped inside
+// so the split's words stay in L1; partial maxima of the splits combine
+// with an atomic maximum.
+__global__ void __launch_bounds__(NT) fb_max_tiled_prev_kernel(
+    const int* __restrict__ words, const float* __restrict__ dl,
+    float* __restrict__ mx, int Gp, int K, int K_pad, int B, int KS) {
+  __shared__ float dls[32];
+  __shared__ float red[NWARP];
+  const int g = blockIdx.x;
+  const int k0 = blockIdx.y * KS, k1 = k0 + KS;
+  const size_t S = (size_t)Gp * 32;
+  const int* wg = words + (size_t)g * K_pad;
+  for (int b = 0; b < B; ++b) {
+    if (threadIdx.x < 32) dls[threadIdx.x] = dl[(size_t)b * S + (size_t)g * 32 + threadIdx.x];
+    __syncthreads();
+    float m = NEG;
+    for (int k = k0 + threadIdx.x; k < k1; k += NT) {
+      const float x = logit_direct((unsigned)wg[k], dls);
+      m = fmaxf(m, (k < K) ? x : NEG);
+    }
+    m = block_reduce(m, red, MaxOp());
+    if (threadIdx.x == 0) atomic_max_float(mx + (size_t)g * B + b, m);
+  }
 }
 
 // ---- the remat of chunk ci. Grid (splits, B), no cluster: each
@@ -314,6 +353,15 @@ bool bad_split(int splits, int K_pad, int KS) {
 }  // namespace
 
 constexpr int ERR_INVALID = (int)cudaErrorInvalidValue;
+
+// mx [Gp, B], initialised to -inf by the caller.
+extern "C" int fb_max_tiled_prev(const void* words, const void* dl, void* mx, int Gp, int K,
+                                 int K_pad, int B, int splits, void* stream) {
+  if (splits < 1 || K_pad % splits) return (int)cudaErrorInvalidValue;
+  fb_max_tiled_prev_kernel<<<dim3(Gp, splits), NT, 0, (cudaStream_t)stream>>>(
+      (const int*)words, (const float*)dl, (float*)mx, Gp, K, K_pad, B, K_pad / splits);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fb_remat_tiled_prev(const void* words, const void* dl,
                                    const void* ckpt_c, const void* trans2,

@@ -70,6 +70,11 @@
 // the two forms; the WIDE form, one reduction in a slot of 16 floats (one
 // more butterfly round), exists to be timed beside it. The backward kernel
 // works on a state row and never sees NL.
+// Past the general variant (K > 10,240, or at NL = 3 once one grid stage and
+// one read row outgrow shared memory, K > 8,155), a global form of each
+// kernel takes any K that device memory holds: no producer, no ring, the
+// state in a global scratch plane (below, "the global forms"). It has no
+// speed target; the caller (kernels/gibbs_sweep.py) names the form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,6 +88,7 @@ constexpr int MAX_DE = 16;       // ring depth: backward e rows
 constexpr int BWD_PREP = 8;      // preparation warps of the backward kernel
 constexpr int GENERAL_NT = 256;  // general variant: threads and column capacity
 constexpr int GENERAL_CPT = 40;
+constexpr int GLOBAL_NT = 512;   // global forms: threads a chain (any K)
 constexpr int SMEM_LIMIT = 227 * 1024 - 4096;   // dynamic part; statics fit the rest
 
 // ---------------------------------------------------------------------------
@@ -292,6 +298,7 @@ struct FwdCommon {
   float *lemg_out, *alpha_out;
   int* h_out;
   float *logc_out, *uf_out, *lab_out;
+  float* scratch;    // global form: the chains' alpha, [B][NL][K]
   int G, B, W, K, K_real, it_mode, want_alpha;
   int vec, DS, DR;   // 16-byte copies allowed; ring depths
   float invK;
@@ -456,6 +463,80 @@ struct ReadRow {
     }
   }
 };
+
+// The label draw of a live read slot, the same in every thread of the chain:
+// the global forms'. The register forms keep the same code inline: factored
+// out, their NL = 3 instantiation compiled to a slower kernel on the H100.
+// q: the step's sums, gain[h] = sum(alpha*beta*em), lose[h] =
+// sum(alpha*beta*iv), then the sums alpha has after gaining (alpha*em) or
+// losing (alpha*iv) the read; pc: the rows' pC. z / rs: what a flip would
+// renormalise the gaining rows (0..NL-1) and the losing rows (NL..) by, and
+// its inverse, taken ahead of the decision.
+template <int NL>
+struct Draw {
+  float z[2 * NL], rs[2 * NL];
+  float lose_C;
+  int h_new;
+  bool flip, normal;
+};
+
+template <int NL>
+__device__ __forceinline__ Draw<NL> draw_label(const FwdArgs<NL>& a, const float (&q)[4 * NL],
+                                               const float (&pc)[NL], float u, int hC, int rg,
+                                               int first, bool& uf) {
+  Draw<NL> d;
+#pragma unroll
+  for (int j2 = 0; j2 < 2 * NL; ++j2) {
+    d.z[j2] = q[2 * NL + j2] > 0.f ? q[2 * NL + j2] : 1.f;
+    d.rs[j2] = __fdividef(1.f, d.z[j2]);
+  }
+  bool doing_pass = false, doing_init = false;
+  if (a.it_mode == 0) {
+    doing_pass = rg < first;
+    doing_init = rg >= first;
+  } else if (a.it_mode == 1) {
+    doing_init = rg < first;
+  }
+  d.normal = !doing_init;
+  d.lose_C = q[NL];
+#pragma unroll
+  for (int h = 1; h < NL; ++h)
+    if (hC == h) d.lose_C = q[NL + h];
+  // candidate weights w[n] = prior[n] * prod_m term(n, m)
+  // (reference: sample_reads_in_grid, gibbs-nipt.cpp:733-1341)
+  float w[NL], wsum = 0.f;
+#pragma unroll
+  for (int n = 0; n < NL; ++n) {
+    float prod = 1.f;
+#pragma unroll
+    for (int m = 0; m < NL; ++m) {
+      float term;
+      if (m == n)
+        term = (doing_init || hC != n) ? q[n] : pc[m];
+      else
+        term = (doing_init || hC == n || hC != m) ? pc[m] : d.lose_C;
+      prod = m == 0 ? term : prod * term;
+    }
+    w[n] = prod * a.prior[n];
+    wsum = n == 0 ? w[n] : wsum + w[n];
+  }
+  const bool badv = !isfinite(wsum) || wsum <= 0.f;
+  uf = uf || badv;
+  // h_new = number of candidates whose cumulative probability <= u
+  // (compared as cumulative weight <= u * wsum: no division on the
+  // chain; a bad wsum never flips, whatever h_new is)
+  const float uw = u * wsum;
+  float cum = 0.f;
+  int h_new = 0;
+#pragma unroll
+  for (int n = 0; n < NL - 1; ++n) {
+    cum += w[n];
+    h_new += cum <= uw ? 1 : 0;
+  }
+  d.h_new = h_new;
+  d.flip = !doing_pass && !badv && (h_new != hC || doing_init);
+  return d;
+}
 
 // NT consumer threads (the chain) and one producer warp. FAST: K <= NT*CPT
 // and the column loops unroll over CPT registers; otherwise CPT is the
@@ -838,6 +919,192 @@ __global__ void __launch_bounds__(NT + 32 * BWD_PREP) gibbs_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// the global forms: any K
+// ---------------------------------------------------------------------------
+// Where no other form holds K (more columns than the general variant's
+// GENERAL_NT x GENERAL_CPT, or, forward, not even one grid stage and one
+// read row of shared memory for the producer's rings), a block of
+// GLOBAL_NT threads walks the chain with no producer and no ring: each
+// thread reads its columns of lemg, beta and the read rows straight from
+// device memory. The forward keeps alpha in a global scratch plane
+// [B][NL][K] and takes its lemg output row as its working lemg; the
+// backward keeps e*beta in its beta output row until the step's sums are
+// known. A thread touches only its own columns (tid + m * GLOBAL_NT) of
+// every plane, so the chain's reductions are the only barriers. The steps
+// are the register forms' (the same sums in the same reductions, the same
+// draw); the row maxima of the next grid's lemg ride in the current grid's
+// reduction, as there.
+
+template <int NL>
+__global__ void __launch_bounds__(GLOBAL_NT) gibbs_fwd_global_kernel(const FwdArgs<NL> a) {
+  constexpr int NT = GLOBAL_NT, SLOT = 8;
+  __shared__ __align__(16) float red[2 * (NT / 32) * SLOT];
+  const int tid = threadIdx.x, b = blockIdx.x, K = a.K, K_real = a.K_real;
+  const int BN = NL * a.B, first = a.first_read[b];
+  float* alpha = a.scratch + (size_t)b * NL * K;   // row h at alpha + h * K
+  // row h of chain b in grid g of a [G, NL*B, K] plane
+  auto at = [&](auto* p, int g, int h) { return p + ((size_t)g * BN + h * a.B + b) * K; };
+  float pc[NL], logc[NL], zprod[NL], lab[NL], mx[NL];
+  bool uf = false;
+  int par = 0;
+#pragma unroll
+  for (int h = 0; h < NL; ++h) {
+    logc[h] = 0.f;
+    zprod[h] = 1.f;
+    pc[h] = 0.f;
+    lab[h] = a.lab_init[NL * b + h];
+    mx[h] = NEG;
+  }
+  for (int c = tid; c < K; c += NT) {
+#pragma unroll
+    for (int h = 0; h < NL; ++h) {
+      alpha[h * K + c] = 0.f;
+      if (c < K_real) mx[h] = fmaxf(mx[h], at(a.lemg, 0, h)[c]);
+    }
+  }
+  chain_reduce<NT, 0, NL, SLOT>(mx, red, par);
+
+  for (int g = 0; g < a.G; ++g) {
+    // ---- alpha advance into grid g: one reduction ----
+    const float t0 = a.trans[g], t1 = a.trans[a.G + g];
+    const bool has_next = g + 1 < a.G;
+    const float jump = (t1 + (g == 0 ? 1.f : 0.f)) * a.invK;
+    float v[3 * NL];   // sum(a_raw), sum(a_raw*beta) | max of the next lemg
+#pragma unroll
+    for (int h = 0; h < NL; ++h) v[h] = v[NL + h] = 0.f, v[2 * NL + h] = NEG;
+    for (int c = tid; c < K; c += NT) {
+#pragma unroll
+      for (int h = 0; h < NL; ++h) {
+        const float l = at(a.lemg, g, h)[c];
+        at(a.lemg_out, g, h)[c] = l;
+        if (has_next && c < K_real) v[2 * NL + h] = fmaxf(v[2 * NL + h], at(a.lemg, g + 1, h)[c]);
+        const float e = c < K_real ? expf(l - mx[h]) : 0.f;
+        const float ar = e * (t0 * alpha[h * K + c] + jump);
+        alpha[h * K + c] = ar;
+        v[h] += ar;
+        v[NL + h] += ar * at(a.beta, g, h)[c];
+      }
+    }
+    chain_reduce_n<NT, 2 * NL, NL, SLOT>(v, red, par);
+    float q[NL];
+#pragma unroll
+    for (int h = 0; h < NL; ++h) {
+      const float s = v[h];
+      uf = uf || !isfinite(s) || s <= 0.f;
+      const float ss = s > 0.f ? s : 1.f;
+      q[h] = __fdividef(1.f, ss);
+      pc[h] = v[NL + h] * q[h];
+      logc[h] = logc[h] + logf(ss) + mx[h];
+      mx[h] = v[2 * NL + h];
+    }
+    for (int c = tid; c < K; c += NT) {
+#pragma unroll
+      for (int h = 0; h < NL; ++h) alpha[h * K + c] *= q[h];
+    }
+
+    // ---- the grid's read slots in order: one reduction a live one ----
+    for (int i = 0; i < a.W; ++i) {
+      const SlotWords w = load_words(a, g, i, b);
+      if (i >= w.cnt || w.skip != 0) {   // the same in every thread
+        if (tid == 0) a.h_out[((size_t)g * a.W + i) * a.B + b] = w.h;
+        continue;
+      }
+      const float* lr = a.lem_pad + (((size_t)g * a.W + i) * a.B + b) * K;
+      float qs[4 * NL];
+#pragma unroll
+      for (int j2 = 0; j2 < 4 * NL; ++j2) qs[j2] = 0.f;
+      for (int c = tid; c < K; c += NT) {
+        const float l = lr[c], em = expf(l), iv = expf(-l);
+#pragma unroll
+        for (int h = 0; h < NL; ++h) {
+          const float al = alpha[h * K + c];
+          const float ab = al * at(a.beta, g, h)[c];
+          qs[h] += ab * em;
+          qs[NL + h] += ab * iv;
+          qs[2 * NL + h] += al * em;
+          qs[3 * NL + h] += al * iv;
+        }
+      }
+      chain_reduce_n<NT, 4 * NL, 0, SLOT>(qs, red, par);
+      const int hC = w.h;
+      const Draw<NL> dr = draw_label(a, qs, pc, __int_as_float(w.u), hC, w.rg, first, uf);
+      const int h_new = dr.h_new;
+      if (dr.flip) {
+#pragma unroll
+        for (int h = 0; h < NL; ++h) {
+          const bool gains = h_new == h, loses = hC == h && dr.normal;
+          if (gains || loses) {
+            const float r = gains ? dr.rs[h] : dr.rs[NL + h];
+            const float d = gains ? 1.f : -1.f;
+            float* lo = at(a.lemg_out, g, h);
+            for (int c = tid; c < K; c += NT) {
+              const float l = lr[c];
+              alpha[h * K + c] = alpha[h * K + c] * (gains ? expf(l) : expf(-l)) * r;
+              lo[c] += d * l;
+            }
+            pc[h] = (gains ? qs[h] : dr.lose_C) * r;
+            carry_log(logc[h], zprod[h], gains ? dr.z[h] : dr.z[NL + h]);
+          }
+          lab[h] += (h_new == h ? 1.f : 0.f) - (hC == h ? 1.f : 0.f);
+        }
+      }
+      if (tid == 0) a.h_out[((size_t)g * a.W + i) * a.B + b] = dr.flip ? h_new : hC;
+    }
+    if (a.want_alpha) {
+      for (int c = tid; c < K; c += NT) {
+#pragma unroll
+        for (int h = 0; h < NL; ++h) at(a.alpha_out, g, h)[c] = alpha[h * K + c];
+      }
+    }
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int h = 0; h < NL; ++h) {
+      a.logc_out[h * a.B + b] = logc[h] + logf(zprod[h]);
+      a.lab_out[NL * b + h] = lab[h];
+    }
+    a.uf_out[b] = uf ? 1.f : 0.f;
+  }
+}
+
+// The backward of state row blockIdx.x: e*beta of a grid goes into its beta
+// output row, then, once the step's sum and maximum are known, the row is
+// rewritten as the grid's beta.
+__global__ void __launch_bounds__(GLOBAL_NT) gibbs_bwd_global_kernel(const BwdArgs a) {
+  constexpr int NT = GLOBAL_NT;
+  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  const int tid = threadIdx.x, K = a.K, K_real = a.K_real, G = a.G;
+  auto at = [&](auto* p, int g) { return p + ((size_t)g * a.BN + blockIdx.x) * K; };
+  int par = 0;
+  float m[1] = {NEG};   // the row maximum of the grid the next step reads
+  for (int c = tid; c < K; c += NT) {
+    at(a.beta_out, G - 1)[c] = 1.f;
+    if (c < K_real && G > 1) m[0] = fmaxf(m[0], at(a.lemg, G - 1)[c]);
+  }
+  if (G > 1) chain_reduce<NT, 0, 1>(m, red, par);
+  for (int g = G - 2; g >= 0; --g) {
+    const float t0 = a.trans[g + 1], t1 = a.trans[G + g + 1];
+    const float* lr = at(a.lemg, g + 1);
+    const float* bn = at(a.beta_out, g + 1);
+    float* bo = at(a.beta_out, g);
+    float v[3] = {0.f, 0.f, NEG};   // sum(e*beta) | max(e*beta), max of lemg[g]
+    for (int c = tid; c < K; c += NT) {
+      const float etb = (c < K_real ? expf(lr[c] - m[0]) : 0.f) * bn[c];
+      bo[c] = etb;
+      v[0] += etb;
+      v[1] = fmaxf(v[1], etb);
+      if (g > 0 && c < K_real) v[2] = fmaxf(v[2], at(a.lemg, g)[c]);
+    }
+    chain_reduce<NT, 1, 2>(v, red, par);
+    const float c0 = t1 * v[0] * a.invK;
+    const float top = fmaf(t0, v[1], c0);   // = max_k fma(t0, etb_k, c0)
+    const float d = top > 0.f ? top : 1.f;
+    for (int c = tid; c < K; c += NT) bo[c] = fmaf(t0, bo[c], c0) / d;
+    m[0] = v[2];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the least a dependent step can take: the chain's reduction alone
 // ---------------------------------------------------------------------------
 
@@ -901,35 +1168,48 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 }
 
 // The instantiated (threads, columns a thread) pairs, smallest first per
-// thread count: threads = 0 takes the first that holds K among the default
-// thread count's (128) and then the wider one's; above them all, the
-// general variant. An explicit thread count (64, 128, 256) takes only its
-// own pairs; -1 forces the general variant. <64, 10> and <256, 3> are
-// reached by an explicit count only: they exist to be timed at K = 640
-// beside the default.
-#define SWEEP_DISPATCH(LAUNCH, K, threads, a, stream)                          \
+// thread count. The caller names the form (kernels/gibbs_sweep.py:fwd_form
+// and bwd_form choose it): a thread count (64, 128 or 256) takes the first
+// of its pairs that holds K; -1 the general variant; -2 the global form.
+// <64, 10> and <256, 3> are reached by an explicit count only: they exist to
+// be timed at K = 640 beside the default. A form that does not hold K is
+// refused, never replaced by another.
+#define SWEEP_DISPATCH(LAUNCH, LAUNCH_GLOBAL, K, threads, a, stream)           \
   do {                                                                         \
     const int k_ = (K), t_ = (threads);                                        \
     if (t_ == 64 && k_ <= 64 * 10) return LAUNCH<64, 10, true>(a, stream);     \
-    if (t_ == 0 || t_ == 128) {                                                \
+    if (t_ == 128) {                                                           \
       if (k_ <= 128 * 2) return LAUNCH<128, 2, true>(a, stream);               \
       if (k_ <= 128 * 4) return LAUNCH<128, 4, true>(a, stream);               \
       if (k_ <= 128 * 5) return LAUNCH<128, 5, true>(a, stream);               \
       if (k_ <= 128 * 8) return LAUNCH<128, 8, true>(a, stream);               \
     }                                                                          \
-    if (t_ == 0 || t_ == 256) {                                                \
+    if (t_ == 256) {                                                           \
       if (k_ <= 256 * 3) return LAUNCH<256, 3, true>(a, stream);               \
       if (k_ <= 256 * 8) return LAUNCH<256, 8, true>(a, stream);               \
     }                                                                          \
-    if ((t_ == 0 || t_ == -1) && k_ <= GENERAL_NT * GENERAL_CPT)               \
+    if (t_ == -1 && k_ <= GENERAL_NT * GENERAL_CPT)                            \
       return LAUNCH<GENERAL_NT, GENERAL_CPT, false>(a, stream);                \
+    if (t_ == -2) return LAUNCH_GLOBAL(a, stream);                             \
     return (int)cudaErrorInvalidValue;                                         \
   } while (0)
+
+template <int NL>
+int launch_fwd_global(const FwdArgs<NL>& a, cudaStream_t stream) {
+  if (a.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  gibbs_fwd_global_kernel<NL><<<a.B, GLOBAL_NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_global(const BwdArgs& a, cudaStream_t stream) {
+  gibbs_bwd_global_kernel<<<a.BN, GLOBAL_NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 // The forward sweep of the diploid sampler: every pair of SWEEP_DISPATCH.
 int dispatch_fwd(const FwdArgs<2>& a, int threads, int wide, cudaStream_t stream) {
   if (wide) return (int)cudaErrorInvalidValue;
-  SWEEP_DISPATCH(launch_fwd, a.K, threads, a, stream);
+  SWEEP_DISPATCH(launch_fwd, launch_fwd_global<2>, a.K, threads, a, stream);
 }
 
 // The forward sweep at NL = 3 holds half as many more registers a column,
@@ -938,20 +1218,20 @@ int dispatch_fwd(const FwdArgs<2>& a, int threads, int wide, cudaStream_t stream
 int dispatch_fwd(const FwdArgs<3>& a, int threads, int wide, cudaStream_t stream) {
   const int K = a.K;
   if (wide) {
-    if ((threads == 0 || threads == 128) && K > 128 * 4 && K <= 128 * 5)
+    if (threads == 128 && K > 128 * 4 && K <= 128 * 5)
       return launch_fwd<128, 5, true, true>(a, stream);
     return (int)cudaErrorInvalidValue;
   }
-  if (threads == 0 || threads == 128) {
+  if (threads == 128) {
     if (K <= 128 * 2) return launch_fwd<128, 2, true>(a, stream);
     if (K <= 128 * 4) return launch_fwd<128, 4, true>(a, stream);
     if (K <= 128 * 5) return launch_fwd<128, 5, true>(a, stream);
     if (K <= 128 * 8) return launch_fwd<128, 8, true>(a, stream);
   }
-  if ((threads == 0 || threads == 256) && K <= 256 * 8)
-    return launch_fwd<256, 8, true>(a, stream);
-  if ((threads == 0 || threads == -1) && K <= GENERAL_NT * GENERAL_CPT)
+  if (threads == 256 && K <= 256 * 8) return launch_fwd<256, 8, true>(a, stream);
+  if (threads == -1 && K <= GENERAL_NT * GENERAL_CPT)
     return launch_fwd<GENERAL_NT, GENERAL_CPT, false>(a, stream);
+  if (threads == -2) return launch_fwd_global<3>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -961,10 +1241,11 @@ int run_fwd(const FwdCommon& c, const float* prior, int threads, int wide,
   FwdArgs<NL> a;
   static_cast<FwdCommon&>(a) = c;
   for (int h = 0; h < NL; ++h) a.prior[h] = prior[h];
-  // the rings shrink, not K: rows first, then grid stages, down to one each
+  // the rings shrink, not K: rows first, then grid stages, down to one each;
+  // the global form has none
   a.DS = MAX_DS, a.DR = MAX_DR;
   const size_t row = (size_t)a.K * sizeof(float);
-  while (((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
+  while (threads != -2 && ((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
     if (a.DR > 1) a.DR /= 2;
     else if (a.DS > 1) a.DS -= 1;
     else return (int)cudaErrorInvalidValue;
@@ -983,17 +1264,17 @@ int launch_floor(float* out, int blocks, int steps, int values, cudaStream_t s) 
 }  // namespace
 
 // nl: 2 (diploid) or 3 (NIPT) latent rows a chain, with the label prior
-// p0..p2 (p2 unread at nl = 2). threads: 0 = the fastest variant that holds
-// K; 64 / 128 / 256 = that many chain threads (cudaErrorInvalidValue if no
-// such variant holds K); -1 = the general variant. wide: 0 but to time the
+// p0..p2 (p2 unread at nl = 2). threads: the form, as SWEEP_DISPATCH reads
+// it (64 / 128 / 256 chain threads, -1 the general variant, -2 the global
+// form, which takes scratch [B, nl, K] floats; scratch is unread otherwise);
+// cudaErrorInvalidValue if the form does not hold K. wide: 0 but to time the
 // one-reduction form of the nl = 3 steps (128 threads, K in (512, 640]).
-// Callers other than timings and tests pass threads = 0 and wide = 0.
 extern "C" int gibbs_fwd(
     const void* lemg, const void* beta, const void* lem_pad,
     const void* slots, const void* first_read, const void* lab_init,
     const void* trans, const void* cnt_max, void* lemg_out, void* alpha_out,
-    void* h_out, void* logc_out, void* uf_out, void* lab_out, int G, int B,
-    int W, int K, int K_real, int it_mode, int want_alpha, int threads,
+    void* h_out, void* logc_out, void* uf_out, void* lab_out, void* scratch, int G,
+    int B, int W, int K, int K_real, int it_mode, int want_alpha, int threads,
     int nl, int wide, float invK, float p0, float p1, float p2, void* stream) {
   FwdCommon a;
   a.lemg = (const float*)lemg, a.beta = (const float*)beta;
@@ -1003,6 +1284,7 @@ extern "C" int gibbs_fwd(
   a.lemg_out = (float*)lemg_out, a.alpha_out = (float*)alpha_out;
   a.h_out = (int*)h_out, a.logc_out = (float*)logc_out;
   a.uf_out = (float*)uf_out, a.lab_out = (float*)lab_out;
+  a.scratch = (float*)scratch;
   a.G = G, a.B = B, a.W = W, a.K = K, a.K_real = K_real, a.it_mode = it_mode;
   a.want_alpha = want_alpha, a.invK = invK;
   a.vec = K % 4 == 0 && aligned16(lemg) && aligned16(beta) && aligned16(lem_pad);
@@ -1013,6 +1295,7 @@ extern "C" int gibbs_fwd(
   return (int)cudaErrorInvalidValue;
 }
 
+// threads: the form, as for gibbs_fwd (the global form takes no scratch).
 // ahead: 0 but to time the look-ahead form (128 threads, K in (512, 640]).
 extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
                          int G, int BN, int K, int K_real, int threads,
@@ -1023,12 +1306,13 @@ extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
   a.G = G, a.BN = BN, a.K = K, a.K_real = K_real, a.invK = invK;
   a.ahead = ahead;
   a.DE = MAX_DE;
-  while ((size_t)a.DE * K * sizeof(float) > (size_t)SMEM_LIMIT) {
+  while (threads != -2 && (size_t)a.DE * K * sizeof(float) > (size_t)SMEM_LIMIT) {
     if (a.DE > 1) a.DE /= 2;
     else return (int)cudaErrorInvalidValue;
   }
   a.prep = a.DE < BWD_PREP ? a.DE : BWD_PREP;
-  SWEEP_DISPATCH(launch_bwd, K, threads, a, (cudaStream_t)stream);
+  if (threads == -2 && ahead) return (int)cudaErrorInvalidValue;
+  SWEEP_DISPATCH(launch_bwd, launch_bwd_global, K, threads, a, (cudaStream_t)stream);
 }
 
 // `steps` dependent reductions of `values` (8 or 16) sums by `threads`

@@ -55,7 +55,10 @@
 //     barrier, and every thread adds the records in warp order, so all
 //     threads take the same decision from the same sums.
 // A general form (the bank in shared memory, operands read in the step)
-// serves K above the register forms. The previous form is nipt_bank_prev.cu.
+// serves K above the register forms, and its global form (the bank and the
+// staged scalars in a global scratch plane) any K and G whose bank or
+// staged scalars outgrow a block's shared memory (K > 6,257 at 512 grids;
+// about 19,000 grids). The previous form is nipt_bank_prev.cu.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -461,17 +464,24 @@ __global__ void __launch_bounds__(NT, 1) nipt_bank_kernel(
 }
 
 // ---- the general form: the bank in shared memory --------------------------
+// GLOBAL (the global form, any K and G): the staged scalars and the bank in
+// the chain's region of a global scratch plane, [B][r4(3G) + 9K] floats,
+// where they do not fit a block's shared memory. Each thread touches only
+// its own columns of the bank, so the same code serves both.
 
+template <bool GLOBAL>
 __global__ void __launch_bounds__(NT, 1) nipt_bank_general_kernel(
     const float* __restrict__ lemg, const float* __restrict__ beta,
     const float* __restrict__ trans, const float* __restrict__ ht,
     const float* __restrict__ u, const int* __restrict__ is_end,
     const float* __restrict__ perm_mask, int* __restrict__ chosen_out,
-    float* __restrict__ probs_out, int G, int B, int K, int K_real, float invK) {
+    float* __restrict__ probs_out, int G, int B, int K, int K_real, float invK,
+    float* __restrict__ scratch) {
   extern __shared__ float4 smem4[];
   __shared__ float4 red4[2 * NWARP * RW / 4];
   float* red = reinterpret_cast<float*>(red4);
-  float* staged = reinterpret_cast<float*>(smem4);
+  float* staged = GLOBAL ? scratch + (size_t)blockIdx.x * (r4(3 * G) + 9 * (size_t)K)
+                         : reinterpret_cast<float*>(smem4);
   float* bank = staged + r4(3 * G);                         // [9][K], row i*3 + j
   const Chain ch = make_chain(lemg, beta, trans, ht, u, is_end, perm_mask, chosen_out, probs_out,
                               G, B, K, K_real, invK, staged);
@@ -583,11 +593,11 @@ constexpr int ERR_INVALID = (int)cudaErrorInvalidValue;
 
 namespace {
 
-template <class Kern>
+template <class Kern, class... Extra>
 int launch(Kern kernel, int B, size_t smem, cudaStream_t st, const void* lemg,
            const void* beta, const void* trans, const void* ht, const void* u,
            const void* is_end, const void* perm_mask, void* chosen_out, void* probs_out, int G,
-           int K, int K_real, float invK) {
+           int K, int K_real, float invK, Extra... extra) {
   if (smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute((const void*)kernel,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -597,33 +607,43 @@ int launch(Kern kernel, int B, size_t smem, cudaStream_t st, const void* lemg,
   kernel<<<B, NT, smem, st>>>((const float*)lemg, (const float*)beta, (const float*)trans,
                               (const float*)ht, (const float*)u, (const int*)is_end,
                               (const float*)perm_mask, (int*)chosen_out, (float*)probs_out, G,
-                              B, K, K_real, invK);
+                              B, K, K_real, invK, extra...);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The bank scan of B chains. cpt chooses the form: columns a thread in
-// registers (2, 5 or 8, K <= 128 * cpt), or 0 the general form (the bank in
-// shared memory). Each register form beats the next wider one and the
-// general form where it holds K (chip_smoke.py's "bank forms" lines, 28
-// chains x 512 grids on the H100: at K = 256 <2> 0.563 ms, <5> 0.769, <8>
-// 1.138, general 1.262; at K = 1,024 <8> 1.174, general 3.019). Returns
-// cudaErrorInvalidValue for a form without an instantiation or shared
-// memory beyond a block's.
+// The bank scan of B chains. cpt names the form (kernels/nipt_bank.py:
+// bank_form chooses it, in the sweeps' codes): columns a thread in registers
+// (2, 5 or 8, K <= 128 * cpt, the 3G staged scalars in shared memory), -1
+// the general form (the bank and the staged scalars in shared memory), -2
+// the global form (both in scratch, [B][r4(3G) + 9K] floats; scratch is
+// unread otherwise). Each
+// register form beats the next wider one and the general form where it holds
+// K (chip_smoke.py's "bank forms" lines, 28 chains x 512 grids on the H100:
+// at K = 256 <2> 0.563 ms, <5> 0.769, <8> 1.138, general 1.262; at K = 1,024
+// <8> 1.174, general 3.019). Returns cudaErrorInvalidValue for a form
+// without an instantiation or one whose shared memory exceeds a block's.
 extern "C" int nipt_bank(const void* lemg, const void* beta, const void* trans,
                          const void* ht, const void* u, const void* is_end,
                          const void* perm_mask, void* chosen_out, void* probs_out,
-                         int G, int B, int K, int K_real, int cpt, float invK, void* stream) {
+                         int G, int B, int K, int K_real, int cpt, float invK, void* scratch,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (G < 1 || B < 1 || K_real < 1 || K_real > K || (cpt > 0 && NT * cpt < K))
     return ERR_INVALID;
   const size_t staged = 4 * (size_t)r4(3 * G);
-  if (cpt == 0) {
+  if (cpt == -2) {
+    if (scratch == nullptr) return ERR_INVALID;
+    return launch(nipt_bank_general_kernel<true>, B, 0, st, lemg, beta, trans, ht, u, is_end,
+                  perm_mask, chosen_out, probs_out, G, K, K_real, invK, (float*)scratch);
+  }
+  if (cpt == -1) {
     const size_t smem = staged + 4 * 9 * (size_t)K;
     if (smem > SMEM_LIMIT - 1024) return ERR_INVALID;
-    return launch(nipt_bank_general_kernel, B, smem, st, lemg, beta, trans, ht, u, is_end,
-                  perm_mask, chosen_out, probs_out, G, K, K_real, invK);
+    return launch(nipt_bank_general_kernel<false>, B, smem, st, lemg, beta, trans, ht, u,
+                  is_end, perm_mask, chosen_out, probs_out, G, K, K_real, invK,
+                  (float*)nullptr);
   }
   if (staged > SMEM_LIMIT - 4096) return ERR_INVALID;
 #define BANK(CPT_)                                                                          \

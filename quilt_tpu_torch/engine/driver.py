@@ -25,6 +25,8 @@ from ..utils import print_message, set_verbosity
 from ..utils.log import SectionTimers
 
 from ..inputs import pad_to_multiple
+from ..kernels.gibbs_sweep import fwd_scratch_floats
+from ..kernels.nipt_bank import bank_scratch_floats
 from .batch import SampleResult, impute_samples_batched
 from .context import (
     RegionContext, context_fields, validate_impute_config,
@@ -74,8 +76,11 @@ def max_chains(K_pad: int, W: int, G: int, device: torch.device, nl: int = 2) ->
     """Largest Gibbs chain batch whose working set fits: per chain, the
     lemg/beta/alpha [G, nl, K_pad] planes (twice: inputs and outputs of a
     sweep), the [G, W, K_pad] float32 slot emissions (and the gather that
-    builds them) and the [K_pad, R ~ 4G] read emissions."""
-    per_row = 4 * (2 * 3 * nl * G * K_pad + 2 * G * max(W, 1) * K_pad + 4 * G * K_pad)
+    builds them), the [K_pad, R ~ 4G] read emissions, and the scratch planes
+    of the kernels' global forms where K_pad takes them (the forward sweep's
+    alpha; at nl = 3 the block move's bank)."""
+    scratch = fwd_scratch_floats(K_pad, nl) + (bank_scratch_floats(K_pad, G) if nl == 3 else 0)
+    per_row = 4 * (2 * 3 * nl * G * K_pad + 2 * G * max(W, 1) * K_pad + 4 * G * K_pad + scratch)
     if device.type == "cuda":
         budget = int(torch.cuda.mem_get_info(device)[0] * _GIBBS_MEM_FRACTION)
     else:

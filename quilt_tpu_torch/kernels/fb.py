@@ -50,7 +50,7 @@ FLOOR_KERNEL = Kernel("fb", "fb_chain_floor", [_P] + [_I] * 3)
 # for timing beside it only (fb_forward / fb_backward with _prev=True)
 _PREV_FWD = Kernel("fb_prev", "fb_forward_prev", [_P] * 6 + [_I] * 5 + [_F])
 _PREV_BWD = Kernel("fb_prev", "fb_backward_prev", [_P] * 11 + [_I] * 6 + [_F, _F])
-MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 5)
+MAX_TILED_KERNEL = Kernel("fb_tiled", "fb_max_tiled", [_P] * 3 + [_I] * 4)
 FWD_TILED_KERNEL = Kernel("fb_tiled", "fb_forward_tiled", [_P] * 8 + [_I] * 6 + [_F, _I])
 BWD_TILED_KERNEL = Kernel("fb_tiled", "fb_backward_tiled",
                           [_P] * 12 + [_I] * 7 + [_F, _F, _I, _I])
@@ -63,6 +63,9 @@ _PREV_FWD_TILED = Kernel("fb_tiled_prev", "fb_forward_tiled_prev", [_P] * 8 + [_
 _PREV_REMAT_TILED = Kernel("fb_tiled_prev", "fb_remat_tiled_prev", [_P] * 7 + [_I] * 7 + [_F])
 _PREV_BWD_TILED = Kernel("fb_tiled_prev", "fb_backward_tiled_prev",
                          [_P] * 14 + [_I] * 8 + [_F, _F])
+# and the emission maximum before its redesign (a block per (grid, split),
+# a barrier and an atomic a row; fb_max_tiled with _prev=True)
+_PREV_MAX_TILED = Kernel("fb_tiled_prev", "fb_max_tiled_prev", [_P] * 3 + [_I] * 5)
 _NEG = -1e30
 # device-memory budget of one core call's checkpoints + scratch: fb_plan
 # takes rows per call = budget / per-row bytes of the chosen family
@@ -483,18 +486,40 @@ def _check_tiled(dl, words, K, k_tile, CG):
         raise ValueError(f"bad Gp={Gp} / CG={CG} / K={K} / k_tile={k_tile}")
 
 
-def fb_max_tiled(dl, words, K, k_tile):
+def fb_max_tiled(dl, words, K, k_tile, _prev=False):
     """mx [Gp, B]: per (grid, row) the maximum over the K haplotypes of
-    the emission logit dl[b, g*32:(g+1)*32] . bits[k]."""
+    the emission logit dl[b, g*32:(g+1)*32] . bits[k]. The kernel adds a
+    logit's log-ratios by byte tables, in another order than the plain
+    version's nibble order: the two agree within max_tiled_tolerance.
+    Private, timings only: _prev launches the previous form (nibble order,
+    equal to the plain version)."""
     B = dl.shape[0]
     Gp, K_pad = words.shape
     _check_tiled(dl, words, K, k_tile, 1)
     if dl.device.type == "cpu":
         return fb_max_tiled_plain(dl, words, K, k_tile)
-    mx = torch.full((Gp, B), float("-inf"), dtype=torch.float32, device=dl.device)
-    MAX_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), mx.data_ptr(),
-                            Gp, K, K_pad, B, _splits(K_pad, k_tile))
+    splits = _splits(K_pad, k_tile)
+    if _prev:
+        mx = torch.full((Gp, B), float("-inf"), dtype=torch.float32, device=dl.device)
+        _PREV_MAX_TILED.launch(words.data_ptr(), dl.data_ptr(), mx.data_ptr(),
+                               Gp, K, K_pad, B, splits)
+        return mx
+    mx = torch.empty((Gp, B), dtype=torch.float32, device=dl.device)
+    MAX_TILED_KERNEL.launch(words.data_ptr(), dl.data_ptr(), mx.data_ptr(), Gp, K, K_pad, B)
     return mx
+
+
+def max_tiled_tolerance(dl, Gp):
+    """[Gp, B]: how far fb_max_tiled's mx may lie from its plain version's.
+    Both build a logit's 8 nibble sums alike (fb_common.cuh nibble_sum, the
+    plain _tile_logits: the same additions in the same order, so the same
+    bits) and differ only in the 7 additions that combine them: in nibble
+    order in the plain version, by byte pairs and then bytes in the kernel.
+    Each of the two is within gamma_7 = 7u / (1 - 7u) (u = 2^-24) x the sum
+    of the nibble sums' magnitudes, at most sum |dl|, of the nibble sums'
+    exact total, and the maximum moves no further than its arguments."""
+    u = 2.0 ** -24
+    return (14 * u / (1 - 7 * u)) * dl.abs().reshape(dl.shape[0], Gp, 32).sum(2).T
 
 
 def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=None, _prev=False, _general=False):

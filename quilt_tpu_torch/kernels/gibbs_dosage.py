@@ -4,8 +4,11 @@ Counterpart of quilt_tpu/kernels/gibbs_pallas.py:_dosage_sweep (Pallas
 kernel _make_dos_kernel), with its signature and layouts: alphas / beta
 [G, nl*B, K] (state row h*B + b), words_T [G, B, K] packed subset words,
 hd [G, nl*B, 32], for nl = 2 (diploid) and nl = 3 (NIPT), each with its own
-launch count (`DOS_KERNELS[nl]`). The CUDA kernel is csrc/gibbs_dosage.cu;
-the plain PyTorch version serves the CPU (and the kernel checks).
+launch count (`DOS_KERNELS[nl]`). The CUDA kernel is csrc/gibbs_dosage.cu
+(one warp a (grid, chain) pair, the normalisation deferred: any K); the
+plain PyTorch version serves the CPU (and the kernel checks). Its previous
+form, csrc/gibbs_dosage_prev.cu, is kept for timings only (`_prev=True`,
+its own launch counts; no path launches it).
 """
 from __future__ import annotations
 
@@ -20,19 +23,22 @@ _DOS_ARGS = [_P] * 4 + [_I] * 5 + [_F]
 DOS_KERNELS = {2: Kernel("gibbs_dosage", "gibbs_dos", _DOS_ARGS),
                3: Kernel("gibbs_dosage", "gibbs_dos", _DOS_ARGS, name="gibbs_dos_nl3")}
 DOS_KERNEL = DOS_KERNELS[2]
+_PREV_DOS_KERNELS = {nl: Kernel("gibbs_dosage_prev", "gibbs_dos_prev", _DOS_ARGS,
+                                name=f"gibbs_dos_prev{sfx}") for nl, sfx in ((2, ""), (3, "_nl3"))}
 # bytes of the unpacked [grids, B, K, 32] float32 bits one step of the
 # plain version may hold (unchunked, the full-width call would take 2.3 GB)
 _PLAIN_CHUNK_BYTES = 1 << 27
 
 
-def dosage_sweep(alphas, beta, words_T, nl, K_real, ref_error):
+def dosage_sweep(alphas, beta, words_T, nl, K_real, ref_error, _prev=False):
     """Per-grid haplotype dosages hd [G, nl*B, 32] f32: gamma = alpha*beta
     over the real haplotypes (k < K_real), normalised per row (floor
     1e-30), contracted with bit*(1-2*ref_error)+ref_error for each of the
     grid's 32 SNPs.
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
-    kernel."""
+    kernel (with _prev, timings only: the previous form, which refuses K
+    beyond nl x K floats of a block's shared memory)."""
     G, BN, K = alphas.shape
     if nl not in (2, 3) or BN % nl:
         raise ValueError(f"nl must be 2 or 3 and divide the {BN} state rows, got {nl}")
@@ -46,8 +52,9 @@ def dosage_sweep(alphas, beta, words_T, nl, K_real, ref_error):
     if dev.type == "cpu":
         return dosage_sweep_plain(alphas, beta, words_T, K_real, ref_error, nl)
     hd = torch.empty((G, BN, 32), dtype=torch.float32, device=dev)
-    DOS_KERNELS[nl].launch(alphas.data_ptr(), beta.data_ptr(), words_T.data_ptr(),
-                           hd.data_ptr(), G, B, K, K_real, nl, float(ref_error))
+    kernel = (_PREV_DOS_KERNELS if _prev else DOS_KERNELS)[nl]
+    kernel.launch(alphas.data_ptr(), beta.data_ptr(), words_T.data_ptr(), hd.data_ptr(),
+                  G, B, K, K_real, nl, float(ref_error))
     return hd
 
 

@@ -12,13 +12,24 @@ next can start. The kernels therefore keep a chain's state in the registers
 of 128 threads (one block per chain forward, per state row backward), take
 exactly one reduction (one butterfly, one named barrier) per step, and leave
 every device-memory load to producer warps that run ahead of the chain and
-fill shared-memory rings. They pick the variant themselves: the smallest
-register variant that holds K, and above K = 2,048 the general variant with
-the state in per-thread local arrays, which takes every K the shared-memory
-rings can hold. A skipped slot (empty, or an uninformative read)
-is no step at all: it cannot flip and changes no state, and both the kernel
-and `fwd_sweep_plain` leave alpha, pC and logc untouched there, where the
-Pallas kernel renormalises by a sum that is 1 within float32 rounding.
+fill shared-memory rings. The wrapper names the form (`fwd_form`, `bwd_form`):
+the smallest register variant that holds K, above K = 2,048 the general
+variant with the state in per-thread local arrays (forward: while one grid
+stage and one read row fit the shared-memory rings), and past those a global
+form that takes any K device memory holds (the state in a global scratch
+plane, rows read straight from device memory, no ring; its own launch
+counts `FWD_GLOBAL_KERNELS[nl]`, `BWD_GLOBAL_KERNEL`). A form is never
+replaced by another: the C entry refuses one that does not hold K. The
+forms and the K they take:
+
+    registers  K <= 2,048           128 threads x 2 / 4 / 5 / 8, 256 x 8
+    general    K <= 10,240          forward at nl = 3 only to K = 8,155
+    global     any K
+
+A skipped slot (empty, or an uninformative read) is no step at all: it
+cannot flip and changes no state, and both the kernel and `fwd_sweep_plain`
+leave alpha, pC and logc untouched there, where the Pallas kernel
+renormalises by a sum that is 1 within float32 rounding.
 
 Both samplers run through them: the diploid one (nl = 2 latent rows a
 chain, prior (0.5, 0.5)) and the NIPT one (nl = 3, prior (0.5, (1-ff)/2,
@@ -28,39 +39,84 @@ nl. Each nl has its own launch count (`FWD_KERNELS[nl]`, `BWD_KERNELS[nl]`).
 
 The private `_variant` argument is for timings and tests only (64, 128 or
 256: that many chain threads, as far as instantiated; -1: the general
-variant whatever K is), as are `_ahead` (the backward step's look-ahead
+variant wherever it holds K), as are `_ahead` (the backward step's look-ahead
 form) and `_wide` (nl = 3: a step's 9 or 12 values reduced as one
 reduction of 16 instead of two of at most 8); the engine never passes them.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .._build import Kernel, check_tensor as _check
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P] * 14 + [_I] * 10 + [_F] * 4
+_FWD_ARGS = [_P] * 15 + [_I] * 10 + [_F] * 4
 _BWD_ARGS = [_P] * 3 + [_I] * 6 + [_F]
 # one launch count per sampler: the same C entries serve nl = 2 and nl = 3
 FWD_KERNELS = {2: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS),
                3: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS, name="gibbs_fwd_nl3")}
 BWD_KERNELS = {2: Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS),
                3: Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_nl3")}
+FWD_GLOBAL_KERNELS = {nl: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS, name=f"gibbs_fwd_global{sfx}")
+                      for nl, sfx in ((2, ""), (3, "_nl3"))}
+# the backward works on state rows and never sees nl: one count for its global form
+BWD_GLOBAL_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_global")
 FWD_KERNEL, BWD_KERNEL = FWD_KERNELS[2], BWD_KERNELS[2]
 FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 4)
 _NEG = -1e30
 # dynamic shared memory a block may take (csrc/gibbs_sweep.cu SMEM_LIMIT): the
-# forward kernel's rings shrink to one grid stage (2 * nl rows of K floats)
-# and one read row before K is refused
+# forward's rings shrink to one grid stage (2 * nl rows of K floats) and one
+# read row before the general variant gives way to the global form
 _SMEM_LIMIT = 227 * 1024 - 4096
+# the register variants, (chain threads, columns a thread), in the order the
+# dispatch tries them; the general variant's capacity
+_REGISTER_PAIRS = ((128, 2), (128, 4), (128, 5), (128, 8), (256, 8))
+_GENERAL_COLS = 256 * 40
 
 
-def max_fwd_K(nl: int) -> int:
-    """Largest (padded) K the forward kernel holds: 11,417 at nl = 2, 8,155
-    at nl = 3."""
-    return _SMEM_LIMIT // (4 * (2 * nl + 1))
+# the form codes the C entries read (csrc/gibbs_sweep.cu, csrc/nipt_bank.cu):
+# a positive code is a register form (chain threads for the sweeps, columns
+# a thread for the bank), GENERAL the state in shared memory or local arrays,
+# GLOBAL the state in a global scratch plane
+GENERAL, GLOBAL = -1, -2
+
+
+def _register_form(K: int) -> Optional[int]:
+    return next((t for t, c in _REGISTER_PAIRS if K <= t * c), None)
+
+
+def fwd_form(K: int, nl: int) -> int:
+    """The form code of the forward sweep kernel at (padded) K haplotypes
+    and nl latent rows, as csrc/gibbs_sweep.cu dispatches it: chain threads
+    of a register form up to 2,048, GENERAL while the general variant holds
+    K (10,240) and one grid stage and one read row fit shared memory (8,155
+    at nl = 3), else GLOBAL."""
+    form = _register_form(K)
+    if form is not None:
+        return form
+    if K <= _GENERAL_COLS and 4 * (2 * nl + 1) * K <= _SMEM_LIMIT:
+        return GENERAL
+    return GLOBAL
+
+
+def bwd_form(K: int) -> int:
+    """The form code of the backward sweep kernel at K haplotypes: chain
+    threads of a register form up to 2,048, GENERAL up to 10,240 (its ring
+    of e rows shrinks to one row of K floats, which fits up to 57,088),
+    else GLOBAL."""
+    form = _register_form(K)
+    if form is not None:
+        return form
+    return GENERAL if K <= _GENERAL_COLS else GLOBAL
+
+
+def fwd_scratch_floats(K: int, nl: int) -> int:
+    """Floats of scratch a chain of the forward sweep takes at K: its alpha
+    [nl, K] in the global form, none in the others."""
+    return nl * K if fwd_form(K, nl) == GLOBAL else 0
 
 
 def _check_nl(nl: int, BN: int, prior=None) -> None:
@@ -83,7 +139,8 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     want_alpha=False alphas is a [1, BN, K] placeholder.
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
-    kernel."""
+    kernel in the form fwd_form(K, nl) names (the global form with a
+    scratch plane of [B, nl, K] floats)."""
     G, BN, K = lemg.shape
     _check_nl(nl, BN, prior)
     B = BN // nl
@@ -104,9 +161,9 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
         return fwd_sweep_plain(lemg, beta, lem_pad, slots, first_read,
                                lab_init, trans, cnt_max, K_real, it_mode,
                                want_alpha, nl=nl, prior=prior)
-    if K > max_fwd_K(nl):
-        raise ValueError(f"K={K} is more than the forward sweep kernel holds at nl={nl} "
-                         f"({max_fwd_K(nl)}: one grid stage and one read row of shared memory)")
+    threads = fwd_form(K, nl) if _variant is None else _variant
+    kernel = FWD_GLOBAL_KERNELS[nl] if threads == GLOBAL else FWD_KERNELS[nl]
+    scratch = torch.empty((B, nl, K) if threads == GLOBAL else (1,), dtype=f32, device=dev)
     lemg_out = torch.empty_like(lemg)
     alphas = torch.empty((G if want_alpha else 1, BN, K), dtype=f32, device=dev)
     h_out = torch.empty((G, W, B), dtype=i32, device=dev)
@@ -114,13 +171,13 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     uf = torch.empty((B, 1), dtype=f32, device=dev)
     lab = torch.empty((B, nl), dtype=f32, device=dev)
     p = [float(x) for x in prior] + [0.0] * (3 - nl)
-    FWD_KERNELS[nl].launch(
+    kernel.launch(
         lemg.data_ptr(), beta.data_ptr(), lem_pad.data_ptr(),
         slots.data_ptr(), first_read.data_ptr(), lab_init.data_ptr(),
         trans.data_ptr(), cnt_max.data_ptr(), lemg_out.data_ptr(),
         alphas.data_ptr(), h_out.data_ptr(), logc.data_ptr(), uf.data_ptr(),
-        lab.data_ptr(), G, B, W, K, K_real, it_mode, int(want_alpha),
-        _variant or 0, nl, int(_wide), 1.0 / K_real, *p,
+        lab.data_ptr(), scratch.data_ptr(), G, B, W, K, K_real, it_mode, int(want_alpha),
+        threads, nl, int(_wide), 1.0 / K_real, *p,
     )
     return lemg_out, alphas, h_out, logc, uf, lab
 
@@ -138,9 +195,11 @@ def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False):
         raise ValueError(f"bad K_real={K_real}")
     if dev.type == "cpu":
         return bwd_sweep_plain(lemg, trans, K_real)
+    threads = bwd_form(K) if _variant is None else _variant
+    kernel = BWD_GLOBAL_KERNEL if threads == GLOBAL else BWD_KERNELS[nl]
     beta = torch.empty_like(lemg)
-    BWD_KERNELS[nl].launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
-                      G, BN, K, K_real, _variant or 0, int(_ahead), 1.0 / K_real)
+    kernel.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
+                  G, BN, K, K_real, threads, int(_ahead), 1.0 / K_real)
     return beta
 
 

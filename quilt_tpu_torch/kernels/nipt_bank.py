@@ -26,9 +26,13 @@ import torch
 
 from .._build import Kernel, check_tensor as _check
 from . import nipt as nipt_tables
+from .gibbs_sweep import GENERAL, GLOBAL
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-BANK_KERNEL = Kernel("nipt_bank", "nipt_bank", [_P] * 9 + [_I] * 5 + [_F])
+_BANK_ARGS = [_P] * 9 + [_I] * 5 + [_F, _P]
+BANK_KERNEL = Kernel("nipt_bank", "nipt_bank", _BANK_ARGS)
+# the global form (the bank and the staged scalars in a scratch plane) counts apart
+BANK_GLOBAL_KERNEL = Kernel("nipt_bank", "nipt_bank", _BANK_ARGS, name="nipt_bank_global")
 FLOOR_KERNEL = Kernel("nipt_bank", "nipt_bank_floor", [_P] + [_I] * 2)
 # the previous form (csrc/nipt_bank_prev.cu), timings only: no path launches it
 _PREV_BANK_KERNEL = Kernel("nipt_bank_prev", "nipt_bank_prev", [_P] * 9 + [_I] * 3 + [_F])
@@ -36,12 +40,41 @@ _PREV_BANK_KERNEL = Kernel("nipt_bank_prev", "nipt_bank_prev", [_P] * 9 + [_I] *
 # threads a chain, and the register instantiations: columns a thread
 _NT = 128
 _BANK_CPTS = (2, 5, 8)
+# shared memory a block may take (csrc/nipt_bank.cu SMEM_LIMIT)
+_SMEM_LIMIT = 232448
 
 
 def _bank_cpt(K):
     """Columns a thread of the kernel holds in registers at K haplotypes, or
-    0 for the general form (the bank in shared memory)."""
+    0 where no register form holds K."""
     return next((c for c in _BANK_CPTS if c * _NT >= K), 0)
+
+
+def _staged_floats(G):
+    return (3 * G + 3) & ~3
+
+
+def bank_form(K: int, G: int) -> int:
+    """The form code of the bank kernel at K haplotypes and G grids, as
+    csrc/nipt_bank.cu takes it (the sweeps' codes, gibbs_sweep.GENERAL /
+    GLOBAL): columns a thread in registers (2, 5 or 8, up to K = 1,024)
+    while the 3G staged scalars fit shared memory (about 19,000 grids),
+    GENERAL while those and the 9K bank fit (K <= 6,257 at 512 grids), else
+    GLOBAL (both in a scratch plane of bank_scratch_floats(K, G) floats a
+    chain)."""
+    staged = 4 * _staged_floats(G)
+    cpt = _bank_cpt(K)
+    if cpt and staged <= _SMEM_LIMIT - 4096:
+        return cpt
+    if staged + 36 * K <= _SMEM_LIMIT - 1024:
+        return GENERAL
+    return GLOBAL
+
+
+def bank_scratch_floats(K: int, G: int) -> int:
+    """Floats of scratch a chain of the bank kernel takes: the global form's
+    staged scalars and bank, none in the other forms."""
+    return _staged_floats(G) + 9 * K if bank_form(K, G) == GLOBAL else 0
 
 
 def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False):
@@ -57,8 +90,9 @@ def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False):
     relabellings' probabilities at the block ends, 0 elsewhere).
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
-    kernel, in its register form up to K = 1,024 (_bank_cpt), above that in
-    its general form, or raises where neither holds K. Private, timings
+    kernel in the form bank_form(K, G) names: registers up to K = 1,024,
+    the general form above that, the global form where neither fits
+    shared memory (its own launch count, BANK_GLOBAL_KERNEL). Private, timings
     only: _prev launches the previous form (csrc/nipt_bank_prev.cu) on the
     e and beta * mask planes that it reads, built here (_prev_planes)."""
     G, BN, K = lemg.shape
@@ -82,10 +116,13 @@ def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False):
                                perm_mask, K_real)
     chosen = torch.empty((G, B), dtype=torch.int32, device=dev)
     probs = torch.empty((G, B, 6), dtype=f32, device=dev)
-    BANK_KERNEL.launch(lemg.data_ptr(), beta.data_ptr(), trans.data_ptr(), ht.data_ptr(),
-                       u.data_ptr(), is_end.data_ptr(), perm_mask.data_ptr(),
-                       chosen.data_ptr(), probs.data_ptr(), G, B, K, K_real, _bank_cpt(K),
-                       1.0 / K_real)
+    cpt = bank_form(K, G)
+    scratch = torch.empty((B, bank_scratch_floats(K, G)) if cpt == GLOBAL else (1,), dtype=f32,
+                          device=dev)
+    (BANK_GLOBAL_KERNEL if cpt == GLOBAL else BANK_KERNEL).launch(
+        lemg.data_ptr(), beta.data_ptr(), trans.data_ptr(), ht.data_ptr(), u.data_ptr(),
+        is_end.data_ptr(), perm_mask.data_ptr(), chosen.data_ptr(), probs.data_ptr(), G, B, K,
+        K_real, cpt, 1.0 / K_real, scratch.data_ptr())
     return chosen, probs
 
 

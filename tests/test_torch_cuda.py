@@ -11,9 +11,11 @@ with
 Tolerances: as chip_smoke.py states them (labels > 0.995 with the state
 compared on chains whose labels all agree at rtol 1e-4 / atol 1e-3; beta
 rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5; the
-K-split FB: emission maxima exact, checkpoints and S rtol 1e-5, the
-backward's rebuilt alphas equal to the forward's, dosage and top-K atol
-1e-4)."""
+K-split FB: emission maxima within kernels.fb.max_tiled_tolerance (the
+previous form exact), checkpoints and S rtol 1e-5, the backward's rebuilt
+alphas equal to the forward's, dosage and top-K atol 1e-4). The global
+forms of the Gibbs kernels (any K) are held to the same tolerances at K just
+above the other forms' limits."""
 import numpy as np
 import pytest
 import torch
@@ -157,11 +159,18 @@ def test_sweep_kernels_refuse_a_variant_that_does_not_hold_k(cuda):
     for form in (dict(_variant=64), dict(_wide=True)):
         with pytest.raises(RuntimeError, match="gibbs_fwd"):
             gs.fwd_sweep(*args3, nl=3, K_real=700, it_mode=2, prior=(0.5, 0.4, 0.1), **form)
-    # a K whose single grid stage (6 rows at NL = 3) and read row outgrow shared memory
-    big = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
-        np.random.default_rng(1), 2, 1, 2, 9000, 9000, 2, nl=3)]
-    with pytest.raises(ValueError, match="more than the forward sweep kernel holds"):
-        gs.fwd_sweep(*big, nl=3, K_real=9000, it_mode=2, prior=(0.5, 0.4, 0.1))
+    # the general variant where it does not hold K: above its 10,240 columns,
+    # and at NL = 3 where one grid stage (6 rows) and a read row outgrow
+    # shared memory
+    for nl, K in ((2, 10368), (3, 9000)):
+        big = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+            np.random.default_rng(1), 2, 1, 2, K, K, 2, nl=nl)]
+        prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
+        with pytest.raises(RuntimeError, match="gibbs_fwd"):
+            gs.fwd_sweep(*big, nl=nl, K_real=K, it_mode=2, prior=prior, _variant=-1)
+    with pytest.raises(RuntimeError, match="gibbs_bwd"):
+        gs.bwd_sweep(torch.zeros((2, 2, 10368), device=cuda), big[6], nl=2, K_real=10368,
+                     _variant=-1)
 
 
 @pytest.mark.parametrize("K,B", [(90, 5), (700, 3)])
@@ -353,7 +362,8 @@ def test_fb_tiled_kernels_match_plain(cuda, K, B, splits):
     for k in kernels:
         k.launches = 0
     mx = fbk.fb_max_tiled(dl, words, K, kt)
-    assert torch.equal(mx, fbk.fb_max_tiled_plain(dl, words, K, kt))
+    mx_r = fbk.fb_max_tiled_plain(dl, words, K, kt)
+    assert ((mx - mx_r).abs() <= fbk.max_tiled_tolerance(dl, fb.nGrids)).all()
     ck, S, lg = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
     ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt)
     torch.testing.assert_close(ck, ck_r, rtol=1e-5, atol=1e-30)
@@ -590,18 +600,31 @@ def test_fb_tiled_smem_layout_matches_the_kernel(cuda, KS):
 
 @pytest.mark.parametrize("G,B,K,K_real,nl", [
     (5, 3, 40, 33, 2), (9, 4, 700, 700, 2), (5, 3, 41, 33, 3), (9, 4, 700, 700, 3),
-    (2, 2, 5000, 4990, 3),                      # more than 48 KB of shared memory
+    (2, 2, 5000, 4990, 3),                      # the previous form's 48 KB of shared memory
+    (3, 2, 30000, 29990, 2), (2, 2, 20000, 19999, 3),   # above the previous form's limit
+    (5, 3, 130, 130, 2),                        # one haplotype past a staged chunk
 ])
 def test_dosage_kernel_matches_plain(cuda, G, B, K, K_real, nl):
+    """The dosage kernel against its plain version (atol 1e-5), with an
+    all-zero state row, whose dosages are 0; the previous form (timings
+    only) agrees where it holds K."""
     rng = np.random.default_rng(G + K)
-    alphas = torch.from_numpy(rng.uniform(0, 1, (G, nl * B, K)).astype(np.float32)).to(cuda)
+    alphas = rng.uniform(0, 1, (G, nl * B, K)).astype(np.float32)
+    alphas[G - 1, nl * B - 1] = 0.0
+    alphas = torch.from_numpy(alphas).to(cuda)
     beta = torch.from_numpy(rng.uniform(0.1, 1, (G, nl * B, K)).astype(np.float32)).to(cuda)
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (G, B, K)).astype(np.int32)).to(cuda)
     launches = gd.DOS_KERNELS[nl].launches
     got = gd.dosage_sweep(alphas, beta, words, nl, K_real, 0.001)
     assert gd.DOS_KERNELS[nl].launches == launches + 1
-    torch.testing.assert_close(got, gd.dosage_sweep_plain(alphas, beta, words, K_real, 0.001, nl),
-                               rtol=0, atol=1e-5)
+    ref = gd.dosage_sweep_plain(alphas, beta, words, K_real, 0.001, nl)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert not got[G - 1, nl * B - 1].any()
+    if nl * K * 4 <= 227 * 1024:
+        launches = gd.DOS_KERNELS[nl].launches
+        prev = gd.dosage_sweep(alphas, beta, words, nl, K_real, 0.001, _prev=True)
+        assert gd.DOS_KERNELS[nl].launches == launches
+        torch.testing.assert_close(prev, ref, rtol=0, atol=1e-5)
 
 
 def test_quilt2_engine_on_gpu(cuda):
@@ -701,20 +724,23 @@ def test_nipt_bank_kernel_matches_plain(cuda, G, B, K, K_real, p_end):
 
 
 def test_nipt_bank_refuses_what_it_has_no_instantiation_for(cuda):
-    """A K or a form without an instantiation raises: a K whose general
-    form exceeds a block's shared memory, register columns too few for K or
-    not instantiated; nothing falls back."""
+    """A form without an instantiation raises: the general form where the
+    bank exceeds a block's shared memory, register columns too few for K or
+    not instantiated, the global form without scratch; nothing falls back."""
     G, B, K = 4, 2, 7000
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=cuda)
     args = (z(G, 3 * B, K), z(G, 3 * B, K), z(2, G), z(G, B, 6), z(G, B),
             z(G, B, dt=torch.int32), torch.ones(6, device=cuda), K)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        nb.bank_scan(*args)                              # 9 x 7,000 floats: above a block's
     out = z(G * B * 7)
-    for K_, cpt in ((640, 3), (640, 4), (7000, 8)):    # no such form; 8 x 128 < 7,000
+    for K_, cpt in ((7000, gs.GENERAL),                # 9 x 7,000 floats: above a block's
+                    (640, 3), (640, 4), (7000, 8),     # no such form; 8 x 128 < 7,000
+                    (7000, 0), (7000, -3)):
         with pytest.raises(RuntimeError, match="cudaError"):
             nb.BANK_KERNEL.launch(*(a.data_ptr() for a in args[:7]), out.data_ptr(),
-                                  out.data_ptr(), G, B, K_, 600, cpt, 1 / 600)
+                                  out.data_ptr(), G, B, K_, 600, cpt, 1 / 600, out.data_ptr())
+    with pytest.raises(RuntimeError, match="cudaError"):
+        nb.BANK_KERNEL.launch(*(a.data_ptr() for a in args[:7]), out.data_ptr(),
+                              out.data_ptr(), G, B, K, 600, gs.GLOBAL, 1 / 600, None)
 
 
 def test_nipt_bank_floor_runs(cuda):
@@ -748,3 +774,123 @@ def test_nipt_engine_on_gpu(cuda, quilt2):
         assert r2_simple((t[0] + t[2]).astype(float), res.fet_dosage) > 0.5
     assert all(k.launches > 0 for k in nl3), [k.launches for k in nl3]
     assert gs.FWD_KERNEL.launches == 0 and gs.BWD_KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("nl,K,K_real,G,B,W", [
+    (2, 10368, 10300, 4, 2, 3),          # above the general variant's 10,240 columns
+    (3, 8192, 8150, 4, 2, 3),            # NL = 3: one grid stage and a read row outgrow shared memory
+    (3, 10368, 10368, 3, 1, 2),
+    (2, 40960, 40900, 2, 1, 2),
+])
+def test_sweep_global_forms_match_plain(cuda, nl, K, K_real, G, B, W):
+    """The global forms of the two sweep kernels (no ring, the state in a
+    scratch plane) at K just above the other forms' limits, against the
+    plain versions, under their own launch counts; two launches equal bit
+    for bit."""
+    assert gs.fwd_form(K, nl) == gs.GLOBAL
+    prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
+    state = random_sweep_state(np.random.default_rng(K + nl), G, B, W, K, K_real, W, nl=nl)
+    args = [torch.from_numpy(x).to(cuda) for x in state]
+    live = args[3][:, 2] == 0
+    launches = (gs.FWD_GLOBAL_KERNELS[nl].launches, gs.FWD_KERNELS[nl].launches)
+    for it_mode in (0, 2):
+        ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=it_mode, nl=nl, prior=prior)
+        got = gs.fwd_sweep(*args, nl=nl, K_real=K_real, it_mode=it_mode, prior=prior)
+        assert (got[2][live] == ref[2][live]).float().mean().item() > 0.995
+        assert torch.equal(got[2][~live], ref[2][~live])
+        same = ((got[2] == ref[2]) | ~live).all(0).all(0)
+        rows = torch.cat([same] * nl)
+        assert same.any()
+        torch.testing.assert_close(got[0][:, rows], ref[0][:, rows], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[1][:, rows], ref[1][:, rows], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(got[3][rows], ref[3][rows], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[5][same], ref[5][same], rtol=0, atol=0)
+        assert torch.equal(got[4], ref[4])
+        again = gs.fwd_sweep(*args, nl=nl, K_real=K_real, it_mode=it_mode, prior=prior)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert gs.FWD_GLOBAL_KERNELS[nl].launches == launches[0] + 4
+    assert gs.FWD_KERNELS[nl].launches == launches[1]
+    if gs.bwd_form(K) == gs.GLOBAL:
+        launches = gs.BWD_GLOBAL_KERNEL.launches
+        beta = gs.bwd_sweep(args[0], args[6], nl=nl, K_real=K_real)
+        assert gs.BWD_GLOBAL_KERNEL.launches == launches + 1
+        torch.testing.assert_close(beta, gs.bwd_sweep_plain(args[0], args[6], K_real),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("G,B,K,K_real,p_end", [
+    (512, 2, 6272, 6200, 0.05),          # at 512 grids the general form's bank outgrows shared memory
+    (19300, 1, 40, 36, 0.001),           # the staged scalars of 19,300 grids do too
+])
+def test_nipt_bank_global_form_matches_plain(cuda, G, B, K, K_real, p_end):
+    """The bank's global form (the bank and the staged scalars in a scratch
+    plane) against the plain version, under its own launch count; two
+    launches equal bit for bit."""
+    assert nb.bank_form(K, G) == gs.GLOBAL
+    rng = np.random.default_rng(G + K)
+    lemg, beta = (torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+        rng, G, B, 2, K, K_real, 2, nl=3)[:2])
+    trans = np.stack([rng.uniform(0.9, 0.999, G), rng.uniform(0.001, 0.1, G)]).astype(np.float32)
+    trans[:, 0] = (1.0, 0.0)
+    is_end = (rng.random((G, B)) < p_end).astype(np.int32)
+    is_end[G - 1] = 1
+    t = lambda x: torch.from_numpy(x).to(cuda)
+    args = (lemg, beta, t(trans), t(rng.normal(0, 2, (G, B, 6)).astype(np.float32)),
+            t(rng.random((G, B)).astype(np.float32)), t(is_end), torch.ones(6, device=cuda),
+            K_real)
+    ref_c, ref_p = nb.bank_scan_plain(*args)
+    launches = nb.BANK_GLOBAL_KERNEL.launches, nb.BANK_KERNEL.launches
+    got_c, got_p = nb.bank_scan(*args)
+    assert (nb.BANK_GLOBAL_KERNEL.launches, nb.BANK_KERNEL.launches) == (launches[0] + 1,
+                                                                         launches[1])
+    same = (got_c == ref_c).all(0)
+    assert same.sum() >= B - max(1, B // 10) and same.any()
+    torch.testing.assert_close(got_p[:, same], ref_p[:, same], rtol=0, atol=1e-4)
+    again = nb.bank_scan(*args)
+    assert torch.equal(got_c, again[0]) and torch.equal(got_p, again[1])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [1, 28, 200])
+def test_fb_max_tiled_matches_plain(cuda, splits, B):
+    """The emission maxima at a ragged K (2,000 of K_pad 2,048) against the
+    plain version within max_tiled_tolerance (byte tables add a logit's
+    log-ratios in another order than the nibble order); whatever the split,
+    the same maxima; the previous form (timings only) equal to the plain
+    version."""
+    K, nG = 2000, 16
+    fb = _random_fb(K, nG, B + splits)
+    words = fb.device_tensors(cuda)["words"]
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // splits
+    launches = fbk.MAX_TILED_KERNEL.launches
+    mx = fbk.fb_max_tiled(dl, words, K, kt)
+    assert fbk.MAX_TILED_KERNEL.launches == launches + 1
+    ref = fbk.fb_max_tiled_plain(dl, words, K, kt)
+    tol = fbk.max_tiled_tolerance(dl, nG)
+    assert ((mx - ref).abs() <= tol).all(), (mx - ref).abs().max().item()
+    assert torch.equal(mx, fbk.fb_max_tiled(dl, words, K, fb.K_pad))
+    assert torch.equal(fbk.fb_max_tiled(dl, words, K, kt, _prev=True), ref)
+
+
+def test_engine_on_gpu_at_a_large_ksubset(cuda):
+    """Diploid imputation at Ksubset 10,368, where both sweeps take their
+    global forms (and the dosage-free QUILT1 path runs no other Gibbs form):
+    r2 above 0.9 and the global forms launched."""
+    from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
+
+    world = make_world(np.random.default_rng(11), K=10496, nSNPs=640, n_samples=2,
+                       coverage=1.5)
+    kernels = [gs.FWD_GLOBAL_KERNELS[2], gs.BWD_GLOBAL_KERNEL, gs.FWD_KERNEL, gs.BWD_KERNEL]
+    for k in kernels:
+        k.launches = 0
+    truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
+    out = quilt_impute(world["prep"], world["samples"], ["a", "b"],
+                       ImputeConfig(nGibbsSamples=2, n_seek_its=1, Ksubset=10368, Knew=10368,
+                                    small_ref_panel_gibbs_iterations=4, seed=3),
+                       "cuda", truth_gen=truth_gen)
+    assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
+    launches = [k.launches for k in kernels]
+    assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0], launches

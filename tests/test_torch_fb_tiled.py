@@ -159,6 +159,47 @@ def _nibble_logit_max(dl, words, g, K):
     return torch.from_numpy(tot.max(1))
 
 
+def _nibble_sums(d, w):
+    """[8, B, K] numpy float32 nibble sums of the panel words w [K] under
+    the log-ratios d [B, 32]: the set bits' log-ratios in bit order."""
+    bits = ((w[None, :] >> np.arange(32)[:, None]) & 1).astype(bool)      # [32, K]
+    out = []
+    for q in range(8):
+        nib = np.zeros((d.shape[0], w.shape[0]), np.float32)
+        for s in range(4 * q, 4 * q + 4):
+            nib = np.where(bits[s][None, :], nib + d[:, s:s + 1], nib)
+        out.append(nib)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_byte_order_within_max_tiled_tolerance(seed):
+    """fb_max_tiled adds a logit's nibble sums by byte pairs and then bytes
+    ((n0 + n1) + (n2 + n3)) + ... where the plain version adds them in
+    nibble order; both orders, in numpy float32, give maxima within
+    max_tiled_tolerance of each other (large log-ratios of both signs, so
+    that the orders do round apart)."""
+    rng = np.random.default_rng(seed)
+    B, Gp, K = 28, 4, 3000
+    dl = torch.from_numpy(rng.normal(0, 4, (B, Gp * 32)).astype(np.float32))
+    words = rng.integers(0, 2**32, (Gp, K), dtype=np.int64)
+    tol = fbk.max_tiled_tolerance(dl, Gp)
+    moved = 0
+    for g in range(Gp):
+        n = _nibble_sums(dl[:, g * 32:(g + 1) * 32].numpy(), words[g])
+        by_nibble = n[0]
+        for q in range(1, 8):
+            by_nibble = by_nibble + n[q]
+        b = [n[2 * q] + n[2 * q + 1] for q in range(4)]
+        by_byte = ((b[0] + b[1]) + b[2]) + b[3]
+        moved += int((by_byte != by_nibble).sum())
+        diff = np.abs(by_byte.max(1) - by_nibble.max(1))
+        assert (diff <= tol[g].numpy()).all(), (diff.max(), tol[g].min())
+        # the bound holds logit by logit, not just at the maximum
+        assert (np.abs(by_byte - by_nibble) <= tol[g].numpy()[:, None]).all()
+    assert moved > 0
+
+
 @pytest.mark.parametrize("k_tile", [32, 64, 128])
 def test_tiled_stages(world, k_tile):
     """Stage by stage: the max pre-pass equals the max of the emission

@@ -38,12 +38,34 @@ from quilt_tpu_torch.panel.mspbwt import distinct_hap_bits, symbols_device
 torch.set_num_threads(2)
 
 
+def test_deferred_normalisation_equals_normalise_first():
+    """The dosage kernel's one-pass form, in float64: with s = sum_k ab_k and
+    X_t = sum of ab_k over the haplotypes whose bit t is set,
+    ((1 - 2 eps) X_t + eps s) / max(s, 1e-30) equals normalising gamma =
+    ab / max(s, 1e-30) first and contracting with bit * (1 - 2 eps) + eps;
+    an all-zero row gives 0 either way."""
+    rng = np.random.default_rng(8)
+    eps = 0.001
+    ab = rng.uniform(0.0, 1.0, (6, 700)) * rng.uniform(1e-20, 1e3, (6, 1))
+    ab[0] = 0.0
+    ab[1, 600:] = 0.0
+    bits = rng.integers(0, 2, (6, 700, 32)).astype(np.float64)
+    s = ab.sum(1)
+    deferred = ((1 - 2 * eps) * np.einsum("rk,rkt->rt", ab, bits) + eps * s[:, None]) \
+        / np.maximum(s, 1e-30)[:, None]
+    gamma = ab / np.maximum(s, 1e-30)[:, None]
+    first = np.einsum("rk,rkt->rt", gamma, bits * (1 - 2 * eps) + eps)
+    np.testing.assert_allclose(deferred, first, rtol=1e-13, atol=0)
+    assert not deferred[0].any() and not first[0].any()
+
+
 @pytest.mark.parametrize("G,B,K,K_real,chunk_bytes,nl", [
     (3, 2, 128, 100, 1 << 27, 2),
     (7, 3, 256, 256, 1 << 27, 2),
     (5, 4, 384, 301, 4 * 384 * 32 * 4 * 2, 2),  # two grids per plain-version step
     (4, 3, 128, 100, 1 << 27, 3),               # NIPT: three latent rows a chain
     (5, 2, 256, 256, 2 * 256 * 32 * 4 * 2, 3),
+    (2, 1, 20000, 19990, 1 << 27, 2),           # past the previous kernel's shared memory
 ])
 def test_dosage_plain_matches_pallas(G, B, K, K_real, chunk_bytes, nl, monkeypatch):
     monkeypatch.setattr(gibbs_dosage, "_PLAIN_CHUNK_BYTES", chunk_bytes)

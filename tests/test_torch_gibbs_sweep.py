@@ -15,7 +15,7 @@ import torch
 import jax.numpy as jnp
 from quilt_tpu.kernels.gibbs_pallas import _bwd_sweep, _fwd_sweep
 
-from quilt_tpu_torch.kernels.gibbs_sweep import bwd_sweep, fwd_sweep
+from quilt_tpu_torch.kernels.gibbs_sweep import GENERAL, GLOBAL, bwd_sweep, fwd_sweep
 from quilt_tpu_torch.simulate import random_sweep_state
 
 torch.set_num_threads(2)
@@ -220,9 +220,38 @@ def test_sweeps_refuse_other_row_counts(nl, BN):
         bwd_sweep(lemg, trans, nl=nl, K_real=8)
 
 
-def test_largest_k_of_the_forward_kernel():
-    """One grid stage (2 * nl rows) and one read row of K floats must fit the
-    card's 227 KB of shared memory less 4 KB."""
-    from quilt_tpu_torch.kernels.gibbs_sweep import max_fwd_K
+@pytest.mark.parametrize("K,nl,fwd,bwd", [
+    (640, 2, 128, 128),                 # the main path's K: 128 chain threads, registers
+    (640, 3, 128, 128),
+    (10240, 2, GENERAL, GENERAL),       # the general variant's last K
+    (10240, 3, GLOBAL, GENERAL),        # NL = 3: no ring stage fits past 8,155
+    (10368, 2, GLOBAL, GLOBAL),
+    (10368, 3, GLOBAL, GLOBAL),
+    (40960, 2, GLOBAL, GLOBAL),
+    (40960, 3, GLOBAL, GLOBAL),
+])
+def test_host_form_choices(K, nl, fwd, bwd):
+    """The sweep kernels' form codes as the wrappers name them: the forms
+    that ran before where they hold K (registers up to 2,048, the general
+    variant up to 10,240 while, forward, one grid stage of 2 nl rows and a
+    read row fit the 227 KB - 4 KB of shared memory), the global form past
+    them; nothing raises at any K."""
+    from quilt_tpu_torch.kernels.gibbs_sweep import bwd_form, fwd_form, fwd_scratch_floats
 
-    assert max_fwd_K(2) == 11417 and max_fwd_K(3) == 8155
+    assert fwd_form(K, nl) == fwd and bwd_form(K) == bwd
+    assert fwd_scratch_floats(K, nl) == (nl * K if fwd == GLOBAL else 0)
+
+
+@pytest.mark.parametrize("nl", [2, 3])
+def test_sweeps_match_pallas_past_the_shared_memory_forms(nl):
+    """K = 10,368 (G = 2, B = 1), where the card takes the global forms:
+    the plain sweeps against the interpreted Pallas sweeps, at the
+    tolerances of the small shapes."""
+    prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
+    arrs = _inputs(seed=40 + nl, G=2, B=1, W=3, K=10368, K_real=10300, max_reads=3, nl=nl)
+    _compare_fwd(arrs, K_real=10300, it_mode=2, nl=nl, prior=prior)
+    ref = _bwd_sweep(jnp.asarray(arrs["lemg"]), jnp.asarray(arrs["trans"]), nl=nl,
+                     K_real=10300)
+    got = bwd_sweep(torch.from_numpy(arrs["lemg"]), torch.from_numpy(arrs["trans"]), nl=nl,
+                    K_real=10300)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)

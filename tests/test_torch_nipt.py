@@ -55,6 +55,7 @@ from quilt_tpu_torch.inputs import GibbsInputs, PaddedReads
 from quilt_tpu_torch.kernels import gibbs as tg
 from quilt_tpu_torch.kernels import nipt_bank as nb
 from quilt_tpu_torch.kernels.emissions import emat_read_from_bits
+from quilt_tpu_torch.kernels.gibbs_sweep import GENERAL, GLOBAL
 from quilt_tpu_torch.panel.prepare import prepare_panel as prepare_panel_t
 from quilt_tpu_torch.simulate import random_sweep_state, write_bam_world
 
@@ -279,6 +280,23 @@ def test_bank_forms():
     assert nb._bank_cpt(40) == 2 and nb._bank_cpt(256) == 2
     assert nb._bank_cpt(640) == 5 and nb._bank_cpt(641) == 8 and nb._bank_cpt(1024) == 8
     assert nb._bank_cpt(1025) == 0 and nb._bank_cpt(3000) == 0
+
+
+@pytest.mark.parametrize("G,K,form", [
+    (512, 640, 5),          # the nipt path's shape: 5 columns a thread
+    (512, 3000, GENERAL),   # the general form (bank in shared memory)
+    (512, 6257, GENERAL),   # its last K at 512 grids
+    (512, 6272, GLOBAL),    # the global form: 9K + 3G floats outgrow shared memory
+    (19000, 640, 5),        # 3G staged scalars still fit beside the registers
+    (20000, 640, GLOBAL),   # and no longer
+])
+def test_bank_host_form_choices(G, K, form):
+    """The bank kernel's form as the wrapper names it (the forms that ran
+    before where they fit, the global form past them) and the scratch the
+    global form takes a chain; nothing raises at any K or G."""
+    assert nb.bank_form(K, G) == form
+    staged = (3 * G + 3) // 4 * 4
+    assert nb.bank_scratch_floats(K, G) == (staged + 9 * K if form == GLOBAL else 0)
 
 
 def _nipt_reads(rng, haps, pos, grid, n, coverage, ffs):
