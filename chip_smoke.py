@@ -103,7 +103,30 @@ Phases, each fatal on failure:
                FB forward and the capturing FB backward must launch; fails
                on a sample without captured gamma or under half the
                alleles typed (combined);
-  9. cli     - small file-based `prepare` + `impute`, `prepare2` +
+  9. map     - block Gibbs at the static map boundaries
+               (block_gibbs_boundary_detection="map") on a world with a hot
+               genetic map (hotspots at 15x the background rate; the
+               QUILT1 shape, 8 samples at ~1x), then 4 NIPT samples at ff
+               0.20 on the same panel (2x); prints NB, samples/s, r2, the
+               PSE beside the same world's under "gamma", the share of
+               chains that took a swap, the timers, launches and a profile
+               with the device time of the kernels the block move
+               launched (gibbs:block_move, a host range);
+               fails at NB = 0, with no swap taken, under r2 0.9 (NIPT:
+               maternal 0.85, fetal 0.5), or when a kernel of the path
+               (the Gibbs sweeps, the fused FB, NIPT's bank) never launched;
+ 10. diag    - the FB kernels that fb_plan takes at the path's 14 and 2
+               rows against their plain versions; then
+               the nine per-sample diagnostic options at once, 2 QUILT1
+               samples of the map world (its panel given msPBWT indices, so
+               the heuristic comparison reruns each sample under both
+               msPBWT approaches) through the per-sample engine with truth;
+               fails unless the npz holds every <object>_<sample> key, the
+               plots' data files exist, the VCF declares OHD, every OHD
+               value is finite and OHD r2 against truth is >= 0.9, or when
+               the Gibbs sweeps, the Gibbs dosages (the seek dosages) or an
+               FB family (the K-split one at these rows) did not launch;
+ 11. cli     - small file-based `prepare` + `impute`, `prepare2` +
                `impute2` and `impute --method nipt --fflist` runs through
                the port's CLI, and a one-sample `impute` that must go
                through the per-sample engine; checks the VCFs.
@@ -117,6 +140,7 @@ checkout of the repository, it exits non-zero and prints no result.
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -425,25 +449,7 @@ def check_kernels(world):
     print(f"fb kernels at {Bf} rows x K={fb.K} x {fb.nGrids} grids: checkpoint interval {CG}, "
           f"the chunk's alphas in {'shared' if smem else 'global'} memory, {cpt} haplotypes a "
           f"thread in registers", flush=True)
-    ck, lg = fbk.fb_forward(dl, words, trans2, fb.K)
-    ck_r, lg_r = fbk.fb_forward_plain(dl, words, trans2, fb.K)
-    err_ck = (ck - ck_r).abs().max().item()
-    err_lg = (lg - lg_r).abs().max().item()
-    print(f"fb_fwd: max |alpha ckpt err| {err_ck:.3e}, max |loglik err| {err_lg:.3e} "
-          f"(|loglik| up to {lg_r.abs().max().item():.1f}; tolerance ckpt atol 1e-5, "
-          f"loglik rtol 1e-5 + atol 1e-2)", flush=True)
-    if err_ck > 1e-5 or not torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2):
-        _fail("fb_fwd disagrees with its plain version")
-
-    d, tv, ti = fbk.fb_backward(dl, words, ck, trans2, thin, fb.K, K_top, eps)
-    d_r, tv_r, ti_r = fbk.fb_backward_plain(dl, words, ck, trans2, thin, fb.K, K_top, eps)
-    err_d = (d - d_r).abs().max().item()
-    err_tv, idx_ok, n_firm = _topk_agree(tv, ti, tv_r, ti_r, thin)
-    print(f"fb_bwd: max |dosage err| {err_d:.3e}, max |top-K value err| {err_tv:.3e}, "
-          f"top-K indices equal where gap > 1e-3: {idx_ok} ({n_firm} places) "
-          f"(tolerance dosage / top-K atol 1e-4)", flush=True)
-    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok:
-        _fail("fb_bwd disagrees with its plain version")
+    ck, lg, d, tv, ti, err_ck, err_d = _check_fused(dl, words, trans2, thin, fb.K, K_top, eps)
 
     # the redesigned kernels timed in turn with their previous form (its own
     # checkpoints, every 16 grids) and the backward on the same inputs
@@ -489,6 +495,122 @@ def check_kernels(world):
     rows.append(check_fb_capture(fb, dl, ck, ck16, K_top, eps))
     _print_rows(rows)
     return rows
+
+
+def _check_fused(dl, words, trans2, thin, K, K_top, eps, where=""):
+    """fb_forward and fb_backward against their plain versions on dl [B, S]:
+    checkpoints atol 1e-5, loglik rtol 1e-5 + atol 1e-2, dosage and top-K
+    values atol 1e-4, top-K indices equal where the plain values differ by
+    more than 1e-3. Returns (ck, lg, dosage, top-K values, top-K indices,
+    max checkpoint error, max dosage error)."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    ck, lg = fbk.fb_forward(dl, words, trans2, K)
+    ck_r, lg_r = fbk.fb_forward_plain(dl, words, trans2, K)
+    err_ck = (ck - ck_r).abs().max().item()
+    err_lg = (lg - lg_r).abs().max().item()
+    print(f"fb_fwd{where}: max |alpha ckpt err| {err_ck:.3e}, max |loglik err| {err_lg:.3e} "
+          f"(|loglik| up to {lg_r.abs().max().item():.1f}; tolerance ckpt atol 1e-5, "
+          f"loglik rtol 1e-5 + atol 1e-2)", flush=True)
+    if err_ck > 1e-5 or not torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2):
+        _fail(f"fb_fwd{where} disagrees with its plain version")
+
+    d, tv, ti = fbk.fb_backward(dl, words, ck, trans2, thin, K, K_top, eps)
+    d_r, tv_r, ti_r = fbk.fb_backward_plain(dl, words, ck, trans2, thin, K, K_top, eps)
+    err_d = (d - d_r).abs().max().item()
+    err_tv, idx_ok, n_firm = _topk_agree(tv, ti, tv_r, ti_r, thin)
+    print(f"fb_bwd{where}: max |dosage err| {err_d:.3e}, max |top-K value err| {err_tv:.3e}, "
+          f"top-K indices equal where gap > 1e-3: {idx_ok} ({n_firm} places) "
+          f"(tolerance dosage / top-K atol 1e-4)", flush=True)
+    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok:
+        _fail(f"fb_bwd{where} disagrees with its plain version")
+    return ck, lg, d, tv, ti, err_ck, err_d
+
+
+def _check_tiled(dl, words, trans2, thin, K, kt, K_top, eps, where="", timer=_timed):
+    """The three K-split FB kernels against their plain versions on dl
+    [B, S] at kt haplotypes a block, on all the grids: fb_max_tiled within
+    max_tiled_tolerance (the kernel adds a logit's log-ratios by byte
+    tables, the plain version by nibbles in order); the forward's
+    checkpoints and S rtol 1e-5, its loglik rtol 1e-5 + atol 1e-2; the
+    backward's dosage and top-K values atol 1e-4, its top-K indices equal
+    where the plain values differ by more than 1e-3, zeros away from the
+    thinned grids, two launches equal bit for bit. timer(fn) gives (fn(),
+    its ms) for each plain version's reference run. Returns a dict of the
+    kernels' and plain versions' outputs, the errors and the plain
+    versions' ms."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    Gp = words.shape[0]
+    r = {}
+    r["mx_r"], r["max_plain_ms"] = timer(lambda: fbk.fb_max_tiled_plain(dl, words, K, kt))
+    mx = r["mx"] = fbk.fb_max_tiled(dl, words, K, kt)
+    r["err_max"] = (mx - r["mx_r"]).abs().max().item()
+    tol = fbk.max_tiled_tolerance(dl, Gp)
+    print(f"fb_max_tiled{where}: max |mx err| {r['err_max']:.3e} (tolerance max_tiled_tolerance, "
+          f"here {tol.min().item():.2e}-{tol.max().item():.2e}; logits up to "
+          f"{r['mx_r'].abs().max().item():.1f})", flush=True)
+    if not ((mx - r["mx_r"]).abs() <= tol).all():
+        _fail(f"fb_max_tiled{where} disagrees with its plain version")
+
+    ck, S, lg = r["fwd"] = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+    (ck_r, S_r, lg_r), r["fwd_plain_ms"] = timer(
+        lambda: fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt))
+    ok = (torch.allclose(ck, ck_r, rtol=1e-5, atol=1e-30) and torch.allclose(S, S_r, rtol=1e-5, atol=0)
+          and torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2))
+    r["err_ck"] = (ck - ck_r).abs().max().item()
+    rel_ck = ((ck - ck_r).abs() / ck_r.abs().clamp(min=1e-30)).max().item()
+    rel_S = ((S - S_r).abs() / S_r).max().item()
+    err_lg = (lg - lg_r).abs().max().item()
+    print(f"fb_fwd_tiled{where}: max rel ckpt err {rel_ck:.3e}, max rel S err {rel_S:.3e}, max "
+          f"|loglik err| {err_lg:.3e} (|loglik| up to {lg_r.abs().max().item():.1f}; tolerance "
+          f"ckpt / S rtol 1e-5, loglik rtol 1e-5 + atol 1e-2)", flush=True)
+    if not ok:
+        _fail(f"fb_fwd_tiled{where} disagrees with its plain version")
+
+    bargs = (dl, words, ck, trans2, thin, mx, S, K, K_top, eps, kt)
+    got = r["bwd"] = fbk.fb_backward_tiled(*bargs)
+    again = fbk.fb_backward_tiled(*bargs)
+    ref, r["bwd_plain_ms"] = timer(lambda: fbk.fb_backward_tiled_plain(*bargs))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    r["err_d"] = (got[0] - ref[0]).abs().max().item()
+    err_tv, idx_ok, n_firm = _topk_agree(got[1], got[2], ref[1], ref[2], thin)
+    zeros = not got[1][thin < 0].any() and not got[2][thin < 0].any()
+    print(f"fb_bwd_tiled{where} ({int((thin >= 0).sum())} thinned grids): max |dosage err| "
+          f"{r['err_d']:.3e}, max |top-K value err| {err_tv:.3e}, indices equal where gap > 1e-3: "
+          f"{idx_ok} ({n_firm} places), zeros away from thinned grids: {zeros}, two launches "
+          f"equal bit for bit: {same} (tolerance dosage / top-K atol 1e-4)", flush=True)
+    if r["err_d"] > 1e-4 or err_tv > 1e-4 or not idx_ok or not zeros or not same:
+        _fail(f"fb_bwd_tiled{where} disagrees with its plain version")
+    return r
+
+
+def check_fb_at_rows(fb, rows_list, K_top=8, eps=0.001):
+    """The FB kernels that fb_plan takes at each of rows_list rows on fb's
+    panel (the K-split family at its splits, or the fused one) against
+    their plain versions, on random genotype likelihoods, at the
+    tolerances of the main checks (_check_tiled, _check_fused); the plain
+    versions untimed."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    dev = fb.device_tensors("cuda")
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    for B in rows_list:
+        family, per_call, splits = fbk.fb_plan(B, fb)
+        dl = _random_dl(fb, B, gen, eps)[1]
+        where = f" at {B} rows x K={fb.K}"
+        print(f"FB{where}: fb_plan -> {family}, {per_call} rows per call, {splits} blocks per "
+              f"row", flush=True)
+        if family == "tiled":
+            _check_tiled(dl, words, trans2, thin, fb.K, fb.K_pad // splits, K_top, eps, where,
+                         timer=lambda fn: (fn(), None))
+        else:
+            _check_fused(dl, words, trans2, thin, fb.K, K_top, eps, where)
 
 
 def check_fb_capture(fb, dl, ck, ck16, K_top, eps):
@@ -933,20 +1055,11 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
           f"(0: the general form); plain versions on all {Gp} grids", flush=True)
     rows = []
 
-    mx_r, plain_ms = _timed(lambda: fbk.fb_max_tiled_plain(dl, words, fb.K, kt))
-    mx = fbk.fb_max_tiled(dl, words, fb.K, kt)
-    mx_p = fbk.fb_max_tiled(dl, words, fb.K, kt, _prev=True)
-    # the kernel adds a logit's log-ratios by byte tables, the plain version
-    # (and the previous form) by nibbles in order: the maxima agree within
-    # the rounding of the two orders; the previous form's exactly
-    err = (mx - mx_r).abs().max().item()
-    tol = fbk.max_tiled_tolerance(dl, Gp)
-    print(f"fb_max_tiled: max |mx err| {err:.3e} (tolerance max_tiled_tolerance, here "
-          f"{tol.min().item():.2e}-{tol.max().item():.2e}; logits up to "
-          f"{mx_r.abs().max().item():.1f}), previous form exact: {torch.equal(mx_p, mx_r)}",
-          flush=True)
-    if not ((mx - mx_r).abs() <= tol).all() or not torch.equal(mx_p, mx_r):
-        _fail("fb_max_tiled disagrees with its plain version")
+    r = _check_tiled(dl, words, trans2, thin, fb.K, kt, K_top, eps)
+    mx, (ck, S, lg), got = r["mx"], r["fwd"], r["bwd"]
+    # the previous form adds the log-ratios in the plain version's order
+    if not torch.equal(fbk.fb_max_tiled(dl, words, fb.K, kt, _prev=True), r["mx_r"]):
+        _fail("fb_max_tiled's previous form differs from the plain version")
     t_max = _alternating_ms({
         "new": lambda: fbk.fb_max_tiled(dl, words, fb.K, kt),
         "previous form": lambda: fbk.fb_max_tiled(dl, words, fb.K, kt, _prev=True)})
@@ -955,23 +1068,12 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
           f"{t_max['new']:.3f} ms, previous form ({splits} blocks a row) "
           f"{t_max['previous form']:.3f} ms; 50% of the bound (bound / 0.5) "
           f"{max_bound / 0.5:.4f} ms; ptxas: " + "; ".join(PTXAS.get("fb_max_tiled_kernel", ["not reported"])), flush=True)
-    row = _row("fb_max_tiled", "fb_tiled.cu", "fb_pallas.py:420", err, t_max["new"], plain_ms,
+    row = _row("fb_max_tiled", "fb_tiled.cu", "fb_pallas.py:420", r["err_max"], t_max["new"],
+               r["max_plain_ms"],
                _nbytes(dl, words, mx), 33 * cells)
     row["previous_form_ms"] = t_max["previous form"]
     rows.append(row)
 
-    ck, S, lg = fbk.fb_forward_tiled(dl, words, trans2, mx, fb.K, kt)
-    ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt)
-    ok = (torch.allclose(ck, ck_r, rtol=1e-5, atol=1e-30) and torch.allclose(S, S_r, rtol=1e-5, atol=0)
-          and torch.allclose(lg, lg_r, rtol=1e-5, atol=1e-2))
-    rel_ck = ((ck - ck_r).abs() / ck_r.abs().clamp(min=1e-30)).max().item()
-    rel_S = ((S - S_r).abs() / S_r).max().item()
-    err_lg = (lg - lg_r).abs().max().item()
-    print(f"fb_fwd_tiled: max rel ckpt err {rel_ck:.3e}, max rel S err {rel_S:.3e}, max |loglik err| "
-          f"{err_lg:.3e} (|loglik| up to {lg_r.abs().max().item():.1f}; tolerance ckpt / S rtol "
-          f"1e-5, loglik rtol 1e-5 + atol 1e-2)", flush=True)
-    if not ok:
-        _fail("fb_fwd_tiled disagrees with its plain version")
     # the forward timed in turn with its previous form (alpha in a global
     # row, three barriers a step) and its general form, beside the floor of
     # its exchange (the "tiled forward step split" line); the two forms give
@@ -1007,29 +1109,11 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
           f"a step (each warp's sum posted, one cluster barrier, the {splits} x 16 posts read) = "
           f"{Gp * ffloor_us / 1e3:.3f} ms a call; ptxas: "
           + "; ".join(PTXAS.get("fb_fwd_tiled_kernel", ["not reported"])), flush=True)
-    row = _row("fb_fwd_tiled", "fb_tiled.cu", "fb_pallas.py:439", (ck - ck_r).abs().max().item(),
-               t_fwd["new"],
-               _median_ms(lambda: fbk.fb_forward_tiled_plain(dl, words, trans2, mx, fb.K, kt), 1),
+    row = _row("fb_fwd_tiled", "fb_tiled.cu", "fb_pallas.py:439", r["err_ck"], t_fwd["new"],
+               r["fwd_plain_ms"],
                _nbytes(dl, words, trans2, mx, ck, S, lg), 40 * cells)
     row["previous_form_ms"] = t_fwd["previous form"]
     rows.append(row)
-
-    bargs = (dl, words, ck, trans2, thin, mx, S, fb.K, K_top, eps, kt)
-    got = fbk.fb_backward_tiled(*bargs)
-    again = fbk.fb_backward_tiled(*bargs)
-    plain = {}
-    plain_ms = _median_ms(lambda: plain.setdefault("ref", fbk.fb_backward_tiled_plain(*bargs)), 1)
-    ref = plain["ref"]
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    err_d = (got[0] - ref[0]).abs().max().item()
-    err_tv, idx_ok, n_firm = _topk_agree(got[1], got[2], ref[1], ref[2], thin)
-    zeros = not got[1][thin < 0].any() and not got[2][thin < 0].any()
-    print(f"fb_bwd_tiled ({int((thin >= 0).sum())} thinned grids): max |dosage err| {err_d:.3e}, "
-          f"max |top-K value err| {err_tv:.3e}, indices equal where gap > 1e-3: {idx_ok} "
-          f"({n_firm} places), zeros away from thinned grids: {zeros}, two launches equal bit "
-          f"for bit: {same} (tolerance dosage / top-K atol 1e-4)", flush=True)
-    if err_d > 1e-4 or err_tv > 1e-4 or not idx_ok or not zeros or not same:
-        _fail("fb_bwd_tiled disagrees with its plain version")
 
     # the backward timed in turn with its previous form (its own checkpoints
     # every 16 grids), on the same inputs with no thinned grid (the top-K's
@@ -1039,6 +1123,7 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
     old = fbk.fb_backward_tiled(dl, words, ck16, trans2, thin, mx, S, fb.K, K_top, eps, kt, 16,
                                 _prev=True)
     err_old = (old[0] - got[0]).abs().max().item()
+    err_d = r["err_d"]
     if err_old > 1e-4:
         _fail(f"the previous tiled backward's dosage is {err_old:.3e} from the new kernel's")
     no_thin = torch.full_like(thin, -1)
@@ -1066,7 +1151,7 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
     # operations per (row, grid, haplotype): ~40 to rebuild alpha (the
     # emission sum and the step), ~76 in the reverse step (emission, beta,
     # gamma and 32 dosage adds); each input read once, each output written once
-    row = _row("fb_bwd_tiled", "fb_tiled.cu", "fb_pallas.py:539", err_d, new_ms, plain_ms,
+    row = _row("fb_bwd_tiled", "fb_tiled.cu", "fb_pallas.py:539", err_d, new_ms, r["bwd_plain_ms"],
                _nbytes(dl, words, ck, trans2, thin, mx, S, *got), (40 + 76) * cells)
     row["also_replaces"] = "quilt_tpu/kernels/fb_pallas.py:494"
     row["previous_form_ms"] = prev_ms
@@ -1156,11 +1241,13 @@ def e2e_config(n_samples, quilt2=False, nipt=False, ksubset=600):
     )
 
 
-def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False, ffs=None, coverage=1.0):
+def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False, ffs=None, coverage=1.0,
+               hot_map=False):
     """A full-width world (K = 5,120 for the QUILT1 / QUILT2 / NIPT phases,
     40,960 for the large-panel phase); quilt2 rewrites 10% of the sites to
     1-4 carriers and prepares the panel as `prepare2` does; ffs makes the
-    samples NIPT ones at these fetal fractions."""
+    samples NIPT ones at these fetal fractions; hot_map prepares the panel
+    with a genetic map of hotspots (simulate.hot_genetic_map)."""
     import numpy as np
     from quilt_tpu_torch.inputs import region_tensors
     from quilt_tpu_torch.simulate import make_world as simulate
@@ -1168,7 +1255,7 @@ def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False, ffs=None, coverag
     t = time.time()
     world = simulate(np.random.default_rng(SEED), K=K, nSNPs=nSNPs, n_samples=n_samples,
                      rare_frac=0.1 if quilt2 else 0.0, quilt2=quilt2, ffs=ffs,
-                     coverage=coverage)
+                     coverage=coverage, hot_map=hot_map)
     world["ffs"] = ffs
     prep = world["prep"]
     W = max(int(np.bincount(r.wif0, minlength=r.wif0.max() + 1).max())
@@ -1179,6 +1266,8 @@ def make_world(n_samples=8, K=5120, nSNPs=16384, quilt2=False, ffs=None, coverag
     rare = "" if not quilt2 else (
         f", {int((~prep.snp_is_common).sum())} rare sites held out of "
         f"{prep.nGrids} common grids, {len(prep.ms_indices)} msPBWT indices")
+    if hot_map:
+        rare += ", hot genetic map"
     if ffs is not None:
         rare += f", NIPT at fetal fractions {sorted(set(float(f) for f in ffs))}, {coverage}x"
     print(f"world: K={K}, nSNPs={nSNPs}, nGrids={prep.nGrids}{rare}, {n_samples} samples, "
@@ -1216,13 +1305,14 @@ def _slot_stats():
         gibbs.fwd_sweep = real
 
 
-def run_e2e(world, kernels, cfg, label):
+def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move=False):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
     before it, then one more call under torch.profiler after the counts
     are read. Returns (output, truth, {kernel name: launches}). In a NIPT
     world the truth and the r2 of the report are the mother's (haplotypes
-    1 + 2); nipt_report gives the fetus's."""
+    1 + 2); nipt_report gives the fetus's. probe() is a context manager
+    around the warm-up call too; block_move as profile_call takes it."""
     import numpy as np
     import torch
     from quilt_tpu_torch.engine import driver
@@ -1231,7 +1321,7 @@ def run_e2e(world, kernels, cfg, label):
     names = [f"S{i}" for i in range(len(samples))]
     truth_gen = np.stack([t[:2].sum(axis=0) for t in world["truths"]], axis=1).astype(float)
     quilt_impute = lambda *a, **k: driver.quilt_impute(*a, ff_values=world.get("ffs"), **k)
-    with _slot_stats() as stats:
+    with _slot_stats() as stats, probe():
         quilt_impute(world["prep"], samples, names, cfg, "cuda")
     print(f"{label}: over the call's forward sweeps, {stats['live']} live read slots of the "
           f"{stats['walked']} under the per-grid maximum that a chain's block used to walk ({100 * stats['live'] / max(stats['walked'], 1):.1f}% "
@@ -1256,34 +1346,58 @@ def run_e2e(world, kernels, cfg, label):
     print(f"  launches: {launches}", flush=True)
     if not finite:
         _fail(f"{label} produced non-finite or misshapen dosages")
-    profile_call(label, lambda: quilt_impute(world["prep"], samples, names, cfg, "cuda"), dt)
+    profile_call(label, lambda: quilt_impute(world["prep"], samples, names, cfg, "cuda"), dt,
+                 block_move)
     return out, truth_gen, launches
 
 
-def profile_call(label, fn, untraced_s):
+def profile_call(label, fn, untraced_s, block_move=False):
     """Device busy time, idle share and the largest kernels of one call.
     Only the card's activity is traced: the busy time sums device events
     alone, and host operator events would only slow the call and the
     summary (key_averages took ~3.5 s a call with them). The tracer still
     slows the host side, so the idle share is given against the traced
-    wall time and against the untraced call's."""
+    wall time and against the untraced call's. block_move traces the host
+    too, with the static block move (gibbs.suffix_pair_composed /
+    nipt_block_within) inside a range "gibbs:block_move", and prints the
+    device time of the kernels launched inside it, beside the busy time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from quilt_tpu_torch.kernels import gibbs
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if block_move else [])
+    moves = ("suffix_pair_composed", "nipt_block_within") if block_move else ()
+    real = {name: getattr(gibbs, name) for name in moves}
+
+    def in_range(fn_):
+        def wrapped(*a, **k):
+            with record_function("gibbs:block_move"):
+                return fn_(*a, **k)
+        return wrapped
 
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.zeros(1, device="cuda")          # the tracer's one-time start-up, kept out of the window
     torch.cuda.synchronize()
-    t = time.time()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.time() - t
+    for name in moves:
+        setattr(gibbs, name, in_range(real[name]))
+    try:
+        t = time.time()
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.time() - t
+    finally:
+        for name in moves:
+            setattr(gibbs, name, real[name])
     dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
     # device-side events only: a host operator's entry repeats the device
-    # time of the kernels it launched, and summing both counts them twice
-    from torch.autograd import DeviceType
-    events = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                     if dev_us(e) > 0 and e.device_type == DeviceType.CUDA), reverse=True)
+    # time of the kernels it launched, and summing both counts them twice;
+    # the range's own device-side entry is a span of the timeline, not a kernel
+    averages = prof.key_averages()
+    events = sorted(((dev_us(e), e.count, e.key) for e in averages
+                     if dev_us(e) > 0 and e.device_type == DeviceType.CUDA
+                     and e.key != "gibbs:block_move"), reverse=True)
     busy = sum(us for us, _, _ in events) / 1e6
     if not busy:
         print(f"{label} profile: no device time recorded (not measured)", flush=True)
@@ -1293,6 +1407,19 @@ def profile_call(label, fn, untraced_s):
           f"of the untraced call's {untraced_s:.3f} s", flush=True)
     for us, count, key in events[:10]:
         print(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% {count:6d} x {key[:70]}", flush=True)
+    if block_move:
+        # the host range's device time: the kernels launched inside it, summed
+        total = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        ranges = [e for e in averages if e.key == "gibbs:block_move" and e.device_type == DeviceType.CPU]
+        us = sum(total(e) for e in ranges)
+        calls = sum(e.count for e in ranges)
+        if us:
+            print(f"{label} profile: gibbs:block_move, the kernels launched in its {calls} host "
+                  f"ranges: {us / 1e3:.1f} ms = {100 * us / 1e6 / busy:.1f}% of device busy",
+                  flush=True)
+        else:
+            print(f"{label} profile: gibbs:block_move: no device time recorded (not measured)",
+                  flush=True)
 
 
 def check_launched(label, launches, needed):
@@ -1343,6 +1470,186 @@ def nipt_report(label, world, out):
             _fail(f"{label} produced misshapen or non-finite fetal outputs")
     if min(r2m) < 0.85 or min(r2f) < 0.5:
         _fail(f"{label}: maternal r2 below 0.85 or fetal r2 below 0.5")
+
+
+# ---------------------------------------------------------------------------
+# phases map and diag: static map boundaries; the per-sample diagnostics
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _swap_stats(swaps, label):
+    """Counts into swaps[label], over the block moves inside the block, the
+    (chain, block iteration) pairs and those in which the chain took a
+    swap: a diploid suffix swap at some boundary, or a NIPT relabelling
+    other than the identity in some block. It reads the moves' results on
+    the host, so it wraps the warm-up call only."""
+    from quilt_tpu_torch.kernels import gibbs
+
+    stats = swaps[label] = {"moves": 0, "swapped": 0}
+    parity, bank = gibbs.pair_swap_parity, gibbs.bank_scan
+
+    def counting_parity(*a, **k):
+        out = parity(*a, **k)                       # [G, B]
+        stats["moves"] += out.shape[1]
+        stats["swapped"] += int(out.any(0).sum())
+        return out
+
+    def counting_bank(*a, **k):
+        chosen, probs = bank(*a, **k)               # [G, B]: 0 is the identity
+        stats["moves"] += chosen.shape[1]
+        stats["swapped"] += int((chosen != 0).any(0).sum())
+        return chosen, probs
+
+    gibbs.pair_swap_parity, gibbs.bank_scan = counting_parity, counting_bank
+    try:
+        yield
+    finally:
+        gibbs.pair_swap_parity, gibbs.bank_scan = parity, bank
+
+
+def _pse(world, out):
+    """Per-sample PSE of the phased haplotypes against the truth's first two."""
+    from quilt_tpu_torch.out.metrics import calculate_pse
+
+    return [calculate_pse(res.phased_haps[:2].T, t[:2].T)["pse"]
+            for res, t in zip(out.results, world["truths"])]
+
+
+def run_map(world, counted, need, need_nipt):
+    """Phase map: QUILT1 then NIPT at block_gibbs_boundary_detection="map"
+    on the hot-map world's panel (run_e2e: warm-up, timed call, profile with
+    the block move's device time). Returns {path: launches}."""
+    import dataclasses
+
+    import numpy as np
+    from quilt_tpu_torch.engine import driver
+
+    cfg = dataclasses.replace(e2e_config(8), block_gibbs_boundary_detection="map")
+    ctx = driver._region_context(world["prep"], cfg, "cuda")
+    nb = 0 if ctx.boundaries is None else len(ctx.boundaries)
+    print(f"map: NB = {nb} static boundaries over {world['nGrids']} grids "
+          f"(block_u [n_its, {ctx.block_slots()}, 3, B])", flush=True)
+    if nb == 0 or ctx.smooth_w is not None:
+        _fail(f"map: no static boundaries (NB {nb})")
+    swaps = {}
+    launches = {}
+    out, _, launches["map"] = run_e2e(world, counted, cfg, "map",
+                                      lambda: _swap_stats(swaps, "map"), True)
+    if min(out.r2_per_sample) < 0.9:
+        _fail(f"map r2 against truth below 0.9: {out.r2_per_sample}")
+    pse_map = _pse(world, out)
+    gamma = driver.quilt_impute(world["prep"], world["samples"],
+                                [f"S{i}" for i in range(len(world["samples"]))],
+                                e2e_config(8), "cuda")
+    pse_gamma = _pse(world, gamma)
+    fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)
+    print(f"map: PSE mean {np.mean(pse_map):.4f} ({fmt(pse_map)}); the same world under "
+          f"'gamma' {np.mean(pse_gamma):.4f} ({fmt(pse_gamma)})", flush=True)
+    check_launched("map", launches["map"], need)
+    nipt_world = make_world(n_samples=4, ffs=[0.2] * 4, coverage=2.0, hot_map=True)
+    ncfg = dataclasses.replace(e2e_config(4, nipt=True), block_gibbs_boundary_detection="map")
+    out, _, launches["map_nipt"] = run_e2e(nipt_world, counted, ncfg, "map_nipt",
+                                           lambda: _swap_stats(swaps, "map_nipt"), True)
+    nipt_report("map_nipt", nipt_world, out)
+    check_launched("map_nipt", launches["map_nipt"], need_nipt)
+    for label, st in swaps.items():
+        share = st["swapped"] / max(st["moves"], 1)
+        print(f"{label}: {st['swapped']} of {st['moves']} (chain, block move) pairs took a swap "
+              f"({100 * share:.1f}%, warm-up call)", flush=True)
+        if not st["swapped"]:
+            _fail(f"{label}: no chain took a swap at the static boundaries")
+    return launches
+
+
+_DIAG_OBJECTS = ("read_labels", "per_it_likelihoods", "dosage", "gp", "phased_haps",
+                 "seek_dosages", "read_label_usage")
+
+
+def run_diag(world, counted, need, fb_families):
+    """Phase diag: the nine diagnostic options at once on 2 samples of the
+    map world, whose panel gets msPBWT indices here (so make_heuristic_plot
+    reruns each sample under both msPBWT approaches on the same context),
+    through the per-sample engine with truth. The kernels of `need` must
+    launch, and every kernel of one of the FB families (fb_plan takes the
+    K-split one at a sample's 14 rows and OHD's 2). Returns the launches."""
+    import dataclasses
+    import gzip
+    import tempfile
+
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.engine import driver
+    from quilt_tpu_torch.out.bgzf import bgzf_open
+    from quilt_tpu_torch.panel.mspbwt import build_mspbwt_indices
+
+    t = time.time()
+    prep = dataclasses.replace(world["prep"], ms_indices=build_mspbwt_indices(
+        world["prep"].panel.hapMatcher, 4))
+    print(f"diag: 4 msPBWT indices built in {time.time() - t:.1f} s", flush=True)
+    samples, truths = world["samples"][:2], world["truths"][:2]
+    names = ["S0", "S1"]
+    truth_gen = np.stack([t_.sum(0) for t_ in truths], 1).astype(float)
+    truth_haps = np.stack([t_.T for t_ in truths], 1).astype(float)
+    out_dir = tempfile.mkdtemp(prefix="quilt_diag_")
+    npz = os.path.join(out_dir, "objects.npz")
+    cfg = dataclasses.replace(
+        e2e_config(2), outputdir=out_dir, make_heuristic_plot=True,
+        record_read_label_usage=True, record_interim_dosages=True,
+        output_read_label_prob=True, RData_objects_to_save=list(_DIAG_OBJECTS),
+        output_RData_filename=npz, make_plots=True, plot_per_sample_likelihoods=True,
+        addOptimalHapsToVCF=True)
+    vcf = os.path.join(out_dir, "diag.vcf.gz")
+    for k in counted:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.time()
+    out = driver.quilt_impute(prep, samples, names, cfg, "cuda", output_filename=vcf,
+                              truth_gen=truth_gen, truth_haps=truth_haps, region_name="chr20")
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches = {k.name: k.launches for k in counted}
+    print(f"diag: 2 samples with the nine options in {dt:.2f} s (the per-sample engine, the "
+          f"heuristic comparison's reruns, OHD, plots' data and the dump); r2 "
+          f"{', '.join(f'{x:.4f}' for x in out.r2_per_sample)}", flush=True)
+    for name, v in out.timing.items():
+        print(f"  {name:<20} {v['seconds'] * 1000:10.1f} ms ({v['calls']} calls)")
+    print(f"  launches: {launches}", flush=True)
+    check_launched("diag", launches, need)
+    if not any(all(launches[k.name] for k in fam) for fam in fb_families):
+        _fail(f"diag: no FB family launched in full: {launches}")
+    with np.load(npz) as z:
+        keys = set(z.files)
+        shapes = {k: z[k].shape for k in sorted(keys)}
+    missing = sorted(f"{o}_{n}" for o in _DIAG_OBJECTS for n in names if f"{o}_{n}" not in keys)
+    print(f"diag: npz objects {shapes}", flush=True)
+    if missing:
+        _fail(f"diag: the npz lacks {missing}")
+    plots = os.path.join(out_dir, "plots")
+    data = [f"haps.{n}.chr20.diagnostics.tsv.gz" for n in names] + \
+        [f"{p}.{n}.chr20.{e}" for n in names
+         for p, e in (("heuristic", "tsv"), ("blockgibbs", "npz"), ("readflips", "npz"))]
+    absent = [f for f in data if not os.path.exists(os.path.join(plots, f))]
+    if absent:
+        _fail(f"diag: the plots' data files {absent} are missing")
+    for n in names:
+        rows = gzip.open(os.path.join(plots, f"haps.{n}.chr20.diagnostics.tsv.gz"), "rt").read()
+        with open(os.path.join(plots, f"heuristic.{n}.chr20.tsv")) as fh:
+            traces = sorted({line.split("\t")[0] for line in fh.read().splitlines()[1:]})
+        print(f"diag: {n}: {len(rows.splitlines()) - 1} rows of plot data; heuristic traces "
+              f"{traces}", flush=True)
+    lines = list(bgzf_open(vcf))
+    if not any(line.startswith("##FORMAT=<ID=OHD") for line in lines):
+        _fail("diag: the VCF declares no OHD field")
+    body = [line.rstrip("\n").split("\t") for line in lines if not line.startswith("#")]
+    for i, n in enumerate(names):
+        ohd = np.array([[float(x) for x in f[9 + i].split(":")[4].split(",")] for f in body])
+        r2 = float(np.corrcoef(ohd.sum(1), truth_gen[:, i])[0, 1] ** 2)
+        print(f"diag: {n}: OHD over {len(body)} sites, r2 against truth {r2:.4f} (the "
+              f"imputed dosage's {out.r2_per_sample[i]:.4f})", flush=True)
+        if not np.isfinite(ohd).all() or r2 < 0.9:
+            _fail(f"diag: {n}: OHD not finite or r2 {r2:.4f} under 0.9")
+    shutil.rmtree(out_dir)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1601,7 +1908,7 @@ def profile_hla_sample(w, device, per_sample_s):
                      lambda: impute_one_sample(ctx, reads, cfg, seed=1), dt)
 
 
-PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "wide", "hla", "cli")
+PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "wide", "hla", "map", "diag", "cli")
 
 
 def _took(name, t):
@@ -1775,6 +2082,19 @@ def main():
         if launches["hla"][fb.BWD_KERNEL.name]:
             _fail(f"hla launched the FB backward without capture: {launches['hla']}")
         t = _took("hla", t)
+    if phases & {"map", "diag"}:
+        world8 = make_world(hot_map=True)
+        if "map" in phases:
+            launches.update(run_map(world8, counted, [gfwd, gbwd] + fused,
+                                    nl3[:2] + [bank] + fused))
+            t = _took("map", t)
+        if "diag" in phases:
+            # the per-sample engine's FB runs a sample's 7 chains x 2 rows, OHD's
+            # 2 rows: the kernels fb_plan takes there, against their plain versions
+            check_fb_at_rows(world8["fb"], (14, 2))
+            launches["diag"] = run_diag(world8, counted, [gfwd, gbwd, gdos], [fused, tiled])
+            t = _took("diag", t)
+        del world8
     if "cli" in phases:
         run_cli()
         t = _took("cli", t)

@@ -12,8 +12,9 @@ The flags are the JAX package's, generated from the config dataclasses
 use_mspbwt and impute_rare_common to TRUE, as the JAX package's do.
 `prepare` and `hla-prepare` are copies of quilt_tpu/cli.py:cmd_prepare /
 cmd_hla_prepare over the port's own readers and reference preparation.
-`impute`, `impute2` and `hla` run on the CUDA device and refuse options
-outside the ported slice; without a GPU they exit non-zero.
+`impute`, `impute2` and `hla` run on the CUDA device and refuse only the
+multi-GPU options (mesh_data, mesh_panel, distributed_nproc), which are
+not ported yet; without a GPU they exit non-zero.
 """
 from __future__ import annotations
 
@@ -378,7 +379,8 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
                 truth_gen = truth_haps.sum(axis=2)
     os.makedirs(cfg.outputdir or ".", exist_ok=True)
     quilt_impute(prep, samples, names, cfg, device, output_filename=out_file,
-                 ff_values=ff_values, truth_gen=truth_gen, truth_haps=truth_haps)
+                 ff_values=ff_values, truth_gen=truth_gen, truth_haps=truth_haps,
+                 region_name=region_name)
     return 0
 
 

@@ -67,6 +67,14 @@ class SampleResult:
     # and latent haplotype at the capture grid, and its sum
     hla_gammas: Optional[np.ndarray] = None       # [C, nl, K]
     hla_gamma_total: Optional[np.ndarray] = None  # [K]
+    # per-sample engine, when a diagnostic option asks: the last Gibbs
+    # call's per-iteration likelihoods (kernels.gibbs.PER_IT_COLS) and NIPT
+    # read classes, the chain-mean dosage after each seek iteration, the
+    # chains' read labels after each seek iteration
+    per_it_likelihoods: Optional[np.ndarray] = None  # [n_its, C, 8]
+    H_class: Optional[np.ndarray] = None             # [C, R] (NIPT)
+    seek_dosages: Optional[np.ndarray] = None        # [n_seek_its, nSNPs]
+    read_label_usage: Optional[np.ndarray] = None    # [n_seek_its, C, nReads]
 
 
 def timed_sections(timers, dev):
@@ -155,7 +163,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     for bit in cfg.small_ref_panel_block_gibbs_iterations:
         if 1 <= bit <= n_its:
             do_block[bit - 1] = True
-    nb_slots = ctx.block_nb_cap if ctx.smooth_w is not None else 0
+    nb_slots = ctx.block_slots()
     Kp_sub = pad_to_multiple(ctx.Ksub, 128)
 
     # per-sample read tensors, replicated to chain rows on the device
@@ -212,7 +220,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
                 block_u=block_u if nb_slots else None, do_block=do_block,
                 smooth_w=ctx.smooth_w, quantile_prob=ctx.block_quantile,
                 words=words if use_ms else None, ref_error=prep.ref_error, timed=sec,
-                nl=nl, ff=ff, resample_u=resample_u,
+                nl=nl, ff=ff, resample_u=resample_u, boundaries=ctx.boundaries_dev(),
             )
         uf_any = uf_any | call.underflow.any()
         return call.H, None if call.hap_dos is None else call.hap_dos[:, :, :nSNPs]
@@ -239,7 +247,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         mspbwt.R:230-474): symbols of the rounded dosages on the device, then
         the host match scan, ranking and interleave for the whole batch."""
         with sec("select:mspbwt"):
-            z_all = symbols_device(hap_dos, ctx.tensors["dh_bits"], nSNPs).cpu().numpy()
+            z_all = symbols_device(hap_dos, ctx.dh_bits(), nSNPs).cpu().numpy()
             which_np = which_b.cpu().numpy()
             n_keep = ctx.Ksub - ctx.Knew
             prev_list = [rng.choice(which_np[b], size=n_keep, replace=False)

@@ -4,8 +4,9 @@ helpers of the JAX package's engine.
 RegionContext is the single-device counterpart of
 quilt_tpu/engine/sample.py:RegionContext (:40-216), with the QUILT2 state
 of :100-151 (the distinct-haplotype bits of msPBWT selection, the all-SNP
-transitions and panel of rare/common imputation) and the HLA run's gamma
-capture (:129-145, the capture grid in inputs.capture_grid); detect_boundaries is
+transitions and panel of rare/common imputation), the HLA run's gamma
+capture (:129-145, the capture grid in inputs.capture_grid) and the static
+map boundaries of :152-157; detect_boundaries is
 quilt_tpu/oracle/block_gibbs.py:36, sample_allele_count
 quilt_tpu/engine/sample.py:716, and the validators
 quilt_tpu/engine/validators.py:15,79.
@@ -25,7 +26,7 @@ from ..panel.prepare import PreparedReference, make_smoothed_rate, trans_rates
 from ..utils import print_message
 from ..utils.log import SectionTimers
 
-from ..inputs import FBInputs, gibbs_trans, region_tensors
+from ..inputs import FBInputs, gibbs_trans, region_tensors, thinned_grids
 from ..kernels.emissions import expand_panel
 from ..panel.mspbwt import distinct_hap_bits
 from .rare_common import all_snp_panel
@@ -34,12 +35,18 @@ from .rare_common import all_snp_panel
 @dataclass
 class RegionContext:
     """Per-region constants and device tensors shared across sample
-    batches (one device; n_latent = 2 diploid, 3 NIPT). Under msPBWT selection there are no FB
-    inputs (fb_inputs and thinned_grids are None) and tensors["dh_bits"]
-    holds the distinct haplotypes [nMaxDH, nGrids*32]; under rare/common,
-    trans_all / nGrids_all are the all-SNP grid's and tensors["rhb_all"]
-    [K, nGrids_all] i32 / tensors["gibbs_trans_all"] [2, nGrids_all] its
-    packed panel and Gibbs transitions."""
+    batches (one device; n_latent = 2 diploid, 3 NIPT). Under msPBWT
+    selection the FB inputs are not built up front (fb_inputs and
+    thinned_grids are None until fb_state() builds them) and the distinct
+    haplotypes [nMaxDH, nGrids*32] (dh_bits()) are; a run of the other
+    mode on the same context (the heuristic comparison) builds what it
+    needs on first use. Under rare/common, trans_all / nGrids_all are the
+    all-SNP grid's and tensors["rhb_all"] [K, nGrids_all] i32 /
+    tensors["gibbs_trans_all"] [2, nGrids_all] its packed panel and Gibbs
+    transitions. boundaries [NB] are the static map's block-Gibbs suffix
+    starts (None at 4 grids or fewer), built in every mode (the block
+    Gibbs plot reads them); the Gibbs calls take them when smooth_w, the
+    on-the-fly detector's band, is None."""
 
     prep: PreparedReference
     device: torch.device
@@ -52,6 +59,9 @@ class RegionContext:
     n_burn_in_seek_its: int
     tensors: Dict                  # inputs.region_tensors: rhb_t, words, ...
     smooth_w: Optional[tuple]      # on-the-fly boundary band (band, idx0) tensors
+    boundaries: Optional[np.ndarray]   # [NB] static map suffix starts (b >= 1)
+    smooth_cm: np.ndarray          # [nGrids-1] smoothed recombination rate
+    heuristic_match_thin: float
     block_quantile: float
     block_nb_cap: int
     timers: SectionTimers
@@ -63,6 +73,7 @@ class RegionContext:
     # HLA run: the FB captures gamma at fb_inputs.capture_grid
     hla_capture: bool = False
     _e_full: Optional[torch.Tensor] = None
+    _boundaries_dev: Optional[torch.Tensor] = None
 
     def rhb_dev(self) -> torch.Tensor:
         """Packed panel [K, nGrids] i32 on the device."""
@@ -74,6 +85,39 @@ class RegionContext:
         if self._e_full is None:
             self._e_full = expand_panel(self.rhb_dev())
         return self._e_full
+
+    def dh_bits(self) -> torch.Tensor:
+        """Distinct haplotypes [nMaxDH, nGrids*32] of the msPBWT symbols,
+        built on first use."""
+        if "dh_bits" not in self.tensors:
+            self.tensors["dh_bits"] = distinct_hap_bits(self.prep.panel, self.device)
+        return self.tensors["dh_bits"]
+
+    def fb_state(self):
+        """(FBInputs, thinned grids) of the full-panel FB, built on first
+        use when the context was made for msPBWT selection."""
+        if self.fb_inputs is None:
+            self.thinned_grids = thinned_grids(self.prep.nGrids, self.heuristic_match_thin)
+            self.fb_inputs = FBInputs.build(self.prep.panel, self.trans,
+                                            thinned_grids=self.thinned_grids)
+        return self.fb_inputs, self.thinned_grids
+
+    def boundaries_dev(self) -> Optional[torch.Tensor]:
+        """The static boundaries as an int32 device tensor [NB] when the
+        Gibbs calls take them (no on-the-fly band), else None."""
+        if self.smooth_w is not None or self.boundaries is None:
+            return None
+        if self._boundaries_dev is None:
+            self._boundaries_dev = torch.as_tensor(
+                self.boundaries.astype(np.int32), device=self.device)
+        return self._boundaries_dev
+
+    def block_slots(self) -> int:
+        """Block-move slots of a Gibbs call: the on-the-fly cap, or the
+        number of static boundaries."""
+        if self.smooth_w is not None:
+            return self.block_nb_cap
+        return 0 if self.boundaries is None else len(self.boundaries)
 
     @classmethod
     def build(cls, prep: PreparedReference, cfg: ImputeConfig, device) -> "RegionContext":
@@ -87,12 +131,7 @@ class RegionContext:
             n_seek, n_burn, Ksub, Knew = 1, 0, K, K
         t = region_tensors(prep, cfg, device)
         smooth = make_smoothed_rate(prep.sigma, prep.L_grid, cfg.shuffle_bin_radius)
-        if t["smooth_w"] is None and prep.nGrids > 4 and len(detect_boundaries(smooth, 0.9)):
-            raise NotImplementedError(
-                "block Gibbs at static map boundaries (block_gibbs_boundary_"
-                "detection='map' or max_block_gibbs_boundaries=0) is not "
-                "ported; the port runs the on-the-fly 'gamma' detection"
-            )
+        boundaries = detect_boundaries(smooth, 0.9) if prep.nGrids > 4 else None
         nb_cap = cfg.max_block_gibbs_boundaries
         if t["smooth_w"] is not None and len(smooth) > 1:
             # the reference's detector is uncapped; raise the slot count to
@@ -109,8 +148,6 @@ class RegionContext:
         smooth_w = None
         if t["smooth_band"] is not None:
             smooth_w = (t["smooth_band"], t["smooth_idx0"])
-        if cfg.use_mspbwt:
-            t["dh_bits"] = distinct_hap_bits(prep.panel, device)
         trans_all, nGrids_all = None, 0
         if cfg.impute_rare_common and prep.snp_is_common is not None:
             trans_all = trans_rates(prep.sigma_all)
@@ -120,17 +157,22 @@ class RegionContext:
             ), device=device)
             t["gibbs_trans_all"] = torch.as_tensor(
                 np.ascontiguousarray(gibbs_trans(trans_all, nGrids_all).T), device=device)
-        return cls(
+        ctx = cls(
             prep=prep, device=torch.device(device), trans=t["trans"],
             fb_inputs=t["fb"], thinned_grids=t["thinned_grids"], Ksub=Ksub,
             Knew=Knew, n_seek_its=n_seek, n_burn_in_seek_its=n_burn, tensors=t,
-            smooth_w=smooth_w, block_quantile=cfg.block_gibbs_quantile_prob,
+            smooth_w=smooth_w, boundaries=boundaries, smooth_cm=smooth,
+            heuristic_match_thin=cfg.heuristic_match_thin,
+            block_quantile=cfg.block_gibbs_quantile_prob,
             block_nb_cap=nb_cap,
             timers=SectionTimers(cfg.print_extra_timing_information),
             trans_all=trans_all, nGrids_all=nGrids_all,
             n_latent=3 if cfg.method == "nipt" else 2,
             hla_capture=t["fb"] is not None and t["fb"].capture_grid >= 0,
         )
+        if cfg.use_mspbwt:
+            ctx.dh_bits()
+        return ctx
 
 
 class _FieldRecorder:

@@ -1,13 +1,17 @@
 """Multi-sample imputation driver of the port: the dispatch of
-quilt_tpu/engine/driver.py:quilt_impute (:44-235) between the batched engine
-(engine/batch.py) and the per-sample one (engine/sample.py), with the
-rare/common read split and all-SNP output axis of :94-114, the INFO /
-allele frequency / HWE aggregation after it, and the VCF write through
-out.vcf_writer."""
+quilt_tpu/engine/driver.py:quilt_impute (:44-484) between the batched engine
+(engine/batch.py) and the per-sample one (engine/sample.py: lone samples,
+HLA runs and runs with per-sample diagnostics), with the rare/common read
+split and all-SNP output axis of :94-114, the INFO / allele frequency / HWE
+aggregation after it, the VCF write through out.vcf_writer (with the OHD
+field of addOptimalHapsToVCF), and the diagnostic outputs: the per-sample
+plots and their data files (out.plots), the hap-selection strategy
+comparison and the npz dump of per-sample objects."""
 from __future__ import annotations
 
+import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -16,6 +20,10 @@ import torch
 from ..config import ImputeConfig
 from ..io.reads import SampleReads
 from ..out.metrics import calculate_pse, r2_simple
+from ..out.plots import (
+    plot_block_gibbs, plot_hclass, plot_heuristic_comparison, plot_read_label_flips,
+    plot_sample_diagnostics,
+)
 from ..out.vcf_writer import (
     MISSING_DIPLOID_COL, MISSING_NIPT_COL, diploid_sample_column, hwe_from_counts,
     info_score, nipt_sample_column, write_quilt_vcf,
@@ -33,13 +41,14 @@ from .context import (
     validate_region_consistency,
 )
 from .rare_common import restrict_reads_to_common
-from .sample import impute_one_sample
+from .sample import (
+    impute_one_sample, needs_per_sample_diagnostics, optimal_hap_dosages, wants_dump,
+)
 
-# diagnostic options served by the JAX package's per-sample engine
-_PER_SAMPLE_FLAGS = (
-    "make_heuristic_plot", "record_read_label_usage", "record_interim_dosages",
-    "output_read_label_prob", "RData_objects_to_save", "output_RData_filename",
-    "make_plots", "plot_per_sample_likelihoods", "addOptimalHapsToVCF",
+# the per-sample objects the npz dump can hold (quilt_tpu/engine/driver.py:453-456)
+_EXPORTABLE = (
+    "read_labels", "per_it_likelihoods", "H_class", "dosage", "gp",
+    "phased_haps", "seek_dosages", "read_label_usage", "hla_gammas",
 )
 # fraction of the card's free memory one Gibbs chain batch may take, and the
 # budget used when the device is the CPU (the JAX package's 10 GiB)
@@ -60,15 +69,10 @@ class ImputeOutput:
 def check_slice(cfg: ImputeConfig) -> None:
     """Refuse what this port does not run yet, naming the slice it belongs
     to (see ROADMAP.md)."""
-    later = []
-    flags = [f for f in _PER_SAMPLE_FLAGS if getattr(cfg, f)]
-    if flags:
-        later.append(f"{', '.join(flags)} (per-sample diagnostics slice)")
-    if (cfg.mesh_data > 1 or cfg.mesh_panel > 1 or cfg.distributed_nproc > 1):
-        later.append("mesh_data / mesh_panel / distributed_nproc (multi-GPU slice)")
-    if later:
+    if cfg.mesh_data > 1 or cfg.mesh_panel > 1 or cfg.distributed_nproc > 1:
         raise NotImplementedError(
-            "not ported to quilt_tpu_torch yet: " + "; ".join(later)
+            "not ported to quilt_tpu_torch yet: mesh_data / mesh_panel / "
+            "distributed_nproc (multi-GPU slice)"
         )
 
 
@@ -112,14 +116,18 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                  output_filename: Optional[str] = None,
                  ff_values: Optional[np.ndarray] = None,
                  truth_gen: Optional[np.ndarray] = None,
-                 truth_haps: Optional[np.ndarray] = None) -> ImputeOutput:
+                 truth_haps: Optional[np.ndarray] = None,
+                 region_name: str = "region") -> ImputeOutput:
     """Imputation of `samples` on `device` (a torch device: "cuda" on the
     GPU, "cpu" for the tests), diploid or NIPT (cfg.method; ff_values [N]
     the samples' fetal fractions): QUILT1, or QUILT2 with use_mspbwt
     and / or impute_rare_common. Under rare/common the samples hold
     all-SNP reads and every output (VCF sites, dosages, truth_gen) is on
     the all-SNP axis. truth_gen [nSNPs, N] and truth_haps [nSNPs, N, 2]
-    give per-sample r2 / PSE reports (NIPT: of the mother)."""
+    give per-sample r2 / PSE reports (NIPT: of the mother); with
+    addOptimalHapsToVCF, truth_haps also gives the OHD field of diploid
+    runs. The diagnostic options write under cfg.outputdir, in files named
+    after region_name."""
     t0 = time.time()
     set_verbosity(cfg.verbose)
     validate_impute_config(cfg)
@@ -149,10 +157,11 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         in_region = prep.in_region()
 
     results: List[Optional[SampleResult]] = [None] * N
-    # the batched engine takes several samples at a time; a lone sample and
-    # the samples of an HLA run go through the per-sample engine
-    # (quilt_tpu/engine/driver.py:146-158)
-    if cfg.sample_batch > 1 and N > 1 and not cfg.hla_run:
+    # the batched engine takes several samples at a time; a lone sample, the
+    # samples of an HLA run and a run with per-sample diagnostics go through
+    # the per-sample engine (quilt_tpu/engine/driver.py:146-158)
+    if (cfg.sample_batch > 1 and N > 1 and not cfg.hla_run
+            and not needs_per_sample_diagnostics(cfg)):
         # sample batches, clamped so one Gibbs call's working set fits the device
         W_max = 1
         for r in samples:
@@ -197,11 +206,16 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     columns: List[List[str]] = []
     r2s: List[float] = []
     n_imputed = 0
+    with_ohd = cfg.addOptimalHapsToVCF and truth_haps is not None
+    af_out = prep.af_all if rare_common else prep.af
     for i, res in enumerate(results):
         if not res.imputed:
             print_message(f"Sample {sample_names[i]} has fewer than "
                           f"{cfg.minimum_number_of_sample_reads} reads; output missing")
-            columns.append([MISSING_NIPT_COL if nipt else MISSING_DIPLOID_COL] * nSNPs)
+            miss = MISSING_NIPT_COL if nipt else MISSING_DIPLOID_COL
+            if with_ohd and not nipt:
+                miss += ":.,."
+            columns.append([miss] * nSNPs)
             continue
         n_imputed += 1
         gp = res.mat_gp if nipt else res.gp
@@ -212,6 +226,12 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         af_sum += eij / 2
         hwe_counts[np.arange(nSNPs), gp.argmax(axis=0)] += 1
         allele_count += res.allele_count
+        ohd = None
+        if with_ohd and not nipt and not rare_common:
+            # optimal haploid dosages given the truth's read labels
+            # (reference: functions.R:280-281,1419)
+            with ctx.timers.section("ohd"):
+                ohd = optimal_hap_dosages(ctx, samples[i], cfg, truth_haps[:, i])
         with ctx.timers.section("vcf:columns"):
             if nipt:
                 columns.append(nipt_sample_column(
@@ -219,8 +239,11 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
             else:
                 columns.append(diploid_sample_column(
                     res.gp, res.phased_haps, res.dosage,
-                    output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
+                    output_gt_phased_genotypes=cfg.output_gt_phased_genotypes, ohd=ohd,
                 ))
+        if (cfg.make_plots or cfg.plot_per_sample_likelihoods) and cfg.outputdir:
+            _plot_sample(ctx, cfg, sample_names[i], region_name, res, gp, out_pos, af_out,
+                         None if truth_gen is None else truth_gen[:, i], samples[i])
         if truth_gen is not None:
             r2 = r2_simple(truth_gen[:, i], res.dosage)
             r2s.append(r2)
@@ -249,9 +272,15 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                 allele_count=allele_count, in_region=in_region,
                 method=cfg.method,
                 output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
-                with_ohd=False,
+                with_ohd=with_ohd,
             )
         print_message(f"Wrote {output_filename}")
+    if (cfg.make_heuristic_plot and truth_gen is not None and cfg.outputdir
+            and not rare_common):
+        _heuristic_comparison(ctx, cfg, results, samples, sample_names, region_name,
+                              truth_gen, ff_values)
+    if wants_dump(cfg) and (cfg.outputdir or cfg.output_RData_filename):
+        _dump_objects(cfg, results, sample_names, region_name)
     ctx.timers.report()
     timing = ctx.timers.as_dict() if ctx.timers.enabled else None
     print_message(f"Done QUILT ({time.time() - t0:.1f}s)")
@@ -259,3 +288,87 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         results=results, vcf_path=output_filename, eaf=eaf, info=info,
         r2_per_sample=r2s if truth_gen is not None else None, timing=timing,
     )
+
+
+def _plot_sample(ctx: RegionContext, cfg: ImputeConfig, name: str, region_name: str,
+                 res: SampleResult, gp, pos, af, truth, reads: SampleReads) -> None:
+    """The per-sample plots of make_plots / plot_per_sample_likelihoods
+    (quilt_tpu/engine/driver.py:286-323): the dosage panel with the
+    per-iteration likelihood traces, the read-label flips and NIPT read
+    classes when recorded, and the block-Gibbs boundaries."""
+    plot_sample_diagnostics(cfg.outputdir, name, region_name, pos=pos, dosage=res.dosage,
+                            gp=gp, af=af, truth_gen=truth,
+                            per_it_likelihoods=res.per_it_likelihoods)
+    if res.read_label_usage is not None:
+        plot_read_label_flips(cfg.outputdir, name, region_name, res.read_label_usage)
+    if res.H_class is not None:
+        plot_hclass(cfg.outputdir, name, region_name, res.H_class)
+    if ctx.boundaries is not None and len(ctx.boundaries):
+        plot_block_gibbs(cfg.outputdir, name, region_name, L_grid=ctx.prep.L_grid,
+                         smooth_rate=ctx.smooth_cm, boundaries=ctx.boundaries,
+                         read_label_usage=res.read_label_usage,
+                         read_grids=None if reads is None else reads.wif0)
+
+
+def _heuristic_comparison(ctx: RegionContext, cfg: ImputeConfig, results, samples,
+                          sample_names, region_name, truth_gen, ff_values) -> None:
+    """make_heuristic_plot (quilt_tpu/engine/driver.py:390-440; reference:
+    heuristic.R:40-176): each sample's dosage r2 against truth after each
+    seek iteration, under this run's hap selection and, rerun on the same
+    context, under the others the prepared reference allows (QUILT1 top-K,
+    msPBWT with either match-finding approach)."""
+    can_mspbwt = ctx.prep.ms_indices is not None
+    cur = f"mspbwt {cfg.heuristic_approach}" if cfg.use_mspbwt else "QUILT1 top-K"
+    variants = {}
+    if cfg.use_mspbwt:
+        variants["QUILT1 top-K"] = replace(cfg, use_mspbwt=False, make_plots=False)
+    elif can_mspbwt:
+        variants[f"mspbwt {cfg.heuristic_approach}"] = replace(
+            cfg, use_mspbwt=True, make_plots=False)
+    if can_mspbwt:
+        other = "B" if cfg.heuristic_approach == "A" else "A"
+        variants[f"mspbwt {other}"] = replace(
+            cfg, use_mspbwt=True, heuristic_approach=other, make_plots=False)
+    for i, res in enumerate(results):
+        if res is None or not res.imputed or res.seek_dosages is None:
+            continue
+        traces = {cur: [r2_simple(truth_gen[:, i], d) for d in res.seek_dosages]}
+        if not cfg.use_mspbwt:
+            # the reference's zilong A and B rows are the current non-msPBWT
+            # selection captured at two points (functions.R:752-778)
+            traces["zilong A (= current)"] = traces[cur]
+            traces["zilong B (= current)"] = traces[cur]
+        for label, vcfg in variants.items():
+            alt = impute_one_sample(ctx, samples[i], vcfg, seed=cfg.seed + i,
+                                    ff=float(ff_values[i]))
+            if alt.imputed and alt.seek_dosages is not None:
+                traces[label] = [r2_simple(truth_gen[:, i], d) for d in alt.seek_dosages]
+        plot_heuristic_comparison(cfg.outputdir, sample_names[i], region_name, traces)
+
+
+def _dump_objects(cfg: ImputeConfig, results, sample_names, region_name) -> None:
+    """The npz counterpart of the reference's output_RData_filename /
+    RData_objects_to_save dump (quilt.R:1029-1068;
+    quilt_tpu/engine/driver.py:442-484): every requested per-sample object
+    under <object>_<sample>."""
+    wanted = _EXPORTABLE
+    if cfg.RData_objects_to_save:
+        unknown = [o for o in cfg.RData_objects_to_save if o not in _EXPORTABLE]
+        if unknown:
+            print_message(f"Warning: unknown RData_objects_to_save {unknown}; "
+                          f"exportable: {list(_EXPORTABLE)}")
+        wanted = [o for o in cfg.RData_objects_to_save if o in _EXPORTABLE]
+    dump = {}
+    for name, res in zip(sample_names, results):
+        if res is None or not res.imputed:
+            continue
+        for obj in wanted:
+            val = getattr(res, obj, None)
+            if val is not None:
+                dump[f"{obj}_{name}"] = val
+    out_npz = cfg.output_RData_filename
+    if not out_npz:
+        os.makedirs(os.path.join(cfg.outputdir, "RData"), exist_ok=True)
+        out_npz = os.path.join(cfg.outputdir, "RData", f"quilt.output.{region_name}.npz")
+    np.savez_compressed(out_npz, **dump)
+    print_message(f"Wrote output objects to {out_npz}")

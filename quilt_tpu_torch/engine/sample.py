@@ -12,7 +12,12 @@ JAX engine, the work between the device calls runs on the host from one
 NumPy generator: the GLs from the read labels, the top-K re-selection
 (QUILT1) or the msPBWT scan (QUILT2), the read confidence and the
 cross-chain consensus; an underflow reruns that Gibbs call with a tenth of
-maxDifferenceBetweenReads (reference: functions.R:2704-2714).
+maxDifferenceBetweenReads (reference: functions.R:2704-2714). When a
+diagnostic option asks, the result also carries what the JAX engine
+records for it (:404-406, 510-521, 571-583): the last Gibbs call's
+per-iteration likelihoods and NIPT read classes, the dosage after each
+seek iteration and the chains' labels after each seek iteration.
+optimal_hap_dosages (:727-755) gives the OHD field of addOptimalHapsToVCF.
 """
 from __future__ import annotations
 
@@ -38,6 +43,21 @@ from .selection import (
     consensus_read_labels, read_confidence, recast_haps, recast_nipt_haps,
     select_new_haps_from_topk,
 )
+
+
+def wants_dump(cfg: ImputeConfig) -> bool:
+    """The npz dump of per-sample objects is asked for
+    (quilt_tpu/engine/driver.py:442-448)."""
+    return bool(cfg.output_read_label_prob or cfg.RData_objects_to_save
+                or cfg.output_RData_filename or cfg.record_read_label_usage
+                or cfg.record_interim_dosages)
+
+
+def needs_per_sample_diagnostics(cfg: ImputeConfig) -> bool:
+    """A diagnostic option that only the per-sample engine serves is set
+    (quilt_tpu/engine/driver.py:146-151; addOptimalHapsToVCF is not one)."""
+    return bool(cfg.make_heuristic_plot or cfg.make_plots or cfg.plot_per_sample_likelihoods
+                or wants_dump(cfg))
 
 
 def gls_from_labels(reads: SampleReads, H: np.ndarray, n_latent: int, nSNPs: int,
@@ -175,7 +195,11 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
     for bit in cfg.small_ref_panel_block_gibbs_iterations:
         if 1 <= bit <= n_its:
             do_block[bit - 1] = True
-    nb_slots = ctx.block_nb_cap if ctx.smooth_w is not None else 0
+    nb_slots = ctx.block_slots()
+    # diagnostics, copied to the host only when an option reads them
+    keep_calls = cfg.make_plots or cfg.plot_per_sample_likelihoods or wants_dump(cfg)
+    keep_seek_dosages = cfg.make_heuristic_plot or cfg.record_interim_dosages
+    diag: Dict = {"seek_dosages": [], "label_usage": []}
 
     def pad_subsets(which_b):
         # pad rows repeat the first haplotype: they carry zero weight
@@ -183,14 +207,14 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
         return as_t(np.concatenate(
             [which_b, np.repeat(which_b[:, :1], Kp_sub - which_b.shape[1], axis=1)], axis=1))
 
-    def run_chains(which_b, H0_b, iterative, first_b, max_diff):
+    def run_chains(which_b, H0_b, iterative, first_b, max_diff, dosages=use_ms):
         """One Gibbs call over the B chains, retried with a tenth of
         maxDifferenceBetweenReads on underflow. Returns (labels [B, R],
-        Gibbs hap dosages [B, nl, nSNPs] under msPBWT else None, max_diff)."""
+        the call (its dosages when `dosages`), max_diff)."""
         B = which_b.shape[0]
         which_p = pad_subsets(which_b)
         words = (gather_words(ctx.rhb_dev(), which_p)
-                 if use_ms or side.lem_full is None else None)
+                 if dosages or side.lem_full is None else None)
         uniforms = as_t(rng.random((n_its, B, R)).astype(np.float32))
         block_u = as_t(rng.random((n_its, nb_slots, 3, B)).astype(np.float32))
         resample_u = (as_t(rng.random((n_its, B, R)).astype(np.float32))
@@ -204,17 +228,21 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
                     first_t, iterative, which_b.shape[1],
                     block_u=block_u if nb_slots else None, do_block=do_block,
                     smooth_w=ctx.smooth_w, quantile_prob=ctx.block_quantile,
-                    words=words if use_ms else None, ref_error=prep.ref_error, timed=sec,
-                    nl=nl, ff=ff, resample_u=resample_u,
+                    words=words if dosages else None, ref_error=prep.ref_error, timed=sec,
+                    nl=nl, ff=ff, resample_u=resample_u, boundaries=ctx.boundaries_dev(),
                 )
             if not bool(call.underflow.any()):
                 break
             max_diff = max(1.0, max_diff / 10.0)
             print_message(f"Underflow; retrying with maxDifferenceBetweenReads={max_diff}")
-        hap_dos = None
-        if use_ms:
-            hap_dos = call.hap_dos[:, :, :nSNPs].double().cpu().numpy()
-        return call.H.cpu().numpy(), hap_dos, max_diff
+        if keep_calls:
+            diag["per_it"] = call.per_it.cpu().numpy()
+            diag["H_class"] = call.H_class.cpu().numpy() if nl == 3 else None
+        return call.H.cpu().numpy(), call, max_diff
+
+    def ms_dosages(call):
+        """The Gibbs call's hap dosages [B, nl, nSNPs] (msPBWT selection)."""
+        return call.hap_dos[:, :, :nSNPs].double().cpu().numpy()
 
     def run_fb_and_select(H_b, which_b):
         """Full-panel FB per (chain, latent hap); returns the hap dosages, the
@@ -227,7 +255,8 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
                 gls[c * nl:(c + 1) * nl] = gls_from_labels(
                     reads, H_b[c, : reads.nReads], nl, nSNPs, cfg.minGLValue)
         with sec("fb:kernel"):
-            res = fb_full_batched(as_t(gls), ctx.fb_inputs, K_top=max(8, cfg.K_top_matches),
+            fb_inputs, thinned = ctx.fb_state()
+            res = fb_full_batched(as_t(gls), fb_inputs, K_top=max(8, cfg.K_top_matches),
                                   ref_error=prep.ref_error, **ctx.fb_plan_args)
             hap_dos = res[0][:, :nSNPs].reshape(B, nl, nSNPs).double().cpu().numpy()
             tv, ti = res[2].cpu().numpy(), res[3].cpu().numpy()
@@ -237,7 +266,7 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
             for c in range(B):
                 n_keep = ctx.Ksub - ctx.Knew
                 prev_sel = rng.choice(which_b[c], size=n_keep, replace=False)
-                li, lv = _gather_topk_lists(tv, ti, ctx.thinned_grids, nl, c, tv.shape[2])
+                li, lv = _gather_topk_lists(tv, ti, thinned, nl, c, tv.shape[2])
                 new = select_new_haps_from_topk(li, lv, ctx.Knew, K, prev_sel, rng,
                                                 cfg.K_top_matches)
                 new_sets[c] = np.sort(np.concatenate([prev_sel, new]))
@@ -307,9 +336,18 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
     # ------------------------------------------------------------------
     first_read = rng.integers(0, max(reads.nReads, 1), size=C).astype(np.int32)
     for i_it in range(1, ctx.n_seek_its + 1):
-        H, hap_dos_g, max_diff = run_chains(which_haps, H, i_it == 1, first_read, max_diff)
+        H, call, max_diff = run_chains(which_haps, H, i_it == 1, first_read, max_diff,
+                                       dosages=use_ms or keep_seek_dosages)
+        if keep_seek_dosages:
+            # the chains' mean dosage after each seek iteration (reference:
+            # heuristic.R:40-176, record_interim_dosages at functions.R:552)
+            gp_g = call.gp[:, :, :nSNPs].double()
+            diag["seek_dosages"].append((gp_g[:, 1] + 2 * gp_g[:, 2]).mean(0).cpu().numpy())
+        if cfg.record_read_label_usage:
+            # the chains' labels after each seek iteration (functions.R:564)
+            diag["label_usage"].append(H[:, : reads.nReads].copy())
         if use_ms:
-            hap_dos = hap_dos_g
+            hap_dos = ms_dosages(call)
             which_haps = select_mspbwt(hap_dos, which_haps)
         else:
             hap_dos, which_haps, gcap = run_fb_and_select(H, which_haps)
@@ -372,9 +410,9 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
     wh_p = np.repeat(which_haps[C - 1:C], C, axis=0).copy()
     zero_first = np.zeros(C, dtype=np.int32)
     for _ in range(ctx.n_seek_its):
-        H_p, hap_dos_p, max_diff = run_chains(wh_p, H_p, False, zero_first, max_diff)
+        H_p, call, max_diff = run_chains(wh_p, H_p, False, zero_first, max_diff)
         if use_ms:
-            hap_dos_ph = hap_dos_p
+            hap_dos_ph = ms_dosages(call)
             wh_p[:] = select_mspbwt(hap_dos_ph[:1], wh_p[:1])
         else:
             hap_dos_ph, wh_p, _ = run_fb_and_select(H_p, wh_p)
@@ -393,8 +431,11 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
         fet_gp = fet_gp_acc / max(n_acc, 1)
         fet_dosage = fet_dosage_acc / max(n_acc, 1)
         allele_count = sample_allele_count(reads, nSNPs)
-    common = dict(imputed=True, dosage=dosage, gp=gp, read_labels=cons,
-                  allele_count=allele_count)
+    common = dict(
+        imputed=True, dosage=dosage, gp=gp, read_labels=cons, allele_count=allele_count,
+        per_it_likelihoods=diag.get("per_it"), H_class=diag.get("H_class"),
+        seek_dosages=np.stack(diag["seek_dosages"]) if diag["seek_dosages"] else None,
+        read_label_usage=np.stack(diag["label_usage"]) if diag["label_usage"] else None)
     if nl == 2:
         hd1, hd2 = recast_haps(hap_dos_ph[0, 0], hap_dos_ph[0, 1], gp)
         return SampleResult(
@@ -405,3 +446,23 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
     return SampleResult(
         phased_haps=np.stack(recast_nipt_haps(*hap_dos_ph[0], gp, fet_gp)),
         mat_gp=gp, fet_gp=fet_gp, mat_dosage=dosage, fet_dosage=fet_dosage, **common)
+
+
+def optimal_hap_dosages(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
+                        truth_haps_sample: np.ndarray) -> np.ndarray:
+    """Haploid dosages [2, nSNPs] when each read's haplotype is known from
+    the truth [nSNPs, 2] (nan: unknown): the OHD FORMAT field of
+    addOptimalHapsToVCF (reference: functions.R:280-281,1419). Each read
+    goes to the truth haplotype that explains it best, and one full-panel
+    FB call of the two rows gives the dosages."""
+    prep = ctx.prep
+    nSNPs = prep.nSNPs
+    reads = reads.sorted_by_grid()
+    truth = np.nan_to_num(truth_haps_sample.T.astype(np.float64), nan=0.5)
+    H_opt = emat_read_vs_dosages(reads, truth).argmax(axis=0).astype(np.int32)
+    gls = gls_from_labels(reads, H_opt, 2, nSNPs, cfg.minGLValue).astype(np.float32)
+    fb_inputs, _ = ctx.fb_state()
+    res = fb_full_batched(torch.as_tensor(gls, device=ctx.device), fb_inputs,
+                          K_top=max(8, cfg.K_top_matches), ref_error=prep.ref_error,
+                          **ctx.fb_plan_args)
+    return res[0][:, :nSNPs].double().cpu().numpy()

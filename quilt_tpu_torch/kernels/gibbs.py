@@ -429,7 +429,7 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
                      iterative_init, K_real, block_u=None, do_block=None,
                      smooth_w=None, quantile_prob=0.95, words=None,
                      ref_error=0.001, timed=None, nl=2, ff=0.0, resample_u=None,
-                     relabel_u=None) -> GibbsCall:
+                     relabel_u=None, boundaries=None) -> GibbsCall:
     """One Gibbs call over B chains: diploid (nl = 2) or NIPT (nl = 3 at
     fetal fraction ff, label prior (0.5, (1-ff)/2, ff/2)).
 
@@ -438,7 +438,12 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
     uninformative reads (lem_subset, or log of emat_read_from_bits);
     uniforms [n_its, B, R]; H0 [B, R] i32; first_read [B] i32; block_u
     [n_its, NBu, 3, B] and do_block [n_its] bool with smooth_w the
-    on-the-fly boundary smoothing band; words [B, Kp, G] i32 the packed
+    on-the-fly boundary smoothing band, or without it boundaries [NBu] i32
+    the static map's suffix starts, shared by every chain (a swap at one
+    boundary leaves every later boundary's keep / swap weights unchanged,
+    so the composed moves are the sequential static ones of
+    quilt_tpu/kernels/gibbs_pallas.py:_block_moves_padded and, NIPT,
+    nipt_block_within with one boundary row); words [B, Kp, G] i32 the packed
     subset words (gather_words) when the call is to return dosages;
     timed(name) a context manager timing the dosage pass and, for NIPT,
     the block moves and read classes. NIPT only: resample_u [n_its, B, R] uniforms of the label
@@ -485,7 +490,7 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
     do_entire = nl == 3 and relabel_u is not None
     for it in range(n_its):
         it_mode = it if (iterative_init and it <= 1) else 2
-        move = bool(do_block[it] and smooth_w is not None and NBu > 0)
+        move = bool(do_block[it] and NBu > 0 and (smooth_w is not None or boundaries is not None))
         want_alpha = bool(do_block[it] or it == n_its - 1 or do_entire)
         u_pad = layout.to_slots(uniforms[it].to(torch.float32), 0.0)
         slots = torch.stack([u_pad.view(torch.int32), H_pad, skip_pad, layout.r_pad], 1).contiguous()
@@ -502,9 +507,12 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
                 Hc_pad = compute_hclass(alphas, beta, lem_pad, H_pad, live, prior, rlc)
         if move:
             with timed_nipt("gibbs:block_move"):
-                rate2 = live_jump_rate(alphas, beta, lemg, trans, B, K_real,
-                                       include3=nl == 2 or prior[2] > 0)
-                bnd_rb = boundaries_from_rate(rate2, smooth_w, NBu, quantile_prob)
+                if smooth_w is not None:
+                    rate2 = live_jump_rate(alphas, beta, lemg, trans, B, K_real,
+                                           include3=nl == 2 or prior[2] > 0)
+                    bnd_rb = boundaries_from_rate(rate2, smooth_w, NBu, quantile_prob)
+                else:
+                    bnd_rb = boundaries[:, None].expand(NBu, B)
                 if nl == 3:
                     ru = None if resample_u is None else layout.to_slots(
                         resample_u[it].to(torch.float32), 0.0)

@@ -17,7 +17,7 @@ from .panel import prepare_panel
 
 def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
                coverage: float = 1.0, read_length_bp: int = 600, rare_frac: float = 0.0,
-               quilt2: bool = False, ffs=None) -> Dict:
+               quilt2: bool = False, ffs=None, hot_map: bool = False) -> Dict:
     """A prepared panel of K haplotypes over nSNPs SNPs spaced ~60 bp, and
     n_samples samples' reads (phred 25) from truth mosaics of the panel.
     rare_frac of the sites are rewritten to 1-4 carriers (rare_sites).
@@ -26,14 +26,17 @@ def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
     the all-SNP axis. ffs [n_samples] makes NIPT samples: three truth
     haplotypes (mother's transmitted and untransmitted, the fetus's
     paternal) and reads drawn from them at the sample's fetal fraction.
+    hot_map prepares the panel with hot_genetic_map's map (nGen 1,000), so
+    the static block-Gibbs boundaries fall in its hotspots.
     Returns {"prep", "samples", "truths" ([2 or 3, nSNPs] each, all SNPs)}."""
     haps, pos = simulate_panel(rng, K=K, nSNPs=nSNPs, region_span=nSNPs * 60)
     if rare_frac:
         rare_sites(rng, haps, int(round(rare_frac * nSNPs)), max_carriers=4)
-    quilt2_opts = dict(impute_rare_common=True, use_mspbwt=True, mspbwt_nindices=4)
+    opts = dict(impute_rare_common=True, use_mspbwt=True, mspbwt_nindices=4) if quilt2 else {}
+    if hot_map:
+        opts.update(gmap_pos=pos, gmap_cm=hot_genetic_map(nSNPs), nGen=1000)
     prep = prepare_panel(chrom="chr20", pos=pos, ref_allele=np.array(["A"] * nSNPs),
-                         alt_allele=np.array(["G"] * nSNPs), haps=haps,
-                         **(quilt2_opts if quilt2 else {}))
+                         alt_allele=np.array(["G"] * nSNPs), haps=haps, **opts)
     grid = prep.grid_all if quilt2 else prep.grid
     samples, truths = [], []
     for i in range(n_samples):
@@ -44,6 +47,16 @@ def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
         samples.append(reads)
         truths.append(truth)
     return dict(prep=prep, samples=samples, truths=truths)
+
+
+def hot_genetic_map(nSNPs: int) -> np.ndarray:
+    """Genetic map (cM at each SNP) with a hotspot of 60 SNPs at 15x the
+    background rate every 400 SNPs from SNP 300, as
+    tests/test_block_otf.py:test_pse_parity_hot_map builds it."""
+    rate = np.full(nSNPs, 1.0)
+    for h0 in range(300, nSNPs - 60 + 1, 400):
+        rate[h0:h0 + 60] = 15.0
+    return np.cumsum(rate) * 2e-5
 
 
 def rare_sites(rng: np.random.Generator, haps: np.ndarray, n_sites: int,

@@ -894,3 +894,72 @@ def test_engine_on_gpu_at_a_large_ksubset(cuda):
     assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
     launches = [k.launches for k in kernels]
     assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0], launches
+
+
+def test_engine_on_gpu_at_map(cuda):
+    """Block Gibbs at the static map boundaries on the card, diploid and
+    NIPT, on a world with a hot genetic map: r2 above 0.9 (NIPT maternal
+    0.85), the Gibbs sweeps, the FB and (NIPT) the bank launched."""
+    from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
+
+    opts = dict(nGibbsSamples=3, n_seek_its=2, Ksubset=48, Knew=48,
+                small_ref_panel_gibbs_iterations=8, seed=3,
+                block_gibbs_boundary_detection="map")
+    world = make_world(np.random.default_rng(5), K=120, nSNPs=1024, n_samples=3,
+                       coverage=1.5, hot_map=True)
+    kernels = [gs.FWD_KERNEL, gs.BWD_KERNEL, fbk.FWD_KERNEL, fbk.BWD_KERNEL]
+    for k in kernels:
+        k.launches = 0
+    truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
+    out = quilt_impute(world["prep"], world["samples"], ["a", "b", "c"],
+                       ImputeConfig(**opts), "cuda", truth_gen=truth_gen)
+    assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
+    assert all(k.launches > 0 for k in kernels), [k.launches for k in kernels]
+    nipt = make_world(np.random.default_rng(6), K=120, nSNPs=1024, n_samples=2,
+                      coverage=2.0, hot_map=True, ffs=[0.2, 0.2])
+    nl3 = [gs.FWD_KERNELS[3], gs.BWD_KERNELS[3], nb.BANK_KERNEL]
+    for k in nl3:
+        k.launches = 0
+    out = quilt_impute(nipt["prep"], nipt["samples"], ["a", "b"],
+                       ImputeConfig(**opts, method="nipt"), "cuda", ff_values=[0.2, 0.2],
+                       truth_gen=np.stack([t[:2].sum(0) for t in nipt["truths"]], 1).astype(float))
+    assert min(out.r2_per_sample) > 0.85, out.r2_per_sample
+    assert all(k.launches > 0 for k in nl3), [k.launches for k in nl3]
+
+
+def test_diagnostics_on_gpu(cuda, tmp_path):
+    """The nine diagnostic options on the card through the per-sample
+    engine: the npz objects, the plots' data files and the OHD field."""
+    from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
+    from quilt_tpu_torch.out.bgzf import bgzf_open
+
+    world = make_world(np.random.default_rng(7), K=120, nSNPs=640, n_samples=2,
+                       coverage=1.5)
+    truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
+    truth_haps = np.stack([t.T for t in world["truths"]], 1).astype(float)
+    cfg = ImputeConfig(nGibbsSamples=3, n_seek_its=2, Ksubset=48, Knew=48,
+                       small_ref_panel_gibbs_iterations=8, seed=3, outputdir=str(tmp_path),
+                       make_heuristic_plot=True, record_read_label_usage=True,
+                       record_interim_dosages=True, output_read_label_prob=True,
+                       RData_objects_to_save=["dosage", "seek_dosages", "read_label_usage",
+                                              "per_it_likelihoods"],
+                       output_RData_filename=str(tmp_path / "objects.npz"), make_plots=True,
+                       plot_per_sample_likelihoods=True, addOptimalHapsToVCF=True)
+    vcf = str(tmp_path / "out.vcf.gz")
+    quilt_impute(world["prep"], world["samples"], ["a", "b"], cfg, "cuda",
+                 output_filename=vcf, truth_gen=truth_gen, truth_haps=truth_haps,
+                 region_name="chr20")
+    with np.load(tmp_path / "objects.npz") as z:
+        assert {f"{o}_{s}" for o in ("dosage", "seek_dosages", "read_label_usage",
+                                    "per_it_likelihoods") for s in "ab"} == set(z.files)
+    for s in "ab":
+        assert (tmp_path / "plots" / f"haps.{s}.chr20.diagnostics.tsv.gz").exists()
+        assert (tmp_path / "plots" / f"heuristic.{s}.chr20.tsv").exists()
+    lines = list(bgzf_open(vcf))
+    assert any(l.startswith("##FORMAT=<ID=OHD") for l in lines)
+    body = [l for l in lines if not l.startswith("#")]
+    for i in range(2):
+        ohd = np.array([[float(x) for x in l.split("\t")[9 + i].split(":")[4].split(",")]
+                        for l in body])
+        assert np.isfinite(ohd).all()
+        assert np.corrcoef(ohd.sum(1), truth_gen[:, i])[0, 1] ** 2 > 0.9

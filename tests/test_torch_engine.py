@@ -98,9 +98,7 @@ def test_region_context_key_is_derived(world):
 
 
 @pytest.mark.parametrize("override", [
-    {"mesh_data": 2}, {"distributed_nproc": 2}, {"addOptimalHapsToVCF": True},
-    {"plot_per_sample_likelihoods": True}, {"record_read_label_usage": True},
-    {"record_interim_dosages": True}, {"make_plots": True}, {"mesh_panel": 2},
+    {"mesh_data": 2}, {"distributed_nproc": 2}, {"mesh_panel": 2},
 ])
 def test_out_of_slice_options_are_refused(override):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's jax-free host modules
-(config, utils, io, out, panel, native, kernels.nipt, hla): the same seeded numpy inputs
+(config, utils, io, out, panel, native, kernels.nipt, hla, out.plots,
+dist.ligate): the same seeded numpy inputs
 through a copy and through its quilt_tpu original give equal results, and
 files written by one package are read by the other."""
 import ast
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import quilt_tpu.config as cfg_j
+import quilt_tpu.dist.ligate as lig_j
 import quilt_tpu.engine.sample as sample_j
 import quilt_tpu.engine.selection as sel_j
 import quilt_tpu.hla.db as hdb_j
@@ -22,13 +24,16 @@ import quilt_tpu.io.native as native_j
 import quilt_tpu.io.simulate as sim_j
 import quilt_tpu.io.vcf as vcf_j
 import quilt_tpu.kernels.nipt as nipt_j
+import quilt_tpu.out.bgzf as bgzf_j
 import quilt_tpu.out.metrics as metrics_j
+import quilt_tpu.out.plots as plots_j
 import quilt_tpu.out.vcf_writer as vcfw_j
 import quilt_tpu.panel.mspbwt as ms_j
 import quilt_tpu.panel.prepare as prep_j
 import quilt_tpu.utils as utils_j
 
 import quilt_tpu_torch.config as cfg_t
+import quilt_tpu_torch.dist.ligate as lig_t
 import quilt_tpu_torch.engine.sample as sample_t
 import quilt_tpu_torch.engine.selection as sel_t
 import quilt_tpu_torch.hla.db as hdb_t
@@ -40,6 +45,7 @@ import quilt_tpu_torch.io.simulate as sim_t
 import quilt_tpu_torch.io.vcf as vcf_t
 import quilt_tpu_torch.kernels.nipt as nipt_t
 import quilt_tpu_torch.out.metrics as metrics_t
+import quilt_tpu_torch.out.plots as plots_t
 import quilt_tpu_torch.out.vcf_writer as vcfw_t
 import quilt_tpu_torch.panel.mspbwt as ms_t
 import quilt_tpu_torch.panel.prepare as prep_t
@@ -373,3 +379,87 @@ def test_per_sample_host_helpers(name):
         extra = ([np.random.default_rng(seed)], [np.random.default_rng(seed)]) \
             if name == "select_new_haps_from_topk" else ([], [])
         _same(getattr(mj, name)(*args, *extra[0]), getattr(mt, name)(*args, *extra[1]), name)
+
+
+@pytest.mark.parametrize("path", ["out/plots.py", "dist/ligate.py"])
+def test_diagnostic_module_is_a_copy(path):
+    """out/plots.py and dist/ligate.py are the JAX package's, statement for
+    statement."""
+    src = [(ROOT / pkg / path).read_text() for pkg in ("quilt_tpu", "quilt_tpu_torch")]
+    assert ast.dump(ast.parse(src[0])) == ast.dump(ast.parse(src[1]))
+
+
+def _plot_case(name, rng):
+    """(function name, kwargs) of one plotting function on seeded inputs."""
+    n, G, C, R = 120, 24, 3, 40
+    if name == "plot_sample_diagnostics":
+        gp = rng.dirichlet(np.ones(3), n).T
+        return dict(pos=np.sort(rng.choice(10_000, n, replace=False)), dosage=gp[1] + 2 * gp[2],
+                    gp=gp, af=rng.random(n), truth_gen=rng.integers(0, 3, n).astype(float),
+                    per_it_likelihoods=rng.normal(size=(9, C, 8)))
+    if name == "plot_heuristic_comparison":
+        return dict(traces={"QUILT1 top-K": list(rng.random(3)), "mspbwt A": list(rng.random(3))})
+    if name == "plot_read_label_flips":
+        return dict(read_label_usage=rng.integers(0, 3 if rng.random() < 0.5 else 2, (2, C, R)))
+    if name == "plot_hclass":
+        return dict(H_class=rng.integers(0, 8, (C, R)))
+    L = np.cumsum(rng.integers(100, 2000, G))
+    return dict(L_grid=L, smooth_rate=rng.random(G - 1), boundaries=np.array([3, 9, 17]),
+                read_label_usage=rng.integers(0, 2, (2, C, R)), read_grids=rng.integers(0, G, R))
+
+
+def _data_files(outdir):
+    """{name: content} of the data files a plotting function wrote (arrays
+    of each npz, rows of each table)."""
+    out = {}
+    for f in sorted((pathlib.Path(outdir) / "plots").iterdir()):
+        if f.suffix == ".npz":
+            with np.load(f) as z:
+                out[f.name] = {k: z[k] for k in z.files}
+        elif f.name.endswith(".tsv.gz"):
+            out[f.name] = np.loadtxt(f, skiprows=1)
+        elif f.suffix == ".tsv":
+            out[f.name] = f.read_text()
+    return out
+
+
+@pytest.mark.parametrize("name", ["plot_sample_diagnostics", "plot_heuristic_comparison",
+                                  "plot_read_label_flips", "plot_hclass", "plot_block_gibbs"])
+def test_plots_write_equal_data_files(tmp_path, name):
+    """Each plotting function writes the same data files from both
+    packages (the figures only where matplotlib imports)."""
+    for seed in range(2):
+        kw = _plot_case(name, np.random.default_rng(seed))
+        got = {}
+        for pkg, mod in (("jax", plots_j), ("port", plots_t)):
+            d = str(tmp_path / f"{pkg}{seed}")
+            getattr(mod, name)(d, "S0", "chr20", **kw)
+            got[pkg] = _data_files(d)
+        assert got["port"], name
+        _same(got["jax"], got["port"], name)
+
+
+def test_ligation_from_both_packages(tmp_path):
+    """quilt_chunk_map and ligate_vcfs of both packages on seeded chunks."""
+    rng = np.random.default_rng(6)
+    pos = np.sort(rng.choice(np.arange(1, 30_000_000), 4000, replace=False))
+    cm = np.cumsum(rng.exponential(1e-3, len(pos)))
+    _same(lig_j.quilt_chunk_map("chr1", pos, cm, min_bp=3_000_000, min_cm=0.5),
+          lig_t.quilt_chunk_map("chr1", pos, cm, min_bp=3_000_000, min_cm=0.5), "chunks")
+    paths = []
+    for c, sites in enumerate((np.arange(100, 800, 100), np.arange(500, 1200, 100))):
+        p = str(tmp_path / f"c{c}.vcf.gz")
+        with bgzf_j.BgzfWriter(p) as w:
+            w.write("##fileformat=VCFv4.0\n")
+            w.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS0\tS1\n")
+            for s in sites:
+                gts = [("0|1", "1|0", "1|1", "0|0")[int(rng.integers(0, 4))] for _ in range(2)]
+                w.write(f"1\t{s}\t.\tA\tG\t.\tPASS\t.\tGT:GP:DS:HD\t"
+                        + "\t".join(f"{g}:1,0,0:0.5:0.2,0.3" for g in gts) + "\n")
+        paths.append(p)
+    outs = []
+    for mod in (lig_j, lig_t):
+        out = str(tmp_path / f"lig_{mod.__name__.split('.')[0]}.vcf.gz")
+        mod.ligate_vcfs(paths, out)
+        outs.append(list(bgzf_j.bgzf_open(out)))
+    assert outs[0] == outs[1] and len([l for l in outs[0] if not l.startswith("#")]) == 11

@@ -25,7 +25,9 @@ def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert "quilt_tpu_torch.engine.batch" in mods
     assert {"quilt_tpu_torch.kernels.nipt", "quilt_tpu_torch.kernels.nipt_bank",
-            "quilt_tpu_torch.engine.sample", "quilt_tpu_torch.hla.typing"} <= set(mods)
+            "quilt_tpu_torch.engine.sample", "quilt_tpu_torch.hla.typing",
+            "quilt_tpu_torch.out.plots", "quilt_tpu_torch.dist",
+            "quilt_tpu_torch.dist.ligate"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
