@@ -61,18 +61,35 @@ Phases, each fatal on failure:
                four kernels of the path must launch; one more call under
                torch.profiler gives the device-time shares (here and in
                phases 4 and 5);
-  4. quilt2  - QUILT2 diploid imputation (msPBWT selection + rare/common
+  4. dist    - multiple GPUs and hosts on the one card: the four segment
+               kernels of the panel-sharded FB (csrc/fb_sharded.cu; the JAX
+               body is XLA, quilt_tpu/kernels/fb_full.py:440) against their
+               plain versions at 112 rows x K = 5,120 split 2 and 4 ways
+               (K_shard 2,560 / 1,280, 512 grids) at four segments, two
+               launches equal bit for bit, timed at one; fb_full_sharded
+               over make_mesh(1, n, [cuda:0] x n), n = 2 and 4, against
+               fb_full_batched (dosage, log-likelihood, top-K at the thinned
+               grids, the captured gamma at 14 rows), its time and an
+               exchange's (one-card figures: the shards run in turn); the
+               e2e world at mesh (2, 2) over [cuda:0] x 4 (r2 >= 0.9, each
+               sample's DS r2 > 0.98 against the single-card run, the segment
+               kernels launched, the fused FB not) and at (2, 1) (the
+               single-card VCF byte for byte); the CLI world imputed by two
+               processes on the card over gloo (--distributed_nproc 2)
+               against one: sample columns bit for bit, INFO within 1e-3,
+               only rank 0 writes the VCF;
+  5. quilt2  - QUILT2 diploid imputation (msPBWT selection + rare/common
                all-SNP Gibbs) of the same shape, with 10% of the sites
                rewritten to 1-4 carriers (rare); prints samples/s, r2 over
                all / common / rare sites and the per-stage timers; the Gibbs
                forward, backward and dosage kernels must launch;
-  5. largek  - QUILT1 diploid imputation against a large panel (K=40,960
+  6. largek  - QUILT1 diploid imputation against a large panel (K=40,960
                haplotypes, 16,384 SNPs, 2 samples = 28 FB rows), where the
                FB plan takes the K-split kernels; the three of them must
                launch once an FB call each (6 a call), the two Gibbs sweeps
                must launch, and the fused FB must not; no path may launch
                a previous form of a redesigned kernel;
-  6. nipt    - NIPT (mother + fetus, 3 latent haplotypes a chain) at full
+  7. nipt    - NIPT (mother + fetus, 3 latent haplotypes a chain) at full
                width: QUILT1-NIPT on the K=5,120 world's shape with 8 samples
                at 2x coverage, four at fetal fraction 0.10 and four at 0.20
                (two batches of 28 chains = 84 state and FB rows), then
@@ -83,13 +100,13 @@ Phases, each fatal on failure:
                block move's bank kernel must launch on both and the dosage
                kernel on the second; fails
                under maternal r2 0.85 or fetal r2 0.5;
-  7. wide    - Gibbs at a Ksubset past the kernels' shared-memory forms: a
+  8. wide    - Gibbs at a Ksubset past the kernels' shared-memory forms: a
                panel of 10,496 haplotypes over 1,024 SNPs, 2 samples, imputed
                diploid at Ksubset 10,368 (both sweeps' global forms must
                launch; fails under r2 0.9) and NIPT at Ksubset 8,192, ff 0.2
                (the forward's global form at NL = 3 and the bank's must
                launch; fails under maternal r2 0.85 or fetal r2 0.5);
-  8. hla     - QUILT-HLA at full width through `hla-prepare` and `hla`
+  9. hla     - QUILT-HLA at full width through `hla-prepare` and `hla`
                of the port's CLI (in this process): the K=5,120 /
                16,384-SNP shape with a 3,000 bp gene whose panel SNPs are
                the variant sites of 2,000 simulated alleles (each panel
@@ -103,7 +120,7 @@ Phases, each fatal on failure:
                FB forward and the capturing FB backward must launch; fails
                on a sample without captured gamma or under half the
                alleles typed (combined);
-  9. map     - block Gibbs at the static map boundaries
+ 10. map     - block Gibbs at the static map boundaries
                (block_gibbs_boundary_detection="map") on a world with a hot
                genetic map (hotspots at 15x the background rate; the
                QUILT1 shape, 8 samples at ~1x), then 4 NIPT samples at ff
@@ -115,7 +132,7 @@ Phases, each fatal on failure:
                fails at NB = 0, with no swap taken, under r2 0.9 (NIPT:
                maternal 0.85, fetal 0.5), or when a kernel of the path
                (the Gibbs sweeps, the fused FB, NIPT's bank) never launched;
- 10. diag    - the FB kernels that fb_plan takes at the path's 14 and 2
+ 11. diag    - the FB kernels that fb_plan takes at the path's 14 and 2
                rows against their plain versions; then
                the nine per-sample diagnostic options at once, 2 QUILT1
                samples of the map world (its panel given msPBWT indices, so
@@ -126,7 +143,7 @@ Phases, each fatal on failure:
                value is finite and OHD r2 against truth is >= 0.9, or when
                the Gibbs sweeps, the Gibbs dosages (the seek dosages) or an
                FB family (the K-split one at these rows) did not launch;
- 11. cli     - small file-based `prepare` + `impute`, `prepare2` +
+ 12. cli     - small file-based `prepare` + `impute`, `prepare2` +
                `impute2` and `impute --method nipt --fflist` runs through
                the port's CLI, and a one-sample `impute` that must go
                through the per-sample engine; checks the VCFs.
@@ -1305,14 +1322,16 @@ def _slot_stats():
         gibbs.fwd_sweep = real
 
 
-def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move=False):
+def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move=False,
+            devices=None):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
     before it, then one more call under torch.profiler after the counts
     are read. Returns (output, truth, {kernel name: launches}). In a NIPT
     world the truth and the r2 of the report are the mother's (haplotypes
     1 + 2); nipt_report gives the fetus's. probe() is a context manager
-    around the warm-up call too; block_move as profile_call takes it."""
+    around the warm-up call too; block_move as profile_call takes it;
+    devices the mesh's devices (a config with mesh_data / mesh_panel)."""
     import numpy as np
     import torch
     from quilt_tpu_torch.engine import driver
@@ -1320,7 +1339,8 @@ def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move
     samples = world["samples"]
     names = [f"S{i}" for i in range(len(samples))]
     truth_gen = np.stack([t[:2].sum(axis=0) for t in world["truths"]], axis=1).astype(float)
-    quilt_impute = lambda *a, **k: driver.quilt_impute(*a, ff_values=world.get("ffs"), **k)
+    quilt_impute = lambda *a, **k: driver.quilt_impute(*a, ff_values=world.get("ffs"),
+                                                       devices=devices, **k)
     with _slot_stats() as stats, probe():
         quilt_impute(world["prep"], samples, names, cfg, "cuda")
     print(f"{label}: over the call's forward sweeps, {stats['live']} live read slots of the "
@@ -1908,7 +1928,441 @@ def profile_hla_sample(w, device, per_sample_s):
                      lambda: impute_one_sample(ctx, reads, cfg, seed=1), dt)
 
 
-PHASES = ("kernels", "e2e", "quilt2", "largek", "nipt", "wide", "hla", "map", "diag", "cli")
+# ---------------------------------------------------------------------------
+# phase dist: the device mesh, the panel-sharded FB and multi-host shards
+# ---------------------------------------------------------------------------
+
+# segments where the segment kernels are held against their plain versions
+# (of the 64 of 512 grids): the first two, a middle one (also timed) and the
+# last
+SEG_CHECKS = (0, 1, 31, 63)
+SEG_TIMED = 31
+SEG_NAMES = ("seg_fwd_local", "seg_fwd_apply", "seg_bwd_local", "seg_bwd_apply")
+
+
+def _seg_work(name, B, KS, nt, K_top):
+    """(bytes, float32 operations) of one launch of a segment kernel on one
+    shard of K_shard = KS haplotypes (all real), as the function needs them:
+    its inputs read once (the segment's panel words, log-ratios and maxima,
+    9 grids' in the backward; the [B, KS] planes it reads) and its outputs
+    written once. Operations per (row, haplotype): an emission logit, its
+    exp and its stay product ~10 a grid, then the forward local pass's 28
+    products, 8 h terms and 44 sums (160); the apply's 28 products, 80 of
+    the reconstruction and 8 divisions (196); the backward local pass's 56
+    products, 16 q terms and 46 sums (~217 with 9 grids' emissions); the
+    backward apply's 28 products, 64 of the reconstruction, 8 gamma
+    products, 8 normaliser and 256 bit-masked dosage sums (~460). Top-K at
+    the thinned grids is left out (a few grids of the segment)."""
+    L, f = 8, 4
+    words, dl, mx, plane = L * KS * f, B * L * 32 * f, B * L * f, B * KS * f
+    nine = 9 / 8
+    work = {
+        "seg_fwd_local": (words + dl + mx + plane + B * nt * 44 * f, 160),
+        "seg_fwd_apply": (words + dl + mx + plane + B * 44 * f + L * plane, 196),
+        "seg_bwd_local": (nine * (words + dl + mx) + plane + B * nt * 46 * f, 217),
+        "seg_bwd_apply": (nine * (words + dl + mx) + L * plane + 2 * plane + B * 46 * f
+                          + nt * B * L * 32 * f + nt * L * B * f + 2 * nt * L * B * K_top * f, 460),
+    }[name]
+    return work[0], work[1] * B * KS
+
+
+def _close(got, ref, rtol=1e-4, per_col=False):
+    """(max |got - ref|, within rtol of ref elementwise plus rtol / 100 of
+    the largest |ref| (of each last-axis column with per_col))."""
+    import torch
+
+    ref, got = ref.double(), got.double()
+    dims = tuple(range(ref.dim() - 1))
+    scale = ref.abs().amax(dim=dims, keepdim=True) if per_col and dims else ref.abs().max()
+    ok = bool(((got - ref).abs() <= rtol * ref.abs() + 1e-2 * rtol * scale).all())
+    return (got - ref).abs().max().item(), ok and torch.isfinite(got).all().item()
+
+
+@contextlib.contextmanager
+def _seg_probe(res, segs=SEG_CHECKS, timed_seg=SEG_TIMED):
+    """Holds the panel-sharded FB's kernels against their plain versions on
+    the path's own inputs. Inside the block every call that
+    kernels.fb_sharded.sharded_core makes of fb_max_tiled and of the four
+    segment wrappers launches its kernel as usual; the first time a shard
+    (its words tensor) at a row count reaches fb_max_tiled, or a segment of
+    `segs` (seg_bwd_apply also the capture grid's segment), the same inputs
+    go through the plain version and through a second launch, the in-place
+    passes on copies of their state taken before the path's launch.
+    fb_max_tiled is held within max_tiled_tolerance, the segment kernels
+    within rtol 1e-4 plus 1e-6 of the largest value (of each value column
+    for the local sums) with the top-K haplotypes equal where the values are
+    firm, and the second launch must give the path's bits. At segment
+    timed_seg the first shard's kernel is timed (median of 7 launches on
+    the copies) with its plain version (_timed). Fills res {name: record}
+    for _seg_report. The launches it adds are not the main path's: run_e2e
+    wraps the warm-up call, before the counts are set to 0."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    L = fs.SEG_LEN
+    names = ("fb_max_tiled",) + SEG_NAMES
+    real = {n: getattr(fs, n) for n in names}
+    plain = {n: getattr(fs, n + "_plain") for n in SEG_NAMES}
+    plain["fb_max_tiled"] = fbk.fb_max_tiled_plain
+    for n in names:
+        res.setdefault(n, dict(err=0.0, ok=True, same=True, checks=0, ms=None, plain_ms=None,
+                               shape=None))
+    seen = set()
+
+    def due(name, dl, words, c, extra=False):
+        key = (name, words.data_ptr(), dl.shape[0], c)
+        if key in seen or not (c in segs or extra):
+            return False
+        seen.add(key)
+        res[name]["checks"] += 1
+        return True
+
+    def note(name, got, ref, again, per_col=False, err_ok=None):
+        err, ok = _close(got, ref, per_col=per_col) if err_ok is None else err_ok
+        r = res[name]
+        r["err"], r["ok"] = max(r["err"], err), r["ok"] and ok
+        r["same"] = r["same"] and torch.equal(got, again)
+
+    def timing(name, c, dl, words, K_top, kernel, plain_fn):
+        r = res[name]
+        if c == timed_seg and r["ms"] is None:
+            torch.cuda.synchronize()
+            r["ms"] = _median_ms(kernel, 7)
+            r["plain_ms"] = _timed(plain_fn)[1]
+            r["shape"] = (dl.shape[0], words.shape[1], words.shape[0], K_top, c)
+
+    def max_tiled(dl, words, K, k_tile, **kw):
+        mx = real["fb_max_tiled"](dl, words, K, k_tile, **kw)
+        if due("fb_max_tiled", dl, words, 0, True):
+            ref = plain["fb_max_tiled"](dl, words, K, k_tile)
+            d = (mx - ref).abs()
+            ok = bool((d <= fbk.max_tiled_tolerance(dl, words.shape[0])).all())
+            note("fb_max_tiled", mx, ref, real["fb_max_tiled"](dl, words, K, k_tile, **kw),
+                 err_ok=(d.max().item(), ok))
+        return mx
+
+    def local(name):
+        def run(dl, words, trans2, mx, state, c, K_loc):
+            part = real[name](dl, words, trans2, mx, state, c, K_loc)
+            if due(name, dl, words, c):
+                ref = plain[name](dl, words, trans2, mx, state, c, K_loc)
+                again = lambda: real[name](dl, words, trans2, mx, state, c, K_loc)
+                note(name, part, ref, again(), per_col=True)
+                timing(name, c, dl, words, 0, again,
+                       lambda: plain[name](dl, words, trans2, mx, state, c, K_loc))
+            return part
+        return run
+
+    def fwd_apply(dl, words, trans2, mx, tot, alphas, logm, c, K_loc, K):
+        name = "seg_fwd_apply"
+        check = due(name, dl, words, c)
+        if check:
+            copies = [(alphas.clone(), None if logm is None else logm.clone()) for _ in range(2)]
+        real[name](dl, words, trans2, mx, tot, alphas, logm, c, K_loc, K)
+        if check:
+            (a1, m1), (a2, m2) = copies
+            plain[name](dl, words, trans2, mx, tot, a1, m1, c, K_loc, K)
+            real[name](dl, words, trans2, mx, tot, a2, m2, c, K_loc, K)
+            g = slice(c * L, (c + 1) * L)
+            note(name, alphas[g], a1[g], a2[g])
+            if logm is not None:
+                note(name, logm[c], m1[c], m2[c])
+            timing(name, c, dl, words, 0,
+                   lambda: real[name](dl, words, trans2, mx, tot, a2, m2, c, K_loc, K),
+                   lambda: plain[name](dl, words, trans2, mx, tot, a1, m1, c, K_loc, K))
+
+    def bwd_apply(dl, words, trans2, mx, alphas, tot, thin, beta, out, c, K_loc, K, k0, cap_grid):
+        name = "seg_bwd_apply"
+        check = due(name, dl, words, c, cap_grid >= 0 and cap_grid // L == c)
+        if check:
+            copies = [(beta.clone(), {k: None if v is None else v.clone() for k, v in out.items()})
+                      for _ in range(2)]
+        args = lambda b, o: (dl, words, trans2, mx, alphas, tot, thin, b, o, c, K_loc, K, k0,
+                             cap_grid)
+        real[name](*args(beta, out))
+        if check:
+            (b1, o1), (b2, o2) = copies
+            plain[name](*args(b1, o1))
+            real[name](*args(b2, o2))
+            g = slice(c * L, (c + 1) * L)
+
+            def views(b, o):
+                v = [b, o["dpart"][:, :, g.start * 32:g.stop * 32], o["gnp"][:, g], o["tvp"][:, g]]
+                return v + ([o["gcap"]] if o["gcap"] is not None else [])
+
+            for got, ref, again in zip(views(beta, out), views(b1, o1), views(b2, o2)):
+                note(name, got, ref, again)
+            tv_r, ti_r, ti_k = o1["tvp"][:, g], o1["tip"][:, g], out["tip"][:, g]
+            firm = (tv_r[..., :-1] - tv_r[..., 1:]) > 1e-4 * tv_r.abs().max()
+            r = res[name]
+            r["ok"] = r["ok"] and torch.equal(ti_k[..., :-1][firm], ti_r[..., :-1][firm])
+            r["same"] = r["same"] and torch.equal(ti_k, o2["tip"][:, g])
+            timing(name, c, dl, words, out["tvp"].shape[3],
+                   lambda: real[name](*args(b2, o2)), lambda: plain[name](*args(b1, o1)))
+
+    patched = {"fb_max_tiled": max_tiled, "seg_fwd_local": local("seg_fwd_local"),
+               "seg_fwd_apply": fwd_apply, "seg_bwd_local": local("seg_bwd_local"),
+               "seg_bwd_apply": bwd_apply}
+    for n in names:
+        setattr(fs, n, patched[n])
+    try:
+        yield res
+    finally:
+        for n in names:
+            setattr(fs, n, real[n])
+
+
+def _seg_report(label, res):
+    """Prints _seg_probe's records and fails if a kernel went unchecked,
+    disagreed with its plain version or gave other bits a second time.
+    Returns {segment kernel: (max abs error, ms, plain ms, bytes,
+    operations)}, the times and their work at the timed segment's shape."""
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    out = {}
+    for name, r in res.items():
+        tol = ("max_tiled_tolerance" if name == "fb_max_tiled" else
+               "rtol 1e-4 + 1e-6 of the largest" + ("; top-K haplotypes equal where firm"
+                                                    if name == "seg_bwd_apply" else ""))
+        line = (f"{label}: {name}: max |err| {r['err']:.3e} over {r['checks']} checked launches "
+                f"on the path's inputs (tolerance {tol}), {'ok' if r['ok'] else 'FAILS'}; two launches "
+                f"{'equal bit for bit' if r['same'] else 'DIFFER'}")
+        if r["ms"] is not None:
+            B, KS, Gp, K_top, c = r["shape"]
+            nbytes, ops = _seg_work(name, B, KS, fs.n_tiles(KS), K_top)
+            bound = _bound(nbytes, ops)
+            line += (f"; at {B} rows x K_shard {KS}, {Gp} grids, segment {c}: kernel "
+                     f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound {bound[0]:.4f} ms "
+                     f"({bound[1]})")
+            out[name] = (r["err"], r["ms"], r["plain_ms"], nbytes, ops)
+        print(line, flush=True)
+        if not r["checks"] or not r["ok"] or not r["same"]:
+            _fail(f"{label}: {name} unchecked, or it disagrees with its plain version or "
+                  f"between launches")
+    return out
+
+
+def check_sharded_fb(fb, B=112, K_top=8, eps=0.001):
+    """fb_full_sharded over make_mesh(1, n, [cuda:0] x n), n = 2, 3 and 4
+    (K = 5,120 in 3 shards leaves the last 1,536 real haplotypes of its
+    1,792 columns), against fb_full_batched on the card at B random rows:
+    dosage and log-likelihood errors, the top-K haplotypes shared at the
+    thinned grids, two calls equal bit for bit; the gamma captured at the
+    middle grid at 14 rows. The first call and the capture call run under
+    _seg_probe, which holds fb_max_tiled and the segment kernels against
+    their plain versions on every shard. Times the sharded call (median of
+    3) and one exchange of a segment's [B, 46] sums (median of 20), with
+    the exchanges a call makes. On one card the shards run one after
+    another: these are not multi-card figures. Returns {n: the probe's
+    records}."""
+    import dataclasses
+
+    import torch
+    from quilt_tpu_torch.dist.mesh import ShardedFB, make_mesh
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    gl = _random_dl(fb, B, gen, eps)[0]
+    ref = fbk.fb_full_batched(gl, fb, K_top, eps)
+    t_ref = _median_ms(lambda: fbk.fb_full_batched(gl, fb, K_top, eps), 3)
+    fb_cap = dataclasses.replace(fb, capture_grid=fb.nGrids // 2)
+    gl14 = gl[:14].contiguous()
+    ref_cap = fbk.fb_full_batched(gl14, fb_cap, K_top, eps)
+    thin = torch.as_tensor(fb.thin_flag >= 0, device=dev)
+    probes = {}
+    for n in (2, 3, 4):
+        mesh = make_mesh(1, n, [dev] * n)
+        sfb = ShardedFB(fb, mesh, K_top=K_top, ref_error=eps)
+        sfb_cap = ShardedFB(fb_cap, mesh, K_top=K_top, ref_error=eps)
+        with _seg_probe(probes.setdefault(n, {})):
+            out = sfb(gl)
+            cap = sfb_cap(gl14)
+        again = sfb(gl)
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        err_d = (out[0] - ref[0][:, :fb.nSNPs]).abs().max().item()
+        err_l = ((out[1] - ref[1]).abs() / ref[1].abs()).max().item()
+        ti, ti_r = out[3][thin][:, :, :K_top], ref[3][thin]
+        shared = (ti[..., :, None] == ti_r[..., None, :]).any(-1).sum(-1).min().item()
+        err_tv = (out[2][thin][:, :, :K_top] - ref[2][thin]).abs().max().item()
+        group = sfb.rows[0][0]
+        e0 = group.exchanges
+        ms = _median_ms(lambda: sfb(gl), 3)
+        per_call = (group.exchanges - e0) // 3
+        parts = [torch.rand((B, 46), generator=gen, device="cuda") for _ in range(n)]
+        ex_ms = _median_ms(lambda: group.sum(parts), 20)
+        err_cap = (cap[4] - ref_cap[4]).abs().max().item()
+        print(f"sharded FB, {n} shards of K={fb.K} (K_shard {sfb.K_shard}) on one card, {B} rows "
+              f"x {fb.nGrids} grids: "
+              f"dosage max |err| {err_d:.3e} (tolerance 1e-4), log-likelihood rel err "
+              f"{err_l:.3e} (1e-5), top-K values {err_tv:.3e} (1e-4), at least {shared} of "
+              f"{K_top} haplotypes shared at every thinned grid (7), capture at 14 rows "
+              f"{err_cap:.3e} (1e-5); two calls {'equal bit for bit' if same else 'DIFFER'}; "
+              f"{ms:.2f} ms a call against {t_ref:.2f} ms unsharded ({per_call} exchanges a "
+              f"call; {ex_ms:.4f} ms an exchange of [{B}, 46] sums); one card: the shards run "
+              f"in turn, not a multi-card figure", flush=True)
+        if (err_d > 1e-4 or err_l > 1e-5 or err_tv > 1e-4 or shared < 7 or err_cap > 1e-5
+                or not same):
+            _fail(f"the sharded FB over {n} shards disagrees with the unsharded one")
+    return probes
+
+
+def run_dist_engine(world, counted, single, seg_kernels, fused):
+    """The e2e world through quilt_impute at mesh (2, 2) over [cuda:0] x 4
+    (run_e2e): every r2 >= 0.9, each sample's DS r2 > 0.98 against the
+    single-card run `single`, the segment kernels launched and the fused
+    FB not; its warm-up call runs under _seg_probe, which holds
+    fb_max_tiled and the segment kernels against their plain versions on
+    the path's own inputs (each data row's 56 rows on each shard). Then
+    mesh (2, 1) over [cuda:0] x 2 against one card, both writing the VCF:
+    the same bytes (the FB is the single-card one, the Gibbs chains split
+    into independent blocks). Returns (the launches of the (2, 2) call, the
+    probe's records)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from quilt_tpu_torch.engine import driver
+
+    dev = torch.device("cuda", 0)
+    cfg = e2e_config(8)
+    probe = {}
+    out, _, launches = run_e2e(world, counted, dataclasses.replace(cfg, mesh_data=2, mesh_panel=2),
+                               "dist", probe=lambda: _seg_probe(probe), devices=[dev] * 4)
+    r2_single = [float(np.corrcoef(a.dosage, b.dosage)[0, 1] ** 2)
+                 for a, b in zip(out.results, single.results)]
+    print(f"dist: mesh (2, 2) over one card: each sample's DS r2 against the single-card "
+          f"run {', '.join(f'{x:.4f}' for x in r2_single)}", flush=True)
+    if min(out.r2_per_sample) < 0.9 or min(r2_single) <= 0.98:
+        _fail(f"dist: r2 {out.r2_per_sample} or DS r2 against one card {r2_single}")
+    check_launched("dist", launches, seg_kernels)
+    if any(launches[k.name] for k in fused):
+        _fail(f"dist launched the fused FB at mesh_panel 2: {launches}")
+    names = [f"S{i}" for i in range(len(world["samples"]))]
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f"{m}.vcf.gz") for m in ("one", "data")]
+        driver.quilt_impute(world["prep"], world["samples"], names, cfg, "cuda",
+                            output_filename=paths[0])
+        driver.quilt_impute(world["prep"], world["samples"], names,
+                            dataclasses.replace(cfg, mesh_data=2), "cuda",
+                            output_filename=paths[1], devices=[dev] * 2)
+        same = [open(p, "rb").read() for p in paths]
+    print(f"dist: mesh (2, 1) over one card: the VCF is the single-card VCF byte for byte: "
+          f"{same[0] == same[1]}", flush=True)
+    if same[0] != same[1]:
+        _fail("dist: mesh (2, 1) changed the single-card VCF")
+    return launches, probe
+
+
+def run_multihost():
+    """The CLI world (4 samples) imputed by one process and by two
+    (--distributed_nproc 2, gloo on localhost) on the card: the sample
+    columns equal bit for bit, INFO within 1e-3 of |value|, and only rank 0
+    writes the VCF (its log says so, rank 1's does not)."""
+    import gzip
+    import socket
+    import tempfile
+
+    import numpy as np
+    from quilt_tpu_torch.simulate import write_bam_world
+
+    with tempfile.TemporaryDirectory() as d:
+        vcf, gmap, bamlist, _, nSNPs = write_bam_world(d, np.random.default_rng(SEED + 2),
+                                                       n_samples=4)
+        base = [sys.executable, "-m", "quilt_tpu_torch"]
+        res = subprocess.run(base + ["prepare", "--outputdir", d, "--chr", "chr20",
+                                     "--reference_vcf_file", vcf, "--genetic_map_file", gmap,
+                                     "--nGen", "100"], cwd=HERE, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode:
+            _fail(f"multihost: prepare exited {res.returncode}:\n{res.stderr[-3000:]}")
+        prepared = os.path.join(d, "RData", "QUILT_prepared_reference.chr20.npz")
+
+        def impute(out):
+            return base + ["impute", "--outputdir", os.path.join(d, out), "--chr", "chr20",
+                           "--bamlist", bamlist, "--prepared_reference_filename", prepared,
+                           "--nGibbsSamples", "3", "--n_seek_its", "2", "--Ksubset", "48",
+                           "--Knew", "48", "--small_ref_panel_gibbs_iterations", "8",
+                           "--sample_batch", "2"]
+
+        t = time.time()
+        res = subprocess.run(impute("one"), cwd=HERE, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode:
+            _fail(f"multihost: one process exited {res.returncode}:\n{res.stderr[-3000:]}")
+        t_one = time.time() - t
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t = time.time()
+        procs = [subprocess.Popen(
+            impute("two") + ["--distributed_nproc", "2", "--distributed_rank", str(r),
+                             "--distributed_coordinator", f"localhost:{port}"],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        t_two = time.time() - t
+        for r, p in enumerate(procs):
+            if p.returncode:
+                _fail(f"multihost: rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+        bodies = []
+        for out in ("one", "two"):
+            with gzip.open(os.path.join(d, out, "quilt.chr20.vcf.gz"), "rt") as fh:
+                bodies.append([l.rstrip("\n").split("\t") for l in fh if not l.startswith("#")])
+    writes = ["Wrote " in log for log in logs]
+    same_cols = len(bodies[0]) == len(bodies[1]) == nSNPs and all(
+        a[:7] == b[:7] and a[8:] == b[8:] for a, b in zip(*bodies))
+    info = 0.0
+    for a, b in zip(*bodies):
+        for kv1, kv2 in zip(a[7].split(";"), b[7].split(";")):
+            v1, v2 = float(kv1.split("=")[1]), float(kv2.split("=")[1])
+            info = max(info, abs(v1 - v2) / max(1.0, abs(v1)))
+    print(f"multihost: 4 samples, one process {t_one:.1f} s, two processes on the card (gloo) "
+          f"{t_two:.1f} s; sample columns equal bit for bit: {same_cols}; INFO max rel diff "
+          f"{info:.2e} (1e-3); VCF written by ranks {[r for r, w in enumerate(writes) if w]}",
+          flush=True)
+    if not same_cols or info >= 1e-3 or writes != [True, False]:
+        _fail("multihost: the two-process VCF differs from one process's, or rank 1 wrote")
+
+
+def run_dist(world, counted, single, seg_kernels, fused):
+    """Phase dist: the sharded FB against the unsharded one at 112 rows x K
+    = 5,120 split 2, 3 and 4 ways, the engine on meshes over the one card
+    (against `single`, the e2e phase's output, or a single-card call made
+    here), each with fb_max_tiled and the segment kernels held against their
+    plain versions on the inputs the calls give them, and the CLI as two
+    processes. Returns (rows of the kernels line: times at 112 rows x
+    K_shard 2,560, errors the largest of every check; the engine's
+    launches; fb_max_tiled's largest error on the shards)."""
+    if single is None:
+        from quilt_tpu_torch.engine import driver
+
+        single = driver.quilt_impute(world["prep"], world["samples"],
+                                     [f"S{i}" for i in range(len(world["samples"]))],
+                                     e2e_config(8), "cuda")
+    probes = check_sharded_fb(world["fb"])
+    reports = {n: _seg_report(f"sharded FB, {n} shards", r) for n, r in probes.items()}
+    launches, engine = run_dist_engine(world, counted, single, seg_kernels, fused)
+    _seg_report("dist, mesh (2, 2)", engine)
+    every = list(probes.values()) + [engine]
+    rows = []
+    for name in SEG_NAMES:
+        _, ms, plain_ms, nbytes, ops = reports[2][name]
+        rows.append(_row(name, "fb_sharded.cu", "fb_full.py:440",
+                         max(r[name]["err"] for r in every), ms, plain_ms, nbytes, ops))
+        rows[-1]["replaces"] += " _fb_core_segmented (XLA, no Pallas kernel)"
+    run_multihost()
+    return rows, launches, max(r["fb_max_tiled"]["err"] for r in every)
+
+
+PHASES = ("kernels", "e2e", "dist", "quilt2", "largek", "nipt", "wide", "hla", "map", "diag", "cli")
 
 
 def _took(name, t):
@@ -1960,7 +2414,7 @@ def main():
                 entry = line.split(chr(39))[1]
                 print(f"  {name}: {entry[:110]}")
 
-    from quilt_tpu_torch.kernels import fb, gibbs_dosage, gibbs_sweep, nipt_bank
+    from quilt_tpu_torch.kernels import fb, fb_sharded, gibbs_dosage, gibbs_sweep, nipt_bank
 
     gfwd, gbwd, gdos = gibbs_sweep.FWD_KERNEL, gibbs_sweep.BWD_KERNEL, gibbs_dosage.DOS_KERNEL
     nl3 = [gibbs_sweep.FWD_KERNELS[3], gibbs_sweep.BWD_KERNELS[3], gibbs_dosage.DOS_KERNELS[3]]
@@ -1971,7 +2425,9 @@ def main():
     wide = [gibbs_sweep.FWD_GLOBAL_KERNELS[2], gibbs_sweep.FWD_GLOBAL_KERNELS[3],
             gibbs_sweep.BWD_GLOBAL_KERNEL, nipt_bank.BANK_GLOBAL_KERNEL]
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
-    kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide
+    # the panel-sharded FB's four segment kernels (no Pallas counterpart)
+    seg = list(fb_sharded.KERNELS)
+    kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide + seg
                + tiled)   # the order of rows
     # the previous forms of the redesigned kernels (timings only) must launch
     # on no path
@@ -1979,10 +2435,10 @@ def main():
                   fb._PREV_MAX_TILED, nipt_bank._PREV_BANK_KERNEL,
                   *gibbs_dosage._PREV_DOS_KERNELS.values()]
     counted = kernels + prev_tiled
-    rows, launches = [], {}
+    rows, launches, mx_err = [], {}, 0.0
     t = time.time()
 
-    if phases & {"kernels", "e2e"}:
+    if phases & {"kernels", "e2e", "dist"}:
         world = make_world()
         gone = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "quilt_tpu"))
         if gone:
@@ -1998,12 +2454,20 @@ def main():
                          (20480, (14, 28, 56, 112, 200))):
                 time_fb_plan(synthetic_fb(K), n)
             t = _took("kernels", t)
+        single = None
         if "e2e" in phases:
             out, _, launches["quilt1"] = run_e2e(world, counted, e2e_config(8), "e2e")
             if min(out.r2_per_sample) < 0.9:
                 _fail(f"e2e r2 against truth below 0.9: {out.r2_per_sample}")
             check_launched("e2e", launches["quilt1"], [gfwd, gbwd] + fused)
+            if any(launches["quilt1"][k.name] for k in seg):
+                _fail(f"e2e launched a segment kernel of the sharded FB: {launches['quilt1']}")
+            single = out
             t = _took("e2e", t)
+        if "dist" in phases:
+            dist_rows, launches["dist"], mx_err = run_dist(world, counted, single, seg, fused)
+            rows += dist_rows
+            t = _took("dist", t)
         del world
 
     if "quilt2" in phases:
@@ -2110,6 +2574,9 @@ def main():
     if len(rows) != len(kernels):
         _fail(f"{len(rows)} kernel rows for {len(kernels)} kernels")
     for row, k in zip(rows, kernels):
+        if k is fb.MAX_TILED_KERNEL:
+            # also held on the sharded FB's shards in phase dist
+            row["max_abs_err"] = max(row["max_abs_err"], mx_err)
         row["launches_by_path"] = {path: l[k.name] for path, l in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))

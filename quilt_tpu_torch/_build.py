@@ -8,13 +8,21 @@ unchanged one is reused. Nothing here runs at import time: ``nvcc`` and
 ``ctypes`` are touched only on the first launch of a CUDA kernel (or by
 ``build_all``), so the package imports on machines without a CUDA toolkit.
 
+A build holds an exclusive ``fcntl.flock`` on ``<name>.lock`` in the build
+directory for each source it builds, and looks for the library again once
+it holds them, so processes that build at first use together (the ranks of
+a multi-process run on a fresh checkout) take turns instead of racing on
+one ``.so``.
+
 Every C entry point takes its pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()`` after the launch; ``Kernel.launch``
 raises when that is not ``cudaSuccess``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -50,13 +58,33 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
+@contextlib.contextmanager
+def build_lock(name: str):
+    """Holds the exclusive lock on building ``csrc/<name>.cu``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named sources (default: every ``csrc/*.cu``), one
-    ``nvcc`` process per source, all started together. Returns
-    {name: ptxas report}; raises with the compiler output on failure."""
+    ``nvcc`` process per source, all started together, each under its
+    build lock. Returns {name: ptxas report} of the sources it compiled;
+    raises with the compiler output on failure."""
     if names is None:
-        names = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        names = (p.stem for p in SRC_DIR.glob("*.cu"))
+    names = sorted(set(names))
+    with contextlib.ExitStack() as locks:
+        for name in names:
+            locks.enter_context(build_lock(name))
+        return _compile(names)
+
+
+def _compile(names) -> Dict[str, str]:
     procs = {}
     for name in names:
         out = _lib_path(name)

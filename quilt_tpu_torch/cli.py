@@ -12,9 +12,12 @@ The flags are the JAX package's, generated from the config dataclasses
 use_mspbwt and impute_rare_common to TRUE, as the JAX package's do.
 `prepare` and `hla-prepare` are copies of quilt_tpu/cli.py:cmd_prepare /
 cmd_hla_prepare over the port's own readers and reference preparation.
-`impute`, `impute2` and `hla` run on the CUDA device and refuse only the
-multi-GPU options (mesh_data, mesh_panel, distributed_nproc), which are
-not ported yet; without a GPU they exit non-zero.
+`impute`, `impute2` and `hla` run on the CUDA device; without a GPU they
+exit non-zero. --mesh_data / --mesh_panel run on a mesh of the visible
+cards (a mesh larger than the cards exits non-zero); --distributed_nproc N
+with --distributed_rank R (and --distributed_coordinator host:port, default
+localhost:12321) runs one process of N: each reads and imputes its shard of
+the BAMs on card R mod (the host's cards), and process 0 writes the VCF.
 """
 from __future__ import annotations
 
@@ -274,17 +277,46 @@ def cmd_prepare(args) -> int:
 
 
 
+def _mesh_fits(cfg: ImputeConfig, device) -> bool:
+    """The mesh the config asks for fits the visible cards (else says so)."""
+    from .dist.mesh import default_devices, mesh_from_config
+
+    try:
+        mesh_from_config(cfg, default_devices(device))
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return False
+    return True
+
+
 def cmd_impute(args, device, quilt2: bool = False) -> int:
-    from .engine.driver import check_slice, quilt_impute
+    cfg: ImputeConfig = _config_from_args(ImputeConfig, args)
+    if cfg.distributed_nproc <= 1:
+        return _impute(cfg, args, device, quilt2)
+    import torch
+
+    from .dist.hosts import DEFAULT_COORDINATOR, init_multihost
+
+    # one process of a group: processes sharing a host share its cards
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{cfg.distributed_rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    init_multihost(cfg.distributed_coordinator or DEFAULT_COORDINATOR, cfg.distributed_nproc,
+                   cfg.distributed_rank)
+    try:
+        return _impute(cfg, args, device, quilt2)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _impute(cfg: ImputeConfig, args, device, quilt2: bool) -> int:
+    from .dist.hosts import process_info, reduce_sum_across_hosts, sample_shards
+    from .engine.driver import quilt_impute
     from .io.bam import bam_chromosome_length, bam_sample_name, load_bam_reads
     from .io.vcf import read_genfile, read_phasefile, read_posfile
     from .panel.prepare import PreparedReference, truncate_panel
 
-    cfg: ImputeConfig = _config_from_args(ImputeConfig, args)
-    try:
-        check_slice(cfg)
-    except NotImplementedError as e:
-        print(str(e), file=sys.stderr)
+    if not _mesh_fits(cfg, device):
         return 2
     region_name = cfg.chr
     if cfg.regionStart is not None:
@@ -296,7 +328,12 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
         return 1
     prep_file = cfg.prepared_reference_filename or os.path.join(
         cfg.outputdir, "RData", f"QUILT_prepared_reference.{region_name}.npz")
-    if not os.path.exists(prep_file) and cfg.reference_vcf_file:
+    rank, nproc = process_info()
+    need = not os.path.exists(prep_file) and bool(cfg.reference_vcf_file)
+    if nproc > 1:
+        # the processes agree before any prepares; process 0 prepares
+        need = bool(reduce_sum_across_hosts({"n": np.array([int(need)])})["n"][0])
+    if need:
         print_message("No prepared reference found; preparing now")
         if not cfg.save_prepared_reference and cfg.temporary_prepared_reference_filename:
             prep_file = cfg.temporary_prepared_reference_filename
@@ -305,7 +342,11 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
         if quilt2 and not getattr(pargs, "use_mspbwt", False):
             pargs.use_mspbwt = True
             pargs.impute_rare_common = True
-        rc = cmd_prepare(pargs)
+        rc = cmd_prepare(pargs) if rank == 0 else 0
+        if nproc > 1:
+            import torch.distributed
+
+            torch.distributed.barrier()
         if rc:
             return rc
     prep = PreparedReference.load(prep_file)
@@ -344,13 +385,18 @@ def cmd_impute(args, device, quilt2: bool = False) -> int:
         seed=cfg.seed, cram_fasta=cfg.reference or None,
         useSoftClippedBases=cfg.useSoftClippedBases,
     )
-    if cfg.nCores > 1 and len(bam_files) > 1:
+    # in a process group each process reads only its shard of the BAMs
+    local = [int(i) for i in sample_shards(len(bam_files), nproc)[rank]]
+    samples = [None] * len(bam_files)
+    if cfg.nCores > 1 and len(local) > 1:
         # read extraction in nCores processes (quilt_tpu/cli.py:388-393)
         with ProcessPoolExecutor(max_workers=cfg.nCores,
                                  mp_context=multiprocessing.get_context("spawn")) as ex:
-            samples = list(ex.map(load_one, bam_files))
+            for i, r in zip(local, ex.map(load_one, [bam_files[i] for i in local])):
+                samples[i] = r
     else:
-        samples = [load_one(b) for b in bam_files]
+        for i in local:
+            samples[i] = load_one(bam_files[i])
     ff_values = None
     if cfg.method == "nipt":
         if not cfg.fflist:
@@ -442,7 +488,6 @@ def cmd_hla(args, device) -> int:
     summary tables; a comma-separated list of prepared HLA references types
     several genes in one invocation."""
     from .engine.context import RegionContext
-    from .engine.driver import check_slice
     from .engine.sample import impute_one_sample
     from .hla.prepare import load_hla_prepared
     from .hla.typing import GeneRead, type_hla_sample, write_hla_summaries
@@ -453,10 +498,7 @@ def cmd_hla(args, device) -> int:
 
     cfg: ImputeConfig = _config_from_args(ImputeConfig, args)
     set_verbosity(cfg.verbose)
-    try:
-        check_slice(cfg)
-    except NotImplementedError as e:
-        print(str(e), file=sys.stderr)
+    if not _mesh_fits(cfg, device):
         return 2
     prep = PreparedReference.load(cfg.prepared_reference_filename)
     with open(cfg.bamlist) as fh:

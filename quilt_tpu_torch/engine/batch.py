@@ -1,14 +1,16 @@
-"""Multi-sample batched imputation on one device, diploid and NIPT, QUILT1
-and QUILT2.
+"""Multi-sample batched imputation, diploid and NIPT, QUILT1 and QUILT2, on
+one device or a mesh of them (the Gibbs chains split over its devices, the
+full-panel FB over its panel axis).
 
 The port of quilt_tpu/engine/batch.py:impute_samples_batched (:67-709).
 Batch rows are {sample x chain}, each with nl = 2 latent haplotypes (diploid)
 or 3 (NIPT: mother + fetus, one fetal fraction per batch); per seek iteration
 a 21-sweep Gibbs call labels every read. QUILT1: the labels give haploid GLs, the
 full-panel FB gives dosages and top-K matches, and the haplotype subsets
-are re-selected on the device. msPBWT (QUILT2): the Gibbs call's own
-haplotype dosages are the dosages, and their distinct-haplotype symbols
-drive the host msPBWT match search that re-selects the subsets. Dosages
+are re-selected on the device (on the host from the panel-sharded FB's
+merged lists, when the context holds one). msPBWT (QUILT2): the Gibbs
+call's own haplotype dosages are the dosages, and their distinct-haplotype
+symbols drive the host msPBWT match search that re-selects the subsets. Dosages
 and genotype posteriors accumulate past the seek burn-in; a read-label
 consensus across chains seeds a final phasing pass. Rare/common (QUILT2):
 the seek loop runs on common SNPs, then one all-SNP Gibbs call after the
@@ -35,13 +37,13 @@ from ..kernels.emissions import (
     lem_full_from_cache, lem_subset,
 )
 from ..kernels.fb import fb_full_batched
-from ..kernels.gibbs import SlotLayout, run_gibbs_chains
+from ..kernels.gibbs import SlotLayout
 from ..panel.mspbwt import select_new_haps_mspbwt_batch, symbols_device
 from .context import RegionContext, sample_allele_count
 from .rare_common import initial_all_snp_labels
 from .selection import (
     consensus_read_labels, read_confidence_device, recast_haps, recast_nipt_haps,
-    select_new_haps_device,
+    select_new_haps_device, select_new_haps_host,
 )
 
 # host-memory budget of the whole-panel eMatRead cache when the device is
@@ -134,6 +136,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     rare_common = reads_all_list is not None
     rng = np.random.default_rng(seed)
     sec = timed_sections(ctx.timers, dev)
+    gibbs = ctx.gibbs_call()
 
     S = len(reads_list)
     C = cfg.nGibbsSamples
@@ -214,7 +217,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         with sec("gibbs:sweep_kernel"):
             if lem_full is None:
                 lem, skip = read_lem(words, rows, max_diff, R)
-            call = run_gibbs_chains(
+            call = gibbs(
                 layout, ctx.tensors["gibbs_trans"], lem, skip, uniforms, H0_b,
                 first_b, iterative, Ksub_b,
                 block_u=block_u if nb_slots else None, do_block=do_block,
@@ -229,6 +232,18 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         with sec("fb:gl_build"):
             gls = gls_from_labels_windowed(gl_cache, H_b, nl, C, ctx.fb_inputs.S,
                                            minGLValue=cfg.minGLValue)
+        if ctx.sharded_fb is not None:
+            # the panel-sharded FB's lists, K_top x n_panel wide and merged
+            # by value, go to the host selection (quilt_tpu/engine/batch.py:
+            # 319-360)
+            with sec("fb:kernel"):
+                dosage, _, tv, ti = ctx.sharded_fb(gls)
+            with sec("fb:select_host"):
+                new_sets = select_new_haps_host(
+                    tv.cpu().numpy(), ti.cpu().numpy(), ctx.thinned_grids,
+                    which_b.cpu().numpy(), rng, ctx.Ksub - ctx.Knew, ctx.Knew, K, nl,
+                    cfg.K_top_matches)
+            return dosage.reshape(B, nl, nSNPs), as_t(new_sets)
         with sec("fb:kernel"):
             dosage, _, tv, ti = fb_full_batched(
                 gls, ctx.fb_inputs, K_top=max(8, cfg.K_top_matches),
@@ -302,7 +317,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         for _ in range(11):
             with sec("rare:sweep_kernel"):
                 lem, skip = read_lem(words, rows_all, md, R_all)
-                call = run_gibbs_chains(
+                call = gibbs(
                     layout_all, ctx.tensors["gibbs_trans_all"], lem, skip, uniforms, H0, zero,
                     False, Ksub_b, words=words, ref_error=prep.ref_error, timed=sec,
                     nl=nl, ff=ff,

@@ -1,12 +1,13 @@
 """Per-region state of the port's engine, and NumPy copies of the host
 helpers of the JAX package's engine.
 
-RegionContext is the single-device counterpart of
+RegionContext is the counterpart of
 quilt_tpu/engine/sample.py:RegionContext (:40-216), with the QUILT2 state
 of :100-151 (the distinct-haplotype bits of msPBWT selection, the all-SNP
 transitions and panel of rare/common imputation), the HLA run's gamma
-capture (:129-145, the capture grid in inputs.capture_grid) and the static
-map boundaries of :152-157; detect_boundaries is
+capture (:129-145, the capture grid in inputs.capture_grid), the static
+map boundaries of :152-157 and the device mesh of :189-215 (with the
+panel-sharded FB when the panel axis is split); detect_boundaries is
 quilt_tpu/oracle/block_gibbs.py:36, sample_allele_count
 quilt_tpu/engine/sample.py:716, and the validators
 quilt_tpu/engine/validators.py:15,79.
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,8 +27,12 @@ from ..panel.prepare import PreparedReference, make_smoothed_rate, trans_rates
 from ..utils import print_message
 from ..utils.log import SectionTimers
 
+from ..dist.mesh import (
+    ShardedFB, as_device, default_devices, mesh_from_config, shard_gibbs_batch,
+)
 from ..inputs import FBInputs, gibbs_trans, region_tensors, thinned_grids
 from ..kernels.emissions import expand_panel
+from ..kernels.gibbs import run_gibbs_chains
 from ..panel.mspbwt import distinct_hap_bits
 from .rare_common import all_snp_panel
 
@@ -35,7 +40,7 @@ from .rare_common import all_snp_panel
 @dataclass
 class RegionContext:
     """Per-region constants and device tensors shared across sample
-    batches (one device; n_latent = 2 diploid, 3 NIPT). Under msPBWT
+    batches (on `device`; n_latent = 2 diploid, 3 NIPT). Under msPBWT
     selection the FB inputs are not built up front (fb_inputs and
     thinned_grids are None until fb_state() builds them) and the distinct
     haplotypes [nMaxDH, nGrids*32] (dh_bits()) are; a run of the other
@@ -46,7 +51,10 @@ class RegionContext:
     transitions. boundaries [NB] are the static map's block-Gibbs suffix
     starts (None at 4 grids or fewer), built in every mode (the block
     Gibbs plot reads them); the Gibbs calls take them when smooth_w, the
-    on-the-fly detector's band, is None."""
+    on-the-fly detector's band, is None. With mesh_data x mesh_panel > 1,
+    mesh is the [n_data, n_panel] device mesh over `devices` (the Gibbs
+    calls split their chains over it) and, when the panel axis is split
+    and the FB inputs exist, sharded_fb the panel-sharded FB."""
 
     prep: PreparedReference
     device: torch.device
@@ -72,6 +80,9 @@ class RegionContext:
     fb_plan_args: Dict = field(default_factory=dict)
     # HLA run: the FB captures gamma at fb_inputs.capture_grid
     hla_capture: bool = False
+    devices: Optional[tuple] = None       # the devices the mesh was made from
+    mesh: Optional[np.ndarray] = None     # [n_data, n_panel] torch devices
+    sharded_fb: Optional[ShardedFB] = None
     _e_full: Optional[torch.Tensor] = None
     _boundaries_dev: Optional[torch.Tensor] = None
 
@@ -102,6 +113,13 @@ class RegionContext:
                                             thinned_grids=self.thinned_grids)
         return self.fb_inputs, self.thinned_grids
 
+    def gibbs_call(self):
+        """kernels.gibbs.run_gibbs_chains, with the chains split over the
+        mesh when there is one (dist.mesh.shard_gibbs_batch)."""
+        if self.mesh is None:
+            return run_gibbs_chains
+        return functools.partial(shard_gibbs_batch, self.mesh)
+
     def boundaries_dev(self) -> Optional[torch.Tensor]:
         """The static boundaries as an int32 device tensor [NB] when the
         Gibbs calls take them (no on-the-fly band), else None."""
@@ -120,7 +138,11 @@ class RegionContext:
         return 0 if self.boundaries is None else len(self.boundaries)
 
     @classmethod
-    def build(cls, prep: PreparedReference, cfg: ImputeConfig, device) -> "RegionContext":
+    def build(cls, prep: PreparedReference, cfg: ImputeConfig, device,
+              devices: Optional[Sequence] = None) -> "RegionContext":
+        """The context on `device`; the mesh (if the config asks for one) is
+        made from `devices`, by default the visible cards from `device` on
+        (dist.mesh.default_devices); too few raise ValueError."""
         K = prep.K
         Ksub = min(cfg.Ksubset, K)
         Knew = min(cfg.Knew, Ksub)
@@ -157,6 +179,15 @@ class RegionContext:
             ), device=device)
             t["gibbs_trans_all"] = torch.as_tensor(
                 np.ascontiguousarray(gibbs_trans(trans_all, nGrids_all).T), device=device)
+        devices = tuple(as_device(d) for d in (default_devices(device) if devices is None
+                                               else devices))
+        mesh = mesh_from_config(cfg, devices)
+        sharded_fb = None
+        if mesh is not None and mesh.shape[1] > 1 and t["fb"] is not None:
+            print_message(f"Panel-sharded FB over mesh data={mesh.shape[0]} x "
+                          f"panel={mesh.shape[1]}")
+            sharded_fb = ShardedFB(t["fb"], mesh, K_top=max(8, cfg.K_top_matches),
+                                   ref_error=prep.ref_error)
         ctx = cls(
             prep=prep, device=torch.device(device), trans=t["trans"],
             fb_inputs=t["fb"], thinned_grids=t["thinned_grids"], Ksub=Ksub,
@@ -169,6 +200,7 @@ class RegionContext:
             trans_all=trans_all, nGrids_all=nGrids_all,
             n_latent=3 if cfg.method == "nipt" else 2,
             hla_capture=t["fb"] is not None and t["fb"].capture_grid >= 0,
+            devices=devices, mesh=mesh, sharded_fb=sharded_fb,
         )
         if cfg.use_mspbwt:
             ctx.dh_bits()
@@ -191,10 +223,10 @@ class _FieldRecorder:
         return getattr(self._cfg, name)
 
 
-def context_fields(prep: PreparedReference, cfg: ImputeConfig, device):
+def context_fields(prep: PreparedReference, cfg: ImputeConfig, device, devices=None):
     """(context, names of the config fields its build read)."""
     rec = _FieldRecorder(cfg)
-    ctx = RegionContext.build(prep, rec, device)
+    ctx = RegionContext.build(prep, rec, device, devices)
     return ctx, frozenset(rec.read)
 
 

@@ -2,11 +2,15 @@
 quilt_tpu/engine/driver.py:quilt_impute (:44-484) between the batched engine
 (engine/batch.py) and the per-sample one (engine/sample.py: lone samples,
 HLA runs and runs with per-sample diagnostics), with the rare/common read
-split and all-SNP output axis of :94-114, the INFO / allele frequency / HWE
-aggregation after it, the VCF write through out.vcf_writer (with the OHD
-field of addOptimalHapsToVCF), and the diagnostic outputs: the per-sample
-plots and their data files (out.plots), the hap-selection strategy
-comparison and the npz dump of per-sample objects."""
+split and all-SNP output axis of :94-114, the multi-host sample shards of
+:126-142 (each process of a torch.distributed group imputes its contiguous
+shard, batching within it; the accumulators are summed and the columns
+gathered across processes, :344-362, and process 0 writes the VCF), the
+INFO / allele frequency / HWE aggregation after it, the VCF write through
+out.vcf_writer (with the OHD field of addOptimalHapsToVCF), and the
+diagnostic outputs: the per-sample plots and their data files (out.plots),
+the hap-selection strategy comparison and the npz dump of per-sample
+objects."""
 from __future__ import annotations
 
 import os
@@ -32,6 +36,10 @@ from ..panel.prepare import PreparedReference
 from ..utils import print_message, set_verbosity
 from ..utils.log import SectionTimers
 
+from ..dist.hosts import (
+    allgather_columns, process_info, reduce_sum_across_hosts, sample_shards,
+)
+from ..dist.mesh import as_device, default_devices
 from ..inputs import pad_to_multiple
 from ..kernels.gibbs_sweep import fwd_scratch_floats
 from ..kernels.nipt_bank import bank_scratch_floats
@@ -66,16 +74,6 @@ class ImputeOutput:
     timing: Optional[Dict] = None
 
 
-def check_slice(cfg: ImputeConfig) -> None:
-    """Refuse what this port does not run yet, naming the slice it belongs
-    to (see ROADMAP.md)."""
-    if cfg.mesh_data > 1 or cfg.mesh_panel > 1 or cfg.distributed_nproc > 1:
-        raise NotImplementedError(
-            "not ported to quilt_tpu_torch yet: mesh_data / mesh_panel / "
-            "distributed_nproc (multi-GPU slice)"
-        )
-
-
 def max_chains(K_pad: int, W: int, G: int, device: torch.device, nl: int = 2) -> int:
     """Largest Gibbs chain batch whose working set fits: per chain, the
     lemg/beta/alpha [G, nl, K_pad] planes (twice: inputs and outputs of a
@@ -92,16 +90,19 @@ def max_chains(K_pad: int, W: int, G: int, device: torch.device, nl: int = 2) ->
     return max(budget // per_row, 1)
 
 
-def _region_context(prep: PreparedReference, cfg: ImputeConfig, device) -> RegionContext:
-    """The region's context, cached on `prep`: reused while every config
-    field that building it read keeps its value."""
+def _region_context(prep: PreparedReference, cfg: ImputeConfig, device,
+                    devices=None) -> RegionContext:
+    """The region's context, cached on `prep`: reused while the devices and
+    every config field that building it read keep their values."""
     cached = getattr(prep, "_torch_ctx_cache", None)
+    want = tuple(as_device(d) for d in (default_devices(device) if devices is None else devices))
     if cached is not None:
         fields, key, ctx = cached
-        if ctx.device == torch.device(device) and key == _key(cfg, fields):
+        if (ctx.device == torch.device(device) and ctx.devices == want
+                and key == _key(cfg, fields)):
             ctx.timers = SectionTimers(cfg.print_extra_timing_information)
             return ctx
-    ctx, fields = context_fields(prep, cfg, device)
+    ctx, fields = context_fields(prep, cfg, device, want)
     ctx.timers = SectionTimers(cfg.print_extra_timing_information)
     prep._torch_ctx_cache = (fields, _key(cfg, fields), ctx)
     return ctx
@@ -117,7 +118,7 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                  ff_values: Optional[np.ndarray] = None,
                  truth_gen: Optional[np.ndarray] = None,
                  truth_haps: Optional[np.ndarray] = None,
-                 region_name: str = "region") -> ImputeOutput:
+                 region_name: str = "region", devices=None) -> ImputeOutput:
     """Imputation of `samples` on `device` (a torch device: "cuda" on the
     GPU, "cpu" for the tests), diploid or NIPT (cfg.method; ff_values [N]
     the samples' fetal fractions): QUILT1, or QUILT2 with use_mspbwt
@@ -127,15 +128,23 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     give per-sample r2 / PSE reports (NIPT: of the mother); with
     addOptimalHapsToVCF, truth_haps also gives the OHD field of diploid
     runs. The diagnostic options write under cfg.outputdir, in files named
-    after region_name."""
+    after region_name. cfg.mesh_data x cfg.mesh_panel > 1 runs on a mesh of
+    `devices` (default: the visible cards from `device` on; a device may
+    repeat). In a torch.distributed group (dist.hosts.init_multihost) this
+    process imputes its shard of the samples (the others' entries of
+    `samples` may be None), the results of the others' samples are None,
+    and only process 0 writes the VCF."""
     t0 = time.time()
     set_verbosity(cfg.verbose)
     validate_impute_config(cfg)
     validate_region_consistency(prep, cfg)
-    check_slice(cfg)
     device = torch.device(device)
-    ctx = _region_context(prep, cfg, device)
+    ctx = _region_context(prep, cfg, device, devices)
     N = len(samples)
+    rank, nproc = process_info()
+    local = [int(i) for i in sample_shards(N, nproc)[rank]] if nproc > 1 else list(range(N))
+    if nproc > 1:
+        print_message(f"Multi-host: process {rank}/{nproc} imputes {len(local)}/{N} samples")
     nipt = cfg.method == "nipt"
     ff_values = np.zeros(N) if ff_values is None else np.asarray(ff_values, dtype=float)
     if len(ff_values) != N:
@@ -146,7 +155,8 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         # the seek loop runs on common SNPs (reference: quilt.R:664-684,
         # functions.R:130-174)
         samples_all = list(samples)
-        samples = [restrict_reads_to_common(r, prep.snp_is_common, prep.grid)
+        samples = [None if r is None else
+                   restrict_reads_to_common(r, prep.snp_is_common, prep.grid)
                    for r in samples_all]
         nSNPs = len(prep.snp_is_common)
         out_pos, out_ref, out_alt = prep.pos_all, prep.ref_allele_all, prep.alt_allele_all
@@ -178,7 +188,7 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         # tables of a Gibbs call are made from it): batches form within the
         # samples of equal ff
         by_ff: Dict[float, List[int]] = {}
-        for i in range(N):
+        for i in local:
             by_ff.setdefault(float(ff_values[i]) if nipt else 0.0, []).append(i)
         groups = [v[j:j + sample_batch] for v in by_ff.values()
                   for j in range(0, len(v), sample_batch)]
@@ -191,7 +201,7 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                     ff=float(ff_values[group[0]]) if nipt else 0.0,
                     reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
                 results[i] = res
-    for i in range(N):
+    for i in local:
         if results[i] is None:
             print_message(f"Imputing sample {i + 1}/{N}: {sample_names[i]}")
             results[i] = impute_one_sample(
@@ -203,12 +213,15 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     af_sum = np.zeros(nSNPs)
     hwe_counts = np.zeros((nSNPs, 3), dtype=np.int64)
     allele_count = np.zeros((nSNPs, 2))
-    columns: List[List[str]] = []
+    columns: List[Optional[List[str]]] = []
     r2s: List[float] = []
     n_imputed = 0
     with_ohd = cfg.addOptimalHapsToVCF and truth_haps is not None
     af_out = prep.af_all if rare_common else prep.af
     for i, res in enumerate(results):
+        if res is None:
+            columns.append(None)    # another process's sample
+            continue
         if not res.imputed:
             print_message(f"Sample {sample_names[i]} has fewer than "
                           f"{cfg.minimum_number_of_sample_reads} reads; output missing")
@@ -259,6 +272,20 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
                 msg += f", PSE: {pse['pse']:.4f} ({pse.get('phase_sites', 0)} het sites)"
             print_message(msg)
 
+    if nproc > 1:
+        # the accumulators summed and the columns gathered across processes,
+        # so the merged VCF is the one process's
+        red = reduce_sum_across_hosts({
+            "eij_sum": eij_sum, "var_sum": var_sum, "af_sum": af_sum,
+            "hwe_counts": hwe_counts, "allele_count": allele_count,
+            "n_imputed": np.array(n_imputed, dtype=np.int64),
+        })
+        eij_sum, var_sum, af_sum = red["eij_sum"], red["var_sum"], red["af_sum"]
+        hwe_counts, allele_count = red["hwe_counts"], red["allele_count"]
+        n_imputed = int(red["n_imputed"])
+        columns = allgather_columns({i: columns[i] for i in local}, N)
+        if rank != 0:
+            output_filename = None      # process 0 writes the merged VCF
     denom = max(n_imputed, 1)
     eaf = af_sum / denom
     info = info_score(eij_sum, var_sum, denom)

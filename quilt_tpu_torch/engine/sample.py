@@ -33,15 +33,14 @@ from ..kernels.emissions import (
     ReadWindowCache, emat_read_from_bits, gather_words, lem_full_from_cache, lem_subset,
 )
 from ..kernels.fb import fb_full_batched
-from ..kernels.gibbs import SlotLayout, run_gibbs_chains
+from ..kernels.gibbs import SlotLayout
 from ..panel.mspbwt import select_new_haps_mspbwt
 from ..utils import print_message
 from .batch import SampleResult, lem_full_budget, timed_sections
 from .context import RegionContext, sample_allele_count
 from .rare_common import initial_all_snp_labels
 from .selection import (
-    consensus_read_labels, read_confidence, recast_haps, recast_nipt_haps,
-    select_new_haps_from_topk,
+    consensus_read_labels, read_confidence, recast_haps, recast_nipt_haps, select_new_haps_host,
 )
 
 
@@ -95,18 +94,6 @@ def emat_read_vs_dosages(reads: SampleReads, hap_dos: np.ndarray,
     for h in range(nl):
         np.add.at(out[h], read_of_base, logterm[h])
     return np.exp(out)
-
-
-def _gather_topk_lists(tv, ti, thinned, n_latent, chain, K_top):
-    """Per-chain ranked top-match lists [n_thin*n_latent, K_top] from the FB
-    kernel's per-grid outputs (batch rows chain*n_latent + h)."""
-    rows_i = []
-    rows_v = []
-    for h in range(n_latent):
-        b = chain * n_latent + h
-        rows_i.append(ti[thinned, b, :])
-        rows_v.append(tv[thinned, b, :])
-    return np.concatenate(rows_i, axis=0), np.concatenate(rows_v, axis=0)
 
 
 class _ChainReads:
@@ -163,6 +150,7 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
     rng = np.random.default_rng(seed)
     sec = timed_sections(ctx.timers, dev)
     as_t = lambda x: torch.as_tensor(x, device=dev)
+    gibbs = ctx.gibbs_call()
 
     if reads.nReads < cfg.minimum_number_of_sample_reads:
         return SampleResult(imputed=False)
@@ -223,7 +211,7 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
         for _ in range(11):
             with sec("gibbs:sweep_kernel"):
                 lem, skip = side.lem(which_p, words, max_diff)
-                call = run_gibbs_chains(
+                call = gibbs(
                     side.layout(B), ctx.tensors["gibbs_trans"], lem, skip, uniforms, H0_t,
                     first_t, iterative, which_b.shape[1],
                     block_u=block_u if nb_slots else None, do_block=do_block,
@@ -256,20 +244,17 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
                     reads, H_b[c, : reads.nReads], nl, nSNPs, cfg.minGLValue)
         with sec("fb:kernel"):
             fb_inputs, thinned = ctx.fb_state()
-            res = fb_full_batched(as_t(gls), fb_inputs, K_top=max(8, cfg.K_top_matches),
-                                  ref_error=prep.ref_error, **ctx.fb_plan_args)
+            if ctx.sharded_fb is not None:
+                res = ctx.sharded_fb(as_t(gls))
+            else:
+                res = fb_full_batched(as_t(gls), fb_inputs, K_top=max(8, cfg.K_top_matches),
+                                      ref_error=prep.ref_error, **ctx.fb_plan_args)
             hap_dos = res[0][:, :nSNPs].reshape(B, nl, nSNPs).double().cpu().numpy()
             tv, ti = res[2].cpu().numpy(), res[3].cpu().numpy()
             gcap = res[4].reshape(B, nl, -1).double().cpu().numpy() if ctx.hla_capture else None
         with sec("fb:select"):
-            new_sets = np.empty_like(which_b)
-            for c in range(B):
-                n_keep = ctx.Ksub - ctx.Knew
-                prev_sel = rng.choice(which_b[c], size=n_keep, replace=False)
-                li, lv = _gather_topk_lists(tv, ti, thinned, nl, c, tv.shape[2])
-                new = select_new_haps_from_topk(li, lv, ctx.Knew, K, prev_sel, rng,
-                                                cfg.K_top_matches)
-                new_sets[c] = np.sort(np.concatenate([prev_sel, new]))
+            new_sets = select_new_haps_host(tv, ti, thinned, which_b, rng, ctx.Ksub - ctx.Knew,
+                                            ctx.Knew, K, nl, cfg.K_top_matches)
         return hap_dos, new_sets, gcap
 
     def select_mspbwt(hap_dos_rows, which_b):
@@ -321,7 +306,7 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
         for _ in range(11):
             with sec("rare:sweep_kernel"):
                 lem, skip = side_all.lem(None, words, max_diff)
-                call = run_gibbs_chains(
+                call = gibbs(
                     side_all.layout(B), ctx.tensors["gibbs_trans_all"], lem, skip, uniforms,
                     H0_t, zero, False, which_b.shape[1], words=words,
                     ref_error=prep.ref_error, timed=sec, nl=nl, ff=ff,

@@ -5,8 +5,9 @@ select_new_haps_device and read_confidence_device are torch versions of
 quilt_tpu/engine/selection.py:63-150 (a torch.Generator replaces the jax
 key), for the batched engine; select_new_haps_from_topk and
 read_confidence are NumPy copies of :21 and :215, for the per-sample
-engine; consensus_read_labels, recast_haps and recast_nipt_haps are NumPy
-copies of :153-303 (their module imports jax).
+engine and, through select_new_haps_host, the batched one's mesh path;
+consensus_read_labels, recast_haps and recast_nipt_haps are NumPy copies
+of :153-303 (their module imports jax).
 """
 from __future__ import annotations
 
@@ -51,6 +52,37 @@ def select_new_haps_from_topk(top_idx: np.ndarray, top_vals: np.ndarray, Knew: i
         fill = rng.choice(pool, size=Knew - len(keep), replace=False)
         keep.extend(fill.tolist())
     return np.asarray(keep[:Knew], dtype=np.int64)
+
+
+def _gather_topk_lists(tv, ti, thinned, n_latent, chain, K_top):
+    """Per-chain ranked top-match lists [n_thin*n_latent, K_top] from the FB
+    kernel's per-grid outputs (batch rows chain*n_latent + h); a copy of
+    quilt_tpu/engine/sample.py:_gather_topk_lists."""
+    rows_i = []
+    rows_v = []
+    for h in range(n_latent):
+        b = chain * n_latent + h
+        rows_i.append(ti[thinned, b, :])
+        rows_v.append(tv[thinned, b, :])
+    return np.concatenate(rows_i, axis=0), np.concatenate(rows_v, axis=0)
+
+
+def select_new_haps_host(tv: np.ndarray, ti: np.ndarray, thinned: np.ndarray,
+                         which: np.ndarray, rng: np.random.Generator, n_keep: int, Knew: int,
+                         K: int, nl: int, K_top_matches: int) -> np.ndarray:
+    """The host re-selection of every chain (the per-sample engine, and the
+    batched one on the panel-sharded FB's merged lists): tv / ti [Gp, B *
+    nl, width] top gammas and haplotype indices, thinned [n_thin] grids,
+    which [B, Ksub] the current subsets. Per chain, n_keep of its subset
+    kept at random and Knew new from its lists (select_new_haps_from_topk).
+    Returns the new sorted subsets [B, Ksub]."""
+    new_sets = np.empty_like(which)
+    for c in range(which.shape[0]):
+        prev_sel = rng.choice(which[c], size=n_keep, replace=False)
+        li, lv = _gather_topk_lists(tv, ti, thinned, nl, c, tv.shape[2])
+        new = select_new_haps_from_topk(li, lv, Knew, K, prev_sel, rng, K_top_matches)
+        new_sets[c] = np.sort(np.concatenate([prev_sel, new]))
+    return new_sets
 
 
 def read_confidence(em_vs_haps: np.ndarray, minrp: float = 0.95) -> np.ndarray:

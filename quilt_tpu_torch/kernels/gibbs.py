@@ -99,6 +99,15 @@ class SlotLayout:
             idx_back=t(g_of_r * W + i_of_r), mask=t(m),
         )
 
+    def rows(self, b0: int, b1: int, device) -> "SlotLayout":
+        """The layout of rows b0 .. b1-1 on `device`, with the whole batch's
+        W and per-grid maxima (a chain's steps do not depend on the others)."""
+        t = lambda x: x.to(device).contiguous()
+        return SlotLayout(G=self.G, W=self.W, r_pad=t(self.r_pad[:, :, b0:b1]),
+                          valid=t(self.valid[:, :, b0:b1]), r_clip=t(self.r_clip[:, :, b0:b1]),
+                          cnt_max=t(self.cnt_max), idx_back=t(self.idx_back[b0:b1]),
+                          mask=t(self.mask[b0:b1]))
+
     def to_slots(self, x: torch.Tensor, fill) -> torch.Tensor:
         """[B, R] per-read values -> [G, W, B] slots (fill at empty ones)."""
         b = torch.arange(x.shape[0], device=x.device)

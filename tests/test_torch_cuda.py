@@ -963,3 +963,89 @@ def test_diagnostics_on_gpu(cuda, tmp_path):
                         for l in body])
         assert np.isfinite(ohd).all()
         assert np.corrcoef(ohd.sum(1), truth_gen[:, i])[0, 1] ** 2 > 0.9
+
+
+@pytest.mark.parametrize("KS,K_loc,B", [(700, 640, 3), (1280, 1280, 14), (128, 0, 2)])
+def test_fb_sharded_kernels_match_plain(cuda, KS, K_loc, B):
+    """The four segment kernels (csrc/fb_sharded.cu) against their plain
+    versions on one shard, every segment of 32 grids, each pass given the
+    same inputs (the kernels' state carried on); a ragged tile, padded
+    haplotypes, an empty shard; capture in the backward; two launches equal
+    bit for bit. Tolerance as chip_smoke.py's: rtol 1e-4 plus 1e-6 of the
+    largest value (of each sum, for the local passes' sums)."""
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    rng = np.random.default_rng(KS + B)
+    Gp, K, K_top = 32, max(K_loc, 1) + 40, 4
+    L, nt = fs.SEG_LEN, fs.n_tiles(KS)
+    T = lambda x: torch.as_tensor(x, device=cuda)
+    words = T(rng.integers(-2**31, 2**31, (Gp, KS), dtype=np.int64).astype(np.int32))
+    gl = 0.05 + 0.95 * rng.random((B, 2, Gp * 32))
+    dl = T(np.log((gl[:, 0] * 0.001 + gl[:, 1] * 0.999) / (gl[:, 0] * 0.999 + gl[:, 1] * 0.001))
+           .astype(np.float32))
+    trans2 = T(np.stack([np.full(Gp, 0.97), np.full(Gp, 0.03)]).astype(np.float32))
+    trans2[:, 0] = 1.0
+    thin = T(np.where(np.arange(Gp) % 5 == 2, 0, -1).astype(np.int32))
+    mx = (fbk.fb_max_tiled(dl, words, K_loc, KS) if K_loc else
+          torch.zeros((Gp, B), dtype=torch.float32, device=cuda))
+
+    def close(got, ref, per_col=False):
+        dims = tuple(range(ref.dim() - 1))
+        scale = ref.abs().amax(dim=dims, keepdim=True) if per_col and dims else ref.abs().max()
+        assert torch.isfinite(got).all()
+        assert ((got - ref).abs() <= 1e-4 * ref.abs() + 1e-6 * scale).all()
+
+    args = (dl, words, trans2, mx)
+    alphas = torch.zeros((Gp, B, KS), dtype=torch.float32, device=cuda)
+    logm = torch.zeros((Gp // L, B), dtype=torch.float32, device=cuda)
+    for c in range(Gp // L):
+        part = fs.seg_fwd_local(*args, alphas, c, K_loc)
+        close(part, fs.seg_fwd_local_plain(*args, alphas, c, K_loc), per_col=True)
+        assert torch.equal(part, fs.seg_fwd_local(*args, alphas, c, K_loc))
+        tot = part.sum(1) + 1e-3          # the other shards' share of the sums
+        a, lm = alphas.clone(), logm.clone()
+        fs.seg_fwd_apply_plain(*args, tot, a, lm, c, K_loc, K)
+        fs.seg_fwd_apply(*args, tot, alphas, logm, c, K_loc, K)
+        close(alphas, a)
+        close(logm, lm)
+    out, ref = ({"dpart": torch.zeros((nt, B, Gp * 32), device=cuda),
+                 "gnp": torch.zeros((nt, Gp, B), device=cuda),
+                 "tvp": torch.zeros((nt, Gp, B, K_top), device=cuda),
+                 "tip": torch.zeros((nt, Gp, B, K_top), dtype=torch.int32, device=cuda),
+                 "gcap": torch.zeros((B, KS), device=cuda)} for _ in range(2))
+    beta = torch.ones((B, KS), dtype=torch.float32, device=cuda)
+    for c in range(Gp // L - 1, -1, -1):
+        part = fs.seg_bwd_local(*args, beta, c, K_loc)
+        close(part, fs.seg_bwd_local_plain(*args, beta, c, K_loc), per_col=True)
+        assert torch.equal(part, fs.seg_bwd_local(*args, beta, c, K_loc))
+        tot = part.sum(1) + 1e-3
+        b = beta.clone()
+        fs.seg_bwd_apply_plain(*args, alphas, tot, thin, b, ref, c, K_loc, K, 100, 13)
+        fs.seg_bwd_apply(*args, alphas, tot, thin, beta, out, c, K_loc, K, 100, 13)
+        close(beta, b)
+    for k in ("dpart", "gnp", "tvp", "gcap"):
+        close(out[k], ref[k])
+    firm = (ref["tvp"][..., :-1] - ref["tvp"][..., 1:]) > 1e-6 * ref["tvp"].abs().max()
+    assert torch.equal(out["tip"][..., :-1][firm], ref["tip"][..., :-1][firm])
+
+
+@pytest.mark.parametrize("n_panel,B", [(2, 14), (4, 5)])
+def test_fb_full_sharded_on_gpu_matches_the_fused_fb(cuda, n_panel, B):
+    """fb_full_sharded over make_mesh(1 or 2, n) on the one card against
+    fb_full_batched (fused), with capture: dosage and top-K values atol
+    1e-5, log-likelihood rtol 1e-5, top-K haplotypes equal where firm."""
+    from quilt_tpu_torch.dist import fb_full_sharded, make_mesh
+
+    rng = np.random.default_rng(n_panel)
+    fb = _random_fb(1000, 64, n_panel, capture_grid=20)
+    gl = torch.as_tensor((0.05 + 0.95 * rng.random((B, 2, fb.S))).astype(np.float32), device=cuda)
+    d_r, l_r, tv_r, ti_r, g_r = fbk.fb_full_batched(gl, fb, K_top=8, family="fused")
+    n_data = 2 if n_panel == 2 else 1
+    d, ll, tv, ti, g = fb_full_sharded(gl, fb, make_mesh(n_data, n_panel, [cuda] * 4), K_top=8)
+    assert torch.allclose(d, d_r[:, :fb.nSNPs], atol=1e-5)
+    assert torch.allclose(ll, l_r, rtol=1e-5)
+    thin = torch.as_tensor(fb.thin_flag >= 0, device=cuda)
+    assert torch.allclose(tv[thin][..., :8], tv_r[thin], atol=1e-5)
+    firm = (tv_r[thin][..., :-1] - tv_r[thin][..., 1:]) > 1e-3
+    assert torch.equal(ti[thin][..., :7][firm], ti_r[thin][..., :7][firm])
+    assert torch.allclose(g, g_r, atol=1e-5)

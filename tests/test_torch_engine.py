@@ -17,7 +17,8 @@ from quilt_tpu.panel import prepare_panel
 
 from quilt_tpu_torch import cli
 from quilt_tpu_torch.engine.context import context_fields
-from quilt_tpu_torch.engine.driver import check_slice, quilt_impute
+from quilt_tpu_torch.dist.hosts import process_info
+from quilt_tpu_torch.engine.driver import _region_context, quilt_impute
 from quilt_tpu_torch.simulate import write_bam_world
 
 torch.set_num_threads(2)
@@ -100,9 +101,19 @@ def test_region_context_key_is_derived(world):
 @pytest.mark.parametrize("override", [
     {"mesh_data": 2}, {"distributed_nproc": 2}, {"mesh_panel": 2},
 ])
-def test_out_of_slice_options_are_refused(override):
-    with pytest.raises(NotImplementedError, match="slice"):
-        check_slice(ImputeConfig(**{**BASE, **override}))
+def test_out_of_slice_options_are_refused(world, override):
+    """The multi-GPU options are ported; what is refused is a mesh larger
+    than its devices (here the one CPU device), with the JAX function's
+    ValueError. distributed_nproc alone, outside a process group, builds the
+    one-device context: quilt_impute takes the process count from the group,
+    as the JAX package's quilt_impute does."""
+    cfg = ImputeConfig(**{**BASE, **override})
+    if "distributed_nproc" in override:
+        assert process_info() == (0, 1)
+        assert _region_context(world[0], cfg, "cpu").mesh is None
+    else:
+        with pytest.raises(ValueError, match="devices"):
+            _region_context(world[0], cfg, "cpu")
 
 
 def test_cli_prepare_and_impute_on_cpu(tmp_path):
@@ -124,7 +135,7 @@ def test_cli_prepare_and_impute_on_cpu(tmp_path):
         ds = np.array([float(l.split("\t")[9 + i].split(":")[2]) for l in body])
         r2 = np.corrcoef(ds, truths[i].sum(axis=0))[0, 1] ** 2
         assert r2 > 0.85, f"sample {i} r2 {r2}"
-    # options outside the ported slices are refused; NIPT wants its fetal fractions
+    # a mesh larger than the devices is refused; NIPT wants its fetal fractions
     assert cli.main(imp + ["--mesh_panel", "2"], device="cpu") == 2
     assert cli.main(imp + ["--method", "nipt"], device="cpu") == 1
 

@@ -364,7 +364,7 @@ def _host_case(name, rng):
     if name == "emat_read_vs_dosages":
         return (sample_j, sample_t), (reads, rng.random((2, nSNPs)))
     tv, ti = rng.random((16, 6, 8)), rng.integers(0, 60, (16, 6, 8))
-    return (sample_j, sample_t), (tv, ti, np.array([1, 4, 9]), 2, 1, 8)
+    return (sample_j, sel_t), (tv, ti, np.array([1, 4, 9]), 2, 1, 8)
 
 
 @pytest.mark.parametrize("name", ["select_new_haps_from_topk", "read_confidence",

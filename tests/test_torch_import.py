@@ -27,7 +27,8 @@ def test_every_module_imports_with_jax_blocked():
     assert {"quilt_tpu_torch.kernels.nipt", "quilt_tpu_torch.kernels.nipt_bank",
             "quilt_tpu_torch.engine.sample", "quilt_tpu_torch.hla.typing",
             "quilt_tpu_torch.out.plots", "quilt_tpu_torch.dist",
-            "quilt_tpu_torch.dist.ligate"} <= set(mods)
+            "quilt_tpu_torch.dist.ligate", "quilt_tpu_torch.dist.mesh",
+            "quilt_tpu_torch.dist.hosts", "quilt_tpu_torch.kernels.fb_sharded"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

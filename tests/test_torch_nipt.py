@@ -50,7 +50,7 @@ from quilt_tpu.utils import pack_bits_32
 
 from quilt_tpu_torch import cli
 from quilt_tpu_torch.config import ImputeConfig
-from quilt_tpu_torch.engine.driver import check_slice, quilt_impute
+from quilt_tpu_torch.engine.driver import quilt_impute
 from quilt_tpu_torch.inputs import GibbsInputs, PaddedReads
 from quilt_tpu_torch.kernels import gibbs as tg
 from quilt_tpu_torch.kernels import nipt_bank as nb
@@ -400,7 +400,6 @@ def _r2_nipt(out, truths):
 def test_nipt_engine_matches_jax(nipt_world, tmp_path):
     prep_j, prep_t, samples, truths, ffs = nipt_world
     names = [f"S{i}" for i in range(3)]
-    check_slice(ImputeConfig(**_ENGINE))
     path = str(tmp_path / "nipt.vcf.gz")
     out_t = quilt_impute(prep_t, samples, names, ImputeConfig(**_ENGINE), "cpu",
                          output_filename=path, ff_values=ffs)
