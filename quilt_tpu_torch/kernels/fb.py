@@ -84,13 +84,20 @@ _CALL_BYTES = 4 << 30
 # redesign (its alpha in registers made 4 blocks a row beat 8 at 28 x
 # 40,960, and 2 beat 4 at 56 x 20,480): any overhead in 2,240-2,496, wide
 # cost in 1.4-2.5 and general-form cost in 1.2-2.0 reproduce every measured
-# choice.
+# choice. At K = 98,304 (112 rows: 8 blocks a row 148.18 ms, 4 187.35, 2
+# 175.73) a split block that checkpoints every 2 grids costs
+# _INTERVAL2_COST more and one whose chunk alphas live in global planes
+# (above 27,552 haplotypes a block) _GLOBAL_PLANES_COST more: the ratios
+# measured there against the 8-block split; no shape measured before has
+# either form in its fastest choice, so those choices stand.
 _N_SM = 132
 _TILED_MIN_K = 5120
 _MIN_K_PER_SPLIT = 1024
 _BLOCK_OVERHEAD_K = 2368
 _GENERAL_FORM_COST = 1.4
 _FUSED_WIDE_COST = 1.5
+_INTERVAL2_COST = 1.3
+_GLOBAL_PLANES_COST = 1.35
 
 # The fused kernels (csrc/fb.cu): NT threads a row, thread t holding the
 # haplotypes t, t + NT, ...; in registers when K_pad <= NT * max(_CPTS).
@@ -855,9 +862,12 @@ def _plan_cost(B, K_pad, Gp, splits, per_call):
         return sum(-(-r // _N_SM) for r in calls) * K_pad * (
             _FUSED_WIDE_COST if K_pad > _TILED_MIN_K else 1.0)
     KS = K_pad // splits
-    general = _tiled_storage(tiled_cg(KS, Gp), KS, _KTOP_RESERVE)[1] == 0
+    cg = tiled_cg(KS, Gp)
+    smem, cpt = _tiled_storage(cg, KS, _KTOP_RESERVE)
+    form = ((_GENERAL_FORM_COST if cpt == 0 else 1.0) * (_INTERVAL2_COST if cg == 2 else 1.0)
+            * (1.0 if smem else _GLOBAL_PLANES_COST))
     waves = sum(max(1.0, r * splits / _N_SM) for r in calls)
-    return waves * (KS + _BLOCK_OVERHEAD_K) * (_GENERAL_FORM_COST if general else 1.0)
+    return waves * (KS + _BLOCK_OVERHEAD_K) * form
 
 
 def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
@@ -879,7 +889,8 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     5,120 (7.55 / 7.47 ms against 9.53 / 9.81 for 2 blocks), 2 blocks at
     200 x 8,192 (24.65 against 29.02 fused), 4 at 28 x 40,960 (13.48
     against 16.28 for 8) and at 112 x 40,960 (52.25 against 100.65 for 2
-    blocks, whose interval-2 checkpoints take two calls).
+    blocks, whose interval-2 checkpoints take two calls), and 8 at 16 and
+    112 x 98,304 (37.78 / 148.18 ms against 42.74 / 175.73 for the next).
     A call that captures gamma (`capture`) is fused: only the fused
     backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""

@@ -17,9 +17,10 @@ from .panel import prepare_panel
 
 def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
                coverage: float = 1.0, read_length_bp: int = 600, rare_frac: float = 0.0,
-               quilt2: bool = False, ffs=None, hot_map: bool = False) -> Dict:
+               quilt2: bool = False, ffs=None, hot_map: bool = False, phred: int = 25) -> Dict:
     """A prepared panel of K haplotypes over nSNPs SNPs spaced ~60 bp, and
-    n_samples samples' reads (phred 25) from truth mosaics of the panel.
+    n_samples samples' reads of read_length_bp at base quality phred (ONT:
+    ~6-20 kb at phred 10) from truth mosaics of the panel.
     rare_frac of the sites are rewritten to 1-4 carriers (rare_sites).
     quilt2 prepares the panel as `prepare2` does (rare/common split at the
     default rare_af_threshold, msPBWT indices) and simulates the reads on
@@ -42,7 +43,7 @@ def make_world(rng: np.random.Generator, K: int, nSNPs: int, n_samples: int,
     for i in range(n_samples):
         truth = simulate_truth_mosaic(rng, haps, n_latent=2 if ffs is None else 3)
         reads, _ = simulate_sample_reads(rng, truth, pos, grid, coverage=coverage,
-                                         read_length_bp=read_length_bp, phred=25,
+                                         read_length_bp=read_length_bp, phred=phred,
                                          ff=0.0 if ffs is None else float(ffs[i]))
         samples.append(reads)
         truths.append(truth)

@@ -1049,3 +1049,52 @@ def test_fb_full_sharded_on_gpu_matches_the_fused_fb(cuda, n_panel, B):
     firm = (tv_r[thin][..., :-1] - tv_r[thin][..., 1:]) > 1e-3
     assert torch.equal(ti[thin][..., :7][firm], ti_r[thin][..., :7][firm])
     assert torch.allclose(g, g_r, atol=1e-5)
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_fb_tiled_kernels_at_98304_match_plain(cuda, splits):
+    """The K-split kernels at the benchmark's 98,304-haplotype panel x 16
+    grids (8 grids and their padding to GRID_CHUNK) at each split fb_plan
+    takes there (2 at 112 rows: 49,152 haplotypes a block, alpha planes in
+    global memory; 8 at 16 rows: 12,288; and 4), held against their plain
+    versions at chip_smoke.py's tolerances; two launches of each give the
+    same bits."""
+    fb = _random_fb(98304, 16, 98304 + splits)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(splits)
+    gl = 0.05 + 0.95 * torch.rand((3, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    K, kt = fb.K, fb.K_pad // splits
+    mx = fbk.fb_max_tiled(dl, words, K, kt)
+    assert ((mx - fbk.fb_max_tiled_plain(dl, words, K, kt)).abs()
+            <= fbk.max_tiled_tolerance(dl, fb.nGrids)).all()
+    fwd = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+    ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt)
+    torch.testing.assert_close(fwd[0], ck_r, rtol=1e-5, atol=1e-30)
+    torch.testing.assert_close(fwd[1], S_r, rtol=1e-5, atol=0)
+    torch.testing.assert_close(fwd[2], lg_r, rtol=1e-5, atol=1e-2)
+    args = (dl, words, fwd[0], trans2, thin, mx, fwd[1], K, 8, 0.001, kt)
+    got = fbk.fb_backward_tiled(*args)
+    _assert_tiled_backward(got, fbk.fb_backward_tiled_plain(*args), thin)
+    assert torch.equal(fbk.fb_max_tiled(dl, words, K, kt), mx)
+    assert all(torch.equal(a, b) for a, b in zip(fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt),
+                                                 fwd))
+    assert all(torch.equal(a, b) for a, b in zip(fbk.fb_backward_tiled(*args), got))
+
+
+def test_gibbs_chains_0_to_6_of_256_equal_a_7_chain_call(cuda):
+    """Chain independence at the benchmark's largest chain batch: chains
+    0-6 of a 256-chain Gibbs call (bench.gibbs's route: the whole-panel
+    eMatRead, lem_subset, run_gibbs_chains) equal a 7-chain call on the same
+    inputs bit for bit (labels and every per-iteration term, logc among
+    them)."""
+    from quilt_tpu_torch.bench import gibbs as bgibbs
+
+    rng = np.random.default_rng(256)
+    world = bgibbs.gibbs_world(rng, cuda, K=1024, nSNPs=32 * 64, Ksub=600)
+    state = bgibbs.gibbs_state(world, 256, bgibbs.N_ITS, rng)
+    wide = bgibbs.run_gibbs(world, state)
+    narrow = bgibbs.run_gibbs(world, bgibbs.first_chains(world, state, 7))
+    assert torch.equal(wide.H[:7], narrow.H)
+    assert torch.equal(wide.per_it[:, :7], narrow.per_it)

@@ -463,3 +463,22 @@ def test_ligation_from_both_packages(tmp_path):
         mod.ligate_vcfs(paths, out)
         outs.append(list(bgzf_j.bgzf_open(out)))
     assert outs[0] == outs[1] and len([l for l in outs[0] if not l.startswith("#")]) == 11
+
+
+@pytest.mark.parametrize("K,nGrids,kw", [(300, 40, {}), (97, 7, dict(n_founders=5, switch=0.3)),
+                                         (64, 3, dict(mutation_per_bit=0.0))])
+def test_fast_packed_panel_equals_bench_py(K, nGrids, kw):
+    """quilt_tpu_torch.bench.common.fast_packed_panel is the root bench.py's,
+    bit for bit from one seed (the port does not import bench.py)."""
+    import importlib.util
+
+    from quilt_tpu_torch.bench.common import fast_packed_panel
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "bench.py"
+    spec = importlib.util.spec_from_file_location("_jax_side_bench", path)
+    bench_j = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_j)
+    got = fast_packed_panel(np.random.default_rng(K), K, nGrids, **kw)
+    want = bench_j.fast_packed_panel(np.random.default_rng(K), K, nGrids, **kw)
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)

@@ -28,11 +28,16 @@ def test_every_module_imports_with_jax_blocked():
             "quilt_tpu_torch.engine.sample", "quilt_tpu_torch.hla.typing",
             "quilt_tpu_torch.out.plots", "quilt_tpu_torch.dist",
             "quilt_tpu_torch.dist.ligate", "quilt_tpu_torch.dist.mesh",
-            "quilt_tpu_torch.dist.hosts", "quilt_tpu_torch.kernels.fb_sharded"} <= set(mods)
+            "quilt_tpu_torch.dist.hosts", "quilt_tpu_torch.kernels.fb_sharded",
+            "quilt_tpu_torch.bench", "quilt_tpu_torch.bench.common", "quilt_tpu_torch.bench.fb",
+            "quilt_tpu_torch.bench.gibbs", "quilt_tpu_torch.bench.full",
+            "quilt_tpu_torch.bench.__main__"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['quilt_tpu'] = None\n"
+        "sys.modules['bench'] = None\n"
+        "sys.modules['bench_full'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "print('ok', len(sys.modules))\n"
@@ -86,3 +91,12 @@ def test_smoke_script_imports_only_the_port():
     mods = set(_imports(PKG.parent / "chip_smoke.py"))
     assert not {m for m in mods if m.split(".")[0] in ("jax", "quilt_tpu")}, mods
     assert any(m.startswith("quilt_tpu_torch") for m in mods)
+
+
+def test_no_import_of_the_jax_side_benchmark_scripts():
+    """The port's benchmark programs keep their own copies of what they need
+    from the root bench.py / bench_full.py / tools (which drive the JAX
+    package): no port module imports them."""
+    offenders = [f"{p.relative_to(PKG.parent)}: {n}" for p in sorted(PKG.rglob("*.py"))
+                 for n in _imports(p) if n.split(".")[0] in ("bench", "bench_full", "tools")]
+    assert not offenders, offenders
