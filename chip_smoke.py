@@ -21,10 +21,16 @@ Phases, each fatal on failure:
                part from the plain version's is printed and bounded; the
                dosage kernel (redesigned: a warp a (grid, chain) pair, the
                normalisation deferred) timed in turn with its previous form
-               at NL = 2 and 3; the forms that take any K (the sweeps' global
-               forms at K = 10,368, NL = 2 and 3, also timed at 12,288; the
-               bank's at 6,272; the dosage kernel at 30,000) against their
-               plain versions at a small G; the
+               at NL = 2 and 3; the forms past the shared-memory ones: the
+               cluster forms (one chain on a thread-block cluster) of the
+               forward sweep at K = 10,368, 12,288 and their capacity (NL =
+               2 and 3) and of the bank at 6,272 (512 grids), 8,192 and
+               12,288, two launches bit for bit, timed in turn with the
+               global forms they took over from (also at 512 grids) beside
+               the "cluster step split" lines; the global forms past the
+               cluster capacity (forward 16,512 / 12,416, bank 16,512, the
+               backward at 10,368) and the dosage kernel at 30,000, all
+               against their plain versions at a small G; the
                forward bank of the NIPT block move (nipt_bank, a kernel with
                no Pallas counterpart: the JAX package runs it as an XLA scan)
                at 28 chains in each of its forms, timed in turn with its
@@ -121,10 +127,15 @@ Phases, each fatal on failure:
                under maternal r2 0.85 or fetal r2 0.5;
   9. wide    - Gibbs at a Ksubset past the kernels' shared-memory forms: a
                panel of 10,496 haplotypes over 1,024 SNPs, 2 samples, imputed
-               diploid at Ksubset 10,368 (both sweeps' global forms must
-               launch; fails under r2 0.9) and NIPT at Ksubset 8,192, ff 0.2
-               (the forward's global form at NL = 3 and the bank's must
-               launch; fails under maternal r2 0.85 or fetal r2 0.5);
+               diploid at Ksubset 10,368 (the forward's cluster form and the
+               backward's global form must launch; fails under r2 0.9) and
+               NIPT at Ksubset 8,192, ff 0.2 (the forward's cluster form at
+               NL = 3 and the bank's must launch; fails under maternal r2
+               0.85 or fetal r2 0.5); the forward's and the bank's global
+               forms must not launch on either; the sweeps and the bank
+               (the block move's bank and its read-free re-run among them)
+               held against their plain versions on the warm-up call's own
+               inputs (_path_probe);
  10. hla     - QUILT-HLA at full width through `hla-prepare` and `hla`
                of the port's CLI (in this process): the K=5,120 /
                16,384-SNP shape with a 3,000 bp gene whose panel SNPs are
@@ -205,7 +216,9 @@ PTXAS = {}
 _PTXAS_KERNELS = {"fb_bwd_tiled_kernel": ("CPT", "shared"), "fb_fwd_tiled_kernel": ("CPT",),
                   "nipt_bank_kernel": ("CPT",), "nipt_bank_general_kernel": ("GLOBAL",),
                   "fb_max_tiled_kernel": (), "gibbs_dos_kernel": ("NL", "VEC"),
-                  "gibbs_fwd_global_kernel": ("NL",), "gibbs_bwd_global_kernel": ()}
+                  "gibbs_fwd_global_kernel": ("NL",), "gibbs_bwd_global_kernel": (),
+                  "gibbs_fwd_cluster_kernel": ("NT", "CPT", "NL"),
+                  "nipt_bank_cluster_kernel": ("CPT",)}
 
 
 def _note_ptxas(library, entry, line):
@@ -804,15 +817,20 @@ def check_dosage(nl, alphas, beta, words_T, K_real, eps):
     return row
 
 
-def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288):
-    """The forms that take any K, each against its plain version just
-    above the limit of the forms before it, at a small G: the sweeps' global
-    forms at K = 10,368 (NL = 2 and 3; the backward's one count serves
-    both), the bank's at 6,272 (512 grids x 4 chains), and the dosage kernel
-    (one form at any K) at 30,000; the sweeps and the bank also timed at
-    K = 12,288 over G grids.
-    Returns the rows gibbs_fwd_global, gibbs_fwd_global_nl3,
-    gibbs_bwd_global and nipt_bank_global."""
+def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288, G_path=512):
+    """The forms past the shared-memory ones, at a small G. The forward's
+    cluster forms (NL = 2 and 3) at K = 10,368 (the wide path's Ksubset),
+    12,288 and their capacity, and the bank's at 6,272 (512 grids x 4
+    chains), 8,192 (the wide NIPT path's K) and 12,288, against the plain
+    versions, two launches equal bit for bit; each timed in turn with the
+    global form it took over from (4 rounds of 7) at the kernels' timing
+    shapes and at 512 grids (the main path's G), beside the cluster
+    exchange's floor (the "cluster step split" lines). The global forms
+    past the cluster forms' capacity (the forward at 16,512 / 12,416, the
+    bank at 16,512; the backward, which has no cluster form, at 10,368),
+    and the dosage kernel (one form at any K) at 30,000. Returns the rows gibbs_fwd_global, gibbs_fwd_global_nl3,
+    gibbs_bwd_global, nipt_bank_global, gibbs_fwd_cluster,
+    gibbs_fwd_cluster_nl3 and nipt_bank_cluster."""
     import numpy as np
     import torch
     from quilt_tpu_torch.kernels import gibbs_dosage as gd
@@ -820,72 +838,183 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288):
     from quilt_tpu_torch.kernels import nipt_bank as nb
     from quilt_tpu_torch.simulate import random_sweep_state
 
-    rows, bwd_row = [], None
-    state = lambda nl, k, seed: [torch.from_numpy(x).cuda() for x in random_sweep_state(
-        np.random.default_rng(seed), G, B, W, k, k - 68, W, nl=nl)]
+    global_rows, cluster_rows, bwd_row = [], [], None
+    state = lambda nl, k, seed, g=G: [torch.from_numpy(x).cuda() for x in random_sweep_state(
+        np.random.default_rng(seed), g, B, W, k, k - 68, W, nl=nl)]
+    steps_of = lambda args: args[0].shape[0] + int((args[3][:, 2] == 0).sum()) / B + 1
     for nl in (2, 3):
-        if gs.fwd_form(K, nl) != gs.GLOBAL or gs.bwd_form(K) != gs.GLOBAL:
-            _fail(f"the sweeps at K={K}, nl={nl} do not take their global forms")
         prior = (0.5, 0.5) if nl == 2 else (0.5, 0.45, 0.05)
-        name = "gibbs_fwd_global" + ("" if nl == 2 else "_nl3")
-        args, args_t = state(nl, K, SEED + 7 + nl), state(nl, K_time, SEED + 9 + nl)
-        kw = dict(nl=nl, K_real=K - 68, it_mode=2, prior=prior)
-        kw_t = dict(kw, K_real=K_time - 68)
-        ref, plain_ms = _timed(lambda: gs.fwd_sweep_plain(*args, K_real=K - 68, it_mode=2, nl=nl,
-                                                          prior=prior))
-        got, err = _check_fwd(name, gs.fwd_sweep(*args, **kw), ref, args)
-        ms = _median_ms(lambda: gs.fwd_sweep(*args, **kw), 5)
-        ms_t = _median_ms(lambda: gs.fwd_sweep(*args_t, **kw_t), 5)
-        lemg, trans = got[0], args[6]
+        sfx = "" if nl == 2 else "_nl3"
+        kw = lambda k: dict(nl=nl, K_real=k - 68, it_mode=2, prior=prior)
+        plain = lambda a, k: gs.fwd_sweep_plain(*a, K_real=k - 68, it_mode=2, nl=nl, prior=prior)
+        cap = gs._CLUSTER_COLS[nl]
+        # the cluster form at the wide path's K, the timing K and its capacity
+        err, row = 0.0, None
+        for Kc in sorted({K, K_time, cap}):
+            if gs.fwd_form(Kc, nl) != gs.CLUSTER:
+                _fail(f"the forward sweep at K={Kc}, nl={nl} does not take its cluster form")
+            args = state(nl, Kc, SEED + 7 + nl + Kc)
+            ref, plain_ms = _timed(lambda: plain(args, Kc))
+            got = gs.fwd_sweep(*args, **kw(Kc))
+            again = gs.fwd_sweep(*args, **kw(Kc))
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            got, e = _check_fwd(f"gibbs_fwd_cluster{sfx} at K={Kc} ({G} grids x {B} chains; two "
+                                f"launches equal bit for bit: {equal})", got, ref, args)
+            if not equal:
+                _fail(f"gibbs_fwd_cluster{sfx}: two launches differ at K={Kc}")
+            err = max(err, e)
+            if Kc == K:
+                row = _row(f"gibbs_fwd_cluster{sfx}", "gibbs_sweep.cu", "gibbs_pallas.py:56", 0.0,
+                           None, plain_ms, *_fwd_work(args, got, Kc - 68))
+                args_k, steps = args, steps_of(args)
+        row["max_abs_err"] = err
+        # timed in turn with the global form
+        fwd = lambda a, k, **f: (lambda: gs.fwd_sweep(*a, **kw(k), **f))
+        t = _alternating_ms({"cluster": fwd(args_k, K),
+                             "global": fwd(args_k, K, _variant=gs.GLOBAL)})
+        args_t = state(nl, K_time, SEED + 9 + nl)
+        t_t = _alternating_ms({"cluster": fwd(args_t, K_time),
+                               "global": fwd(args_t, K_time, _variant=gs.GLOBAL)})
+        del args_t
+        args_p = _tile_grids(args_k, G_path // G)
+        t_p = _alternating_ms({"cluster": fwd(args_p, K),
+                               "global": fwd(args_p, K, _variant=gs.GLOBAL)})
+        steps_p = steps_of(args_p)
+        del args_p
+        vals = 8 if nl == 2 else 12
+        floor_us = _median_ms(lambda: gs.cluster_floor(20000, B, "cuda", values=vals),
+                              3) * 1e3 / 20000
+        row.update(ms=t["cluster"], previous_form_ms=t["global"],
+                   ms_at_K12288=t_t["cluster"], previous_form_ms_at_K12288=t_t["global"],
+                   ms_at_512_grids=t_p["cluster"], previous_form_ms_at_512_grids=t_p["global"])
+        print(f"gibbs_fwd_cluster{sfx}, timed in turn (4 rounds of 7; 8 blocks x 256 chain "
+              f"threads a chain): at {G} grids x {B} chains x K={K}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items())
+              + f"; at K={K_time}: cluster {t_t['cluster']:.3f}, global {t_t['global']:.3f} ms; "
+              f"at {G_path} grids x K={K}: cluster {t_p['cluster']:.3f}, global "
+              f"{t_p['global']:.3f} ms", flush=True)
+        print(f"cluster step split, gibbs_fwd_cluster{sfx} (this run): {steps:.1f} dependent steps a "
+              f"chain at {G} grids ({steps_p:.1f} at {G_path}): {1e3 * t['cluster'] / steps:.2f} us "
+              f"a step ({1e3 * t_p['cluster'] / steps_p:.2f} at {G_path} grids; the global form "
+              f"{1e3 * t['global'] / steps:.2f}); cluster exchange floor at 8 blocks x 256 threads "
+              f"({vals} values: the block reductions, the push, the wait, the rank-order sums) "
+              f"{floor_us:.3f} us a step; ptxas: "
+              + "; ".join(n for n in PTXAS.get("gibbs_fwd_cluster_kernel", ["not reported"])
+                          if f"NL={nl}" in n), flush=True)
+        cluster_rows.append(row)
+        del args_k
+        # the global form past the cluster form's capacity
+        Kg = cap + 128
+        if gs.fwd_form(Kg, nl) != gs.GLOBAL:
+            _fail(f"the forward sweep at K={Kg}, nl={nl} does not take its global form")
+        args = state(nl, Kg, SEED + 13 + nl)
+        ref, plain_ms = _timed(lambda: plain(args, Kg))
+        got, err = _check_fwd(f"gibbs_fwd_global{sfx} at K={Kg}", gs.fwd_sweep(*args, **kw(Kg)),
+                              ref, args)
+        ms = _median_ms(fwd(args, Kg), 5)
+        print(f"gibbs_fwd_global{sfx} at {G} grids x {B} chains x {W} slots x K={Kg}: {ms:.3f} ms "
+              f"(plain {plain_ms:.1f} ms)", flush=True)
+        row = _row(f"gibbs_fwd_global{sfx}", "gibbs_sweep.cu", "gibbs_pallas.py:56", err, ms,
+                   plain_ms, *_fwd_work(args, got, Kg - 68))
+        row["K"] = Kg
+        global_rows.append(row)
+        del args, got, ref
+        # the backward's global form (no cluster form) at K
+        args = state(nl, K, SEED + 7 + nl)
+        lemg, trans = args[0], args[6]
+        if gs.bwd_form(K) != gs.GLOBAL:
+            _fail(f"the backward sweep at K={K} does not take its global form")
         ref_b, plain_b = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, K - 68))
         got_b = gs.bwd_sweep(lemg, trans, nl=nl, K_real=K - 68)
         err_b = (got_b - ref_b).abs().max().item()
         ms_b = _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=nl, K_real=K - 68), 5)
-        lemg_t = args_t[0]
+        lemg_t = state(nl, K_time, SEED + 9 + nl)[0]
         ms_bt = _median_ms(lambda: gs.bwd_sweep(lemg_t, trans, nl=nl, K_real=K_time - 68), 5)
-        print(f"{name} at {G} grids x {B} chains x {W} slots: {ms:.3f} ms at K={K}, {ms_t:.3f} ms "
-              f"at K={K_time} (plain {plain_ms:.1f} ms at K={K}); gibbs_bwd_global at NL = {nl}: "
-              f"{ms_b:.3f} ms at K={K}, {ms_bt:.3f} ms at K={K_time} (plain {plain_b:.1f} ms), "
-              f"max |beta err| {err_b:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
+        print(f"gibbs_bwd_global at NL = {nl}: {ms_b:.3f} ms at K={K}, {ms_bt:.3f} ms at "
+              f"K={K_time} (plain {plain_b:.1f} ms), max |beta err| {err_b:.3e} (tolerance "
+              f"rtol 1e-5, atol 1e-6)", flush=True)
         if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
             _fail(f"gibbs_bwd_global at nl={nl} disagrees with its plain version")
-        row = _row(name, "gibbs_sweep.cu", "gibbs_pallas.py:56", err, ms, plain_ms,
-                   *_fwd_work(args, got, K - 68))
-        row["ms_at_K12288"] = ms_t
-        rows.append(row)
         if nl == 2:
             bwd_row = _row("gibbs_bwd_global", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b,
                            ms_b, plain_b, *_bwd_work(lemg, trans, got_b, K - 68))
             bwd_row["ms_at_K12288"] = ms_bt
-    rows.append(bwd_row)
+        del args, lemg_t, got_b, ref_b
 
-    # the bank's global form: 9K + 3G floats outgrow a block's shared memory
-    Gb, Bb, Kb, Kb_real = 512, 4, 6272, 6200
-    if nb.bank_form(Kb, Gb) != gs.GLOBAL:
-        _fail(f"the bank at K={Kb} does not take its global form")
-    args = _bank_state(Gb, Bb, Kb, Kb_real, np.random.default_rng(SEED + 8))
+    # the bank's cluster form, where 9K + 3G floats outgrow a block's shared memory
+    Gb, Bb = 512, 4
+    bank_err, brow = 0.0, None
+    for Gc, Bc, Kc in ((Gb, Bb, 6272), (G, 14, 8192), (G, Bb, K_time)):
+        if nb.bank_form(Kc, Gc) != gs.CLUSTER:
+            _fail(f"the bank at {Gc} grids x K={Kc} does not take its cluster form")
+        args = _bank_state(Gc, Bc, Kc, Kc - 72, np.random.default_rng(SEED + 8 + Kc))
+        (ref_c, ref_p), plain_ms = _timed(lambda: nb.bank_scan_plain(*args))
+        got_c, got_p = nb.bank_scan(*args)
+        again = nb.bank_scan(*args)
+        torch.cuda.synchronize()
+        same = (got_c == ref_c).all(dim=0)
+        err = (got_p - ref_p)[:, same].abs().max().item()
+        equal = torch.equal(got_c, again[0]) and torch.equal(got_p, again[1])
+        print(f"nipt_bank_cluster at {Gc} grids x {Bc} chains x K={Kc} (K_real {Kc - 72}): "
+              f"{int(same.sum())}/{Bc} chains draw the same relabellings, max |probability err| "
+              f"{err:.3e} (tolerance atol 1e-4), two launches equal bit for bit: {equal}",
+              flush=True)
+        if 1.0 - int(same.sum()) / Bc > PARTED_CHAINS_BOUND or not err <= 1e-4 or not equal:
+            _fail(f"nipt_bank_cluster disagrees with its plain version at K={Kc}")
+        bank_err = max(bank_err, err)
+        if Kc == 6272:
+            n_ends = int(args[5].sum())
+            nbytes = (Gb * 3 * Bb * (Kc - 72) * 4 + n_ends * (3 * (Kc - 72) + 7) * 4
+                      + _nbytes(args[2], args[5], args[6], ref_c, ref_p))
+            brow = _row("nipt_bank_cluster", "nipt_bank.cu", "gibbs.py:502", 0.0, None, plain_ms,
+                        nbytes, 6 * 9 * Gb * Bb * (Kc - 72))
+            bank = lambda a, **f: (lambda: nb.bank_scan(*a, **f))
+            t = _alternating_ms({"cluster": bank(args), "global": bank(args, _variant=gs.GLOBAL)})
+        else:
+            tk = _alternating_ms({"cluster": bank(args), "global": bank(args, _variant=gs.GLOBAL)})
+            tag = f"{Gc}_grids_K{Kc}"
+            brow[f"ms_at_{tag}"], brow[f"previous_form_ms_at_{tag}"] = tk["cluster"], tk["global"]
+            print(f"nipt_bank_cluster at {Gc} grids x {Bc} chains x K={Kc}, timed in turn: cluster "
+                  f"{tk['cluster']:.3f} ms, global {tk['global']:.3f} ms", flush=True)
+        del args
+    floor_us = _median_ms(lambda: nb.bank_cluster_floor(20000, Bb, "cuda"), 3) * 1e3 / 20000
+    brow.update(max_abs_err=bank_err, ms=t["cluster"], previous_form_ms=t["global"])
+    print(f"nipt_bank_cluster, timed in turn (4 rounds of 7; 16 blocks a chain) at "
+          f"{Gb} grids x {Bb} chains x K=6272: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
+    print(f"cluster step split, nipt_bank_cluster (this run): {1e3 * t['cluster'] / Gb:.2f} us a "
+          f"grid step (the global form {1e3 * t['global'] / Gb:.2f}); cluster exchange floor at 16 "
+          f"blocks x 128 threads (the 16-slot block reduction, then 12 values pushed, the wait, "
+          f"the rank-order sums) {floor_us:.3f} us a step; ptxas: "
+          + "; ".join(PTXAS.get("nipt_bank_cluster_kernel", ["not reported"])), flush=True)
+    cluster_rows.append(brow)
+
+    # the bank's global form past the cluster form's capacity
+    Kg = nb._CLUSTER_COLS + 128
+    if nb.bank_form(Kg, G) != gs.GLOBAL:
+        _fail(f"the bank at K={Kg} does not take its global form")
+    args = _bank_state(G, Bb, Kg, Kg - 72, np.random.default_rng(SEED + 10))
     (ref_c, ref_p), plain_ms = _timed(lambda: nb.bank_scan_plain(*args))
     got_c, got_p = nb.bank_scan(*args)
     torch.cuda.synchronize()
     same = (got_c == ref_c).all(dim=0)
     err = (got_p - ref_p)[:, same].abs().max().item()
-    print(f"nipt_bank_global at {Gb} grids x {Bb} chains x K={Kb} (K_real {Kb_real}): "
+    print(f"nipt_bank_global at {G} grids x {Bb} chains x K={Kg} (K_real {Kg - 72}): "
           f"{int(same.sum())}/{Bb} chains draw the same relabellings, max |probability err| "
           f"{err:.3e} (tolerance atol 1e-4)", flush=True)
     if 1.0 - int(same.sum()) / Bb > PARTED_CHAINS_BOUND or not err <= 1e-4:
         _fail("nipt_bank_global disagrees with its plain version")
     n_ends = int(args[5].sum())
-    nbytes = (Gb * 3 * Bb * Kb_real * 4 + n_ends * (3 * Kb_real + 7) * 4
+    nbytes = (G * 3 * Bb * (Kg - 72) * 4 + n_ends * (3 * (Kg - 72) + 7) * 4
               + _nbytes(args[2], args[5], args[6], ref_c, ref_p))
     row = _row("nipt_bank_global", "nipt_bank.cu", "gibbs.py:502", err,
                _median_ms(lambda: nb.bank_scan(*args), 5), plain_ms, nbytes,
-               6 * 9 * Gb * Bb * Kb_real)
-    # and at K = 12,288 over the sweeps' small G
-    args_t = _bank_state(G, Bb, K_time, K_time - 68, np.random.default_rng(SEED + 10))
-    row["ms_at_K12288"] = _median_ms(lambda: nb.bank_scan(*args_t), 5)
-    print(f"nipt_bank_global at {G} grids x {Bb} chains x K={K_time}: {row['ms_at_K12288']:.3f} "
-          f"ms; at {Gb} grids x K={Kb}: {row['ms']:.3f} ms", flush=True)
-    rows.append(row)
+               6 * 9 * G * Bb * (Kg - 72))
+    row["K"] = Kg
+    print(f"nipt_bank_global at {G} grids x {Bb} chains x K={Kg}: {row['ms']:.3f} ms", flush=True)
+    rows = global_rows + [bwd_row, row] + cluster_rows
+    del args
 
     # the dosage kernel far past the previous form's shared-memory plane
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -906,6 +1035,18 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288):
         _fail(f"gibbs_dos at K={Kd} disagrees with its plain version")
     _print_rows(rows)
     return rows
+
+
+def _tile_grids(args, reps):
+    """A forward sweep's state over reps x its grids: the grids repeated
+    in order on the card (timings at a long chain without a host-built
+    state)."""
+    import torch
+
+    lemg, beta, lem_pad, slots, first, lab, trans, cnt = args
+    tile = lambda x, d: torch.cat([x] * reps, dim=d).contiguous()
+    return [tile(lemg, 0), tile(beta, 0), tile(lem_pad, 0), tile(slots, 0), first, lab,
+            tile(trans, 1), tile(cnt, 1)]
 
 
 def _bank_state(G, B, K, K_real, rng):
@@ -1436,7 +1577,9 @@ def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move
 
 
 def profile_call(label, fn, untraced_s, block_move=False):
-    """Device busy time, idle share and the largest kernels of one call.
+    """Device busy time, idle share and the largest kernels of one call,
+    and past those the cluster and global forms (a wide path's own rows,
+    even where they are small).
     Only the card's activity is traced: the busy time sums device events
     alone, and host operator events would only slow the call and the
     summary (key_averages took ~3.5 s a call with them). The tracer still
@@ -1489,8 +1632,10 @@ def profile_call(label, fn, untraced_s, block_move=False):
     print(f"{label} profile: traced wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
           f"{100 * (1 - busy / wall):.1f}% of the traced wall, {100 * (1 - busy / untraced_s):.1f}% "
           f"of the untraced call's {untraced_s:.3f} s", flush=True)
-    for us, count, key in events[:10]:
-        print(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% {count:6d} x {key[:70]}", flush=True)
+    for i, (us, count, key) in enumerate(events):
+        if i < 10 or "_cluster_kernel" in key or "_global_kernel" in key:
+            print(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% {count:6d} x {key[:70]}"
+                  f"{' (past the ten largest)' if i >= 10 else ''}", flush=True)
     if block_move:
         # the host range's device time: the kernels launched inside it, summed
         total = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
@@ -2446,40 +2591,107 @@ def _bench_section(name, t):
 
 
 @contextlib.contextmanager
-def _path_probe(label, res, n_fwd=4, n_bwd=3):
+def _path_probe(label, res, n_fwd=4, n_bwd=3, n_bank=2):
     """Holds the kernels that the engine launches inside the block against
     their plain versions on the arguments the path gives them, as _seg_probe
     does for the sharded FB: gibbs_fwd on the first call of each (it_mode,
-    want_alpha) pair it meets, up to n_fwd calls, at _check_fwd's
-    tolerances; gibbs_bwd on its first n_bwd calls at the kernels phase's
-    rtol 1e-5 / atol 1e-6; the fused FB (fb_core: fb_fwd then fb_bwd) on
-    its first row batch, its dosage, log-likelihood and top-K against
-    fb_forward_plain -> fb_backward_plain at _check_fused's tolerances.
-    The plain versions launch no kernel, so the path's launch counts stay
-    its own. res[row name] collects the errors; _probe_report reads them."""
+    want_alpha, reads or none) it meets, up to n_fwd calls and the first
+    read-free one (the NIPT block move's re-run), at _check_fwd's
+    tolerances, a second launch giving the same bits; gibbs_bwd on its
+    first n_bwd calls at the kernels phase's rtol 1e-5 / atol 1e-6; the
+    NIPT block move's bank (bank_scan) on its first n_bank calls, the same
+    relabellings on all but PARTED_CHAINS_BOUND of the chains, probabilities
+    within atol 1e-4, a second launch giving the same bits; the fused FB
+    (fb_core: fb_fwd then fb_bwd) on its first row batch, its dosage,
+    log-likelihood and top-K against fb_forward_plain -> fb_backward_plain
+    at _check_fused's tolerances. Each check names the form the wrapper
+    took, and the sweeps' and the bank's checks time the kernel on the
+    call's own inputs (median of 3 launches). The plain versions launch no
+    kernel; the second launches and the timed ones are counted, so the
+    caller keeps the probed call out of the counted run. res[row name]
+    collects the errors (res["forms"] the forms and keys checked, res["ms"]
+    {kernel name: [ms on each checked call]}); _probe_report reads them."""
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
     from quilt_tpu_torch.kernels import gibbs
     from quilt_tpu_torch.kernels import gibbs_sweep as gs
+    from quilt_tpu_torch.kernels import nipt_bank as nb
 
-    real = (gibbs.fwd_sweep, gibbs.bwd_sweep, fbk.fb_core)
+    real = (gibbs.fwd_sweep, gibbs.bwd_sweep, fbk.fb_core, gibbs.bank_scan)
     seen = set()
-    for name in ("gibbs_fwd", "gibbs_bwd", "fb_fwd", "fb_bwd"):
+    for name in ("gibbs_fwd", "gibbs_bwd", "fb_fwd", "fb_bwd", "nipt_bank", "forms"):
         res.setdefault(name, [])
+    res.setdefault("ms", {})
+
+    def timed(kernel, fn):
+        """CUDA events around the wrapper (median of 7), and the wrapper's
+        host side alone (median of 3, the card drained before each)."""
+        ms = _median_ms(fn, 7)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        res["ms"].setdefault(kernel.name, []).append(ms)
+        return f"{ms:.3f} ms a launch (CUDA events; the wrapper's host side {statistics.median(host):.3f})"
 
     def fwd(*args, **kw):
         got = real[0](*args, **kw)
-        key = (kw["it_mode"], kw.get("want_alpha", True))
-        if key not in seen and len(seen) < n_fwd:
+        reads = int(args[7].max()) > 0
+        key = (kw["it_mode"], kw.get("want_alpha", True), reads)
+        if key not in seen and (len(seen) < n_fwd or not reads):
             seen.add(key)
+            form = gs.fwd_form(args[0].shape[2], kw["nl"])
             ref = gs.fwd_sweep_plain(*args, K_real=kw["K_real"], it_mode=key[0],
                                      want_alpha=key[1], nl=kw["nl"], prior=kw["prior"])
+            kernel = {gs.GLOBAL: gs.FWD_GLOBAL_KERNELS,
+                      gs.CLUSTER: gs.FWD_CLUSTER_KERNELS}.get(form, gs.FWD_KERNELS)[kw["nl"]]
+            again = real[0](*args, **kw)
+            torch.cuda.synchronize()
+            when = timed(kernel, lambda: real[0](*args, **kw))
+            # without alphas the second output is an unwritten placeholder
+            equal = all(torch.equal(a, b) for i, (a, b) in enumerate(zip(got, again))
+                        if i != 1 or key[1])
             B = args[2].shape[2]
-            _, err = _check_fwd(f"{label}: gibbs_fwd on the path's call (it_mode {key[0]}, "
-                                f"alphas {key[1]}; {B} chains, "
+            _, err = _check_fwd(f"{label}: {kernel.name} on the path's call (form {form}, it_mode "
+                                f"{key[0]}, alphas {key[1]}; {args[0].shape[0]} grids x {B} "
+                                f"chains x K={args[0].shape[2]}, {when}; "
                                 f"{int((args[3][:, 2] == 0).sum())} live read slots, at most "
-                                f"{int(args[7].max())} a grid)", got, ref, list(args), key[1])
+                                f"{int(args[7].max())} a grid{'' if reads else ': the read-free re-run'}"
+                                f"; a second launch equal bit for bit: {equal})", got, ref,
+                                list(args), key[1])
+            if not equal:
+                _fail(f"{label}: two launches of gibbs_fwd differ on the path's call")
             res["gibbs_fwd"].append(err)
+            res["forms"].append(("gibbs_fwd", form, key))
+        return got
+
+    def bank(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, **kw):
+        got = real[3](lemg, beta, trans, ht, u, is_end, perm_mask, K_real, **kw)
+        if len(res["nipt_bank"]) < n_bank:
+            args = (lemg, beta, trans, ht, u, is_end, perm_mask, K_real)
+            form = nb.bank_form(lemg.shape[2], lemg.shape[0])
+            ref_c, ref_p = nb.bank_scan_plain(*args)
+            kernel = {gs.GLOBAL: nb.BANK_GLOBAL_KERNEL,
+                      gs.CLUSTER: nb.BANK_CLUSTER_KERNEL}.get(form, nb.BANK_KERNEL)
+            again = real[3](*args, **kw)
+            torch.cuda.synchronize()
+            when = timed(kernel, lambda: real[3](*args, **kw))
+            same = (got[0] == ref_c).all(dim=0)
+            err = (got[1] - ref_p)[:, same].abs().max().item() if same.any() else float("inf")
+            equal = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+            B = same.shape[0]
+            print(f"{label}: {kernel.name} on the path's call (form {form}; {lemg.shape[0]} grids "
+                  f"x {B} chains x K={lemg.shape[2]}, {int(is_end.sum())} block ends; {when}): "
+                  f"{int(same.sum())}/{B} chains draw the same relabellings, max |probability "
+                  f"err| {err:.3e} (tolerance atol 1e-4), a second launch equal bit for bit: "
+                  f"{equal}", flush=True)
+            if 1.0 - int(same.sum()) / B > PARTED_CHAINS_BOUND or not err <= 1e-4 or not equal:
+                _fail(f"{label}: nipt_bank disagrees with its plain version on the path's call")
+            res["nipt_bank"].append(err)
+            res["forms"].append(("nipt_bank", form, None))
         return got
 
     def bwd(lemg, trans, **kw):
@@ -2487,8 +2699,12 @@ def _path_probe(label, res, n_fwd=4, n_bwd=3):
         if len(res["gibbs_bwd"]) < n_bwd:
             ref = gs.bwd_sweep_plain(lemg, trans, kw["K_real"])
             err = (got - ref).abs().max().item()
-            print(f"{label}: gibbs_bwd on the path's call: max |beta err| {err:.3e} (tolerance "
-                  f"rtol 1e-5, atol 1e-6)", flush=True)
+            kernel = (gs.BWD_GLOBAL_KERNEL if gs.bwd_form(lemg.shape[2]) == gs.GLOBAL
+                      else gs.BWD_KERNELS[kw["nl"]])
+            when = timed(kernel, lambda: real[1](lemg, trans, **kw))
+            print(f"{label}: {kernel.name} on the path's call ({lemg.shape[0]} grids x "
+                  f"{lemg.shape[1]} state rows x K={lemg.shape[2]}, {when}): max "
+                  f"|beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
             if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
                 _fail(f"{label}: gibbs_bwd disagrees with its plain version on the path's call")
             res["gibbs_bwd"].append(err)
@@ -2521,11 +2737,20 @@ def _path_probe(label, res, n_fwd=4, n_bwd=3):
             res["fb_bwd"].append(err_d)
         return got
 
-    gibbs.fwd_sweep, gibbs.bwd_sweep, fbk.fb_core = fwd, bwd, core
+    gibbs.fwd_sweep, gibbs.bwd_sweep, fbk.fb_core, gibbs.bank_scan = fwd, bwd, core, bank
     try:
         yield res
     finally:
-        gibbs.fwd_sweep, gibbs.bwd_sweep, fbk.fb_core = real
+        gibbs.fwd_sweep, gibbs.bwd_sweep, fbk.fb_core, gibbs.bank_scan = real
+
+
+def _note_path_ms(path_ms, path, res):
+    """Keeps, for each kernel that _path_probe timed on `path`'s calls, the
+    median of its times there (path_ms[kernel][path], ms a launch)."""
+    import statistics
+
+    for name, ms in res["ms"].items():
+        path_ms.setdefault(name, {})[path] = statistics.median(ms)
 
 
 def _probe_report(label, res, needed):
@@ -2637,14 +2862,16 @@ def run_bench(counted, gibbs_k, fused, tiled, gdos):
     t = _bench_section("fb", t)
 
     # the benchmark's own ONT world (bench.full.e2e_world: 8 samples against
-    # a fast_packed_panel of the e2e shape), run by bench.full.end_to_end_ont
-    # under the probe (its checks fall in the section's warm-up call)
+    # a fast_packed_panel of the e2e shape): the probe holds the kernels on a
+    # call of the section's config of its own, then bench.full.end_to_end_ont
+    # runs counted
     ontb = bfull.e2e_world(rng, 8, read_length_bp=bfull.ONT_READ_BP, phred=bfull.ONT_PHRED)
     probe = {}
+    with _path_probe("ont_bench", probe):
+        bfull.run_impute(ontb, bfull.e2e_config(len(ontb["samples"])), "cuda")
     for k in counted:
         k.launches = 0
-    with _path_probe("ont_bench", probe):
-        sec = bfull.end_to_end_ont(ontb, "cuda")
+    sec = bfull.end_to_end_ont(ontb, "cuda")
     launches["ont_bench"] = {k.name: k.launches for k in counted}
     print(f"ont_bench (bench.full.end_to_end_ont, a warm-up and a timed call; launches "
           f"{launches['ont_bench']}):", flush=True)
@@ -2795,13 +3022,16 @@ def main():
     bank = nipt_bank.BANK_KERNEL
     fused = [fb.FWD_KERNEL, fb.BWD_KERNEL]
     capture = fb.BWD_CAPTURE_KERNEL
-    # the forms that take any K
+    # the forms that take any K, and the cluster forms that took their place
+    # up to K = 16,384 (12,288 forward at NL = 3)
     wide = [gibbs_sweep.FWD_GLOBAL_KERNELS[2], gibbs_sweep.FWD_GLOBAL_KERNELS[3],
             gibbs_sweep.BWD_GLOBAL_KERNEL, nipt_bank.BANK_GLOBAL_KERNEL]
+    clusters = [gibbs_sweep.FWD_CLUSTER_KERNELS[2], gibbs_sweep.FWD_CLUSTER_KERNELS[3],
+                nipt_bank.BANK_CLUSTER_KERNEL]
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
     # the panel-sharded FB's four segment kernels (no Pallas counterpart)
     seg = list(fb_sharded.KERNELS)
-    kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide + seg
+    kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide + clusters + seg
                + tiled)   # the order of rows
     # the previous forms of the redesigned kernels (timings only) must launch
     # on no path
@@ -2873,9 +3103,10 @@ def main():
         del world3
         t = _took("largek", t)
 
-    bench_errs = {}
+    path_errs = {}   # {row name: error} of the checks on the paths' own calls
+    path_ms = {}     # {row name: {path: ms a launch on the path's own calls}}
     if "bench" in phases:
-        l_bench, bench_errs = run_bench(counted, [gfwd, gbwd], fused, tiled, gdos)
+        l_bench, path_errs = run_bench(counted, [gfwd, gbwd], fused, tiled, gdos)
         launches.update(l_bench)
         t = _took("bench", t)
 
@@ -2904,22 +3135,43 @@ def main():
     if "wide" in phases:
         # Gibbs at a Ksubset past the forms held in shared memory: a
         # panel of 10,496 haplotypes over 1,024 SNPs, 2 samples. Diploid at
-        # Ksubset 10,368 takes both sweeps' global forms; NIPT at 8,192 the
-        # forward's at NL = 3 and the bank's.
+        # Ksubset 10,368 takes the forward's cluster form and the backward's
+        # global form; NIPT at 8,192 the forward's cluster form at NL = 3
+        # and the bank's. The global forms of the forward and of the bank
+        # must not launch; the path's own calls are held against the plain
+        # versions (_path_probe, the warm-up call).
         world6 = make_world(n_samples=2, K=10496, nSNPs=1024)
-        out, _, l6 = run_e2e(world6, counted, e2e_config(2, ksubset=10368), "wide")
+        probe = {}
+        out, _, l6 = run_e2e(world6, counted, e2e_config(2, ksubset=10368), "wide",
+                             probe=lambda: _path_probe("wide", probe))
         launches["wide"] = l6
         if min(out.r2_per_sample) < 0.9:
             _fail(f"wide r2 against truth below 0.9: {out.r2_per_sample}")
-        check_launched("wide", l6, wide[0:1] + wide[2:3])
+        check_launched("wide", l6, [clusters[0], wide[2]])
+        errs = _probe_report("wide", probe, ("gibbs_fwd", "gibbs_bwd"))
+        path_errs["gibbs_fwd_cluster"] = errs["gibbs_fwd"]
+        path_errs["gibbs_bwd_global"] = errs["gibbs_bwd"]
+        _note_path_ms(path_ms, "wide", probe)
         del world6
         world7 = make_world(n_samples=2, K=10496, nSNPs=1024, ffs=[0.2] * 2, coverage=2.0)
+        probe = {}
         out, _, l7 = run_e2e(world7, counted, e2e_config(2, nipt=True, ksubset=8192),
-                             "wide_nipt")
+                             "wide_nipt", probe=lambda: _path_probe("wide_nipt", probe))
         launches["wide_nipt"] = l7
         nipt_report("wide_nipt", world7, out)
-        check_launched("wide_nipt", l7, [wide[1], wide[3]])
+        check_launched("wide_nipt", l7, [clusters[1], clusters[2]])
+        errs = _probe_report("wide_nipt", probe, ("gibbs_fwd", "gibbs_bwd", "nipt_bank"))
+        if not any(f[0] == "gibbs_fwd" and not f[2][2] for f in probe["forms"]):
+            _fail("wide_nipt: the block move's read-free forward re-run went unchecked")
+        path_errs["gibbs_fwd_cluster_nl3"] = errs["gibbs_fwd"]
+        path_errs["gibbs_bwd_nl3"] = max(path_errs.get("gibbs_bwd_nl3", 0.0), errs["gibbs_bwd"])
+        path_errs["nipt_bank_cluster"] = errs["nipt_bank"]
+        _note_path_ms(path_ms, "wide_nipt", probe)
         del world7
+        for path, l in (("wide", l6), ("wide_nipt", l7)):
+            stray = {k.name: l[k.name] for k in (wide[0], wide[1], wide[3]) if l[k.name]}
+            if stray:
+                _fail(f"{path} launched a global form the cluster forms took over: {stray}")
         t = _took("wide", t)
     if "hla" in phases:
         launches["hla"] = run_hla(counted, [gfwd, gbwd, fb.FWD_KERNEL, capture])
@@ -2957,8 +3209,10 @@ def main():
         if k is fb.MAX_TILED_KERNEL:
             # also held on the sharded FB's shards in phase dist
             row["max_abs_err"] = max(row["max_abs_err"], mx_err)
-        # and the FB kernels at the bench phase's shapes
-        row["max_abs_err"] = max(row["max_abs_err"], bench_errs.get(row["name"], 0.0))
+        # and the kernels on the bench and wide phases' own calls
+        row["max_abs_err"] = max(row["max_abs_err"], path_errs.get(row["name"], 0.0))
+        if row["name"] in path_ms:
+            row["ms_on_path"] = path_ms[row["name"]]
         row["launches_by_path"] = {path: l[k.name] for path, l in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))

@@ -22,7 +22,7 @@ from ..io import simulate_sample_reads
 from ..io.simulate import simulate_truth_mosaic
 from ..kernels.emissions import ReadWindowCache, expand_panel, lem_full_from_cache, lem_subset
 from ..kernels.gibbs import SlotLayout, run_gibbs_chains
-from ..kernels.gibbs_sweep import GENERAL, fwd_form
+from ..kernels.gibbs_sweep import CLUSTER, GENERAL, fwd_form
 from ..panel.prepare import assign_positions_to_grid, trans_rates
 from ..utils import unpack_bits_32
 from .common import device_report, fast_packed_panel, require_cuda, timed
@@ -98,7 +98,7 @@ def form_name(Kp: int, nl: int = 2) -> str:
     form = fwd_form(Kp, nl)
     if form > 0:
         return f"register, {form} chain threads"
-    return "general" if form == GENERAL else "global"
+    return {GENERAL: "general", CLUSTER: "cluster"}.get(form, "global")
 
 
 def time_call(world: dict, C: int, n_its: int, rng: np.random.Generator, device,

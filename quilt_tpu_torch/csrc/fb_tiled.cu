@@ -110,6 +110,7 @@
 #include <limits.h>
 #include <math.h>
 
+#include "cluster_xchg.cuh"
 #include "fb_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -748,32 +749,6 @@ __global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int s
   if (threadIdx.x == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = acc;
 }
 
-// Launch on a grid (splits, B) whose x axis is one cluster per row.
-template <class... Params, class... Args>
-int launch_cluster(void (*kernel)(Params...), int splits, int B, int smem_bytes,
-                   cudaStream_t stream, Args... args) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, B);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 bool bad_split(int splits, int K_pad, int KS) {
   return splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) ||
          (long long)splits * KS != K_pad;
@@ -795,8 +770,8 @@ int launch_bwd(const void* words, const void* dl, const void* ckpt, const void* 
                void* scratch, void* rebuilt, int Gp, int K, int K_pad, int B, int CG, int K_top,
                int splits, float invK, float eps, cudaStream_t st) {
   const int KS = K_pad / splits;
-  return launch_cluster(
-      fb_bwd_tiled_kernel<CPT, SMEM>, splits, B, 4 * bwd_smem_floats(CG, KS, K_top, SMEM), st,
+  return cluster_xchg::launch_clusters(
+      fb_bwd_tiled_kernel<CPT, SMEM>, splits, B, NT, 4 * bwd_smem_floats(CG, KS, K_top, SMEM), st,
       (const int*)words, (const float*)dl, (const float*)ckpt, (const float*)trans2,
       (const int*)thin, (const float*)mx, (const float*)ssum, (float*)dos, (float*)tv, (int*)ti,
       (float*)scratch, (float*)rebuilt, Gp, K, K_pad, B, CG, K_top, KS, invK, eps);
@@ -832,10 +807,11 @@ extern "C" int fb_forward_tiled(const void* words, const void* dl, const void* t
   if (bad_split(splits, K_pad, KS) || CG < 1 || CG > MAX_CG || Gp % CG || !cpt_ok(cpt, KS))
     return ERR_INVALID;
 #define FWD(C)                                                                            \
-  launch_cluster(fb_fwd_tiled_kernel<C>, splits, B, 0, (cudaStream_t)stream,              \
-                 (const int*)words, (const float*)dl, (const float*)trans2,               \
-                 (const float*)mx, (float*)ckpt, (float*)ssum, (float*)logs,              \
-                 (float*)scratch, Gp, K, K_pad, B, CG, KS, invK)
+  cluster_xchg::launch_clusters(fb_fwd_tiled_kernel<C>, splits, B, NT, 0,                 \
+                                (cudaStream_t)stream, (const int*)words, (const float*)dl, \
+                                (const float*)trans2, (const float*)mx, (float*)ckpt,     \
+                                (float*)ssum, (float*)logs, (float*)scratch, Gp, K, K_pad, \
+                                B, CG, KS, invK)
   switch (cpt) {
     case 2: return FWD(2);
     case 4: return FWD(4);
@@ -895,8 +871,8 @@ extern "C" int fb_tiled_chain_floor(void* out, int splits, int B, int steps, int
                                     void* stream) {
   if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1))) return ERR_INVALID;
   if (fwd)
-    return launch_cluster(fb_tiled_floor_kernel<true>, splits, B, 0, (cudaStream_t)stream,
-                          (float*)out, steps);
-  return launch_cluster(fb_tiled_floor_kernel<false>, splits, B, 0, (cudaStream_t)stream,
-                        (float*)out, steps);
+    return cluster_xchg::launch_clusters(fb_tiled_floor_kernel<true>, splits, B, NT, 0,
+                                         (cudaStream_t)stream, (float*)out, steps);
+  return cluster_xchg::launch_clusters(fb_tiled_floor_kernel<false>, splits, B, NT, 0,
+                                       (cudaStream_t)stream, (float*)out, steps);
 }

@@ -24,6 +24,7 @@
 #include <limits.h>
 #include <math.h>
 
+#include "cluster_xchg.cuh"
 #include "fb_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -324,27 +325,6 @@ __global__ void __launch_bounds__(NT) fb_fwd_tiled_prev_kernel(
   if (rank == 0 && threadIdx.x == 0) logs[b] = acc;
 }
 
-// Launch on a grid (splits, B) whose x axis is one cluster per row.
-template <class... Params, class... Args>
-int launch_cluster(void (*kernel)(Params...), int splits, int B, cudaStream_t stream,
-                   Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, B);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 bool bad_split(int splits, int K_pad, int KS) {
   return splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) ||
          (long long)splits * KS != K_pad;
@@ -387,8 +367,8 @@ extern "C" int fb_backward_tiled_prev(const void* words, const void* dl,
                                       void* stream) {
   const int KS = K_pad / (splits > 0 ? splits : 1);
   if (bad_split(splits, K_pad, KS) || K_top > MAX_KTOP || K_top > KS) return ERR_INVALID;
-  return launch_cluster(
-      fb_bwd_tiled_kernel, splits, B, (cudaStream_t)stream,
+  return cluster_xchg::launch_clusters(
+      fb_bwd_tiled_kernel, splits, B, NT, 0, (cudaStream_t)stream,
       (const int*)words, (const float*)dl, (const float*)alphas,
       (const float*)trans2, (const int*)thin, (const float*)mx,
       (const float*)eb_in, (const float*)e_in, (float*)dos, (float*)tv,
@@ -402,8 +382,8 @@ extern "C" int fb_forward_tiled_prev(const void* words, const void* dl, const vo
                                      int splits, float invK, void* stream) {
   const int KS = K_pad / (splits > 0 ? splits : 1);
   if (bad_split(splits, K_pad, KS) || CG < 1 || CG > FWD_MAX_CG || Gp % CG) return ERR_INVALID;
-  return launch_cluster(
-      fb_fwd_tiled_prev_kernel, splits, B, (cudaStream_t)stream,
+  return cluster_xchg::launch_clusters(
+      fb_fwd_tiled_prev_kernel, splits, B, NT, 0, (cudaStream_t)stream,
       (const int*)words, (const float*)dl, (const float*)trans2,
       (const float*)mx, (float*)ckpt, (float*)ssum, (float*)logs,
       (float*)scratch, Gp, K, K_pad, B, CG, KS, invK);

@@ -71,13 +71,21 @@
 // more butterfly round), exists to be timed beside it. The backward kernel
 // works on a state row and never sees NL.
 // Past the general variant (K > 10,240, or at NL = 3 once one grid stage and
-// one read row outgrow shared memory, K > 8,155), a global form of each
-// kernel takes any K that device memory holds: no producer, no ring, the
-// state in a global scratch plane (below, "the global forms"). It has no
-// speed target; the caller (kernels/gibbs_sweep.py) names the form.
+// one read row outgrow shared memory, K > 8,155), the forward sweep runs a
+// chain on a thread-block cluster (gibbs_fwd_cluster_kernel, below): each
+// of its 8 blocks is the register form above over an eighth of the columns,
+// with its own producer warp and rings, and each dependent step adds the
+// blocks' sums in rank order over distributed shared memory
+// (cluster_xchg.cuh), up to K = 16,384 (12,288 at NL = 3). Past that, and
+// for the backward past 10,240, a global form of each kernel takes any K
+// that device memory holds: no producer, no ring, the state in a global
+// scratch plane (below, "the global forms"). The caller
+// (kernels/gibbs_sweep.py) names the form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cluster_xchg.cuh"
 
 namespace {
 
@@ -89,6 +97,13 @@ constexpr int BWD_PREP = 8;      // preparation warps of the backward kernel
 constexpr int GENERAL_NT = 256;  // general variant: threads and column capacity
 constexpr int GENERAL_CPT = 40;
 constexpr int GLOBAL_NT = 512;   // global forms: threads a chain (any K)
+// the cluster form: blocks a chain (the portable cluster size) and chain
+// threads a block, with CPT 8 (NL = 2) or 6 (NL = 3). Timed in turn on the
+// H100 at 32 grids x 8 chains x K = 10,368 (chip_smoke.py, PERF.md): 8 x 256
+// 0.313 ms at NL = 2 and 0.432 at NL = 3; 16 blocks x 128 0.459 / 0.499,
+// 16 x 256 0.534 / 0.566.
+constexpr int CLUSTER_C = 8;
+constexpr int CLUSTER_NT = 256;
 constexpr int SMEM_LIMIT = 227 * 1024 - 4096;   // dynamic part; statics fit the rest
 
 // ---------------------------------------------------------------------------
@@ -300,6 +315,7 @@ struct FwdCommon {
   float *logc_out, *uf_out, *lab_out;
   float* scratch;    // global form: the chains' alpha, [B][NL][K]
   int G, B, W, K, K_real, it_mode, want_alpha;
+  int KS;            // cluster form: columns a block (a multiple of 4)
   int vec, DS, DR;   // 16-byte copies allowed; ring depths
   float invK;
 };
@@ -332,18 +348,22 @@ __device__ __forceinline__ SlotWords load_words(const FwdCommon& a, int g, int i
 // (s < G) and, for s >= 1, beta[s-1] with trans[s-1] and the number of live
 // slots of grid s-1; the chain consumes stage g+1 when it advances into
 // grid g. The live slots of grid g follow in the row ring, in slot order.
+// A block of a cluster form copies its own columns k0 .. k0 + KL - 1 into
+// rings of row stride RS (the others: k0 = 0, KL = RS = K); only the
+// writer (the cluster's rank 0) writes the labels of skipped slots.
 template <int NL>
 __device__ void fwd_producer(const FwdArgs<NL>& a, float* stage_buf, float* row_buf,
                              float (*smeta)[4], int (*rmeta)[4],
                              uint64_t* full_s, uint64_t* empty_s,
-                             uint64_t* full_r, uint64_t* empty_r) {
-  const int lane = threadIdx.x & 31, b = blockIdx.x;
+                             uint64_t* full_r, uint64_t* empty_r, int b, int k0, int KL,
+                             int RS, bool writer) {
+  const int lane = threadIdx.x & 31;
   const int K = a.K, BN = NL * a.B;
-  const size_t stage_floats = (size_t)2 * NL * K;
+  const size_t stage_floats = (size_t)2 * NL * RS;
   Ring S(a.DS), R(a.DR);
   mbar_wait(&empty_s[0], 1);
   for (int h = 0; h < NL; ++h)
-    copy_row(stage_buf + h * K, a.lemg + ((size_t)h * a.B + b) * K, K, a.vec, lane);
+    copy_row(stage_buf + h * RS, a.lemg + ((size_t)h * a.B + b) * K + k0, KL, a.vec, lane);
   cp_async_arrive(&full_s[0]);
   if (lane == 0) mbar_arrive(&full_s[0]);
   S.next();
@@ -354,9 +374,9 @@ __device__ void fwd_producer(const FwdArgs<NL>& a, float* stage_buf, float* row_
     float* sb = stage_buf + S.stage * stage_floats;
     for (int h = 0; h < NL; ++h) {
       if (g + 1 < a.G)
-        copy_row(sb + h * K, a.lemg + ((size_t)(g + 1) * BN + h * a.B + b) * K, K,
+        copy_row(sb + h * RS, a.lemg + ((size_t)(g + 1) * BN + h * a.B + b) * K + k0, KL,
                  a.vec, lane);
-      copy_row(sb + (NL + h) * K, a.beta + ((size_t)g * BN + h * a.B + b) * K, K,
+      copy_row(sb + (NL + h) * RS, a.beta + ((size_t)g * BN + h * a.B + b) * K + k0, KL,
                a.vec, lane);
     }
     const int n = cur.cnt;
@@ -378,7 +398,7 @@ __device__ void fwd_producer(const FwdArgs<NL>& a, float* stage_buf, float* row_
       const SlotWords w = i0 == 0 ? cur : load_words(a, g, i0 + lane, b);
       const int i = i0 + lane;
       const bool live = i < n && i < a.W && w.skip == 0;
-      if (i < a.W && !live) a.h_out[((size_t)g * a.W + i) * a.B + b] = w.h;
+      if (writer && i < a.W && !live) a.h_out[((size_t)g * a.W + i) * a.B + b] = w.h;
       unsigned mask = __ballot_sync(0xffffffffu, live);
       while (mask) {
         const int src = __ffs(mask) - 1;
@@ -387,8 +407,8 @@ __device__ void fwd_producer(const FwdArgs<NL>& a, float* stage_buf, float* row_
         const int hC = __shfl_sync(0xffffffffu, w.h, src);
         const int rg = __shfl_sync(0xffffffffu, w.rg, src);
         mbar_wait(&empty_r[R.stage], R.phase ^ 1);
-        copy_row(row_buf + (size_t)R.stage * K,
-                 a.lem_pad + (((size_t)g * a.W + i0 + src) * a.B + b) * K, K, a.vec,
+        copy_row(row_buf + (size_t)R.stage * RS,
+                 a.lem_pad + (((size_t)g * a.W + i0 + src) * a.B + b) * K + k0, KL, a.vec,
                  lane);
         if (lane == 0) {
           rmeta[R.stage][0] = u;
@@ -431,9 +451,9 @@ struct ReadRow {
   template <int NT, int UNROLL>
   __device__ __forceinline__ void fetch(const float* row_buf, int (*rmeta)[4],
                                         uint64_t* full_r, uint64_t* empty_r,
-                                        Ring& R, int K, int ncol) {
+                                        Ring& R, int RS, int K, int ncol) {
     mbar_wait(&full_r[R.stage], R.phase);
-    const float* rb = row_buf + (size_t)R.stage * K;
+    const float* rb = row_buf + (size_t)R.stage * RS;
     u = __int_as_float(rmeta[R.stage][0]);
     hC = rmeta[R.stage][1];
     rg = rmeta[R.stage][2];
@@ -538,13 +558,20 @@ __device__ __forceinline__ Draw<NL> draw_label(const FwdArgs<NL>& a, const float
   return d;
 }
 
+// The record of a cluster form's exchange: at most 4 NL = 12 values a step.
+using FwdInbox = cluster_xchg::Inbox<12>;
+
 // NT consumer threads (the chain) and one producer warp. FAST: K <= NT*CPT
 // and the column loops unroll over CPT registers; otherwise CPT is the
 // capacity of per-thread local arrays and the loops run ceil(K/NT) times.
 // WIDE (NL = 3 only): a reduction slot of 16 values, so that no reduction
-// of a step goes as two.
-template <int NT, int CPT, bool FAST, int NL, bool WIDE>
-__global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a) {
+// of a step goes as two. CLUSTER: the block is rank r of chain b's cluster
+// (grid (C, B)) and owns the columns r*KS .. r*KS + KS - 1 (FAST over them);
+// after each block reduction the cluster exchanges the block's values
+// (cluster_xchg.cuh, through `box`), and rank 0 alone writes the chain's
+// labels and scalars.
+template <int NT, int CPT, bool FAST, int NL, bool WIDE, bool CLUSTER>
+__device__ __forceinline__ void fwd_chain(const FwdArgs<NL>& a, FwdInbox* box) {
   constexpr int SLOT = (NL > 2 && WIDE) ? 16 : 8;
   extern __shared__ __align__(16) float dyn[];
   __shared__ uint64_t bars[2 * MAX_DS + 2 * MAX_DR];
@@ -555,9 +582,17 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
   uint64_t* empty_s = bars + MAX_DS;
   uint64_t* full_r = bars + 2 * MAX_DS;
   uint64_t* empty_r = bars + 2 * MAX_DS + MAX_DR;
-  const int K = a.K, K_real = a.K_real;
+  // the chain, the block's first column, its columns (all of them real up to
+  // K_real) and the ring's row stride: the whole row but in a cluster form
+  const int b = CLUSTER ? blockIdx.y : blockIdx.x;
+  const int k0 = CLUSTER ? blockIdx.x * a.KS : 0;
+  const int K = CLUSTER ? max(0, min(a.KS, a.K - k0)) : a.K;
+  const int K_real = CLUSTER ? max(0, min(a.KS, a.K_real - k0)) : a.K_real;
+  const int RS = CLUSTER ? a.KS : a.K;
+  const bool writer = !CLUSTER || blockIdx.x == 0;
+  cluster_xchg::Exchange<12> xc(box);
   float* stage_buf = dyn;
-  float* row_buf = dyn + (size_t)a.DS * 2 * NL * K;
+  float* row_buf = dyn + (size_t)a.DS * 2 * NL * RS;
   if (threadIdx.x == 0) {
     for (int s = 0; s < a.DS; ++s) {
       mbar_init(&full_s[s], 33);        // 32 cp.async arrivals + lane 0's
@@ -567,22 +602,24 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
       mbar_init(&full_r[s], 33);
       mbar_init(&empty_r[s], NT / 32);
     }
+    if constexpr (CLUSTER) xc.init();
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CLUSTER) cluster_xchg::cluster_sync_all();   // every block's inbox is ready
   if (threadIdx.x >= NT) {
     fwd_producer(a, stage_buf, row_buf, smeta, rmeta, full_s, empty_s, full_r,
-                 empty_r);
+                 empty_r, b, k0, K, RS, writer);
     return;
   }
 
   // ---- the chain ----
-  const int tid = threadIdx.x, b = blockIdx.x;
+  const int tid = threadIdx.x;
   const int BN = NL * a.B;
   const int ncol = FAST ? CPT : (K + NT - 1) / NT;
   constexpr int UNROLL = FAST ? CPT : 1;
   const int first = a.first_read[b];
-  const size_t stage_floats = (size_t)2 * NL * K;
+  const size_t stage_floats = (size_t)2 * NL * RS;
   // alpha, beta and lemg of the current grid; lemg of the next one and
   // e = exp(lemg - rowmax) of the grid the chain advances into next
   float alpha[NL][CPT], bet[NL][CPT], lg[NL][CPT], lgn[NL][CPT], e[NL][CPT];
@@ -612,13 +649,14 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
 #pragma unroll
       for (int h = 0; h < NL; ++h) {
         alpha[h][m] = 0.f;
-        lg[h][m] = c < K ? stage_buf[h * K + c] : 0.f;
+        lg[h][m] = c < K ? stage_buf[h * RS + c] : 0.f;
         if (c < K_real) mx[h] = fmaxf(mx[h], lg[h][m]);
       }
     }
     release(&empty_s[0]);
     S.next();
     chain_reduce<NT, 0, NL, SLOT>(mx, red, par);
+    if constexpr (CLUSTER) xc.template combine<NL, 0>(mx, tid);
 #pragma unroll UNROLL
     for (int m = 0; m < ncol; ++m) {
 #pragma unroll
@@ -643,8 +681,8 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
       const int c = tid + m * NT;
 #pragma unroll
       for (int h = 0; h < NL; ++h) {
-        bet[h][m] = c < K ? sb[(NL + h) * K + c] : 0.f;
-        lgn[h][m] = (has_next && c < K) ? sb[h * K + c] : 0.f;
+        bet[h][m] = c < K ? sb[(NL + h) * RS + c] : 0.f;
+        lgn[h][m] = (has_next && c < K) ? sb[h * RS + c] : 0.f;
         if (c < K_real) v[2 * NL + h] = fmaxf(v[2 * NL + h], lgn[h][m]);
         const float ar = e[h][m] * (t0 * alpha[h][m] + jump);
         alpha[h][m] = ar;
@@ -655,10 +693,11 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
     release(&empty_s[S.stage]);
     S.next();
     if (nlive > 0) {
-      nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, K, ncol);
+      nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, RS, K, ncol);
       nxt.template exponentials<UNROLL>(ncol);
     }
     chain_reduce_n<NT, 2 * NL, NL, SLOT>(v, red, par);
+    if constexpr (CLUSTER) xc.template combine<3 * NL, 2 * NL>(v, tid);
 #pragma unroll
     for (int h = 0; h < NL; ++h) {
       const float s = v[h];
@@ -681,7 +720,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
     for (int j = 0; j < nlive; ++j) {
       cur.template take<UNROLL>(nxt, ncol);
       if (j + 1 < nlive)
-        nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, K, ncol);
+        nxt.template fetch<NT, UNROLL>(row_buf, rmeta, full_r, empty_r, R, RS, K, ncol);
       // q: gain[h] = sum(alpha*beta*em), lose[h] = sum(alpha*beta*iv), then
       // the sums alpha has after gaining (alpha*em) or losing (alpha*iv) the read
       float q[4 * NL];
@@ -700,6 +739,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
       }
       if (j + 1 < nlive) nxt.template exponentials<UNROLL>(ncol);
       chain_reduce_n<NT, 4 * NL, 0, SLOT>(q, red, par);
+      if constexpr (CLUSTER) xc.template combine<4 * NL, 4 * NL>(q, tid);
 
       const float u = cur.u;
       const int hC = cur.hC, rg = cur.rg;
@@ -774,7 +814,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
           lab[h] += (h_new == h ? 1.f : 0.f) - (hC == h ? 1.f : 0.f);
         }
       }
-      if (tid == 0)
+      if (writer && tid == 0)
         a.h_out[((size_t)g * a.W + cur.slot) * a.B + b] = flip ? h_new : hC;
     }
 
@@ -784,7 +824,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
       const int c = tid + m * NT;
 #pragma unroll
       for (int h = 0; h < NL; ++h) {
-        const size_t r = ((size_t)g * BN + h * a.B + b) * K + c;
+        const size_t r = ((size_t)g * BN + h * a.B + b) * a.K + k0 + c;
         if (c < K) {
           a.lemg_out[r] = lg[h][m];
           if (a.want_alpha) a.alpha_out[r] = alpha[h][m];
@@ -793,7 +833,7 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
       }
     }
   }
-  if (tid == 0) {
+  if (writer && tid == 0) {
 #pragma unroll
     for (int h = 0; h < NL; ++h) {
       a.logc_out[h * a.B + b] = logc[h] + logf(zprod[h]);
@@ -802,6 +842,21 @@ __global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a)
     a.uf_out[b] = uf ? 1.f : 0.f;
   }
 }
+
+template <int NT, int CPT, bool FAST, int NL, bool WIDE>
+__global__ void __launch_bounds__(NT + 32) gibbs_fwd_kernel(const FwdArgs<NL> a) {
+  fwd_chain<NT, CPT, FAST, NL, WIDE, false>(a, nullptr);
+}
+
+// The cluster form: one chain on a cluster of C blocks (grid (C, B)), each
+// block a register form over its KS = K / C columns (rounded up to 4) with
+// its own producer warp and rings.
+template <int NT, int CPT, int NL>
+__global__ void __launch_bounds__(NT + 32, 1) gibbs_fwd_cluster_kernel(const FwdArgs<NL> a) {
+  __shared__ FwdInbox box;
+  fwd_chain<NT, CPT, true, NL, false, true>(a, &box);
+}
+
 
 // ---------------------------------------------------------------------------
 // backward sweep
@@ -1123,6 +1178,30 @@ __global__ void __launch_bounds__(NT) chain_floor_kernel(float* out, int steps) 
   if (threadIdx.x == 0) out[blockIdx.x] = v[0] + v[NV - 1];
 }
 
+// The same on clusters of C blocks: each reduction (of NV = 8 or 12 values,
+// as a read slot's step at NL = 2 or 3: one or two block reductions of at
+// most 8) followed by the cluster exchange of its values.
+template <int NT, int NV>
+__global__ void __launch_bounds__(NT, 1) cluster_floor_kernel(float* out, int steps) {
+  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  __shared__ FwdInbox box;
+  cluster_xchg::Exchange<12> xc(&box);
+  if (threadIdx.x == 0) xc.init();
+  __syncthreads();
+  cluster_xchg::cluster_sync_all();
+  float v[NV];
+  int par = 0;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) v[j] = 1e-3f * (threadIdx.x + j);
+  for (int s = 0; s < steps; ++s) {
+    chain_reduce_n<NT, NV, 0, 8>(v, red, par);
+    xc.template combine<NV, NV>(v, threadIdx.x);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) v[j] = v[j] * 1e-3f + 1e-3f * threadIdx.x;
+  }
+  if (threadIdx.x == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = v[0] + v[NV - 1];
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -1235,21 +1314,44 @@ int dispatch_fwd(const FwdArgs<3>& a, int threads, int wide, cudaStream_t stream
   return (int)cudaErrorInvalidValue;
 }
 
+// The rings shrink, not K: rows first, then grid stages, down to one each.
+template <int NL>
+bool size_rings(FwdArgs<NL>& a, int row_floats) {
+  a.DS = MAX_DS, a.DR = MAX_DR;
+  const size_t row = (size_t)row_floats * sizeof(float);
+  while (((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
+    if (a.DR > 1) a.DR /= 2;
+    else if (a.DS > 1) a.DS -= 1;
+    else return false;
+  }
+  return true;
+}
+
+// The cluster form (-3): CLUSTER_C blocks a chain of CLUSTER_NT chain
+// threads, each block KS = ceil(K / CLUSTER_C) columns rounded up to 4, held
+// in registers (CPT 8, or 6 at NL = 3, where 8 spill). A K beyond
+// CLUSTER_C x CLUSTER_NT x CPT is refused; so is a shape the card cannot
+// schedule (launch_clusters).
+template <int NL>
+int launch_fwd_cluster(FwdArgs<NL>& a, cudaStream_t stream) {
+  constexpr int CPT = NL == 2 ? 8 : 6;
+  a.KS = ((a.K + CLUSTER_C - 1) / CLUSTER_C + 3) & ~3;
+  if (a.KS > CLUSTER_NT * CPT || !size_rings(a, a.KS)) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)a.DS * 2 * NL + a.DR) * a.KS * sizeof(float);
+  return cluster_xchg::launch_clusters(gibbs_fwd_cluster_kernel<CLUSTER_NT, CPT, NL>, CLUSTER_C,
+                                       a.B, CLUSTER_NT + 32, smem, stream, a);
+}
+
 template <int NL>
 int run_fwd(const FwdCommon& c, const float* prior, int threads, int wide,
             cudaStream_t stream) {
   FwdArgs<NL> a;
   static_cast<FwdCommon&>(a) = c;
   for (int h = 0; h < NL; ++h) a.prior[h] = prior[h];
-  // the rings shrink, not K: rows first, then grid stages, down to one each;
-  // the global form has none
-  a.DS = MAX_DS, a.DR = MAX_DR;
-  const size_t row = (size_t)a.K * sizeof(float);
-  while (threads != -2 && ((size_t)a.DS * 2 * NL + a.DR) * row > (size_t)SMEM_LIMIT) {
-    if (a.DR > 1) a.DR /= 2;
-    else if (a.DS > 1) a.DS -= 1;
-    else return (int)cudaErrorInvalidValue;
-  }
+  if (threads == -3) return wide ? (int)cudaErrorInvalidValue : launch_fwd_cluster(a, stream);
+  // the global form has no ring
+  if (threads == -2) a.DS = a.DR = 0;
+  else if (!size_rings(a, a.K)) return (int)cudaErrorInvalidValue;
   return dispatch_fwd(a, threads, wide, stream);
 }
 
@@ -1266,9 +1368,12 @@ int launch_floor(float* out, int blocks, int steps, int values, cudaStream_t s) 
 // nl: 2 (diploid) or 3 (NIPT) latent rows a chain, with the label prior
 // p0..p2 (p2 unread at nl = 2). threads: the form, as SWEEP_DISPATCH reads
 // it (64 / 128 / 256 chain threads, -1 the general variant, -2 the global
-// form, which takes scratch [B, nl, K] floats; scratch is unread otherwise);
-// cudaErrorInvalidValue if the form does not hold K. wide: 0 but to time the
-// one-reduction form of the nl = 3 steps (128 threads, K in (512, 640]).
+// form, which takes scratch [B, nl, K] floats; scratch is unread otherwise),
+// or -3 the cluster form (CLUSTER_C blocks a chain of CLUSTER_NT chain
+// threads each); cudaErrorInvalidValue if the form does not hold K, and
+// cudaErrorInvalidConfiguration if the card cannot schedule the cluster.
+// wide: 0 but to time the one-reduction form of the nl = 3 steps (128
+// threads, K in (512, 640]).
 extern "C" int gibbs_fwd(
     const void* lemg, const void* beta, const void* lem_pad,
     const void* slots, const void* first_read, const void* lab_init,
@@ -1289,9 +1394,11 @@ extern "C" int gibbs_fwd(
   a.want_alpha = want_alpha, a.invK = invK;
   a.vec = K % 4 == 0 && aligned16(lemg) && aligned16(beta) && aligned16(lem_pad);
   a.DS = a.DR = 0;
+  a.KS = 0;
   const float prior[3] = {p0, p1, p2};
-  if (nl == 2) return run_fwd<2>(a, prior, threads, wide, (cudaStream_t)stream);
-  if (nl == 3) return run_fwd<3>(a, prior, threads, wide, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nl == 2) return run_fwd<2>(a, prior, threads, wide, st);
+  if (nl == 3) return run_fwd<3>(a, prior, threads, wide, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1323,5 +1430,19 @@ extern "C" int gibbs_chain_floor(void* out, int blocks, int steps, int threads,
   if (threads == 64) return launch_floor<64>((float*)out, blocks, steps, values, s);
   if (threads == 128) return launch_floor<128>((float*)out, blocks, steps, values, s);
   if (threads == 256) return launch_floor<256>((float*)out, blocks, steps, values, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cluster form's read steps: `steps` block reductions of `values` (8 or
+// 12) values, each followed by the cluster exchange, on `chains` clusters of
+// CLUSTER_C blocks of CLUSTER_NT threads; out [chains * CLUSTER_C] floats.
+extern "C" int gibbs_cluster_floor(void* out, int chains, int steps, int values, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (values == 8)
+    return cluster_xchg::launch_clusters(cluster_floor_kernel<CLUSTER_NT, 8>, CLUSTER_C, chains,
+                                         CLUSTER_NT, 0, s, (float*)out, steps);
+  if (values == 12)
+    return cluster_xchg::launch_clusters(cluster_floor_kernel<CLUSTER_NT, 12>, CLUSTER_C, chains,
+                                         CLUSTER_NT, 0, s, (float*)out, steps);
   return (int)cudaErrorInvalidValue;
 }

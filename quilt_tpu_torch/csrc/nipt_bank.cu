@@ -55,12 +55,18 @@
 //     barrier, and every thread adds the records in warp order, so all
 //     threads take the same decision from the same sums.
 // A general form (the bank in shared memory, operands read in the step)
-// serves K above the register forms, and its global form (the bank and the
-// staged scalars in a global scratch plane) any K and G whose bank or
-// staged scalars outgrow a block's shared memory (K > 6,257 at 512 grids;
-// about 19,000 grids). The previous form is nipt_bank_prev.cu.
+// serves K above the register forms. Where its bank outgrows a block's
+// shared memory (K > 6,257 at 512 grids), the cluster form takes the chain:
+// a thread-block cluster of 16 blocks, each a register form over its slice
+// of the columns, whose steps exchange their 12 (at a block end 21) values
+// over distributed shared memory (cluster_xchg.cuh), up to K = 16,384. Its
+// global form (the bank and the staged scalars in a global scratch plane)
+// takes any K and G past that, and past the grids whose staged scalars fit
+// a block (about 19,000). The previous form is nipt_bank_prev.cu.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "cluster_xchg.cuh"
 
 namespace {
 
@@ -72,6 +78,11 @@ constexpr int NT = 128;
 constexpr int NWARP = NT / 32;
 constexpr int RW = 24;            // a warp's record: 18 sums, 3 maxima, padding
 constexpr int SMEM_LIMIT = 232448;
+// the cluster form: blocks a chain (16, a non-portable cluster: timed in
+// turn at 512 grids x 4 chains x K = 6,272, 16 blocks of 392 columns took
+// 1.498 ms, 8 blocks of 784 1.955; chip_smoke.py, PERF.md) and its capacity
+constexpr int CLUSTER_C = 16;
+constexpr int CLUSTER_COLS = CLUSTER_C * NT * 8;
 
 __host__ __device__ constexpr int r4(int n) { return (n + 3) & ~3; }
 
@@ -181,11 +192,12 @@ __device__ __forceinline__ void reduce_sums_maxima(bool end, const float (&v)[18
 // probabilities written, the log normalisers restarted. Lane q < 9 of each
 // warp takes normaliser q (its inverse, its running log lg_q) and shares
 // them by shuffles, so no thread computes nine logarithms a step. Every
-// thread takes the same decision; thread 0 writes.
+// thread takes the same decision; thread 0 of the writer (a cluster form's
+// rank 0, the only block of the other forms) writes.
 __device__ __forceinline__ int decide(const float (&tot)[21], bool end, float& lg_q,
                                       float (&inv)[9], const float (&htv)[6], float uu,
                                       const float (&mask)[6], int* __restrict__ chosen_out,
-                                      float* __restrict__ probs_out, size_t gb) {
+                                      float* __restrict__ probs_out, size_t gb, bool writer) {
   const int lane = threadIdx.x & 31;
   float s = tot[0];
 #pragma unroll
@@ -224,14 +236,14 @@ __device__ __forceinline__ int decide(const float (&tot)[21], bool end, float& l
       const float p = lw[r] / sum;
       cum += p;
       chosen += cum <= uu ? 1 : 0;
-      if (threadIdx.x == 0) probs_out[gb * 6 + r] = p;
+      if (writer && threadIdx.x == 0) probs_out[gb * 6 + r] = p;
     }
     chosen = chosen < 5 ? chosen : 5;
     lg_q = 0.f;
-  } else if (threadIdx.x < 6) {
+  } else if (writer && threadIdx.x < 6) {
     probs_out[gb * 6 + threadIdx.x] = 0.f;
   }
-  if (threadIdx.x == 0) chosen_out[gb] = chosen;
+  if (writer && threadIdx.x == 0) chosen_out[gb] = chosen;
   return chosen;
 }
 
@@ -289,9 +301,34 @@ struct Chain {
   const float* u;
   int* chosen_out;
   float* probs_out;
-  int G, B, b, K_real;
+  int G, B, b, K_real;    // K_real: the block's real columns
+  bool writer;            // writes the chain's outputs
   float mask[6];
 };
+
+// A cluster form's exchange: a record of 21 values (18 sums, 3 maxima) at a
+// block end, 12 (9 sums, 3 maxima) elsewhere.
+using BankInbox = cluster_xchg::Inbox<24>;
+using BankExchange = cluster_xchg::Exchange<24>;
+
+// The cluster's values of a step from the block's (tot as reduce_step
+// leaves it), in every block the same.
+__device__ __forceinline__ void cluster_tot(BankExchange& xc, bool end, float (&tot)[21]) {
+  if (end) {
+    xc.combine<21, 18>(tot, threadIdx.x);
+  } else {
+    float w[12];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) w[q] = tot[q];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) w[9 + j] = tot[18 + j];
+    xc.combine<12, 9>(w, threadIdx.x);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) tot[q] = w[q];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tot[18 + j] = w[9 + j];
+  }
+}
 
 // The class-count terms and the uniform of the block that ends at a grid,
 // loaded at the step's start so that they arrive before its decision.
@@ -333,9 +370,11 @@ __device__ __forceinline__ void row_max(const float (&x)[3][CPT], float (&m)[3])
 }
 
 // Grid g of the register form; PAR = g & 1 (L[PAR ^ 1] holds grid g + 1,
-// L[PAR] receives grid g + 2).
-template <int CPT, int PAR>
-__device__ __forceinline__ void reg_step(Bank<CPT>& st, const Chain& ch, int g, float* red) {
+// L[PAR] receives grid g + 2). CL: a cluster form's block, whose sums go
+// through the cluster exchange xc.
+template <int CPT, int PAR, bool CL>
+__device__ __forceinline__ void reg_step(Bank<CPT>& st, const Chain& ch, int g, float* red,
+                                         BankExchange& xc) {
   const bool end = ch.ends[g] != 0;
   const float t0 = ch.stay[g], jp = ch.jump[g];
   const size_t gb = (size_t)g * ch.B + ch.b;
@@ -361,9 +400,10 @@ __device__ __forceinline__ void reg_step(Bank<CPT>& st, const Chain& ch, int g, 
   float m[3], tot[21];
   row_max(st.L[PAR ^ 1], m);
   reduce_sums_maxima(end, v, m, red + (g & 1) * NWARP * RW, tot);
+  if constexpr (CL) cluster_tot(xc, end, tot);
   float inv[9];
   const int chosen = decide(tot, end, st.lg, inv, htv, uu, ch.mask, ch.chosen_out,
-                            ch.probs_out, gb);
+                            ch.probs_out, gb, ch.writer);
   // e of grid g + 1
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
@@ -385,13 +425,13 @@ __device__ __forceinline__ void reg_step(Bank<CPT>& st, const Chain& ch, int g, 
   }
 }
 
-// Stages the chain's transition terms and block ends; returns the chain.
+// Stages the chain's transition terms and block ends; returns chain b,
+// whose block owns the columns k0 .. k0 + K_real - 1 of the real ones.
 __device__ __forceinline__ Chain make_chain(
     const float* lemg, const float* beta, const float* trans, const float* ht, const float* u,
     const int* is_end, const float* perm_mask, int* chosen_out, float* probs_out, int G, int B,
-    int K, int K_real, float invK, float* staged) {
+    int K, int K_real, float invK, float* staged, int b, int k0 = 0, bool writer = true) {
   Chain ch;
-  const int b = blockIdx.x;
   float* stay = staged;
   float* jump = staged + G;
   int* ends = reinterpret_cast<int*>(staged + 2 * G);
@@ -402,8 +442,8 @@ __device__ __forceinline__ Chain make_chain(
   }
   ch.step = (size_t)B * K;
   ch.gstride = 3 * ch.step;
-  ch.lemg = lemg + (size_t)b * K;
-  ch.beta = beta + (size_t)b * K;
+  ch.lemg = lemg + (size_t)b * K + k0;
+  ch.beta = beta + (size_t)b * K + k0;
   ch.stay = stay;
   ch.jump = jump;
   ch.ends = ends;
@@ -415,24 +455,34 @@ __device__ __forceinline__ Chain make_chain(
   ch.B = B;
   ch.b = b;
   ch.K_real = K_real;
+  ch.writer = writer;
 #pragma unroll
   for (int r = 0; r < 6; ++r) ch.mask[r] = perm_mask[r];
   return ch;
 }
 
-// One block of NT threads per chain; thread t owns columns t + c*NT.
-template <int CPT>
-__global__ void __launch_bounds__(NT, 1) nipt_bank_kernel(
+// The chain of the register form: NT threads, thread t owns the block's
+// columns t + c*NT. CL: the block is rank blockIdx.x of chain blockIdx.y's
+// cluster and owns the columns k0 = rank * KS .. k0 + KS - 1; each step's
+// sums go through the cluster exchange, and rank 0 writes.
+template <int CPT, bool CL>
+__device__ __forceinline__ void bank_chain(
     const float* __restrict__ lemg, const float* __restrict__ beta,
     const float* __restrict__ trans, const float* __restrict__ ht,
     const float* __restrict__ u, const int* __restrict__ is_end,
     const float* __restrict__ perm_mask, int* __restrict__ chosen_out,
-    float* __restrict__ probs_out, int G, int B, int K, int K_real, float invK) {
+    float* __restrict__ probs_out, int G, int B, int K, int K_real, float invK, int KS,
+    BankInbox* box) {
   extern __shared__ float4 smem4[];
   __shared__ float4 red4[2 * NWARP * RW / 4];
   float* red = reinterpret_cast<float*>(red4);
+  BankExchange xc(box);
+  const int k0 = CL ? blockIdx.x * KS : 0;
+  if (CL && threadIdx.x == 0) xc.init();
   const Chain ch = make_chain(lemg, beta, trans, ht, u, is_end, perm_mask, chosen_out, probs_out,
-                              G, B, K, K_real, invK, reinterpret_cast<float*>(smem4));
+                              G, B, K, CL ? max(0, min(KS, K_real - k0)) : K_real, invK,
+                              reinterpret_cast<float*>(smem4), CL ? blockIdx.y : blockIdx.x, k0,
+                              !CL || blockIdx.x == 0);
   Bank<CPT> st;
   st.lg = 0.f;
 #pragma unroll
@@ -443,14 +493,16 @@ __global__ void __launch_bounds__(NT, 1) nipt_bank_kernel(
   }
   // grid 0's maxima by a reduction of its own (records of parity 1), grid 1
   // in flight; beta of grid 0 where a block ends there
-  load_rows<CPT>(st.L[0], ch.lemg, ch.step, K_real, -INFINITY);
-  if (G > 1) load_rows<CPT>(st.L[1], ch.lemg + ch.gstride, ch.step, K_real, -INFINITY);
+  load_rows<CPT>(st.L[0], ch.lemg, ch.step, ch.K_real, -INFINITY);
+  if (G > 1) load_rows<CPT>(st.L[1], ch.lemg + ch.gstride, ch.step, ch.K_real, -INFINITY);
   __syncthreads();                                        // the staged chain
-  if (ch.ends[0]) load_rows<CPT>(st.bt, ch.beta, ch.step, K_real, 0.f);
+  if constexpr (CL) cluster_xchg::cluster_sync_all();     // and every block's inbox
+  if (ch.ends[0]) load_rows<CPT>(st.bt, ch.beta, ch.step, ch.K_real, 0.f);
   {
     float v[18] = {}, m[3], tot[21];
     row_max(st.L[0], m);
     reduce_sums_maxima(false, v, m, red + NWARP * RW, tot);
+    if constexpr (CL) cluster_tot(xc, false, tot);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
 #pragma unroll
@@ -458,9 +510,36 @@ __global__ void __launch_bounds__(NT, 1) nipt_bank_kernel(
     }
   }
   for (int g = 0; g < G; g += 2) {
-    reg_step<CPT, 0>(st, ch, g, red);
-    if (g + 1 < G) reg_step<CPT, 1>(st, ch, g + 1, red);
+    reg_step<CPT, 0, CL>(st, ch, g, red, xc);
+    if (g + 1 < G) reg_step<CPT, 1, CL>(st, ch, g + 1, red, xc);
   }
+}
+
+// One block of NT threads per chain.
+template <int CPT>
+__global__ void __launch_bounds__(NT, 1) nipt_bank_kernel(
+    const float* __restrict__ lemg, const float* __restrict__ beta,
+    const float* __restrict__ trans, const float* __restrict__ ht,
+    const float* __restrict__ u, const int* __restrict__ is_end,
+    const float* __restrict__ perm_mask, int* __restrict__ chosen_out,
+    float* __restrict__ probs_out, int G, int B, int K, int K_real, float invK) {
+  bank_chain<CPT, false>(lemg, beta, trans, ht, u, is_end, perm_mask, chosen_out, probs_out, G, B,
+                         K, K_real, invK, 0, nullptr);
+}
+
+// The cluster form: one chain on a cluster of C blocks (grid (C, B)), each
+// block a register form over its KS columns (a multiple of 4, at most
+// NT * CPT), the 3G staged scalars in every block's shared memory.
+template <int CPT>
+__global__ void __launch_bounds__(NT, 1) nipt_bank_cluster_kernel(
+    const float* __restrict__ lemg, const float* __restrict__ beta,
+    const float* __restrict__ trans, const float* __restrict__ ht,
+    const float* __restrict__ u, const int* __restrict__ is_end,
+    const float* __restrict__ perm_mask, int* __restrict__ chosen_out,
+    float* __restrict__ probs_out, int G, int B, int K, int K_real, float invK, int KS) {
+  __shared__ BankInbox box;
+  bank_chain<CPT, true>(lemg, beta, trans, ht, u, is_end, perm_mask, chosen_out, probs_out, G, B,
+                        K, K_real, invK, KS, &box);
 }
 
 // ---- the general form: the bank in shared memory --------------------------
@@ -484,7 +563,7 @@ __global__ void __launch_bounds__(NT, 1) nipt_bank_general_kernel(
                          : reinterpret_cast<float*>(smem4);
   float* bank = staged + r4(3 * G);                         // [9][K], row i*3 + j
   const Chain ch = make_chain(lemg, beta, trans, ht, u, is_end, perm_mask, chosen_out, probs_out,
-                              G, B, K, K_real, invK, staged);
+                              G, B, K, K_real, invK, staged, blockIdx.x);
   const int tid = threadIdx.x;
   for (int c = tid; c < 9 * K; c += NT) bank[c] = 0.f;
   float sc[9], mx[3], lg = 0.f;
@@ -548,7 +627,7 @@ __global__ void __launch_bounds__(NT, 1) nipt_bank_general_kernel(
     reduce_sums_maxima(end, v, m, red + (g & 1) * NWARP * RW, tot);
     float inv[9];
     const int chosen = decide(tot, end, lg, inv, htv, uu, ch.mask, ch.chosen_out,
-                              ch.probs_out, gb);
+                              ch.probs_out, gb, true);
 #pragma unroll
     for (int j = 0; j < 3; ++j) mx[j] = tot[18 + j];
     if (!end) {
@@ -587,6 +666,28 @@ __global__ void __launch_bounds__(NT, 1) nipt_bank_floor_kernel(float* out, int 
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
+// The floor of a cluster form's step: the same reductions, each followed by
+// the cluster exchange of its 12 values, on clusters of C blocks.
+__global__ void __launch_bounds__(NT, 1) nipt_bank_cluster_floor_kernel(float* out, int steps) {
+  __shared__ float4 red4[2 * NWARP * RW / 4];
+  __shared__ BankInbox box;
+  float* red = reinterpret_cast<float*>(red4);
+  BankExchange xc(&box);
+  if (threadIdx.x == 0) xc.init();
+  __syncthreads();
+  cluster_xchg::cluster_sync_all();
+  float acc = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    float w[16], tot[21];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) w[q] = acc + q;
+    reduce_step<16, 9, 12>(w, red + (i & 1) * NWARP * RW, tot);
+    cluster_tot(xc, false, tot);
+    acc = (tot[0] + tot[20]) * 1e-9f;
+  }
+  if (threadIdx.x == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+}
+
 }  // namespace
 
 constexpr int ERR_INVALID = (int)cudaErrorInvalidValue;
@@ -618,12 +719,15 @@ int launch(Kern kernel, int B, size_t smem, cudaStream_t st, const void* lemg,
 // (2, 5 or 8, K <= 128 * cpt, the 3G staged scalars in shared memory), -1
 // the general form (the bank and the staged scalars in shared memory), -2
 // the global form (both in scratch, [B][r4(3G) + 9K] floats; scratch is
-// unread otherwise). Each
+// unread otherwise), -3 the cluster form (CLUSTER_C blocks a chain, each
+// a register form over KS = ceil(K / CLUSTER_C) columns rounded up to 4, at
+// most 1,024; the 3G staged scalars in every block's shared memory). Each
 // register form beats the next wider one and the general form where it holds
 // K (chip_smoke.py's "bank forms" lines, 28 chains x 512 grids on the H100:
 // at K = 256 <2> 0.563 ms, <5> 0.769, <8> 1.138, general 1.262; at K = 1,024
 // <8> 1.174, general 3.019). Returns cudaErrorInvalidValue for a form
-// without an instantiation or one whose shared memory exceeds a block's.
+// without an instantiation or one whose shared memory exceeds a block's,
+// cudaErrorInvalidConfiguration for a cluster the card cannot schedule.
 extern "C" int nipt_bank(const void* lemg, const void* beta, const void* trans,
                          const void* ht, const void* u, const void* is_end,
                          const void* perm_mask, void* chosen_out, void* probs_out,
@@ -633,6 +737,21 @@ extern "C" int nipt_bank(const void* lemg, const void* beta, const void* trans,
   if (G < 1 || B < 1 || K_real < 1 || K_real > K || (cpt > 0 && NT * cpt < K))
     return ERR_INVALID;
   const size_t staged = 4 * (size_t)r4(3 * G);
+  if (cpt == -3) {
+    if (staged > SMEM_LIMIT - 8192) return ERR_INVALID;
+    const int KS = ((K + CLUSTER_C - 1) / CLUSTER_C + 3) & ~3;
+#define BANK_CLUSTER(CPT_)                                                                       \
+  cluster_xchg::launch_clusters(nipt_bank_cluster_kernel<CPT_>, CLUSTER_C, B, NT, staged, st,    \
+                                (const float*)lemg, (const float*)beta, (const float*)trans,     \
+                                (const float*)ht, (const float*)u, (const int*)is_end,           \
+                                (const float*)perm_mask, (int*)chosen_out, (float*)probs_out, G, \
+                                B, K, K_real, invK, KS)
+    if (KS <= NT * 2) return BANK_CLUSTER(2);
+    if (KS <= NT * 5) return BANK_CLUSTER(5);
+    if (KS <= NT * 8) return BANK_CLUSTER(8);
+#undef BANK_CLUSTER
+    return ERR_INVALID;
+  }
   if (cpt == -2) {
     if (scratch == nullptr) return ERR_INVALID;
     return launch(nipt_bank_general_kernel<true>, B, 0, st, lemg, beta, trans, ht, u, is_end,
@@ -662,4 +781,11 @@ extern "C" int nipt_bank(const void* lemg, const void* beta, const void* trans,
 extern "C" int nipt_bank_floor(void* out, int B, int steps, void* stream) {
   nipt_bank_floor_kernel<<<B, NT, 0, (cudaStream_t)stream>>>((float*)out, steps);
   return (int)cudaGetLastError();
+}
+
+// `steps` of the cluster form's steps (the reduction, then the exchange) in
+// each of B clusters of CLUSTER_C blocks; out [B * CLUSTER_C] floats.
+extern "C" int nipt_bank_cluster_floor(void* out, int B, int steps, void* stream) {
+  return cluster_xchg::launch_clusters(nipt_bank_cluster_floor_kernel, CLUSTER_C, B, NT, 0,
+                                       (cudaStream_t)stream, (float*)out, steps);
 }

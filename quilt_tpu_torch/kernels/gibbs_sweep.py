@@ -15,15 +15,21 @@ every device-memory load to producer warps that run ahead of the chain and
 fill shared-memory rings. The wrapper names the form (`fwd_form`, `bwd_form`):
 the smallest register variant that holds K, above K = 2,048 the general
 variant with the state in per-thread local arrays (forward: while one grid
-stage and one read row fit the shared-memory rings), and past those a global
-form that takes any K device memory holds (the state in a global scratch
-plane, rows read straight from device memory, no ring; its own launch
-counts `FWD_GLOBAL_KERNELS[nl]`, `BWD_GLOBAL_KERNEL`). A form is never
-replaced by another: the C entry refuses one that does not hold K. The
-forms and the K they take:
+stage and one read row fit the shared-memory rings), past those, forward,
+a cluster form (one chain on a thread-block cluster of 8 blocks, each a
+register form over its eighth of the columns with its own producer warp;
+the blocks exchange each step's sums over distributed shared memory,
+csrc/cluster_xchg.cuh; its own launch counts `FWD_CLUSTER_KERNELS[nl]`),
+and past that a global form that takes any K device memory holds (the state
+in a global scratch plane, rows read straight from device memory, no ring;
+its own launch counts `FWD_GLOBAL_KERNELS[nl]`, `BWD_GLOBAL_KERNEL`). A form
+is never replaced by another: the C entry refuses one that does not hold K
+(and a cluster the card cannot schedule). The forms and the K they take:
 
     registers  K <= 2,048           128 threads x 2 / 4 / 5 / 8, 256 x 8
     general    K <= 10,240          forward at nl = 3 only to K = 8,155
+    cluster    K <= 16,384 (nl 2)   forward only: 8 blocks x 256 threads x 8 columns
+               K <= 12,288 (nl 3)   (x 6 columns at nl = 3)
     global     any K
 
 A skipped slot (empty, or an uninformative read) is no step at all: it
@@ -39,9 +45,11 @@ nl. Each nl has its own launch count (`FWD_KERNELS[nl]`, `BWD_KERNELS[nl]`).
 
 The private `_variant` argument is for timings and tests only (64, 128 or
 256: that many chain threads, as far as instantiated; -1: the general
-variant wherever it holds K), as are `_ahead` (the backward step's look-ahead
-form) and `_wide` (nl = 3: a step's 9 or 12 values reduced as one
-reduction of 16 instead of two of at most 8); the engine never passes them.
+variant wherever it holds K; GLOBAL: the global form at any K, timed in
+turn with the cluster form it gave way to), as are `_ahead` (the backward
+step's look-ahead form) and `_wide` (nl = 3: a step's 9 or 12 values
+reduced as one reduction of 16 instead of two of at most 8); the engine
+never passes them.
 """
 from __future__ import annotations
 
@@ -62,10 +70,14 @@ BWD_KERNELS = {2: Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS),
                3: Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_nl3")}
 FWD_GLOBAL_KERNELS = {nl: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS, name=f"gibbs_fwd_global{sfx}")
                       for nl, sfx in ((2, ""), (3, "_nl3"))}
+FWD_CLUSTER_KERNELS = {nl: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS,
+                                  name=f"gibbs_fwd_cluster{sfx}")
+                       for nl, sfx in ((2, ""), (3, "_nl3"))}
 # the backward works on state rows and never sees nl: one count for its global form
 BWD_GLOBAL_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_global")
 FWD_KERNEL, BWD_KERNEL = FWD_KERNELS[2], BWD_KERNELS[2]
 FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 4)
+CLUSTER_FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_cluster_floor", [_P] + [_I] * 3)
 _NEG = -1e30
 # dynamic shared memory a block may take (csrc/gibbs_sweep.cu SMEM_LIMIT): the
 # forward's rings shrink to one grid stage (2 * nl rows of K floats) and one
@@ -75,13 +87,18 @@ _SMEM_LIMIT = 227 * 1024 - 4096
 # dispatch tries them; the general variant's capacity
 _REGISTER_PAIRS = ((128, 2), (128, 4), (128, 5), (128, 8), (256, 8))
 _GENERAL_COLS = 256 * 40
+# the forward's cluster form (csrc/gibbs_sweep.cu CLUSTER_C, CLUSTER_NT): 8
+# blocks a chain of 256 chain threads, 8 columns a thread (6 at nl = 3)
+_CLUSTER_C = 8
+_CLUSTER_COLS = {2: _CLUSTER_C * 256 * 8, 3: _CLUSTER_C * 256 * 6}
 
 
 # the form codes the C entries read (csrc/gibbs_sweep.cu, csrc/nipt_bank.cu):
 # a positive code is a register form (chain threads for the sweeps, columns
 # a thread for the bank), GENERAL the state in shared memory or local arrays,
-# GLOBAL the state in a global scratch plane
-GENERAL, GLOBAL = -1, -2
+# GLOBAL the state in a global scratch plane, CLUSTER one chain on a
+# thread-block cluster, each block a register form over a slice of the columns
+GENERAL, GLOBAL, CLUSTER = -1, -2, -3
 
 
 def _register_form(K: int) -> Optional[int]:
@@ -93,13 +110,13 @@ def fwd_form(K: int, nl: int) -> int:
     and nl latent rows, as csrc/gibbs_sweep.cu dispatches it: chain threads
     of a register form up to 2,048, GENERAL while the general variant holds
     K (10,240) and one grid stage and one read row fit shared memory (8,155
-    at nl = 3), else GLOBAL."""
+    at nl = 3), CLUSTER up to 16,384 (12,288 at nl = 3), else GLOBAL."""
     form = _register_form(K)
     if form is not None:
         return form
     if K <= _GENERAL_COLS and 4 * (2 * nl + 1) * K <= _SMEM_LIMIT:
         return GENERAL
-    return GLOBAL
+    return CLUSTER if K <= _CLUSTER_COLS[nl] else GLOBAL
 
 
 def bwd_form(K: int) -> int:
@@ -115,7 +132,8 @@ def bwd_form(K: int) -> int:
 
 def fwd_scratch_floats(K: int, nl: int) -> int:
     """Floats of scratch a chain of the forward sweep takes at K: its alpha
-    [nl, K] in the global form, none in the others."""
+    [nl, K] in the global form, none in the others (the cluster form's
+    state is in its blocks' registers)."""
     return nl * K if fwd_form(K, nl) == GLOBAL else 0
 
 
@@ -162,7 +180,7 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
                                lab_init, trans, cnt_max, K_real, it_mode,
                                want_alpha, nl=nl, prior=prior)
     threads = fwd_form(K, nl) if _variant is None else _variant
-    kernel = FWD_GLOBAL_KERNELS[nl] if threads == GLOBAL else FWD_KERNELS[nl]
+    kernel = {GLOBAL: FWD_GLOBAL_KERNELS, CLUSTER: FWD_CLUSTER_KERNELS}.get(threads, FWD_KERNELS)[nl]
     scratch = torch.empty((B, nl, K) if threads == GLOBAL else (1,), dtype=f32, device=dev)
     lemg_out = torch.empty_like(lemg)
     alphas = torch.empty((G if want_alpha else 1, BN, K), dtype=f32, device=dev)
@@ -213,6 +231,17 @@ def chain_floor(steps: int, threads: int, blocks: int, device, values: int = 8) 
         raise ValueError("chain_floor times the card and needs a CUDA device")
     out = torch.empty((blocks,), dtype=torch.float32, device=device)
     FLOOR_KERNEL.launch(out.data_ptr(), blocks, steps, threads, values)
+    return out
+
+
+def cluster_floor(steps: int, chains: int, device, values: int = 8) -> torch.Tensor:
+    """The same for the cluster form's read step (`values` = 8 or 12, as at
+    nl = 2 or 3: the block reductions, then the cluster exchange) on `chains`
+    clusters of the form's shape; out [chains * blocks a cluster]."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("cluster_floor times the card and needs a CUDA device")
+    out = torch.empty((chains * _CLUSTER_C,), dtype=torch.float32, device=device)
+    CLUSTER_FLOOR_KERNEL.launch(out.data_ptr(), chains, steps, values)
     return out
 
 

@@ -17,6 +17,21 @@ lemg against each (grid, row) maximum over the real haplotypes and masks the
 pad haplotypes itself. It keeps the bank raw and carries each row's
 normaliser into the next step (a = e * ((stay * sc) * a + jump)); the plain
 version does the same operations in the same order.
+
+The forms and the K they take (bank_form; 512 grids):
+
+    registers  K <= 1,024           128 threads x 2 / 5 / 8 columns
+    general    K <= 6,257           the bank in shared memory
+    cluster    K <= 16,384          16 blocks a chain, each a register form
+                                    over its slice (at most 1,024 columns)
+    global     any K                the bank in a scratch plane
+
+The cluster form (one chain on a thread-block cluster; the blocks exchange
+each grid's sums over distributed shared memory, csrc/cluster_xchg.cuh)
+adds a step's sums in another order than the other forms, so it differs
+from them by rounding; it counts apart (BANK_CLUSTER_KERNEL), as does the
+global form (BANK_GLOBAL_KERNEL), which serves past the cluster form's K and
+past the grids whose staged scalars fit shared memory (about 18,700).
 """
 from __future__ import annotations
 
@@ -26,14 +41,17 @@ import torch
 
 from .._build import Kernel, check_tensor as _check
 from . import nipt as nipt_tables
-from .gibbs_sweep import GENERAL, GLOBAL
+from .gibbs_sweep import CLUSTER, GENERAL, GLOBAL
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BANK_ARGS = [_P] * 9 + [_I] * 5 + [_F, _P]
 BANK_KERNEL = Kernel("nipt_bank", "nipt_bank", _BANK_ARGS)
-# the global form (the bank and the staged scalars in a scratch plane) counts apart
+# the global form (the bank and the staged scalars in a scratch plane) and the
+# cluster form count apart
 BANK_GLOBAL_KERNEL = Kernel("nipt_bank", "nipt_bank", _BANK_ARGS, name="nipt_bank_global")
+BANK_CLUSTER_KERNEL = Kernel("nipt_bank", "nipt_bank", _BANK_ARGS, name="nipt_bank_cluster")
 FLOOR_KERNEL = Kernel("nipt_bank", "nipt_bank_floor", [_P] + [_I] * 2)
+CLUSTER_FLOOR_KERNEL = Kernel("nipt_bank", "nipt_bank_cluster_floor", [_P] + [_I] * 2)
 # the previous form (csrc/nipt_bank_prev.cu), timings only: no path launches it
 _PREV_BANK_KERNEL = Kernel("nipt_bank_prev", "nipt_bank_prev", [_P] * 9 + [_I] * 3 + [_F])
 
@@ -42,6 +60,10 @@ _NT = 128
 _BANK_CPTS = (2, 5, 8)
 # shared memory a block may take (csrc/nipt_bank.cu SMEM_LIMIT)
 _SMEM_LIMIT = 232448
+# the cluster form's blocks a chain and capacity (csrc/nipt_bank.cu
+# CLUSTER_C, CLUSTER_COLS): 16 blocks of 1,024 columns
+_CLUSTER_C = 16
+_CLUSTER_COLS = _CLUSTER_C * _NT * 8
 
 
 def _bank_cpt(K):
@@ -57,10 +79,12 @@ def _staged_floats(G):
 def bank_form(K: int, G: int) -> int:
     """The form code of the bank kernel at K haplotypes and G grids, as
     csrc/nipt_bank.cu takes it (the sweeps' codes, gibbs_sweep.GENERAL /
-    GLOBAL): columns a thread in registers (2, 5 or 8, up to K = 1,024)
-    while the 3G staged scalars fit shared memory (about 19,000 grids),
-    GENERAL while those and the 9K bank fit (K <= 6,257 at 512 grids), else
-    GLOBAL (both in a scratch plane of bank_scratch_floats(K, G) floats a
+    CLUSTER / GLOBAL): columns a thread in registers (2, 5 or 8, up to K =
+    1,024) while the 3G staged scalars fit shared memory (about 19,000
+    grids), GENERAL while those and the 9K bank fit (K <= 6,257 at 512
+    grids), CLUSTER up to K = 16,384 while the staged scalars fit beside the
+    cluster's exchange (about 18,700 grids), else GLOBAL (the bank and the
+    staged scalars in a scratch plane of bank_scratch_floats(K, G) floats a
     chain)."""
     staged = 4 * _staged_floats(G)
     cpt = _bank_cpt(K)
@@ -68,6 +92,8 @@ def bank_form(K: int, G: int) -> int:
         return cpt
     if staged + 36 * K <= _SMEM_LIMIT - 1024:
         return GENERAL
+    if K <= _CLUSTER_COLS and staged <= _SMEM_LIMIT - 8192:
+        return CLUSTER
     return GLOBAL
 
 
@@ -77,7 +103,7 @@ def bank_scratch_floats(K: int, G: int) -> int:
     return _staged_floats(G) + 9 * K if bank_form(K, G) == GLOBAL else 0
 
 
-def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False):
+def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False, _variant=None):
     """The relabelling drawn at every block end of every chain.
 
     lemg [G, 3B, K] f32 log grid emissions and beta [G, 3B, K] as the
@@ -91,10 +117,13 @@ def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False):
 
     Inputs on the CPU run the plain version; CUDA tensors launch the
     kernel in the form bank_form(K, G) names: registers up to K = 1,024,
-    the general form above that, the global form where neither fits
-    shared memory (its own launch count, BANK_GLOBAL_KERNEL). Private, timings
-    only: _prev launches the previous form (csrc/nipt_bank_prev.cu) on the
-    e and beta * mask planes that it reads, built here (_prev_planes)."""
+    the general form above that, the cluster form where neither fits shared
+    memory, up to K = 16,384, and the global form past it (each of the
+    last two under its own launch count). Private, timings and tests only:
+    _variant a form code (GLOBAL: the global form at any K, timed in turn
+    with the cluster form); _prev launches the previous form
+    (csrc/nipt_bank_prev.cu) on the e and beta * mask planes that it reads,
+    built here (_prev_planes)."""
     G, BN, K = lemg.shape
     if BN % 3:
         raise ValueError(f"a NIPT state has 3 rows a chain, got {BN} rows")
@@ -116,10 +145,10 @@ def bank_scan(lemg, beta, trans, ht, u, is_end, perm_mask, K_real, _prev=False):
                                perm_mask, K_real)
     chosen = torch.empty((G, B), dtype=torch.int32, device=dev)
     probs = torch.empty((G, B, 6), dtype=f32, device=dev)
-    cpt = bank_form(K, G)
-    scratch = torch.empty((B, bank_scratch_floats(K, G)) if cpt == GLOBAL else (1,), dtype=f32,
+    cpt = bank_form(K, G) if _variant is None else _variant
+    scratch = torch.empty((B, _staged_floats(G) + 9 * K) if cpt == GLOBAL else (1,), dtype=f32,
                           device=dev)
-    (BANK_GLOBAL_KERNEL if cpt == GLOBAL else BANK_KERNEL).launch(
+    {GLOBAL: BANK_GLOBAL_KERNEL, CLUSTER: BANK_CLUSTER_KERNEL}.get(cpt, BANK_KERNEL).launch(
         lemg.data_ptr(), beta.data_ptr(), trans.data_ptr(), ht.data_ptr(), u.data_ptr(),
         is_end.data_ptr(), perm_mask.data_ptr(), chosen.data_ptr(), probs.data_ptr(), G, B, K,
         K_real, cpt, 1.0 / K_real, scratch.data_ptr())
@@ -156,6 +185,17 @@ def bank_floor(steps: int, B: int, device) -> torch.Tensor:
         raise ValueError("bank_floor times the card and needs a CUDA device")
     out = torch.empty((B,), dtype=torch.float32, device=device)
     FLOOR_KERNEL.launch(out.data_ptr(), B, steps)
+    return out
+
+
+def bank_cluster_floor(steps: int, B: int, device) -> torch.Tensor:
+    """The same for the cluster form's step (the reduction, then the
+    exchange of its 12 values) on B clusters of the form's shape; out
+    [B * blocks a cluster]."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("bank_cluster_floor times the card and needs a CUDA device")
+    out = torch.empty((B * _CLUSTER_C,), dtype=torch.float32, device=device)
+    CLUSTER_FLOOR_KERNEL.launch(out.data_ptr(), B, steps)
     return out
 
 

@@ -13,9 +13,10 @@ compared on chains whose labels all agree at rtol 1e-4 / atol 1e-3; beta
 rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5; the
 K-split FB: emission maxima within kernels.fb.max_tiled_tolerance (the
 previous form exact), checkpoints and S rtol 1e-5, the backward's rebuilt
-alphas equal to the forward's, dosage and top-K atol 1e-4). The global
-forms of the Gibbs kernels (any K) are held to the same tolerances at K just
-above the other forms' limits."""
+alphas equal to the forward's, dosage and top-K atol 1e-4). The cluster
+forms of the forward sweep and of the NIPT bank (one chain on a thread-block
+cluster) are held to the same tolerances from the shared-memory forms' limits
+to their capacity, and the global forms (any K) just past that."""
 import numpy as np
 import pytest
 import torch
@@ -171,6 +172,13 @@ def test_sweep_kernels_refuse_a_variant_that_does_not_hold_k(cuda):
     with pytest.raises(RuntimeError, match="gibbs_bwd"):
         gs.bwd_sweep(torch.zeros((2, 2, 10368), device=cuda), big[6], nl=2, K_real=10368,
                      _variant=-1)
+    # the cluster form past its capacity: refused, never replaced
+    for nl, K in ((2, 16512), (3, 12416)):
+        big = [torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+            np.random.default_rng(1), 2, 1, 2, K, K, 2, nl=nl)]
+        prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
+        with pytest.raises(RuntimeError, match="gibbs_fwd"):
+            gs.fwd_sweep(*big, nl=nl, K_real=K, it_mode=2, prior=prior, _variant=gs.CLUSTER)
 
 
 @pytest.mark.parametrize("K,B", [(90, 5), (700, 3)])
@@ -732,9 +740,10 @@ def test_nipt_bank_refuses_what_it_has_no_instantiation_for(cuda):
     args = (z(G, 3 * B, K), z(G, 3 * B, K), z(2, G), z(G, B, 6), z(G, B),
             z(G, B, dt=torch.int32), torch.ones(6, device=cuda), K)
     out = z(G * B * 7)
-    for K_, cpt in ((7000, gs.GENERAL),                # 9 x 7,000 floats: above a block's
-                    (640, 3), (640, 4), (7000, 8),     # no such form; 8 x 128 < 7,000
-                    (7000, 0), (7000, -3)):
+    for K_, cpt in ((7000, gs.GENERAL),       # 9 x 7,000 floats: above a block's
+                    (640, 3), (640, 4),       # no such form; 8 x 128 < 7,000
+                    (7000, 8), (7000, 0), (7000, -4),
+                    (16512, gs.CLUSTER)):     # past 16 blocks x 1,024
         with pytest.raises(RuntimeError, match="cudaError"):
             nb.BANK_KERNEL.launch(*(a.data_ptr() for a in args[:7]), out.data_ptr(),
                                   out.data_ptr(), G, B, K_, 600, cpt, 1 / 600, out.data_ptr())
@@ -747,6 +756,94 @@ def test_nipt_bank_floor_runs(cuda):
     out = nb.bank_floor(100, 3, cuda)
     torch.cuda.synchronize()
     assert out.shape == (3,) and torch.isfinite(out).all()
+    out = nb.bank_cluster_floor(100, 3, cuda)
+    torch.cuda.synchronize()
+    assert out.shape == (48,) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("values", [8, 12])
+def test_sweep_cluster_floor_runs(cuda, values):
+    out = gs.cluster_floor(100, 3, cuda, values=values)
+    torch.cuda.synchronize()
+    assert out.shape == (24,) and torch.isfinite(out).all()
+    # every block of a cluster holds the same sums
+    assert torch.equal(out.view(3, 8), out.view(3, 8)[:, :1].expand(3, 8))
+
+
+@pytest.mark.parametrize("nl,K,K_real,G,B,W", [
+    (2, 10368, 10300, 4, 2, 3),    # the wide path's Ksubset: past the general variant
+    (3, 10368, 10300, 4, 2, 3),
+    (3, 8192, 8150, 4, 2, 3),      # the wide NIPT path's: one ring stage no longer fits
+    (2, 12288, 12220, 4, 2, 3),
+    (3, 12288, 12288, 3, 1, 2),    # the cluster form's last K at NL = 3
+    (2, 16384, 16300, 3, 1, 2),    # and at NL = 2
+    (2, 10241, 10241, 3, 2, 3),    # K no multiple of 4: 1,284 columns a block, the last 1,253
+])
+def test_sweep_cluster_forms_match_plain(cuda, nl, K, K_real, G, B, W):
+    """The forward sweep's cluster form (one chain on a cluster of 8 blocks,
+    each a register form over its slice of the columns; the blocks exchange
+    each step's sums) from the shared-memory forms' limit to its capacity,
+    against the plain version at the tolerances above, under its own launch
+    count (the global and register forms' counts unchanged); two launches
+    equal bit for bit."""
+    assert gs.fwd_form(K, nl) == gs.CLUSTER
+    prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
+    state = random_sweep_state(np.random.default_rng(K + nl + 7), G, B, W, K, K_real, W, nl=nl)
+    args = [torch.from_numpy(x).to(cuda) for x in state]
+    live = args[3][:, 2] == 0
+    counts = (gs.FWD_CLUSTER_KERNELS[nl], gs.FWD_GLOBAL_KERNELS[nl], gs.FWD_KERNELS[nl])
+    before = [k.launches for k in counts]
+    form = dict(_variant=gs.CLUSTER)
+    for it_mode in (0, 2):
+        ref = gs.fwd_sweep_plain(*args, K_real=K_real, it_mode=it_mode, nl=nl, prior=prior)
+        got = gs.fwd_sweep(*args, nl=nl, K_real=K_real, it_mode=it_mode, prior=prior, **form)
+        assert (got[2][live] == ref[2][live]).float().mean().item() > 0.995
+        assert torch.equal(got[2][~live], ref[2][~live])
+        same = ((got[2] == ref[2]) | ~live).all(0).all(0)
+        rows = torch.cat([same] * nl)
+        assert 1.0 - same.float().mean().item() <= 0.1
+        torch.testing.assert_close(got[0][:, rows], ref[0][:, rows], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[1][:, rows], ref[1][:, rows], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(got[3][rows], ref[3][rows], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[5][same], ref[5][same], rtol=0, atol=0)
+        assert torch.equal(got[4], ref[4])
+        again = gs.fwd_sweep(*args, nl=nl, K_real=K_real, it_mode=it_mode, prior=prior, **form)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [k.launches for k in counts] == [before[0] + 4, before[1], before[2]]
+
+
+@pytest.mark.parametrize("G,B,K,K_real,p_end", [
+    (512, 4, 6272, 6200, 0.05),       # the general form's bank outgrows shared memory at 512 grids
+    (32, 14, 8192, 8100, 0.1),        # the wide NIPT path's shape
+    (512, 2, 12288, 12200, 0.05),
+    (64, 3, 16384, 16384, 0.1),       # the cluster form's last K
+])
+def test_nipt_bank_cluster_form_matches_plain(cuda, G, B, K, K_real, p_end):
+    """The bank's cluster form (one chain on a cluster of 16 blocks, each a
+    register form over its slice) against the plain version, under its own
+    launch count; two launches equal bit for bit."""
+    assert nb.bank_form(K, G) == gs.CLUSTER
+    rng = np.random.default_rng(G + K)
+    lemg, beta = (torch.from_numpy(x).to(cuda) for x in random_sweep_state(
+        rng, G, B, 2, K, K_real, 2, nl=3)[:2])
+    trans = np.stack([rng.uniform(0.9, 0.999, G), rng.uniform(0.001, 0.1, G)]).astype(np.float32)
+    trans[:, 0] = (1.0, 0.0)
+    is_end = (rng.random((G, B)) < p_end).astype(np.int32)
+    is_end[G - 1] = 1
+    t = lambda x: torch.from_numpy(x).to(cuda)
+    args = (lemg, beta, t(trans), t(rng.normal(0, 2, (G, B, 6)).astype(np.float32)),
+            t(rng.random((G, B)).astype(np.float32)), t(is_end), torch.ones(6, device=cuda),
+            K_real)
+    ref_c, ref_p = nb.bank_scan_plain(*args)
+    counts = (nb.BANK_CLUSTER_KERNEL, nb.BANK_GLOBAL_KERNEL, nb.BANK_KERNEL)
+    before = [k.launches for k in counts]
+    got_c, got_p = nb.bank_scan(*args)
+    assert [k.launches for k in counts] == [before[0] + 1, before[1], before[2]]
+    same = (got_c == ref_c).all(0)
+    assert same.sum() >= B - max(1, B // 10) and same.any()
+    torch.testing.assert_close(got_p[:, same], ref_p[:, same], rtol=0, atol=1e-4)
+    again = nb.bank_scan(*args)
+    assert torch.equal(got_c, again[0]) and torch.equal(got_p, again[1])
 
 
 @pytest.mark.parametrize("quilt2", [False, True])
@@ -777,16 +874,16 @@ def test_nipt_engine_on_gpu(cuda, quilt2):
 
 
 @pytest.mark.parametrize("nl,K,K_real,G,B,W", [
-    (2, 10368, 10300, 4, 2, 3),          # above the general variant's 10,240 columns
-    (3, 8192, 8150, 4, 2, 3),            # NL = 3: one grid stage and a read row outgrow shared memory
-    (3, 10368, 10368, 3, 1, 2),
+    (2, 16512, 16450, 4, 2, 3),          # past the cluster form's 16,384 columns
+    (3, 12416, 12350, 4, 2, 3),          # NL = 3: past its 12,288
+    (3, 16512, 16512, 3, 1, 2),
     (2, 40960, 40900, 2, 1, 2),
 ])
 def test_sweep_global_forms_match_plain(cuda, nl, K, K_real, G, B, W):
     """The global forms of the two sweep kernels (no ring, the state in a
-    scratch plane) at K just above the other forms' limits, against the
-    plain versions, under their own launch counts; two launches equal bit
-    for bit."""
+    scratch plane) at K just past the other forms' limits (the forward's
+    cluster form's capacity), against the plain versions, under their own
+    launch counts; two launches equal bit for bit."""
     assert gs.fwd_form(K, nl) == gs.GLOBAL
     prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
     state = random_sweep_state(np.random.default_rng(K + nl), G, B, W, K, K_real, W, nl=nl)
@@ -819,8 +916,8 @@ def test_sweep_global_forms_match_plain(cuda, nl, K, K_real, G, B, W):
 
 
 @pytest.mark.parametrize("G,B,K,K_real,p_end", [
-    (512, 2, 6272, 6200, 0.05),          # at 512 grids the general form's bank outgrows shared memory
-    (19300, 1, 40, 36, 0.001),           # the staged scalars of 19,300 grids do too
+    (512, 2, 16512, 16440, 0.05),        # past the cluster form's 16,384 columns
+    (19300, 1, 40, 36, 0.001),           # the staged scalars of 19,300 grids outgrow shared memory
 ])
 def test_nipt_bank_global_form_matches_plain(cuda, G, B, K, K_real, p_end):
     """The bank's global form (the bank and the staged scalars in a scratch
@@ -876,14 +973,16 @@ def test_fb_max_tiled_matches_plain(cuda, splits, B):
 
 
 def test_engine_on_gpu_at_a_large_ksubset(cuda):
-    """Diploid imputation at Ksubset 10,368, where both sweeps take their
-    global forms (and the dosage-free QUILT1 path runs no other Gibbs form):
-    r2 above 0.9 and the global forms launched."""
+    """Diploid imputation at Ksubset 10,368, where the forward sweep takes
+    its cluster form and the backward its global form (and the dosage-free
+    QUILT1 path runs no other Gibbs form): r2 above 0.9, those two forms
+    launched and the forward's global form not."""
     from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
 
     world = make_world(np.random.default_rng(11), K=10496, nSNPs=640, n_samples=2,
                        coverage=1.5)
-    kernels = [gs.FWD_GLOBAL_KERNELS[2], gs.BWD_GLOBAL_KERNEL, gs.FWD_KERNEL, gs.BWD_KERNEL]
+    kernels = [gs.FWD_CLUSTER_KERNELS[2], gs.BWD_GLOBAL_KERNEL, gs.FWD_KERNEL, gs.BWD_KERNEL,
+               gs.FWD_GLOBAL_KERNELS[2]]
     for k in kernels:
         k.launches = 0
     truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
@@ -893,7 +992,7 @@ def test_engine_on_gpu_at_a_large_ksubset(cuda):
                        "cuda", truth_gen=truth_gen)
     assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
     launches = [k.launches for k in kernels]
-    assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0], launches
+    assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0, 0], launches
 
 
 def test_engine_on_gpu_at_map(cuda):

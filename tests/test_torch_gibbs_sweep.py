@@ -15,7 +15,7 @@ import torch
 import jax.numpy as jnp
 from quilt_tpu.kernels.gibbs_pallas import _bwd_sweep, _fwd_sweep
 
-from quilt_tpu_torch.kernels.gibbs_sweep import GENERAL, GLOBAL, bwd_sweep, fwd_sweep
+from quilt_tpu_torch.kernels.gibbs_sweep import CLUSTER, GENERAL, GLOBAL, bwd_sweep, fwd_sweep
 from quilt_tpu_torch.simulate import random_sweep_state
 
 torch.set_num_threads(2)
@@ -224,9 +224,15 @@ def test_sweeps_refuse_other_row_counts(nl, BN):
     (640, 2, 128, 128),                 # the main path's K: 128 chain threads, registers
     (640, 3, 128, 128),
     (10240, 2, GENERAL, GENERAL),       # the general variant's last K
-    (10240, 3, GLOBAL, GENERAL),        # NL = 3: no ring stage fits past 8,155
-    (10368, 2, GLOBAL, GLOBAL),
-    (10368, 3, GLOBAL, GLOBAL),
+    (10240, 3, CLUSTER, GENERAL),       # NL = 3: no ring stage fits past 8,155
+    (8192, 3, CLUSTER, GENERAL),        # the wide NIPT path's Ksubset
+    (10368, 2, CLUSTER, GLOBAL),        # the wide path's Ksubset
+    (10368, 3, CLUSTER, GLOBAL),
+    (12288, 2, CLUSTER, GLOBAL),        # the timing shape
+    (12288, 3, CLUSTER, GLOBAL),        # the cluster form's last K at NL = 3
+    (12416, 3, GLOBAL, GLOBAL),         # and the next padded K
+    (16384, 2, CLUSTER, GLOBAL),        # its last K at NL = 2
+    (16512, 2, GLOBAL, GLOBAL),
     (40960, 2, GLOBAL, GLOBAL),
     (40960, 3, GLOBAL, GLOBAL),
 ])
@@ -234,8 +240,9 @@ def test_host_form_choices(K, nl, fwd, bwd):
     """The sweep kernels' form codes as the wrappers name them: the forms
     that ran before where they hold K (registers up to 2,048, the general
     variant up to 10,240 while, forward, one grid stage of 2 nl rows and a
-    read row fit the 227 KB - 4 KB of shared memory), the global form past
-    them; nothing raises at any K."""
+    read row fit the 227 KB - 4 KB of shared memory), the forward's cluster
+    form past them up to its capacity (8 blocks x 256 threads x 8 columns,
+    6 at nl = 3), the global form past that; nothing raises at any K."""
     from quilt_tpu_torch.kernels.gibbs_sweep import bwd_form, fwd_form, fwd_scratch_floats
 
     assert fwd_form(K, nl) == fwd and bwd_form(K) == bwd

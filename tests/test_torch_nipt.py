@@ -55,7 +55,7 @@ from quilt_tpu_torch.inputs import GibbsInputs, PaddedReads
 from quilt_tpu_torch.kernels import gibbs as tg
 from quilt_tpu_torch.kernels import nipt_bank as nb
 from quilt_tpu_torch.kernels.emissions import emat_read_from_bits
-from quilt_tpu_torch.kernels.gibbs_sweep import GENERAL, GLOBAL
+from quilt_tpu_torch.kernels.gibbs_sweep import CLUSTER, GENERAL, GLOBAL
 from quilt_tpu_torch.panel.prepare import prepare_panel as prepare_panel_t
 from quilt_tpu_torch.simulate import random_sweep_state, write_bam_world
 
@@ -286,14 +286,23 @@ def test_bank_forms():
     (512, 640, 5),          # the nipt path's shape: 5 columns a thread
     (512, 3000, GENERAL),   # the general form (bank in shared memory)
     (512, 6257, GENERAL),   # its last K at 512 grids
-    (512, 6272, GLOBAL),    # the global form: 9K + 3G floats outgrow shared memory
+    (512, 6272, CLUSTER),   # 9K + 3G floats outgrow shared memory: the cluster form
+    (32, 8192, CLUSTER),    # the wide NIPT path's shape
+    (512, 12288, CLUSTER),
+    (512, 16384, CLUSTER),  # the cluster form's last K: 16 blocks x 1,024 columns
+    (512, 16512, GLOBAL),   # the global form past it
+    (18600, 8192, CLUSTER), # the staged scalars still fit beside the cluster's exchange
+    (19300, 8192, GLOBAL),  # and no longer
     (19000, 640, 5),        # 3G staged scalars still fit beside the registers
-    (20000, 640, GLOBAL),   # and no longer
+    (19300, 640, GLOBAL),   # and no longer
+    (20000, 640, GLOBAL),
 ])
 def test_bank_host_form_choices(G, K, form):
     """The bank kernel's form as the wrapper names it (the forms that ran
-    before where they fit, the global form past them) and the scratch the
-    global form takes a chain; nothing raises at any K or G."""
+    before where they fit, the cluster form past them up to K = 16,384
+    while the staged scalars fit shared memory, the global form past that)
+    and the scratch the global form takes a chain; nothing raises at any K
+    or G."""
     assert nb.bank_form(K, G) == form
     staged = (3 * G + 3) // 4 * 4
     assert nb.bank_scratch_floats(K, G) == (staged + 9 * K if form == GLOBAL else 0)
