@@ -48,7 +48,16 @@ Phases, each fatal on failure:
                fb_tiled_core is held against the
                fused fb_core, and both FB families are timed at 14 to 112
                rows x K=5,120, 8,192, 10,240, 20,480 and 40,960 (the
-               measurements behind kernels.fb.fb_plan);
+               measurements behind kernels.fb.fb_plan; 16 blocks a row
+               where fb_plan weighs it); the K-split forward and backward
+               at their widest blocks (check_wide_tiled: 84 rows x K =
+               98,304 at 8 and 16 blocks a row, 16 rows x 194,512 x 128
+               grids at 16; the staged form, 24 haplotypes a thread with its words in
+               shared memory, and clusters of 16) against their plain
+               versions at the first and the last, timed in turn with the
+               general form, the clusters the card holds at once printed,
+               with the "tiled forward step split" and "tiled step split"
+               lines there;
                the fused FB backward with gamma capture (the HLA form) is
                checked at 112 and 14 rows x K=5,120 and timed in turn with
                the form without capture; the fused FB forward and backward
@@ -110,7 +119,11 @@ Phases, each fatal on failure:
                QUILT2 against a 98,304-haplotype panel (8 samples; fails
                under r2 0.9 / 0.85; the FB plan, the msPBWT build and the
                peak device memory printed; the FB family the plan takes
-               must launch, and gibbs_dos in QUILT2); and chains 0-6 of a
+               must launch, and gibbs_dos in QUILT2); fb_plan's choices at
+               16 and 112 rows x K = 194,512 timed; QUILT1 against a panel
+               of TOPMed r2's size (k200k: 194,512 haplotypes x 16,384
+               SNPs, 4 samples; fails under r2 0.9; the plan and its forms,
+               the profile and the peak memory printed); and chains 0-6 of a
                256-chain Gibbs call equal to a 7-chain call on the same
                inputs bit for bit (labels and logc); each section's
                seconds;
@@ -208,6 +221,10 @@ PARTED_CHAINS_BOUND = 0.1
 # of that panel is easy (tests/test_torch_ont_bench.py); the card's
 # readings were min 0.686 / mean 0.743 (8 samples) and 0.694 / 0.769 (32)
 ONT_BENCH_R2_MIN, ONT_BENCH_R2_MEAN = 0.65, 0.70
+# samples of the k200k world (bench phase): 4, half of k100k's 8, so that
+# the whole run stays near its length before the world came (649.5 s of
+# phases on an H100; with 8 it took 841.3 s, PERF.md)
+K200K_SAMPLES = 4
 
 
 # ptxas's report of the redesigned kernels' instantiations, filled by the build
@@ -661,7 +678,8 @@ def check_fb_at_rows(fb, rows_list, K_top=8, eps=0.001):
         dl = _random_dl(fb, B, gen, eps)[1]
         where = f" at {B} rows x K={fb.K}"
         print(f"FB{where}: fb_plan -> {family}, {per_call} rows per call, {splits} blocks per "
-              f"row", flush=True)
+              f"row" + (f"; {tiled_forms(fb.K_pad, splits, fb.nGrids)}" if family == "tiled"
+                        else ""), flush=True)
         if family == "tiled":
             _check_tiled(dl, words, trans2, thin, fb.K, fb.K_pad // splits, K_top, eps, where,
                          timer=lambda fn: (fn(), None))
@@ -1400,33 +1418,186 @@ def check_tiled_kernels(fb, B=28, K_top=8, eps=0.001):
 
 def synthetic_fb(K, nGrids=512):
     """FB inputs of a random panel (random words, 2% jump rate, every tenth
-    grid thinned): enough to time the FB families at a K between the two
-    worlds' without preparing a third world."""
+    grid thinned; K_pad K rounded up to 128, as FBInputs.build pads):
+    enough to time the FB families at a K between the worlds' without
+    preparing another world."""
     import numpy as np
     from quilt_tpu_torch.inputs import FBInputs
 
     rng = np.random.default_rng(SEED + K)
-    words = rng.integers(-2**31, 2**31, (nGrids, K), dtype=np.int64).astype(np.int32)
+    K_pad = -(-K // 128) * 128
+    words = np.zeros((nGrids, K_pad), dtype=np.int32)
+    words[:, :K] = rng.integers(-2**31, 2**31, (nGrids, K), dtype=np.int64).astype(np.int32)
     trans = np.tile(np.float32([0.98, 0.02]), (nGrids, 1))
     trans[0] = (1.0, 1.0)
     thin = np.full(nGrids, -1, dtype=np.int32)
     thin[::10] = np.arange(len(thin[::10]))
-    return FBInputs(words=words, trans=trans, thin_flag=thin, K=K, K_pad=K, nGrids=nGrids,
+    return FBInputs(words=words, trans=trans, thin_flag=thin, K=K, K_pad=K_pad, nGrids=nGrids,
                     S=nGrids * 32, nSNPs=nGrids * 32)
+
+
+def _form_name(cpt):
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    return ("general" if cpt == 0 else f"staged, {cpt} a thread" if cpt == fbk._STAGED_CPT
+            else f"registers, {cpt} a thread")
+
+
+def tiled_forms(K_pad, splits, Gp, K_top=8):
+    """The K-split FB's forms at K_pad / splits haplotypes a block, as text:
+    the interval, the storage, the forward's and the backward's forms."""
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    kt = K_pad // splits
+    cg = fbk.tiled_cg(kt, Gp)
+    smem, cpt = fbk._tiled_storage(cg, kt, K_top)
+    return (f"{kt} haplotypes a block, checkpoint interval {cg}, the chunk's alphas in "
+            f"{'shared' if smem else 'global'} memory; forms: fb_fwd_tiled "
+            f"{_form_name(fbk._fwd_tiled_cpt(kt))}, fb_bwd_tiled {_form_name(cpt)}")
+
+
+def _non_general(K_pad, splits, Gp, K_top=8):
+    """Whether both K-split kernels take a form other than the general one
+    at K_pad / splits haplotypes a block (they must, up to 24 a thread)."""
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    kt = K_pad // splits
+    return bool(fbk._fwd_tiled_cpt(kt) and fbk._tiled_storage(fbk.tiled_cg(kt, Gp), kt, K_top)[1])
+
+
+# the K-split FB at its widest blocks, (rows, K, blocks a row, grids): the
+# K100k batch's launch shape at 8 blocks a row (12,288 haplotypes a block)
+# and at 16 (6,144), and a launch of a TOPMed-sized panel (K = 194,512,
+# K_pad 194,560) at 16 (12,160; on 128 grids: its plain versions, 16 tiles
+# a grid, took 25.6 s at 512); the first and the last are held against the
+# plain versions
+WIDE_TILED_SHAPES = ((84, 98304, 8, 512), (84, 98304, 16, 512), (16, 194512, 16, 128))
+WIDE_TILED_CHECKED = ((84, 98304, 8, 512), (16, 194512, 16, 128))
+
+
+def check_wide_tiled(K_top=8, eps=0.001):
+    """The K-split forward and backward at WIDE_TILED_SHAPES on random
+    panels and GLs: the forms they take (none the general form) and the
+    clusters the card holds at once for each; at WIDE_TILED_CHECKED, the
+    three kernels against their plain versions on all the grids
+    (_check_tiled's tolerances; the forward's two launches equal bit for
+    bit too); each form timed in turn with the general form at its own
+    interval (the largest whose alpha planes fit, as the general form ran
+    there before the staged form) and, backward, with no thinned grid,
+    beside the exchange floors at that cluster size: the "tiled forward
+    step split" and "tiled step split" lines, in us a grid a wave of
+    clusters. Returns {kernel row name: [a dict a shape]}."""
+    import torch
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    out = {"fb_fwd_tiled": [], "fb_bwd_tiled": []}
+    steps = 3000
+    ptx = lambda k: "; ".join(PTXAS.get(k, ["not reported"]))
+    # kernels.fb._ACTIVE_CLUSTERS: the backward at one block an SM
+    print("clusters the card holds at once, the backward at 4,096 haplotypes a block (one "
+          "block an SM): " + ", ".join(f"{s} blocks {fbk.tiled_active_clusters(s, 4096)}"
+                                       for s in fbk._SPLITS[1:])
+          + f"; kernels.fb._ACTIVE_CLUSTERS {fbk._ACTIVE_CLUSTERS}", flush=True)
+    for B, K, splits, grids in WIDE_TILED_SHAPES:
+        fb = synthetic_fb(K, grids)
+        dev = fb.device_tensors("cuda")
+        words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+        Gp, kt = fb.nGrids, fb.K_pad // splits
+        cg = fbk.tiled_cg(kt, Gp)
+        cpt = fbk._tiled_storage(cg, kt, K_top)[1]
+        cpt_f = fbk._fwd_tiled_cpt(kt)
+        # the general form's own interval: the largest whose alpha planes fit
+        cg_g = next(c for c in (16, 8, 4, 2) if Gp % c == 0 and fbk._bwd_tiled_smem_bytes(
+            c, kt, fbk._KTOP_RESERVE, 1) <= fbk._SMEM_LIMIT)
+        act_b, act_f = fbk.tiled_active_clusters(splits, kt), fbk.tiled_active_clusters(
+            splits, kt, fwd=True)
+        where = f" at {B} rows x K={K} (K_pad {fb.K_pad}) x {Gp} grids, {splits} blocks a row"
+        print(f"K-split FB{where}: {tiled_forms(fb.K_pad, splits, Gp, K_top)}; clusters of "
+              f"{splits} blocks the card holds at once (cudaOccupancyMaxActiveClusters): "
+              f"backward {act_b}, forward {act_f}", flush=True)
+        if not cpt or not cpt_f:
+            _fail(f"the K-split FB{where} took the general form")
+        gl, dl = _random_dl(fb, B, gen, eps)
+        r = {}
+        if (B, K, splits, grids) in WIDE_TILED_CHECKED:
+            r = _check_tiled(dl, words, trans2, thin, K, kt, K_top, eps, where)
+            mx, (ck, S, lg), got = r["mx"], r["fwd"], r["bwd"]
+            if not all(torch.equal(a, b) for a, b in zip(
+                    fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt), r["fwd"])):
+                _fail(f"fb_fwd_tiled{where} gave other bits on a second launch")
+        else:
+            mx = fbk.fb_max_tiled(dl, words, K, kt)
+            ck, S, lg = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+            got = fbk.fb_backward_tiled(dl, words, ck, trans2, thin, mx, S, K, K_top, eps, kt)
+        fwd = lambda c, **v: (lambda: fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt, c, **v))
+        ck_g = fwd(cg_g, _general=True)()[0]
+        gen_b = fbk.fb_backward_tiled(dl, words, ck_g, trans2, thin, mx, S, K, K_top, eps, kt,
+                                      cg_g, _general=True)
+        err_g = (gen_b[0] - got[0]).abs().max().item()
+        if err_g > 1e-4:
+            _fail(f"the general form's dosage{where} is {err_g:.3e} from the new form's")
+        # (2 rounds of 5 launches: a backward launch here takes 30-90 ms)
+        t_f = _alternating_ms({"new": fwd(cg), "general form": fwd(cg_g, _general=True)}, 2, 5)
+        no_thin = torch.full_like(thin, -1)
+        bwd = lambda c, th, cgv, **v: (lambda: fbk.fb_backward_tiled(
+            dl, words, c, trans2, th, mx, S, K, K_top, eps, kt, cgv, **v))
+        t_b = _alternating_ms({"new": bwd(ck, thin, cg), "no thinned grid": bwd(ck, no_thin, cg),
+                               "general form": bwd(ck_g, thin, cg_g, _general=True)}, 2, 5)
+        nb = min(B, act_b)
+        floor_b = _median_ms(lambda: fbk.tiled_chain_floor(steps, nb, splits, "cuda"),
+                             3) * 1e3 / steps
+        floor_f = _median_ms(lambda: fbk.tiled_chain_floor(steps, nb, splits, "cuda", fwd=True),
+                             3) * 1e3 / steps
+        waves_b, waves_f = -(-B // act_b), -(-B // act_f)
+        us = lambda ms, waves: 1e3 * ms / Gp / waves
+        print(f"tiled forward step split{where} (this run): fb_fwd_tiled "
+              f"({_form_name(cpt_f)}, interval {cg}) {t_f['new']:.3f} ms = {us(t_f['new'], waves_f):.2f} "
+              f"us a grid a wave ({waves_f} waves of {act_f} clusters); general form (interval "
+              f"{cg_g}) {t_f['general form']:.3f} ms = {us(t_f['general form'], waves_f):.2f} us; "
+              f"forward exchange floor {floor_f:.2f} us a step ({nb} clusters); ptxas: "
+              + ptx("fb_fwd_tiled_kernel"), flush=True)
+        print(f"tiled step split{where} (this run): fb_bwd_tiled ({_form_name(cpt)}, interval "
+              f"{cg}) {t_b['new']:.3f} ms = {us(t_b['new'], waves_b):.2f} us a grid a wave "
+              f"({waves_b} waves of {act_b} clusters; rebuild + reverse step), no thinned grid "
+              f"{t_b['no thinned grid']:.3f} ms (top-K "
+              f"{100 * (1 - t_b['no thinned grid'] / t_b['new']):.1f}%); general form (interval "
+              f"{cg_g}) {t_b['general form']:.3f} ms = {us(t_b['general form'], waves_b):.2f} us, "
+              f"its dosage {err_g:.3e} from the new form's; cluster exchange floor {floor_b:.2f} us "
+              f"a step ({nb} clusters); ptxas: " + ptx("fb_bwd_tiled_kernel"), flush=True)
+        cells = B * Gp * K
+        shape = f"{B} rows x K={K} x {Gp} grids, {splits} blocks a row"
+        for name, t, form, work, err, plain in (
+                ("fb_fwd_tiled", t_f, cpt_f, (_nbytes(dl, words, trans2, mx, ck, S, lg), 40 * cells),
+                 r.get("err_ck"), r.get("fwd_plain_ms")),
+                ("fb_bwd_tiled", t_b, cpt, (_nbytes(dl, words, ck, trans2, thin, mx, S, *got),
+                                            (40 + 76) * cells), r.get("err_d"),
+                 r.get("bwd_plain_ms"))):
+            bound_ms, bound_by = _bound(*work)
+            out[name].append(dict(shape=shape, form=_form_name(form), ms=t["new"],
+                                  previous_form_ms=t["general form"], bound_ms=bound_ms,
+                                  bound_by=bound_by, plain_ms=plain, max_abs_err=err,
+                                  active_clusters=act_f if name == "fb_fwd_tiled" else act_b))
+        del fb, dev, words, gl, dl, mx, ck, S, got, ck_g, gen_b, r
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_fb_plan(fb, rows_list=(28, 112)):
     """Both FB families at the plan's decision points: median ms of three
     whole-FB calls through fb_full_batched (so with the plan's rows per core
     call) forced to the fused family and to the K-split one at 2, 4 and 8
-    blocks per row, on random GLs, and what fb_plan chooses there."""
+    blocks per row, and 16 where fb_plan weighs it (K_pad / 16 at least
+    _MIN_K_PER_SPLIT), on random GLs, and what fb_plan chooses there."""
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     forced = {"fused": dict(family="fused")}
-    forced.update({f"tiled/{s}": dict(family="tiled", splits=s) for s in (2, 4, 8)})
+    forced.update({f"tiled/{s}": dict(family="tiled", splits=s) for s in fbk._SPLITS[1:]
+                   if s < 16 or fb.K_pad // s >= fbk._MIN_K_PER_SPLIT})
     for B in rows_list:
         gl, _ = _random_dl(fb, B, gen)
         t = {name: _median_ms(lambda: fbk.fb_full_batched(gl, fb, 8, 0.001, **kw), 3)
@@ -1528,8 +1699,8 @@ def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move
             devices=None):
     """A warm-up call (it builds the region context, cached on the prepared
     reference), then a timed call with every launch count set to 0 just
-    before it, then one more call under torch.profiler after the counts
-    are read. Returns (output, truth, {kernel name: launches}). In a NIPT
+    before it (the FB plans it took printed, with the K-split forms), then
+    one more call under torch.profiler after the counts are read. Returns (output, truth, {kernel name: launches}). In a NIPT
     world the truth and the r2 of the report are the mother's (haplotypes
     1 + 2); nipt_report gives the fetus's. probe() is a context manager
     around the warm-up call too; block_move as profile_call takes it;
@@ -1537,6 +1708,7 @@ def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move
     import numpy as np
     import torch
     from quilt_tpu_torch.engine import driver
+    from quilt_tpu_torch.kernels import fb as fbk
 
     samples = world["samples"]
     names = [f"S{i}" for i in range(len(samples))]
@@ -1550,13 +1722,29 @@ def run_e2e(world, kernels, cfg, label, probe=contextlib.nullcontext, block_move
           f"live; the rest are empty or uninformative and are no longer a step)", flush=True)
     for k in kernels:
         k.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.time()
-    out = quilt_impute(world["prep"], samples, names, cfg, "cuda", truth_gen=truth_gen)
-    torch.cuda.synchronize()
-    dt = time.time() - t
+    # the FB plans the timed call takes (fb_full_batched asks fb_plan)
+    plans, real_plan = set(), fbk.fb_plan
+
+    def recording(B, fb, *a, **k):
+        got = real_plan(B, fb, *a, **k)
+        plans.add((B, fb.K_pad, fb.nGrids) + got)
+        return got
+
+    fbk.fb_plan = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        out = quilt_impute(world["prep"], samples, names, cfg, "cuda", truth_gen=truth_gen)
+        torch.cuda.synchronize()
+        dt = time.time() - t
+    finally:
+        fbk.fb_plan = real_plan
     launches = {k.name: k.launches for k in kernels}
+    for B, K_pad, Gp, family, per_call, splits in sorted(plans):
+        print(f"{label}: the FB at {B} rows x K_pad {K_pad}: {family}, {per_call} rows a call, "
+              f"{splits} blocks a row" + (f"; {tiled_forms(K_pad, splits, Gp)}"
+                                          if family == "tiled" else ""), flush=True)
     print(f"{label}: peak device memory of the timed call {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)", flush=True)
     r2 = out.r2_per_sample
@@ -2787,12 +2975,7 @@ def check_fb_plan_at(fb, dl, rows, label, family=None, splits=None):
         r = _check_fused(dl, words, trans2, thin, fb.K, 8, 0.001, where)
         return {"fb_fwd": r[5], "fb_bwd": r[6]}
     kt = fb.K_pad // splits
-    cg = fbk.tiled_cg(kt, fb.nGrids)
-    smem, cpt = fbk._tiled_storage(cg, kt, 8)
-    print(f"K-split FB{where}: {kt} haplotypes a block, checkpoint interval {cg}, the chunk's "
-          f"alphas in {'shared' if smem else 'global'} memory; forms: fb_fwd_tiled "
-          f"{fbk._fwd_tiled_cpt(kt)}, fb_bwd_tiled {cpt} haplotypes a thread in registers (0: the "
-          f"general form, its state in global planes)", flush=True)
+    print(f"K-split FB{where}: {tiled_forms(fb.K_pad, splits, fb.nGrids)}", flush=True)
     r = _check_tiled(dl, words, trans2, thin, fb.K, kt, 8, 0.001, where,
                      timer=lambda fn: (fn(), None))
     same = (torch.equal(fbk.fb_max_tiled(dl, words, fb.K, kt), r["mx"])
@@ -2823,14 +3006,17 @@ def run_bench(counted, gibbs_k, fused, tiled, gdos):
     K100k batch's 112 held against their plain versions on 4 rows, and both
     families timed at 16 and 112 rows; QUILT1 and QUILT2 against the
     98,304-haplotype panel (8 samples; r2 >= 0.9 / 0.85; the plan and the
-    peak memory printed); and chains 0-6 of a 256-chain Gibbs call equal to
-    a 7-chain call on the same inputs, bit for bit. Returns (launches by
-    path, {row name: largest error of its kernel here})."""
+    peak memory printed); QUILT1 against a 194,512-haplotype panel (k200k,
+    K200K_SAMPLES samples; r2 >= 0.9), then fb_plan's choices timed on its
+    FB inputs at 16 and 112 rows; and chains 0-6 of a 256-chain Gibbs call
+    equal to a 7-chain call on the same inputs, bit for bit. Returns
+    (launches by path, {row name: largest error of its kernel here})."""
     import numpy as np
     import torch
     from quilt_tpu_torch.bench import fb as bfb
     from quilt_tpu_torch.bench import full as bfull
     from quilt_tpu_torch.bench import gibbs as bgibbs
+    from quilt_tpu_torch.engine import driver
     from quilt_tpu_torch.kernels import fb as fbk
     from quilt_tpu_torch.panel.mspbwt import build_mspbwt_indices
 
@@ -2916,7 +3102,6 @@ def run_bench(counted, gibbs_k, fused, tiled, gdos):
           flush=True)
     del tw
     torch.cuda.empty_cache()
-    t = _bench_section("fb_tiled_98304", t)
 
     t0 = time.time()
     big = bfull.e2e_world(rng, 8, K=bfull.K_BIG)
@@ -2925,7 +3110,12 @@ def run_bench(counted, gibbs_k, fused, tiled, gdos):
           f"and prepare)", flush=True)
     cfg = _bench_config(8)
     plan = bfull.fb_plan_of(big["prep"], cfg, "cuda", 8 * 7 * 2)
-    print(f"k100k: fb_plan at 112 rows -> {plan}", flush=True)
+    print(f"k100k: fb_plan at 112 rows -> {plan}"
+          + (f"; {tiled_forms(big['prep'].K, plan['splits'], big['prep'].nGrids)}"
+             if plan["family"] == "tiled" else ""), flush=True)
+    if plan["family"] == "tiled" and not _non_general(big["prep"].K, plan["splits"],
+                                                      big["prep"].nGrids):
+        _fail("k100k: the K-split FB took a general form within the new forms' reach")
     out, _, launches["k100k"] = run_e2e(big, counted, cfg, "k100k")
     if min(out.r2_per_sample) < 0.9:
         _fail(f"k100k r2 against truth below 0.9: {out.r2_per_sample}")
@@ -2944,6 +3134,37 @@ def run_bench(counted, gibbs_k, fused, tiled, gdos):
     del big, out
     torch.cuda.empty_cache()
     t = _bench_section("k100k", t)
+
+    # a panel of TOPMed r2's size (97,256 samples = 194,512 haplotypes),
+    # QUILT1 on 8 samples as k100k
+    t0 = time.time()
+    huge = bfull.e2e_world(rng, K200K_SAMPLES, K=bfull.K_HUGE)
+    print(f"k200k world: K={huge['prep'].K}, nSNPs={huge['prep'].nSNPs}, {K200K_SAMPLES} samples, "
+          f"{sum(r.nReads for r in huge['samples'])} reads ({time.time() - t0:.1f} s to simulate "
+          f"and prepare)", flush=True)
+    cfg = _bench_config(K200K_SAMPLES)
+    plan = bfull.fb_plan_of(huge["prep"], cfg, "cuda", K200K_SAMPLES * 7 * 2)
+    K_pad = -(-bfull.K_HUGE // 128) * 128
+    print(f"k200k: fb_plan at {K200K_SAMPLES * 14} rows -> {plan}"
+          + (f"; {tiled_forms(K_pad, plan['splits'], huge['prep'].nGrids)}"
+             if plan["family"] == "tiled" else ""), flush=True)
+    if plan["family"] == "tiled" and not _non_general(K_pad, plan["splits"], huge["prep"].nGrids):
+        _fail("k200k: the K-split FB took a general form within the new forms' reach")
+    out, _, launches["k200k"] = run_e2e(huge, counted, cfg, "k200k")
+    if min(out.r2_per_sample) < 0.9:
+        _fail(f"k200k r2 against truth below 0.9: {out.r2_per_sample}")
+    check_launched("k200k", launches["k200k"],
+                   gibbs_k + _fb_kernels_of(plan["family"], fused, tiled))
+    # fb_plan's choices timed on the world's own FB inputs at 16 and 112 rows
+    fbi = driver._region_context(huge["prep"], cfg, "cuda").fb_state()[0]
+    for rows in (16, 112):
+        fam, per_call, s = fbk.fb_plan(rows, fbi)
+        print(f"K-split FB at K={fbi.K}: fb_plan at {rows} rows -> {fam}, {per_call} rows per "
+              f"call, {s} blocks per row: {tiled_forms(fbi.K_pad, s, fbi.nGrids)}", flush=True)
+    time_fb_plan(fbi, (16, 112))
+    del huge, out, fbi
+    torch.cuda.empty_cache()
+    t = _bench_section("k200k", t)
 
     gw = bgibbs.gibbs_world(rng, "cuda")
     st = bgibbs.gibbs_state(gw, 256, bgibbs.N_ITS, rng)
@@ -3039,7 +3260,7 @@ def main():
                   fb._PREV_MAX_TILED, nipt_bank._PREV_BANK_KERNEL,
                   *gibbs_dosage._PREV_DOS_KERNELS.values()]
     counted = kernels + prev_tiled
-    rows, launches, mx_err = [], {}, 0.0
+    rows, launches, mx_err, wide_forms = [], {}, 0.0, {}
     t = time.time()
 
     if phases & {"kernels", "e2e", "dist"}:
@@ -3050,6 +3271,7 @@ def main():
         if "kernels" in phases:
             rows += check_kernels(world)
             rows += check_global_forms()
+            wide_forms = check_wide_tiled()
             # fb_plan's decision points: the QUILT1 batch (112 rows), the
             # NIPT one (84), lone samples (14) and 2-4 samples; 200 rows
             # beyond one wave of fused rows; a ragged K_pad (8,320)
@@ -3213,6 +3435,9 @@ def main():
         row["max_abs_err"] = max(row["max_abs_err"], path_errs.get(row["name"], 0.0))
         if row["name"] in path_ms:
             row["ms_on_path"] = path_ms[row["name"]]
+        if row["name"] in wide_forms:
+            # the K-split forms at the widest blocks (check_wide_tiled)
+            row["forms"] = wide_forms[row["name"]]
         row["launches_by_path"] = {path: l[k.name] for path, l in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))

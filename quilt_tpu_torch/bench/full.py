@@ -60,6 +60,9 @@ from .common import (
 
 N_SAMPLES = 32
 K_PANEL, NSNPS, KSUBSET, K_BIG = 5120, 16384, 600, 98304
+# the TOPMed r2 imputation panel's size: 97,256 samples, 194,512 haplotypes
+# (Taliun et al., Nature 2021); chip_smoke.py's k200k world
+K_HUGE = 194512
 TILED_GRIDS, TILED_ROWS = 512, 16
 NIPT_FF = 0.2
 ONT_READ_BP, ONT_PHRED = 6000, 10

@@ -157,17 +157,15 @@ struct Exchange {
   }
 };
 
-// Launches `kernel` on a grid (C, B) of clusters (C, 1, 1), one cluster a
-// chain (the cluster forms) or a row (fb_tiled.cu's K-split FB), `threads`
-// threads and `smem` bytes of dynamic shared memory a block (C > 8 opts in to
-// a non-portable cluster size). Every cluster launch of the port goes
-// through here. Refuses, with cudaErrorInvalidConfiguration, a shape of
-// which the card cannot hold one cluster at a time
-// (cudaOccupancyMaxActiveClusters returns 0): the caller never falls back
-// to another form.
-template <class... Params, class... Args>
-int launch_clusters(void (*kernel)(Params...), int C, int B, int threads, size_t smem,
-                    cudaStream_t stream, Args... args) {
+// The clusters of C blocks of `threads` threads and `smem` bytes of dynamic
+// shared memory each that the card can hold at once
+// (cudaOccupancyMaxActiveClusters; C > 8 opts in to a non-portable cluster
+// size, smem > 48 KB to that much shared memory). *cfg is left ready to
+// launch B rows on `stream` (attr: its one launch attribute).
+template <class... Params>
+int active_clusters(void (*kernel)(Params...), int C, int B, int threads, size_t smem,
+                    cudaStream_t stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    int* active) {
   if (C < 1 || C > MAXC || B < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (smem > 48 * 1024) {
@@ -180,23 +178,38 @@ int launch_clusters(void (*kernel)(Params...), int C, int B, int threads, size_t
                              1);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, B);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
+  *cfg = {};
+  cfg->gridDim = dim3(C, B);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *active = 0;
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)kernel, cfg);
+}
+
+// Launches `kernel` on a grid (C, B) of clusters (C, 1, 1), one cluster a
+// chain (the cluster forms) or a row (fb_tiled.cu's K-split FB), `threads`
+// threads and `smem` bytes of dynamic shared memory a block. Every cluster
+// launch of the port goes through here. Refuses, with
+// cudaErrorInvalidConfiguration, a shape of which the card cannot hold one
+// cluster at a time (active_clusters 0): the caller never falls back to
+// another form.
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int C, int B, int threads, size_t smem,
+                    cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, (const void*)kernel, &cfg);
-  if (e != cudaSuccess) return (int)e;
+  const int err = active_clusters(kernel, C, B, threads, smem, stream, &cfg, attr, &active);
+  if (err) return err;
   if (active < 1) return (int)cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@
 // The TPU kernels walk a (grid, K tile) iteration space in order on one
 // core and exchange the cross-tile sums through VMEM scratch. Here the K
 // splits of a row are CONCURRENT blocks of one thread-block cluster
-// (cluster size = number of splits, 1, 2, 4 or 8): per grid step each block
+// (cluster size = number of splits, 1, 2, 4, 8 or 16; 16 is a non-portable
+// size, which cluster_xchg.cuh:launch_clusters opts in to): per grid step each block
 // reduces its own haplotypes, posts its partial results in its shared
 // memory, the cluster synchronises once, and every block reads the others'
 // partials over distributed shared memory in rank order (so S, E and AB are
@@ -43,9 +44,14 @@
 //
 // Design of the forward (the previous form, fb_tiled_prev.cu, kept alpha
 // in a global row and took three barriers a step):
-//   * Alpha in registers for up to CPT = 20 haplotypes a thread (the
+//   * Alpha in registers for up to CPT = 24 haplotypes a thread (the
 //     backward's instantiations), the general form (CPT = 0) in the row's
 //     scratch plane above; the checkpoint is written from the registers.
+//     At 24 a thread (the staged form, STAGED_CPT) alpha and the next
+//     grid's emissions fill the registers that one block an SM leaves, so
+//     the words of the grid after it go to shared memory instead: each
+//     thread copies its own columns there with cp.async a grid ahead and
+//     reads only those, so no barrier guards them.
 //   * Operands ahead of the chain: a grid's emissions (panel words, table
 //     lookups, exp) do not depend on S, so the register forms compute the
 //     next grid's between their arrival at the cluster barrier and their
@@ -80,6 +86,14 @@
 //     words in registers for up to CPT = 20 haplotypes a thread (a template
 //     parameter); the general form (CPT = 0, any block width) keeps e*beta
 //     in a global plane and reads the words in the step.
+//   * The staged form (CPT = STAGED_CPT = 24, up to 12,288 haplotypes a
+//     block: K = 98,304 at 8 blocks a row, 196,608 at 16): e*beta and the 32
+//     dosage partials take the registers of one block an SM (128 a thread;
+//     the words beside them would spill), so the rebuild, which reads every
+//     grid's words of the chunk anyway, leaves them in shared-memory word
+//     planes beside the alpha planes, and the reverse step reads both there.
+//     Both planes of a grid take 2 x KS floats, so the interval is 2
+//     (kernels/fb.py:tiled_cg). Again a thread reads only its own columns.
 //   * Emissions by the nibble tables of fb_common.cuh, staged once a chunk,
 //     in the forward and the rebuild alike, with one step routine
 //     (alpha_step): the rebuilt alphas equal the forward's bit for bit.
@@ -87,13 +101,16 @@
 //     transposing butterfly per warp), AB and E are independent, so each
 //     warp posts one record of 34 values, one barrier, and 34 threads add
 //     the 16 records in warp order into the block's post. Then the cluster
-//     barrier and the reads of the posts in rank order.
+//     barrier and the reads of the posts in rank order, issued 8 at a time
+//     (at 16 blocks a row one remote read after another would sit on the
+//     chain 16 times).
 //   * Top-K off the chain: at a thinned grid the alpha plane, once read,
 //     takes the grid's gammas; each warp takes its own top K_top from its
 //     lanes' columns by shuffles (a lane rescans its columns only when its
 //     best is taken) and posts the sorted list with the step's partials.
 //     After the cluster barrier, rank 0's warp 0 merges the NS x 16 sorted
-//     lists (lane l holds the heads of lists l, l+32, ...) while the other
+//     lists (lane l holds the heads of lists l, l+32, ..., up to 8 of them at
+//     16 blocks, by their shared::cluster addresses) while the other
 //     warps go on. It finishes before it reaches the next cluster barrier,
 //     so no block can overwrite that parity's post (two steps later) before
 //     the merge has read it.
@@ -117,8 +134,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAX_SPLITS = 8;
+constexpr int MAX_SPLITS = 16;
 constexpr int MAX_KTOP = 32;
+constexpr int STAGED_CPT = 24;         // the form whose words are staged in shared memory
 constexpr int MAX_CG = 16;             // the largest checkpoint interval
 constexpr int RW = 34;                 // a warp's record: the 32 dosage sums, AB, E
 constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may take
@@ -129,6 +147,101 @@ constexpr unsigned FULL = 0xffffffffu;
 __device__ __forceinline__ float alpha_step(float a_prev, float inv_sprev,
                                             float stay, float jumpK, float e) {
   return __fmul_rn(__fmaf_rn(stay, __fmul_rn(a_prev, inv_sprev), jumpK), e);
+}
+
+// One 4-byte copy from global to shared memory that completes
+// asynchronously, and the wait for all of the thread's copies.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(cluster_xchg::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_cluster_s32(uint32_t a) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// The forward's exchange, after the cluster barrier: the sum of the NS x
+// NWARP posts (post: this block's posts of the step's parity), lane l
+// adding posts l, l + 32, ... in that order, then the warp's butterfly;
+// every lane of every warp returns the same sum. BATCH remote reads are
+// issued at a time: 4 where the registers allow it (one block an SM, or
+// the general form), 1 in the forms that run two blocks an SM (64
+// registers a thread; 4 in flight made the 8-column form spill).
+template <int BATCH>
+__device__ __forceinline__ float fwd_exchange(cg::cluster_group& cluster, float* post, int NS) {
+  const int lane = threadIdx.x & 31;
+  float tot = 0.f;
+  if constexpr (BATCH == 1) {
+    for (int q = lane; q < NS * NWARP; q += 32)
+      tot += *cluster.map_shared_rank(post + q % NWARP, q / NWARP);
+  } else {
+#pragma unroll
+    for (int i0 = 0; i0 < MAX_SPLITS * NWARP / 32; i0 += BATCH) {
+      float v[BATCH];
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int q = lane + 32 * (i0 + i);
+        v[i] = q < NS * NWARP ? *cluster.map_shared_rank(post + q % NWARP, q / NWARP) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i)
+        if (lane + 32 * (i0 + i) < NS * NWARP) tot += v[i];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+  return tot;
+}
+
+// The backward's exchange, after the cluster barrier: AB and E (values 32
+// and 33 of each block's post) summed over the NS posts in rank order, the
+// remote reads issued 8 at a time.
+__device__ __forceinline__ void bwd_exchange(cg::cluster_group& cluster, float* mine, int NS,
+                                             float& ab, float& e) {
+  ab = 0.f;
+  e = 0.f;
+#pragma unroll
+  for (int q0 = 0; q0 < MAX_SPLITS; q0 += 8) {
+    float2 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = q0 + i < NS ? *reinterpret_cast<const float2*>(cluster.map_shared_rank(mine, q0 + i) + 32)
+                         : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (q0 + i < NS) {
+        ab += v[i].x;
+        e += v[i].y;
+      }
+    }
+  }
+}
+
+// Value t of the NS posts summed in rank order (thread t < 32 of rank 0:
+// the dosage sums), the remote reads issued 8 at a time.
+__device__ __forceinline__ float post_sum(cg::cluster_group& cluster, float* mine, int NS, int t) {
+  float d = 0.f;
+#pragma unroll
+  for (int q0 = 0; q0 < MAX_SPLITS; q0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = q0 + i < NS ? cluster.map_shared_rank(mine, q0 + i)[t] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (q0 + i < NS) d += v[i];
+  }
+  return d;
 }
 
 // ---- emission maximum. One block per grid serves all its rows, 32 rows
@@ -232,11 +345,17 @@ __host__ __device__ inline int post_floats(int K_top) { return r4(RW + 2 * NWARP
 // (kernels/fb.py:_bwd_tiled_smem_bytes mirrors it; fb_backward_tiled_smem_bytes
 // exports it): the warps' records, the
 // two posts, the chunk's scalars (maxima, stay, jump/K, 1/S), its
-// log-ratios and emission tables, and (shared-memory storage) its CG alpha
-// planes of KS floats.
-__host__ __device__ inline int bwd_smem_floats(int CG, int KS, int K_top, bool planes) {
+// log-ratios and emission tables, and `planes` planes of KS floats a grid of
+// the chunk: 0 (global storage), 1 (its CG alpha planes) or 2 (the staged
+// form: the alpha planes, then CG word planes).
+__host__ __device__ inline int bwd_smem_floats(int CG, int KS, int K_top, int planes) {
   return r4(NWARP * RW) + 2 * post_floats(K_top) + r4(4 * CG + 1) + r4(CG * 32) + CG * EMF +
-         (planes ? CG * KS : 0);
+         planes * CG * KS;
+}
+
+// The planes a grid of the chunk a form keeps in shared memory.
+__host__ __device__ inline int smem_planes_of(int cpt, bool smem) {
+  return smem ? (cpt == STAGED_CPT ? 2 : 1) : 0;
 }
 
 template <int CPT>
@@ -282,19 +401,24 @@ __device__ __forceinline__ void cluster_wait() {
 // thread) up to 16 haplotypes a thread: at 8 blocks a row, 28 rows make one
 // wave (3.068 ms an FB call against 4.040 at one block an SM, 28 x 40,960,
 // measured before the split barrier, PERF.md; at 16 a thread the alphas,
-// emissions and words then spill 92 B); 20 haplotypes a thread need one.
+// emissions and words then spill 92 B); 20 and 24 haplotypes a thread need
+// one. The staged form (CPT = STAGED_CPT) keeps the words of the grid after
+// the next in dynamic shared memory, NT x CPT words (fwd_words[c * NT + t]:
+// thread t's column c), copied there by cp.async.
 template <int CPT>
-__global__ void __launch_bounds__(NT, CPT == 20 ? 1 : 2) fb_fwd_tiled_kernel(
+__global__ void __launch_bounds__(NT, CPT >= 20 ? 1 : 2) fb_fwd_tiled_kernel(
     const int* __restrict__ words, const float* __restrict__ dl,
     const float* __restrict__ trans2, const float* __restrict__ mx,
     float* __restrict__ ckpt, float* __restrict__ ssum, float* __restrict__ logs,
     float* __restrict__ scratch, int Gp, int K, int K_pad, int B, int CG, int KS,
     float invK) {
+  constexpr bool STAGED = CPT == STAGED_CPT;
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ float dls_s[MAX_CG * 32];
   __shared__ float em[MAX_CG * EMF];
   __shared__ float sc[3 * MAX_CG];          // the chunk's maxima, stay, jump/K
   __shared__ float post[2][NWARP];          // the warps' sums, by step parity
+  extern __shared__ unsigned fwd_words[];   // the staged form's words
   const int b = blockIdx.y;
   const unsigned rank = cluster.block_rank();
   const int NS = (int)cluster.num_blocks();
@@ -309,9 +433,10 @@ __global__ void __launch_bounds__(NT, CPT == 20 ? 1 : 2) fb_fwd_tiled_kernel(
   const int* wb = words + k0 + tid;
   Cols<CPT> alpha;
   // register forms: e of the next step's grid, and the panel words of the
-  // grid after it (loaded a step ahead of their use)
+  // grid after it (loaded a step ahead of their use; the staged form's in
+  // fwd_words)
   float e[CPT > 0 ? CPT : 1];
-  unsigned w[CPT > 0 ? CPT : 1];
+  unsigned w[CPT > 0 && !STAGED ? CPT : 1];
   if constexpr (CPT == 0) alpha.p = scratch + (size_t)b * K_pad + k0;
 #pragma unroll
   for (int c = 0; c < nc; ++c)
@@ -321,14 +446,25 @@ __global__ void __launch_bounds__(NT, CPT == 20 ? 1 : 2) fb_fwd_tiled_kernel(
   // the next grid's while the cluster barrier is pending
   auto emission = [&](unsigned word, int j) { return expf(logit(word, em, j) - sc[j]); };
   auto load_next = [&](int g) {
-    if constexpr (CPT > 0) {
+    if constexpr (STAGED) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        if (c < nreal && g < Gp) cp_async4(fwd_words + c * NT + tid, wb + (size_t)g * K_pad + c * NT);
+    } else if constexpr (CPT > 0) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
         if (c < nreal && g < Gp) w[c] = (unsigned)__ldg(wb + (size_t)g * K_pad + c * NT);
     }
   };
   auto emit_next = [&](int j) {       // e of the grid whose words w holds
-    if constexpr (CPT > 0) {
+    if constexpr (STAGED) {
+      // the thread's own copies only; every read here comes before the
+      // load_next that overwrites it
+      cp_async_wait_all();
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        if (c < nreal) e[c] = emission(fwd_words[c * NT + tid], j);
+    } else if constexpr (CPT > 0) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
         if (c < nreal) e[c] = emission(w[c], j);
@@ -390,11 +526,7 @@ __global__ void __launch_bounds__(NT, CPT == 20 ? 1 : 2) fb_fwd_tiled_kernel(
       load_next(g + 2);
     }
     cluster_wait();
-    float tot = 0.f;
-    for (int q = lane; q < NS * NWARP; q += 32)
-      tot += *cluster.map_shared_rank(&post[g & 1][q % NWARP], q / NWARP);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(FULL, tot, o);
+    const float tot = fwd_exchange<(CPT > 0 && CPT < 20) ? 1 : 4>(cluster, post[g & 1], NS);
     inv_sprev = 1.f / tot;
     acc = acc + logf(tot) + m;
     if (rank == 0 && tid == 0) ssum[(size_t)g * B + b] = tot;
@@ -455,31 +587,30 @@ __device__ __forceinline__ void warp_topk(float* v, int KS, int k0, int K_top, f
 
 // Rank 0's warp 0: the row's top K_top from the NS x NWARP sorted lists of
 // the cluster's posts at `mine`'s offset, by K_top rounds of a merge whose
-// lane l holds the heads of lists l, l + 32, ...; values scaled by inv_ab.
-__device__ __forceinline__ void merge_lists(cg::cluster_group& cluster, float* mine, int NS,
-                                            int K_top, float inv_ab, float* tvr, int* tir) {
+// lane l holds the heads of lists l, l + 32, ... (up to HL of them), each
+// head by its shared::cluster address; values scaled by inv_ab. A taken
+// head's successor is read only while rounds remain: by round t a list has
+// given at most t + 1 of its K_top entries, so the read stays within it.
+__device__ __forceinline__ void merge_lists(float* mine, int NS, int K_top, float inv_ab,
+                                            float* tvr, int* tir) {
   constexpr int HL = MAX_SPLITS * NWARP / 32;
   const int lane = threadIdx.x & 31;
   const int L = NS * NWARP;
-  const float* lv[HL];
-  const int* li[HL];
-  int h[HL];
+  const uint32_t base = cluster_xchg::smem_u32(mine);
+  const uint32_t ioff = 4u * NWARP * K_top;        // the indices after the values
+  uint32_t la[HL];
   float hv[HL];
   int hi[HL];
 #pragma unroll
   for (int i = 0; i < HL; ++i) {
     const int l = lane + 32 * i;
-    h[i] = 0;
+    la[i] = 0u;
     hv[i] = -INFINITY;
     hi[i] = INT_MAX;
-    lv[i] = nullptr;
-    li[i] = nullptr;
     if (l < L) {
-      const float* theirs = cluster.map_shared_rank(mine, l / NWARP);
-      lv[i] = theirs + RW + (l % NWARP) * K_top;
-      li[i] = reinterpret_cast<const int*>(theirs + RW + NWARP * K_top) + (l % NWARP) * K_top;
-      hv[i] = lv[i][0];
-      hi[i] = li[i][0];
+      la[i] = cluster_xchg::mapa(base, (uint32_t)(l / NWARP)) + 4u * (RW + (l % NWARP) * K_top);
+      hv[i] = ld_cluster_f32(la[i]);
+      hi[i] = ld_cluster_s32(la[i] + ioff);
     }
   }
   for (int t = 0; t < K_top; ++t) {
@@ -508,13 +639,13 @@ __device__ __forceinline__ void merge_lists(cg::cluster_group& cluster, float* m
       tvr[t] = wv * inv_ab;
       tir[t] = wi;
     }
-    if (bs >= 0 && bi == wi) {   // the head of this lane's list bs was taken
+    if (bs >= 0 && bi == wi && t + 1 < K_top) {   // the head of this lane's list bs was taken
 #pragma unroll
       for (int i = 0; i < HL; ++i) {
         if (i == bs) {
-          ++h[i];
-          hv[i] = h[i] < K_top ? lv[i][h[i]] : -INFINITY;
-          hi[i] = h[i] < K_top ? li[i][h[i]] : INT_MAX;
+          la[i] += 4u;
+          hv[i] = ld_cluster_f32(la[i]);
+          hi[i] = ld_cluster_s32(la[i] + ioff);
         }
       }
     }
@@ -524,8 +655,10 @@ __device__ __forceinline__ void merge_lists(cg::cluster_group& cluster, float* m
 // Grid (splits, B), cluster (splits, 1, 1). Block `rank` of row b owns the
 // haplotypes k0 = rank*KS .. k0+KS-1; thread t the local columns t + c*NT.
 // scratch row of a block's row: the general form's e*beta plane (K_pad),
-// then (global storage) the CG alpha planes. `rebuilt` (tests only; null
-// on every other call) receives the raw rebuilt alphas [Gp, B, K_pad].
+// then (global storage) the CG alpha planes. The staged form (CPT =
+// STAGED_CPT, SMEM) keeps CG word planes of KS words after the alpha
+// planes. `rebuilt` (tests only; null on every other call) receives the raw
+// rebuilt alphas [Gp, B, K_pad].
 template <int CPT, bool SMEM>
 __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
     const int* __restrict__ words, const float* __restrict__ dl,
@@ -534,6 +667,8 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
     const float* __restrict__ ssum, float* __restrict__ dos, float* __restrict__ tv,
     int* __restrict__ ti, float* __restrict__ scratch, float* __restrict__ rebuilt, int Gp,
     int K, int K_pad, int B, int CG, int K_top, int KS, float invK, float eps) {
+  constexpr bool STAGED = CPT == STAGED_CPT;
+  static_assert(!STAGED || SMEM, "the staged form keeps its planes in shared memory");
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* red = reinterpret_cast<float*>(smem4);   // the warps' records
@@ -559,8 +694,10 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
   // plane j, local column kl: pl[j * pstride + kl]
   float* pl = SMEM ? em + CG * EMF : row + (CPT == 0 ? K_pad : 0) + k0;
   const int pstride = SMEM ? KS : K_pad;
+  // the staged form's word planes: plane j, local column kl at wpl[j * KS + kl]
+  unsigned* wpl = reinterpret_cast<unsigned*>(pl + (size_t)CG * KS);
   Cols<CPT> eb;
-  Cols<CPT, unsigned> w;
+  Cols<STAGED ? 0 : CPT, unsigned> w;
   if constexpr (CPT == 0) eb.p = row + k0;
 #pragma unroll
   for (int c = 0; c < nc; ++c)
@@ -588,13 +725,24 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
       const float* pp = j == 0 ? ck : pl + (size_t)(j - 1) * pstride;
       float* pj = pl + (size_t)j * pstride;
       const float isp = inv_s[j], st = stay[j], jk = jmp[j], m = mxs[j];
-      // the chunk's last grid's words stay in w for the reverse sweep
-      load_words<CPT>(w, wb, g, K_pad, KS);
+      // the chunk's last grid's words stay in w for the reverse sweep (the
+      // staged form leaves every grid's in its word planes)
+      // (all its loads issued first: the rebuild leaves registers to spare)
+      Cols<STAGED ? CPT : 0, unsigned> wt;
+      if constexpr (STAGED) load_words<CPT>(wt, wb, g, K_pad, KS);
+      else load_words<CPT>(w, wb, g, K_pad, KS);
 #pragma unroll
       for (int c = 0; c < nc; ++c) {
         const int kl = threadIdx.x + c * NT;
         if (kl < KS) {
-          const float x = k0 + kl < K ? logit(word_at<CPT>(w, c, wb, g, K_pad), em, j) : NEG;
+          unsigned wd;
+          if constexpr (STAGED) {
+            wd = wt[c];
+            wpl[j * KS + kl] = wd;
+          } else {
+            wd = word_at<CPT>(w, c, wb, g, K_pad);
+          }
+          const float x = k0 + kl < K ? logit(wd, em, j) : NEG;
           const float a = alpha_step(pp[kl], isp, st, jk, expf(x - m));
           pj[kl] = a;
           if (rebuilt != nullptr) rebuilt[((size_t)g * B + b) * K_pad + k0 + kl] = a;
@@ -620,7 +768,9 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
         const int kl = threadIdx.x + c * NT;
         if (kl < KS) {
           const int k = k0 + kl;
-          const unsigned wd = word_at<CPT>(w, c, wb, g, K_pad);
+          unsigned wd;
+          if constexpr (STAGED) wd = wpl[j * KS + kl];
+          else wd = word_at<CPT>(w, c, wb, g, K_pad);
           const float beta = last ? 1.f : stay_n * (eb[c] * inv_e) + jumpK_n;
           const float gu = (pj[kl] * ia) * beta;
           sab += gu;
@@ -634,7 +784,8 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
           se += etb;
         }
       }
-      if (j > 0) load_words<CPT>(w, wb, g - 1, K_pad, KS);
+      if constexpr (!STAGED)
+        if (j > 0) load_words<CPT>(w, wb, g - 1, K_pad, KS);
       // one block reduction of 34 values: a record per warp, one barrier
       warp_transpose_sum(D);
 #pragma unroll
@@ -660,25 +811,20 @@ __global__ void __launch_bounds__(NT, 1) fb_bwd_tiled_kernel(
         mine[threadIdx.x] = v;
       }
       cluster.sync();
-      float e = 0.f, ab = 0.f;
-      for (int q = 0; q < NS; ++q) {
-        const float* theirs = cluster.map_shared_rank(mine, q);
-        e += theirs[33];
-        ab += theirs[32];
-      }
+      float e, ab;
+      bwd_exchange(cluster, mine, NS, ab, e);
       e_prev = e;
       if (rank == 0) {
         const float inv_ab = 1.f / fmaxf(ab, 1e-30f);
         if (threadIdx.x < 32) {
-          float d = 0.f;
-          for (int q = 0; q < NS; ++q) d += cluster.map_shared_rank(mine, q)[threadIdx.x];
+          const float d = post_sum(cluster, mine, NS, threadIdx.x);
           dos[(size_t)b * Gp * 32 + (size_t)g * 32 + threadIdx.x] =
               eps + (1.f - 2.f * eps) * d * inv_ab;
         }
         float* tvr = tv + ((size_t)g * B + b) * K_top;
         int* tir = ti + ((size_t)g * B + b) * K_top;
         if (thinned) {
-          if (warp == 0) merge_lists(cluster, mine, NS, K_top, inv_ab, tvr, tir);
+          if (warp == 0) merge_lists(mine, NS, K_top, inv_ab, tvr, tir);
         } else if (threadIdx.x < K_top) {
           tvr[threadIdx.x] = 0.f;
           tir[threadIdx.x] = 0;
@@ -699,7 +845,7 @@ template <bool FWD>
 __global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int steps) {
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ float red[NWARP * RW];
-  __shared__ float posts[2 * RW];
+  __shared__ __align__(16) float posts[2 * RW];
   const int NS = (int)cluster.num_blocks();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc = 0.f;
@@ -711,12 +857,7 @@ __global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int s
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
       if (lane == 0) mine[warp] = s;
       cluster.sync();
-      float tot = 0.f;
-      for (int q = lane; q < NS * NWARP; q += 32)
-        tot += *cluster.map_shared_rank(mine + q % NWARP, q / NWARP);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(FULL, tot, o);
-      acc = tot * 1e-9f;
+      acc = fwd_exchange<4>(cluster, mine, NS) * 1e-9f;
     } else {
       float D[32], sab = acc + 1.f, se = acc;
 #pragma unroll
@@ -740,9 +881,9 @@ __global__ void __launch_bounds__(NT, 1) fb_tiled_floor_kernel(float* out, int s
         mine[threadIdx.x] = v;
       }
       cluster.sync();
-      float e = 0.f;
-      for (int q = 0; q < NS; ++q) e += cluster.map_shared_rank(mine, q)[33];
-      acc = e * 1e-9f;
+      float ab, e;
+      bwd_exchange(cluster, mine, NS, ab, e);
+      acc = (e + ab) * 1e-9f;
     }
   }
   cluster.sync();
@@ -754,12 +895,13 @@ bool bad_split(int splits, int K_pad, int KS) {
          (long long)splits * KS != K_pad;
 }
 
-// An instantiation of the backward exists for cpt haplotypes a thread in
-// registers (0: the general form, any block width).
+// An instantiation of either kernel exists for cpt haplotypes a thread in
+// registers (0: the general form, any block width; STAGED_CPT: the staged
+// form).
 bool cpt_ok(int cpt, int KS) {
   switch (cpt) {
     case 0: return true;
-    case 2: case 4: case 8: case 16: case 20: return cpt * NT >= KS;
+    case 2: case 4: case 8: case 16: case 20: case STAGED_CPT: return cpt * NT >= KS;
     default: return false;
   }
 }
@@ -771,7 +913,8 @@ int launch_bwd(const void* words, const void* dl, const void* ckpt, const void* 
                int splits, float invK, float eps, cudaStream_t st) {
   const int KS = K_pad / splits;
   return cluster_xchg::launch_clusters(
-      fb_bwd_tiled_kernel<CPT, SMEM>, splits, B, NT, 4 * bwd_smem_floats(CG, KS, K_top, SMEM), st,
+      fb_bwd_tiled_kernel<CPT, SMEM>, splits, B, NT,
+      4 * bwd_smem_floats(CG, KS, K_top, smem_planes_of(CPT, SMEM)), st,
       (const int*)words, (const float*)dl, (const float*)ckpt, (const float*)trans2,
       (const int*)thin, (const float*)mx, (const float*)ssum, (float*)dos, (float*)tv, (int*)ti,
       (float*)scratch, (float*)rebuilt, Gp, K, K_pad, B, CG, K_top, KS, invK, eps);
@@ -794,8 +937,9 @@ extern "C" int fb_max_tiled(const void* words, const void* dl, void* mx, int Gp,
   return (int)cudaGetLastError();
 }
 
-// The forward of a whole FB call (checkpoint interval CG). cpt: haplotypes
-// a thread in registers (2, 4, 8, 16 or 20, at least K_pad / splits / NT)
+// The forward of a whole FB call (checkpoint interval CG) on clusters of
+// `splits` blocks (1, 2, 4, 8 or 16). cpt: haplotypes a thread in registers
+// (2, 4, 8, 16, 20 or 24, at least K_pad / splits / NT; 24 the staged form)
 // or 0 for the general form, whose alphas live in the scratch row [B, K_pad]
 // (unread otherwise). Returns cudaErrorInvalidValue for a split, interval or
 // form without an instantiation.
@@ -806,8 +950,17 @@ extern "C" int fb_forward_tiled(const void* words, const void* dl, const void* t
   const int KS = K_pad / (splits > 0 ? splits : 1);
   if (bad_split(splits, K_pad, KS) || CG < 1 || CG > MAX_CG || Gp % CG || !cpt_ok(cpt, KS))
     return ERR_INVALID;
+  // the staged form's words: NT x cpt words of dynamic shared memory beside
+  // the static tables (past 48 KB in all, so opted in here)
+  const size_t words_smem = cpt == STAGED_CPT ? (size_t)4 * NT * STAGED_CPT : 0;
+  if (words_smem) {
+    const int err = (int)cudaFuncSetAttribute((const void*)fb_fwd_tiled_kernel<STAGED_CPT>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)words_smem);
+    if (err) return err;
+  }
 #define FWD(C)                                                                            \
-  cluster_xchg::launch_clusters(fb_fwd_tiled_kernel<C>, splits, B, NT, 0,                 \
+  cluster_xchg::launch_clusters(fb_fwd_tiled_kernel<C>, splits, B, NT, words_smem,        \
                                 (cudaStream_t)stream, (const int*)words, (const float*)dl, \
                                 (const float*)trans2, (const float*)mx, (float*)ckpt,     \
                                 (float*)ssum, (float*)logs, (float*)scratch, Gp, K, K_pad, \
@@ -818,16 +971,19 @@ extern "C" int fb_forward_tiled(const void* words, const void* dl, const void* t
     case 8: return FWD(8);
     case 16: return FWD(16);
     case 20: return FWD(20);
+    case STAGED_CPT: return FWD(STAGED_CPT);
     default: return FWD(0);
   }
 #undef FWD
 }
 
 // The backward of a whole FB call from the forward's checkpoints (interval
-// CG), S and the emission maxima. smem_planes: the chunk's alphas in shared
-// memory (1) or in the scratch rows (0, general form only); cpt: haplotypes
-// a thread in registers (2, 4, 8, 16 or 20, at least K_pad / splits / NT)
-// or 0 for the general form. The scratch row of a row holds, in planes of
+// CG), S and the emission maxima, on clusters of `splits` blocks (1, 2, 4,
+// 8 or 16). smem_planes: the chunk's alphas in shared memory (1) or in the
+// scratch rows (0, general form only); cpt: haplotypes a thread in
+// registers (2, 4, 8, 16, 20 or 24, at least K_pad / splits / NT; 24 the
+// staged form, whose word planes share the block's memory too) or 0 for
+// the general form. The scratch row of a row holds, in planes of
 // K_pad floats, the general form's e*beta plane, then (smem_planes = 0) the
 // CG alpha planes. Returns cudaErrorInvalidValue for a split, K_top, cpt or
 // storage without an instantiation, or shared memory beyond the block's.
@@ -841,7 +997,7 @@ extern "C" int fb_backward_tiled(const void* words, const void* dl, const void* 
   const int KS = K_pad / (splits > 0 ? splits : 1);
   if (bad_split(splits, K_pad, KS) || K_top < 1 || K_top > MAX_KTOP || K_top > KS ||
       CG < 1 || CG > MAX_CG || Gp % CG || !cpt_ok(cpt, KS) || (!smem_planes && cpt) ||
-      4 * bwd_smem_floats(CG, KS, K_top, smem_planes != 0) > SMEM_LIMIT)
+      4 * bwd_smem_floats(CG, KS, K_top, smem_planes_of(cpt, smem_planes != 0)) > SMEM_LIMIT)
     return ERR_INVALID;
 #define BWD(C, M)                                                                           \
   launch_bwd<C, M>(words, dl, ckpt, trans2, thin, mx, ssum, dos, tv, ti, scratch, rebuilt, Gp, K, \
@@ -853,16 +1009,65 @@ extern "C" int fb_backward_tiled(const void* words, const void* dl, const void* 
     case 8: return BWD(8, true);
     case 16: return BWD(16, true);
     case 20: return BWD(20, true);
+    case STAGED_CPT: return BWD(STAGED_CPT, true);
     default: return BWD(0, true);
   }
 #undef BWD
 }
 
-// The backward's dynamic shared memory in bytes (bwd_smem_floats), so that
-// the wrapper's copy of the layout (kernels/fb.py:_bwd_tiled_smem_bytes)
-// can be held to it.
+// The backward's dynamic shared memory in bytes (bwd_smem_floats; planes 0,
+// 1 or 2), so that the wrapper's copy of the layout
+// (kernels/fb.py:_bwd_tiled_smem_bytes) can be held to it.
 extern "C" int fb_backward_tiled_smem_bytes(int CG, int KS, int K_top, int planes) {
-  return 4 * bwd_smem_floats(CG, KS, K_top, planes != 0);
+  return 4 * bwd_smem_floats(CG, KS, K_top, planes);
+}
+
+// *active: the clusters of `splits` blocks that the card holds at once for
+// the backward (fwd = 0) or the forward (fwd = 1) at cpt haplotypes a thread
+// (0: the general form), KS haplotypes a block and interval CG (the
+// backward with its planes in shared memory, 32-entry top-K lists).
+extern "C" int fb_tiled_active_clusters(int splits, int KS, int CG, int cpt, int fwd,
+                                        int* active) {
+  if (splits < 1 || splits > MAX_SPLITS || !cpt_ok(cpt, KS)) return ERR_INVALID;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (fwd) {
+    const size_t smem = cpt == STAGED_CPT ? (size_t)4 * NT * STAGED_CPT : 0;
+#define FWD_ACTIVE(C)                                                                        \
+  cluster_xchg::active_clusters(fb_fwd_tiled_kernel<C>, splits, 1, NT, smem, 0, &cfg, attr, \
+                                active)
+    if (smem) {
+      const int err = (int)cudaFuncSetAttribute((const void*)fb_fwd_tiled_kernel<STAGED_CPT>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)smem);
+      if (err) return err;
+    }
+    switch (cpt) {
+      case 2: return FWD_ACTIVE(2);
+      case 4: return FWD_ACTIVE(4);
+      case 8: return FWD_ACTIVE(8);
+      case 16: return FWD_ACTIVE(16);
+      case 20: return FWD_ACTIVE(20);
+      case STAGED_CPT: return FWD_ACTIVE(STAGED_CPT);
+      default: return FWD_ACTIVE(0);
+    }
+#undef FWD_ACTIVE
+  }
+  const size_t smem = 4 * (size_t)bwd_smem_floats(CG, KS, MAX_KTOP, smem_planes_of(cpt, true));
+  if (smem > SMEM_LIMIT) return ERR_INVALID;
+#define BWD_ACTIVE(C)                                                                        \
+  cluster_xchg::active_clusters(fb_bwd_tiled_kernel<C, true>, splits, 1, NT, smem, 0, &cfg, \
+                                attr, active)
+  switch (cpt) {
+    case 2: return BWD_ACTIVE(2);
+    case 4: return BWD_ACTIVE(4);
+    case 8: return BWD_ACTIVE(8);
+    case 16: return BWD_ACTIVE(16);
+    case 20: return BWD_ACTIVE(20);
+    case STAGED_CPT: return BWD_ACTIVE(STAGED_CPT);
+    default: return BWD_ACTIVE(0);
+  }
+#undef BWD_ACTIVE
 }
 
 // `steps` exchange steps of the backward (fwd = 0) or the forward (fwd = 1)

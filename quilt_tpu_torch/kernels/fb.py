@@ -16,13 +16,14 @@ emission of haplotype k in grid g is sum_s log t0[s] + sum_s bit_k,s dl[s];
 the first term is a per-row constant added to the log-likelihood outside
 the kernels, the second is a 32-term dot with the grid's panel bits.
 
-Sizing: K_pad (multiple of 128, hence of every split count 1, 2, 4, 8) and
-the grid padding to GRID_CHUNK = 16 come from the prepared inputs
+Sizing: K_pad (multiple of 128, hence of every split count 1, 2, 4, 8, 16)
+and the grid padding to GRID_CHUNK = 16 come from the prepared inputs
 (inputs.FBInputs) and are kept. The checkpoint interval of each family is
 the chunk whose rematerialised alphas fit its backward kernel's shared
 memory: fused_cg(K_pad, Gp) (16, 8 or 4 grids; GRID_CHUNK with global
 planes above K_pad = 13,824) and tiled_cg(K_pad / splits, Gp) (16, 8, 4 or
-2; GRID_CHUNK with global planes above 27,552 haplotypes a block).
+2; 2 for the staged form's alpha and word planes at 10,241-12,288
+haplotypes a block; GRID_CHUNK with global planes above 27,552).
 Gamma capture (the HLA run: FBInputs.capture_grid >= 0) is a part of the
 fused backward only; fb_plan keeps such calls fused, as the JAX package
 keeps them off its tiled path (fb_full.py:_pallas_plan).
@@ -71,31 +72,38 @@ _NEG = -1e30
 # takes rows per call = budget / per-row bytes of the chosen family
 _CALL_BYTES = 4 << 30
 # fb_plan's cost model, fitted to chip_smoke.py's "fb_plan timing" lines on
-# an H100 (PERF.md section 6). A core call's blocks run in waves over the
-# card's _N_SM SMs (one block a row fused, a cluster of `splits` a row
-# split); a wave costs about its blocks' haplotypes a grid, plus
-# _BLOCK_OVERHEAD_K haplotypes' worth for a split block's fixed work a grid
-# (cluster exchange, reductions, top-K), times _GENERAL_FORM_COST for a
-# split block too wide for registers (the general form's backward: 11.745
-# against 8.459 ms at 28 rows x 40,960) and, for a fused row wider than
-# _TILED_MIN_K, _FUSED_WIDE_COST (measured 1.2 at 8,192 to 1.9 at 40,960).
-# Below _TILED_MIN_K nothing is split (unmeasured), nor to fewer than
-# _MIN_K_PER_SPLIT haplotypes a block. Refitted after the tiled forward's
-# redesign (its alpha in registers made 4 blocks a row beat 8 at 28 x
-# 40,960, and 2 beat 4 at 56 x 20,480): any overhead in 2,240-2,496, wide
-# cost in 1.4-2.5 and general-form cost in 1.2-2.0 reproduce every measured
-# choice. At K = 98,304 (112 rows: 8 blocks a row 148.18 ms, 4 187.35, 2
-# 175.73) a split block that checkpoints every 2 grids costs
-# _INTERVAL2_COST more and one whose chunk alphas live in global planes
-# (above 27,552 haplotypes a block) _GLOBAL_PLANES_COST more: the ratios
-# measured there against the 8-block split; no shape measured before has
-# either form in its fastest choice, so those choices stand.
+# an H100 (PERF.md section 6). A core call's blocks run in waves: fused, one
+# block a row over the card's _N_SM SMs; split, a cluster of `splits`
+# blocks a row, of which the card holds _ACTIVE_CLUSTERS[splits] at once
+# (the backward, one block an SM: cudaOccupancyMaxActiveClusters, 15 of 8
+# and 7 of 16 blocks, since a cluster stays within a GPC of 16-18 SMs;
+# chip_smoke.py prints them). A wave costs about its blocks' haplotypes a
+# grid, plus _BLOCK_OVERHEAD_K haplotypes' worth for a split block's fixed
+# work a grid (cluster exchange, reductions, top-K), times
+# _GENERAL_FORM_COST for a split block too wide for registers (the general
+# form's backward: 11.745 against 8.459 ms at 28 rows x 40,960), and that
+# again times _INTERVAL2_COST where it checkpoints every 2 grids and
+# _GLOBAL_PLANES_COST where its chunk alphas live in global planes (above
+# 27,552 haplotypes a block; both measured at K = 98,304 against the
+# 8-block split); the staged form (interval 2, 24 a thread) costs as the
+# register forms (20.49 us a grid a wave at 12,288 a block against the
+# 20-column form's 16.60 at 10,240). A fused row wider than _TILED_MIN_K
+# costs _FUSED_WIDE_COST (measured 1.2 at 8,192 to 1.9 at 40,960). Below
+# _TILED_MIN_K nothing is split (unmeasured), nor to fewer than
+# _MIN_K_PER_SPLIT haplotypes a block. Refitted when clusters of 16 and the
+# staged form came (whole waves of the clusters held at once, not a share
+# of the SMs: 8 blocks a row at 16 rows x 98,304 take 2 waves of 15): with
+# the other constants as before, a wide cost of 1.7 (1.5 no longer) and a
+# block of at least 640 haplotypes (8 blocks of 640 are the fastest at 14
+# rows x 5,120) reproduce all 27 timed choices, as does any overhead in
+# 1,800-2,500 and general-form cost in 1.2-1.8.
 _N_SM = 132
+_ACTIVE_CLUSTERS = {2: 66, 4: 30, 8: 15, 16: 7}
 _TILED_MIN_K = 5120
-_MIN_K_PER_SPLIT = 1024
+_MIN_K_PER_SPLIT = 640
 _BLOCK_OVERHEAD_K = 2368
 _GENERAL_FORM_COST = 1.4
-_FUSED_WIDE_COST = 1.5
+_FUSED_WIDE_COST = 1.7
 _INTERVAL2_COST = 1.3
 _GLOBAL_PLANES_COST = 1.35
 
@@ -395,7 +403,7 @@ def _gl_log_ratios(gl, eps):
 # ---------------------------------------------------------------------------
 #
 # Each wrapper takes k_tile, the haplotypes per block: on a CUDA tensor the
-# kernel runs K_pad / k_tile concurrent blocks per row (1, 2, 4 or 8, one
+# kernel runs K_pad / k_tile concurrent blocks per row (1, 2, 4, 8 or 16, one
 # thread-block cluster); on a CPU tensor the plain version walks the tiles
 # in order, with any k_tile (the last tile may be ragged). Sums over K are
 # taken tile by tile, so they depend on k_tile at rounding level and are
@@ -403,22 +411,39 @@ def _gl_log_ratios(gl, eps):
 #
 # The backward (csrc/fb_tiled.cu fb_backward_tiled) is one launch an FB
 # call. Its checkpoint interval is tiled_cg(k_tile, Gp): the chunk whose
-# rebuilt alphas fit a block's shared memory. The wrapper picks the storage
-# (_tiled_storage: shared-memory or global alpha planes, and the haplotypes
-# a thread holds in registers, _TILED_CPTS, or 0 for the general form),
-# sizes the scratch for it and passes both; the entry point refuses a choice
-# without an instantiation. Its shared memory (fb_tiled.cu bwd_smem_floats):
-# the warps' records (_TILED_RW floats each), two posts (the records' sums
-# and the warps' top-K lists), the chunk's scalars, log-ratios and emission
-# tables, and the chunk's alpha planes of k_tile floats.
-_TILED_CPTS = (2, 4, 8, 16, 20)
+# rebuilt alphas (and, in the staged form, words) fit a block's shared
+# memory. The wrapper picks the storage (_tiled_storage: shared-memory or
+# global alpha planes, and the haplotypes a thread holds in registers,
+# _TILED_CPTS, or 0 for the general form), sizes the scratch for it and
+# passes both; the entry point refuses a choice without an instantiation.
+# Its shared memory (fb_tiled.cu bwd_smem_floats): the warps' records
+# (_TILED_RW floats each), two posts (the records' sums and the warps' top-K
+# lists), the chunk's scalars, log-ratios and emission tables, and the
+# chunk's planes of k_tile floats: its alphas, and in the staged form
+# (_STAGED_CPT haplotypes a thread: e*beta and the dosage sums fill the
+# registers) its words beside them.
+_TILED_CPTS = (2, 4, 8, 16, 20, 24)
+_STAGED_CPT = 24
 _TILED_RW = 34
+_SPLITS = (1, 2, 4, 8, 16)
 
 
 def _bwd_tiled_smem_bytes(CG, KS, K_top, planes):
+    """planes: 0 / False (global storage), 1 / True (the chunk's alpha
+    planes) or 2 (the staged form's alpha and word planes)."""
     post = _r4(_TILED_RW + 2 * _NWARP * K_top)
     return 4 * (_r4(_NWARP * _TILED_RW) + 2 * post + _r4(4 * CG + 1) + _r4(CG * 32)
-                + CG * _EMF + (CG * KS if planes else 0))
+                + CG * _EMF + int(planes) * CG * KS)
+
+
+def _tiled_cpt(KS):
+    """The fewest haplotypes a thread of _TILED_CPTS that hold KS, else 0
+    (the general form)."""
+    return next((c for c in _TILED_CPTS if c * _NT >= KS), 0)
+
+
+def _smem_planes(cpt):
+    return 2 if cpt == _STAGED_CPT else 1
 
 
 def kernel_tiled_smem_bytes(CG, KS, K_top, planes) -> int:
@@ -433,30 +458,38 @@ def kernel_tiled_smem_bytes(CG, KS, K_top, planes) -> int:
 
 def tiled_cg(KS: int, Gp: int) -> int:
     """Checkpoint interval of the tiled family at KS haplotypes a block: the
-    largest of 16, 8, 4, 2 dividing Gp whose alpha planes fit the backward
+    largest of 16, 8, 4, 2 dividing Gp whose planes fit the backward
     kernel's shared memory (16 up to KS = 3,296, 8 up to 6,752, 4 up to
-    13,696, 2 up to 27,552); above that GRID_CHUNK, with the planes in
-    global memory."""
+    10,240; 2 from 10,241 to 12,288, where the staged form keeps a word
+    plane beside each alpha plane; 4 again up to 13,696, 2 up to 27,552);
+    above that GRID_CHUNK, with the planes in global memory."""
+    planes = _smem_planes(_tiled_cpt(KS))
     for cg in (16, 8, 4, 2):
-        if Gp % cg == 0 and _bwd_tiled_smem_bytes(cg, KS, _KTOP_RESERVE, True) <= _SMEM_LIMIT:
+        if Gp % cg == 0 and _bwd_tiled_smem_bytes(cg, KS, _KTOP_RESERVE, planes) <= _SMEM_LIMIT:
             return cg
     return GRID_CHUNK
 
 
 def _tiled_storage(CG, KS, K_top, general=False):
     """(alpha planes in shared memory?, haplotypes a thread in registers or
-    0 for the general form) of the tiled backward at KS haplotypes a block.
+    0 for the general form) of the tiled backward at KS haplotypes a block
+    and interval CG. The staged form (_STAGED_CPT) needs its word planes
+    beside the alpha planes; at an interval where they do not fit (a CG
+    forced by a caller, never tiled_cg's) the general form takes the block.
     `general` forces the general form (tests and timings only)."""
-    smem = _bwd_tiled_smem_bytes(CG, KS, K_top, True) <= _SMEM_LIMIT
-    cpt = next((c for c in _TILED_CPTS if c * _NT >= KS), 0)
-    return smem, 0 if (general or not smem) else cpt
+    cpt = 0 if general else _tiled_cpt(KS)
+    if cpt == _STAGED_CPT and _bwd_tiled_smem_bytes(CG, KS, K_top, 2) > _SMEM_LIMIT:
+        cpt = 0
+    smem = _bwd_tiled_smem_bytes(CG, KS, K_top, _smem_planes(cpt)) <= _SMEM_LIMIT
+    return smem, cpt if smem else 0
 
 
 def _fwd_tiled_cpt(KS, general=False):
     """Haplotypes a thread of the tiled forward holds in registers at KS
-    haplotypes a block (the backward's register instantiations), or 0 for
-    the general form, whose alphas live in a global plane a row."""
-    return 0 if general else next((c for c in _TILED_CPTS if c * _NT >= KS), 0)
+    haplotypes a block (the backward's register instantiations; at 24 the
+    staged form, its next words in shared memory), or 0 for the general
+    form, whose alphas live in a global plane a row."""
+    return 0 if general else _tiled_cpt(KS)
 
 
 def _tiled_scratch_planes(CG, KS, K_top, general=False):
@@ -479,8 +512,8 @@ def _tiled_planes(K_pad, Gp, splits):
 
 def _splits(K_pad, k_tile):
     splits = K_pad // k_tile
-    if splits * k_tile != K_pad or splits not in (1, 2, 4, 8):
-        raise ValueError(f"on the GPU k_tile must cut K_pad={K_pad} into 1, 2, 4 or 8 "
+    if splits * k_tile != K_pad or splits not in _SPLITS:
+        raise ValueError(f"on the GPU k_tile must cut K_pad={K_pad} into 1, 2, 4, 8 or 16 "
                          f"blocks, got k_tile={k_tile}")
     return splits
 
@@ -537,7 +570,7 @@ def fb_forward_tiled(dl, words, trans2, mx, K, k_tile, CG=None, _prev=False, _ge
     alpha entering chunk c+1), S[g] = sum_k of the unnormalised alpha of
     grid g, which normalises it, and logs the log-likelihood sum_g (log S[g]
     + mx[g]) without the per-row constant. One kernel launch on the card,
-    its alphas in registers (_fwd_tiled_cpt) or, above 20 haplotypes a
+    its alphas in registers (_fwd_tiled_cpt) or, above 24 haplotypes a
     thread, in a global plane a row.
     Private, tests and timings only: _prev launches the previous form
     (csrc/fb_tiled_prev.cu); _general forces the general form."""
@@ -644,6 +677,23 @@ def _backward_tiled_prev(dl, words, ckpt, trans2, thin, mx, S, K, K_top, eps, sp
         dos[:, ci * CG * 32:(ci + 1) * CG * 32] = dos_c
         eb, eb_out, E, E_out = eb_out, eb, E_out, E
     return dos, tv, ti
+
+
+def tiled_active_clusters(splits: int, KS: int, fwd: bool = False) -> int:
+    """The clusters of `splits` blocks that the card can hold at once for
+    the tiled backward (or forward) in the form fb_backward_tiled /
+    fb_forward_tiled take at KS haplotypes a block
+    (cudaOccupancyMaxActiveClusters; 0: the entry points refuse the shape).
+    Needs the card."""
+    cg = tiled_cg(KS, GRID_CHUNK)
+    cpt = _fwd_tiled_cpt(KS) if fwd else _tiled_storage(cg, KS, _KTOP_RESERVE)[1]
+    fn = _build.load("fb_tiled").fb_tiled_active_clusters
+    fn.argtypes, fn.restype = [_I] * 5 + [ctypes.POINTER(_I)], _I
+    active = _I(0)
+    err = fn(splits, KS, cg, cpt, int(fwd), ctypes.byref(active))
+    if err:
+        raise RuntimeError(f"fb_tiled_active_clusters: cudaError {err}")
+    return active.value
 
 
 def tiled_chain_floor(steps: int, B: int, splits: int, device, fwd=False) -> torch.Tensor:
@@ -854,9 +904,9 @@ def fb_tiled_core(gl, words, trans2, thin, K, K_top, ref_error, k_tile, CG=None)
 
 def _plan_cost(B, K_pad, Gp, splits, per_call):
     """fb_plan's estimated cost of B rows at `splits` blocks a row (1: the
-    fused family), per_call rows a core call: SM waves x a wave's cost in
+    fused family), per_call rows a core call: waves x a wave's cost in
     haplotypes a grid (see _BLOCK_OVERHEAD_K). A fused wave holds at most
-    _N_SM rows; a split call's blocks beyond one wave add their share."""
+    _N_SM rows, a split one _ACTIVE_CLUSTERS[splits]."""
     calls = [per_call] * (B // per_call) + ([B % per_call] if B % per_call else [])
     if splits == 1:
         return sum(-(-r // _N_SM) for r in calls) * K_pad * (
@@ -864,9 +914,9 @@ def _plan_cost(B, K_pad, Gp, splits, per_call):
     KS = K_pad // splits
     cg = tiled_cg(KS, Gp)
     smem, cpt = _tiled_storage(cg, KS, _KTOP_RESERVE)
-    form = ((_GENERAL_FORM_COST if cpt == 0 else 1.0) * (_INTERVAL2_COST if cg == 2 else 1.0)
+    form = ((_GENERAL_FORM_COST * (_INTERVAL2_COST if cg == 2 else 1.0) if cpt == 0 else 1.0)
             * (1.0 if smem else _GLOBAL_PLANES_COST))
-    waves = sum(max(1.0, r * splits / _N_SM) for r in calls)
+    waves = sum(-(-r // _ACTIVE_CLUSTERS[splits]) for r in calls)
     return waves * (KS + _BLOCK_OVERHEAD_K) * form
 
 
@@ -881,16 +931,18 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
     8,192), else 4 state planes + CG alphas where those do not fit shared
     memory; tiled: Gp/CG checkpoints at CG = tiled_cg, the general forward's
     alpha plane and the backward's scratch planes, _tiled_planes). Of the fused
-    family and the splits of 2, 4 and 8 blocks a row, the plan takes the
+    family and the splits of 2, 4, 8 and 16 blocks a row, the plan takes the
     least cost (_plan_cost) over all the core calls of B rows. Measured on
-    the H100 (512 grids, 14 to 200 rows x K = 5,120 .. 40,960, chip_smoke.py's
+    the H100 (512 grids, 14 to 200 rows x K = 5,120 .. 194,512, chip_smoke.py's
     "fb_plan timing" lines, tabulated in PERF.md §6 "fb_plan"): this takes
-    the fastest choice at every timed shape, e.g. fused at 84 and 112 x
-    5,120 (7.55 / 7.47 ms against 9.53 / 9.81 for 2 blocks), 2 blocks at
-    200 x 8,192 (24.65 against 29.02 fused), 4 at 28 x 40,960 (13.48
-    against 16.28 for 8) and at 112 x 40,960 (52.25 against 100.65 for 2
-    blocks, whose interval-2 checkpoints take two calls), and 8 at 16 and
-    112 x 98,304 (37.78 / 148.18 ms against 42.74 / 175.73 for the next).
+    the fastest choice at every timed shape, e.g. 8 blocks of 640 at 14 x
+    5,120 (3.55 ms against 3.86 for 4), fused at 84 and 112 x 5,120 (7.79 /
+    7.73 against 9.09 / 9.13 for 2 blocks), 2 blocks at 200 x 8,192 (22.94
+    against 29.02 fused), 4 at 28 and 112 x 40,960 (11.99 / 46.71 against
+    14.27 / 55.79 for 8), at 16 rows x 98,304 16 blocks (25.87 against
+    30.10 for 8), at 112 rows 8 in the staged form (118.36 against 128.09
+    for 16, whose 7 clusters at once take 16 waves), and 16 at 16 and 112
+    x 194,512 (45.74 / 245.42 ms against 69.81 / 394.19 for 8).
     A call that captures gamma (`capture`) is fused: only the fused
     backward captures, as on the TPU (fb_pallas.py:659-663).
     `family` / `splits` force the choice (tests, timings)."""
@@ -912,12 +964,12 @@ def fb_plan(B: int, fb: FBInputs, family: Optional[str] = None,
         return rows(_tiled_planes(fb.K_pad, fb.nGrids, s))
 
     if splits is None:
-        splits = min((1,) + tuple(s for s in (2, 4, 8) if fb.K_pad >= _TILED_MIN_K
+        splits = min((1,) + tuple(s for s in _SPLITS[1:] if fb.K_pad >= _TILED_MIN_K
                                   and fb.K_pad // s >= _MIN_K_PER_SPLIT),
                      key=lambda s: _plan_cost(B, fb.K_pad, fb.nGrids, s,
                                               rows(fused_planes) if s == 1 else tiled_rows(s)))
-    elif splits not in (1, 2, 4, 8):
-        raise ValueError(f"splits must be 1, 2, 4 or 8, got {splits}")
+    elif splits not in _SPLITS:
+        raise ValueError(f"splits must be 1, 2, 4, 8 or 16, got {splits}")
     if family is None:
         family = "tiled" if splits > 1 else "fused"
     if family == "fused":

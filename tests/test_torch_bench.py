@@ -102,12 +102,22 @@ def test_fb_plan_at_98304_takes_a_split_the_kernels_accept(rows):
     assert fbk._splits(98304, 98304 // splits) == splits
 
 
-@pytest.mark.parametrize("rows, plan", [(16, ("tiled", 16, 8)), (112, ("tiled", 84, 8))])
+@pytest.mark.parametrize("rows, plan", [(16, ("tiled", 16, 16)), (112, ("tiled", 42, 8))])
 def test_fb_plan_at_98304_takes_the_fastest_timed_split(rows, plan):
     """chip_smoke.py's "fb_plan timing" at 16 and 112 rows x 98,304 x 512
-    grids (PERF.md): 8 blocks a row the fastest at both; at 112 rows the
-    8-block split's checkpoints take two calls (84 + 28 rows)."""
+    grids (PERF.md): 16 blocks a row the fastest at 16 rows, 8 in the staged
+    form at 112, whose checkpoints every 2 grids take three calls (42 + 42
+    + 28 rows)."""
     assert fbk.fb_plan(rows, _fb_at(98304, 512)) == plan
+
+
+@pytest.mark.parametrize("rows, plan", [(16, ("tiled", 16, 16)), (112, ("tiled", 21, 16))])
+def test_fb_plan_at_194512_takes_the_fastest_timed_split(rows, plan):
+    """The same at the TOPMed-sized panel (K = 194,512, K_pad 194,560): 16
+    blocks a row in the staged form the fastest at both, 21 rows a call."""
+    fb = FBInputs(words=np.zeros((512, 1), np.int32), trans=None, thin_flag=None, K=194512,
+                  K_pad=194560, nGrids=512, S=512 * 32, nSNPs=512 * 32)
+    assert fbk.fb_plan(rows, fb) == plan
 
 
 @pytest.fixture(scope="module")

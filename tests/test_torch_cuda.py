@@ -431,7 +431,7 @@ def test_fb_tiled_backward_matches_plain(cuda, K, splits):
     kt = fb.K_pad // splits
     CG = fbk.tiled_cg(kt, nG)
     smem, cpt = fbk._tiled_storage(CG, kt, 32)
-    assert smem == (kt <= 27552) and (cpt == 0) == (kt > 20 * 512)
+    assert smem == (kt <= 27552) and (cpt == 0) == (kt > 24 * 512)
     mx = fbk.fb_max_tiled(dl, words, K, kt)
     ck, S, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
     for K_top in (1, 8, 16, 32):
@@ -470,7 +470,7 @@ def test_fb_tiled_forward_matches_plain(cuda, K, splits):
     mx = fbk.fb_max_tiled(dl, words, K, kt)
     ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt, CG=1)
     cpt = fbk._fwd_tiled_cpt(kt)
-    assert (cpt == 0) == (kt > 20 * 512)
+    assert (cpt == 0) == (kt > 24 * 512)
     forms = [dict(_general=True)] + ([{}] if cpt else [])
     for CG in (2, 4, 8, 16):
         first = None
@@ -563,10 +563,67 @@ def test_fb_tiled_refuses_bad_tiles(cuda):
         fbk.fb_max_tiled(dl, words, 300, 128)            # 3 blocks per row
     with pytest.raises(ValueError, match="k_tile"):
         fbk.fb_max_tiled(dl, words, 300, 100)            # does not cut K_pad
+    words = torch.zeros((16, 4096), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="k_tile"):
+        fbk.fb_max_tiled(dl, words, 4000, 128)           # 32 blocks per row
+
+
+@pytest.mark.parametrize("K,splits", [
+    (12000, 1),                 # the staged form, one block a row, ragged (K_pad 12,032)
+    (24576, 2),                 # the staged form at its widest block, 12,288
+    (98304, 8),                 # K = 98,304 at 8 blocks a row: the staged form
+    (98304, 16),                # and at 16: 6,144 a block, 16 haplotypes a thread
+    (40960, 16),                # 16 blocks of 2,560 (8 a thread)
+    (194512, 16),               # a TOPMed-sized panel (K_pad 194,560): 12,160 a block,
+                                # the last block ragged
+])
+def test_fb_tiled_staged_and_16_block_forms_match_plain(cuda, K, splits):
+    """The staged form (24 haplotypes a thread: the forward's next words,
+    the backward's word planes in shared memory, checkpoint interval 2) and
+    clusters of 16 blocks against the plain versions: checkpoints and S
+    rtol 1e-5, log-likelihood atol 1e-3, the backward at K_top 1, 8 and 32
+    (dosage and top-K atol 1e-4, indices where the values settle them);
+    two launches equal bit for bit; the rebuilt alphas equal the
+    forward's."""
+    nG, B = 32, 3
+    fb = _random_fb(K, nG, K + splits)
+    dev = fb.device_tensors(cuda)
+    words, trans2, thin = dev["words"], dev["trans2"], dev["thin_flag"]
+    gen = torch.Generator(device=cuda).manual_seed(K + splits)
+    gl = 0.05 + 0.95 * torch.rand((B, 2, fb.S), generator=gen, device=cuda)
+    dl, _ = fbk._gl_log_ratios(gl, 0.001)
+    kt = fb.K_pad // splits
+    CG = fbk.tiled_cg(kt, nG)
+    smem, cpt = fbk._tiled_storage(CG, kt, 32)
+    staged = 20 * 512 < kt <= 24 * 512
+    assert smem and cpt and cpt == fbk._fwd_tiled_cpt(kt) and (cpt == 24) == staged
+    assert (CG == 2) if staged else (CG > 2)
+    mx = fbk.fb_max_tiled(dl, words, K, kt)
+    ck_r, S_r, lg_r = fbk.fb_forward_tiled_plain(dl, words, trans2, mx, K, kt, CG=1)
+    ck, S, lg = got = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+    torch.testing.assert_close(ck, ck_r[::CG], rtol=1e-5, atol=1e-30)
+    torch.testing.assert_close(S, S_r, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lg, lg_r, rtol=0, atol=1e-3)
+    assert not ck[..., K:].any()
+    again = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for K_top in (1, 8, 32):
+        args = (dl, words, ck, trans2, thin, mx, S, K, K_top, 0.001, kt)
+        out = fbk.fb_backward_tiled(*args)
+        _assert_tiled_backward(out, fbk.fb_backward_tiled_plain(*args), thin)
+        assert all(torch.equal(a, b) for a, b in zip(out, fbk.fb_backward_tiled(*args)))
+    rebuilt = torch.zeros((nG, B, fb.K_pad), device=cuda)
+    fbk.fb_backward_tiled(dl, words, ck, trans2, thin, mx, S, K, 8, 0.001, kt, _rebuilt=rebuilt)
+    ck1, S1, _ = fbk.fb_forward_tiled(dl, words, trans2, mx, K, kt, CG=1)
+    assert torch.equal(S1, S)
+    assert torch.equal(rebuilt[:-1], ck1[1:])
+    tiled = fbk.fb_tiled_core(gl, words, trans2, thin, K, 8, 0.001, k_tile=kt)
+    forced = fbk.fb_full_batched(gl, fb, K_top=8, family="tiled", splits=splits)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, forced))
 
 
 def test_fb_tiled_backward_refuses_what_it_has_no_instantiation_for(cuda):
-    """A split that does not cut K_pad into 1, 2, 4 or 8 blocks, a K_top
+    """A split that does not cut K_pad into 1, 2, 4, 8 or 16 blocks, a K_top
     above 32, and register columns or a storage without an instantiation
     raise; nothing falls back to the plain version."""
     fb = _random_fb(4096, 16, 1)
@@ -593,15 +650,17 @@ def test_fb_tiled_backward_refuses_what_it_has_no_instantiation_for(cuda):
                 1.0 / fb.K, 0.001, smem, cpt)
 
 
-@pytest.mark.parametrize("KS", [64, 1024, 3296, 3312, 5120, 10240, 13712, 27552, 30016])
+@pytest.mark.parametrize("KS", [64, 1024, 3296, 3312, 5120, 10240, 10248, 12160, 12288, 13712,
+                                27552, 30016])
 def test_fb_tiled_smem_layout_matches_the_kernel(cuda, KS):
     """The wrapper's copy of the tiled backward's shared-memory layout
     (_bwd_tiled_smem_bytes, which tiled_cg and _tiled_storage read) equals
     the kernel library's (fb_tiled.cu bwd_smem_floats), so the interval and
-    storage that the wrapper chooses are the ones the kernel accepts."""
+    storage that the wrapper chooses are the ones the kernel accepts: global
+    planes, the alpha planes, and the staged form's alpha and word planes."""
     for CG in (1, 2, 4, 8, 16):
         for K_top in (1, 8, 16, 32):
-            for planes in (True, False):
+            for planes in (True, False, 2):
                 assert (fbk.kernel_tiled_smem_bytes(CG, KS, K_top, planes)
                         == fbk._bwd_tiled_smem_bytes(CG, KS, K_top, planes))
 

@@ -66,18 +66,22 @@ def _tiled(fb, gl_pad, k_tile, K_top=8):
         torch.from_numpy(gl_pad), *_tensors(fb), fb.K, K_top, EPS, k_tile=k_tile)]
 
 
-def test_tiled_matches_pallas_tiled(world, monkeypatch):
+@pytest.mark.parametrize("tiles", [2, 16])
+def test_tiled_matches_pallas_tiled(world, monkeypatch, tiles):
+    """Two tiles of 64 and sixteen of 8 (the most blocks a row of the GPU
+    form), the Pallas kernel's K_TILE patched to the same width."""
     import quilt_tpu.kernels.fb_pallas as fbp
 
-    monkeypatch.setattr(fbp, "K_TILE", 64)
     _, _, ref, fb, gl_pad = world
+    k_tile = fb.K_pad // tiles
+    monkeypatch.setattr(fbp, "K_TILE", k_tile)
     dev = ref.device()
     d_ref, l_ref, tv_ref, _, _ = (np.asarray(x) for x in fbp.fb_pallas_tiled_core(
         jnp.asarray(gl_pad), dev["words"], dev["trans2"], dev["thin_flag"],
         dev["capture_flag"], K=ref.K, K_pad=ref.K_pad, K_top=8, ref_error=EPS,
         interpret=True,
     ))
-    d, ll, tv, ti = _tiled(fb, gl_pad, 64)
+    d, ll, tv, ti = _tiled(fb, gl_pad, k_tile)
     np.testing.assert_allclose(d, d_ref, atol=1e-4)
     np.testing.assert_allclose(ll, l_ref, rtol=1e-4, atol=1e-2)
     thin = np.flatnonzero(ref.thin_flag >= 0)
@@ -89,9 +93,11 @@ def test_tiled_matches_pallas_tiled(world, monkeypatch):
     assert not tv[others].any() and not ti[others].any()
 
 
-def test_tiled_matches_oracle(world):
+@pytest.mark.parametrize("k_tile", [64, 8])
+def test_tiled_matches_oracle(world, k_tile):
+    """Two tiles, and sixteen (the most blocks a row of the GPU form)."""
     panel, trans, _, fb, gl_pad = world
-    d, ll, _, _ = _tiled(fb, gl_pad, 64)
+    d, ll, _, _ = _tiled(fb, gl_pad, k_tile)
     for row in range(2):
         orc = haploid_dosage_versus_refs(
             gl_pad[row, :, :panel.nSNPs].astype(np.float64), panel, trans, ref_error=EPS)
@@ -252,7 +258,7 @@ class _Shape:
 
 
 @pytest.mark.parametrize("rows, K, family, splits", [
-    (14, 5120, "tiled", 4), (28, 5120, "tiled", 4), (56, 5120, "tiled", 2),
+    (14, 5120, "tiled", 8), (28, 5120, "tiled", 4), (56, 5120, "tiled", 2),
     (84, 5120, "fused", 1), (112, 5120, "fused", 1),
     (14, 8192, "tiled", 8), (28, 8192, "tiled", 4), (56, 8192, "tiled", 2),
     (112, 8192, "tiled", 2), (200, 8192, "tiled", 2), (28, 8320, "tiled", 4),
@@ -261,36 +267,62 @@ class _Shape:
     (112, 20480, "tiled", 2), (200, 20480, "tiled", 2),
     (28, 40960, "tiled", 4), (56, 40960, "tiled", 4), (112, 40960, "tiled", 4),
     (200, 40960, "tiled", 4), (2, 256, "fused", 1), (14, 4096, "fused", 1),
+    (16, 98304, "tiled", 16), (16, 194560, "tiled", 16),
 ])
 def test_fb_plan(rows, K, family, splits):
     """The plan at every shape that chip_smoke.py's "fb_plan timing" lines
     measured (PERF.md), each the fastest there: a split of 4 or 8 while the
-    blocks fit about one wave, of 2 beyond it, 4 at 40,960 (2 blocks a row
-    there take the general form and, at 112 rows and up, two calls; 8 lost
-    to 4 at 28 rows once the forward held its alphas in registers); the
-    fused family at 5,120 once no split fits one wave (the QUILT1
-    quick-start batch of 112 rows, the NIPT batch of 84); and below 5,120,
-    where no split was measured. Every call here takes all its rows."""
+    blocks fit about one wave (8 blocks of 640 at 14 x 5,120), of 2 beyond
+    it, 4 at 40,960 (2 blocks a row there take the general form and, at
+    112 rows and up, two calls; 8 lost to 4 at 28 rows once the forward
+    held its alphas in registers); 16 at 16 rows x 98,304 and 194,560 (7
+    clusters of 16 at once against 15 of 8, but half the haplotypes a
+    block); the fused family at 5,120 once no split fits one wave (the
+    QUILT1 quick-start batch of 112 rows, the NIPT batch of 84); and below
+    5,120, where no split was measured. Every call here takes all its
+    rows."""
     assert fbk.fb_plan(rows, _Shape(K)) == (family, rows, splits)
+
+
+@pytest.mark.parametrize("rows, K, plan", [
+    (112, 98304, ("tiled", 42, 8)), (112, 194560, ("tiled", 21, 16)),
+    (84, 98304, ("tiled", 42, 8)), (28, 194560, ("tiled", 21, 16)),
+])
+def test_fb_plan_past_one_call(rows, K, plan):
+    """Where the checkpoints of all rows exceed _CALL_BYTES: at 112 rows x
+    98,304 the staged form at 8 blocks a row (checkpoints every 2 grids, so
+    42 rows a call) was the fastest (118.36 ms against 128.09 for 16 blocks,
+    whose 7 clusters at once take 16 waves); at 194,560 16 blocks in the
+    staged form, 21 rows a call (245.42 ms against 394.19 for 8)."""
+    assert fbk.fb_plan(rows, _Shape(K)) == plan
 
 
 @pytest.mark.parametrize("KS, cg, cpt", [
     (64, 16, 2), (1024, 16, 2), (3296, 16, 8), (3312, 8, 8), (5120, 8, 16), (6752, 8, 16),
-    (6768, 4, 16), (10240, 4, 20), (13696, 4, 0), (13712, 2, 0), (20480, 2, 0),
+    (6768, 4, 16), (10240, 4, 20), (10248, 2, 24), (12160, 2, 24), (12288, 2, 24),
+    (12296, 4, 0), (13696, 4, 0), (13712, 2, 0), (20480, 2, 0), (24320, 2, 0),
     (27552, 2, 0), (27568, 16, 0),
 ])
 def test_tiled_cg(KS, cg, cpt):
     """The tiled backward's checkpoint interval is the largest of 16, 8, 4, 2
-    whose alpha planes fit a block's shared memory beside its tables, posts
-    and 32-entry top-K lists (at K_top 32 the largest call), else 16 with
-    the planes in global memory; the register form holds up to 20
-    haplotypes a thread."""
+    whose planes fit a block's shared memory beside its tables, posts and
+    32-entry top-K lists (at K_top 32 the largest call), else 16 with the
+    planes in global memory; the register forms hold up to 20 haplotypes a
+    thread, the staged form 24 (K = 98,304 at 8 blocks a row, 194,560 at
+    16) with a word plane beside each alpha plane, so at interval 2."""
     assert fbk.tiled_cg(KS, 512) == cg
     smem, c = fbk._tiled_storage(cg, KS, 32)
     assert smem == (KS <= 27552) and c == cpt
-    assert fbk._bwd_tiled_smem_bytes(cg, KS, 32, smem) <= fbk._SMEM_LIMIT
+    assert fbk._fwd_tiled_cpt(KS) == (cpt or (24 if KS <= 24 * 512 else 0))
+    planes = fbk._smem_planes(c) if smem else 0
+    assert fbk._bwd_tiled_smem_bytes(cg, KS, 32, planes) <= fbk._SMEM_LIMIT
     if 2 < cg < 16 and smem:
-        assert fbk._bwd_tiled_smem_bytes(2 * cg, KS, 32, True) > fbk._SMEM_LIMIT
+        assert fbk._bwd_tiled_smem_bytes(2 * cg, KS, 32, planes) > fbk._SMEM_LIMIT
+    if c == 24:
+        # the staged form's planes do not fit at 4: forced there, the block
+        # takes the general form, whose alpha planes do
+        assert fbk._bwd_tiled_smem_bytes(4, KS, 32, 2) > fbk._SMEM_LIMIT
+        assert fbk._tiled_storage(4, KS, 32) == (True, 0)
     if smem:
         assert fbk.tiled_cg(KS, 24) == min(cg, 8)      # the interval divides Gp
 
@@ -301,6 +333,10 @@ def test_tiled_cg(KS, cg, cpt):
                                          # the backward's e*beta plane
     (60032, 2, 512 // 16 + 1 + 1 + 16),  # + the chunk's 16 alpha planes in global memory
     (8192, 8, 512 // 16),
+    (98304, 8, 512 // 2),                # the staged form: checkpoints every 2 grids
+    (98304, 16, 512 // 8),               # 6,144 a block: 16 a thread, interval 8
+    (194560, 16, 512 // 2),              # the TOPMed-sized panel: staged at 16 blocks
+    (194560, 8, 512 // 2 + 1 + 1),       # 24,320 a block: the general forms
 ])
 def test_fb_plan_tiled_planes(K, splits, planes):
     """fb_plan's rows per tiled call follow the backward's checkpoint
@@ -308,6 +344,21 @@ def test_fb_plan_tiled_planes(K, splits, planes):
     assert fbk._tiled_planes(K, 512, splits) == planes
     rows = fbk.fb_plan(1000, _Shape(K), family="tiled", splits=splits)[1]
     assert rows == min(1000, fbk._CALL_BYTES // (planes * K * 4))
+
+
+def test_splits_accept_16_blocks_and_refuse_32():
+    """A row splits into 1, 2, 4, 8 or 16 blocks (a cluster of 16 is the
+    largest the card schedules, a non-portable size); 32, or a k_tile that
+    does not cut K_pad, raises, in the wrappers and in fb_plan."""
+    for splits in (1, 2, 4, 8, 16):
+        assert fbk._splits(4096, 4096 // splits) == splits
+    for k_tile in (128, 100, 3000):
+        with pytest.raises(ValueError, match="k_tile"):
+            fbk._splits(4096, k_tile)
+    shape = _Shape(98304)
+    assert fbk.fb_plan(16, shape, family="tiled", splits=16)[2] == 16
+    with pytest.raises(ValueError, match="splits"):
+        fbk.fb_plan(16, shape, family="tiled", splits=32)
 
 
 def test_fb_plan_forced_and_capture(world):
@@ -368,7 +419,7 @@ def test_engine_tiled_matches_fused_and_jax():
         assert abs(a - c) < 0.01, (a, c)
 
 
-@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
 def test_tiled_forward_ragged_last_block(world, splits):
     """The forward at each split the GPU form takes (k_tile = K_pad / splits,
     so the last real block is ragged and, at 8 splits, two blocks hold only
