@@ -76,23 +76,34 @@ Phases, each fatal on failure:
                four kernels of the path must launch; one more call under
                torch.profiler gives the device-time shares (here and in
                phases 4 and 5);
-  4. dist    - multiple GPUs and hosts on the one card: the four segment
+  4. dist    - multiple GPUs and hosts on the one card: the segment
                kernels of the panel-sharded FB (csrc/fb_sharded.cu; the JAX
-               body is XLA, quilt_tpu/kernels/fb_full.py:440) against their
-               plain versions at 112 rows x K = 5,120 split 2 and 4 ways
-               (K_shard 2,560 / 1,280, 512 grids) at four segments, two
-               launches equal bit for bit, timed at one; fb_full_sharded
-               over make_mesh(1, n, [cuda:0] x n), n = 2 and 4, against
+               body is XLA, quilt_tpu/kernels/fb_full.py:440: the local
+               passes once a call, a fused forward and backward step a
+               segment, the backward rebuilding its alphas from the
+               forward's checkpoints) against their plain versions on the
+               calls' own inputs at 112 rows x K = 5,120 split 2, 3 and 4
+               ways and at the mesh run's 56 rows, at segments 0, 1, 31, 63
+               and the capture's, two launches equal bit for bit, the
+               rebuilt alphas equal to the forward's; the steps timed in
+               turn with the previous form's apply and local passes at 56
+               and 112 rows, beside the "seg step split" lines; fb_full_sharded
+               over make_mesh(1, n, [cuda:0] x n), n = 2, 3 and 4, against
                fb_full_batched (dosage, log-likelihood, top-K at the thinned
-               grids, the captured gamma at 14 rows), its time and an
-               exchange's (one-card figures: the shards run in turn); the
-               e2e world at mesh (2, 2) over [cuda:0] x 4 (r2 >= 0.9, each
-               sample's DS r2 > 0.98 against the single-card run, the segment
-               kernels launched, the fused FB not) and at (2, 1) (the
-               single-card VCF byte for byte); the CLI world imputed by two
-               processes on the card over gloo (--distributed_nproc 2)
-               against one: sample columns bit for bit, INFO within 1e-3,
-               only rank 0 writes the VCF;
+               grids, the captured gamma at 14 rows), its time in turn with
+               sharded_core's previous form, the peak memory of each and an
+               exchange's time (one-card figures: the shards run in turn);
+               the same at k100k's panel (84 rows x K = 98,304, 2 and 4
+               shards, the kernels checked at two segments) beside the
+               unsharded FB; the e2e world at mesh (2, 2) over [cuda:0] x 4
+               (r2 >= 0.9, each sample's DS r2 > 0.98 against the
+               single-card run, a step a segment and a local pass a call on
+               each shard, the fused FB not; the peak memory of the same
+               call in the previous form) and at (2, 1) (the single-card
+               VCF byte for byte); the CLI world imputed by two processes on
+               the card over gloo (--distributed_nproc 2) against one:
+               sample columns bit for bit, INFO within 1e-3, only rank 0
+               writes the VCF;
   5. quilt2  - QUILT2 diploid imputation (msPBWT selection + rare/common
                all-SNP Gibbs) of the same shape, with 10% of the sites
                rewritten to 1-4 carriers (rare); prints samples/s, r2 over
@@ -235,16 +246,21 @@ _PTXAS_KERNELS = {"fb_bwd_tiled_kernel": ("CPT", "shared"), "fb_fwd_tiled_kernel
                   "fb_max_tiled_kernel": (), "gibbs_dos_kernel": ("NL", "VEC"),
                   "gibbs_fwd_global_kernel": ("NL",), "gibbs_bwd_global_kernel": (),
                   "gibbs_fwd_cluster_kernel": ("NT", "CPT", "NL"),
-                  "nipt_bank_cluster_kernel": ("CPT",)}
+                  "nipt_bank_cluster_kernel": ("CPT",), "seg_fwd_local_kernel": (),
+                  "seg_fwd_step_kernel": (), "seg_bwd_local_kernel": (),
+                  "seg_bwd_step_kernel": (), "seg_fwd_apply_kernel": (),
+                  "seg_bwd_apply_kernel": ()}
 
 
 def _note_ptxas(library, entry, line):
     """Keeps the registers and spills that ptxas reports for each
     instantiation of the kernels of _PTXAS_KERNELS (not their previous
-    forms)."""
+    forms, but for the sharded FB's apply passes, which the seg step split
+    reads)."""
     import re
 
-    if entry is None or library not in ("fb_tiled", "nipt_bank", "gibbs_sweep", "gibbs_dosage"):
+    if entry is None or library not in ("fb_tiled", "nipt_bank", "gibbs_sweep", "gibbs_dosage",
+                                        "fb_sharded"):
         return
     m = re.search(r"\d+(" + "|".join(_PTXAS_KERNELS) + r")(I((?:L[a-z]+\d+E)+)E)?", entry)
     if m is None:
@@ -306,6 +322,80 @@ def _alternating_ms(fns, rounds=4, n=7):
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else reversed(list(fns))):
             times[name].append(_median_ms(fns[name], n))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+# How _device_ms times: "profiler" until torch.profiler has recorded no
+# device-side event in PROFILER_TRIES windows in a row (the tracer can
+# come back empty on a card it traced before), "queued events" from then on.
+DEVICE_TIMER = ["profiler"]
+PROFILER_TRIES = 3
+QUEUE_SLEEP_CYCLES = 20_000_000     # ~10 ms at the H100's 1.98 GHz
+
+
+def _profiled_ms(fn, n):
+    """ms of device time a call of fn: the device-side events of a
+    torch.profiler window around n calls, summed, over n; None where the
+    window recorded no device-side event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / n if us else None
+
+
+def _queued_ms(fn, n):
+    """ms of device time a call of fn from CUDA events around n calls that
+    the host queues while torch.cuda._sleep holds the stream: the events
+    span the device's work on the n calls, not the wrappers' host side."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _device_ms(fn, n):
+    """ms of device time a call of fn (DEVICE_TIMER says how it was taken).
+    For kernels of tens of microseconds, whose wrappers' host side (the
+    argument checks, the allocation) outlasts them, CUDA events around a
+    call time the host."""
+    if DEVICE_TIMER[0] == "profiler":
+        for _ in range(PROFILER_TRIES):
+            ms = _profiled_ms(fn, n)
+            if ms is not None:
+                return ms
+        DEVICE_TIMER[0] = "queued events"
+        print(f"chip_smoke: torch.profiler recorded no device time in {PROFILER_TRIES} windows "
+              f"in a row; kernel device times from here on are CUDA events around queued "
+              f"launches behind torch.cuda._sleep", flush=True)
+    return _queued_ms(fn, n)
+
+
+def _alternating_device_ms(fns, rounds=4, n=10):
+    """_alternating_ms with _device_ms: {name: median device ms a call},
+    all taken the same way (timed again if the timer changed on the way)."""
+    timer = DEVICE_TIMER[0]
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else reversed(list(fns))):
+            times[name].append(_device_ms(fns[name], n))
+    if DEVICE_TIMER[0] != timer:
+        return _alternating_device_ms(fns, rounds, n)
     return {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -2334,31 +2424,44 @@ def profile_hla_sample(w, device, per_sample_s):
 # last
 SEG_CHECKS = (0, 1, 31, 63)
 SEG_TIMED = 31
-SEG_NAMES = ("seg_fwd_local", "seg_fwd_apply", "seg_bwd_local", "seg_bwd_apply")
+# the path's segment kernels: the first segment's forward local pass and
+# the last one's backward local pass once a call, a step a segment in each
+# direction
+SEG_NAMES = ("seg_fwd_local", "seg_fwd_step", "seg_bwd_local", "seg_bwd_step")
+# the previous form's passes that each step replaces (timed in turn)
+SEG_PAIRS = {"seg_fwd_step": ("seg_fwd_apply", "seg_fwd_local"),
+             "seg_bwd_step": ("seg_bwd_apply", "seg_bwd_local")}
 
 
 def _seg_work(name, B, KS, nt, K_top):
     """(bytes, float32 operations) of one launch of a segment kernel on one
     shard of K_shard = KS haplotypes (all real), as the function needs them:
-    its inputs read once (the segment's panel words, log-ratios and maxima,
-    9 grids' in the backward; the [B, KS] planes it reads) and its outputs
-    written once. Operations per (row, haplotype): an emission logit, its
-    exp and its stay product ~10 a grid, then the forward local pass's 28
-    products, 8 h terms and 44 sums (160); the apply's 28 products, 80 of
-    the reconstruction and 8 divisions (196); the backward local pass's 56
-    products, 16 q terms and 46 sums (~217 with 9 grids' emissions); the
-    backward apply's 28 products, 64 of the reconstruction, 8 gamma
-    products, 8 normaliser and 256 bit-masked dosage sums (~460). Top-K at
-    the thinned grids is left out (a few grids of the segment)."""
+    its inputs read once (the panel words, log-ratios and maxima of the
+    grids it touches: 8, 9 in the backward, 16 in a forward step, 17 in a
+    backward step; the [B, KS] planes it reads) and its outputs written once.
+    Operations per (row, haplotype): an emission logit, its exp and its stay
+    product ~10 a grid, then the forward local pass's 28 products, 8 h terms
+    and 44 sums (160); the apply's 28 products, 80 of the reconstruction and
+    8 divisions (196); the backward local pass's 56 products, 16 q terms
+    and 46 sums (~217 with 9 grids' emissions); the backward apply's 28
+    products, 64 of the reconstruction, 8 gamma products, 8 normaliser and
+    256 bit-masked dosage sums (~460). A forward step is an apply and a
+    local pass (356); a backward step an apply, the alphas' rebuild (28
+    products, 80 and 8 divisions: 116) and a local pass less the emission it
+    shares (~776). Top-K at the thinned grids is left out (a few grids of
+    the segment)."""
     L, f = 8, 4
     words, dl, mx, plane = L * KS * f, B * L * 32 * f, B * L * f, B * KS * f
-    nine = 9 / 8
+    seg = words + dl + mx                                    # a segment's grids
+    nine, tvp = 9 / 8, nt * B * L * 32 * f + nt * L * B * f + 2 * nt * L * B * K_top * f
     work = {
-        "seg_fwd_local": (words + dl + mx + plane + B * nt * 44 * f, 160),
-        "seg_fwd_apply": (words + dl + mx + plane + B * 44 * f + L * plane, 196),
-        "seg_bwd_local": (nine * (words + dl + mx) + plane + B * nt * 46 * f, 217),
-        "seg_bwd_apply": (nine * (words + dl + mx) + L * plane + 2 * plane + B * 46 * f
-                          + nt * B * L * 32 * f + nt * L * B * f + 2 * nt * L * B * K_top * f, 460),
+        "seg_fwd_local": (seg + plane + B * nt * 44 * f, 160),
+        "seg_fwd_apply": (seg + plane + B * 44 * f + L * plane, 196),
+        "seg_fwd_step": (2 * seg + 2 * plane + B * 44 * f + B * 16 * f + B * nt * 44 * f, 356),
+        "seg_bwd_local": (nine * seg + plane + B * nt * 46 * f, 217),
+        "seg_bwd_apply": (nine * seg + L * plane + 2 * plane + B * 46 * f + tvp, 460),
+        "seg_bwd_step": ((2 + 1 / 8) * seg + 3 * plane + B * 46 * f + B * 16 * f + tvp
+                         + B * nt * 46 * f, 776),
     }[name]
     return work[0], work[1] * B * KS
 
@@ -2381,17 +2484,22 @@ def _seg_probe(res, segs=SEG_CHECKS, timed_seg=SEG_TIMED):
     the path's own inputs. Inside the block every call that
     kernels.fb_sharded.sharded_core makes of fb_max_tiled and of the four
     segment wrappers launches its kernel as usual; the first time a shard
-    (its words tensor) at a row count reaches fb_max_tiled, or a segment of
-    `segs` (seg_bwd_apply also the capture grid's segment), the same inputs
-    go through the plain version and through a second launch, the in-place
-    passes on copies of their state taken before the path's launch.
-    fb_max_tiled is held within max_tiled_tolerance, the segment kernels
-    within rtol 1e-4 plus 1e-6 of the largest value (of each value column
-    for the local sums) with the top-K haplotypes equal where the values are
-    firm, and the second launch must give the path's bits. At segment
-    timed_seg the first shard's kernel is timed (median of 7 launches on
-    the copies) with its plain version (_timed). Fills res {name: record}
-    for _seg_report. The launches it adds are not the main path's: run_e2e
+    (its words tensor) at a row count reaches fb_max_tiled, a local pass
+    (once a call), or a step at a segment of `segs` (seg_bwd_step also at
+    the capture grid's segment), the same inputs go through the plain
+    version and through a second launch, the steps on copies of their state
+    taken before the path's launch (the second launch also writes the
+    segment's alphas: the forward's, and the backward's rebuilt ones, which
+    must equal the forward's bit for bit). fb_max_tiled is held within
+    max_tiled_tolerance, the segment kernels within rtol 1e-4 plus 1e-6 of
+    the largest value (of each value column for the local sums) with the
+    top-K haplotypes equal where the values are firm, and the second launch
+    must give the path's bits. At segment timed_seg the first shard's steps
+    are timed in turn (device time, _alternating_device_ms: 4 rounds of 10
+    launches on the copies) with the previous form's apply pass and local
+    pass they replace, the local passes where the path launches them, and
+    each once with its plain version (_timed). Fills res {name: record} for
+    _seg_report. The launches it adds are not the main path's: run_e2e
     wraps the warm-up call, before the counts are set to 0."""
     import torch
     from quilt_tpu_torch.kernels import fb as fbk
@@ -2404,8 +2512,8 @@ def _seg_probe(res, segs=SEG_CHECKS, timed_seg=SEG_TIMED):
     plain["fb_max_tiled"] = fbk.fb_max_tiled_plain
     for n in names:
         res.setdefault(n, dict(err=0.0, ok=True, same=True, checks=0, ms=None, plain_ms=None,
-                               shape=None))
-    seen = set()
+                               prev_ms=None, timer=None, shape=None, rebuilt=0, rebuilt_same=True))
+    seen, fwd_alphas = set(), {}
 
     def due(name, dl, words, c, extra=False):
         key = (name, words.data_ptr(), dl.shape[0], c)
@@ -2421,11 +2529,13 @@ def _seg_probe(res, segs=SEG_CHECKS, timed_seg=SEG_TIMED):
         r["err"], r["ok"] = max(r["err"], err), r["ok"] and ok
         r["same"] = r["same"] and torch.equal(got, again)
 
-    def timing(name, c, dl, words, K_top, kernel, plain_fn):
+    def timing(name, c, dl, words, K_top, fns, plain_fn):
+        """fns {"step": ..., apply: ..., local: ...}: timed in turn."""
         r = res[name]
         if c == timed_seg and r["ms"] is None:
-            torch.cuda.synchronize()
-            r["ms"] = _median_ms(kernel, 7)
+            t = _alternating_device_ms(fns)
+            r["ms"] = t.pop("step")
+            r["prev_ms"], r["timer"] = t, DEVICE_TIMER[0]
             r["plain_ms"] = _timed(plain_fn)[1]
             r["shape"] = (dl.shape[0], words.shape[1], words.shape[0], K_top, c)
 
@@ -2442,65 +2552,105 @@ def _seg_probe(res, segs=SEG_CHECKS, timed_seg=SEG_TIMED):
     def local(name):
         def run(dl, words, trans2, mx, state, c, K_loc):
             part = real[name](dl, words, trans2, mx, state, c, K_loc)
-            if due(name, dl, words, c):
-                ref = plain[name](dl, words, trans2, mx, state, c, K_loc)
+            if due(name, dl, words, c, True):
                 again = lambda: real[name](dl, words, trans2, mx, state, c, K_loc)
+                ref = plain[name](dl, words, trans2, mx, state, c, K_loc)
                 note(name, part, ref, again(), per_col=True)
-                timing(name, c, dl, words, 0, again,
-                       lambda: plain[name](dl, words, trans2, mx, state, c, K_loc))
+                r = res[name]
+                if timed_seg >= 0 and r["ms"] is None:
+                    # launched once a call: timed where the path launches it
+                    r["ms"], r["prev_ms"] = _device_ms(again, 10), {}
+                    r["timer"] = DEVICE_TIMER[0]
+                    r["plain_ms"] = _timed(lambda: plain[name](dl, words, trans2, mx, state, c,
+                                                               K_loc))[1]
+                    r["shape"] = (dl.shape[0], words.shape[1], words.shape[0], 0, c)
             return part
         return run
 
-    def fwd_apply(dl, words, trans2, mx, tot, alphas, logm, c, K_loc, K):
-        name = "seg_fwd_apply"
+    def fwd_step(dl, words, trans2, mx, tot, ckpt, scal, logm, c, K_loc, K):
+        name = "seg_fwd_step"
         check = due(name, dl, words, c)
         if check:
-            copies = [(alphas.clone(), None if logm is None else logm.clone()) for _ in range(2)]
-        real[name](dl, words, trans2, mx, tot, alphas, logm, c, K_loc, K)
+            copies = [(ckpt.clone(), scal.clone(), None if logm is None else logm.clone(),
+                       torch.empty((L,) + ckpt.shape[1:], dtype=torch.float32, device=ckpt.device))
+                      for _ in range(2)]
+        part = real[name](dl, words, trans2, mx, tot, ckpt, scal, logm, c, K_loc, K)
         if check:
-            (a1, m1), (a2, m2) = copies
-            plain[name](dl, words, trans2, mx, tot, a1, m1, c, K_loc, K)
-            real[name](dl, words, trans2, mx, tot, a2, m2, c, K_loc, K)
-            g = slice(c * L, (c + 1) * L)
-            note(name, alphas[g], a1[g], a2[g])
+            (ck1, sc1, lm1, a1), (ck2, sc2, lm2, a2) = copies
+            ref = plain[name](dl, words, trans2, mx, tot, ck1, sc1, lm1, c, K_loc, K, a1)
+            again = real[name](dl, words, trans2, mx, tot, ck2, sc2, lm2, c, K_loc, K,
+                               _alphas=a2)
+            note(name, ckpt[c], ck1[c], ck2[c])
+            note(name, scal[c], sc1[c], sc2[c])
+            note(name, a2, a1, a2)
             if logm is not None:
-                note(name, logm[c], m1[c], m2[c])
-            timing(name, c, dl, words, 0,
-                   lambda: real[name](dl, words, trans2, mx, tot, a2, m2, c, K_loc, K),
-                   lambda: plain[name](dl, words, trans2, mx, tot, a1, m1, c, K_loc, K))
+                note(name, logm[c], lm1[c], lm2[c])
+            if part is not None:
+                note(name, part, ref, again, per_col=True)
+            fwd_alphas[(words.data_ptr(), dl.shape[0], c)] = a2
+            if part is not None:
+                a0 = ck2[c - 1] if c else None
+                seg = torch.empty_like(a2)
+                fns = {"step": lambda: real[name](dl, words, trans2, mx, tot, ck2, sc2, lm2, c,
+                                                  K_loc, K),
+                       "seg_fwd_apply": lambda: fs.seg_fwd_apply(dl, words, trans2, mx, tot, a0,
+                                                                 seg, lm2, c, K_loc, K),
+                       "seg_fwd_local": lambda: real["seg_fwd_local"](dl, words, trans2, mx,
+                                                                      ck2[c], c + 1, K_loc)}
+                timing(name, c, dl, words, 0, fns,
+                       lambda: plain[name](dl, words, trans2, mx, tot, ck1, sc1, lm1, c, K_loc,
+                                           K))
+        return part
 
-    def bwd_apply(dl, words, trans2, mx, alphas, tot, thin, beta, out, c, K_loc, K, k0, cap_grid):
-        name = "seg_bwd_apply"
+    def bwd_step(dl, words, trans2, mx, ckpt, scal, tot, thin, beta, out, c, K_loc, K, k0,
+                 cap_grid):
+        name = "seg_bwd_step"
         check = due(name, dl, words, c, cap_grid >= 0 and cap_grid // L == c)
         if check:
-            copies = [(beta.clone(), {k: None if v is None else v.clone() for k, v in out.items()})
+            copies = [(beta.clone(), {k: None if v is None else v.clone() for k, v in out.items()},
+                       torch.empty((L,) + beta.shape, dtype=torch.float32, device=beta.device))
                       for _ in range(2)]
-        args = lambda b, o: (dl, words, trans2, mx, alphas, tot, thin, b, o, c, K_loc, K, k0,
+        args = lambda b, o: (dl, words, trans2, mx, ckpt, scal, tot, thin, b, o, c, K_loc, K, k0,
                              cap_grid)
-        real[name](*args(beta, out))
+        part = real[name](*args(beta, out))
         if check:
-            (b1, o1), (b2, o2) = copies
-            plain[name](*args(b1, o1))
-            real[name](*args(b2, o2))
+            (b1, o1, a1), (b2, o2, a2) = copies
+            ref = plain[name](*args(b1, o1), a1)
+            again = real[name](*args(b2, o2), _alphas=a2)
             g = slice(c * L, (c + 1) * L)
 
             def views(b, o):
                 v = [b, o["dpart"][:, :, g.start * 32:g.stop * 32], o["gnp"][:, g], o["tvp"][:, g]]
                 return v + ([o["gcap"]] if o["gcap"] is not None else [])
 
-            for got, ref, again in zip(views(beta, out), views(b1, o1), views(b2, o2)):
-                note(name, got, ref, again)
+            for got, r_, ag in zip(views(beta, out), views(b1, o1), views(b2, o2)):
+                note(name, got, r_, ag)
+            note(name, a2, a1, a2)
+            if part is not None:
+                note(name, part, ref, again, per_col=True)
             tv_r, ti_r, ti_k = o1["tvp"][:, g], o1["tip"][:, g], out["tip"][:, g]
             firm = (tv_r[..., :-1] - tv_r[..., 1:]) > 1e-4 * tv_r.abs().max()
             r = res[name]
             r["ok"] = r["ok"] and torch.equal(ti_k[..., :-1][firm], ti_r[..., :-1][firm])
             r["same"] = r["same"] and torch.equal(ti_k, o2["tip"][:, g])
-            timing(name, c, dl, words, out["tvp"].shape[3],
-                   lambda: real[name](*args(b2, o2)), lambda: plain[name](*args(b1, o1)))
+            fwd = fwd_alphas.get((words.data_ptr(), dl.shape[0], c))
+            if fwd is not None:
+                r["rebuilt"] += 1
+                r["rebuilt_same"] = r["rebuilt_same"] and torch.equal(a2, fwd)
+            if part is not None:
+                fns = {"step": lambda: real[name](*args(b2, o2)),
+                       "seg_bwd_apply": lambda: fs.seg_bwd_apply(dl, words, trans2, mx, a2, tot,
+                                                                 thin, b2, o2, c, K_loc, K, k0,
+                                                                 cap_grid),
+                       "seg_bwd_local": lambda: real["seg_bwd_local"](dl, words, trans2, mx, b2,
+                                                                      c - 1, K_loc)}
+                timing(name, c, dl, words, out["tvp"].shape[3], fns,
+                       lambda: plain[name](*args(b1, o1)))
+        return part
 
     patched = {"fb_max_tiled": max_tiled, "seg_fwd_local": local("seg_fwd_local"),
-               "seg_fwd_apply": fwd_apply, "seg_bwd_local": local("seg_bwd_local"),
-               "seg_bwd_apply": bwd_apply}
+               "seg_fwd_step": fwd_step, "seg_bwd_local": local("seg_bwd_local"),
+               "seg_bwd_step": bwd_step}
     for n in names:
         setattr(fs, n, patched[n])
     try:
@@ -2512,32 +2662,135 @@ def _seg_probe(res, segs=SEG_CHECKS, timed_seg=SEG_TIMED):
 
 def _seg_report(label, res):
     """Prints _seg_probe's records and fails if a kernel went unchecked,
-    disagreed with its plain version or gave other bits a second time.
-    Returns {segment kernel: (max abs error, ms, plain ms, bytes,
-    operations)}, the times and their work at the timed segment's shape."""
+    disagreed with its plain version, gave other bits a second time, or
+    (the backward step) rebuilt other alphas than the forward's. Returns
+    {segment step: (max abs error, ms, plain ms, bytes, operations, {the
+    replaced pass: ms in turn})}, at the timed segment's shape."""
     from quilt_tpu_torch.kernels import fb_sharded as fs
 
     out = {}
     for name, r in res.items():
         tol = ("max_tiled_tolerance" if name == "fb_max_tiled" else
                "rtol 1e-4 + 1e-6 of the largest" + ("; top-K haplotypes equal where firm"
-                                                    if name == "seg_bwd_apply" else ""))
+                                                    if name == "seg_bwd_step" else ""))
         line = (f"{label}: {name}: max |err| {r['err']:.3e} over {r['checks']} checked launches "
                 f"on the path's inputs (tolerance {tol}), {'ok' if r['ok'] else 'FAILS'}; two launches "
                 f"{'equal bit for bit' if r['same'] else 'DIFFER'}")
+        if name == "seg_bwd_step":
+            line += (f"; rebuilt alphas {'equal' if r['rebuilt_same'] else 'DIFFER from'} the "
+                     f"forward's bit for bit at {r['rebuilt']} checked segments")
         if r["ms"] is not None:
             B, KS, Gp, K_top, c = r["shape"]
             nbytes, ops = _seg_work(name, B, KS, fs.n_tiles(KS), K_top)
             bound = _bound(nbytes, ops)
+            prev = " + ".join(f"{k} {v:.4f}" for k, v in r["prev_ms"].items())
             line += (f"; at {B} rows x K_shard {KS}, {Gp} grids, segment {c}: kernel "
-                     f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound {bound[0]:.4f} ms "
-                     f"({bound[1]})")
-            out[name] = (r["err"], r["ms"], r["plain_ms"], nbytes, ops)
+                     f"{r['ms']:.4f} ms of device time ({r['timer']})" + (f" against the previous form's {prev} = "
+                                           f"{sum(r['prev_ms'].values()):.4f} ms, in turn"
+                                           if prev else "")
+                     + f"; plain {r['plain_ms']:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            out[name] = (r["err"], r["ms"], r["plain_ms"], nbytes, ops, r["prev_ms"])
         print(line, flush=True)
-        if not r["checks"] or not r["ok"] or not r["same"]:
+        if (not r["checks"] or not r["ok"] or not r["same"] or not r["rebuilt_same"]
+                or (name == "seg_bwd_step" and not r["rebuilt"])):
             _fail(f"{label}: {name} unchecked, or it disagrees with its plain version or "
-                  f"between launches")
+                  f"between launches, or rebuilt other alphas")
     return out
+
+
+def _ptxas_note(kernel):
+    return "; ".join(PTXAS.get(kernel, [])).replace("<> ", "") or "not in this run's build report"
+
+
+def seg_step_split(label, B, KS, trans2, K, thin, times, K_top=8, steps=64):
+    """The "seg step split" lines at B rows x K_shard KS: each segment
+    kernel's device time a grid (from `times`, {kernel: ms a launch} timed
+    in turn by _seg_probe) beside the pieces of its work, each timed alone by
+    fb_sharded.seg_split in every block of the same launch shape (the
+    difference of `steps` and 2 `steps` repetitions, so the launch's own
+    cost drops out): the previous backward apply's per-grid pair of block
+    reductions, one block_argmax round (K_top of them at each thinned
+    grid), thread 0's mass solves, a local pass's block_sums; the
+    backward step's reductions of a segment and its top-K of one thinned
+    grid; the bytes of the planes each reads or writes; ptxas's registers
+    and spills. Returns {piece: us a repetition}."""
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    L, nt = fs.SEG_LEN, fs.n_tiles(KS)
+    us = {}
+    for which, piece in enumerate(fs.SPLIT_PIECES):
+        t1 = _median_ms(lambda: fs.seg_split(which, steps, B, KS, K_top, trans2, K), 5)
+        t2 = _median_ms(lambda: fs.seg_split(which, 2 * steps, B, KS, K_top, trans2, K), 5)
+        us[piece] = max(t2 - t1, 0.0) * 1e3 / steps
+    share = float((thin >= 0).float().mean())
+    plane_mb = B * KS * 4 / 1e6
+    topk = K_top * us["block_argmax round"] * share
+    a_grid = lambda name: 1e3 * times[name] / L if name in times else float("nan")
+    head = f"seg step split, {label}, {B} rows x K_shard {KS} ({nt * B} blocks of 512) (this run)"
+    print(f"{head}: seg_bwd_apply {a_grid('seg_bwd_apply'):.2f} us a grid: its block_reduce + "
+          f"block_reduce32 pair {us['bwd apply grid reductions']:.2f} us a grid; a block_argmax "
+          f"round {us['block_argmax round']:.2f} us, {K_top} a thinned grid, {100 * share:.1f}% of "
+          f"grids thinned: {topk:.2f} us a grid; thread 0's mass solve {us['bwd mass solve']:.2f} "
+          f"us a segment; reads 8 alpha planes, {8 * plane_mb:.1f} MB a launch "
+          f"({8 * plane_mb * 1e12 / HBM_BYTES_PER_S:.2f} us at the HBM rate); ptxas "
+          f"{_ptxas_note('seg_bwd_apply_kernel')}", flush=True)
+    print(f"{head}: seg_fwd_apply {a_grid('seg_fwd_apply'):.2f} us a grid: thread 0's mass solve "
+          f"{us['fwd mass solve']:.2f} us a segment; writes 8 alpha planes, {8 * plane_mb:.1f} MB "
+          f"a launch; ptxas {_ptxas_note('seg_fwd_apply_kernel')}", flush=True)
+    for name in ("seg_fwd_local", "seg_bwd_local"):
+        print(f"{head}: {name} {a_grid(name):.2f} us a grid: block_sums of 45 values "
+              f"{us['block_sums of 45']:.2f} us a segment; reads 1 plane, {plane_mb:.1f} MB; ptxas "
+              f"{_ptxas_note(name + '_kernel')}", flush=True)
+    print(f"{head}: seg_bwd_step {a_grid('seg_bwd_step'):.2f} us a grid: the segment's "
+          f"reductions (8 grids x 33 sums and 45 local sums, transposing, one barrier) "
+          f"{us['bwd step segment reductions']:.2f} us a segment = "
+          f"{us['bwd step segment reductions'] / L:.2f} us a grid; top-K of a thinned grid (per "
+          f"warp, then one merge) {us['bwd step top-K of a grid']:.2f} us, "
+          f"{us['bwd step top-K of a grid'] * share:.2f} us a grid; mass solve "
+          f"{us['bwd mass solve']:.2f} us a segment; reads 1 checkpoint plane and the carry, "
+          f"writes the carry, {3 * plane_mb:.1f} MB; ptxas {_ptxas_note('seg_bwd_step_kernel')}",
+          flush=True)
+    print(f"{head}: seg_fwd_step {a_grid('seg_fwd_step'):.2f} us a grid: mass solve "
+          f"{us['fwd mass solve']:.2f} us a segment; reads 1 checkpoint plane, writes 1, "
+          f"{2 * plane_mb:.1f} MB; ptxas {_ptxas_note('seg_fwd_step_kernel')}", flush=True)
+    return us
+
+
+def _step_times(res):
+    """{kernel: ms a launch} of _seg_probe's timed steps and the passes they
+    replaced, in turn."""
+    t = {}
+    for name in ("seg_fwd_step", "seg_bwd_step"):
+        r = res.get(name, {})
+        if r.get("ms") is not None:
+            t[name] = r["ms"]
+            t.update(r["prev_ms"])
+    return t
+
+
+def _peak_gib(fn):
+    """(fn(), its peak device memory in GiB over what was allocated before
+    it, the absolute peak in GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, (peak - before) / 2**30, peak / 2**30
+
+
+def _sharded_prev(sfb):
+    """A ShardedFB-like callable running sharded_core's previous form
+    (_prev=True) on sfb's shards: the one data row's call, for timings."""
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    (group, shards), = sfb.rows
+    inp = sfb.inputs
+    return lambda gl: fs.sharded_core(gl, shards, group, inp.K, sfb.K_top, sfb.ref_error,
+                                      inp.capture_grid, _prev=True)
 
 
 def check_sharded_fb(fb, B=112, K_top=8, eps=0.001):
@@ -2549,8 +2802,9 @@ def check_sharded_fb(fb, B=112, K_top=8, eps=0.001):
     middle grid at 14 rows. The first call and the capture call run under
     _seg_probe, which holds fb_max_tiled and the segment kernels against
     their plain versions on every shard. Times the sharded call (median of
-    3) and one exchange of a segment's [B, 46] sums (median of 20), with
-    the exchanges a call makes. On one card the shards run one after
+    3) in turn with sharded_core's previous form, each with its peak device
+    memory, and one exchange of a segment's [B, 46] sums (median of 20),
+    with the exchanges a call makes. On one card the shards run one after
     another: these are not multi-card figures. Returns {n: the probe's
     records}."""
     import dataclasses
@@ -2586,8 +2840,11 @@ def check_sharded_fb(fb, B=112, K_top=8, eps=0.001):
         err_tv = (out[2][thin][:, :, :K_top] - ref[2][thin]).abs().max().item()
         group = sfb.rows[0][0]
         e0 = group.exchanges
-        ms = _median_ms(lambda: sfb(gl), 3)
-        per_call = (group.exchanges - e0) // 3
+        prev = _sharded_prev(sfb)
+        t = _alternating_ms({"new": lambda: sfb(gl), "previous form": lambda: prev(gl)},
+                            rounds=2, n=3)
+        per_call = (group.exchanges - e0) // 12
+        mem = {k: _peak_gib(lambda: f(gl))[1:] for k, f in (("new", sfb), ("previous", prev))}
         parts = [torch.rand((B, 46), generator=gen, device="cuda") for _ in range(n)]
         ex_ms = _median_ms(lambda: group.sum(parts), 20)
         err_cap = (cap[4] - ref_cap[4]).abs().max().item()
@@ -2597,38 +2854,101 @@ def check_sharded_fb(fb, B=112, K_top=8, eps=0.001):
               f"{err_l:.3e} (1e-5), top-K values {err_tv:.3e} (1e-4), at least {shared} of "
               f"{K_top} haplotypes shared at every thinned grid (7), capture at 14 rows "
               f"{err_cap:.3e} (1e-5); two calls {'equal bit for bit' if same else 'DIFFER'}; "
-              f"{ms:.2f} ms a call against {t_ref:.2f} ms unsharded ({per_call} exchanges a "
-              f"call; {ex_ms:.4f} ms an exchange of [{B}, 46] sums); one card: the shards run "
-              f"in turn, not a multi-card figure", flush=True)
+              f"{t['new']:.2f} ms a call against the previous form's {t['previous form']:.2f}, in "
+              f"turn, and {t_ref:.2f} ms unsharded; peak device memory of a call "
+              f"{mem['new'][0]:.3f} GiB above what it found ({mem['new'][1]:.2f} GiB in all) "
+              f"against the previous form's {mem['previous'][0]:.3f} ({mem['previous'][1]:.2f}); "
+              f"{per_call} exchanges a call; {ex_ms:.4f} ms an exchange of [{B}, 46] sums; one "
+              f"card: the shards run in turn, not a multi-card figure", flush=True)
         if (err_d > 1e-4 or err_l > 1e-5 or err_tv > 1e-4 or shared < 7 or err_cap > 1e-5
-                or not same):
+                or not same or per_call != 2 * fb.nGrids // 8 + 2):
             _fail(f"the sharded FB over {n} shards disagrees with the unsharded one")
     return probes
+
+
+def check_sharded_fb_wide(B=84, K=98304, K_top=8, eps=0.001):
+    """The sharded FB at k100k's panel size (K = 98,304 x 512 grids, B =
+    84 rows: a 6-sample batch) over make_mesh(1, n, [cuda:0] x n), n = 2
+    and 4, against the unsharded FB of fb_plan's choice on the same rows
+    (the check_sharded_fb tolerances), the first call under _seg_probe at
+    segments 0 and 1 only (and the local passes), timed in turn with
+    sharded_core's previous form (median of 3, 2 rounds) beside the
+    unsharded call, each with its peak device memory. The previous form's
+    alpha planes are 8.46 GB a shard at 2 shards. One card: the shards
+    run in turn, not a multi-card figure."""
+    import torch
+    from quilt_tpu_torch.dist.mesh import ShardedFB, make_mesh
+    from quilt_tpu_torch.kernels import fb as fbk
+
+    dev = torch.device("cuda", 0)
+    fb = synthetic_fb(K)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    gl = _random_dl(fb, B, gen, eps)[0]
+    plan = fbk.fb_plan(B, fb)
+    ref, m_ref, _ = _peak_gib(lambda: fbk.fb_full_batched(gl, fb, K_top, eps))
+    t_ref = _median_ms(lambda: fbk.fb_full_batched(gl, fb, K_top, eps), 3)
+    thin = torch.as_tensor(fb.thin_flag >= 0, device=dev)
+    for n in (2, 4):
+        sfb = ShardedFB(fb, make_mesh(1, n, [dev] * n), K_top=K_top, ref_error=eps)
+        probe = {}
+        with _seg_probe(probe, segs=(0, 1), timed_seg=-1):
+            out = sfb(gl)
+        _seg_report(f"sharded FB at K={K}, {n} shards", probe)
+        err_d = (out[0] - ref[0][:, :fb.nSNPs]).abs().max().item()
+        err_l = ((out[1] - ref[1]).abs() / ref[1].abs()).max().item()
+        ti, ti_r = out[3][thin][:, :, :K_top], ref[3][thin]
+        shared = (ti[..., :, None] == ti_r[..., None, :]).any(-1).sum(-1).min().item()
+        err_tv = (out[2][thin][:, :, :K_top] - ref[2][thin]).abs().max().item()
+        del out
+        prev = _sharded_prev(sfb)
+        t = _alternating_ms({"new": lambda: sfb(gl), "previous form": lambda: prev(gl)},
+                            rounds=2, n=3)
+        mem = {k: _peak_gib(lambda: f(gl))[1:] for k, f in (("new", sfb), ("previous", prev))}
+        print(f"sharded FB at k100k's panel, {n} shards of K={K} (K_shard {sfb.K_shard}) on one "
+              f"card, {B} rows x {fb.nGrids} grids: dosage max |err| {err_d:.3e} (1e-4), "
+              f"log-likelihood rel err {err_l:.3e} (1e-5), top-K values {err_tv:.3e} (1e-4), at "
+              f"least {shared} of {K_top} shared (7); {t['new']:.2f} ms a call against the "
+              f"previous form's {t['previous form']:.2f}, in turn; peak device memory of a call "
+              f"{mem['new'][0]:.2f} GiB above what it found ({mem['new'][1]:.2f} in all) against "
+              f"the previous form's {mem['previous'][0]:.2f} ({mem['previous'][1]:.2f}); the "
+              f"unsharded FB ({plan[0]}, {plan[1]} rows a call, {plan[2]} blocks a row) {t_ref:.2f} "
+              f"ms, peak {m_ref:.2f} GiB above; one card: the shards run in turn, not a "
+              f"multi-card figure", flush=True)
+        if err_d > 1e-4 or err_l > 1e-5 or err_tv > 1e-4 or shared < 7:
+            _fail(f"the sharded FB at K = {K} over {n} shards disagrees with the unsharded one")
+        del sfb, prev
+        torch.cuda.empty_cache()
 
 
 def run_dist_engine(world, counted, single, seg_kernels, fused):
     """The e2e world through quilt_impute at mesh (2, 2) over [cuda:0] x 4
     (run_e2e): every r2 >= 0.9, each sample's DS r2 > 0.98 against the
-    single-card run `single`, the segment kernels launched and the fused
-    FB not; its warm-up call runs under _seg_probe, which holds
-    fb_max_tiled and the segment kernels against their plain versions on
-    the path's own inputs (each data row's 56 rows on each shard). Then
-    mesh (2, 1) over [cuda:0] x 2 against one card, both writing the VCF:
-    the same bytes (the FB is the single-card one, the Gibbs chains split
-    into independent blocks). Returns (the launches of the (2, 2) call, the
+    single-card run `single`, the segment kernels launched (a step a
+    segment, each local pass once a call) and the fused FB not; its
+    warm-up call runs under _seg_probe, which holds fb_max_tiled and the
+    segment kernels against their plain versions on the path's own inputs
+    (each data row's 56 rows on each shard). The same call's peak device
+    memory, then with sharded_core's previous form. Then mesh
+    (2, 1) over [cuda:0] x 2 against one card, both writing the VCF: the
+    same bytes (the FB is the single-card one, the Gibbs chains split into
+    independent blocks). Returns (the launches of the (2, 2) call, the
     probe's records)."""
     import dataclasses
+    import functools
     import tempfile
 
     import numpy as np
     import torch
+    from quilt_tpu_torch.dist import mesh as dmesh
     from quilt_tpu_torch.engine import driver
 
     dev = torch.device("cuda", 0)
     cfg = e2e_config(8)
     probe = {}
-    out, _, launches = run_e2e(world, counted, dataclasses.replace(cfg, mesh_data=2, mesh_panel=2),
-                               "dist", probe=lambda: _seg_probe(probe), devices=[dev] * 4)
+    cfg22 = dataclasses.replace(cfg, mesh_data=2, mesh_panel=2)
+    out, _, launches = run_e2e(world, counted, cfg22, "dist", probe=lambda: _seg_probe(probe),
+                               devices=[dev] * 4)
     r2_single = [float(np.corrcoef(a.dosage, b.dosage)[0, 1] ** 2)
                  for a, b in zip(out.results, single.results)]
     print(f"dist: mesh (2, 2) over one card: each sample's DS r2 against the single-card "
@@ -2638,7 +2958,26 @@ def run_dist_engine(world, counted, single, seg_kernels, fused):
     check_launched("dist", launches, seg_kernels)
     if any(launches[k.name] for k in fused):
         _fail(f"dist launched the fused FB at mesh_panel 2: {launches}")
+    # a step a segment, each local pass once a call
+    local, steps = launches["seg_fwd_local"], launches["seg_fwd_step"]
+    n_seg = world["fb"].nGrids // 8
+    if (launches["seg_bwd_local"] != local
+            or not steps == launches["seg_bwd_step"] == n_seg * local):
+        _fail(f"dist: not one step a segment and one local pass a call on each shard: {launches}")
     names = [f"S{i}" for i in range(len(world["samples"]))]
+    call = lambda: driver.quilt_impute(world["prep"], world["samples"], names, cfg22, "cuda",
+                                       devices=[dev] * 4)
+    real = dmesh.sharded_core
+    peaks = {"new": _peak_gib(call)[1:]}
+    dmesh.sharded_core = functools.partial(real, _prev=True)
+    try:
+        peaks["previous"] = _peak_gib(call)[1:]
+    finally:
+        dmesh.sharded_core = real
+    print(f"dist: peak device memory of the call (torch.cuda.max_memory_allocated), in turn: "
+          f"{peaks['new'][0]:.3f} GiB above what it found ({peaks['new'][1]:.3f} in all) against "
+          f"{peaks['previous'][0]:.3f} ({peaks['previous'][1]:.3f}) with sharded_core's previous "
+          f"form", flush=True)
     with tempfile.TemporaryDirectory() as d:
         paths = [os.path.join(d, f"{m}.vcf.gz") for m in ("one", "data")]
         driver.quilt_impute(world["prep"], world["samples"], names, cfg, "cuda",
@@ -2731,10 +3070,12 @@ def run_multihost():
 
 def run_dist(world, counted, single, seg_kernels, fused):
     """Phase dist: the sharded FB against the unsharded one at 112 rows x K
-    = 5,120 split 2, 3 and 4 ways, the engine on meshes over the one card
-    (against `single`, the e2e phase's output, or a single-card call made
-    here), each with fb_max_tiled and the segment kernels held against their
-    plain versions on the inputs the calls give them, and the CLI as two
+    = 5,120 split 2, 3 and 4 ways and at 84 rows x K = 98,304 split 2 and 4
+    ways, the engine on meshes over the one card (against `single`, the e2e
+    phase's output, or a single-card call made here), each with
+    fb_max_tiled and the segment kernels held against their plain versions
+    on the inputs the calls give them, the "seg step split" lines at the
+    dist path's 56 rows and the timing shape's 112, and the CLI as two
     processes. Returns (rows of the kernels line: times at 112 rows x
     K_shard 2,560, errors the largest of every check; the engine's
     launches; fb_max_tiled's largest error on the shards)."""
@@ -2744,17 +3085,26 @@ def run_dist(world, counted, single, seg_kernels, fused):
         single = driver.quilt_impute(world["prep"], world["samples"],
                                      [f"S{i}" for i in range(len(world["samples"]))],
                                      e2e_config(8), "cuda")
-    probes = check_sharded_fb(world["fb"])
+    fb = world["fb"]
+    probes = check_sharded_fb(fb)
     reports = {n: _seg_report(f"sharded FB, {n} shards", r) for n, r in probes.items()}
+    check_sharded_fb_wide()
     launches, engine = run_dist_engine(world, counted, single, seg_kernels, fused)
-    _seg_report("dist, mesh (2, 2)", engine)
+    on_path = _seg_report("dist, mesh (2, 2)", engine)
+    dev = fb.device_tensors("cuda")
+    for label, res in (("the dist path's shape", engine), ("the timing shape", probes[2])):
+        B, KS = res["seg_bwd_step"]["shape"][:2]
+        seg_step_split(label, B, KS, dev["trans2"], fb.K, dev["thin_flag"], _step_times(res))
     every = list(probes.values()) + [engine]
     rows = []
     for name in SEG_NAMES:
-        _, ms, plain_ms, nbytes, ops = reports[2][name]
+        _, ms, plain_ms, nbytes, ops, prev = reports[2][name]
         rows.append(_row(name, "fb_sharded.cu", "fb_full.py:440",
                          max(r[name]["err"] for r in every), ms, plain_ms, nbytes, ops))
         rows[-1]["replaces"] += " _fb_core_segmented (XLA, no Pallas kernel)"
+        rows[-1]["ms_on_path"] = {"dist": on_path[name][1]}
+        if prev:
+            rows[-1]["previous_form_ms"] = prev
     run_multihost()
     return rows, launches, max(r["fb_max_tiled"]["err"] for r in every)
 
@@ -3250,7 +3600,8 @@ def main():
     clusters = [gibbs_sweep.FWD_CLUSTER_KERNELS[2], gibbs_sweep.FWD_CLUSTER_KERNELS[3],
                 nipt_bank.BANK_CLUSTER_KERNEL]
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
-    # the panel-sharded FB's four segment kernels (no Pallas counterpart)
+    # the panel-sharded FB's segment kernels (no Pallas counterpart): the
+    # local passes and the fused steps
     seg = list(fb_sharded.KERNELS)
     kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide + clusters + seg
                + tiled)   # the order of rows
@@ -3258,7 +3609,7 @@ def main():
     # on no path
     prev_tiled = [fb._PREV_REMAT_TILED, fb._PREV_BWD_TILED, fb._PREV_FWD_TILED,
                   fb._PREV_MAX_TILED, nipt_bank._PREV_BANK_KERNEL,
-                  *gibbs_dosage._PREV_DOS_KERNELS.values()]
+                  *gibbs_dosage._PREV_DOS_KERNELS.values(), *fb_sharded._PREV_KERNELS]
     counted = kernels + prev_tiled
     rows, launches, mx_err, wide_forms = [], {}, 0.0, {}
     t = time.time()

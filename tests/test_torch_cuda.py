@@ -13,7 +13,9 @@ compared on chains whose labels all agree at rtol 1e-4 / atol 1e-3; beta
 rtol 1e-5; FB dosage and top-K atol 1e-4; Gibbs dosages atol 1e-5; the
 K-split FB: emission maxima within kernels.fb.max_tiled_tolerance (the
 previous form exact), checkpoints and S rtol 1e-5, the backward's rebuilt
-alphas equal to the forward's, dosage and top-K atol 1e-4). The cluster
+alphas equal to the forward's, dosage and top-K atol 1e-4; the sharded
+FB's segment kernels: rtol 1e-4 plus 1e-6 of the largest, the rebuilt
+alphas equal to the forward's). The cluster
 forms of the forward sweep and of the NIPT bank (one chain on a thread-block
 cluster) are held to the same tolerances from the shared-memory forms' limits
 to their capacity, and the global forms (any K) just past that."""
@@ -1123,68 +1125,200 @@ def test_diagnostics_on_gpu(cuda, tmp_path):
         assert np.corrcoef(ohd.sum(1), truth_gen[:, i])[0, 1] ** 2 > 0.9
 
 
-@pytest.mark.parametrize("KS,K_loc,B", [(700, 640, 3), (1280, 1280, 14), (128, 0, 2)])
-def test_fb_sharded_kernels_match_plain(cuda, KS, K_loc, B):
-    """The four segment kernels (csrc/fb_sharded.cu) against their plain
-    versions on one shard, every segment of 32 grids, each pass given the
-    same inputs (the kernels' state carried on); a ragged tile, padded
-    haplotypes, an empty shard; capture in the backward; two launches equal
-    bit for bit. Tolerance as chip_smoke.py's: rtol 1e-4 plus 1e-6 of the
-    largest value (of each sum, for the local passes' sums)."""
-    from quilt_tpu_torch.kernels import fb_sharded as fs
-
+def _seg_inputs(cuda, KS, K_loc, B, Gp=32, tied=False):
+    """One shard's segment-kernel inputs: random words (columns 2m and
+    2m + 1 equal when tied), random GL log-ratios, 3% jumps, every fifth
+    grid thinned, the emission maxima."""
     rng = np.random.default_rng(KS + B)
-    Gp, K, K_top = 32, max(K_loc, 1) + 40, 4
-    L, nt = fs.SEG_LEN, fs.n_tiles(KS)
     T = lambda x: torch.as_tensor(x, device=cuda)
-    words = T(rng.integers(-2**31, 2**31, (Gp, KS), dtype=np.int64).astype(np.int32))
+    words = rng.integers(-2**31, 2**31, (Gp, KS), dtype=np.int64).astype(np.int32)
+    if tied:
+        words[:, 1::2] = words[:, 0::2][:, :KS // 2]
     gl = 0.05 + 0.95 * rng.random((B, 2, Gp * 32))
     dl = T(np.log((gl[:, 0] * 0.001 + gl[:, 1] * 0.999) / (gl[:, 0] * 0.999 + gl[:, 1] * 0.001))
            .astype(np.float32))
     trans2 = T(np.stack([np.full(Gp, 0.97), np.full(Gp, 0.03)]).astype(np.float32))
     trans2[:, 0] = 1.0
     thin = T(np.where(np.arange(Gp) % 5 == 2, 0, -1).astype(np.int32))
+    words = T(words)
     mx = (fbk.fb_max_tiled(dl, words, K_loc, KS) if K_loc else
           torch.zeros((Gp, B), dtype=torch.float32, device=cuda))
+    return dl, words, trans2, thin, mx
 
-    def close(got, ref, per_col=False):
-        dims = tuple(range(ref.dim() - 1))
-        scale = ref.abs().amax(dim=dims, keepdim=True) if per_col and dims else ref.abs().max()
-        assert torch.isfinite(got).all()
-        assert ((got - ref).abs() <= 1e-4 * ref.abs() + 1e-6 * scale).all()
 
+def _seg_close(got, ref, per_col=False):
+    """chip_smoke.py's tolerance: rtol 1e-4 plus 1e-6 of the largest value
+    (of each value column with per_col)."""
+    dims = tuple(range(ref.dim() - 1))
+    scale = ref.abs().amax(dim=dims, keepdim=True) if per_col and dims else ref.abs().max()
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-4 * ref.abs() + 1e-6 * scale).all()
+
+
+def _seg_outs(cuda, nt, B, Gp, KS, K_top):
+    return {"dpart": torch.zeros((nt, B, Gp * 32), device=cuda),
+            "gnp": torch.zeros((nt, Gp, B), device=cuda),
+            "tvp": torch.zeros((nt, Gp, B, K_top), device=cuda),
+            "tip": torch.zeros((nt, Gp, B, K_top), dtype=torch.int32, device=cuda),
+            "gcap": torch.zeros((B, KS), device=cuda)}
+
+
+@pytest.mark.parametrize("KS,K_loc,B", [(700, 640, 3), (1280, 1280, 14), (128, 0, 2)])
+def test_fb_sharded_kernels_match_plain(cuda, KS, K_loc, B):
+    """The previous form's four segment kernels (csrc/fb_sharded.cu: the
+    local passes, which the path still launches once a call, and the apply
+    passes, kept for timing) against their plain versions on one shard,
+    every segment of 32 grids, each pass given the same inputs (the
+    kernels' state carried on); a ragged tile, padded haplotypes, an empty
+    shard; capture in the backward; two launches equal bit for bit.
+    Tolerance as chip_smoke.py's: rtol 1e-4 plus 1e-6 of the largest value
+    (of each sum, for the local passes' sums)."""
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    Gp, K, K_top = 32, max(K_loc, 1) + 40, 4
+    L, nt = fs.SEG_LEN, fs.n_tiles(KS)
+    dl, words, trans2, thin, mx = _seg_inputs(cuda, KS, K_loc, B, Gp)
     args = (dl, words, trans2, mx)
     alphas = torch.zeros((Gp, B, KS), dtype=torch.float32, device=cuda)
     logm = torch.zeros((Gp // L, B), dtype=torch.float32, device=cuda)
     for c in range(Gp // L):
-        part = fs.seg_fwd_local(*args, alphas, c, K_loc)
-        close(part, fs.seg_fwd_local_plain(*args, alphas, c, K_loc), per_col=True)
-        assert torch.equal(part, fs.seg_fwd_local(*args, alphas, c, K_loc))
+        a0 = alphas[c * L - 1] if c else None
+        part = fs.seg_fwd_local(*args, a0, c, K_loc)
+        _seg_close(part, fs.seg_fwd_local_plain(*args, a0, c, K_loc), per_col=True)
+        assert torch.equal(part, fs.seg_fwd_local(*args, a0, c, K_loc))
         tot = part.sum(1) + 1e-3          # the other shards' share of the sums
-        a, lm = alphas.clone(), logm.clone()
-        fs.seg_fwd_apply_plain(*args, tot, a, lm, c, K_loc, K)
-        fs.seg_fwd_apply(*args, tot, alphas, logm, c, K_loc, K)
-        close(alphas, a)
-        close(logm, lm)
-    out, ref = ({"dpart": torch.zeros((nt, B, Gp * 32), device=cuda),
-                 "gnp": torch.zeros((nt, Gp, B), device=cuda),
-                 "tvp": torch.zeros((nt, Gp, B, K_top), device=cuda),
-                 "tip": torch.zeros((nt, Gp, B, K_top), dtype=torch.int32, device=cuda),
-                 "gcap": torch.zeros((B, KS), device=cuda)} for _ in range(2))
+        a, lm = torch.zeros((L, B, KS), device=cuda), logm.clone()
+        fs.seg_fwd_apply_plain(*args, tot, a0, a, lm, c, K_loc, K)
+        fs.seg_fwd_apply(*args, tot, a0, alphas[c * L:(c + 1) * L], logm, c, K_loc, K)
+        _seg_close(alphas[c * L:(c + 1) * L], a)
+        _seg_close(logm, lm)
+    out, ref = (_seg_outs(cuda, nt, B, Gp, KS, K_top) for _ in range(2))
     beta = torch.ones((B, KS), dtype=torch.float32, device=cuda)
     for c in range(Gp // L - 1, -1, -1):
         part = fs.seg_bwd_local(*args, beta, c, K_loc)
-        close(part, fs.seg_bwd_local_plain(*args, beta, c, K_loc), per_col=True)
+        _seg_close(part, fs.seg_bwd_local_plain(*args, beta, c, K_loc), per_col=True)
         assert torch.equal(part, fs.seg_bwd_local(*args, beta, c, K_loc))
         tot = part.sum(1) + 1e-3
         b = beta.clone()
-        fs.seg_bwd_apply_plain(*args, alphas, tot, thin, b, ref, c, K_loc, K, 100, 13)
-        fs.seg_bwd_apply(*args, alphas, tot, thin, beta, out, c, K_loc, K, 100, 13)
-        close(beta, b)
+        seg_a = alphas[c * L:(c + 1) * L]
+        fs.seg_bwd_apply_plain(*args, seg_a, tot, thin, b, ref, c, K_loc, K, 100, 13)
+        fs.seg_bwd_apply(*args, seg_a, tot, thin, beta, out, c, K_loc, K, 100, 13)
+        _seg_close(beta, b)
     for k in ("dpart", "gnp", "tvp", "gcap"):
-        close(out[k], ref[k])
+        _seg_close(out[k], ref[k])
     firm = (ref["tvp"][..., :-1] - ref["tvp"][..., 1:]) > 1e-6 * ref["tvp"].abs().max()
     assert torch.equal(out["tip"][..., :-1][firm], ref["tip"][..., :-1][firm])
+
+
+@pytest.mark.parametrize("KS,K_loc,B,tied", [(2560, 2560, 56, False), (2560, 2560, 112, False),
+                                             (700, 640, 3, True), (1000, 1000, 14, True),
+                                             (128, 0, 2, False)])
+def test_fb_sharded_step_kernels_match_plain(cuda, KS, K_loc, B, tied):
+    """seg_fwd_step and seg_bwd_step (with seg_fwd_local of the first
+    segment and seg_bwd_local of the last) against their plain versions on
+    one shard of 4 segments, each launch given the same inputs as its plain
+    version (the kernels' state carried on): at the dist path's 56 rows x
+    2,560 and the timing shape's 112, at K_shard 700 and 1,000 (no
+    multiple of 512; columns 2m and 2m + 1 equal, so the gammas tie at the
+    thinned grids) and an empty shard; the capture grid's segment; two
+    launches equal bit for bit; the backward's rebuilt alphas equal the
+    forward's bit for bit. Tolerance: rtol 1e-4 plus 1e-6 of the largest;
+    top-K haplotypes equal where firm."""
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    Gp, K, K_top, cap = 32, max(K_loc, 1) + 40, 8, 13
+    L, nt, NSC = fs.SEG_LEN, fs.n_tiles(KS), Gp // fs.SEG_LEN
+    dl, words, trans2, thin, mx = _seg_inputs(cuda, KS, K_loc, B, Gp, tied)
+    args = (dl, words, trans2, mx)
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=cuda)
+    ckpt, scal, logm = z(NSC, B, KS), z(NSC, B, fs.SCAL_VALS), z(NSC, B)
+    part = fs.seg_fwd_local(*args, None, 0, K_loc)
+    _seg_close(part, fs.seg_fwd_local_plain(*args, None, 0, K_loc), per_col=True)
+    fwd_alphas = []
+    for c in range(NSC):
+        tot = part.sum(1) + 1e-3          # the other shards' share of the sums
+        state = [(ckpt.clone(), scal.clone(), logm.clone(), z(L, B, KS)) for _ in range(2)]
+        a = z(L, B, KS)
+        part = fs.seg_fwd_step(*args, tot, ckpt, scal, logm, c, K_loc, K, _alphas=a)
+        (ck1, sc1, lm1, a1), (ck2, sc2, lm2, a2) = state
+        ref = fs.seg_fwd_step_plain(*args, tot, ck1, sc1, lm1, c, K_loc, K, a1)
+        again = fs.seg_fwd_step(*args, tot, ck2, sc2, lm2, c, K_loc, K, _alphas=a2)
+        for got, r, g2 in ((ckpt, ck1, ck2), (scal, sc1, sc2), (logm, lm1, lm2), (a, a1, a2)):
+            _seg_close(got, r)
+            assert torch.equal(got, g2)
+        if c + 1 < NSC:
+            _seg_close(part, ref, per_col=True)
+            assert torch.equal(part, again)
+        else:
+            assert part is None and ref is None and again is None
+        fwd_alphas.append(a)
+    out, ref_out = (_seg_outs(cuda, nt, B, Gp, KS, K_top) for _ in range(2))
+    beta = torch.ones((B, KS), dtype=torch.float32, device=cuda)
+    part = fs.seg_bwd_local(*args, beta, NSC - 1, K_loc)
+    _seg_close(part, fs.seg_bwd_local_plain(*args, beta, NSC - 1, K_loc), per_col=True)
+    for c in range(NSC - 1, -1, -1):
+        tot = part.sum(1) + 1e-3
+        b1, b2 = beta.clone(), beta.clone()
+        o2 = {k: v.clone() for k, v in out.items()}
+        a, a1, a2 = z(L, B, KS), z(L, B, KS), z(L, B, KS)
+        part = fs.seg_bwd_step(*args, ckpt, scal, tot, thin, beta, out, c, K_loc, K, 100, cap,
+                               _alphas=a)
+        ref = fs.seg_bwd_step_plain(*args, ckpt, scal, tot, thin, b1, ref_out, c, K_loc, K, 100,
+                                    cap, a1)
+        again = fs.seg_bwd_step(*args, ckpt, scal, tot, thin, b2, o2, c, K_loc, K, 100, cap,
+                                _alphas=a2)
+        assert torch.equal(a, fwd_alphas[c]) and torch.equal(a2, a)
+        _seg_close(a1, a)
+        _seg_close(beta, b1)
+        assert torch.equal(beta, b2)
+        assert all(torch.equal(out[k], o2[k]) for k in out)
+        if c:
+            _seg_close(part, ref, per_col=True)
+            assert torch.equal(part, again)
+        else:
+            assert part is None and ref is None and again is None
+    for k in ("dpart", "gnp", "tvp", "gcap"):
+        _seg_close(out[k], ref_out[k])
+    if K_loc:
+        assert out["gcap"].abs().sum() > 0
+    firm = (ref_out["tvp"][..., :-1] - ref_out["tvp"][..., 1:]) > 1e-6 * ref_out["tvp"].abs().max()
+    assert torch.equal(out["tip"][..., :-1][firm], ref_out["tip"][..., :-1][firm])
+    if tied:
+        # equal columns: equal gammas, the lower index first
+        tv, ti = out["tvp"][:, thin >= 0], out["tip"][:, thin >= 0]
+        assert torch.equal(tv[..., 0::2], tv[..., 1::2])
+        assert torch.equal(ti[..., 1::2], ti[..., 0::2] + 1)
+
+
+@pytest.mark.parametrize("n_panel,B", [(2, 56), (2, 112), (3, 14), (4, 5)])
+def test_fb_sharded_step_body_matches_the_previous_form(cuda, n_panel, B):
+    """sharded_core's step body against its previous four-pass body
+    (_prev=True) on one data row of n_panel shards on the one card, with
+    capture: dosage, top-K values and the captured gamma atol 1e-5,
+    log-likelihood rtol 1e-5, top-K haplotypes equal where firm; two calls
+    equal bit for bit."""
+    from quilt_tpu_torch.dist.mesh import ShardedFB
+    from quilt_tpu_torch.dist import make_mesh
+    from quilt_tpu_torch.kernels import fb_sharded as fs
+
+    rng = np.random.default_rng(n_panel + B)
+    fb = _random_fb(5120 if B >= 56 else 1000, 64, n_panel, capture_grid=20)
+    gl = torch.as_tensor((0.05 + 0.95 * rng.random((B, 2, fb.S))).astype(np.float32), device=cuda)
+    sfb = ShardedFB(fb, make_mesh(1, n_panel, [cuda] * n_panel), K_top=8)
+    (group, shards), = sfb.rows
+    run = lambda prev: fs.sharded_core(gl, shards, group, fb.K, 8, 0.001, fb.capture_grid,
+                                       _prev=prev)
+    new, old, again = run(False), run(True), run(False)
+    assert all(torch.equal(a, b) for a, b in zip(new, again))
+    d, ll, tv, ti, g = new
+    d_r, l_r, tv_r, ti_r, g_r = old
+    assert torch.allclose(d, d_r, atol=1e-5)
+    assert torch.allclose(ll, l_r, rtol=1e-5)
+    thin = torch.as_tensor(fb.thin_flag >= 0, device=cuda)
+    assert torch.allclose(tv[thin], tv_r[thin], atol=1e-5)
+    firm = (tv_r[thin][..., :-1] - tv_r[thin][..., 1:]) > 1e-3
+    assert torch.equal(ti[thin][..., :-1][firm], ti_r[thin][..., :-1][firm])
+    assert torch.allclose(g, g_r, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_panel,B", [(2, 14), (4, 5)])

@@ -1,6 +1,6 @@
 """The panel-sharded FB of the port (quilt_tpu_torch.dist.mesh.ShardedFB over
-kernels/fb_sharded.py) on the CPU: the plain segment passes against a
-float64 NumPy transcription of the JAX body's segment step
+kernels/fb_sharded.py) on the CPU: the plain segment passes and steps
+against a float64 NumPy transcription of the JAX body's segment step
 (quilt_tpu/kernels/fb_full.py:_fb_core_segmented), the whole sharded FB
 against the port's fused FB (fb_core) and against the JAX package's
 fb_full_sharded on a 2 x 4 mesh, and the three cases of
@@ -145,23 +145,34 @@ def seg_world():
 
 
 def test_segment_passes_match_float64_transcription(seg_world):
+    """The path's passes (seg_fwd_local of segment 0, a seg_fwd_step a
+    segment, seg_bwd_local of the last, a seg_bwd_step a segment) against
+    the float64 transcription: each step's local sums of the next segment,
+    the alphas (the forward step's and the backward's rebuilt ones), log
+    M, the carry and the gamma outputs."""
     w = seg_world
     Gp, KS, B, K_loc, K = w["Gp"], w["KS"], w["B"], w["K_loc"], 640
     args = (w["dl"], w["words"], w["trans2"], w["mx"])
+    NSC = Gp // L
     alphas = torch.zeros((Gp, B, KS), dtype=torch.float32)
-    logm = torch.zeros((Gp // L, B), dtype=torch.float32)
+    ckpt = torch.zeros((NSC, B, KS), dtype=torch.float32)
+    scal = torch.zeros((NSC, B, fs.SCAL_VALS), dtype=torch.float32)
+    logm = torch.zeros((NSC, B), dtype=torch.float32)
     rel = lambda got, ref: np.testing.assert_allclose(got, ref, rtol=2e-5,
                                                       atol=2e-5 * np.abs(ref).max())
-    for c in range(Gp // L):
-        part = fs.seg_fwd_local(*args, alphas, c, K_loc)
+    part = fs.seg_fwd_local(*args, None, 0, K_loc)
+    for c in range(NSC):
         assert part.shape == (B, 2, fs.FWD_VALS)
         a0 = alphas[c * L - 1].double().numpy() if c else np.zeros((B, KS))
         flat, al, lm = _np_fwd_seg(w["e"][c * L:(c + 1) * L], w["trans"][c * L:(c + 1) * L],
                                    a0, K)
         rel(part.sum(1).numpy(), flat)
-        fs.seg_fwd_apply(*args, part.sum(1), alphas, logm, c, K_loc, K)
+        part = fs.seg_fwd_step(*args, part.sum(1), ckpt, scal, logm, c, K_loc, K,
+                               _alphas=alphas[c * L:(c + 1) * L])
         rel(alphas[c * L:(c + 1) * L].numpy(), al)
+        assert torch.equal(ckpt[c], alphas[(c + 1) * L - 1])
         np.testing.assert_allclose(logm[c].numpy(), lm, rtol=1e-5)
+    assert part is None
     np.testing.assert_allclose(alphas.sum(2).numpy(), 1.0, rtol=1e-5)
 
     K_top, nt = 4, 2
@@ -169,6 +180,7 @@ def test_segment_passes_match_float64_transcription(seg_world):
                tvp=torch.zeros((nt, Gp, B, K_top)),
                tip=torch.zeros((nt, Gp, B, K_top), dtype=torch.int32), gcap=torch.zeros((B, KS)))
     beta = torch.ones((B, KS), dtype=torch.float32)
+    part = fs.seg_bwd_local(*args, beta, NSC - 1, K_loc)
     for c in (1, 0):
         beta_R = beta.double().numpy()     # ones, then the carry B_0 / N_0
         g0 = c * L
@@ -176,14 +188,19 @@ def test_segment_passes_match_float64_transcription(seg_world):
         tR = np.array([1.0, 0.0]) if c == 1 else w["trans"][g0 + L]
         flat, Bs = _np_bwd_seg(w["e"][g0:g0 + L], w["trans"][g0:g0 + L], eR, tR, beta_R,
                                alphas[g0:g0 + L].double().numpy(), K)
-        part = fs.seg_bwd_local(*args, beta, c, K_loc)
         tot = part.sum(1)
         rel(tot.numpy(), flat)
-        fs.seg_bwd_apply(*args, alphas, tot, w["thin"], beta, out, c, K_loc, K, 100, 5)
+        rebuilt = torch.zeros((L, B, KS), dtype=torch.float32)
+        part = fs.seg_bwd_step(*args, ckpt, scal, tot, w["thin"], beta, out, c, K_loc, K, 100, 5,
+                               _alphas=rebuilt)
+        assert (part is None) == (c == 0)
+        assert torch.equal(rebuilt, alphas[g0:g0 + L])
         # the carry: B_0 over its emission-weighted mass N_0
         rel(beta.numpy(), Bs[0] / (w["e"][g0] * Bs[0]).sum(1, keepdims=True))
         np.testing.assert_allclose((w["e"][g0] * beta.double().numpy()).sum(1), 1.0, rtol=1e-5)
-        gam = alphas[g0:g0 + L].double().numpy() * Bs                     # [L, B, KS]
+        # the step scales grid j's numerators by M_{j+1} / M_L
+        gs = torch.stack(fs.gamma_scale_plain(scal, c)).double().numpy()   # [L, B]
+        gam = alphas[g0:g0 + L].double().numpy() * Bs * gs[:, :, None]    # [L, B, KS]
         rel(out["gnp"].sum(0)[g0:g0 + L].numpy(), gam.sum(2))
         dos = np.einsum("jbk,jks->bjs", gam, w["bits"][g0:g0 + L].astype(np.float64))
         rel(out["dpart"].sum(0)[:, g0 * 32:(g0 + L) * 32].numpy(), dos.reshape(B, L * 32))
