@@ -246,6 +246,7 @@ _PTXAS_KERNELS = {"fb_bwd_tiled_kernel": ("CPT", "shared"), "fb_fwd_tiled_kernel
                   "fb_max_tiled_kernel": (), "gibbs_dos_kernel": ("NL", "VEC"),
                   "gibbs_fwd_global_kernel": ("NL",), "gibbs_bwd_global_kernel": (),
                   "gibbs_fwd_cluster_kernel": ("NT", "CPT", "NL"),
+                  "gibbs_bwd_cluster_kernel": ("NT", "CPT", "SPLIT"),
                   "nipt_bank_cluster_kernel": ("CPT",), "seg_fwd_local_kernel": (),
                   "seg_fwd_step_kernel": (), "seg_bwd_local_kernel": (),
                   "seg_bwd_step_kernel": (), "seg_fwd_apply_kernel": (),
@@ -933,12 +934,13 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288, G_path=512):
     versions, two launches equal bit for bit; each timed in turn with the
     global form it took over from (4 rounds of 7) at the kernels' timing
     shapes and at 512 grids (the main path's G), beside the cluster
-    exchange's floor (the "cluster step split" lines). The global forms
-    past the cluster forms' capacity (the forward at 16,512 / 12,416, the
-    bank at 16,512; the backward, which has no cluster form, at 10,368),
-    and the dosage kernel (one form at any K) at 30,000. Returns the rows gibbs_fwd_global, gibbs_fwd_global_nl3,
+    exchange's floor (the "cluster step split" lines); the backward's
+    cluster form in check_bwd_forms. The global forms past the cluster
+    forms' capacity (the forward at 16,512 / 12,416, the bank and the
+    backward at 16,512), and the dosage kernel (one form at any K) at
+    30,000. Returns the rows gibbs_fwd_global, gibbs_fwd_global_nl3,
     gibbs_bwd_global, nipt_bank_global, gibbs_fwd_cluster,
-    gibbs_fwd_cluster_nl3 and nipt_bank_cluster."""
+    gibbs_fwd_cluster_nl3, nipt_bank_cluster and gibbs_bwd_cluster."""
     import numpy as np
     import torch
     from quilt_tpu_torch.kernels import gibbs_dosage as gd
@@ -946,7 +948,7 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288, G_path=512):
     from quilt_tpu_torch.kernels import nipt_bank as nb
     from quilt_tpu_torch.simulate import random_sweep_state
 
-    global_rows, cluster_rows, bwd_row = [], [], None
+    global_rows, cluster_rows = [], []
     state = lambda nl, k, seed, g=G: [torch.from_numpy(x).cuda() for x in random_sweep_state(
         np.random.default_rng(seed), g, B, W, k, k - 68, W, nl=nl)]
     steps_of = lambda args: args[0].shape[0] + int((args[3][:, 2] == 0).sum()) / B + 1
@@ -1028,27 +1030,8 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288, G_path=512):
         row["K"] = Kg
         global_rows.append(row)
         del args, got, ref
-        # the backward's global form (no cluster form) at K
-        args = state(nl, K, SEED + 7 + nl)
-        lemg, trans = args[0], args[6]
-        if gs.bwd_form(K) != gs.GLOBAL:
-            _fail(f"the backward sweep at K={K} does not take its global form")
-        ref_b, plain_b = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, K - 68))
-        got_b = gs.bwd_sweep(lemg, trans, nl=nl, K_real=K - 68)
-        err_b = (got_b - ref_b).abs().max().item()
-        ms_b = _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=nl, K_real=K - 68), 5)
-        lemg_t = state(nl, K_time, SEED + 9 + nl)[0]
-        ms_bt = _median_ms(lambda: gs.bwd_sweep(lemg_t, trans, nl=nl, K_real=K_time - 68), 5)
-        print(f"gibbs_bwd_global at NL = {nl}: {ms_b:.3f} ms at K={K}, {ms_bt:.3f} ms at "
-              f"K={K_time} (plain {plain_b:.1f} ms), max |beta err| {err_b:.3e} (tolerance "
-              f"rtol 1e-5, atol 1e-6)", flush=True)
-        if not torch.allclose(got_b, ref_b, rtol=1e-5, atol=1e-6):
-            _fail(f"gibbs_bwd_global at nl={nl} disagrees with its plain version")
-        if nl == 2:
-            bwd_row = _row("gibbs_bwd_global", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_b,
-                           ms_b, plain_b, *_bwd_work(lemg, trans, got_b, K - 68))
-            bwd_row["ms_at_K12288"] = ms_bt
-        del args, lemg_t, got_b, ref_b
+
+    bwd_row, bwd_cluster_row = check_bwd_forms(G, K, G_path)
 
     # the bank's cluster form, where 9K + 3G floats outgrow a block's shared memory
     Gb, Bb = 512, 4
@@ -1121,7 +1104,7 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288, G_path=512):
                6 * 9 * G * Bb * (Kg - 72))
     row["K"] = Kg
     print(f"nipt_bank_global at {G} grids x {Bb} chains x K={Kg}: {row['ms']:.3f} ms", flush=True)
-    rows = global_rows + [bwd_row, row] + cluster_rows
+    rows = global_rows + [bwd_row, row] + cluster_rows + [bwd_cluster_row]
     del args
 
     # the dosage kernel far past the previous form's shared-memory plane
@@ -1143,6 +1126,139 @@ def check_global_forms(G=32, B=8, W=4, K=10368, K_time=12288, G_path=512):
         _fail(f"gibbs_dos at K={Kd} disagrees with its plain version")
     _print_rows(rows)
     return rows
+
+
+def _bwd_state(G, rows, K, gen):
+    """A backward sweep's input on the card: lemg uniform in [-20, 0] and
+    the sweeps' transition rows (0.98 / 0.02, grid 0 (1, 0))."""
+    import torch
+
+    lemg = -20.0 * torch.rand((G, rows, K), generator=gen, device="cuda")
+    trans = torch.tensor([[0.98], [0.02]], device="cuda").repeat(1, G)
+    trans[:, 0] = torch.tensor([1.0, 0.0], device="cuda")
+    return lemg, trans
+
+
+# the backward's cluster form: the shapes it is held to its plain version at
+# ((state rows, K)), and those it is timed at in turn with the global form
+# ((grids, rows, K)): the timing shape's 16 rows and the wide path's 28 at its
+# 32 grids and K = 10,368, the forms' capacity (wide_nipt12k's 84 rows at
+# 12,288, wide16k's 112 at 16,384), the main path's 512 grids
+BWD_CHECKED = ((16, 10368), (112, 10368), (84, 12288), (112, 16384), (16, 10241))
+BWD_TIMED = ((32, 16, 10368), (32, 28, 10368), (32, 16, 12288), (32, 16, 16384),
+             (512, 16, 10368), (32, 112, 10368), (512, 112, 10368), (32, 84, 12288),
+             (32, 112, 16384), (512, 112, 16384))
+
+
+def check_bwd_forms(G, K, G_path):
+    """The backward sweep past the general variant: gibbs_bwd_cluster
+    against its plain version at BWD_CHECKED (rtol 1e-5 / atol 1e-6, two
+    launches equal bit for bit), timed in turn with gibbs_bwd_global (4
+    rounds of 7) at BWD_TIMED with the plan the launcher took there, the
+    "cluster bwd step split" (the SPLIT instantiation's clock counts of the
+    ring waits, block reductions and exchanges, in us a grid, beside the
+    exchange floor at the record's width, 3 values); the global form at
+    16,512, past the capacity. Returns the rows (gibbs_bwd_global,
+    gibbs_bwd_cluster)."""
+    import torch
+    from quilt_tpu_torch.kernels import gibbs_sweep as gs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    err, row = 0.0, None
+    for rows, Kc in BWD_CHECKED:
+        lemg, trans = _bwd_state(G, rows, Kc, gen)
+        K_real = Kc - 68 if Kc % 128 == 0 else Kc
+        ref, plain_ms = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, K_real))
+        got = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, _variant=gs.CLUSTER)
+        again = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, _variant=gs.CLUSTER)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        equal = torch.equal(got, again)
+        print(f"gibbs_bwd_cluster at {G} grids x {rows} state rows x K={Kc} (K_real {K_real}; "
+              f"plan {gs.bwd_cluster_plan(Kc, rows, 'cuda')}): max |beta err| {e:.3e} "
+              f"(tolerance rtol 1e-5, atol 1e-6), two launches equal bit for bit: {equal}",
+              flush=True)
+        if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6) or not equal:
+            _fail(f"gibbs_bwd_cluster disagrees with its plain version at {rows} x K={Kc}")
+        err = max(err, e)
+        if (rows, Kc) == (16, K):
+            row = _row("gibbs_bwd_cluster", "gibbs_sweep.cu", "gibbs_pallas.py:351", 0.0, None,
+                       plain_ms, *_bwd_work(lemg, trans, got, K_real))
+        del lemg, trans, ref, got, again
+    row["max_abs_err"] = err
+    for Gt, rows, Kc in BWD_TIMED:
+        lemg, trans = _bwd_state(Gt, rows, Kc, gen)
+        bwd = lambda **f: (lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=Kc - 68, **f))
+        t = _alternating_ms({"cluster": bwd(_variant=gs.CLUSTER),
+                             "global": bwd(_variant=gs.GLOBAL)})
+        form = "cluster" if gs.bwd_form(Kc) == gs.CLUSTER else "global"
+        print(f"gibbs_bwd_cluster, timed in turn with gibbs_bwd_global (4 rounds of 7) at {Gt} "
+              f"grids x {rows} state rows x K={Kc}: cluster {t['cluster']:.3f} ms, global "
+              f"{t['global']:.3f} ms; {1e3 * t['cluster'] / (Gt - 1):.2f} / "
+              f"{1e3 * t['global'] / (Gt - 1):.2f} us a grid step; plan "
+              f"{gs.bwd_cluster_plan(Kc, rows, 'cuda')}; bwd_form takes the {form} form",
+              flush=True)
+        tag = "" if (Gt, rows, Kc) == (G, 16, K) else f"_at_{Gt}x{rows}x{Kc}"
+        row[f"ms{tag}"], row[f"previous_form_ms{tag}"] = t["cluster"], t["global"]
+        del lemg, trans
+    # the plan's shape against the other at the timing shape's rows and a full batch's
+    for Gt, rows, Kc in ((512, 16, 10368), (512, 112, 10368), (512, 112, 16384)):
+        lemg, trans = _bwd_state(Gt, rows, Kc, gen)
+        bwd = lambda **f: (lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=Kc - 68,
+                                                _variant=gs.CLUSTER, **f))
+        plans = {c: gs.bwd_cluster_plan(Kc, rows, "cuda", c) for c in (104, 204)}
+        t = _alternating_ms({"plan": bwd(), **{f"{p['threads']} x {p['cols']} ({p['active']} "
+                                                 f"clusters at once)": bwd(_shape=c)
+                                                 for c, p in plans.items()}})
+        print(f"gibbs_bwd_cluster shapes at {Gt} grids x {rows} state rows x K={Kc}, ring depth "
+              f"4, timed in turn (the plan: {gs.bwd_cluster_plan(Kc, rows, 'cuda')}): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
+        del lemg, trans
+    # below the form's range, the general variant at the wide NIPT path's K and rows
+    lemg, trans = _bwd_state(G, 42, 8192, gen)
+    bwd = lambda **f: (lambda: gs.bwd_sweep(lemg, trans, nl=3, K_real=8192 - 68, **f))
+    t = _alternating_ms({"cluster": bwd(_variant=gs.CLUSTER), "general": bwd()})
+    print(f"gibbs_bwd_cluster below its range, timed in turn with the form bwd_form takes "
+          f"there (form {gs.bwd_form(8192)}) at {G} grids x 42 state rows x K=8192: cluster "
+          f"{t['cluster']:.3f} ms, general {t['general']:.3f} ms", flush=True)
+    row["ms_at_32x42x8192"], row["general_form_ms_at_32x42x8192"] = t["cluster"], t["general"]
+    del lemg, trans
+    # the step split at the main path's grids and the wide path's rows
+    lemg, trans = _bwd_state(G_path, 16, K, gen)
+    ms = _median_ms(lambda: gs.bwd_cluster_split(lemg, trans, K - 68), 5)
+    _, split = gs.bwd_cluster_split(lemg, trans, K - 68)
+    torch.cuda.synchronize()
+    share = (split[..., 1:].sum(dim=(0, 1)) / split[..., 0].sum()).tolist()
+    us = 1e3 * ms / (G_path - 1)
+    floor_us = _median_ms(lambda: gs.cluster_floor(20000, 16, "cuda", values=3), 3) * 1e3 / 20000
+    print(f"cluster bwd step split, gibbs_bwd_cluster (this run; {G_path} grids x 16 rows x "
+          f"K={K}, plan {gs.bwd_cluster_plan(K, 16, 'cuda')}): {us:.2f} us a grid step with "
+          f"the clock counts on; ring wait {share[0] * us:.2f}, block reduction "
+          f"{share[1] * us:.2f}, exchange {share[2] * us:.2f}, the rest (exponentials, "
+          f"beta written) {(1 - sum(share)) * us:.2f} us a grid; cluster exchange floor at 8 "
+          f"blocks x 256 threads, 3 values {floor_us:.3f} us a step; ptxas: "
+          + "; ".join(PTXAS.get("gibbs_bwd_cluster_kernel", ["not reported"])), flush=True)
+    row.update(step_split_us=dict(step=us, ring_wait=share[0] * us, block_reduction=share[1] * us,
+                                  exchange=share[2] * us, floor=floor_us))
+    del lemg, trans
+    # the global form past the cluster form's capacity
+    Kg = gs._BWD_CLUSTER_COLS + 128
+    if gs.bwd_form(Kg) != gs.GLOBAL:
+        _fail(f"the backward sweep at K={Kg} does not take its global form")
+    lemg, trans = _bwd_state(G, 16, Kg, gen)
+    ref, plain_ms = _timed(lambda: gs.bwd_sweep_plain(lemg, trans, Kg - 68))
+    got = gs.bwd_sweep(lemg, trans, nl=2, K_real=Kg - 68)
+    err_g = (got - ref).abs().max().item()
+    ms_g = _median_ms(lambda: gs.bwd_sweep(lemg, trans, nl=2, K_real=Kg - 68), 5)
+    print(f"gibbs_bwd_global at {G} grids x 16 state rows x K={Kg}: {ms_g:.3f} ms (plain "
+          f"{plain_ms:.1f} ms), max |beta err| {err_g:.3e} (tolerance rtol 1e-5, atol 1e-6)",
+          flush=True)
+    if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
+        _fail("gibbs_bwd_global disagrees with its plain version")
+    grow = _row("gibbs_bwd_global", "gibbs_sweep.cu", "gibbs_pallas.py:351", err_g, ms_g,
+                plain_ms, *_bwd_work(lemg, trans, got, Kg - 68))
+    grow["K"] = Kg
+    return grow, row
 
 
 def _tile_grids(args, reps):
@@ -3237,15 +3353,19 @@ def _path_probe(label, res, n_fwd=4, n_bwd=3, n_bank=2):
         if len(res["gibbs_bwd"]) < n_bwd:
             ref = gs.bwd_sweep_plain(lemg, trans, kw["K_real"])
             err = (got - ref).abs().max().item()
-            kernel = (gs.BWD_GLOBAL_KERNEL if gs.bwd_form(lemg.shape[2]) == gs.GLOBAL
-                      else gs.BWD_KERNELS[kw["nl"]])
+            form = gs.bwd_form(lemg.shape[2])
+            kernel = {gs.GLOBAL: gs.BWD_GLOBAL_KERNEL,
+                      gs.CLUSTER: gs.BWD_CLUSTER_KERNEL}.get(form, gs.BWD_KERNELS[kw["nl"]])
+            equal = torch.equal(got, real[1](lemg, trans, **kw))
             when = timed(kernel, lambda: real[1](lemg, trans, **kw))
-            print(f"{label}: {kernel.name} on the path's call ({lemg.shape[0]} grids x "
-                  f"{lemg.shape[1]} state rows x K={lemg.shape[2]}, {when}): max "
-                  f"|beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6)", flush=True)
-            if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
+            print(f"{label}: {kernel.name} on the path's call (form {form}; {lemg.shape[0]} "
+                  f"grids x {lemg.shape[1]} state rows x K={lemg.shape[2]}, {when}): max "
+                  f"|beta err| {err:.3e} (tolerance rtol 1e-5, atol 1e-6), a second launch "
+                  f"equal bit for bit: {equal}", flush=True)
+            if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6) or not equal:
                 _fail(f"{label}: gibbs_bwd disagrees with its plain version on the path's call")
             res["gibbs_bwd"].append(err)
+            res["forms"].append(("gibbs_bwd", form, lemg.shape[1]))
         return got
 
     def core(gl, words, trans2, thin, K, K_top, ref_error, CG=None, cap=None):
@@ -3598,17 +3718,19 @@ def main():
     wide = [gibbs_sweep.FWD_GLOBAL_KERNELS[2], gibbs_sweep.FWD_GLOBAL_KERNELS[3],
             gibbs_sweep.BWD_GLOBAL_KERNEL, nipt_bank.BANK_GLOBAL_KERNEL]
     clusters = [gibbs_sweep.FWD_CLUSTER_KERNELS[2], gibbs_sweep.FWD_CLUSTER_KERNELS[3],
-                nipt_bank.BANK_CLUSTER_KERNEL]
+                nipt_bank.BANK_CLUSTER_KERNEL, gibbs_sweep.BWD_CLUSTER_KERNEL]
     tiled = [fb.MAX_TILED_KERNEL, fb.FWD_TILED_KERNEL, fb.BWD_TILED_KERNEL]
     # the panel-sharded FB's segment kernels (no Pallas counterpart): the
     # local passes and the fused steps
     seg = list(fb_sharded.KERNELS)
     kernels = ([gfwd, gbwd, gdos] + nl3 + [bank] + fused + [capture] + wide + clusters + seg
                + tiled)   # the order of rows
-    # the previous forms of the redesigned kernels (timings only) must launch
-    # on no path
+    # the previous forms of the redesigned kernels (timings only), and the
+    # backward cluster form's clock-counting instantiation, must launch on
+    # no path
     prev_tiled = [fb._PREV_REMAT_TILED, fb._PREV_BWD_TILED, fb._PREV_FWD_TILED,
                   fb._PREV_MAX_TILED, nipt_bank._PREV_BANK_KERNEL,
+                  gibbs_sweep.BWD_CLUSTER_SPLIT_KERNEL,
                   *gibbs_dosage._PREV_DOS_KERNELS.values(), *fb_sharded._PREV_KERNELS]
     counted = kernels + prev_tiled
     rows, launches, mx_err, wide_forms = [], {}, 0.0, {}
@@ -3708,41 +3830,66 @@ def main():
     if "wide" in phases:
         # Gibbs at a Ksubset past the forms held in shared memory: a
         # panel of 10,496 haplotypes over 1,024 SNPs, 2 samples. Diploid at
-        # Ksubset 10,368 takes the forward's cluster form and the backward's
-        # global form; NIPT at 8,192 the forward's cluster form at NL = 3
-        # and the bank's. The global forms of the forward and of the bank
-        # must not launch; the path's own calls are held against the plain
-        # versions (_path_probe, the warm-up call).
+        # Ksubset 10,368 takes the forward's and the backward's cluster
+        # forms; NIPT at 8,192 the forward's cluster form at NL = 3 and the
+        # bank's. Then the forms' capacity at a full batch of state rows, on
+        # a panel of 16,512: wide16k (diploid, Ksubset 16,384, 8 samples =
+        # 56 chains, 112 backward rows) and wide_nipt12k (NIPT, 12,288, 4
+        # samples = 28 chains, 84 rows). The forward's and the bank's global
+        # forms must not launch, nor the backward's where bwd_form takes its
+        # cluster form; the path's own calls are held against the plain
+        # versions (_path_probe, the warm-up call). wide must launch the
+        # backward's cluster form.
+        bwd_kernel = lambda K, nl: {gibbs_sweep.CLUSTER: clusters[3],
+                                          gibbs_sweep.GLOBAL: wide[2]}.get(
+            gibbs_sweep.bwd_form(K), gibbs_sweep.BWD_KERNELS[nl])
+        wide_paths = []
+
+        def wide_path(path, world, cfg, K, rows, needed, nipt):
+            """One wide path; `rows` the backward's state rows it must meet."""
+            probe = {}
+            out, _, l = run_e2e(world, counted, cfg, path, probe=lambda: _path_probe(path, probe))
+            launches[path] = l
+            if nipt:
+                nipt_report(path, world, out)
+            elif min(out.r2_per_sample) < 0.9:
+                _fail(f"{path} r2 against truth below 0.9: {out.r2_per_sample}")
+            bk = bwd_kernel(K, 3 if nipt else 2)
+            check_launched(path, l, needed + [bk])
+            errs = _probe_report(path, probe, ("gibbs_fwd", "gibbs_bwd") + (
+                ("nipt_bank",) if nipt else ()))
+            met = {f[2] for f in probe["forms"] if f[0] == "gibbs_bwd"}
+            if met != {rows}:
+                _fail(f"{path}: the backward ran at {met} state rows, not {rows}")
+            for k, name in ((needed[0], "gibbs_fwd"), (bk, "gibbs_bwd")) + (
+                    ((clusters[2], "nipt_bank"),) if nipt else ()):
+                path_errs[k.name] = max(path_errs.get(k.name, 0.0), errs[name])
+            _note_path_ms(path_ms, path, probe)
+            wide_paths.append((path, l, bk))
+            return probe
+
         world6 = make_world(n_samples=2, K=10496, nSNPs=1024)
-        probe = {}
-        out, _, l6 = run_e2e(world6, counted, e2e_config(2, ksubset=10368), "wide",
-                             probe=lambda: _path_probe("wide", probe))
-        launches["wide"] = l6
-        if min(out.r2_per_sample) < 0.9:
-            _fail(f"wide r2 against truth below 0.9: {out.r2_per_sample}")
-        check_launched("wide", l6, [clusters[0], wide[2]])
-        errs = _probe_report("wide", probe, ("gibbs_fwd", "gibbs_bwd"))
-        path_errs["gibbs_fwd_cluster"] = errs["gibbs_fwd"]
-        path_errs["gibbs_bwd_global"] = errs["gibbs_bwd"]
-        _note_path_ms(path_ms, "wide", probe)
+        wide_path("wide", world6, e2e_config(2, ksubset=10368), 10368, 28,
+                  [clusters[0], clusters[3]], False)
         del world6
         world7 = make_world(n_samples=2, K=10496, nSNPs=1024, ffs=[0.2] * 2, coverage=2.0)
-        probe = {}
-        out, _, l7 = run_e2e(world7, counted, e2e_config(2, nipt=True, ksubset=8192),
-                             "wide_nipt", probe=lambda: _path_probe("wide_nipt", probe))
-        launches["wide_nipt"] = l7
-        nipt_report("wide_nipt", world7, out)
-        check_launched("wide_nipt", l7, [clusters[1], clusters[2]])
-        errs = _probe_report("wide_nipt", probe, ("gibbs_fwd", "gibbs_bwd", "nipt_bank"))
+        probe = wide_path("wide_nipt", world7, e2e_config(2, nipt=True, ksubset=8192), 8192, 42,
+                          [clusters[1], clusters[2]], True)
         if not any(f[0] == "gibbs_fwd" and not f[2][2] for f in probe["forms"]):
             _fail("wide_nipt: the block move's read-free forward re-run went unchecked")
-        path_errs["gibbs_fwd_cluster_nl3"] = errs["gibbs_fwd"]
-        path_errs["gibbs_bwd_nl3"] = max(path_errs.get("gibbs_bwd_nl3", 0.0), errs["gibbs_bwd"])
-        path_errs["nipt_bank_cluster"] = errs["nipt_bank"]
-        _note_path_ms(path_ms, "wide_nipt", probe)
         del world7
-        for path, l in (("wide", l6), ("wide_nipt", l7)):
-            stray = {k.name: l[k.name] for k in (wide[0], wide[1], wide[3]) if l[k.name]}
+        # the forms' capacity: the forward's (16,384; NL = 3 12,288) at a full batch
+        if (gibbs_sweep.fwd_form(16384, 2), gibbs_sweep.fwd_form(12288, 3)) != (gibbs_sweep.CLUSTER,) * 2:
+            _fail("the forward's cluster forms do not hold their capacity")
+        world9 = make_world(n_samples=8, K=16512, nSNPs=1024, coverage=2.0)
+        wide_path("wide16k", world9, e2e_config(8, ksubset=16384), 16384, 112, [clusters[0]], False)
+        del world9
+        world10 = make_world(n_samples=4, K=16512, nSNPs=1024, ffs=[0.2] * 4, coverage=2.0)
+        wide_path("wide_nipt12k", world10, e2e_config(4, nipt=True, ksubset=12288), 12288, 84,
+                  [clusters[1], clusters[2]], True)
+        del world10
+        for path, l, bk in wide_paths:
+            stray = {k.name: l[k.name] for k in wide if l[k.name] and k is not bk}
             if stray:
                 _fail(f"{path} launched a global form the cluster forms took over: {stray}")
         t = _took("wide", t)

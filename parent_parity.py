@@ -9,10 +9,12 @@ own sources, and the parent's package is loaded under another name. Every
 form of the two Gibbs sweeps and of the NIPT bank that the parent runs is
 launched through both packages' wrappers on the same random state (the
 smoke run's table shape, G = 512, 56 chains, K = 640 of which 600 real, and
-the forms' last K), and the outputs must be equal bit for bit: a change
-that only adds forms for other widths leaves these launches as they were.
-The default forms are then timed in turn (4 rounds of 7 launches, CUDA
-events). Needs one CUDA card; exits non-zero on any difference.
+the forms' last K; the backward's global form at 10,368 and 16,512), and
+the outputs must be equal bit for bit: a change that only adds forms for
+other widths leaves these launches as they were. The default forms are
+then timed in turn (4 rounds of 7 launches, CUDA events), the backward
+also at 32 grids x 16 state rows x 10,368. Needs one CUDA card; exits
+non-zero on any difference.
 """
 from __future__ import annotations
 
@@ -136,6 +138,26 @@ def main() -> int:
                     "bwd change": lambda: gs_new.bwd_sweep(lemg, trans, nl=nl, K_real=K_real)})
                 print(f"timed in turn at nl={nl}, G={G}, B={B}, K={K}: "
                       + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
+
+    # the backward's global form at any K (the parent's only form past
+    # 10,240), and the default backward (this checkout's cluster form where
+    # bwd_form takes it) timed in turn with the parent's at the timing shape,
+    # 32 grids x 16 state rows x 10,368
+    for K in (10368, 16512):
+        G, BN = 32, 16
+        lemg = -20.0 * torch.rand((G, BN, K), generator=torch.Generator(device="cuda")
+                                  .manual_seed(SEED + K), device="cuda")
+        trans = torch.tensor([[0.98], [0.02]], device="cuda").repeat(1, G)
+        trans[:, 0] = torch.tensor([1.0, 0.0], device="cuda")
+        check(f"gibbs_bwd global form K={K}",
+              lambda: gs_new.bwd_sweep(lemg, trans, nl=2, K_real=K - 68, _variant=-2),
+              lambda: gs_old.bwd_sweep(lemg, trans, nl=2, K_real=K - 68, _variant=-2))
+        if K == 10368:
+            t = _in_turn({"parent": lambda: gs_old.bwd_sweep(lemg, trans, nl=2, K_real=K - 68),
+                          "change": lambda: gs_new.bwd_sweep(lemg, trans, nl=2, K_real=K - 68)})
+            print(f"gibbs_bwd default timed in turn at G={G}, rows={BN}, K={K} (change: form "
+                  f"{gs_new.bwd_form(K)}): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()), flush=True)
 
     # the bank: each form the wrapper takes (<2> at 256, <5> at 640, <8> at
     # 1,024, the general form at 3,000), 28 chains x 512 grids

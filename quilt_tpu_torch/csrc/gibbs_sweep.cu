@@ -76,14 +76,17 @@
 // of its 8 blocks is the register form above over an eighth of the columns,
 // with its own producer warp and rings, and each dependent step adds the
 // blocks' sums in rank order over distributed shared memory
-// (cluster_xchg.cuh), up to K = 16,384 (12,288 at NL = 3). Past that, and
-// for the backward past 10,240, a global form of each kernel takes any K
-// that device memory holds: no producer, no ring, the state in a global
-// scratch plane (below, "the global forms"). The caller
-// (kernels/gibbs_sweep.py) names the form.
+// (cluster_xchg.cuh), up to K = 16,384 (12,288 at NL = 3); the backward
+// runs a state row on a cluster the same way up to 16,384
+// (gibbs_bwd_cluster_kernel, "the backward's cluster form"). Past that, a
+// global form of each kernel takes any K that device memory holds: no
+// producer, no ring, the state in a global scratch plane (below, "the
+// global forms"). The caller (kernels/gibbs_sweep.py) names the form.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "cluster_xchg.cuh"
 
@@ -865,8 +868,10 @@ __global__ void __launch_bounds__(NT + 32, 1) gibbs_fwd_cluster_kernel(const Fwd
 struct BwdArgs {
   const float *lemg, *trans;
   float* beta_out;
+  float* split;                     // cluster form, SPLIT: 4 counts a block
   int G, BN, K, K_real, DE, prep;   // ring depth; active preparation warps
   int ahead;                        // the look-ahead form of the chain's step
+  int KS, vec;                      // cluster form: columns a block; 16-byte copies allowed
   float invK;
 };
 
@@ -1160,6 +1165,167 @@ __global__ void __launch_bounds__(GLOBAL_NT) gibbs_bwd_global_kernel(const BwdAr
 }
 
 // ---------------------------------------------------------------------------
+// the backward's cluster form
+// ---------------------------------------------------------------------------
+// Past the general variant (K > 10,240) the backward runs each state row on
+// a thread-block cluster of C blocks (grid (C, BN)); block r owns the
+// columns r*KS .. r*KS + KS - 1 (KS = ceil(K / C) rounded up to 4) and holds
+// their beta in registers, NT chain threads x CPT columns, as the register
+// forms do. A producer warp copies each coming grid's lemg slice into a
+// shared-memory ring of DE stages with cp.async, ahead of the chain. A grid
+// step is one block reduction and one cluster exchange (cluster_xchg.cuh,
+// records of 4 floats); beta is written once a grid, coalesced, by the
+// block that owns the columns. Decisions:
+//   * The row maximum spans the cluster: it rides in the step's record.
+//     The record is {sum(e*beta), max(e*beta), max of the next grid's
+//     lemg}, as in the global form's reduction, so the ring holds raw lemg
+//     and the chain takes e = exp(lemg - max) once the exchange has given
+//     the maximum (CPT exponentials a thread a step). Every block holds the
+//     same maximum bit for bit, and the arithmetic is bwd_sweep_plain's (a
+//     global maximum, no per-block shift): the plain version stays its
+//     plain version, and the form differs from the others in the order of
+//     its sums only.
+//   * Waves: C = CLUSTER_C (8); the shape (NT, CPT) and the ring's depth
+//     are chosen by the launcher from the state rows and what
+//     cudaOccupancyMaxActiveClusters says the card holds at once: the least
+//     whole waves of clusters, then the first shape of BWD_SHAPES, then the
+//     deepest ring (plan_bwd_cluster). On an H100 80GB HBM3 at 700 W the
+//     card holds 45 clusters of <256, 8> at once and 62 of <128, 16>, so
+//     112 rows take two waves of the second against three of the first
+//     (chip_smoke.py's "gibbs_bwd_cluster shapes" lines time both); at 512
+//     grids x 16 rows x 10,368 the form takes 1.189 ms against the global
+//     form's 4.826, at 112 rows 3.085 against 5.333 (PERF.md). It is the
+//     faster at every row count timed (16 to 112), so bwd_form takes it by
+//     K alone. A shape of 16 blocks (256 x 4) was slower where tried and is
+//     not built.
+//   * Columns that are not a multiple of C x 4: the last block owns fewer
+//     (K = 10,241 at C = 8: 1,284 a block, the last 1,253); columns at or
+//     past K_real give e = 0, columns past K are neither read nor written,
+//     and the copies go 4 bytes at a time unless K is a multiple of 4.
+//   * The exchange header is shared: the record is an Inbox<4>, a width the
+//     header already takes; the forward sweep and the bank are untouched.
+// SPLIT (measurement only) has chain thread 0 of every block count the
+// clock cycles of the whole chain, of its ring waits, its block reductions
+// and its exchanges into split[4 x block].
+using BwdInbox = cluster_xchg::Inbox<4>;
+
+template <int NT, int CPT, bool SPLIT>
+__global__ void __launch_bounds__(NT + 32) gibbs_bwd_cluster_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float dyn[];   // [DE][KS] lemg slices
+  __shared__ uint64_t bars[2 * MAX_DE];
+  __shared__ __align__(16) float red[2 * (NT / 32) * 8];
+  __shared__ BwdInbox box;
+  uint64_t* full = bars;
+  uint64_t* empty = bars + MAX_DE;
+  const int G = a.G, KS = a.KS, row = blockIdx.y, k0 = blockIdx.x * KS;
+  const int Kb = max(0, min(KS, a.K - k0)), Kr = max(0, min(KS, a.K_real - k0));
+  cluster_xchg::Exchange<4> xc(&box);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.DE; ++s) {
+      mbar_init(&full[s], 33);        // 32 cp.async arrivals + lane 0's
+      mbar_init(&empty[s], NT / 32);  // one arrival per chain warp
+    }
+    xc.init();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  cluster_xchg::cluster_sync_all();   // every block's inbox is ready
+  if (threadIdx.x >= NT) {
+    // the producer: stage j holds lemg[G-1-j], j = 0 .. G-2 (lemg[0] is never read)
+    const int lane = threadIdx.x & 31;
+    Ring E(a.DE);
+    for (int j = 0; j + 1 < G; ++j) {
+      mbar_wait(&empty[E.stage], E.phase ^ 1);
+      copy_row(dyn + (size_t)E.stage * KS,
+               a.lemg + ((size_t)(G - 1 - j) * a.BN + row) * a.K + k0, Kb, a.vec, lane);
+      cp_async_arrive(&full[E.stage]);
+      if (lane == 0) mbar_arrive(&full[E.stage]);
+      E.next();
+    }
+    return;
+  }
+
+  // ---- the chain: one reduction and one exchange a grid ----
+  const int tid = threadIdx.x;
+  const size_t plane = (size_t)a.BN * a.K;
+  float* out = a.beta_out + (size_t)row * a.K + k0;   // + g * plane: beta[g] of the row
+  float bs[CPT], lc[CPT];   // beta of the grid above; raw lemg of the grid exponentiated next
+  int par = 0;
+  Ring E(a.DE);
+  long long t_all = 0, t_ring = 0, t_red = 0, t_xch = 0, t_s = 0;
+  const bool timer = SPLIT && tid == 0;
+  if (timer) t_all = clock64();
+  // stage j's columns into lc, with their maximum over the real columns
+  auto take = [&](float& mx) {
+    if (timer) t_s = clock64();
+    mbar_wait(&full[E.stage], E.phase);
+    if (timer) t_ring += clock64() - t_s;
+    const float* st = dyn + (size_t)E.stage * KS;
+#pragma unroll
+    for (int m = 0; m < CPT; ++m) {
+      const int c = tid + m * NT;
+      lc[m] = c < Kb ? st[c] : 0.f;
+      if (c < Kr) mx = fmaxf(mx, lc[m]);
+    }
+    release(&empty[E.stage]);
+    E.next();
+  };
+  // the block's values, then the cluster's
+  auto reduce = [&](auto& v, auto ns) {
+    constexpr int NV = sizeof(v) / sizeof(float), NS = decltype(ns)::value;
+    if (timer) t_s = clock64();
+    chain_reduce<NT, NS, NV - NS>(v, red, par);
+    if (timer) t_red += clock64() - t_s, t_s = clock64();
+    xc.template combine<NV, NS>(v, tid);
+    if (timer) t_xch += clock64() - t_s;
+  };
+#pragma unroll
+  for (int m = 0; m < CPT; ++m) {
+    const int c = tid + m * NT;
+    bs[m] = 1.f;
+    lc[m] = 0.f;
+    if (c < Kb) out[(size_t)(G - 1) * plane + c] = 1.f;
+  }
+  float mrow = NEG;   // the row maximum of the grid the next step exponentiates
+  if (G > 1) {
+    float v[1] = {NEG};
+    take(v[0]);
+    reduce(v, std::integral_constant<int, 0>());
+    mrow = v[0];
+  }
+  for (int g = G - 2; g >= 0; --g) {
+    const float t0 = __ldg(&a.trans[g + 1]), t1 = __ldg(&a.trans[G + g + 1]);
+    float v[3] = {0.f, 0.f, NEG};   // sum(e*beta) | max(e*beta), max of lemg[g]
+#pragma unroll
+    for (int m = 0; m < CPT; ++m) {
+      const float e = tid + m * NT < Kr ? expf(lc[m] - mrow) : 0.f;
+      bs[m] = e * bs[m];
+      v[0] += bs[m];
+      v[1] = fmaxf(v[1], bs[m]);
+    }
+    if (g > 0) take(v[2]);
+    reduce(v, std::integral_constant<int, 1>());
+    const float c0 = t1 * v[0] * a.invK;
+    const float top = fmaf(t0, v[1], c0);   // = max_k fma(t0, etb_k, c0)
+    const float d = top > 0.f ? top : 1.f;
+#pragma unroll
+    for (int m = 0; m < CPT; ++m) {
+      const int c = tid + m * NT;
+      bs[m] = fmaf(t0, bs[m], c0) / d;
+      if (c < Kb) out[(size_t)g * plane + c] = bs[m];
+    }
+    mrow = v[2];
+  }
+  if (timer) {
+    float* sp = a.split + 4 * ((size_t)blockIdx.y * gridDim.x + blockIdx.x);
+    sp[0] = (float)(clock64() - t_all);
+    sp[1] = (float)t_ring;
+    sp[2] = (float)t_red;
+    sp[3] = (float)t_xch;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the least a dependent step can take: the chain's reduction alone
 // ---------------------------------------------------------------------------
 
@@ -1285,6 +1451,97 @@ int launch_bwd_global(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The backward's cluster shapes (chain threads, columns a thread; CLUSTER_C
+// blocks a cluster), numbered from 1 in the order plan_bwd_cluster prefers
+// them, and the ring depths it tries, deepest first.
+struct BwdShape {
+  int nt, cpt;
+};
+constexpr BwdShape BWD_SHAPES[] = {{256, 8}, {128, 16}};
+constexpr int N_BWD_SHAPES = sizeof(BWD_SHAPES) / sizeof(BWD_SHAPES[0]);
+constexpr int BWD_DEPTHS[] = {8, 4, 2};
+
+// Launches shape <NT, CPT> on clusters of C blocks with a ring of DE
+// stages, or, with `active`, only reads how many such clusters the card
+// holds at once. Refuses a K past C x NT x CPT.
+template <int NT, int CPT, bool SPLIT>
+int run_bwd_cluster(BwdArgs a, int DE, cudaStream_t stream, int* active) {
+  constexpr int C = CLUSTER_C;
+  a.KS = ((a.K + C - 1) / C + 3) & ~3;
+  if (a.KS > NT * CPT || DE < 1 || DE > MAX_DE) return (int)cudaErrorInvalidValue;
+  a.DE = DE;
+  const size_t smem = (size_t)DE * a.KS * sizeof(float);
+  auto* kernel = gibbs_bwd_cluster_kernel<NT, CPT, SPLIT>;
+  if (active) {   // at a grid of more rows than any wave holds: the card's own limit
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    return cluster_xchg::active_clusters(kernel, C, 4096, NT + 32, smem, stream, &cfg, attr,
+                                         active);
+  }
+  return cluster_xchg::launch_clusters(kernel, C, a.BN, NT + 32, smem, stream, a);
+}
+
+template <bool SPLIT>
+int bwd_cluster_shape(const BwdArgs& a, int shape, int DE, cudaStream_t s, int* active) {
+  switch (shape) {
+    case 1: return run_bwd_cluster<256, 8, SPLIT>(a, DE, s, active);
+    case 2: return run_bwd_cluster<128, 16, SPLIT>(a, DE, s, active);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of `shape` at ring depth DE and a.K that the card holds at
+// once; kept a launch to the next (a query takes microseconds of the host).
+int bwd_cluster_active(const BwdArgs& a, int shape, int DE, cudaStream_t s, int* active) {
+  constexpr int ND = sizeof(BWD_DEPTHS) / sizeof(BWD_DEPTHS[0]);
+  static long long seen[N_BWD_SHAPES + 1][ND + 1];   // (K + 1) << 32 | active
+  int d = 0;
+  while (d < ND && BWD_DEPTHS[d] != DE) ++d;
+  long long* slot = shape >= 1 && shape <= N_BWD_SHAPES ? &seen[shape][d] : nullptr;
+  if (slot) {
+    const long long v = *(volatile long long*)slot;
+    if ((v >> 32) == (long long)a.K + 1) {
+      *active = (int)(v & 0xffffffff);
+      return 0;
+    }
+  }
+  const int err = bwd_cluster_shape<false>(a, shape, DE, s, active);
+  if (!err && slot) *(volatile long long*)slot = (((long long)a.K + 1) << 32) | (unsigned)*active;
+  return err;
+}
+
+// The launcher's choice at a.K and a.BN rows: the least whole waves of
+// clusters (ceil(BN / active)), then the first shape, then the deepest ring.
+// cudaErrorInvalidValue if no shape holds K, cudaErrorInvalidConfiguration
+// if the card holds none of those that do.
+int plan_bwd_cluster(const BwdArgs& a, cudaStream_t s, int* shape, int* DE, int* active) {
+  int best = 0, held = 0;
+  *shape = 0;
+  for (int sh = 1; sh <= N_BWD_SHAPES; ++sh) {
+    for (int de : BWD_DEPTHS) {
+      int act = 0;
+      if (bwd_cluster_active(a, sh, de, s, &act) != 0) break;   // the shape does not hold K
+      held = 1;
+      if (act < 1) continue;
+      const int waves = (a.BN + act - 1) / act;
+      if (*shape == 0 || waves < best) best = waves, *shape = sh, *DE = de, *active = act;
+    }
+  }
+  if (*shape) return 0;
+  return held ? (int)cudaErrorInvalidConfiguration : (int)cudaErrorInvalidValue;
+}
+
+// -3: the plan's shape, or (code = shape * 100 + DE, timings only) that one.
+template <bool SPLIT>
+int launch_bwd_cluster(const BwdArgs& a, int code, cudaStream_t s) {
+  int shape = code / 100, DE = code % 100, active = 0;
+  if (code == 0) {
+    const int err = plan_bwd_cluster(a, s, &shape, &DE, &active);
+    if (err) return err;
+  }
+  return bwd_cluster_shape<SPLIT>(a, shape, DE, s, nullptr);
+}
+
 // The forward sweep of the diploid sampler: every pair of SWEEP_DISPATCH.
 int dispatch_fwd(const FwdArgs<2>& a, int threads, int wide, cudaStream_t stream) {
   if (wide) return (int)cudaErrorInvalidValue;
@@ -1402,17 +1659,31 @@ extern "C" int gibbs_fwd(
   return (int)cudaErrorInvalidValue;
 }
 
-// threads: the form, as for gibbs_fwd (the global form takes no scratch).
-// ahead: 0 but to time the look-ahead form (128 threads, K in (512, 640]).
-extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
-                         int G, int BN, int K, int K_real, int threads,
-                         int ahead, float invK, void* stream) {
+static BwdArgs bwd_args(const void* lemg, const void* trans, void* beta_out, int G, int BN,
+                        int K, int K_real, float invK) {
   BwdArgs a;
   a.lemg = (const float*)lemg, a.trans = (const float*)trans;
   a.beta_out = (float*)beta_out;
+  a.split = nullptr;
   a.G = G, a.BN = BN, a.K = K, a.K_real = K_real, a.invK = invK;
-  a.ahead = ahead;
+  a.ahead = 0, a.KS = 0, a.prep = 0;
+  a.vec = K % 4 == 0 && aligned16(lemg);
   a.DE = MAX_DE;
+  return a;
+}
+
+// threads: the form, as for gibbs_fwd (the global form takes no scratch), or
+// -3 the cluster form (csrc: plan_bwd_cluster chooses its shape and ring);
+// cudaErrorInvalidValue past its 16,384 columns, cudaErrorInvalidConfiguration
+// if the card cannot schedule it. ahead: 0 but to time the look-ahead form
+// (128 threads, K in (512, 640]), or, at -3, a shape * 100 + ring depth in
+// place of the plan's (timings only).
+extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
+                         int G, int BN, int K, int K_real, int threads,
+                         int ahead, float invK, void* stream) {
+  BwdArgs a = bwd_args(lemg, trans, beta_out, G, BN, K, K_real, invK);
+  if (threads == -3) return launch_bwd_cluster<false>(a, ahead, (cudaStream_t)stream);
+  a.ahead = ahead;
   while (threads != -2 && (size_t)a.DE * K * sizeof(float) > (size_t)SMEM_LIMIT) {
     if (a.DE > 1) a.DE /= 2;
     else return (int)cudaErrorInvalidValue;
@@ -1420,6 +1691,34 @@ extern "C" int gibbs_bwd(const void* lemg, const void* trans, void* beta_out,
   a.prep = a.DE < BWD_PREP ? a.DE : BWD_PREP;
   if (threads == -2 && ahead) return (int)cudaErrorInvalidValue;
   SWEEP_DISPATCH(launch_bwd, launch_bwd_global, K, threads, a, (cudaStream_t)stream);
+}
+
+// The cluster form's plan at (K, BN) rows, or (code != 0) that shape:
+// out[0..5] = shape, chain threads, columns a thread, blocks a cluster, ring
+// depth, clusters the card holds at once.
+extern "C" int gibbs_bwd_cluster_plan(int K, int BN, int code, void* out, void* stream) {
+  BwdArgs a = bwd_args(nullptr, nullptr, nullptr, 2, BN, K, K, 1.f);
+  cudaStream_t s = (cudaStream_t)stream;
+  int shape = code / 100, DE = code % 100, active = 0;
+  const int err = code == 0 ? plan_bwd_cluster(a, s, &shape, &DE, &active)
+                            : bwd_cluster_active(a, shape, DE, s, &active);
+  if (err) return err;
+  const BwdShape& sh = BWD_SHAPES[shape - 1];
+  const int v[6] = {shape, sh.nt, sh.cpt, CLUSTER_C, DE, active};
+  for (int i = 0; i < 6; ++i) ((int*)out)[i] = v[i];
+  return 0;
+}
+
+// The cluster form with its SPLIT counts (measurement only): as gibbs_bwd at
+// -3 (code as `ahead` there), and split [BN, C, 4] floats: each block's
+// clock cycles of the whole chain, its ring waits, block reductions and
+// exchanges.
+extern "C" int gibbs_bwd_cluster_split(const void* lemg, const void* trans, void* beta_out,
+                                       void* split, int G, int BN, int K, int K_real, int code,
+                                       float invK, void* stream) {
+  BwdArgs a = bwd_args(lemg, trans, beta_out, G, BN, K, K_real, invK);
+  a.split = (float*)split;
+  return launch_bwd_cluster<true>(a, code, (cudaStream_t)stream);
 }
 
 // `steps` dependent reductions of `values` (8 or 16) sums by `threads`
@@ -1434,7 +1733,7 @@ extern "C" int gibbs_chain_floor(void* out, int blocks, int steps, int threads,
 }
 
 // The cluster form's read steps: `steps` block reductions of `values` (8 or
-// 12) values, each followed by the cluster exchange, on `chains` clusters of
+// 12; 3, the backward's record) values, each followed by the cluster exchange, on `chains` clusters of
 // CLUSTER_C blocks of CLUSTER_NT threads; out [chains * CLUSTER_C] floats.
 extern "C" int gibbs_cluster_floor(void* out, int chains, int steps, int values, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -1443,6 +1742,9 @@ extern "C" int gibbs_cluster_floor(void* out, int chains, int steps, int values,
                                          CLUSTER_NT, 0, s, (float*)out, steps);
   if (values == 12)
     return cluster_xchg::launch_clusters(cluster_floor_kernel<CLUSTER_NT, 12>, CLUSTER_C, chains,
+                                         CLUSTER_NT, 0, s, (float*)out, steps);
+  if (values == 3)
+    return cluster_xchg::launch_clusters(cluster_floor_kernel<CLUSTER_NT, 3>, CLUSTER_C, chains,
                                          CLUSTER_NT, 0, s, (float*)out, steps);
   return (int)cudaErrorInvalidValue;
 }

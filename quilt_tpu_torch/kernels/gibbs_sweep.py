@@ -15,21 +15,24 @@ every device-memory load to producer warps that run ahead of the chain and
 fill shared-memory rings. The wrapper names the form (`fwd_form`, `bwd_form`):
 the smallest register variant that holds K, above K = 2,048 the general
 variant with the state in per-thread local arrays (forward: while one grid
-stage and one read row fit the shared-memory rings), past those, forward,
-a cluster form (one chain on a thread-block cluster of 8 blocks, each a
-register form over its eighth of the columns with its own producer warp;
-the blocks exchange each step's sums over distributed shared memory,
-csrc/cluster_xchg.cuh; its own launch counts `FWD_CLUSTER_KERNELS[nl]`),
-and past that a global form that takes any K device memory holds (the state
-in a global scratch plane, rows read straight from device memory, no ring;
-its own launch counts `FWD_GLOBAL_KERNELS[nl]`, `BWD_GLOBAL_KERNEL`). A form
-is never replaced by another: the C entry refuses one that does not hold K
-(and a cluster the card cannot schedule). The forms and the K they take:
+stage and one read row fit the shared-memory rings), past those a cluster
+form (one chain, or backward one state row, on a thread-block cluster of 8
+blocks, each a register form over its eighth of the columns with its own
+producer warp; the blocks exchange each step's sums over distributed shared
+memory, csrc/cluster_xchg.cuh; its own launch counts
+`FWD_CLUSTER_KERNELS[nl]`, `BWD_CLUSTER_KERNEL`), and past that a global
+form that takes any K device memory holds (the state in a global scratch
+plane, rows read straight from device memory, no ring; its own launch
+counts `FWD_GLOBAL_KERNELS[nl]`, `BWD_GLOBAL_KERNEL`). A form is never
+replaced by another: the C entry refuses one that does not hold K (and a
+cluster the card cannot schedule). The forms and the K they take:
 
     registers  K <= 2,048           128 threads x 2 / 4 / 5 / 8, 256 x 8
     general    K <= 10,240          forward at nl = 3 only to K = 8,155
-    cluster    K <= 16,384 (nl 2)   forward only: 8 blocks x 256 threads x 8 columns
+    cluster    K <= 16,384 (nl 2)   forward: 8 blocks x 256 threads x 8 columns
                K <= 12,288 (nl 3)   (x 6 columns at nl = 3)
+               K <= 16,384          backward: 8 blocks x 256 x 8 or 128 x 16
+                                    (the launcher's plan: fewest waves)
     global     any K
 
 A skipped slot (empty, or an uninformative read) is no step at all: it
@@ -47,7 +50,8 @@ The private `_variant` argument is for timings and tests only (64, 128 or
 256: that many chain threads, as far as instantiated; -1: the general
 variant wherever it holds K; GLOBAL: the global form at any K, timed in
 turn with the cluster form it gave way to), as are `_ahead` (the backward
-step's look-ahead form) and `_wide` (nl = 3: a step's 9 or 12 values
+step's look-ahead form), `_shape` (the backward cluster form's shape and
+ring in place of the plan's) and `_wide` (nl = 3: a step's 9 or 12 values
 reduced as one reduction of 16 instead of two of at most 8); the engine
 never passes them.
 """
@@ -73,8 +77,14 @@ FWD_GLOBAL_KERNELS = {nl: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS, name=f"g
 FWD_CLUSTER_KERNELS = {nl: Kernel("gibbs_sweep", "gibbs_fwd", _FWD_ARGS,
                                   name=f"gibbs_fwd_cluster{sfx}")
                        for nl, sfx in ((2, ""), (3, "_nl3"))}
-# the backward works on state rows and never sees nl: one count for its global form
+# the backward works on state rows and never sees nl: one count for its global
+# form and one for its cluster form
 BWD_GLOBAL_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_global")
+BWD_CLUSTER_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd", _BWD_ARGS, name="gibbs_bwd_cluster")
+# measurement only: the cluster form with its per-block clock counts, and its plan
+BWD_CLUSTER_SPLIT_KERNEL = Kernel("gibbs_sweep", "gibbs_bwd_cluster_split",
+                                  [_P] * 4 + [_I] * 5 + [_F])
+_BWD_CLUSTER_PLAN = Kernel("gibbs_sweep", "gibbs_bwd_cluster_plan", [_I] * 3 + [_P])
 FWD_KERNEL, BWD_KERNEL = FWD_KERNELS[2], BWD_KERNELS[2]
 FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_chain_floor", [_P] + [_I] * 4)
 CLUSTER_FLOOR_KERNEL = Kernel("gibbs_sweep", "gibbs_cluster_floor", [_P] + [_I] * 3)
@@ -91,6 +101,9 @@ _GENERAL_COLS = 256 * 40
 # blocks a chain of 256 chain threads, 8 columns a thread (6 at nl = 3)
 _CLUSTER_C = 8
 _CLUSTER_COLS = {2: _CLUSTER_C * 256 * 8, 3: _CLUSTER_C * 256 * 6}
+# the backward's cluster form (csrc/gibbs_sweep.cu BWD_SHAPES): 16,384 columns
+# in each of its shapes
+_BWD_CLUSTER_COLS = 16384
 
 
 # the form codes the C entries read (csrc/gibbs_sweep.cu, csrc/nipt_bank.cu):
@@ -123,11 +136,14 @@ def bwd_form(K: int) -> int:
     """The form code of the backward sweep kernel at K haplotypes: chain
     threads of a register form up to 2,048, GENERAL up to 10,240 (its ring
     of e rows shrinks to one row of K floats, which fits up to 57,088),
-    else GLOBAL."""
+    CLUSTER up to 16,384 (faster than GLOBAL at every row count timed, 16
+    to 112; the launcher picks its shape by the rows), else GLOBAL."""
     form = _register_form(K)
     if form is not None:
         return form
-    return GENERAL if K <= _GENERAL_COLS else GLOBAL
+    if K <= _GENERAL_COLS:
+        return GENERAL
+    return CLUSTER if K <= _BWD_CLUSTER_COLS else GLOBAL
 
 
 def fwd_scratch_floats(K: int, nl: int) -> int:
@@ -200,10 +216,11 @@ def fwd_sweep(lemg, beta, lem_pad, slots, first_read, lab_init, trans,
     return lemg_out, alphas, h_out, logc, uf, lab
 
 
-def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False):
+def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False, _shape=0):
     """Reverse-grid beta recursion from lemg [G, BN, K]: a max-shifted
     emission, then t0*e*beta + t1*sum(e*beta)/K, max-normalised per row.
-    Returns beta [G, BN, K]."""
+    Returns beta [G, BN, K]. `_shape` (timings only) names the cluster
+    form's shape and ring as shape * 100 + depth in place of the plan's."""
     G, BN, K = lemg.shape
     _check_nl(nl, BN)
     dev = lemg.device
@@ -214,11 +231,36 @@ def bwd_sweep(lemg, trans, nl, K_real, _variant=None, _ahead=False):
     if dev.type == "cpu":
         return bwd_sweep_plain(lemg, trans, K_real)
     threads = bwd_form(K) if _variant is None else _variant
-    kernel = BWD_GLOBAL_KERNEL if threads == GLOBAL else BWD_KERNELS[nl]
+    kernel = {GLOBAL: BWD_GLOBAL_KERNEL, CLUSTER: BWD_CLUSTER_KERNEL}.get(threads, BWD_KERNELS[nl])
     beta = torch.empty_like(lemg)
-    kernel.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
-                  G, BN, K, K_real, threads, int(_ahead), 1.0 / K_real)
+    kernel.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(), G, BN, K, K_real, threads,
+                  _shape if threads == CLUSTER else int(_ahead), 1.0 / K_real)
     return beta
+
+
+def bwd_cluster_plan(K: int, rows: int, device, shape: int = 0) -> dict:
+    """The backward cluster form's launch at K and `rows` state rows as
+    csrc/gibbs_sweep.cu plans it (or, shape = shape * 100 + ring depth, that
+    one): shape, chain threads, columns a thread, blocks a cluster, ring
+    depth, and the clusters the card holds at once."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("bwd_cluster_plan reads the card and needs a CUDA device")
+    out = (ctypes.c_int * 6)()
+    _BWD_CLUSTER_PLAN.launch(K, rows, shape, ctypes.addressof(out))
+    return dict(zip(("shape", "threads", "cols", "blocks", "depth", "active"), out))
+
+
+def bwd_cluster_split(lemg, trans, K_real, _shape=0):
+    """Measurement only: the cluster form of the backward sweep with, for
+    every block, the clock cycles of its chain, its ring waits, block
+    reductions and exchanges. Returns (beta, split [BN, blocks, 4])."""
+    G, BN, K = lemg.shape
+    C = bwd_cluster_plan(K, BN, lemg.device, _shape)["blocks"]
+    beta = torch.empty_like(lemg)
+    split = torch.zeros((BN, C, 4), dtype=torch.float32, device=lemg.device)
+    BWD_CLUSTER_SPLIT_KERNEL.launch(lemg.data_ptr(), trans.data_ptr(), beta.data_ptr(),
+                                    split.data_ptr(), G, BN, K, K_real, _shape, 1.0 / K_real)
+    return beta, split
 
 
 def chain_floor(steps: int, threads: int, blocks: int, device, values: int = 8) -> torch.Tensor:

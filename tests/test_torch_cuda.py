@@ -16,9 +16,10 @@ previous form exact), checkpoints and S rtol 1e-5, the backward's rebuilt
 alphas equal to the forward's, dosage and top-K atol 1e-4; the sharded
 FB's segment kernels: rtol 1e-4 plus 1e-6 of the largest, the rebuilt
 alphas equal to the forward's). The cluster
-forms of the forward sweep and of the NIPT bank (one chain on a thread-block
-cluster) are held to the same tolerances from the shared-memory forms' limits
-to their capacity, and the global forms (any K) just past that."""
+forms of the two sweeps and of the NIPT bank (one chain, or a backward state
+row, on a thread-block cluster) are held to the same tolerances from the
+shared-memory forms' limits to their capacity, and the global forms (any K)
+just past that."""
 import numpy as np
 import pytest
 import torch
@@ -873,6 +874,40 @@ def test_sweep_cluster_forms_match_plain(cuda, nl, K, K_real, G, B, W):
     assert [k.launches for k in counts] == [before[0] + 4, before[1], before[2]]
 
 
+@pytest.mark.parametrize("rows", [16, 112])
+@pytest.mark.parametrize("K,K_real", [
+    (10368, 10300),    # the wide path's Ksubset: past the general variant
+    (12288, 12220),    # the wide NIPT path's at the forms' capacity
+    (16384, 16300),    # the cluster form's last K
+    (10241, 10241),    # K no multiple of 4: 1,284 columns a block, the last 1,253
+])
+def test_sweep_backward_cluster_form_matches_plain(cuda, K, K_real, rows):
+    """The backward sweep's cluster form (a state row on a thread-block
+    cluster, each block a register form over its slice of the columns; the
+    step's sums and the next grid's row maximum exchanged) against the plain
+    version at rtol 1e-5 / atol 1e-6, at the wide path's 16 state rows and
+    a full batch's 112, under its own launch count (the global and register
+    forms' counts unchanged); two launches equal bit for bit; past its
+    capacity the form is refused."""
+    rng = np.random.default_rng(K + rows)
+    G = 6
+    lemg = torch.from_numpy(rng.uniform(-20.0, 0.0, (G, rows, K)).astype(np.float32)).to(cuda)
+    trans = np.stack([np.full(G, 0.98), np.full(G, 0.02)]).astype(np.float32)
+    trans[:, 0] = (1.0, 0.0)
+    trans = torch.from_numpy(trans).to(cuda)
+    counts = (gs.BWD_CLUSTER_KERNEL, gs.BWD_GLOBAL_KERNEL, gs.BWD_KERNELS[2])
+    before = [k.launches for k in counts]
+    ref = gs.bwd_sweep_plain(lemg, trans, K_real)
+    got = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, _variant=gs.CLUSTER)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    again = gs.bwd_sweep(lemg, trans, nl=2, K_real=K_real, _variant=gs.CLUSTER)
+    assert torch.equal(got, again)
+    assert [k.launches for k in counts] == [before[0] + 2, before[1], before[2]]
+    with pytest.raises(RuntimeError, match="gibbs_bwd"):
+        gs.bwd_sweep(torch.zeros((2, 2, 16512), device=cuda), trans[:, :2].contiguous(), nl=2,
+                     K_real=16500, _variant=gs.CLUSTER)
+
+
 @pytest.mark.parametrize("G,B,K,K_real,p_end", [
     (512, 4, 6272, 6200, 0.05),       # the general form's bank outgrows shared memory at 512 grids
     (32, 14, 8192, 8100, 0.1),        # the wide NIPT path's shape
@@ -1035,15 +1070,17 @@ def test_fb_max_tiled_matches_plain(cuda, splits, B):
 
 def test_engine_on_gpu_at_a_large_ksubset(cuda):
     """Diploid imputation at Ksubset 10,368, where the forward sweep takes
-    its cluster form and the backward its global form (and the dosage-free
-    QUILT1 path runs no other Gibbs form): r2 above 0.9, those two forms
-    launched and the forward's global form not."""
+    its cluster form and the backward the form bwd_form names there (and
+    the dosage-free QUILT1 path runs no other Gibbs form): r2 above 0.9,
+    those two forms launched and no other."""
     from quilt_tpu_torch.engine.driver import ImputeConfig, quilt_impute
 
     world = make_world(np.random.default_rng(11), K=10496, nSNPs=640, n_samples=2,
                        coverage=1.5)
-    kernels = [gs.FWD_CLUSTER_KERNELS[2], gs.BWD_GLOBAL_KERNEL, gs.FWD_KERNEL, gs.BWD_KERNEL,
-               gs.FWD_GLOBAL_KERNELS[2]]
+    bwd = {gs.CLUSTER: (gs.BWD_CLUSTER_KERNEL, gs.BWD_GLOBAL_KERNEL),
+           gs.GLOBAL: (gs.BWD_GLOBAL_KERNEL, gs.BWD_CLUSTER_KERNEL)}[gs.bwd_form(10368)]
+    kernels = [gs.FWD_CLUSTER_KERNELS[2], bwd[0], gs.FWD_KERNEL, gs.BWD_KERNEL,
+               gs.FWD_GLOBAL_KERNELS[2], bwd[1]]
     for k in kernels:
         k.launches = 0
     truth_gen = np.stack([t.sum(0) for t in world["truths"]], 1).astype(float)
@@ -1053,7 +1090,7 @@ def test_engine_on_gpu_at_a_large_ksubset(cuda):
                        "cuda", truth_gen=truth_gen)
     assert min(out.r2_per_sample) > 0.9, out.r2_per_sample
     launches = [k.launches for k in kernels]
-    assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0, 0], launches
+    assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0, 0, 0], launches
 
 
 def test_engine_on_gpu_at_map(cuda):

@@ -226,12 +226,12 @@ def test_sweeps_refuse_other_row_counts(nl, BN):
     (10240, 2, GENERAL, GENERAL),       # the general variant's last K
     (10240, 3, CLUSTER, GENERAL),       # NL = 3: no ring stage fits past 8,155
     (8192, 3, CLUSTER, GENERAL),        # the wide NIPT path's Ksubset
-    (10368, 2, CLUSTER, GLOBAL),        # the wide path's Ksubset
-    (10368, 3, CLUSTER, GLOBAL),
-    (12288, 2, CLUSTER, GLOBAL),        # the timing shape
-    (12288, 3, CLUSTER, GLOBAL),        # the cluster form's last K at NL = 3
-    (12416, 3, GLOBAL, GLOBAL),         # and the next padded K
-    (16384, 2, CLUSTER, GLOBAL),        # its last K at NL = 2
+    (10368, 2, CLUSTER, CLUSTER),       # the wide path's Ksubset
+    (10368, 3, CLUSTER, CLUSTER),
+    (12288, 2, CLUSTER, CLUSTER),       # the timing shape
+    (12288, 3, CLUSTER, CLUSTER),       # the cluster form's last K at NL = 3
+    (12416, 3, GLOBAL, CLUSTER),        # and the next padded K
+    (16384, 2, CLUSTER, CLUSTER),       # its last K at NL = 2
     (16512, 2, GLOBAL, GLOBAL),
     (40960, 2, GLOBAL, GLOBAL),
     (40960, 3, GLOBAL, GLOBAL),
@@ -240,25 +240,34 @@ def test_host_form_choices(K, nl, fwd, bwd):
     """The sweep kernels' form codes as the wrappers name them: the forms
     that ran before where they hold K (registers up to 2,048, the general
     variant up to 10,240 while, forward, one grid stage of 2 nl rows and a
-    read row fit the 227 KB - 4 KB of shared memory), the forward's cluster
-    form past them up to its capacity (8 blocks x 256 threads x 8 columns,
-    6 at nl = 3), the global form past that; nothing raises at any K."""
+    read row fit the 227 KB - 4 KB of shared memory), the cluster forms
+    past them up to their capacity (forward: 8 blocks x 256 threads x 8
+    columns, 6 at nl = 3; backward: 16,384 columns, at any row count), the
+    global form past that; nothing raises at any K."""
     from quilt_tpu_torch.kernels.gibbs_sweep import bwd_form, fwd_form, fwd_scratch_floats
 
     assert fwd_form(K, nl) == fwd and bwd_form(K) == bwd
     assert fwd_scratch_floats(K, nl) == (nl * K if fwd == GLOBAL else 0)
 
 
-@pytest.mark.parametrize("nl", [2, 3])
-def test_sweeps_match_pallas_past_the_shared_memory_forms(nl):
-    """K = 10,368 (G = 2, B = 1), where the card takes the global forms:
-    the plain sweeps against the interpreted Pallas sweeps, at the
-    tolerances of the small shapes."""
+@pytest.mark.parametrize("nl,K", [
+    pytest.param(2, 10368, id="2"),          # the wide path's Ksubset
+    pytest.param(3, 10368, id="3"),
+    pytest.param(2, 16384, id="2-K16384"),   # the cluster forms' capacity
+    pytest.param(3, 12288, id="3-K12288"),   # the forward's at NL = 3
+    pytest.param(2, 12288, id="2-K12288"),
+])
+def test_sweeps_match_pallas_past_the_shared_memory_forms(nl, K):
+    """K past the general variant (G = 2, B = 1), where the card takes the
+    cluster forms (the backward's up to 16,384) or the global forms: the
+    plain sweeps against the interpreted Pallas sweeps, at the tolerances
+    of the small shapes."""
     prior = (0.5, 0.5) if nl == 2 else (0.5, 0.4, 0.1)
-    arrs = _inputs(seed=40 + nl, G=2, B=1, W=3, K=10368, K_real=10300, max_reads=3, nl=nl)
-    _compare_fwd(arrs, K_real=10300, it_mode=2, nl=nl, prior=prior)
+    K_real = K - 68
+    arrs = _inputs(seed=40 + nl, G=2, B=1, W=3, K=K, K_real=K_real, max_reads=3, nl=nl)
+    _compare_fwd(arrs, K_real=K_real, it_mode=2, nl=nl, prior=prior)
     ref = _bwd_sweep(jnp.asarray(arrs["lemg"]), jnp.asarray(arrs["trans"]), nl=nl,
-                     K_real=10300)
+                     K_real=K_real)
     got = bwd_sweep(torch.from_numpy(arrs["lemg"]), torch.from_numpy(arrs["trans"]), nl=nl,
-                    K_real=10300)
+                    K_real=K_real)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
