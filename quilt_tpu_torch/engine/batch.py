@@ -117,8 +117,9 @@ def impute_samples_batched(ctx: RegionContext, reads_list: Sequence[SampleReads]
     reads and reads_all_list the same samples' all-SNP reads."""
     max_diff = cfg.maxDifferenceBetweenReads
     for attempt in range(11):
-        results, uf_seen = _impute_once(ctx, reads_list, cfg, seed + attempt, max_diff,
-                                        ff, reads_all_list)
+        with ctx.timers.section("engine.group"):
+            results, uf_seen = _impute_once(ctx, reads_list, cfg, seed + attempt, max_diff,
+                                            ff, reads_all_list)
         if not uf_seen:
             return results
         max_diff = max(1.0, max_diff / 10.0)
@@ -136,51 +137,62 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     rare_common = reads_all_list is not None
     rng = np.random.default_rng(seed)
     sec = timed_sections(ctx.timers, dev)
+    span = ctx.timers.section          # drains nothing
     gibbs = ctx.gibbs_call()
 
     S = len(reads_list)
     C = cfg.nGibbsSamples
     B = S * C
-    ok = [r.nReads >= cfg.minimum_number_of_sample_reads for r in reads_list]
-    reads_sorted = [r.sorted_by_grid() for r in reads_list]
-    with sec("inputs_build"):
-        ginputs = GibbsInputs.build_batched(reads_sorted, ctx.trans, nGrids).repeat_rows(C)
-        R = ginputs.R
-        preads1 = PaddedReads.build_batched(reads_sorted, ref_error=prep.ref_error)
-        layout = SlotLayout.build(ginputs, B, dev)
-    n_its = cfg.small_ref_panel_gibbs_iterations + 1
+    with span("engine.prologue"):
+        ok = [r.nReads >= cfg.minimum_number_of_sample_reads for r in reads_list]
+        with span("engine.sort_reads"):
+            reads_sorted = [r.sorted_by_grid() for r in reads_list]
+        with sec("inputs_build"):
+            with span("inputs.gibbs_inputs"):
+                ginputs = GibbsInputs.build_batched(reads_sorted, ctx.trans,
+                                                    nGrids).repeat_rows(C)
+            R = ginputs.R
+            with span("inputs.padded_reads"):
+                preads1 = PaddedReads.build_batched(reads_sorted, ref_error=prep.ref_error)
+            with span("inputs.slot_layout"):
+                layout = SlotLayout.build(ginputs, B, dev)
+        n_its = cfg.small_ref_panel_gibbs_iterations + 1
 
-    which_haps = np.stack([np.sort(rng.choice(K, size=ctx.Ksub, replace=False))
-                           for _ in range(B)])
-    H = np.zeros((B, R), dtype=np.int32)
-    for s in range(S):
-        nr = reads_sorted[s].nReads
-        for c in range(C):
-            H[s * C + c, :nr] = rng.choice(nl, size=nr, p=label_prior)
-    first_read = np.array([rng.integers(0, max(reads_sorted[b // C].nReads, 1))
-                           for b in range(B)], dtype=np.int32)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(rng.integers(0, 2**31)))
+        with span("engine.draws"):
+            which_haps = np.stack([np.sort(rng.choice(K, size=ctx.Ksub, replace=False))
+                                   for _ in range(B)])
+            H = np.zeros((B, R), dtype=np.int32)
+            for s in range(S):
+                nr = reads_sorted[s].nReads
+                for c in range(C):
+                    H[s * C + c, :nr] = rng.choice(nl, size=nr, p=label_prior)
+            first_read = np.array([rng.integers(0, max(reads_sorted[b // C].nReads, 1))
+                                   for b in range(B)], dtype=np.int32)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(rng.integers(0, 2**31)))
 
-    do_block = np.zeros(n_its, dtype=bool)
-    for bit in cfg.small_ref_panel_block_gibbs_iterations:
-        if 1 <= bit <= n_its:
-            do_block[bit - 1] = True
-    nb_slots = ctx.block_slots()
-    Kp_sub = pad_to_multiple(ctx.Ksub, 128)
+        do_block = np.zeros(n_its, dtype=bool)
+        for bit in cfg.small_ref_panel_block_gibbs_iterations:
+            if 1 <= bit <= n_its:
+                do_block[bit - 1] = True
+        nb_slots = ctx.block_slots()
+        Kp_sub = pad_to_multiple(ctx.Ksub, 128)
 
-    # per-sample read tensors, replicated to chain rows on the device
-    as_t = lambda x: torch.as_tensor(x, device=dev)
-    rows = {k: torch.repeat_interleave(as_t(getattr(preads1, a)), C, dim=0)
-            for k, a in (("u", "u_pad"), ("pr", "lpr"), ("pa", "lpa"), ("lr", "lr"), ("la", "la"))}
-    gl_cache = ReadWindowCache(preads1.u_pad, preads1.lpr, preads1.lpa, preads1.mask,
-                               nGrids, dev, lr=preads1.lr, la=preads1.la)
-    lem_full = None
-    if (S * K * gl_cache.Rpad + K * nGrids * 32) * 4 <= lem_full_budget(dev):
-        with sec("emat:full_build"):
-            lem_full = lem_full_from_cache(ctx.e_full_dev(), gl_cache)
-    sp_of_row = torch.repeat_interleave(torch.arange(S, device=dev), C)
-    uf_any = torch.zeros((), dtype=torch.bool, device=dev)
+        # per-sample read tensors, replicated to chain rows on the device
+        as_t = lambda x: torch.as_tensor(x, device=dev)
+        with span("engine.read_rows"):
+            rows = {k: torch.repeat_interleave(as_t(getattr(preads1, a)), C, dim=0)
+                    for k, a in (("u", "u_pad"), ("pr", "lpr"), ("pa", "lpa"), ("lr", "lr"),
+                                 ("la", "la"))}
+        with span("engine.read_cache"):
+            gl_cache = ReadWindowCache(preads1.u_pad, preads1.lpr, preads1.lpa, preads1.mask,
+                                       nGrids, dev, lr=preads1.lr, la=preads1.la)
+        lem_full = None
+        if (S * K * gl_cache.Rpad + K * nGrids * 32) * 4 <= lem_full_budget(dev):
+            with sec("emat:full_build"):
+                lem_full = lem_full_from_cache(ctx.e_full_dev(), gl_cache)
+        sp_of_row = torch.repeat_interleave(torch.arange(S, device=dev), C)
+        uf_any = torch.zeros((), dtype=torch.bool, device=dev)
 
     def read_lem(words, r, md, R_out):
         """Log read emissions [B, Kp, R_out] from the subset words, and the
@@ -216,14 +228,15 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
                 lem, skip = lem_subset(lem_full, sp_of_row[:, None] * K + which_p, max_diff, R)
         with sec("gibbs:sweep_kernel"):
             if lem_full is None:
-                lem, skip = read_lem(words, rows, max_diff, R)
+                with span("sweep.read_lem"):
+                    lem, skip = read_lem(words, rows, max_diff, R)
             call = gibbs(
                 layout, ctx.tensors["gibbs_trans"], lem, skip, uniforms, H0_b,
                 first_b, iterative, Ksub_b,
                 block_u=block_u if nb_slots else None, do_block=do_block,
                 smooth_w=ctx.smooth_w, quantile_prob=ctx.block_quantile,
                 words=words if use_ms else None, ref_error=prep.ref_error, timed=sec,
-                nl=nl, ff=ff, resample_u=resample_u, boundaries=ctx.boundaries_dev(),
+                nl=nl, ff=ff, resample_u=resample_u, boundaries=ctx.boundaries_dev(), span=span,
             )
         uf_any = uf_any | call.underflow.any()
         return call.H, None if call.hap_dos is None else call.hap_dos[:, :, :nSNPs]
@@ -316,11 +329,12 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         md = max_diff
         for _ in range(11):
             with sec("rare:sweep_kernel"):
-                lem, skip = read_lem(words, rows_all, md, R_all)
+                with span("sweep.read_lem"):
+                    lem, skip = read_lem(words, rows_all, md, R_all)
                 call = gibbs(
                     layout_all, ctx.tensors["gibbs_trans_all"], lem, skip, uniforms, H0, zero,
                     False, Ksub_b, words=words, ref_error=prep.ref_error, timed=sec,
-                    nl=nl, ff=ff,
+                    nl=nl, ff=ff, span=span,
                 )
             if not bool(call.underflow.any()):
                 break
@@ -390,41 +404,44 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
             cons_list.append(cons)
 
     # phasing pass: one chain per sample, replicated over the C rows
-    H_p = np.zeros((B, R), dtype=np.int32)
-    for s in range(S):
-        H_p[s * C:(s + 1) * C, :reads_sorted[s].nReads] = cons_list[s]
-    rows_last = torch.as_tensor(np.arange(S) * C + (C - 1), device=dev)
-    wh_p = torch.repeat_interleave(which[rows_last], C, dim=0)
-    H_p = as_t(H_p)
-    first_zero = torch.zeros(B, dtype=torch.int32, device=dev)
-    for _ in range(ctx.n_seek_its):
-        H_p, hap_dos_ph, wh_p = seek_step(wh_p, H_p, False, first_zero)
-    if rare_common:
-        hap_dos_ph = run_all_snp_gibbs(wh_p, hap_dos_ph)
-    rows0 = torch.as_tensor(np.arange(S) * C, device=dev)
-    hap_dos_ph = hap_dos_ph[rows0].double().cpu().numpy()
+    with span("engine.phasing"):
+        H_p = np.zeros((B, R), dtype=np.int32)
+        for s in range(S):
+            H_p[s * C:(s + 1) * C, :reads_sorted[s].nReads] = cons_list[s]
+        rows_last = torch.as_tensor(np.arange(S) * C + (C - 1), device=dev)
+        wh_p = torch.repeat_interleave(which[rows_last], C, dim=0)
+        H_p = as_t(H_p)
+        first_zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        for _ in range(ctx.n_seek_its):
+            H_p, hap_dos_ph, wh_p = seek_step(wh_p, H_p, False, first_zero)
+        if rare_common:
+            hap_dos_ph = run_all_snp_gibbs(wh_p, hap_dos_ph)
+    with span("engine.results"):
+        rows0 = torch.as_tensor(np.arange(S) * C, device=dev)
+        hap_dos_ph = hap_dos_ph[rows0].double().cpu().numpy()
 
-    results: List[SampleResult] = []
-    for s in range(S):
-        if not ok[s]:
-            results.append(SampleResult(imputed=False))
-            continue
-        dosage, gp = means[0][0][s], means[0][1][s]
-        common = dict(
-            imputed=True, dosage=dosage, gp=gp, read_labels=cons_list[s],
-            allele_count=(sample_allele_count(reads_all_sorted[s], nSNPs_all) if rare_common
-                          else sample_allele_count(reads_sorted[s], nSNPs)),
-        )
-        if nl == 2:
-            hd1, hd2 = recast_haps(hap_dos_ph[s, 0], hap_dos_ph[s, 1], gp)
-            results.append(SampleResult(
-                phased_haps=np.stack([np.round(hd1), np.round(hd2)]), **common))
-        else:
-            fet_dosage, fet_gp = means[1][0][s], means[1][1][s]
-            results.append(SampleResult(
-                phased_haps=np.stack(recast_nipt_haps(*hap_dos_ph[s], gp, fet_gp)),
-                mat_gp=gp, fet_gp=fet_gp, mat_dosage=dosage, fet_dosage=fet_dosage, **common))
-    return results, bool(uf_any.item())
+        results: List[SampleResult] = []
+        for s in range(S):
+            if not ok[s]:
+                results.append(SampleResult(imputed=False))
+                continue
+            dosage, gp = means[0][0][s], means[0][1][s]
+            common = dict(
+                imputed=True, dosage=dosage, gp=gp, read_labels=cons_list[s],
+                allele_count=(sample_allele_count(reads_all_sorted[s], nSNPs_all) if rare_common
+                              else sample_allele_count(reads_sorted[s], nSNPs)),
+            )
+            if nl == 2:
+                hd1, hd2 = recast_haps(hap_dos_ph[s, 0], hap_dos_ph[s, 1], gp)
+                results.append(SampleResult(
+                    phased_haps=np.stack([np.round(hd1), np.round(hd2)]), **common))
+            else:
+                fet_dosage, fet_gp = means[1][0][s], means[1][1][s]
+                results.append(SampleResult(
+                    phased_haps=np.stack(recast_nipt_haps(*hap_dos_ph[s], gp, fet_gp)),
+                    mat_gp=gp, fet_gp=fet_gp, mat_dosage=dosage, fet_dosage=fet_dosage, **common))
+        uf_seen = bool(uf_any.item())
+    return results, uf_seen
 
 
 def _accumulate(dosage_acc, gp_acc, hap_dos, S, C, other=1):

@@ -196,7 +196,7 @@ class RegionContext:
             heuristic_match_thin=cfg.heuristic_match_thin,
             block_quantile=cfg.block_gibbs_quantile_prob,
             block_nb_cap=nb_cap,
-            timers=SectionTimers(cfg.print_extra_timing_information),
+            timers=SectionTimers(cfg.print_extra_timing_information, device),
             trans_all=trans_all, nGrids_all=nGrids_all,
             n_latent=3 if cfg.method == "nipt" else 2,
             hla_capture=t["fb"] is not None and t["fb"].capture_grid >= 0,

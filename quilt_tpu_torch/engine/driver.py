@@ -91,19 +91,22 @@ def max_chains(K_pad: int, W: int, G: int, device: torch.device, nl: int = 2) ->
 
 
 def _region_context(prep: PreparedReference, cfg: ImputeConfig, device,
-                    devices=None) -> RegionContext:
+                    devices=None, timers: Optional[SectionTimers] = None) -> RegionContext:
     """The region's context, cached on `prep`: reused while the devices and
-    every config field that building it read keep their values."""
+    every config field that building it read keep their values. It takes
+    `timers` (default: new ones, as the configuration asks)."""
+    if timers is None:
+        timers = SectionTimers(cfg.print_extra_timing_information, device)
     cached = getattr(prep, "_torch_ctx_cache", None)
     want = tuple(as_device(d) for d in (default_devices(device) if devices is None else devices))
     if cached is not None:
         fields, key, ctx = cached
         if (ctx.device == torch.device(device) and ctx.devices == want
                 and key == _key(cfg, fields)):
-            ctx.timers = SectionTimers(cfg.print_extra_timing_information)
+            ctx.timers = timers
             return ctx
     ctx, fields = context_fields(prep, cfg, device, want)
-    ctx.timers = SectionTimers(cfg.print_extra_timing_information)
+    ctx.timers = timers
     prep._torch_ctx_cache = (fields, _key(cfg, fields), ctx)
     return ctx
 
@@ -135,181 +138,187 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
     `samples` may be None), the results of the others' samples are None,
     and only process 0 writes the VCF."""
     t0 = time.time()
-    set_verbosity(cfg.verbose)
-    validate_impute_config(cfg)
-    validate_region_consistency(prep, cfg)
-    device = torch.device(device)
-    ctx = _region_context(prep, cfg, device, devices)
-    N = len(samples)
-    rank, nproc = process_info()
-    local = [int(i) for i in sample_shards(N, nproc)[rank]] if nproc > 1 else list(range(N))
-    if nproc > 1:
-        print_message(f"Multi-host: process {rank}/{nproc} imputes {len(local)}/{N} samples")
-    nipt = cfg.method == "nipt"
-    ff_values = np.zeros(N) if ff_values is None else np.asarray(ff_values, dtype=float)
-    if len(ff_values) != N:
-        raise ValueError(f"{len(ff_values)} fetal fractions for {N} samples")
-    rare_common = cfg.impute_rare_common and prep.snp_is_common is not None
-    samples_all = None
-    if rare_common:
-        # the seek loop runs on common SNPs (reference: quilt.R:664-684,
-        # functions.R:130-174)
-        samples_all = list(samples)
-        samples = [None if r is None else
-                   restrict_reads_to_common(r, prep.snp_is_common, prep.grid)
-                   for r in samples_all]
-        nSNPs = len(prep.snp_is_common)
-        out_pos, out_ref, out_alt = prep.pos_all, prep.ref_allele_all, prep.alt_allele_all
-        in_region = prep.in_region_all()
-    else:
-        nSNPs = prep.nSNPs
-        out_pos, out_ref, out_alt = prep.pos, prep.ref_allele, prep.alt_allele
-        in_region = prep.in_region()
+    timers = SectionTimers(cfg.print_extra_timing_information, device)
+    with timers.section("impute", root=True):
+        set_verbosity(cfg.verbose)
+        validate_impute_config(cfg)
+        validate_region_consistency(prep, cfg)
+        device = torch.device(device)
+        ctx = _region_context(prep, cfg, device, devices, timers)
+        N = len(samples)
+        rank, nproc = process_info()
+        local = [int(i) for i in sample_shards(N, nproc)[rank]] if nproc > 1 else list(range(N))
+        if nproc > 1:
+            print_message(f"Multi-host: process {rank}/{nproc} imputes {len(local)}/{N} samples")
+        nipt = cfg.method == "nipt"
+        ff_values = np.zeros(N) if ff_values is None else np.asarray(ff_values, dtype=float)
+        if len(ff_values) != N:
+            raise ValueError(f"{len(ff_values)} fetal fractions for {N} samples")
+        rare_common = cfg.impute_rare_common and prep.snp_is_common is not None
+        samples_all = None
+        if rare_common:
+            # the seek loop runs on common SNPs (reference: quilt.R:664-684,
+            # functions.R:130-174)
+            samples_all = list(samples)
+            samples = [None if r is None else
+                       restrict_reads_to_common(r, prep.snp_is_common, prep.grid)
+                       for r in samples_all]
+            nSNPs = len(prep.snp_is_common)
+            out_pos, out_ref, out_alt = prep.pos_all, prep.ref_allele_all, prep.alt_allele_all
+            in_region = prep.in_region_all()
+        else:
+            nSNPs = prep.nSNPs
+            out_pos, out_ref, out_alt = prep.pos, prep.ref_allele, prep.alt_allele
+            in_region = prep.in_region()
 
-    results: List[Optional[SampleResult]] = [None] * N
-    # the batched engine takes several samples at a time; a lone sample, the
-    # samples of an HLA run and a run with per-sample diagnostics go through
-    # the per-sample engine (quilt_tpu/engine/driver.py:146-158)
-    if (cfg.sample_batch > 1 and N > 1 and not cfg.hla_run
-            and not needs_per_sample_diagnostics(cfg)):
-        # sample batches, clamped so one Gibbs call's working set fits the device
-        W_max = 1
-        for r in samples:
-            if r is not None and r.nReads:
-                W_max = max(W_max, int(np.bincount(np.clip(r.wif0, 0, prep.nGrids - 1),
-                                                   minlength=prep.nGrids).max()))
-        cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids, device,
-                         ctx.n_latent)
-        sample_batch = max(1, min(cfg.sample_batch, cap // max(cfg.nGibbsSamples, 1)))
-        if sample_batch < cfg.sample_batch:
-            print_message(f"Clamping sample_batch {cfg.sample_batch} -> {sample_batch} "
-                          f"(Gibbs working set at Ksubset={cfg.Ksubset})")
-        # a NIPT batch shares one fetal fraction (the label prior and the class
-        # tables of a Gibbs call are made from it): batches form within the
-        # samples of equal ff
-        by_ff: Dict[float, List[int]] = {}
+        results: List[Optional[SampleResult]] = [None] * N
+        # the batched engine takes several samples at a time; a lone sample, the
+        # samples of an HLA run and a run with per-sample diagnostics go through
+        # the per-sample engine (quilt_tpu/engine/driver.py:146-158)
+        if (cfg.sample_batch > 1 and N > 1 and not cfg.hla_run
+                and not needs_per_sample_diagnostics(cfg)):
+            with ctx.timers.section("driver.plan"):
+                # sample batches, clamped so one Gibbs call's working set fits the device
+                W_max = 1
+                for r in samples:
+                    if r is not None and r.nReads:
+                        W_max = max(W_max, int(np.bincount(np.clip(r.wif0, 0, prep.nGrids - 1),
+                                                           minlength=prep.nGrids).max()))
+                cap = max_chains(pad_to_multiple(max(ctx.Ksub, 1), 128), W_max, prep.nGrids,
+                                 device, ctx.n_latent)
+                sample_batch = max(1, min(cfg.sample_batch, cap // max(cfg.nGibbsSamples, 1)))
+                if sample_batch < cfg.sample_batch:
+                    print_message(f"Clamping sample_batch {cfg.sample_batch} -> {sample_batch} "
+                                  f"(Gibbs working set at Ksubset={cfg.Ksubset})")
+                # a NIPT batch shares one fetal fraction (the label prior and the class
+                # tables of a Gibbs call are made from it): batches form within the
+                # samples of equal ff
+                by_ff: Dict[float, List[int]] = {}
+                for i in local:
+                    by_ff.setdefault(float(ff_values[i]) if nipt else 0.0, []).append(i)
+                groups = [v[j:j + sample_batch] for v in by_ff.values()
+                          for j in range(0, len(v), sample_batch)]
+            for group in groups:
+                if len(group) == 1 and rare_common:
+                    continue   # no batching win: the per-sample engine below
+                print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
+                for i, res in zip(group, impute_samples_batched(
+                        ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0],
+                        ff=float(ff_values[group[0]]) if nipt else 0.0,
+                        reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
+                    results[i] = res
         for i in local:
-            by_ff.setdefault(float(ff_values[i]) if nipt else 0.0, []).append(i)
-        groups = [v[j:j + sample_batch] for v in by_ff.values()
-                  for j in range(0, len(v), sample_batch)]
-        for group in groups:
-            if len(group) == 1 and rare_common:
-                continue   # no batching win: the per-sample engine below
-            print_message(f"Imputing samples {group[0] + 1}-{group[-1] + 1}/{N} (batched)")
-            for i, res in zip(group, impute_samples_batched(
-                    ctx, [samples[i] for i in group], cfg, seed=cfg.seed + group[0],
-                    ff=float(ff_values[group[0]]) if nipt else 0.0,
-                    reads_all_list=[samples_all[i] for i in group] if rare_common else None)):
-                results[i] = res
-    for i in local:
-        if results[i] is None:
-            print_message(f"Imputing sample {i + 1}/{N}: {sample_names[i]}")
-            results[i] = impute_one_sample(
-                ctx, samples[i], cfg, seed=cfg.seed + i, ff=float(ff_values[i]),
-                reads_all=samples_all[i] if rare_common else None)
+            if results[i] is None:
+                print_message(f"Imputing sample {i + 1}/{N}: {sample_names[i]}")
+                results[i] = impute_one_sample(
+                    ctx, samples[i], cfg, seed=cfg.seed + i, ff=float(ff_values[i]),
+                    reads_all=samples_all[i] if rare_common else None)
 
-    eij_sum = np.zeros(nSNPs)
-    var_sum = np.zeros(nSNPs)
-    af_sum = np.zeros(nSNPs)
-    hwe_counts = np.zeros((nSNPs, 3), dtype=np.int64)
-    allele_count = np.zeros((nSNPs, 2))
-    columns: List[Optional[List[str]]] = []
-    r2s: List[float] = []
-    n_imputed = 0
-    with_ohd = cfg.addOptimalHapsToVCF and truth_haps is not None
-    af_out = prep.af_all if rare_common else prep.af
-    for i, res in enumerate(results):
-        if res is None:
-            columns.append(None)    # another process's sample
-            continue
-        if not res.imputed:
-            print_message(f"Sample {sample_names[i]} has fewer than "
-                          f"{cfg.minimum_number_of_sample_reads} reads; output missing")
-            miss = MISSING_NIPT_COL if nipt else MISSING_DIPLOID_COL
-            if with_ohd and not nipt:
-                miss += ":.,."
-            columns.append([miss] * nSNPs)
-            continue
-        n_imputed += 1
-        gp = res.mat_gp if nipt else res.gp
-        eij = np.round(gp[1] + 2 * gp[2], 3)
-        fij = np.round(gp[1] + 4 * gp[2], 3)
-        eij_sum += eij
-        var_sum += fij - eij ** 2
-        af_sum += eij / 2
-        hwe_counts[np.arange(nSNPs), gp.argmax(axis=0)] += 1
-        allele_count += res.allele_count
-        ohd = None
-        if with_ohd and not nipt and not rare_common:
-            # optimal haploid dosages given the truth's read labels
-            # (reference: functions.R:280-281,1419)
-            with ctx.timers.section("ohd"):
-                ohd = optimal_hap_dosages(ctx, samples[i], cfg, truth_haps[:, i])
-        with ctx.timers.section("vcf:columns"):
-            if nipt:
-                columns.append(nipt_sample_column(
-                    res.mat_gp, res.fet_gp, res.mat_dosage, res.fet_dosage, res.phased_haps))
-            else:
-                columns.append(diploid_sample_column(
-                    res.gp, res.phased_haps, res.dosage,
-                    output_gt_phased_genotypes=cfg.output_gt_phased_genotypes, ohd=ohd,
-                ))
-        if (cfg.make_plots or cfg.plot_per_sample_likelihoods) and cfg.outputdir:
-            _plot_sample(ctx, cfg, sample_names[i], region_name, res, gp, out_pos, af_out,
-                         None if truth_gen is None else truth_gen[:, i], samples[i])
-        if truth_gen is not None:
-            r2 = r2_simple(truth_gen[:, i], res.dosage)
-            r2s.append(r2)
-            msg = f"  r2 vs truth: {r2:.4f}"
-            # common / rare split by panel MAF, as the JAX driver prints it
-            af = prep.af_all if rare_common else prep.af
-            com = np.minimum(af, 1 - af) >= 0.05
-            if com.any() and (~com).any():
-                msg += (f" (common {r2_simple(truth_gen[com, i], res.dosage[com]):.4f}, "
-                        f"rare {r2_simple(truth_gen[~com, i], res.dosage[~com]):.4f})")
-            if truth_haps is not None:
-                pse = calculate_pse(res.phased_haps[:2].T, truth_haps[:, i])
-                msg += f", PSE: {pse['pse']:.4f} ({pse.get('phase_sites', 0)} het sites)"
-            print_message(msg)
+        with ctx.timers.section("driver.stats"):
+            eij_sum = np.zeros(nSNPs)
+            var_sum = np.zeros(nSNPs)
+            af_sum = np.zeros(nSNPs)
+            hwe_counts = np.zeros((nSNPs, 3), dtype=np.int64)
+            allele_count = np.zeros((nSNPs, 2))
+            columns: List[Optional[List[str]]] = []
+            r2s: List[float] = []
+            n_imputed = 0
+            with_ohd = cfg.addOptimalHapsToVCF and truth_haps is not None
+            af_out = prep.af_all if rare_common else prep.af
+            for i, res in enumerate(results):
+                if res is None:
+                    columns.append(None)    # another process's sample
+                    continue
+                if not res.imputed:
+                    print_message(f"Sample {sample_names[i]} has fewer than "
+                                  f"{cfg.minimum_number_of_sample_reads} reads; output missing")
+                    miss = MISSING_NIPT_COL if nipt else MISSING_DIPLOID_COL
+                    if with_ohd and not nipt:
+                        miss += ":.,."
+                    columns.append([miss] * nSNPs)
+                    continue
+                n_imputed += 1
+                gp = res.mat_gp if nipt else res.gp
+                eij = np.round(gp[1] + 2 * gp[2], 3)
+                fij = np.round(gp[1] + 4 * gp[2], 3)
+                eij_sum += eij
+                var_sum += fij - eij ** 2
+                af_sum += eij / 2
+                hwe_counts[np.arange(nSNPs), gp.argmax(axis=0)] += 1
+                allele_count += res.allele_count
+                ohd = None
+                if with_ohd and not nipt and not rare_common:
+                    # optimal haploid dosages given the truth's read labels
+                    # (reference: functions.R:280-281,1419)
+                    with ctx.timers.section("ohd"):
+                        ohd = optimal_hap_dosages(ctx, samples[i], cfg, truth_haps[:, i])
+                with ctx.timers.section("vcf:columns"):
+                    if nipt:
+                        columns.append(nipt_sample_column(
+                            res.mat_gp, res.fet_gp, res.mat_dosage, res.fet_dosage,
+                            res.phased_haps))
+                    else:
+                        columns.append(diploid_sample_column(
+                            res.gp, res.phased_haps, res.dosage,
+                            output_gt_phased_genotypes=cfg.output_gt_phased_genotypes, ohd=ohd,
+                        ))
+                if (cfg.make_plots or cfg.plot_per_sample_likelihoods) and cfg.outputdir:
+                    _plot_sample(ctx, cfg, sample_names[i], region_name, res, gp, out_pos, af_out,
+                                 None if truth_gen is None else truth_gen[:, i], samples[i])
+                if truth_gen is not None:
+                    r2 = r2_simple(truth_gen[:, i], res.dosage)
+                    r2s.append(r2)
+                    msg = f"  r2 vs truth: {r2:.4f}"
+                    # common / rare split by panel MAF, as the JAX driver prints it
+                    af = prep.af_all if rare_common else prep.af
+                    com = np.minimum(af, 1 - af) >= 0.05
+                    if com.any() and (~com).any():
+                        msg += (f" (common {r2_simple(truth_gen[com, i], res.dosage[com]):.4f}, "
+                                f"rare {r2_simple(truth_gen[~com, i], res.dosage[~com]):.4f})")
+                    if truth_haps is not None:
+                        pse = calculate_pse(res.phased_haps[:2].T, truth_haps[:, i])
+                        msg += f", PSE: {pse['pse']:.4f} ({pse.get('phase_sites', 0)} het sites)"
+                    print_message(msg)
 
-    if nproc > 1:
-        # the accumulators summed and the columns gathered across processes,
-        # so the merged VCF is the one process's
-        red = reduce_sum_across_hosts({
-            "eij_sum": eij_sum, "var_sum": var_sum, "af_sum": af_sum,
-            "hwe_counts": hwe_counts, "allele_count": allele_count,
-            "n_imputed": np.array(n_imputed, dtype=np.int64),
-        })
-        eij_sum, var_sum, af_sum = red["eij_sum"], red["var_sum"], red["af_sum"]
-        hwe_counts, allele_count = red["hwe_counts"], red["allele_count"]
-        n_imputed = int(red["n_imputed"])
-        columns = allgather_columns({i: columns[i] for i in local}, N)
-        if rank != 0:
-            output_filename = None      # process 0 writes the merged VCF
-    denom = max(n_imputed, 1)
-    eaf = af_sum / denom
-    info = info_score(eij_sum, var_sum, denom)
-    if output_filename:
-        with ctx.timers.section("vcf:write"):
-            write_quilt_vcf(
-                output_filename, chrom=prep.chrom, pos=out_pos,
-                ref_allele=out_ref, alt_allele=out_alt,
-                sample_names=sample_names, sample_columns=columns, eaf=eaf,
-                info=info, hwe=hwe_from_counts(hwe_counts),
-                allele_count=allele_count, in_region=in_region,
-                method=cfg.method,
-                output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
-                with_ohd=with_ohd,
-            )
-        print_message(f"Wrote {output_filename}")
-    if (cfg.make_heuristic_plot and truth_gen is not None and cfg.outputdir
-            and not rare_common):
-        _heuristic_comparison(ctx, cfg, results, samples, sample_names, region_name,
-                              truth_gen, ff_values)
-    if wants_dump(cfg) and (cfg.outputdir or cfg.output_RData_filename):
-        _dump_objects(cfg, results, sample_names, region_name)
-    ctx.timers.report()
-    timing = ctx.timers.as_dict() if ctx.timers.enabled else None
+            if nproc > 1:
+                # the accumulators summed and the columns gathered across processes,
+                # so the merged VCF is the one process's
+                red = reduce_sum_across_hosts({
+                    "eij_sum": eij_sum, "var_sum": var_sum, "af_sum": af_sum,
+                    "hwe_counts": hwe_counts, "allele_count": allele_count,
+                    "n_imputed": np.array(n_imputed, dtype=np.int64),
+                })
+                eij_sum, var_sum, af_sum = red["eij_sum"], red["var_sum"], red["af_sum"]
+                hwe_counts, allele_count = red["hwe_counts"], red["allele_count"]
+                n_imputed = int(red["n_imputed"])
+                columns = allgather_columns({i: columns[i] for i in local}, N)
+                if rank != 0:
+                    output_filename = None      # process 0 writes the merged VCF
+            denom = max(n_imputed, 1)
+            eaf = af_sum / denom
+            info = info_score(eij_sum, var_sum, denom)
+        if output_filename:
+            with ctx.timers.section("vcf:write"):
+                with ctx.timers.section("vcf.hwe"):
+                    hwe = hwe_from_counts(hwe_counts)
+                write_quilt_vcf(
+                    output_filename, chrom=prep.chrom, pos=out_pos,
+                    ref_allele=out_ref, alt_allele=out_alt,
+                    sample_names=sample_names, sample_columns=columns, eaf=eaf,
+                    info=info, hwe=hwe, allele_count=allele_count, in_region=in_region,
+                    method=cfg.method,
+                    output_gt_phased_genotypes=cfg.output_gt_phased_genotypes,
+                    with_ohd=with_ohd, timed=ctx.timers.section,
+                )
+            print_message(f"Wrote {output_filename}")
+        if (cfg.make_heuristic_plot and truth_gen is not None and cfg.outputdir
+                and not rare_common):
+            _heuristic_comparison(ctx, cfg, results, samples, sample_names, region_name,
+                                  truth_gen, ff_values)
+        if wants_dump(cfg) and (cfg.outputdir or cfg.output_RData_filename):
+            _dump_objects(cfg, results, sample_names, region_name)
+    timers.report()
+    timing = timers.as_dict() if timers.enabled else None
     print_message(f"Done QUILT ({time.time() - t0:.1f}s)")
     return ImputeOutput(
         results=results, vcf_path=output_filename, eaf=eaf, info=info,

@@ -438,7 +438,7 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
                      iterative_init, K_real, block_u=None, do_block=None,
                      smooth_w=None, quantile_prob=0.95, words=None,
                      ref_error=0.001, timed=None, nl=2, ff=0.0, resample_u=None,
-                     relabel_u=None, boundaries=None) -> GibbsCall:
+                     relabel_u=None, boundaries=None, span=None) -> GibbsCall:
     """One Gibbs call over B chains: diploid (nl = 2) or NIPT (nl = 3 at
     fetal fraction ff, label prior (0.5, (1-ff)/2, ff/2)).
 
@@ -455,19 +455,22 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
     nipt_block_within with one boundary row); words [B, Kp, G] i32 the packed
     subset words (gather_words) when the call is to return dosages;
     timed(name) a context manager timing the dosage pass and, for NIPT,
-    the block moves and read classes. NIPT only: resample_u [n_its, B, R] uniforms of the label
-    resample that follows a block move (None: no resample), relabel_u
-    [n_its, B] uniforms of an entire relabelling after every iteration
-    (None: none; no engine asks for it)."""
+    the block moves and read classes; span(name) one that marks the
+    call's other stretches without draining the device (the engine's
+    SectionTimers.section: the slot emissions, the initial state, each
+    sweep's slot words, forward, backward, diploid block move and
+    per-iteration sums, the labels out). NIPT only: resample_u
+    [n_its, B, R] uniforms of the label resample that follows a block move
+    (None: no resample), relabel_u [n_its, B] uniforms of an entire
+    relabelling after every iteration (None: none; no engine asks for it)."""
     B, K, R = lem.shape
     G, W = layout.G, layout.W
     n_its = uniforms.shape[0]
     dev = lem.device
     valid = layout.valid
-    skip_r = skip | ~layout.mask
-    b_idx = torch.arange(B, device=dev)
     untimed = lambda name: contextlib.nullcontext()
     timed = timed or untimed
+    span = span or untimed
     # a timed section drains the device when it ends: the diploid block move
     # is a few small operations whose time that would distort, NIPT's move
     # and read classes are a large part of the call and are timed apart
@@ -476,46 +479,52 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
         prior, rlc, clp, perm_mask = nipt_tables_for(ff, dev)
     else:
         prior = (0.5, 0.5)
-    # [G, W, B, K] float32 slot emissions; zeroed in place at empty slots
-    lem_pad = lem.transpose(1, 2)[b_idx, layout.r_clip]
-    lem_pad.masked_fill_(~valid[..., None], 0.0)
-    H_pad = layout.to_slots(H0.to(torch.int32), 0).to(torch.int32)
-    skip_pad = layout.to_slots(skip_r.to(torch.int32), 1).to(torch.int32)
-    live = valid & ~(skip_pad > 0)
-    first_col = first_read.reshape(B, 1).to(torch.int32).contiguous()
-    if iterative_init:
-        lemg = torch.zeros((G, nl * B, K), dtype=torch.float32, device=dev)
-    else:
-        lemg = lemg_from_labels(H_pad, valid, lem_pad, nl)
-    beta = torch.ones((G, nl * B, K), dtype=torch.float32, device=dev)
-    alphas = None
-    Hc_pad = torch.zeros((G, W, B), dtype=torch.int32, device=dev)
-    uf = torch.zeros((B, 1), dtype=torch.float32, device=dev)
-    lab = counts_of(H_pad, valid, nl)
-    per_it = torch.zeros((n_its, B, len(PER_IT_COLS)), dtype=torch.float32, device=dev)
+    with span("sweep.lem_pad"):
+        # [G, W, B, K] float32 slot emissions; zeroed in place at empty slots
+        b_idx = torch.arange(B, device=dev)
+        lem_pad = lem.transpose(1, 2)[b_idx, layout.r_clip]
+        lem_pad.masked_fill_(~valid[..., None], 0.0)
+    with span("sweep.init"):
+        skip_r = skip | ~layout.mask
+        H_pad = layout.to_slots(H0.to(torch.int32), 0).to(torch.int32)
+        skip_pad = layout.to_slots(skip_r.to(torch.int32), 1).to(torch.int32)
+        live = valid & ~(skip_pad > 0)
+        first_col = first_read.reshape(B, 1).to(torch.int32).contiguous()
+        if iterative_init:
+            lemg = torch.zeros((G, nl * B, K), dtype=torch.float32, device=dev)
+        else:
+            lemg = lemg_from_labels(H_pad, valid, lem_pad, nl)
+        beta = torch.ones((G, nl * B, K), dtype=torch.float32, device=dev)
+        alphas = None
+        Hc_pad = torch.zeros((G, W, B), dtype=torch.int32, device=dev)
+        uf = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+        lab = counts_of(H_pad, valid, nl)
+        per_it = torch.zeros((n_its, B, len(PER_IT_COLS)), dtype=torch.float32, device=dev)
+        log_prior = torch.log(torch.tensor(prior, device=dev))
     do_block = np.zeros(n_its, bool) if do_block is None else np.asarray(do_block, bool)
     NBu = 0 if block_u is None else block_u.shape[1]
-    log_prior = torch.log(torch.tensor(prior, device=dev))
     do_entire = nl == 3 and relabel_u is not None
     for it in range(n_its):
         it_mode = it if (iterative_init and it <= 1) else 2
         move = bool(do_block[it] and NBu > 0 and (smooth_w is not None or boundaries is not None))
         want_alpha = bool(do_block[it] or it == n_its - 1 or do_entire)
-        u_pad = layout.to_slots(uniforms[it].to(torch.float32), 0.0)
-        slots = torch.stack([u_pad.view(torch.int32), H_pad, skip_pad, layout.r_pad], 1).contiguous()
-        lemg, alphas, H_pad, logc, uf_it, lab = fwd_sweep(
-            lemg, beta, lem_pad, slots, first_col, lab, trans,
-            layout.cnt_max, nl=nl, K_real=K_real, it_mode=it_mode,
-            prior=prior, want_alpha=want_alpha,
-        )
-        uf = torch.maximum(uf, uf_it)
-        beta = bwd_sweep(lemg, trans, nl=nl, K_real=K_real)
-        relabel = torch.ones((B,), dtype=torch.float32, device=dev)
+        with span("sweep.slots"):
+            u_pad = layout.to_slots(uniforms[it].to(torch.float32), 0.0)
+            slots = torch.stack([u_pad.view(torch.int32), H_pad, skip_pad, layout.r_pad],
+                                1).contiguous()
+        with span("sweep.fwd"):
+            lemg, alphas, H_pad, logc, uf_it, lab = fwd_sweep(
+                lemg, beta, lem_pad, slots, first_col, lab, trans,
+                layout.cnt_max, nl=nl, K_real=K_real, it_mode=it_mode,
+                prior=prior, want_alpha=want_alpha,
+            )
+        with span("sweep.bwd"):
+            beta = bwd_sweep(lemg, trans, nl=nl, K_real=K_real)
         if nl == 3 and want_alpha:
             with timed_nipt("gibbs:hclass"):
                 Hc_pad = compute_hclass(alphas, beta, lem_pad, H_pad, live, prior, rlc)
         if move:
-            with timed_nipt("gibbs:block_move"):
+            with timed("gibbs:block_move") if nl == 3 else span("sweep.block"):
                 if smooth_w is not None:
                     rate2 = live_jump_rate(alphas, beta, lemg, trans, B, K_real,
                                            include3=nl == 2 or prior[2] > 0)
@@ -536,16 +545,19 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
         if do_entire:
             lemg, beta, alphas, H_pad, Hc_pad, chosen = entire_relabel(
                 lemg, beta, alphas, H_pad, Hc_pad, valid, log_prior, relabel_u[it])
-            relabel = (chosen + 1).to(torch.float32)
             lab = counts_of(H_pad, valid, nl)
-        p_O_h = logc.reshape(nl, B).T                              # [B, nl]
-        p_O = p_O_h.sum(1)
-        p_H = (lab * log_prior[None, :]).sum(1)
-        p_O3 = p_O_h[:, 2] if nl == 3 else torch.zeros_like(p_O)
-        per_it[it] = torch.stack([
-            p_O_h[:, 0], p_O_h[:, 1], p_O3, p_O, p_H,
-            p_O + p_H, log_dmultinom(lab, prior), relabel,
-        ], 1)
+        with span("sweep.per_it"):
+            uf = torch.maximum(uf, uf_it)
+            relabel = ((chosen + 1).to(torch.float32) if do_entire
+                       else torch.ones((B,), dtype=torch.float32, device=dev))
+            p_O_h = logc.reshape(nl, B).T                              # [B, nl]
+            p_O = p_O_h.sum(1)
+            p_H = (lab * log_prior[None, :]).sum(1)
+            p_O3 = p_O_h[:, 2] if nl == 3 else torch.zeros_like(p_O)
+            per_it[it] = torch.stack([
+                p_O_h[:, 0], p_O_h[:, 1], p_O3, p_O, p_H,
+                p_O + p_H, log_dmultinom(lab, prior), relabel,
+            ], 1)
 
     def to_reads(x_pad):
         flat = x_pad.reshape(G * W, B).T                            # [B, G*W]
@@ -560,7 +572,9 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
             hap_dos = hd.reshape(G, nl, B, 32).permute(2, 1, 0, 3).reshape(B, nl, G * 32)
             gp = _genotype_posterior(hap_dos[:, 0], hap_dos[:, 1])
             gpF = _genotype_posterior(hap_dos[:, 0], hap_dos[:, 2]) if nl == 3 else gp
-    return GibbsCall(to_reads(H_pad), per_it, uf[:, 0] > 0, hap_dos, gp, gpF, to_reads(Hc_pad))
+    with span("sweep.out"):
+        return GibbsCall(to_reads(H_pad), per_it, uf[:, 0] > 0, hap_dos, gp, gpF,
+                         to_reads(Hc_pad))
 
 
 def _genotype_posterior(h1, h2) -> torch.Tensor:

@@ -8,6 +8,7 @@ section 4.1).
 """
 from __future__ import annotations
 
+import contextlib
 import struct
 import zlib
 from typing import BinaryIO, Iterator, Union
@@ -33,11 +34,21 @@ def _compress_block(data: bytes, level: int = 6) -> bytes:
 
 
 class BgzfWriter:
-    def __init__(self, path: str, level: int = 6):
+    """timed(name): a context manager around each block's deflate and
+    write, the span "vcf.deflate" (the engine's SectionTimers.section)."""
+
+    def __init__(self, path: str, level: int = 6, timed=None):
         self._fh: BinaryIO = open(path, "wb")
         self._buf = bytearray()
         self._level = level
         self._coffset = 0     # compressed bytes written so far
+        self._timed = timed or (lambda name: contextlib.nullcontext())
+
+    def _write_block(self, block: bytes) -> None:
+        with self._timed("vcf.deflate"):
+            comp = _compress_block(block, self._level)
+            self._fh.write(comp)
+        self._coffset += len(comp)
 
     def tell_virtual(self) -> int:
         """Tabix virtual offset of the next byte to be written:
@@ -51,15 +62,11 @@ class BgzfWriter:
         while len(self._buf) >= MAX_BLOCK:
             block = bytes(self._buf[:MAX_BLOCK])
             del self._buf[:MAX_BLOCK]
-            comp = _compress_block(block, self._level)
-            self._fh.write(comp)
-            self._coffset += len(comp)
+            self._write_block(block)
 
     def close(self) -> None:
         if self._buf:
-            comp = _compress_block(bytes(self._buf), self._level)
-            self._fh.write(comp)
-            self._coffset += len(comp)
+            self._write_block(bytes(self._buf))
             self._buf.clear()
         self._fh.write(BGZF_EOF)
         self._fh.close()

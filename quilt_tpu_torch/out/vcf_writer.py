@@ -8,6 +8,7 @@ as BGZF so downstream htslib tooling can index it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -255,9 +256,15 @@ def write_quilt_vcf(
     output_gt_phased_genotypes: bool = True,
     write_index: bool = True,
     with_ohd: bool = False,
+    timed=None,
 ) -> None:
+    """timed(name): a context manager around the spans of the write
+    (the engine's SectionTimers.section): "vcf.format" the lines and their
+    buffering, with "vcf.deflate" each BGZF block inside it, then
+    "vcf.tabix" the index."""
     from .tabix import TabixIndexer
 
+    timed = timed or (lambda name: contextlib.nullcontext())
     nSNPs = len(pos)
     if in_region is None:
         in_region = np.ones(nSNPs, dtype=bool)
@@ -269,32 +276,37 @@ def write_quilt_vcf(
         paf = allele_count[:, 0] / allele_count[:, 1]
     paf = np.nan_to_num(paf, nan=0.0)
     idx = TabixIndexer() if write_index else None
-    # vectorized INFO strings (per-cell round()+format is the dominant host
-    # cost at whole-chromosome nSNPs)
-    info_fields = _join_fields(
-        "EAF=", fmt_g(eaf, 5), ";INFO_SCORE=", fmt_g(info, 5),
-        ";HWE=", np.char.mod("%.2e", np.asarray(hwe, dtype=np.float64)),
-        ";ERC=", fmt_g(erc, 5), ";EAC=", fmt_g(allele_count[:, 0], 5),
-        ";PAF=", fmt_g(paf, 5),
-    ).tolist()
-    pos_str = np.asarray(pos).astype(np.int64).astype(str).tolist()
-    ref_l = np.asarray(ref_allele).astype(str).tolist()
-    alt_l = np.asarray(alt_allele).astype(str).tolist()
-    with BgzfWriter(path) as w:
-        w.write(make_header(sample_names, method, output_gt_phased_genotypes,
-                            with_ohd=with_ohd and method != "nipt"))
-        for s in range(nSNPs):
-            if not in_region[s]:
-                continue
-            fields = [
-                chrom, pos_str[s], ".", ref_l[s],
-                alt_l[s], ".", "PASS", info_fields[s], fmt,
-            ] + [col[s] for col in sample_columns]
-            vbeg = w.tell_virtual()
-            w.write(b"\t".join(
-                f if isinstance(f, bytes) else f.encode() for f in fields
-            ) + b"\n")
-            if idx is not None:
-                idx.add(chrom, int(pos[s]), vbeg, w.tell_virtual())
+    offsets = []          # (site, virtual start, virtual end) of each line
+    with timed("vcf.format"):
+        # vectorized INFO strings (per-cell round()+format is the dominant host
+        # cost at whole-chromosome nSNPs)
+        info_fields = _join_fields(
+            "EAF=", fmt_g(eaf, 5), ";INFO_SCORE=", fmt_g(info, 5),
+            ";HWE=", np.char.mod("%.2e", np.asarray(hwe, dtype=np.float64)),
+            ";ERC=", fmt_g(erc, 5), ";EAC=", fmt_g(allele_count[:, 0], 5),
+            ";PAF=", fmt_g(paf, 5),
+        ).tolist()
+        pos_str = np.asarray(pos).astype(np.int64).astype(str).tolist()
+        ref_l = np.asarray(ref_allele).astype(str).tolist()
+        alt_l = np.asarray(alt_allele).astype(str).tolist()
+        with BgzfWriter(path, timed=timed) as w:
+            w.write(make_header(sample_names, method, output_gt_phased_genotypes,
+                                with_ohd=with_ohd and method != "nipt"))
+            for s in range(nSNPs):
+                if not in_region[s]:
+                    continue
+                fields = [
+                    chrom, pos_str[s], ".", ref_l[s],
+                    alt_l[s], ".", "PASS", info_fields[s], fmt,
+                ] + [col[s] for col in sample_columns]
+                vbeg = w.tell_virtual()
+                w.write(b"\t".join(
+                    f if isinstance(f, bytes) else f.encode() for f in fields
+                ) + b"\n")
+                if idx is not None:
+                    offsets.append((s, vbeg, w.tell_virtual()))
     if idx is not None:
-        idx.write(path + ".tbi")
+        with timed("vcf.tabix"):
+            for s, vbeg, vend in offsets:
+                idx.add(chrom, int(pos[s]), vbeg, vend)
+            idx.write(path + ".tbi")

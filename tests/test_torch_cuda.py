@@ -1427,3 +1427,33 @@ def test_gibbs_chains_0_to_6_of_256_equal_a_7_chain_call(cuda):
     narrow = bgibbs.run_gibbs(world, bgibbs.first_chains(world, state, 7))
     assert torch.equal(wide.H[:7], narrow.H)
     assert torch.equal(wide.per_it[:, :7], narrow.per_it)
+
+
+def test_section_timers_time_the_device(cuda):
+    """utils/log.py:SectionTimers on the card: a CUDA event at each edge of
+    a section on the current stream, resolved after one synchronize, so a
+    section around queued work reads its device time where the host clock
+    reads the enqueue; nested sections' device times add up under their
+    parent's; the root's self entry has no device time."""
+    from quilt_tpu_torch.utils.log import SectionTimers
+
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    t = SectionTimers(True, cuda)
+    with t.section("root", root=True):
+        with t.section("mm"):
+            for _ in range(8):
+                x = x @ x.T / 2048.0
+        with t.section("sleep"):
+            torch.cuda._sleep(50_000_000)
+    assert len(t._pending) == 3
+    d = t.as_dict()
+    assert t._pending == [] and "device_seconds" not in d["root.self"]
+    dev = {k: d[k]["device_seconds"] for k in ("root", "mm", "sleep")}
+    assert dev["sleep"] > 0.005 and dev["sleep"] > 10 * d["sleep"]["seconds"]
+    assert dev["mm"] > 0
+    assert dev["root"] >= 0.999 * (dev["mm"] + dev["sleep"])
+    off = SectionTimers(False, cuda)
+    with off.section("root", root=True):
+        torch.cuda._sleep(1_000)
+    assert off.as_dict() == {} and off._pending == []
