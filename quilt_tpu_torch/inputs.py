@@ -1,13 +1,15 @@
 """Host-side inputs of the port (NumPy constructors), and the bridge from
 a prepared reference to device tensors.
 
-The NumPy constructors are copies of the JAX package's: pad_to_multiple
-(quilt_tpu/kernels/common.py), PaddedReads (kernels/emissions.py:25-115),
-GibbsInputs (kernels/gibbs.py:331-397) and FBInputs.build
-(kernels/fb_full.py:82-137). FBInputs keeps only what the bit-matmul FB
-reads: the packed words, the transitions, the thinned-grid flags and the
-sizes; the distinct-haplotype and escape tables of the XLA body are gone
-from this path (see quilt_tpu/kernels/fb_pallas.py:11-22).
+The NumPy constructors compute the same arrays as the JAX package's:
+pad_to_multiple (quilt_tpu/kernels/common.py), PaddedReads
+(kernels/emissions.py:25-115), GibbsInputs (kernels/gibbs.py:331-397) and
+FBInputs.build (kernels/fb_full.py:82-137). PaddedReads.build places every
+base by one gather over the flat read arrays where the original copies a
+read at a time; the other constructors are copies. FBInputs keeps only what
+the bit-matmul FB reads: the packed words, the transitions, the thinned-grid
+flags and the sizes; the distinct-haplotype and escape tables of the XLA
+body are gone from this path (see quilt_tpu/kernels/fb_pallas.py:11-22).
 """
 from __future__ import annotations
 
@@ -103,15 +105,18 @@ class PaddedReads:
         zero = reads.bq == 0
         log_pr = np.where(zero, 0.0, log_pr)
         log_pa = np.where(zero, 0.0, log_pa)
-        for r in range(nReads):
-            s = reads.offsets[r]
-            n = lens[r]
-            u_pad[r, :n] = reads.u[s:s + n]
-            lr[r, :n] = log_tr[s:s + n]
-            la[r, :n] = log_ta[s:s + n]
-            lpr[r, :n] = log_pr[s:s + n]
-            lpa[r, :n] = log_pa[s:s + n]
-            mask[r, :n] = True
+        # each kept base (the first lens[r] of read r): its row and column,
+        # its place in the [nReads, J] arrays and in the flat read arrays
+        row = np.repeat(np.arange(nReads), lens)
+        col = np.arange(len(row)) - np.repeat(np.cumsum(lens) - lens, lens)
+        at = row * J + col
+        src = reads.offsets[row] + col
+        u_pad.reshape(-1)[at] = reads.u[src]
+        lr.reshape(-1)[at] = log_tr[src]
+        la.reshape(-1)[at] = log_ta[src]
+        lpr.reshape(-1)[at] = log_pr[src]
+        lpa.reshape(-1)[at] = log_pa[src]
+        mask.reshape(-1)[at] = True
         return cls(u_pad=u_pad, lr=lr, la=la, mask=mask,
                    wif0=reads.wif0.astype(np.int32), nReads=nReads, J=J,
                    lpr=lpr, lpa=lpa)

@@ -44,18 +44,17 @@ class SampleReads:
         return self.subset(order)
 
     def subset(self, order: np.ndarray) -> "SampleReads":
+        """Reads `order` (indices, in that order) as a new flat read set."""
         lens = np.diff(self.offsets)[order]
         new_off = np.zeros(len(order) + 1, dtype=np.int64)
         np.cumsum(lens, out=new_off[1:])
-        u = np.empty(int(new_off[-1]), dtype=np.int32)
-        bq = np.empty(int(new_off[-1]), dtype=np.int16)
-        for i, r in enumerate(order):
-            s, e = self.offsets[r], self.offsets[r + 1]
-            u[new_off[i]:new_off[i + 1]] = self.u[s:e]
-            bq[new_off[i]:new_off[i + 1]] = self.bq[s:e]
+        # source base of each output base: its read's old start, shifted by
+        # the base's place within the read
+        src = (np.repeat(self.offsets[order] - new_off[:-1], lens)
+               + np.arange(new_off[-1], dtype=np.int64))
         return SampleReads(
-            u=u,
-            bq=bq,
+            u=self.u[src].astype(np.int32, copy=False),
+            bq=self.bq[src].astype(np.int16, copy=False),
             offsets=new_off,
             wif0=self.wif0[order],
             qname=None if self.qname is None else self.qname[order],
