@@ -4,6 +4,12 @@ module of the benchmark that imports quilt_tpu_torch.
 - `prepare`: the port's region set-up of the benchmark's panel
   (panel/prepare.py:prepare_panel on the packed words, as the CLI's
   prepare step builds it from a panel VCF), then the region context.
+  QUILT2's prepare options are read from the run's ImputeConfig (the
+  configuration's `impute` block): `use_mspbwt` builds the msPBWT
+  indices, `impute_rare_common` splits the panel at `rare_af_threshold`
+  (`rare_common_split`, the stand-in for the VCF ingest's split).
+- `sample_reads`: the reads on the program's grids, the all-SNP ones
+  under rare/common.
 - `impute`: one batch through engine/driver.py:quilt_impute, as the CLI's
   `impute` calls it, with the bgzipped VCF written over one file.
 - `Recorder`: wrappers around seven of the port's functions that keep,
@@ -69,25 +75,85 @@ def impute_config(config: Dict, traffic: Dict, seed: int, timing: bool) -> Imput
                         make_plots=False, verbose=False)
 
 
+def rare_common_split(rhb: np.ndarray, af_all: np.ndarray, threshold: float, device,
+                      chunk_snps: int = 512) -> Dict:
+    """The rare/common split of the packed panel, as a panel VCF's streaming
+    ingest returns it (io/native.py:read_panel_vcf_packed), made on the
+    device `chunk_snps` SNPs at a time: `snp_is_common` (MAF >= threshold,
+    from the alternate-allele frequencies af_all), `rhb_t` (the common SNPs'
+    packed words), `rare_offsets` int64 and `rare_flat` int32 (each rare
+    SNP's alternate-allele carriers, in haplotype order)."""
+    maf = np.minimum(af_all, 1.0 - af_all)
+    common = maf >= threshold
+    K = rhb.shape[0]
+    w = torch.as_tensor(rhb.view(np.int32), device=device)
+
+    def bits(snps: np.ndarray) -> torch.Tensor:
+        """[K, len(snps)] alleles (0 / 1) of the SNPs."""
+        s = torch.as_tensor(snps, dtype=torch.int64, device=device)
+        return (w[:, s >> 5] >> (s & 31)) & 1
+
+    idx = np.flatnonzero(common)
+    G = -(-len(idx) // SNPS_PER_GRID)
+    rhb_t = np.zeros((K, G), dtype=np.uint32)
+    shifts = torch.arange(SNPS_PER_GRID, device=device, dtype=torch.int64)
+    step = max(1, chunk_snps // SNPS_PER_GRID)
+    for g0 in range(0, G, step):
+        g1 = min(G, g0 + step)
+        b = bits(idx[g0 * SNPS_PER_GRID:g1 * SNPS_PER_GRID])
+        b = torch.nn.functional.pad(b, (0, (g1 - g0) * SNPS_PER_GRID - b.shape[1]))
+        words = (b.view(K, g1 - g0, SNPS_PER_GRID) << shifts).sum(-1)
+        rhb_t[:, g0:g1] = words.cpu().numpy().astype(np.uint32)
+    rare = np.flatnonzero(~common)
+    counts, flat = [np.zeros(0, np.int64)], [np.zeros(0, np.int32)]
+    for r0 in range(0, len(rare), chunk_snps):
+        b = bits(rare[r0:r0 + chunk_snps])
+        counts.append(b.sum(0).cpu().numpy())
+        flat.append(torch.nonzero(b.t())[:, 1].int().cpu().numpy())   # SNP by SNP, haps in order
+    rare_offsets = np.zeros(len(rare) + 1, dtype=np.int64)
+    np.cumsum(np.concatenate(counts), out=rare_offsets[1:])
+    return {"snp_is_common": common, "rhb_t": rhb_t, "rare_offsets": rare_offsets,
+            "rare_flat": np.concatenate(flat)}
+
+
 def prepare(world: World, config: Dict, cfg: ImputeConfig, device):
     """The prepared reference of the world's panel and its region context
-    (distinct-haplotype compression, transitions, device tensors)."""
+    (distinct-haplotype compression, transitions, device tensors). With
+    neither of QUILT2's options set in `cfg`, prepare_panel gets the
+    packed words, their frequencies and the map's numbers alone. Set-up
+    stops where the reference lacks what `cfg` asks for, rather than run
+    QUILT1 in QUILT2's place."""
     nSNPs = len(world.pos)
     K = world.rhb.shape[0]
+    presplit = {"K": K, "af_all": panel_af(world.rhb, nSNPs, device), "rhb_t": world.rhb}
+    quilt2 = {}
+    if cfg.impute_rare_common:
+        presplit.update(rare_common_split(world.rhb, presplit["af_all"],
+                                          float(cfg.rare_af_threshold), device))
+        quilt2.update(impute_rare_common=True, rare_af_threshold=float(cfg.rare_af_threshold))
+    if cfg.use_mspbwt:
+        quilt2["use_mspbwt"] = True
     prep = prepare_panel(
         config["chrom"], world.pos, np.array(["A"] * nSNPs), np.array(["G"] * nSNPs),
-        presplit={"K": K, "af_all": panel_af(world.rhb, nSNPs, device), "rhb_t": world.rhb},
+        presplit=presplit,
         nGen=float(config["nGen"]), expRate=float(config["expRate"]),
         minRate=float(config["minRate"]), maxRate=float(config["maxRate"]),
-        ref_error=float(config["ref_error"]))
+        ref_error=float(config["ref_error"]), **quilt2)
+    for key, field in (("impute_rare_common", "snp_is_common"), ("use_mspbwt", "ms_indices")):
+        if getattr(cfg, key) and getattr(prep, field) is None:
+            raise ValueError(f"the configuration's impute block sets {key}, but the prepared "
+                             f"reference has no {field}")
     _region_context(prep, cfg, device)
     return prep
 
 
 def sample_reads(world: World, prep) -> List[SampleReads]:
-    """The pool's reads as the program's read sets (their central grids
-    snapped to the program's grids)."""
-    return [SampleReads.from_lists(*r.lists(), prep.grid) for r in world.reads]
+    """The pool's reads as the program's read sets, their central grids
+    snapped to the program's grids: the all-SNP grids where the reference
+    has them (rare/common, as the CLI's impute loads reads), else its
+    grids."""
+    grid = prep.grid if prep.grid_all is None else prep.grid_all
+    return [SampleReads.from_lists(*r.lists(), grid) for r in world.reads]
 
 
 def impute(prep, reads: Sequence[SampleReads], names: Sequence[str], cfg: ImputeConfig,
