@@ -20,7 +20,6 @@ keeps, beside the maternal dosages (haplotypes 1 + 2), the fetal ones
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -79,24 +78,6 @@ class SampleResult:
     read_label_usage: Optional[np.ndarray] = None    # [n_seek_its, C, nReads]
 
 
-def timed_sections(timers, dev):
-    """sec(name): a context manager timing `name` on `timers` when timing
-    is on; the section drains the device queue before its clock stops, so
-    asynchronous work lands on the section that issued it."""
-
-    @contextlib.contextmanager
-    def sec(name):
-        if not timers.enabled:
-            yield
-            return
-        with timers.section(name):
-            yield
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
-    return sec
-
-
 def lem_full_budget(device: torch.device) -> int:
     """Bytes the whole-panel log eMatRead cache and the expanded panel may
     take together (the gate of the per-batch cache)."""
@@ -136,7 +117,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
     use_ms = cfg.use_mspbwt
     rare_common = reads_all_list is not None
     rng = np.random.default_rng(seed)
-    sec = timed_sections(ctx.timers, dev)
+    sec = ctx.timers.drained            # drains the device at its end
     span = ctx.timers.section          # drains nothing
     gibbs = ctx.gibbs_call()
 
@@ -275,7 +256,8 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         mspbwt.R:230-474): symbols of the rounded dosages on the device, then
         the host match scan, ranking and interleave for the whole batch."""
         with sec("select:mspbwt"):
-            z_all = symbols_device(hap_dos, ctx.dh_bits(), nSNPs).cpu().numpy()
+            with span("select.symbols"):
+                z_all = symbols_device(hap_dos, ctx.dh_bits(), nSNPs).cpu().numpy()
             which_np = which_b.cpu().numpy()
             n_keep = ctx.Ksub - ctx.Knew
             prev_list = [rng.choice(which_np[b], size=n_keep, replace=False)
@@ -283,7 +265,7 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
             news = select_new_haps_mspbwt_batch(
                 prep.ms_indices, prep.panel, z_all, ctx.Knew, K, prev_list, rng,
                 mspbwtL=cfg.mspbwtL, mspbwtM=cfg.mspbwtM,
-                heuristic_approach=cfg.heuristic_approach,
+                heuristic_approach=cfg.heuristic_approach, span=span, count=ctx.timers.count,
             )
             new_sets = np.stack([np.sort(np.concatenate([p, n])) for p, n in zip(prev_list, news)])
         return as_t(new_sets.astype(np.int64))
@@ -313,28 +295,33 @@ def _impute_once(ctx: RegionContext, reads_list, cfg: ImputeConfig, seed: int,
         whole batch (reference: rare_common.R:109-470, per sample there):
         labels start from the common-SNP dosages, the subset words come from
         the region's all-SNP panel, no block moves, and an underflow retries
-        the call with a tenth of maxDifferenceBetweenReads (11 attempts).
-        Returns the hap dosages [B, nl, nSNPs_all]."""
+        the call with a tenth of maxDifferenceBetweenReads (11 attempts,
+        counted as rare.retries). Its spans are rare.* (the seek calls'
+        sweep.*). Returns the hap dosages [B, nl, nSNPs_all]."""
         Ksub_b = which_b.shape[1]
         with sec("rare:bits_build"):
             words = gather_words(ctx.tensors["rhb_all"], pad_subsets(which_b))
-        hd_common = hap_dos_common.cpu().numpy()
-        H0 = np.zeros((B, R_all), dtype=np.int32)
-        for b in range(B):
-            ra = reads_all_sorted[b // C]
-            H0[b, :ra.nReads] = initial_all_snp_labels(ra, hd_common[b], prep.snp_is_common,
-                                                       nl, ff, rng)
+        with span("rare.init_labels"):
+            hd_common = hap_dos_common.cpu().numpy()
+            H0 = np.zeros((B, R_all), dtype=np.int32)
+            for b in range(B):
+                ra = reads_all_sorted[b // C]
+                H0[b, :ra.nReads] = initial_all_snp_labels(ra, hd_common[b],
+                                                           prep.snp_is_common, nl, ff, rng)
         uniforms = as_t(rng.random((n_its, B, R_all)).astype(np.float32))
         H0, zero = as_t(H0), torch.zeros(B, dtype=torch.int32, device=dev)
         md = max_diff
-        for _ in range(11):
+        for attempt in range(11):
+            if attempt:
+                ctx.timers.count("rare.retries")
             with sec("rare:sweep_kernel"):
-                with span("sweep.read_lem"):
+                with span("rare.read_lem"):
                     lem, skip = read_lem(words, rows_all, md, R_all)
                 call = gibbs(
                     layout_all, ctx.tensors["gibbs_trans_all"], lem, skip, uniforms, H0, zero,
                     False, Ksub_b, words=words, ref_error=prep.ref_error, timed=sec,
-                    nl=nl, ff=ff, span=span,
+                    nl=nl, ff=ff, span=span, span_prefix="rare",
+                    section_prefix="rare",
                 )
             if not bool(call.underflow.any()):
                 break

@@ -34,7 +34,7 @@ from ..inputs import FBInputs, gibbs_trans, region_tensors, thinned_grids
 from ..kernels.emissions import expand_panel
 from ..kernels.gibbs import run_gibbs_chains
 from ..panel.mspbwt import distinct_hap_bits
-from .rare_common import all_snp_panel
+from .rare_common import all_snp_panel_device
 
 
 @dataclass
@@ -54,7 +54,9 @@ class RegionContext:
     on-the-fly detector's band, is None. With mesh_data x mesh_panel > 1,
     mesh is the [n_data, n_panel] device mesh over `devices` (the Gibbs
     calls split their chains over it) and, when the panel axis is split
-    and the FB inputs exist, sharded_fb the panel-sharded FB."""
+    and the FB inputs exist, sharded_fb the panel-sharded FB. rare_sites /
+    rare_carriers count the rare SNPs and their (haplotype, SNP) carrier
+    pairs under rare/common."""
 
     prep: PreparedReference
     device: torch.device
@@ -75,6 +77,8 @@ class RegionContext:
     timers: SectionTimers
     trans_all: Optional[np.ndarray] = None   # [2, nGrids_all-1] all-SNP gap rates
     nGrids_all: int = 0
+    rare_sites: int = 0
+    rare_carriers: int = 0
     n_latent: int = 2
     # family / splits forced on kernels.fb.fb_plan (empty: its own rule)
     fb_plan_args: Dict = field(default_factory=dict)
@@ -139,10 +143,15 @@ class RegionContext:
 
     @classmethod
     def build(cls, prep: PreparedReference, cfg: ImputeConfig, device,
-              devices: Optional[Sequence] = None) -> "RegionContext":
+              devices: Optional[Sequence] = None,
+              timers: Optional[SectionTimers] = None) -> "RegionContext":
         """The context on `device`; the mesh (if the config asks for one) is
         made from `devices`, by default the visible cards from `device` on
-        (dist.mesh.default_devices); too few raise ValueError."""
+        (dist.mesh.default_devices); too few raise ValueError. The build's
+        spans (context.all_snp_panel) go to `timers`, which the context
+        keeps (default: new ones, as the configuration asks)."""
+        if timers is None:
+            timers = SectionTimers(cfg.print_extra_timing_information, device)
         K = prep.K
         Ksub = min(cfg.Ksubset, K)
         Knew = min(cfg.Knew, Ksub)
@@ -170,13 +179,15 @@ class RegionContext:
         smooth_w = None
         if t["smooth_band"] is not None:
             smooth_w = (t["smooth_band"], t["smooth_idx0"])
-        trans_all, nGrids_all = None, 0
+        trans_all, nGrids_all, rare_sites, rare_carriers = None, 0, 0, 0
         if cfg.impute_rare_common and prep.snp_is_common is not None:
             trans_all = trans_rates(prep.sigma_all)
             nGrids_all = len(prep.L_grid_all)
-            t["rhb_all"] = torch.as_tensor(all_snp_panel(
-                prep.rhb_t, prep.snp_is_common, prep.rare_per_hap_info, nGrids_all,
-            ), device=device)
+            rare_sites = int(np.sum(~prep.snp_is_common))
+            rare_carriers = sum(len(x) for x in prep.rare_per_hap_info)
+            with timers.drained("context.all_snp_panel"):
+                t["rhb_all"] = all_snp_panel_device(
+                    t["rhb_t"], prep.snp_is_common, prep.rare_per_hap_info, nGrids_all)
             t["gibbs_trans_all"] = torch.as_tensor(
                 np.ascontiguousarray(gibbs_trans(trans_all, nGrids_all).T), device=device)
         devices = tuple(as_device(d) for d in (default_devices(device) if devices is None
@@ -196,8 +207,8 @@ class RegionContext:
             heuristic_match_thin=cfg.heuristic_match_thin,
             block_quantile=cfg.block_gibbs_quantile_prob,
             block_nb_cap=nb_cap,
-            timers=SectionTimers(cfg.print_extra_timing_information, device),
-            trans_all=trans_all, nGrids_all=nGrids_all,
+            timers=timers, trans_all=trans_all, nGrids_all=nGrids_all,
+            rare_sites=rare_sites, rare_carriers=rare_carriers,
             n_latent=3 if cfg.method == "nipt" else 2,
             hla_capture=t["fb"] is not None and t["fb"].capture_grid >= 0,
             devices=devices, mesh=mesh, sharded_fb=sharded_fb,
@@ -223,10 +234,11 @@ class _FieldRecorder:
         return getattr(self._cfg, name)
 
 
-def context_fields(prep: PreparedReference, cfg: ImputeConfig, device, devices=None):
+def context_fields(prep: PreparedReference, cfg: ImputeConfig, device, devices=None,
+                   timers: Optional[SectionTimers] = None):
     """(context, names of the config fields its build read)."""
     rec = _FieldRecorder(cfg)
-    ctx = RegionContext.build(prep, rec, device, devices)
+    ctx = RegionContext.build(prep, rec, device, devices, timers)
     return ctx, frozenset(rec.read)
 
 

@@ -105,8 +105,7 @@ def _region_context(prep: PreparedReference, cfg: ImputeConfig, device,
                 and key == _key(cfg, fields)):
             ctx.timers = timers
             return ctx
-    ctx, fields = context_fields(prep, cfg, device, want)
-    ctx.timers = timers
+    ctx, fields = context_fields(prep, cfg, device, want, timers)
     prep._torch_ctx_cache = (fields, _key(cfg, fields), ctx)
     return ctx
 
@@ -159,6 +158,8 @@ def quilt_impute(prep: PreparedReference, samples: Sequence[SampleReads],
         if rare_common:
             # the seek loop runs on common SNPs (reference: quilt.R:664-684,
             # functions.R:130-174)
+            ctx.timers.count("rare.sites", ctx.rare_sites)
+            ctx.timers.count("rare.carriers", ctx.rare_carriers)
             samples_all = list(samples)
             samples = [None if r is None else
                        restrict_reads_to_common(r, prep.snp_is_common, prep.grid)

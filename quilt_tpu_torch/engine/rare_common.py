@@ -3,17 +3,21 @@ loop runs on common SNPs; one final all-SNP Gibbs call per chain batch
 adds the rare sites.
 
 restrict_reads_to_common and initial_all_snp_labels are copies of
-quilt_tpu/engine/rare_common.py:20-41 and :73-105. all_snp_panel takes the
-place of its per-call build_subset_bits_all (:44-70): the all-SNP panel is
-packed once per region, so each all-SNP Gibbs call gathers its subset
-words on the device (gather_words) instead of inflating a
-[B, Ksub, nSNPs_all] byte tensor on the host.
+quilt_tpu/engine/rare_common.py:20-41 and :73-105. all_snp_panel_device
+takes the place of its per-call build_subset_bits_all (:44-70): the
+all-SNP panel is packed once per region, on the region's device, so each
+all-SNP Gibbs call gathers its subset words there (gather_words) instead
+of inflating a [B, Ksub, nSNPs_all] byte tensor on the host.
+all_snp_panel, the same words built on the host through an unpacked
+[K, nGrids_all * 32] byte matrix, is its plain version (the tests hold
+the two equal).
 """
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
+import torch
 
 from ..io.reads import SampleReads, bq_to_probs
 from ..utils import pack_bits_32, unpack_bits_32
@@ -51,6 +55,55 @@ def all_snp_panel(rhb_t_common: np.ndarray, snp_is_common: np.ndarray,
         bits[np.repeat(np.arange(K), lens),
              np.concatenate([np.asarray(x, dtype=np.int64) for x in rare_per_hap_info])] = 1
     return pack_bits_32(bits).view(np.int32)
+
+
+def all_snp_panel_device(rhb_common: torch.Tensor, snp_is_common: np.ndarray,
+                         rare_per_hap_info: List[np.ndarray], nGrids_all: int,
+                         chunk_bytes: int = 1 << 30) -> torch.Tensor:
+    """all_snp_panel on the device of rhb_common (the common SNPs' packed
+    words [K, nGrids] int32, there already): [K, nGrids_all] int32 equal
+    word for word, built a chunk of all-SNP grids at a time so that the
+    chunk's int64 words and bits stay within chunk_bytes. Each common bit
+    is read from its word and shifted to its all-SNP place; each rare
+    carrier adds 1 << its bit. The (haplotype, SNP) pairs are distinct and
+    no rare SNP is common, so every add sets a bit that is still clear and
+    the sum is the OR; the int64 words (bit 31 included) then wrap to
+    int32."""
+    dev = rhb_common.device
+    K = rhb_common.shape[0]
+    nSNPs_all = len(snp_is_common)
+    # common index of each all-SNP place of the grid-padded axis, -1 where rare or pad
+    src = np.full(nGrids_all * 32, -1, dtype=np.int64)
+    src[np.flatnonzero(snp_is_common)] = np.arange(int(np.sum(snp_is_common)))
+    src_t = torch.as_tensor(src, device=dev)
+    lens = np.array([len(x) for x in rare_per_hap_info], dtype=np.int64)
+    hap = np.repeat(np.arange(K, dtype=np.int64), lens)
+    snp = (np.concatenate([np.asarray(x, dtype=np.int64) for x in rare_per_hap_info])
+           if lens.sum() else np.zeros(0, np.int64))
+    order = np.argsort(snp, kind="stable")
+    hap_t = torch.as_tensor(hap[order], device=dev)
+    snp_t = torch.as_tensor(snp[order], device=dev)
+    cut = np.searchsorted(snp[order], np.arange(0, nGrids_all + 1) * 32)
+    if snp.size and (snp.min() < 0 or snp.max() >= nSNPs_all):
+        raise ValueError(f"a rare carrier's SNP lies outside the {nSNPs_all} all-SNP sites")
+    out = torch.empty((K, nGrids_all), dtype=torch.int32, device=dev)
+    step = max(1, int(chunk_bytes) // (K * 32 * 8))
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    for g0 in range(0, nGrids_all, step):
+        g1 = min(nGrids_all, g0 + step)
+        j = src_t[g0 * 32:g1 * 32].view(g1 - g0, 32)                 # [n, 32]
+        jc = j.clamp(min=0)
+        bits = (rhb_common[:, (jc >> 5).reshape(-1)].view(K, g1 - g0, 32).to(torch.int64)
+                >> (jc & 31)) & 1
+        bits = torch.where(j >= 0, bits, 0)                           # [K, n, 32]
+        words = (bits << shifts).sum(-1)                              # [K, n] int64
+        a, b = int(cut[g0]), int(cut[g1])
+        if b > a:
+            s = snp_t[a:b]
+            words.view(-1).index_put_(((hap_t[a:b] * (g1 - g0)) + (s >> 5) - g0,),
+                                      torch.ones_like(s) << (s & 31), accumulate=True)
+        out[:, g0:g1] = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    return out
 
 
 def initial_all_snp_labels(reads_all: SampleReads, hap_dos_common: np.ndarray,

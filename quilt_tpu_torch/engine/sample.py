@@ -36,7 +36,7 @@ from ..kernels.fb import fb_full_batched
 from ..kernels.gibbs import SlotLayout
 from ..panel.mspbwt import select_new_haps_mspbwt
 from ..utils import print_message
-from .batch import SampleResult, lem_full_budget, timed_sections
+from .batch import SampleResult, lem_full_budget
 from .context import RegionContext, sample_allele_count
 from .rare_common import initial_all_snp_labels
 from .selection import (
@@ -148,7 +148,7 @@ def impute_one_sample(ctx: RegionContext, reads: SampleReads, cfg: ImputeConfig,
     dev = ctx.device
     nSNPs, nGrids, K, nl = prep.nSNPs, prep.nGrids, prep.K, ctx.n_latent
     rng = np.random.default_rng(seed)
-    sec = timed_sections(ctx.timers, dev)
+    sec = ctx.timers.drained
     as_t = lambda x: torch.as_tensor(x, device=dev)
     gibbs = ctx.gibbs_call()
 

@@ -438,7 +438,8 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
                      iterative_init, K_real, block_u=None, do_block=None,
                      smooth_w=None, quantile_prob=0.95, words=None,
                      ref_error=0.001, timed=None, nl=2, ff=0.0, resample_u=None,
-                     relabel_u=None, boundaries=None, span=None) -> GibbsCall:
+                     relabel_u=None, boundaries=None, span=None,
+                     span_prefix="sweep", section_prefix="gibbs") -> GibbsCall:
     """One Gibbs call over B chains: diploid (nl = 2) or NIPT (nl = 3 at
     fetal fraction ff, label prior (0.5, (1-ff)/2, ff/2)).
 
@@ -455,11 +456,15 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
     nipt_block_within with one boundary row); words [B, Kp, G] i32 the packed
     subset words (gather_words) when the call is to return dosages;
     timed(name) a context manager timing the dosage pass and, for NIPT,
-    the block moves and read classes; span(name) one that marks the
+    the block moves and read classes, named `<section_prefix>:dosage_kernel`,
+    `:block_move`, `:hclass` (the seek calls' "gibbs", the all-SNP call's
+    "rare"); span(name) one that marks the
     call's other stretches without draining the device (the engine's
     SectionTimers.section: the slot emissions, the initial state, each
     sweep's slot words, forward, backward, diploid block move and
-    per-iteration sums, the labels out). NIPT only: resample_u
+    per-iteration sums, the labels out), named `<span_prefix>.lem_pad`,
+    `.init`, `.slots`, `.fwd`, `.bwd`, `.block`, `.per_it`, `.out` (the
+    seek calls' "sweep", the all-SNP call's "rare"). NIPT only: resample_u
     [n_its, B, R] uniforms of the label resample that follows a block move
     (None: no resample), relabel_u [n_its, B] uniforms of an entire
     relabelling after every iteration (None: none; no engine asks for it)."""
@@ -479,12 +484,12 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
         prior, rlc, clp, perm_mask = nipt_tables_for(ff, dev)
     else:
         prior = (0.5, 0.5)
-    with span("sweep.lem_pad"):
+    with span(f"{span_prefix}.lem_pad"):
         # [G, W, B, K] float32 slot emissions; zeroed in place at empty slots
         b_idx = torch.arange(B, device=dev)
         lem_pad = lem.transpose(1, 2)[b_idx, layout.r_clip]
         lem_pad.masked_fill_(~valid[..., None], 0.0)
-    with span("sweep.init"):
+    with span(f"{span_prefix}.init"):
         skip_r = skip | ~layout.mask
         H_pad = layout.to_slots(H0.to(torch.int32), 0).to(torch.int32)
         skip_pad = layout.to_slots(skip_r.to(torch.int32), 1).to(torch.int32)
@@ -508,23 +513,23 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
         it_mode = it if (iterative_init and it <= 1) else 2
         move = bool(do_block[it] and NBu > 0 and (smooth_w is not None or boundaries is not None))
         want_alpha = bool(do_block[it] or it == n_its - 1 or do_entire)
-        with span("sweep.slots"):
+        with span(f"{span_prefix}.slots"):
             u_pad = layout.to_slots(uniforms[it].to(torch.float32), 0.0)
             slots = torch.stack([u_pad.view(torch.int32), H_pad, skip_pad, layout.r_pad],
                                 1).contiguous()
-        with span("sweep.fwd"):
+        with span(f"{span_prefix}.fwd"):
             lemg, alphas, H_pad, logc, uf_it, lab = fwd_sweep(
                 lemg, beta, lem_pad, slots, first_col, lab, trans,
                 layout.cnt_max, nl=nl, K_real=K_real, it_mode=it_mode,
                 prior=prior, want_alpha=want_alpha,
             )
-        with span("sweep.bwd"):
+        with span(f"{span_prefix}.bwd"):
             beta = bwd_sweep(lemg, trans, nl=nl, K_real=K_real)
         if nl == 3 and want_alpha:
-            with timed_nipt("gibbs:hclass"):
+            with timed_nipt(f"{section_prefix}:hclass"):
                 Hc_pad = compute_hclass(alphas, beta, lem_pad, H_pad, live, prior, rlc)
         if move:
-            with timed("gibbs:block_move") if nl == 3 else span("sweep.block"):
+            with timed(f"{section_prefix}:block_move") if nl == 3 else span(f"{span_prefix}.block"):
                 if smooth_w is not None:
                     rate2 = live_jump_rate(alphas, beta, lemg, trans, B, K_real,
                                            include3=nl == 2 or prior[2] > 0)
@@ -546,7 +551,7 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
             lemg, beta, alphas, H_pad, Hc_pad, chosen = entire_relabel(
                 lemg, beta, alphas, H_pad, Hc_pad, valid, log_prior, relabel_u[it])
             lab = counts_of(H_pad, valid, nl)
-        with span("sweep.per_it"):
+        with span(f"{span_prefix}.per_it"):
             uf = torch.maximum(uf, uf_it)
             relabel = ((chosen + 1).to(torch.float32) if do_entire
                        else torch.ones((B,), dtype=torch.float32, device=dev))
@@ -565,14 +570,14 @@ def run_gibbs_chains(layout: SlotLayout, trans, lem, skip, uniforms, H0, first_r
 
     hap_dos = gp = gpF = None
     if words is not None:
-        with timed("gibbs:dosage_kernel"):
+        with timed(f"{section_prefix}:dosage_kernel"):
             hd = dosage_sweep(alphas.contiguous(), beta.contiguous(),
                               words.permute(2, 0, 1).contiguous(),
                               nl, K_real, ref_error)                # [G, nl*B, 32]
             hap_dos = hd.reshape(G, nl, B, 32).permute(2, 1, 0, 3).reshape(B, nl, G * 32)
             gp = _genotype_posterior(hap_dos[:, 0], hap_dos[:, 1])
             gpF = _genotype_posterior(hap_dos[:, 0], hap_dos[:, 2]) if nl == 3 else gp
-    with span("sweep.out"):
+    with span(f"{span_prefix}.out"):
         return GibbsCall(to_reads(H_pad), per_it, uf[:, 0] > 0, hap_dos, gp, gpF,
                          to_reads(Hc_pad))
 

@@ -41,6 +41,7 @@ the O(T²)-cumprod query of round 1):
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -506,9 +507,10 @@ def select_new_haps_mspbwt(
     )
 
 
-def _interleave_pick(per_hap_ranked, Knew, K, previously_selected, rng):
+def _interleave_pick(per_hap_ranked, Knew, K, previously_selected, rng, count=None):
     """Round-robin interleave of per-hap ranked lists, dedupe, exclude the
-    retained subset, random fill on shortage (mspbwt.R:443-473)."""
+    retained subset, random fill on shortage (mspbwt.R:443-473); count(name,
+    n), if given, takes the number of random fills as "select.fill"."""
     n_latent = len(per_hap_ranked)
     chosen: List[int] = []
     prev = set(np.asarray(previously_selected).tolist())
@@ -531,9 +533,16 @@ def _interleave_pick(per_hap_ranked, Knew, K, previously_selected, rng):
         if not progressed:
             break
     if len(chosen) < Knew:
-        pool = np.setdiff1d(np.arange(K), np.asarray(sorted(seen | prev)))
+        # the haps neither chosen nor retained, ascending (np.setdiff1d's
+        # pool, from a mask: a sort of all K haps a row dominated the
+        # selection's host time at K = 194,512)
+        free = np.ones(K, dtype=bool)
+        free[np.fromiter(seen | prev, dtype=np.int64, count=len(seen | prev))] = False
+        pool = np.flatnonzero(free)
         fill = rng.choice(pool, size=Knew - len(chosen), replace=False)
         chosen.extend(fill.tolist())
+        if count is not None:
+            count("select.fill", len(fill))
     return np.asarray(chosen[:Knew], dtype=np.int64)
 
 
@@ -549,11 +558,19 @@ def select_new_haps_mspbwt_batch(
     mspbwtM: int = 1,
     heuristic_approach: str = "A",
     hapMatcher: Optional[np.ndarray] = None,
+    span=None,
+    count=None,
 ) -> List[np.ndarray]:
     """Batched selection for the {samples x chains} engine: ONE
     vectorized insertion scan per index (match_z_batch) replaces a
     per-row Python query loop; ranking/interleave then runs per row.
-    Same matches as per-row select_new_haps_mspbwt (tested)."""
+    Same matches as per-row select_new_haps_mspbwt (tested).
+
+    span(name), if given, marks the scan over the indices ("select.scan")
+    and the ranking, interleave and fill ("select.rank"); count(name, n)
+    takes the long matches reported ("select.matches") and the random
+    fills ("select.fill")."""
+    span = span or (lambda name: contextlib.nullcontext())
     n_rows, n_latent, G = symbols_all.shape
     hm = hapMatcher if hapMatcher is not None else panel.hapMatcher
     scan = max(int(mspbwtM), 4)
@@ -563,34 +580,38 @@ def select_new_haps_mspbwt_batch(
         [] for _ in range(Q)
     ]
     T_max = 0
-    for idx in ms_indices:
-        Z = np.ascontiguousarray(Zf[:, idx.grids])
-        T_max = max(T_max, len(idx.grids))
+    with span("select.scan"):
+        for idx in ms_indices:
+            Z = np.ascontiguousarray(Zf[:, idx.grids])
+            T_max = max(T_max, len(idx.grids))
 
-        def X_rows(cands, upto, idx=idx):
-            return hm[np.asarray(cands)[:, None], idx.grids[None, :upto]]
+            def X_rows(cands, upto, idx=idx):
+                return hm[np.asarray(cands)[:, None], idx.grids[None, :upto]]
 
-        if heuristic_approach == "B":
-            res = [
-                match_z(idx, Z[q], X_rows, min_length=mspbwtL, scan=scan,
-                        every_column=True)
-                for q in range(Q)
-            ]
-        else:
-            res = match_z_batch(
-                idx, Z, X_rows, min_length=mspbwtL, scan=scan
-            )
-        for q, lst in enumerate(res):
-            mq = per_query_mtm[q]
-            for k, end_t, L in lst:
-                mq.append((k, end_t - L + 1, end_t, L))
+            if heuristic_approach == "B":
+                res = [
+                    match_z(idx, Z[q], X_rows, min_length=mspbwtL, scan=scan,
+                            every_column=True)
+                    for q in range(Q)
+                ]
+            else:
+                res = match_z_batch(
+                    idx, Z, X_rows, min_length=mspbwtL, scan=scan
+                )
+            for q, lst in enumerate(res):
+                mq = per_query_mtm[q]
+                for k, end_t, L in lst:
+                    mq.append((k, end_t - L + 1, end_t, L))
+    if count is not None:
+        count("select.matches", sum(len(m) for m in per_query_mtm))
     out = []
-    for r in range(n_rows):
-        ranked = [
-            _coverage_weight_rank(per_query_mtm[r * n_latent + h], T_max)
-            for h in range(n_latent)
-        ]
-        out.append(_interleave_pick(ranked, Knew, K, prev_list[r], rng))
+    with span("select.rank"):
+        for r in range(n_rows):
+            ranked = [
+                _coverage_weight_rank(per_query_mtm[r * n_latent + h], T_max)
+                for h in range(n_latent)
+            ]
+            out.append(_interleave_pick(ranked, Knew, K, prev_list[r], rng, count))
     return out
 
 

@@ -47,12 +47,15 @@ class SectionTimers:
     outermost open section began (the port runs on one stream: a stream
     lookup costs as much as an event); the device seconds are resolved
     once, after one synchronize, by `as_dict()` / `report()`. A section
-    drains nothing: a caller that wants its work inside it synchronizes
-    before it ends (engine/batch.py:timed_sections). Sections nest; each
+    drains nothing; `drained(name)` is one that synchronizes the device
+    before it ends, so that the device work issued inside lands in it.
+    Sections nest; each
     entry keeps its self time, the host time under none of its children,
     and a root section (`root=True`) adds its self time as an entry of its
-    own, `<name>.self`. A disabled instance creates nothing: `section`
-    returns one shared no-op context.
+    own, `<name>.self`. `count(name, n)` adds to a counter (what a stretch
+    found or did: matches, fills, sites, retries), reported with the
+    spans. A disabled instance creates nothing: `section` returns one
+    shared no-op context and `count` does nothing.
     """
 
     def __init__(self, enabled: bool = False, device=None):
@@ -61,6 +64,7 @@ class SectionTimers:
         self.counts: dict = {}
         self.self_totals: dict = {}
         self.device_totals: dict = {}
+        self.counters: dict = {}
         self.device = torch.device(device) if device is not None else None
         self.cuda = enabled and self.device is not None and self.device.type == "cuda"
         self._open: list = []      # child seconds of each open section, innermost last
@@ -69,6 +73,24 @@ class SectionTimers:
 
     def section(self, name: str, root: bool = False):
         return _Section(self, name, root) if self.enabled else _NO_SECTION
+
+    @contextlib.contextmanager
+    def drained(self, name: str):
+        """section(name), draining the timers' CUDA device before it ends
+        (nothing while disabled)."""
+        if not self.enabled:
+            yield
+            return
+        with self.section(name):
+            yield
+            if self.cuda:
+                torch.cuda.synchronize(self.device)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add n to the counter `name` (nothing while disabled)."""
+        if self.enabled:
+            total, calls = self.counters.get(name, (0, 0))
+            self.counters[name] = (total + int(n), calls + 1)
 
     def add(self, name: str, dt: float, self_dt: Optional[float] = None) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -94,7 +116,9 @@ class SectionTimers:
     def as_dict(self) -> dict:
         """{section: {"seconds": host total, "calls": n, "self_seconds":
         host time under no child section, and on a card "device_seconds":
-        start event to end event, summed}}, largest host total first."""
+        start event to end event, summed}}, largest host total first; then
+        each counter as {"count": its total, "calls": n adds, "seconds": 0.0,
+        "self_seconds": 0.0}, so that every entry has a span's keys."""
         self._resolve()
         out = {}
         for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
@@ -102,14 +126,16 @@ class SectionTimers:
                          "self_seconds": self.self_totals[name]}
             if name in self.device_totals:
                 out[name]["device_seconds"] = self.device_totals[name]
+        for name, (n, calls) in sorted(self.counters.items()):
+            out[name] = {"count": n, "calls": calls, "seconds": 0.0, "self_seconds": 0.0}
         return out
 
     def report(self) -> None:
         if not self.enabled or not self.totals:
             return
-        rows = self.as_dict()
+        rows = {k: v for k, v in self.as_dict().items() if "count" not in v}
         print_message("Section timings (ms: host, device, self under no child section):")
-        width = max(len(k) for k in rows)
+        width = max(len(k) for k in list(rows) + list(self.counters))
         for name, v in rows.items():
             dev = v.get("device_seconds")
             dev = f"{dev * 1000:10.1f}" if dev is not None else f"{'-':>10}"
@@ -117,6 +143,10 @@ class SectionTimers:
                 f"  {name:<{width}}  {v['seconds'] * 1000:10.1f} {dev}"
                 f" {v['self_seconds'] * 1000:10.1f}  ({v['calls']} calls)"
             )
+        if self.counters:
+            print_message("Counters:")
+            for name, (n, calls) in sorted(self.counters.items()):
+                print_message(f"  {name:<{width}}  {n:10d}  ({calls} adds)")
 
 
 class _Section:
